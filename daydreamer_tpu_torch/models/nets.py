@@ -1,9 +1,10 @@
 """World-model networks: RSSM, multi-modal encoders/decoders, dist heads.
 
 The port of `daydreamer_tpu/models/nets.py`. Observe and imagine run the
-RSSM cell in a Python loop over the time axis (`rssm.impl: scan`); the
-fused observe chain (`rssm.impl: pallas` in the JAX package) is not ported
-yet and raises. All dense/conv compute runs in the compute dtype;
+RSSM cell in a Python loop over the time axis (`rssm.impl: scan`), or
+observe runs the whole chunk as the fused chain of `ops/rssm_vjp.py`
+(`rssm.impl: pallas`, the name the JAX package's configs use; here a pair
+of CUDA kernels). All dense/conv compute runs in the compute dtype;
 distribution statistics are float32. Images are NHWC at every public
 function, as in the JAX package.
 """
@@ -91,9 +92,7 @@ class RSSM(Module):
     if state is None:
       state = self.initial(action.shape[0])
     if self._impl == 'pallas' and not nn.creating():
-      raise NotImplementedError(
-          'The fused observe chain (rssm.impl: pallas) is not ported yet; '
-          'run with --rssm.impl scan.')
+      return self._observe_fused(embed, action, is_first, state)
     step = lambda prev, inputs: self.obs_step(prev[0], *inputs)
     inputs = (_swap(action), _swap(embed), _swap(is_first))
     post, prior = nn.scan(step, inputs, (state, state))
@@ -135,6 +134,58 @@ class RSSM(Module):
         'w_st': get('img_stats', 'kernel'), 'b_st': get('img_stats', 'bias'),
         'stoch_n': self._stoch, 'classes': self._classes,
     }
+
+  def _observe_fused(self, embed, action, is_first, state):
+    """The whole chunk's posterior chain as one forward and one backward
+    kernel (`ops/rssm_vjp.py`), chosen by `rssm.impl: pallas`.
+
+    The creation pass always runs the loop path, so this path reads the
+    SAME named state entries; the concat kernels are sliced into their two
+    operands inside the graph, so each slice's gradient reaches its master
+    weight. It differs from the loop as the JAX package's fused path does:
+    one Gumbel draw for the whole chunk, the prior's unused stoch is its
+    mode, and `is_first` zeroes the incoming state instead of replacing it
+    by the initial state."""
+    from ..ops import rssm_vjp
+    get = lambda path, key: cast(self.get_submodule(path).value(key, None))
+    SC = self._stoch * self._classes
+    D = self._deter
+    w_obs = get('obs_out', 'kernel')
+    params = {
+        **self.fused_img_params(),
+        'w_obs_d': w_obs[:D], 'w_obs_e': w_obs[D:],
+        'ln_obs_scale': get('obs_out.norm', 'scale'),
+        'ln_obs_bias': get('obs_out.norm', 'bias'),
+        'w_post': get('obs_stats', 'kernel'),
+        'b_post': get('obs_stats', 'bias'),
+    }
+    B = action.shape[0]
+    stoch0 = cast(state['stoch']).reshape(B, SC).contiguous()
+    deter0 = cast(state['deter']).contiguous()
+    acts = cast(_swap(action))
+    if acts.dim() > 3:  # 2D (onehot-matrix) actions flatten like img_step.
+      acts = acts.reshape(tuple(acts.shape[:2]) + (-1,))
+    deters, post_logits, prior_logits, stochs = rssm_vjp.observe_fused(
+        params, stoch0, deter0, acts.contiguous(),
+        cast(_swap(embed)).contiguous(), _swap(is_first).contiguous(),
+        generator=nn.rng(), unimix=self._unimix, sample=True)
+    shape = lambda x: x.reshape(
+        tuple(x.shape[:2]) + (self._stoch, self._classes))
+    dtype = stoch0.dtype
+    # The kernel returns RAW stats-layer logits; the loop path stores unimix
+    # log-probs (see _stats_layer), which get_dist and kl_loss consume.
+    post_logit = self._unimix_logit(_swap(shape(post_logits)))
+    post = {
+        'stoch': _swap(shape(stochs)).to(dtype),
+        'deter': _swap(deters).to(dtype),
+        'logit': post_logit.to(dtype)}
+    prior_logit = self._unimix_logit(_swap(shape(prior_logits)))
+    prior_mode = F.one_hot(prior_logit.argmax(-1), self._classes)
+    prior = {
+        'stoch': prior_mode.to(dtype),
+        'deter': post['deter'],
+        'logit': prior_logit.to(dtype)}
+    return post, prior
 
   def imagine(self, action, state=None):
     if state is None:

@@ -2,3 +2,4 @@
 
 from . import build
 from . import rssm  # noqa: F401  (registers its kernel)
+from . import rssm_vjp  # noqa: F401  (registers its two kernels)

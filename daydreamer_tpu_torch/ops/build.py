@@ -3,8 +3,8 @@
 Each kernel is one CUDA C++ source under `ops/csrc/` with a plain C
 interface. `nvcc` compiles it for `sm_90a` into a shared library, at first
 use, into `ops/_build/` (listed in `.gitignore`); `ctypes` loads it. The
-library's name carries a hash of the source, so an edited source builds
-anew. `build_all()` starts one `nvcc` per source, all at once.
+library's name carries a hash of the source and of the headers under
+`ops/csrc/` that it includes, so an edit of either builds anew. `build_all()` starts one `nvcc` per source, all at once.
 """
 
 import ctypes
@@ -37,9 +37,10 @@ class Kernel:
   `launches` is the number of times a wrapper launched the kernel; a
   caller may reset it to 0 before a run and read it after."""
 
-  def __init__(self, name, source, replaces, signature):
+  def __init__(self, name, source, replaces, signature, headers=()):
     self.name = name
     self.source = CSRC / source
+    self.headers = [CSRC / header for header in headers]
     self.replaces = replaces
     self.signature = signature  # {C function: (restype, argtypes)}
     self.launches = 0
@@ -48,7 +49,10 @@ class Kernel:
 
   @property
   def library(self):
-    digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:12]
+    digest = hashlib.sha256(self.source.read_bytes())
+    for header in self.headers:
+      digest.update(header.read_bytes())
+    digest = digest.hexdigest()[:12]
     return BUILD / f'lib{self.name}_{digest}.so'
 
   def start_build(self):

@@ -5,7 +5,10 @@ Both agents start from the same state (the JAX agent's, carried across by
 both sides for the test only: `OneHotDist.sample` returns the mode (with
 the same straight-through gradient), and the port's fused rollout draws
 zero Gumbel noise, which makes its samples the modes too. The JAX side runs
-the loop rollout (`imag_impl: scan`); the port runs it both ways.
+the loop rollout (`imag_impl: scan`); the port runs it both ways. With the
+fused observe chain (`rssm.impl: pallas` on both sides) the JAX package's
+kernels run in interpret mode with `sample=False`, set in the test only,
+and the port's chain draws zero Gumbel noise.
 
 Tolerances: losses rtol 1e-4 (float32 on both sides, summed in another
 order). The state after the update atol 3e-4: Adam's first step moves each
@@ -24,7 +27,9 @@ import daydreamer_tpu_torch as ddp
 from daydreamer_tpu import envs as jenvs
 from daydreamer_tpu.nn import dists as jdists
 from daydreamer_tpu_torch.nn import dists as pdists
+from daydreamer_tpu.ops import pallas_rssm_vjp as jvjp
 from daydreamer_tpu_torch.ops import rssm as pops
+from daydreamer_tpu_torch.ops import rssm_vjp as pvjp
 
 torch.set_num_threads(1)
 
@@ -78,9 +83,9 @@ def mode_sampling(monkeypatch):
       pdists.OneHotDist, 'sample',
       lambda self, generator=None: (
           self.mode() + self.probs - self.probs.detach()))
-  monkeypatch.setattr(
-      pops, 'gumbel',
-      lambda shape, generator, device: torch.zeros(shape, device=device))
+  zeros = lambda shape, generator, device: torch.zeros(shape, device=device)
+  monkeypatch.setattr(pops, 'gumbel', zeros)
+  monkeypatch.setattr(pvjp, 'gumbel', zeros)
 
 
 @pytest.fixture(scope='module')
@@ -91,17 +96,18 @@ def env():
   env.close()
 
 
-@pytest.fixture(scope='module')
-def jax_run(env):
-  """The JAX agent's state before and after one train step, and its
-  metrics (computed once for the module; sampling set to the modes)."""
+def _jax_run(env, **kw):
   from daydreamer_tpu.agents.dreamer import Agent
   mp = pytest.MonkeyPatch()
   sg = jax.lax.stop_gradient
   mp.setattr(jdists.OneHotDist, 'sample',
              lambda self, key: sg(self.mode()) + self.probs - sg(self.probs))
+  fused = jvjp.observe_fused
+  mp.setattr(jvjp, 'observe_fused',
+             lambda *a, **k: fused(*a, **{**k, 'sample': False}))
   try:
-    agent = Agent(env.obs_space, env.act_space, ddt.Counter(), jax_config())
+    agent = Agent(env.obs_space, env.act_space, ddt.Counter(),
+                  jax_config(**kw))
     before = agent.save()
     data = make_batch(env, 4, 8)
     _, _, mets = agent.train(data)
@@ -110,6 +116,19 @@ def jax_run(env):
   finally:
     mp.undo()
   return before, after, data, mets
+
+
+@pytest.fixture(scope='module')
+def jax_run(env):
+  """The JAX agent's state before and after one train step, and its
+  metrics (computed once for the module; sampling set to the modes)."""
+  return _jax_run(env)
+
+
+@pytest.fixture(scope='module')
+def jax_run_fused(env):
+  """The same with the fused observe chain (`rssm.impl: pallas`)."""
+  return _jax_run(env, **{'rssm.impl': 'pallas'})
 
 
 def port_agent(env, **kw):
@@ -136,6 +155,38 @@ def test_train_step_matches_jax(env, jax_run, mode_sampling, imag_impl):
   else:
     _, _, pmets = agent.train(data)
     pmets = dict(pmets)
+  assert set(pmets) == set(jmets)
+  for key in sorted(jmets):
+    np.testing.assert_allclose(pmets[key], jmets[key], rtol=1e-4,
+                               atol=1e-5, err_msg=key)
+  state = agent.save()
+  assert set(state) == set(after)
+  for key, value in after.items():
+    np.testing.assert_allclose(
+        state[key], np.asarray(value), atol=3e-4, rtol=0, err_msg=key)
+
+
+def test_train_step_matches_jax_fused_observe(env, jax_run_fused,
+                                              mode_sampling):
+  """One whole train step with `rssm.impl: pallas` on both sides: the
+  port's fused observe chain (its plain forward and its plain adjoint
+  chain here on the CPU) against the JAX package's kernels."""
+  before, after, data, jmets = jax_run_fused
+  agent = port_agent(env, **{'rssm.impl': 'pallas', 'imag_impl': 'pallas'})
+  agent.load(before)
+  kernels = (pops.IMAGINE_ACTOR, pvjp.OBSERVE_FWD, pvjp.OBSERVE_BWD)
+  launches = [k.launches for k in kernels]
+  calls = {'observe_fwd_plain': 0, 'observe_bwd_plain': 0}
+  with pytest.MonkeyPatch.context() as mp:
+    for name in calls:
+      def counted(*a, _name=name, _fn=getattr(pvjp, name), **k):
+        calls[_name] += 1
+        return _fn(*a, **k)
+      mp.setattr(pvjp, name, counted)
+    _, _, pmets = agent.train(data)
+    pmets = dict(pmets)
+  assert calls['observe_fwd_plain'] and calls['observe_bwd_plain'], calls
+  assert [k.launches for k in kernels] == launches  # CPU: no kernel.
   assert set(pmets) == set(jmets)
   for key in sorted(jmets):
     np.testing.assert_allclose(pmets[key], jmets[key], rtol=1e-4,
