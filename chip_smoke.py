@@ -7,22 +7,39 @@ Run from the root of the repository with no arguments:
 
 Phases, each of which must pass:
   1. device  - print the card, and its name and power limit from nvidia-smi.
-  2. build   - build every CUDA kernel from ops/csrc/ with nvcc (sm_90a).
-  3. kernel  - hold each kernel (imagine_actor, observe_fwd, observe_bwd)
-               against its plain PyTorch version at the xarm shape, in
-               float32 and in bfloat16, and time both; in float32 also the
-               whole fused observe gradient against autograd of a plain loop.
-  4. slice   - the main path: the xarm `run=train` CLI in this process at
-               its default config (`rssm.impl: pallas`) with `--imag_impl
+  2. build   - build every CUDA kernel from ops/csrc/ with nvcc (sm_90a),
+               all at once.
+  3. kernel  - hold each kernel (imagine_actor, observe_fwd, observe_bwd,
+               imagine, observe, gve) against its plain PyTorch version at
+               the xarm shape, in float32 and in bfloat16 (gve: float32),
+               and time both; in float32 also the whole fused observe
+               gradient against autograd of a plain loop.
+  4. slice   - the training path: the xarm `run=train` CLI in this process
+               at its default config (`rssm.impl: pallas`) with `--imag_impl
                pallas`, a few dozen updates, with every kernel's launch
                count set to 0 just before and read just after; every logged
                loss must be finite. Then the same run with `--rssm.impl
                scan`, the loop path, for its updates/s beside the first.
+  5. proof   - the proof path: `scripts/pallas_proof.py --which all` in
+               this process, which runs imagine, observe and gve at the a1
+               and xarm shapes; counts set to 0 before and read after.
+  6. learner - the learner path: `run.learning` on xarm at its default
+               config from a replay prefilled in this process, 48 updates in
+               three dispatches of `train_fused: 16` from a device-resident
+               ring of 2e4 steps; then the same with `replay: prio`, the
+               prioritized ring. Counts set to 0 before each and read after.
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}. Without a card, or outside the repository,
 the script exits non-zero and prints no result. `--phases` runs a subset;
 the extra phase `profile` (not run by default) prints where an update's
 device time goes, its launches and the device's idle share.
+
+`--compare NAME=SOURCE` (NAME one of imagine_actor, imagine, observe) runs
+no phase and prints no result line: it builds the kernel's source in the tree and the other
+version of it in the file SOURCE (its includes beside it), runs both on
+the xarm inputs, says whether their outputs are equal bit for bit, and
+times them in turns (tree, other, other, tree) in float32 and bfloat16:
+how a change to a kernel is held against its parent inside one run.
 """
 
 import argparse
@@ -30,6 +47,7 @@ import contextlib
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -253,7 +271,7 @@ def observe_inputs(dtype, shape, seed=0):
   T, B, D, U, S, C, A, E = (shape[k] for k in 'TBDUSCAE')
   SC = S * C
   params, _, stoch0, deter0, _, _ = imagine_inputs(
-      dtype, seed, B=B, n_out=shape['n_out'])
+      dtype, seed, B=B, D=D, U=U, S=S, C=C, A=A, n_out=shape['n_out'])
   rng = np.random.default_rng(seed + 1)
   dev = torch.device('cuda')
 
@@ -493,6 +511,255 @@ def check_observe(shape):
   return results
 
 
+# --------------------------------------------------------------------------
+# The proof path's kernels: imagine, observe (forward only), gve.
+
+# The xarm shapes of the proof entry point (scripts/pallas_proof.py CASES).
+PROOF_IMAGINE = dict(B=1024, H=15, D=512, U=512, S=32, C=32, A=5, n_out=3)
+PROOF_OBSERVE = dict(T=32, B=32, D=512, U=512, S=32, C=32, A=5, E=512,
+                     n_out=3)
+PROOF_GVE = (15, 2048)  # (horizon, lanes), the largest of its sizes.
+
+
+def _bound(flops, nbytes, dtype):
+  import torch
+  peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+  t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+  return dict(bound_ms=max(t_ops, t_bytes),
+              bound_by='operations' if t_ops >= t_bytes else 'bytes',
+              flops=flops, nbytes=nbytes)
+
+
+def rollout_bounds(params, stoch0, deter0, actions, embeds, dtype):
+  """Least time of `imagine` (embeds None) or of the forward-only `observe`
+  on these inputs, by the method of `imagine_bound`: every product dense
+  but the one with the chain's own one-hot stoch (steps 1 .. T-1), which is
+  a gather of S weight rows. `observe` reads no prior head, so none of
+  `w_out*`, `w_st`, `b_st` is counted for it."""
+  import torch
+  T, B, A = actions.shape
+  SC, U = params['w_in_s'].shape
+  D, S = deter0.shape[1], params['stoch_n']
+  item = torch.finfo(dtype).bits // 8
+  products = [params['w_in_a'], params['w_gru_d'], params['w_gru_x']]
+  vectors = [params['ln_in_scale'], params['ln_in_bias'],
+             params['ln_gru_scale'], params['ln_gru_bias']]
+  data = [stoch0, deter0, actions]
+  if embeds is None:
+    products += [*params['w_out'], params['w_st']]
+    vectors += [*params['ln_out_scale'], *params['ln_out_bias'],
+                params['b_st']]
+  else:
+    products += [params['w_obs_d'], params['w_obs_e'], params['w_post']]
+    vectors += [params['ln_obs_scale'], params['ln_obs_bias'],
+                params['b_post']]
+    data.append(embeds)
+  flops = (2.0 * T * B * _numel(products)
+           + B * (2.0 * SC * U + (T - 1) * S * U))
+  nbytes = item * (_numel(products) + _numel([params['w_in_s']])
+                   + _numel(vectors) + _numel(data))
+  nbytes += 4 * T * B * SC                              # Gumbel noise.
+  if embeds is not None:
+    nbytes += 4 * T * B                                 # is_first.
+  nbytes += T * B * (item * (D + SC) + 4 * SC)          # The three outputs.
+  return _bound(flops, nbytes, dtype)
+
+
+def _compare_rollout(label, kernel, plain, args, kw, dims, dtype, bound):
+  """One rollout kernel against its plain version on shared noise (kw), and
+  again without noise. Returns its entry of the result."""
+  import torch
+  from daydreamer_tpu_torch.ops import rssm as rssm_ops
+  T, B, S, C = dims
+  name = str(dtype).split('.')[-1]
+  worst = 0.0
+  for mode, kwargs in (('sampled', kw), ('unsampled', dict(kw, noise=None))):
+    d1, l1, s1 = kernel(*args, **kwargs)
+    torch.cuda.synchronize()
+    d2, l2, s2 = plain(*args, **kwargs)
+    valid = bool((s1.float().reshape(T, B, S, C).sum(-1) == 1).all()
+                 and (s1.float().reshape(T, B, S, C).amax(-1) == 1).all())
+    same = (s1 == s2).all(-1)                                # [T, B]
+    agree = float(same.float().mean())
+    # Rows whose whole history agrees so far take the same inputs.
+    alive = torch.cumprod(same.int(), 0).bool()
+    prev = torch.cat([torch.ones_like(alive[:1]), alive[:-1]], 0)
+    err_d = float((d1.float() - d2.float()).abs().amax(-1)[prev].max())
+    err_l = float((l1 - l2).abs().amax(-1)[prev].max())
+    err0 = max(float((d1[0].float() - d2[0].float()).abs().max()),
+               float((l1[0] - l2[0]).abs().max()))
+    # A row's first differing one-hot must be a near tie: both routes took
+    # the same inputs up to it, so the plain version's scores of that step
+    # may put the kernel's choice below its own by twice the logits'
+    # tolerance at most.
+    first = prev & ~same
+    gap = 0.0
+    if bool(first.any()):
+      scores = l2[first].reshape(-1, S, C)
+      if kwargs['noise'] is not None:
+        scores = rssm_ops._mixed_logprobs(scores, kwargs['unimix']) + (
+            kwargs['noise'][first].reshape(-1, S, C))
+      chosen = s1[first].float().reshape(-1, S, C).argmax(-1, keepdim=True)
+      gap = float((scores.amax(-1, keepdim=True)
+                   - scores.gather(-1, chosen)).max())
+    if dtype == torch.float32:
+      # The same float32 arithmetic summed in another order (the bounds of
+      # the JAX package's own test of its kernels). Among half a million
+      # draws a near tie may flip; that row's history differs from then on.
+      tolerance = ('valid one-hots, >= 99.9 % of (step, row) one-hots '
+                   'equal, a first difference only within 2e-4 of a tie, '
+                   'deters within 1e-5 and logits within 1e-4 on rows that '
+                   'agree so far')
+      ok = (valid and agree >= 0.999 and gap <= 2e-4 and err_d <= 1e-5
+            and err_l <= 1e-4)
+    else:
+      # bf16 rounds each product and norm, so a sum that rounds the other
+      # way can flip a choice and the rows drift apart over the steps;
+      # without noise the scores of a group lie closer, so more flip.
+      tolerance = ('valid one-hots, step 0 within 5e-2, >= 80 % of (step, '
+                   'row) one-hots equal, a first difference only within '
+                   '1e-1 of a tie, deters and logits within 5e-2 on rows '
+                   'that agree so far')
+      ok = (valid and err0 <= 5e-2 and agree >= 0.8 and gap <= 1e-1
+            and err_d <= 5e-2 and err_l <= 5e-2)
+    log(f'{label} {name} {mode}: valid one-hots {valid}, equal (step, row) '
+        f'one-hots {100 * agree:.4f} %, widest gap at a first difference '
+        f'{gap:.3g}, max |d deter| {err_d:.3g}, max '
+        f'|d logit| {err_l:.3g} on rows that agree so far, step-0 error '
+        f'{err0:.3g} (tolerance: {tolerance})')
+    if not ok:
+      raise AssertionError(f'{label} disagrees with its plain version in '
+                           f'{name}, {mode}.')
+    worst = max(worst, err0, err_d, err_l)
+  ms = cuda_time(lambda: kernel(*args, **kw))
+  plain_ms = cuda_time(lambda: plain(*args, **kw), reps=3, warmup=1)
+  log(f'{label} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
+      f'{bound["bound_ms"]:.4f} ms ({bound["bound_by"]}; '
+      f'{bound["flops"] / 1e9:.2f} GFLOP, {bound["nbytes"] / 1e6:.1f} MB)')
+  return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound['bound_ms'],
+              bound_by=bound['bound_by'], max_abs_err=worst)
+
+
+def check_proof_kernels():
+  """`imagine`, `observe` and `gve` against their plain versions at the
+  xarm shapes of the proof entry point."""
+  import torch
+  from daydreamer_tpu_torch.ops import lambda_returns as lr
+  from daydreamer_tpu_torch.ops import rssm
+  results = {'imagine': {}, 'observe': {}, 'gve': {}}
+  for dtype in (torch.float32, torch.bfloat16):
+    name = str(dtype).split('.')[-1]
+    # imagine: the rollout's weights and carries, unit normal actions.
+    s = PROOF_IMAGINE
+    params, _, stoch0, deter0, _, _ = imagine_inputs(
+        dtype, A=s['A'], B=s['B'], n_out=s['n_out'])
+    rng = np.random.default_rng(2)
+    dev = stoch0.device
+    actions = torch.as_tensor(rng.standard_normal(
+        (s['H'], s['B'], s['A'])).astype(np.float32)).to(dev, dtype)
+    noise = torch.as_tensor(rng.gumbel(
+        size=(s['H'], s['B'], s['S'] * s['C'])).astype(np.float32)).to(dev)
+    results['imagine'][name] = _compare_rollout(
+        'imagine', rssm.imagine_cuda, rssm.imagine_plain,
+        (params, stoch0, deter0, actions), dict(noise=noise, unimix=0.01),
+        (s['H'], s['B'], s['S'], s['C']), dtype,
+        rollout_bounds(params, stoch0, deter0, actions, None, dtype))
+    # observe: a chunk with first steps at step 0 and inside it.
+    s = PROOF_OBSERVE
+    params, data, is_first, noise, _ = observe_inputs(dtype, s)
+    assert bool(is_first[1:].any()) and bool(is_first[0].any())
+    results['observe'][name] = _compare_rollout(
+        'observe', rssm.observe_cuda, rssm.observe_plain,
+        (params, *data, is_first), dict(noise=noise, unimix=0.01),
+        (s['T'], s['B'], s['S'], s['C']), dtype,
+        rollout_bounds(params, *data, dtype))
+  # gve: float32 only.
+  H, n = PROOF_GVE
+  rng = np.random.default_rng(0)
+  t = lambda x: torch.as_tensor(x.astype(np.float32)).cuda()
+  interm = t(rng.normal(size=(H, n)))
+  disc = t(rng.uniform(0.9, 1.0, size=(H, n)))
+  boot = t(rng.normal(size=(n,)))
+  out = lr.gve_triton(interm, disc, boot, 0.95)
+  torch.cuda.synchronize()
+  ref = lr.gve_plain(interm, disc, boot, 0.95)
+  err = float((out - ref).abs().max())
+  # A compiler may contract the multiply and the add into one fused
+  # operation: a unit in the last place per step, carried over 15 steps.
+  log(f'gve float32 ({H} x {n}): max |difference| {err:.3g} (tolerance: '
+      f'1e-5, values of order 10)')
+  if not err <= 1e-5:
+    raise AssertionError('gve disagrees with its plain version.')
+  ms = cuda_time(lambda: lr.gve_triton(interm, disc, boot, 0.95), reps=200)
+  plain_ms = cuda_time(lambda: lr.gve_plain(interm, disc, boot, 0.95),
+                       reps=50)
+  bound = _bound(2.0 * H * n, 4 * (3 * H * n + n), torch.float32)
+  log(f'gve float32: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, bound '
+      f'{bound["bound_ms"]:.6f} ms ({bound["bound_by"]}; '
+      f'{bound["nbytes"] / 1e3:.1f} kB)')
+  entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound['bound_ms'],
+               bound_by=bound['bound_by'], max_abs_err=err)
+  # The kernels line reads each kernel's bfloat16 entry, the main path's
+  # type; gve has one type only.
+  results['gve'] = {'float32': entry, 'bfloat16': entry}
+  return results
+
+
+def phase_compare(spec):
+  """The tree's build of a rollout kernel against another version of its
+  source (see the module docstring)."""
+  import torch
+  from daydreamer_tpu_torch.ops import build, rssm
+  name, _, source = spec.partition('=')
+  if name not in ('imagine_actor', 'imagine', 'observe') or not source:
+    raise SystemExit(f'--compare takes NAME=SOURCE, not {spec!r}.')
+  tree = getattr(rssm, name.upper())
+  other = build.Kernel(f'{name}_other', str(pathlib.Path(source).resolve()),
+                       'another version', tree.signature)
+  build.build_all([tree, other])
+  for kernel in (tree, other):
+    for line in kernel.build_log().splitlines():
+      if 'registers' in line or 'spill' in line:
+        log(f'  {kernel.name}: {line.strip()}')
+  rng = np.random.default_rng(2)
+  for dtype in (torch.bfloat16, torch.float32):
+    if name == 'observe':
+      params, data, is_first, noise, _ = observe_inputs(dtype, PROOF_OBSERVE)
+      call = lambda: rssm.observe_cuda(params, *data, is_first, noise=noise)
+    else:
+      shape = XARM if name == 'imagine_actor' else PROOF_IMAGINE
+      params, actor, stoch0, deter0, action0, gen = imagine_inputs(
+          dtype, **{k: shape[k] for k in ('A', 'B', 'n_out')})
+      H, B, SC = shape['H'], shape['B'], shape['S'] * shape['C']
+      noise = rssm.gumbel((H, B, SC), gen, stoch0.device)
+      if name == 'imagine_actor':
+        g_a = rssm.gumbel((H, B, shape['A']), gen, stoch0.device)
+        call = lambda: rssm.imagine_actor_cuda(
+            params, actor, stoch0, deter0, action0, H, noise=(noise, g_a),
+            unimix=0.01, act_unimix=0.1)
+      else:
+        actions = torch.as_tensor(rng.standard_normal(
+            (H, B, shape['A'])).astype(np.float32)).to(stoch0.device, dtype)
+        call = lambda: rssm.imagine_cuda(
+            params, stoch0, deter0, actions, noise=noise)
+
+    def run(kernel):
+      setattr(rssm, name.upper(), kernel)
+      try:
+        return call()
+      finally:
+        setattr(rssm, name.upper(), tree)
+
+    a, b = run(tree), run(other)
+    torch.cuda.synchronize()
+    equal = all(bool((x == y).all()) for x, y in zip(a, b))
+    log(f'compare {name} {dtype}: outputs equal bit for bit: {equal}')
+    for label, kernel in (('tree', tree), ('other', other), ('other', other),
+                          ('tree', tree)):
+      log(f'compare {name} {dtype}: {label} '
+          f'{cuda_time(lambda: run(kernel)):.4f} ms')
+
+
 def phase_kernel():
   import torch
   torch.backends.cuda.matmul.allow_tf32 = False
@@ -501,6 +768,7 @@ def phase_kernel():
   log(f'xarm observe shape: {shape}')
   results = {'imagine_actor': check_imagine_actor()}
   results.update(check_observe(shape))
+  results.update(check_proof_kernels())
   return results
 
 
@@ -591,7 +859,9 @@ def phase_profile(updates=5):
 
 def main(argv=None):
   parser = argparse.ArgumentParser()
-  parser.add_argument('--phases', default='device,build,kernel,slice')
+  parser.add_argument(
+      '--phases', default='device,build,kernel,slice,proof,learner')
+  parser.add_argument('--compare', default='', metavar='NAME=SOURCE')
   args = parser.parse_args(argv)
   phases = args.phases.split(',')
   import torch
@@ -604,24 +874,35 @@ def main(argv=None):
   except ImportError as e:
     print(f'chip_smoke: the port is not here ({e}).', file=sys.stderr)
     return 1
-  from daydreamer_tpu_torch.ops import build
+  from daydreamer_tpu_torch.ops import build, lambda_returns, rssm, rssm_vjp
+  del lambda_returns, rssm, rssm_vjp  # Imported to register their kernels.
   name = phase_device()
+  if args.compare:
+    phase_compare(args.compare)
+    return 0
   if 'build' in phases:
     phase_build()
   kernel = phase_kernel() if 'kernel' in phases else {}
   launches = {}
   if 'slice' in phases:
-    launches = phase_slice('slice', SLICE_ARGS)
-    phase_slice('slice (rssm.impl scan)', SCAN_SLICE_ARGS, expect=(
+    launches.update(phase_slice('slice', SLICE_ARGS, TRAIN_KERNELS))
+    phase_slice('slice (rssm.impl scan)', SCAN_SLICE_ARGS, (
         'imagine_actor',))
+  if 'proof' in phases:
+    launches.update(phase_proof())
+  if 'learner' in phases:
+    phase_learner('learner (uniform ring)', 'fixed')
+    phase_learner('learner (prioritized ring)', 'prio')
   if 'profile' in phases:
     phase_profile()
   entries = []
   for k in build.KERNELS:
-    # The main path computes in bfloat16; each kernel's own result.
+    # The main path computes in bfloat16; each kernel's own result. The
+    # launches are those of the kernel's own path: the training slice for
+    # the first three, the proof for the others.
     timing = kernel.get(k.name, {}).get('bfloat16', {})
     entries.append(dict(
-        name=k.name, route='cuda',
+        name=k.name, route=k.route,
         source=str(k.source.relative_to(ROOT)), replaces=k.replaces,
         launches=launches.get(k.name, 0),
         max_abs_err=timing.get('max_abs_err'), ms=timing.get('ms'),
@@ -634,31 +915,59 @@ def main(argv=None):
   return 0
 
 
-# The main path: xarm at its default config (rssm.impl: pallas, the fused
-# observe chain) with the fused rollout. Then the loop-path observe at the
-# same length, for its updates/s beside the first.
+# The training path: xarm at its default config (rssm.impl: pallas, the
+# fused observe chain) with the fused rollout. Then the loop-path observe at
+# the same length, for its updates/s beside the first.
 SLICE_ARGS = [
     '--configs', 'xarm', '--imag_impl', 'pallas',
     '--run', 'train', '--train.train_fill', '200', '--train.steps', '400',
     '--train.eval_every', '200', '--train.log_every', '100']
 SCAN_SLICE_ARGS = [*SLICE_ARGS, '--rssm.impl', 'scan']
+TRAIN_KERNELS = ('observe_fwd', 'observe_bwd', 'imagine_actor')
+PROOF_KERNELS = ('imagine', 'observe', 'gve')
 
 
-def phase_slice(label, cli_args, expect=None):
-  """The xarm run=train CLI in this process with `cli_args`. Every kernel's
-  launch count is set to 0 just before and read just after; the kernels
-  named in `expect` (all, when None) must have been launched. Returns the
-  launches of every kernel in this run."""
-  import torch
-  from daydreamer_tpu_torch.agents.dreamer import torchagent, train
+def reset_launches():
   from daydreamer_tpu_torch.ops import build
-  times = {'train': [], 'policy': []}
-  originals = {}
+  for kernel in build.KERNELS:
+    kernel.launches = 0
 
-  def timed(name):
-    inner = getattr(torchagent.TorchAgent, name)
-    originals[name] = inner
 
+def read_launches(label, expect):
+  """Every kernel's count; raises if one of `expect` is still 0."""
+  from daydreamer_tpu_torch.ops import build
+  launches = {k.name: k.launches for k in build.KERNELS}
+  for name in expect:
+    if not launches[name]:
+      raise AssertionError(f'{label}: kernel {name} was never launched.')
+  return launches
+
+
+def finite_losses(label, logdir):
+  """The training losses logged to `metrics.jsonl`; raises if there is
+  none or one is not finite. The balance diagnostics (`reward_neg_loss`,
+  ...) are NaN by design when a batch holds no example of a class."""
+  rows = [json.loads(line) for line in
+          (logdir / 'metrics.jsonl').read_text().splitlines()]
+  losses = [(k, v) for row in rows for k, v in row.items()
+            if k.startswith('train/')
+            and k.endswith(('_opt_loss', '_loss_mean'))]
+  bad = [(k, v) for k, v in losses if not math.isfinite(v)]
+  if not losses or bad:
+    raise AssertionError(f'{label}: no loss logged, or one not finite: {bad}')
+  return dict(losses)
+
+
+@contextlib.contextmanager
+def timed_calls(names):
+  """Within the block, each named TorchAgent method ends with a device
+  sync and its wall time is appended to the dict this yields."""
+  import torch
+  from daydreamer_tpu_torch.agents.dreamer import torchagent
+  times = {name: [] for name in names}
+  originals = {name: getattr(torchagent.TorchAgent, name) for name in names}
+
+  def timed(name, inner):
     def call(self, *args, **kwargs):
       begin = time.perf_counter()
       out = inner(self, *args, **kwargs)
@@ -666,40 +975,167 @@ def phase_slice(label, cli_args, expect=None):
         torch.cuda.synchronize()
       times[name].append(time.perf_counter() - begin)
       return out
-    setattr(torchagent.TorchAgent, name, call)
+    return call
 
-  stamp = time.strftime('%Y%m%d_%H%M%S')
-  logdir = ROOT / 'runs' / f'chip_smoke_{stamp}_{len(cli_args)}'
-  for name in times:
-    timed(name)
-  for kernel in build.KERNELS:
-    kernel.launches = 0
-  logdir.mkdir(parents=True)
-  log(f'{label}: the CLI writes its output to {logdir / "cli.log"}')
+  for name, inner in originals.items():
+    setattr(torchagent.TorchAgent, name, timed(name, inner))
   try:
-    with open(logdir / 'cli.log', 'w') as out, (
-        contextlib.redirect_stdout(out)):
-      train.main([*cli_args, '--logdir', str(logdir)])
+    yield times
   finally:
     for name, inner in originals.items():
       setattr(torchagent.TorchAgent, name, inner)
-  launches = {k.name: k.launches for k in build.KERNELS}
-  # The training losses; the balance diagnostics (`reward_neg_loss`, ...)
-  # are NaN by design when a batch holds no example of a class.
-  rows = [json.loads(line) for line in
-          (logdir / 'metrics.jsonl').read_text().splitlines()]
-  losses = [(k, v) for row in rows for k, v in row.items()
-            if k.startswith('train/')
-            and k.endswith(('_opt_loss', '_loss_mean'))]
+
+
+def new_logdir(tag):
+  stamp = time.strftime('%Y%m%d_%H%M%S')
+  logdir = ROOT / 'runs' / f'chip_smoke_{stamp}_{tag}'
+  logdir.mkdir(parents=True)
+  return logdir
+
+
+def phase_proof():
+  """The port's proof entry point in this process; its rows go on earlier
+  lines. Returns the launches of the proof's kernels."""
+  from daydreamer_tpu_torch.scripts import pallas_proof
+  reset_launches()
+  result = pallas_proof.main(['--which', 'all'])
+  launches = read_launches('proof', PROOF_KERNELS)
+  check = result['rssm_correctness']
+  ok = (check['imagine_deter_maxdiff'] <= 1e-5
+        and check['observe_deter_maxdiff'] <= 1e-5
+        and check['imagine_stoch_agree'] == 1.0
+        and check['observe_stoch_agree'] == 1.0
+        and check['sample_onehot_ok'] and check['sample_steps_differ'])
+  log(f'proof: launches {({k: launches[k] for k in PROOF_KERNELS})}; float32 '
+      f'agreement {check} (tolerance: deters within 1e-5, every one-hot '
+      f'equal, sampled one-hots exact and differing between steps)')
+  if not ok:
+    raise AssertionError(f'proof: the float32 agreement check failed: {check}')
+  return {k: launches[k] for k in PROOF_KERNELS}
+
+
+def phase_learner(label, replay_kind, updates=48, prefill=2048,
+                  ring_steps=20000):
+  """`run.learning` on xarm at its default config (plus `imag_impl:
+  pallas`) from a replay prefilled here with random actions: `updates`
+  updates in dispatches of `train_fused` from a device ring of `ring_steps`
+  steps, uniform (`fixed`) or prioritized (`prio`)."""
+  import torch
+  import daydreamer_tpu_torch as ddp
+  from daydreamer_tpu_torch import envs
+  from daydreamer_tpu_torch import replay as replaylib
+  from daydreamer_tpu_torch.agents.dreamer import Agent, torchagent
+  from daydreamer_tpu_torch.replay.device_replay import UNSEEN_PRIORITY
+  logdir = new_logdir(f'learner_{replay_kind}')
+  config = ddp.Config(Agent.configs['defaults']).update(
+      Agent.configs['xarm']).update({
+          'imag_impl': 'pallas', 'replay': replay_kind,
+          'logdir': str(logdir)})
+  # A log, a report and a weight publish after every dispatch (the clocks
+  # are wall clocks), so the last dispatch's losses are logged too.
+  args = ddp.Config(
+      logdir=str(logdir), **config.train, batch_size=config.batch_size,
+      replay_chunk=config.replay_chunk).update(
+      steps=updates, sync_every=1, device_replay_steps=ring_steps)
+  fused = int(args.train_fused)
+  assert args.device_replay and fused == 16 and prefill >= args.train_fill
+  step = ddp.Counter()
+  logger = ddp.Logger(step, [ddp.JSONLOutput(str(logdir))])
+  env = envs.load_env(config.task, mode='train', **config.env)
+  rings = []
+  make_ring = torchagent.TorchAgent.make_device_replay
+  try:
+    agent = Agent(env.obs_space, env.act_space, step, config)
+    store = replaylib.Stats(replaylib.RAMStore(int(config.replay_size)))
+    if replay_kind == 'prio':
+      train_replay = replaylib.Prioritized(
+          store, config.replay_chunk, **config.replay_prio)
+    else:
+      train_replay = replaylib.FixedLength(
+          store, config.replay_chunk, **config.replay_fixed)
+    eval_replay = replaylib.FixedLength(
+        replaylib.RAMStore(int(config.replay_size) // 10),
+        config.replay_chunk, **config.replay_fixed)
+    driver = ddp.Driver(env)
+    driver.on_step(train_replay.add)
+    begin = time.perf_counter()
+    driver(ddp.RandomAgent(env.act_space).policy, steps=prefill)
+    log(f'{label}: prefilled {len(train_replay)} steps in '
+        f'{time.perf_counter() - begin:.1f} s; the loop writes its output '
+        f'to {logdir / "learning.log"}')
+
+    def capture(self, *a, **kw):
+      rings.append(make_ring(self, *a, **kw))
+      return rings[-1]
+    torchagent.TorchAgent.make_device_replay = capture
+    reset_launches()
+    with timed_calls(['train_device']) as times, open(
+        logdir / 'learning.log', 'w') as out, contextlib.redirect_stdout(out):
+      ddp.run.learning(agent, train_replay, eval_replay, logger, args)
+  finally:
+    torchagent.TorchAgent.make_device_replay = make_ring
+    env.close()
+  launches = read_launches(label, TRAIN_KERNELS)
+  printed = (logdir / 'learning.log').read_text()
+  if 'Device-resident replay engaged' not in printed or (
+      'falling back to host sampling' in printed):
+    raise AssertionError(f'{label}: the device ring did not engage.')
+  if replay_kind == 'prio' and 'runs DEVICE-SIDE' not in printed:
+    raise AssertionError(f'{label}: the prioritized ring did not engage.')
+  ring, = rings
+  tensors = list(ring.buffers.values()) + (
+      [ring.prios] if ring.prioritized else [])
+  if not all(x.device.type == 'cuda' for x in tensors) or (
+      ring.prioritized != (replay_kind == 'prio')):
+    raise AssertionError(f'{label}: the ring does not lie on the card.')
+  if replay_kind == 'prio':
+    seen = int((ring.prios[:ring.filled] != UNSEEN_PRIORITY).sum())
+    if not seen or not bool(torch.isfinite(ring.prios).all()):
+      raise AssertionError(f'{label}: no priority was written back.')
+    log(f'{label}: {seen} of {ring.filled} steps carry a priority written '
+        f'back by an update')
+  losses = finite_losses(label, logdir)
+  for name in ('agent.pkl', 'policy.pkl'):
+    if not (logdir / name).exists():
+      raise AssertionError(f'{label}: {name} was not written.')
+  dispatches = times['train_device']
+  done = fused * len(dispatches)
+  if int(step) < updates or done < updates or any(
+      launches[k] < done for k in TRAIN_KERNELS):
+    raise AssertionError(
+        f'{label}: {done} updates in {len(dispatches)} dispatches, step '
+        f'{int(step)}, launches {launches}: fewer than one launch of each '
+        f'kernel per update.')
+  # The first dispatch carries the creation pass.
+  rate = fused * len(dispatches[1:]) / sum(dispatches[1:])
+  smi = subprocess.run(
+      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+      capture_output=True, text=True, check=True).stdout.strip()
+  log(f'{label}: {done} updates in {len(dispatches)} dispatches of {fused}, '
+      f'launches {({k: launches[k] for k in TRAIN_KERNELS})}, last logged '
+      f'losses {losses}')
+  log(f'{label}: {rate:.3f} updates/s over {done - fused} updates (the '
+      f'first dispatch excluded; dispatches took '
+      f'{[round(t, 3) for t in dispatches]} s), ring of {ring.capacity} '
+      f'steps holding {ring.filled}, {ring.nbytes} bytes on the card '
+      f'({smi})')
+
+
+def phase_slice(label, cli_args, expect):
+  """The xarm run=train CLI in this process with `cli_args`. Every kernel's
+  launch count is set to 0 just before and read just after; the kernels
+  named in `expect` must have been launched. Returns their launches."""
+  from daydreamer_tpu_torch.agents.dreamer import train
+  logdir = new_logdir(re.sub(r'\W+', '_', label))
+  reset_launches()
+  log(f'{label}: the CLI writes its output to {logdir / "cli.log"}')
+  with timed_calls(['train', 'policy']) as times, open(
+      logdir / 'cli.log', 'w') as out, contextlib.redirect_stdout(out):
+    train.main([*cli_args, '--logdir', str(logdir)])
+  launches = read_launches(label, expect)
+  losses = finite_losses(label, logdir)
   log(f'{label}: {len(times["train"])} updates, {len(times["policy"])} '
-      f'policy steps, launches {launches}, last logged losses '
-      f'{dict(losses)}')
-  bad = [(k, v) for k, v in losses if not math.isfinite(v)]
-  if not losses or bad:
-    raise AssertionError(f'{label}: no loss logged, or one not finite: {bad}')
-  for name, count in launches.items():
-    if not count and (expect is None or name in expect):
-      raise AssertionError(f'{label}: kernel {name} was never launched.')
+      f'policy steps, launches {launches}, last logged losses {losses}')
   if launches['observe_bwd'] and launches['observe_bwd'] < len(
       times['train']) - 1:
     raise AssertionError(f'{label}: fewer observe_bwd launches than '
@@ -709,7 +1145,7 @@ def phase_slice(label, cli_args, expect=None):
   log(f'{label}: {len(train_s) / sum(train_s):.3f} updates/s over '
       f'{len(train_s)} updates, policy step {1e3 * np.mean(policy_s):.3f} ms '
       f'mean over {len(policy_s)} steps')
-  return launches
+  return {k: launches[k] for k in expect}
 
 
 if __name__ == '__main__':

@@ -16,10 +16,18 @@ jaxagent.py` (reference: embodied/agents/dreamerv2plus/tfagent.py:14-178).
   `jaxagent.py` (exact names, a strict subset, a name-sorted zip).
 """
 
+import collections
+
 import numpy as np
 import torch
 
 from ... import nn
+
+
+# A group of `steps` training batches already stacked along a leading axis
+# and (usually) resident on device: the payload of the fused train path.
+# `keys` holds the per-step host-side PER keys (or None).
+Prestacked = collections.namedtuple('Prestacked', 'data keys steps')
 
 
 class LazyMetrics(dict):
@@ -134,6 +142,14 @@ class TorchAgent:
     self.generator = torch.Generator(device=self.device)
     self.generator.manual_seed(int(config.seed))
     self.agent = agent_cls('agent', obs_space, act_space, step, config)
+    # Metric policy of the fused entry points (`train_multi`,
+    # `train_device`): 'all' packs every update's metrics (merged at fetch
+    # time); 'last' packs only the final update's, which saves the other
+    # updates' hundred small packing launches (the reference likewise logs
+    # the current step's metrics when the log cadence fires).
+    self._fused_metrics = str(config.torch.fused_metrics)
+    if self._fused_metrics not in ('all', 'last'):
+      raise ValueError(f'torch.fused_metrics: {self._fused_metrics}')
     self._metric_names = None
     self._policy_read_log = set()
     self._created = False
@@ -206,15 +222,29 @@ class TorchAgent:
       outs, state = self.agent.policy(obs, state, mode=mode)
     return _to_numpy(outs), state
 
-  def _train_step(self, data, state):
+  def _train_step(self, data, state, pack=True):
     with self._scope():
       if state is None:
         state = self.agent.train_initial(len(data['is_first']))
       outs, state, mets = self.agent.train(data, state)
-    packed = torch.stack([
-        torch.as_tensor(mets[k], device=self.device).float().reshape(())
-        for k in self._metric_names])
+    packed = None
+    if pack:
+      packed = torch.stack([
+          torch.as_tensor(mets[k], device=self.device).float().reshape(())
+          for k in self._metric_names])
     return outs, state, packed
+
+  def _fused_steps(self, steps, update):
+    """`steps` updates in a row under the fused metric policy. `update(i,
+    pack)` makes update i and returns its packed metrics. Returns the
+    metrics of the group."""
+    packeds = []
+    for i in range(steps):
+      pack = self._fused_metrics == 'all' or i == steps - 1
+      packed = update(i, pack)
+      if pack:
+        packeds.append(packed)
+    return LazyMetrics(self._metric_names, torch.stack(packeds), fused=True)
 
   def train(self, data, state=None):
     self._create()
@@ -226,20 +256,142 @@ class TorchAgent:
     return outs, state, LazyMetrics(self._metric_names, packed)
 
   def train_multi(self, datas, state=None):
-    """len(datas) gradient updates in a row; the metrics are merged over
-    them as the JAX package's fused dispatch merges them."""
+    """len(datas) gradient updates in a row, or the `steps` of a
+    `Prestacked` group; the same updates as one `train` call per batch,
+    with outs stacked along a leading axis and the metrics merged over
+    the group as the JAX package's fused dispatch merges them."""
     self._create()
-    outs_list, packeds = [], []
-    for data in datas:
-      outs, state, packed = self._train_step(self._to_device(data), state)
-      outs = _to_numpy(outs)
-      if data.get('key') is not None and 'priority' in outs:
-        outs['key'] = data['key']
+    if isinstance(datas, Prestacked):
+      stacked, keys, steps = datas
+      batches = [{k: v[i] for k, v in stacked.items()} for i in range(steps)]
+    else:
+      if not datas:
+        raise ValueError('train_multi needs at least one batch.')
+      keys = [data.get('key') for data in datas]
+      batches, steps = datas, len(datas)
+    outs_list = []
+    carry = [state]
+
+    def update(i, pack):
+      outs, carry[0], packed = self._train_step(
+          self._to_device(batches[i]), carry[0], pack)
       outs_list.append(outs)
-      packeds.append(packed)
-    outs = {k: np.stack([o[k] for o in outs_list]) for k in outs_list[0]}
-    mets = LazyMetrics(self._metric_names, torch.stack(packeds), fused=True)
-    return outs, state, mets
+      return packed
+
+    mets = self._fused_steps(steps, update)
+    outs = _to_numpy(
+        {k: torch.stack([o[k] for o in outs_list]) for k in outs_list[0]})
+    if keys[0] is not None and 'priority' in outs:
+      outs['key'] = np.stack(keys)
+    return outs, carry[0], mets
+
+  def device_feed(self, source, steps):
+    """Iterator of Prestacked groups for `train_multi`, one group ahead.
+
+    Pulls `steps` batches from `source`, stacks them along a leading axis
+    into pinned memory and starts their host->device copy on a stream of
+    its own one group before the consumer needs it: a train call returns
+    before the card has finished, so the stacking and the copy of group
+    N+1 run while the card still trains on group N (reference capability:
+    tf.data prefetch-to-device, agent.py:108-121). Deliberately
+    single-threaded, like the JAX package's: produced inline, in the gap
+    that the device's work leaves the host.
+    """
+    self._create()
+    it = iter(source)
+    on_card = self.device.type == 'cuda'
+    stream = torch.cuda.Stream(self.device) if on_card else None
+
+    def produce():
+      datas = [dict(next(it)) for _ in range(steps)]
+      keys = [d.pop('key', None) for d in datas]
+      names = [k for k in datas[0] if not k.startswith('log_')]
+      stacked = {k: torch.from_numpy(np.stack([d[k] for d in datas]))
+                 for k in names}
+      if not on_card:
+        return Prestacked(stacked, keys, steps), None
+      with torch.cuda.stream(stream):
+        stacked = {k: v.pin_memory().to(self.device, non_blocking=True)
+                   for k, v in stacked.items()}
+        copied = torch.cuda.Event()
+        copied.record(stream)
+      return Prestacked(stacked, keys, steps), copied
+
+    def groups():
+      ahead = produce()
+      while True:
+        (group, copied), ahead = ahead, produce()
+        if copied is not None:
+          # The consumer's stream waits for the copy, and the copy's
+          # memory is not handed out again while that stream may read it.
+          current = torch.cuda.current_stream(self.device)
+          current.wait_event(copied)
+          for value in group.data.values():
+            value.record_stream(current)
+        yield group
+
+    return groups()
+
+  def train_device(self, replay, steps, state=None):
+    """Run `steps` gradient updates sampling from a DeviceReplay.
+
+    Per update a chunk sample on the device (uniform windows over the
+    device-resident step ring, or priority-proportional ones when the
+    ring is prioritized) and a train step, so no training data crosses the
+    host->device link and nothing waits for the device. The prioritized
+    variant writes each update's priorities back into the ring at the
+    sampled rows, so update k draws from the priorities of update k - 1.
+
+    Returns (outs, state, metrics) like `train`, with outs empty.
+    """
+    from ...replay import device_replay as drlib
+    self._create()
+    if replay.filled < replay.chunk:
+      raise ValueError(f'The ring holds {replay.filled} steps, under one '
+                       f'chunk of {replay.chunk}.')
+    if replay.chunk != self.config.replay_chunk:
+      raise ValueError(f'The ring\'s chunk {replay.chunk} is not the '
+                       f'config\'s {self.config.replay_chunk}.')
+    batch, chunk = self.config.batch_size, self.config.replay_chunk
+    # Match the host FixedLength sampler's episode-boundary oversampling
+    # so run=learning has the same data distribution on both paths.
+    prio_ends = float(self.config.replay_fixed.prio_ends)
+    exponent = float(self.config.replay_prio.exponent)
+    constant = float(self.config.replay_prio.constant)
+    carry = [state]
+
+    def update(i, pack):
+      if replay.prioritized:
+        data, rows = drlib.sample_prioritized(
+            replay.state, replay.prios, self.generator, batch, chunk,
+            exponent, constant)
+      else:
+        data = drlib.sample(
+            replay.state, self.generator, batch, chunk, prio_ends)
+      outs, carry[0], packed = self._train_step(data, carry[0], pack)
+      if replay.prioritized:
+        replay.prios[rows.reshape(-1)] = outs['priority'].detach().to(
+            torch.float32).reshape(-1)
+      return packed
+
+    mets = self._fused_steps(steps, update)
+    return {}, carry[0], mets
+
+  def make_device_replay(self, capacity=None, block=None, prioritized=None):
+    """Construct a DeviceReplay matching this agent's batch layout, on
+    the agent's device."""
+    from ...replay.device_replay import DeviceReplay
+    chunk = self.config.replay_chunk
+    if block is None:
+      block = min(64, chunk)  # Small blocks flush promptly at prefill.
+    if capacity is None:
+      capacity = int(self.config.replay_size)
+    if prioritized is None:
+      prioritized = str(self.config.replay) == 'prio'
+    capacity = max(capacity, 2 * max(chunk, block))
+    capacity = (capacity + block - 1) // block * block
+    return DeviceReplay(capacity, chunk, block=block, device=self.device,
+                        prioritized=prioritized)
 
   def report(self, data):
     self._create()

@@ -6,8 +6,11 @@ Usage:
   python -m daydreamer_tpu_torch.agents.dreamer.train --configs xarm \
       --rssm.impl scan --imag_impl pallas --run train --logdir ~/logdir/run1
 
-The agent runs on the card; `--torch.device cpu` runs it on the CPU.
-Only the single-process `run=train` mode is ported so far.
+The agent runs on the card; `--torch.device cpu` runs it on the CPU. The
+run modes are those of the JAX package: `train`, `train_eval`,
+`train_fixed_eval`, and the asynchronous pair `learning` (the learner,
+which serves its replay on the port of `--learner_addr`) and `acting` (an
+actor, which sends its episodes there).
 """
 
 import daydreamer_tpu_torch as embodied
@@ -18,7 +21,7 @@ from daydreamer_tpu_torch import replay as replaylib
 def main(argv=None):
   from .agent import Agent
   parsed, other = embodied.Flags(
-      configs=['defaults'], worker=0, workers=1,
+      configs=['defaults'], worker=0, workers=1, learner_addr='localhost:2222',
   ).parse_known(argv)
   config = embodied.Config(Agent.configs['defaults'])
   for name in parsed.configs:
@@ -45,12 +48,47 @@ def main(argv=None):
     env = envslib.load_env(config.task, mode='train', **config.env)
     cleanup.append(env)
     agent = Agent(env.obs_space, env.act_space, step, config)
+
     if config.run == 'train':
       replay = make_replay(config, logdir / 'episodes')
       embodied.run.train(agent, env, replay, logger, args)
+
+    elif config.run == 'train_eval':
+      replay = make_replay(config, logdir / 'episodes')
+      eval_replay = make_replay(config, logdir / 'eval_episodes', is_eval=True)
+      eval_env = envslib.load_env(config.task, mode='eval', **config.env)
+      cleanup.append(eval_env)
+      embodied.run.train_eval(
+          agent, env, eval_env, replay, eval_replay, logger, args)
+
+    elif config.run == 'train_fixed_eval':
+      replay = make_replay(config, logdir / 'episodes')
+      if config.eval_dir:
+        assert not config.train.eval_fill
+        eval_replay = make_replay(config, config.eval_dir, is_eval=True)
+      else:
+        assert config.train.eval_fill
+        eval_replay = make_replay(config, logdir / 'eval_episodes',
+                                  is_eval=True)
+      embodied.run.train_fixed_eval(
+          agent, env, replay, eval_replay, logger, args)
+
+    elif config.run == 'learning':
+      env.close()
+      port = parsed.learner_addr.split(':')[-1]
+      replay = make_replay(config, logdir / 'episodes', server_port=port)
+      eval_replay = make_replay(config, logdir / 'eval_episodes',
+                                is_eval=True)
+      embodied.run.learning(agent, replay, eval_replay, logger, args)
+
+    elif config.run == 'acting':
+      replay = make_replay(
+          config, logdir / 'episodes', remote_addr=parsed.learner_addr)
+      outdir = logdir / f'worker{parsed.worker}'
+      embodied.run.acting(agent, env, replay, logger, outdir, args)
+
     else:
-      raise NotImplementedError(
-          f'run={config.run} is not ported yet; the port runs run=train.')
+      raise NotImplementedError(config.run)
   finally:
     for obj in cleanup:
       try:
@@ -71,15 +109,22 @@ def make_logger(config, step):
   return embodied.Logger(step, outputs, multiplier)
 
 
-def make_replay(config, directory=None, is_eval=False, **kwargs):
+def make_replay(
+    config, directory=None, is_eval=False, server_port=None,
+    remote_addr=None, **kwargs):
   """Store + sampler factory (reference: train.py:111-146)."""
   length = config.replay_chunk
   size = config.replay_size // 10 if is_eval else config.replay_size
-  if directory and str(directory) != '/dev/null':
-    store = replaylib.CkptRAMStore(directory, int(size), parallel=True)
+  if remote_addr:
+    store = replaylib.StoreClient(remote_addr)
   else:
-    store = replaylib.RAMStore(int(size))
-  store = replaylib.Stats(store)
+    if directory and str(directory) != '/dev/null':
+      store = replaylib.CkptRAMStore(directory, int(size), parallel=True)
+    else:
+      store = replaylib.RAMStore(int(size))
+    store = replaylib.Stats(store)
+    if server_port:
+      store = replaylib.StoreServer(store, int(server_port))
   if config.replay == 'fixed' or is_eval:
     kw = dict(config.replay_fixed)
     kw.update(kwargs)

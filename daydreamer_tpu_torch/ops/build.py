@@ -5,6 +5,10 @@ interface. `nvcc` compiles it for `sm_90a` into a shared library, at first
 use, into `ops/_build/` (listed in `.gitignore`); `ctypes` loads it. The
 library's name carries a hash of the source and of the headers under
 `ops/csrc/` that it includes, so an edit of either builds anew. `build_all()` starts one `nvcc` per source, all at once.
+
+Every kernel's C function takes `(int bf16, void* const* ptrs, const int*
+dims, float..., void* stream)` and returns `cudaGetLastError()`; `check`
+holds the tensors to what a kernel reads and `launch` makes the call.
 """
 
 import ctypes
@@ -14,6 +18,8 @@ import pathlib
 import shutil
 import subprocess
 import threading
+
+import torch
 
 HERE = pathlib.Path(__file__).resolve().parent
 CSRC = HERE / 'csrc'
@@ -36,6 +42,8 @@ class Kernel:
 
   `launches` is the number of times a wrapper launched the kernel; a
   caller may reset it to 0 before a run and read it after."""
+
+  route = 'cuda'
 
   def __init__(self, name, source, replaces, signature, headers=()):
     self.name = name
@@ -94,6 +102,70 @@ class Kernel:
     log = self.library.with_suffix('.log')
     return log.read_text() if log.exists() else ''
 
+
+class TritonKernel:
+  """A kernel written in Triton, registered beside the CUDA ones: its name,
+  the file that holds it, the TPU kernel it replaces and its launch count.
+  Triton compiles it at its first launch, so there is nothing to build."""
+
+  route = 'triton'
+
+  def __init__(self, name, source, replaces):
+    self.name = name
+    self.source = HERE / source
+    self.replaces = replaces
+    self.launches = 0
+
+  def start_build(self):
+    return None
+
+  def lib(self):
+    return None
+
+  def build_log(self):
+    return ''
+
+
+def signature(scalars=1):
+  """(restype, argtypes) of a kernel's C function with `scalars` floats."""
+  return (ctypes.c_int, [
+      ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+      ctypes.POINTER(ctypes.c_int), *[ctypes.c_float] * scalars,
+      ctypes.c_void_p])
+
+
+def check(name, tensors, device, dtype):
+  """Raises unless every (key, tensor) is a contiguous, 16-byte aligned
+  tensor of `dtype` on the card `device`."""
+  for key, x in tensors:
+    if x.device != device or x.device.type != 'cuda':
+      raise ValueError(f'{name}: {key} lies on {x.device}, not on a card.')
+    if x.dtype != dtype:
+      raise TypeError(f'{name}: {key} is {x.dtype} among {dtype}.')
+    if not x.is_contiguous():
+      raise ValueError(f'{name}: {key} is not contiguous.')
+    if x.data_ptr() % 16:
+      raise ValueError(f'{name}: {key} is not aligned to 16 bytes.')
+
+
+def launch(kernel, fn, dtype, ptrs, dims, scalars, device):
+  """Launches `fn` of `kernel` on the current stream of `device`, raises
+  if the launch is refused, and counts it. ptrs: tensors or None."""
+  ptr_array = (ctypes.c_void_p * len(ptrs))(
+      *[x.data_ptr() if x is not None else 0 for x in ptrs])
+  dims = (ctypes.c_int * len(dims))(*dims)
+  lib = kernel.lib()
+  stream = torch.cuda.current_stream(device).cuda_stream
+  err = getattr(lib, fn)(int(dtype == torch.bfloat16), ptr_array, dims,
+                         *[float(x) for x in scalars],
+                         ctypes.c_void_p(stream))
+  if err != 0:
+    raise RuntimeError(f'{fn} kernel failed: CUDA error {err}.')
+  kernel.launches += 1
+
+
+# A block's dynamic shared memory on sm_90a.
+SHARED_MEMORY_LIMIT = 232448
 
 KERNELS = []
 

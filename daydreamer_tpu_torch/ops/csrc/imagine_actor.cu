@@ -21,56 +21,17 @@
 // R = 8 rows for all H steps and loops over time inside; nothing crosses
 // blocks and no grid-wide sync is needed. The block keeps its rows'
 // carries (deter, action, and the stoch as its sampled classes [S][R])
-// and every intermediate in shared memory as float, transposed
-// ([width][R]) so one 16-byte load gives a column of all 8 rows. Weights
-// stream from L2 (about 10 MB in bf16, which the 50 MB L2 holds across
-// blocks and steps): each thread owns two output columns and reads its
-// weights coalesced along the output axis. A product with the sampled
-// stoch gathers S weight rows per row; the others are
-// plain FMAs with float accumulation; the values are rounded to the
-// element type T exactly where the JAX cell rounds (after each matmul, LN
-// and ELU), so the kernel agrees with its plain PyTorch version.
-// LayerNorm uses one warp per row. mma.sync / wgmma and an in-kernel
-// Philox generator are later work.
+// and every intermediate in shared memory; the weights stream from L2
+// (about 10 MB in bf16, which the 50 MB L2 holds across blocks and steps).
+// The layout, the product and the rounding are in imagine_common.cuh,
+// shared with imagine.cu. mma.sync / wgmma and an in-kernel Philox
+// generator are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "imagine_common.cuh"
 
 namespace {
 
-constexpr int R = 8;      // Rows per block.
-constexpr int NT = 256;   // Threads per block: one warp per row for LN.
-constexpr int MAXL = 8;   // Most prior / actor layers.
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ float rnd(float x);
-template <> __device__ __forceinline__ float rnd<float>(float x) { return x; }
-template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
+using namespace img;
 
 struct Params {
   const void *stoch0, *deter0, *action0;
@@ -86,122 +47,6 @@ struct Params {
   int B, H, D, U, S, C, A, n_out, n_act;
   float unimix, act_unimix;
 };
-
-// acc[c][r] += sum_k X[k][r] * W[k][n_c] for the thread's columns n0, n1.
-template <typename T>
-__device__ __forceinline__ void mm(float (&acc)[2][R], const float* X, int K,
-                                   const T* __restrict__ W, int N, int n0,
-                                   int n1) {
-  const bool v0 = n0 < N, v1 = n1 < N;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    const T* row = W + (size_t)k * N;
-    const float w0 = v0 ? to_f(row[n0]) : 0.f;
-    const float w1 = v1 ? to_f(row[n1]) : 0.f;
-    const float4 xa = *reinterpret_cast<const float4*>(X + k * R);
-    const float4 xb = *reinterpret_cast<const float4*>(X + k * R + 4);
-    const float x[R] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      acc[0][r] = fmaf(x[r], w0, acc[0][r]);
-      acc[1][r] = fmaf(x[r], w1, acc[1][r]);
-    }
-  }
-}
-
-// The same product for a one-hot X of S groups of C classes, given by its
-// classes idx[s][r]: a sum of S weight rows per row. The rows are added in
-// the order the dense loop visits them, so the sum is the dense one's.
-template <typename T>
-__device__ __forceinline__ void mm_onehot(float (&acc)[2][R], const int* idx,
-                                          int S, int C,
-                                          const T* __restrict__ W, int N,
-                                          int n0, int n1) {
-  const bool v0 = n0 < N, v1 = n1 < N;
-#pragma unroll 2
-  for (int s = 0; s < S; ++s) {
-    const int4 ia = *reinterpret_cast<const int4*>(idx + s * R);
-    const int4 ib = *reinterpret_cast<const int4*>(idx + s * R + 4);
-    const int k[R] = {ia.x, ia.y, ia.z, ia.w, ib.x, ib.y, ib.z, ib.w};
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const T* row = W + (size_t)(s * C + k[r]) * N;
-      if (v0) acc[0][r] += to_f(row[n0]);
-      if (v1) acc[1][r] += to_f(row[n1]);
-    }
-  }
-}
-
-// One input of a product: X [K][R], or the one-hot given by idx (S = K / C
-// groups) when idx is set.
-struct In {
-  const float* X;
-  const int* idx;
-  int K;
-  const void* W;
-};
-
-template <typename T>
-__device__ __forceinline__ void mm_in(float (&acc)[2][R], const In& in,
-                                      int C, int N, int n0, int n1) {
-  const T* W = static_cast<const T*>(in.W);
-  if (in.idx)
-    mm_onehot<T>(acc, in.idx, in.K / C, C, W, N, n0, n1);
-  else
-    mm<T>(acc, in.X, in.K, W, N, n0, n1);
-}
-
-// Y[n][r] = X1 @ W1 (+ X2 @ W2) (+ bias), rounded to T when `round`.
-template <typename T>
-__device__ void dense(const In& in1, const In& in2, int C, int N,
-                      const void* bias, bool round, float* Y) {
-  for (int base = 0; base < N; base += 2 * NT) {
-    const int n0 = base + threadIdx.x, n1 = n0 + NT;
-    float acc[2][R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[0][r] = acc[1][r] = 0.f;
-    mm_in<T>(acc, in1, C, N, n0, n1);
-    if (in2.W) mm_in<T>(acc, in2, C, N, n0, n1);
-    const int ns[2] = {n0, n1};
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      if (ns[c] >= N) continue;
-      const float b = bias ? to_f(static_cast<const T*>(bias)[ns[c]]) : 0.f;
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float v = acc[c][r] + b;
-        Y[ns[c] * R + r] = round ? rnd<T>(v) : v;
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// In place over Y [N][R]: LayerNorm (float, eps 1e-3) then optional ELU,
-// rounding to T after each, as nets.py / pallas_rssm.py do.
-template <typename T>
-__device__ void ln_act(float* Y, int N, const void* scale_, const void* bias_,
-                       bool elu) {
-  const T* scale = static_cast<const T*>(scale_);
-  const T* bias = static_cast<const T*>(bias_);
-  const int r = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float s = 0.f;
-  for (int n = lane; n < N; n += 32) s += Y[n * R + r];
-  const float mean = warp_sum(s) / N;
-  float v = 0.f;
-  for (int n = lane; n < N; n += 32) {
-    const float d = Y[n * R + r] - mean;
-    v += d * d;
-  }
-  const float inv = rsqrtf(warp_sum(v) / N + 1e-3f);
-  for (int n = lane; n < N; n += 32) {
-    float y = rnd<T>((Y[n * R + r] - mean) * inv * to_f(scale[n]) +
-                     to_f(bias[n]));
-    if (elu) y = rnd<T>(y > 0.f ? y : expf(y) - 1.f);
-    Y[n * R + r] = y;
-  }
-  __syncthreads();
-}
 
 template <typename T>
 __global__ void __launch_bounds__(NT) imagine_actor_kernel(Params p) {

@@ -1,18 +1,20 @@
-"""Run the observe kernels' CUDA sources on the CPU, without nvcc or a card.
+"""Run the kernels' CUDA sources on the CPU, without nvcc or a card.
 
     python -m daydreamer_tpu_torch.ops.emulate
 
-compiles `csrc/observe_fwd.cu` and `csrc/observe_bwd.cu` with g++ against
-the stand-in headers of `csrc/emulate/` (one OS thread per CUDA thread, see
-`emulate.h`), calls them through the real wrappers of `rssm_vjp.py` on CPU
-tensors at tiny widths, and holds each against its plain version in float32
-and bfloat16. It checks a kernel's indices, layouts and formulas before a
+compiles every source of `csrc/` (`observe_fwd.cu`, `observe_bwd.cu`,
+`imagine_actor.cu`, `imagine.cu`, `observe.cu`) with g++ against the
+stand-in headers of `csrc/emulate/` (one OS thread per CUDA thread, see
+`emulate.h`), calls them through the real wrappers of `rssm_vjp.py` and
+`rssm.py` on CPU tensors at tiny widths, and holds each against its plain
+version in float32 and bfloat16. It checks a kernel's indices, layouts and formulas before a
 card is at hand; it does not replace the check on the card (`chip_smoke.py`)
 and says nothing about speed. Exit code 0: agreed; 1: disagreed; 75: cannot
 run here (no g++ with C++20).
 """
 
 import argparse
+import concurrent.futures
 import contextlib
 import ctypes
 import pathlib
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from . import build
+from . import rssm
 from . import rssm_vjp
 
 SHIM = build.CSRC / 'emulate'
@@ -71,33 +74,37 @@ def compile_kernel(kernel, outdir):
 
 @contextlib.contextmanager
 def emulated(outdir):
-  """Within the block, `observe_fwd_cuda` and `observe_bwd_cuda` take CPU
-  tensors and run the emulated kernels (every other check stays)."""
-  libs = {}
-  for kernel in (rssm_vjp.OBSERVE_FWD, rssm_vjp.OBSERVE_BWD):
-    libs.update(dict.fromkeys(kernel.signature, compile_kernel(
-        kernel, outdir)))
+  """Within the block, the CUDA wrappers of `rssm_vjp.py` and `rssm.py`
+  take CPU tensors and run the emulated kernels (every other check
+  stays). The sources compile side by side."""
+  kernels = (rssm_vjp.OBSERVE_FWD, rssm_vjp.OBSERVE_BWD, rssm.IMAGINE_ACTOR,
+             rssm.IMAGINE, rssm.OBSERVE)
+  with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
+    compiled = list(pool.map(lambda k: compile_kernel(k, outdir), kernels))
+  libs = {fn: lib for kernel, lib in zip(kernels, compiled)
+          for fn in kernel.signature}
 
   def check(name, tensors, device, dtype):
     for key, x in tensors:
       if x.dtype != dtype or not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f'{name}: {key} is not what the kernel reads.')
 
-  def launch(kernel, fn, dtype, ptrs, dims, unimix, device):
+  def launch(kernel, fn, dtype, ptrs, dims, scalars, device):
     ptr_array = (ctypes.c_void_p * len(ptrs))(
         *[x.data_ptr() if x is not None else 0 for x in ptrs])
     err = getattr(libs[fn], fn)(
         int(dtype == torch.bfloat16), ptr_array,
-        (ctypes.c_int * len(dims))(*dims), float(unimix), None)
+        (ctypes.c_int * len(dims))(*dims), *[float(x) for x in scalars],
+        None)
     if err != 0:
       raise RuntimeError(f'{fn} (emulated) failed: {err}.')
 
-  saved = rssm_vjp._check, rssm_vjp._launch
-  rssm_vjp._check, rssm_vjp._launch = check, launch
+  saved = build.check, build.launch
+  build.check, build.launch = check, launch
   try:
     yield
   finally:
-    rssm_vjp._check, rssm_vjp._launch = saved
+    build.check, build.launch = saved
 
 
 def make_inputs(dtype, D=32, U=32, S=4, C=8, A=5, E=16, B=3, T=3, n_out=2,
@@ -161,7 +168,51 @@ def compare(dtype, sample=True, unimix=0.01, **shape):
   return equal, fwd_err, bwd_err
 
 
-# The default widths; no noise, no unimix, one prior layer; bfloat16; widths
+def _forward_errors(out, ref):
+  """(one-hots equal, the largest error of the other outputs); the
+  one-hots come last."""
+  *values, (onehot, onehot_ref) = zip(out, ref)
+  err = max(float((a.float() - b.float()).abs().max()) for a, b in values)
+  return bool((onehot == onehot_ref).all()), err
+
+
+def compare_rollouts(dtype, sample=True, unimix=0.01, n_act=3, **shape):
+  """The emulated `imagine_actor`, `imagine` and `observe` kernels against
+  their plain versions on one set of inputs (call inside `emulated`).
+  Returns (every one-hot equal, the largest error of deters and logits)."""
+  params, data, first, noise, _ = make_inputs(dtype, **shape)
+  stoch0, deter0, actions, embeds = data
+  T, B, A = actions.shape
+  D, U = deter0.shape[1], params['w_in_s'].shape[1]
+  S, C = params['stoch_n'], params['classes']
+  rng = np.random.default_rng(1)
+  t = lambda x: torch.as_tensor(np.asarray(x, np.float32)).to(dtype)
+  actor = rssm.make_actor_params(2, D, U, S, C, A, layers=n_act, dtype=dtype)
+  actor['ln_bias'] = [t(0.1 * rng.standard_normal(U)) for _ in range(n_act)]
+  actor['b_out'] = t(rng.standard_normal(A))
+  action0 = t(np.eye(A)[rng.integers(0, A, B)])
+  g_a = torch.as_tensor(rng.gumbel(size=(T, B, A)).astype(np.float32))
+  results = []
+  # imagine_actor's outputs end (stochs, actions); compare the actions
+  # with the one-hots and the rest by value.
+  kw = dict(noise=(noise, g_a) if sample else None, unimix=unimix,
+            act_unimix=0.1 if unimix else 0.0)
+  args = (params, actor, stoch0, deter0, action0, T)
+  out = rssm.imagine_actor_cuda(*args, **kw)
+  ref = rssm.imagine_actor_plain(*args, **kw)
+  results.append(_forward_errors(out[:3], ref[:3]))
+  results.append((bool((out[3] == ref[3]).all()), 0.0))
+  kw = dict(noise=noise if sample else None, unimix=unimix)
+  args = (params, stoch0, deter0, actions)
+  results.append(_forward_errors(
+      rssm.imagine_cuda(*args, **kw), rssm.imagine_plain(*args, **kw)))
+  args = (params, stoch0, deter0, actions, embeds, first)
+  results.append(_forward_errors(
+      rssm.observe_cuda(*args, **kw), rssm.observe_plain(*args, **kw)))
+  return all(r[0] for r in results), max(r[1] for r in results)
+
+
+# The default widths; no noise# The default widths; no noise, no unimix, one prior layer; bfloat16; widths
 # that are no power of two, five rows; widths that take two passes of the
 # product (3 * D and S * C above 512).
 CASES = (
@@ -171,6 +222,23 @@ CASES = (
     (torch.float32, dict(D=24, U=40, S=4, C=4, A=3, E=10, B=5, T=3,
                          n_out=3)),
     (torch.bfloat16, dict(D=176, U=64, S=36, C=16, A=6, E=24, B=2, T=2)),
+)
+
+
+# imagine_actor, imagine and observe: the default widths (three rows leave a
+# block of either layout partly empty); no noise, no unimix, one prior layer
+# and a one-layer actor; bfloat16; widths that are no power of two (a
+# multiple of 8, as observe's product asks), ten rows, so that the rollouts
+# take two blocks, and an action width that is a multiple of 4; widths
+# that take two passes of either product.
+ROLLOUT_CASES = (
+    (torch.float32, {}),
+    (torch.float32, dict(sample=False, unimix=0.0, B=2, T=2, n_out=1,
+                         n_act=1)),
+    (torch.bfloat16, {}),
+    (torch.float32, dict(D=24, U=40, S=4, C=4, A=12, E=10, B=10, T=3,
+                         n_out=3)),
+    (torch.float32, dict(D=176, U=64, S=36, C=16, A=6, E=24, B=2, T=2)),
 )
 
 
@@ -195,6 +263,17 @@ def main(argv=None):
       print(f'{dtype} {case}: stochs equal {equal}, forward error '
             f'{fwd_err:.3g}, scaled backward error {bwd_err:.3g} '
             f'(tolerance 1e-4): {"ok" if good else "DISAGREES"}', flush=True)
+    for dtype, case in ROLLOUT_CASES:
+      equal, err = compare_rollouts(dtype, **case)
+      # float32: the same arithmetic summed in another order. bfloat16:
+      # a sum that rounds to the other side moves a value by one unit in
+      # the last place (2^-8 of its size) and the next layers carry it on.
+      limit = 1e-4 if dtype == torch.float32 else 5e-2
+      good = equal and err <= limit
+      ok = ok and good
+      print(f'rollouts {dtype} {case}: one-hots equal {equal}, largest '
+            f'error of deters and logits {err:.3g} (tolerance {limit:g}): '
+            f'{"ok" if good else "DISAGREES"}', flush=True)
   return 0 if ok else 1
 
 

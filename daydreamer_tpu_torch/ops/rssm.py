@@ -1,23 +1,35 @@
-"""RSSM sequence cells for the fused rollout, the port of the parts of
-`daydreamer_tpu/ops/pallas_rssm.py` that the training path runs.
+"""RSSM sequence cells, the port of `daydreamer_tpu/ops/pallas_rssm.py`.
 
-`imagine_actor` is the policy-in-the-loop imagination rollout (the JAX
-package's `imagine_actor_pallas`): H steps of the image cell, a one-hot
-prior sample, the actor MLP and a one-hot action, forward only. On a CUDA
-tensor it launches the CUDA kernel `csrc/imagine_actor.cu` (which replaces
-`pallas_rssm.py::_imagine_actor_kernel`; its source note gives the bound
-and the design); on a CPU tensor it runs `imagine_actor_plain`, the same
-arithmetic in PyTorch. The Gumbel noise is an input of both: the wrapper
-draws it from the caller's generator, on the tensors' device.
+Three forward-only chains, each a CUDA kernel on a CUDA tensor and the same
+arithmetic in PyTorch (`*_plain`) on a CPU tensor:
+
+- `imagine_actor`, the policy-in-the-loop imagination rollout of the
+  training path (the JAX package's `imagine_actor_pallas`): H steps of the
+  image cell, a one-hot prior sample, the actor MLP and a one-hot action.
+  Kernel `csrc/imagine_actor.cu`, replaces `_imagine_actor_kernel`.
+- `imagine`, the rollout on GIVEN actions (`imagine_pallas`): H steps of
+  the image cell and a one-hot prior sample. Kernel `csrc/imagine.cu`,
+  replaces `_imagine_kernel`.
+- `observe`, the posterior chain (`observe_pallas`): per step the
+  `is_first` zeroing of stoch, deter and action, the image cell for the
+  deter only, the posterior head over [deter, embed] and a one-hot
+  posterior sample. Kernel `csrc/observe.cu`, replaces `_observe_kernel`.
+
+Each kernel's source note gives its bound and its design. The Gumbel noise
+is an input of every route: the wrapper draws it from the caller's
+generator, on the tensors' device. The TPU kernels' in-core generator and
+their literal unimix mixture are replaced by `argmax(log((1-u) softmax(z)
++ u/C) + g)`, which has the same distribution and is what the JAX scan
+references compute; without sampling the one-hot is `argmax(z)`.
 
 The cell math mirrors the JAX cell exactly: matmuls accumulate in float32
 and round to the compute dtype, LayerNorm runs in float32 (eps 1e-3), ELU
 is exp(x) - 1, the GRU gates are float32. The logits returned are RAW; the
-caller applies the unimix to store log-probs.
+caller applies the unimix to store log-probs. `make_params` and
+`make_actor_params` build random weights in this layout from a numpy seed.
 """
 
-import ctypes
-
+import numpy as np
 import torch
 
 from . import build
@@ -28,10 +40,18 @@ f32 = torch.float32
 IMAGINE_ACTOR = build.register(build.Kernel(
     'imagine_actor', 'imagine_actor.cu',
     'daydreamer_tpu/ops/pallas_rssm.py:427 (_imagine_actor_kernel)',
-    {'imagine_actor': (ctypes.c_int, [
-        ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
-        ctypes.POINTER(ctypes.c_int), ctypes.c_float, ctypes.c_float,
-        ctypes.c_void_p])}))
+    {'imagine_actor': build.signature(scalars=2)},
+    headers=('imagine_common.cuh',)))
+
+IMAGINE = build.register(build.Kernel(
+    'imagine', 'imagine.cu',
+    'daydreamer_tpu/ops/pallas_rssm.py:207 (_imagine_kernel)',
+    {'imagine': build.signature()}, headers=('imagine_common.cuh',)))
+
+OBSERVE = build.register(build.Kernel(
+    'observe', 'observe.cu',
+    'daydreamer_tpu/ops/pallas_rssm.py:682 (_observe_kernel)',
+    {'observe': build.signature()}, headers=('observe_common.cuh',)))
 
 
 def _elu(x):
@@ -69,12 +89,17 @@ def _gru_core(deter, x, params):
   return (update * cand + (1 - update) * deter.float()).to(x.dtype)
 
 
-def _img_cell(stoch, deter, action, params):
-  """One img_step: returns (deter', raw logits float32)."""
+def _img_deter(stoch, deter, action, params):
+  """The recurrent half of one img_step: deter'."""
   x = _dot(stoch, params['w_in_s']) + _dot(action, params['w_in_a'])
   x = _elu(_layernorm(
       x.to(stoch.dtype), params['ln_in_scale'], params['ln_in_bias']))
-  deter = _gru_core(deter, x, params)
+  return _gru_core(deter, x, params)
+
+
+def _img_cell(stoch, deter, action, params):
+  """One img_step: returns (deter', raw logits float32)."""
+  deter = _img_deter(stoch, deter, action, params)
   h = deter
   for w, s, b in zip(params['w_out'], params['ln_out_scale'],
                      params['ln_out_bias']):
@@ -133,8 +158,55 @@ def imagine_actor_plain(params, actor, stoch0, deter0, action0, horizon,
   return tuple(torch.stack(x, 0) for x in zip(*outs))
 
 
-def _ptr(x):
-  return ctypes.c_void_p(x.data_ptr() if x is not None else 0)
+def _check_dtype(name, dtype):
+  if dtype not in (torch.float32, torch.bfloat16):
+    raise TypeError(f'{name} takes float32 or bfloat16, not {dtype}.')
+
+
+def _check_shared(name, nbytes):
+  if nbytes > build.SHARED_MEMORY_LIMIT:
+    raise ValueError(
+        f'{name}: these widths need {nbytes} bytes of shared memory a '
+        f'block; the card gives {build.SHARED_MEMORY_LIMIT}.')
+
+
+def _cell_bytes(D, U, S, C, A):
+  """Shared memory of the image cell's buffers in `csrc/imagine.cu` (8 rows
+  a block); `csrc/imagine_actor.cu` adds a block of action logits."""
+  padded = (A + 3) // 4 * 4
+  return 4 * 8 * (S * C + D + padded + max(3 * D, S * C) + 2 * U + S)
+
+
+_CELL = ('w_in_s', 'w_in_a', 'ln_in_scale', 'ln_in_bias', 'w_gru_d',
+         'w_gru_x', 'ln_gru_scale', 'ln_gru_bias')
+
+
+def _cell_shapes(A, D, U, SC):
+  return {
+      'w_in_s': (SC, U), 'w_in_a': (A, U), 'ln_in_scale': (U,),
+      'ln_in_bias': (U,), 'w_gru_d': (D, 3 * D), 'w_gru_x': (U, 3 * D),
+      'ln_gru_scale': (3 * D,), 'ln_gru_bias': (3 * D,)}
+
+
+def _check_shapes(name, tensors, expect):
+  for key, shape in expect.items():
+    if tuple(tensors[key].shape) != tuple(shape):
+      raise ValueError(f'{name}: {key} has shape '
+                       f'{tuple(tensors[key].shape)}, not {tuple(shape)}.')
+
+
+def _prior_layers(name, params, D, U):
+  """The prior MLP as (kernels, scales, biases), shapes checked."""
+  layers = (params['w_out'], params['ln_out_scale'], params['ln_out_bias'])
+  n_out = len(layers[0])
+  if not 1 <= n_out <= 8 or any(len(x) != n_out for x in layers):
+    raise ValueError(f'{name}: takes 1 to 8 prior layers.')
+  for i, (w, scale, bias) in enumerate(zip(*layers)):
+    _check_shapes(name, {'w_out': w, 'ln_out_scale': scale,
+                         'ln_out_bias': bias},
+                  {'w_out': (D if i == 0 else U, U), 'ln_out_scale': (U,),
+                   'ln_out_bias': (U,)})
+  return layers
 
 
 def imagine_actor_cuda(params, actor, stoch0, deter0, action0, horizon,
@@ -142,9 +214,9 @@ def imagine_actor_cuda(params, actor, stoch0, deter0, action0, horizon,
   """The rollout as one launch of the CUDA kernel; same contract as
   `imagine_actor_plain`. Raises unless every input is a CUDA tensor of
   the compute dtype (float32 or bfloat16) in the layout the kernel reads."""
-  dtype = stoch0.dtype
-  if dtype not in (torch.float32, torch.bfloat16):
-    raise TypeError(f'imagine_actor takes float32 or bfloat16, not {dtype}.')
+  name = 'imagine_actor_cuda'
+  dtype, device = stoch0.dtype, stoch0.device
+  _check_dtype(name, dtype)
   B, SC = stoch0.shape
   D = deter0.shape[1]
   U = params['w_in_s'].shape[1]
@@ -152,7 +224,8 @@ def imagine_actor_cuda(params, actor, stoch0, deter0, action0, horizon,
   S, C = params['stoch_n'], params['classes']
   n_out, n_act = len(params['w_out']), len(actor['ln_scale'])
   if S * C != SC or len(actor['w_h']) != n_act - 1:
-    raise ValueError('imagine_actor: inconsistent shapes.')
+    raise ValueError(f'{name}: inconsistent shapes.')
+  _check_shared(name, _cell_bytes(D, U, S, C, A) + 4 * 8 * ((A + 3) // 4 * 4))
   weights = [
       params['w_in_s'], params['w_in_a'], params['ln_in_scale'],
       params['ln_in_bias'], params['w_gru_d'], params['w_gru_x'],
@@ -167,35 +240,23 @@ def imagine_actor_cuda(params, actor, stoch0, deter0, action0, horizon,
     layers += [s, b]
   layers += list(actor['w_h'])
   inputs = [stoch0, deter0, action0.to(dtype), *weights, *layers]
-  device = stoch0.device
-  for x in inputs:
-    if x.device != device or x.device.type != 'cuda':
-      raise ValueError(f'imagine_actor_cuda: tensor on {x.device}.')
-    if x.dtype != dtype:
-      raise TypeError(f'imagine_actor_cuda: {x.dtype} among {dtype}.')
-    if not x.is_contiguous():
-      raise ValueError('imagine_actor_cuda: non-contiguous input.')
+  build.check(name, [(f'input {i}', x) for i, x in enumerate(inputs)],
+              device, dtype)
   g_s = g_a = None
   if noise is not None:
     g_s, g_a = (n.to(f32).contiguous() for n in noise)
+    build.check(name, [('noise', g_s), ('action noise', g_a)], device, f32)
     if g_s.shape != (horizon, B, SC) or g_a.shape != (horizon, B, A):
-      raise ValueError('imagine_actor_cuda: noise shape.')
+      raise ValueError(f'{name}: noise shape.')
   deters = torch.empty((horizon, B, D), dtype=dtype, device=device)
   logits = torch.empty((horizon, B, SC), dtype=f32, device=device)
   stochs = torch.empty((horizon, B, SC), dtype=dtype, device=device)
   actions = torch.empty((horizon, B, A), dtype=dtype, device=device)
   ptrs = [inputs[0], inputs[1], inputs[2], g_s, g_a, *weights,
           deters, logits, stochs, actions, *layers]
-  ptr_array = (ctypes.c_void_p * len(ptrs))(*[_ptr(x).value for x in ptrs])
-  dims = (ctypes.c_int * 9)(B, horizon, D, U, S, C, A, n_out, n_act)
-  lib = IMAGINE_ACTOR.lib()
-  stream = torch.cuda.current_stream(device).cuda_stream
-  err = lib.imagine_actor(
-      int(dtype == torch.bfloat16), ptr_array, dims, float(unimix),
-      float(act_unimix), ctypes.c_void_p(stream))
-  if err != 0:
-    raise RuntimeError(f'imagine_actor kernel failed: CUDA error {err}.')
-  IMAGINE_ACTOR.launches += 1
+  build.launch(IMAGINE_ACTOR, 'imagine_actor', dtype, ptrs,
+               [B, horizon, D, U, S, C, A, n_out, n_act],
+               [unimix, act_unimix], device)
   return deters, logits, stochs, actions
 
 
@@ -218,3 +279,243 @@ def imagine_actor(params, actor, stoch0, deter0, action0, horizon,
       imagine_actor_cuda)
   return fn(params, actor, stoch0, deter0, action0, horizon, noise=noise,
             unimix=unimix, act_unimix=act_unimix)
+
+
+# ---------------------------------------------------------------------------
+# The rollout on given actions.
+
+
+def _sample(logit, noise, S, C, unimix):
+  """One-hot [B,S*C] float32 per group of C classes: the argmax of the
+  raw logits, or with noise of log((1-u) softmax(z) + u/C) + g."""
+  B = logit.shape[0]
+  z = logit.reshape(B, S, C)
+  if noise is not None:
+    z = _mixed_logprobs(z, unimix) + noise.reshape(B, S, C)
+  return _argmax_onehot(z).reshape(B, S * C)
+
+
+@torch.no_grad()
+def imagine_plain(params, stoch0, deter0, actions, noise=None, unimix=0.01):
+  """The rollout on given actions in PyTorch (the arithmetic of the JAX
+  package's `imagine_scan`). actions [H,B,A]; noise [H,B,S*C] float32, or
+  None for argmax latents. Returns (deters [H,B,D], logits [H,B,S*C]
+  float32 raw, stochs [H,B,S*C])."""
+  S, C = params['stoch_n'], params['classes']
+  B = stoch0.shape[0]
+  dtype = stoch0.dtype
+  stoch, deter = stoch0, deter0
+  outs = []
+  for t in range(actions.shape[0]):
+    deter, logit = _img_cell(stoch, deter, actions[t].to(dtype), params)
+    stoch = _sample(logit, None if noise is None else noise[t], S, C,
+                    unimix).to(dtype)
+    outs.append((deter, logit, stoch))
+  return tuple(torch.stack(x, 0) for x in zip(*outs))
+
+
+def imagine_cuda(params, stoch0, deter0, actions, noise=None, unimix=0.01):
+  """The rollout on given actions as one launch of `csrc/imagine.cu`; same
+  contract as `imagine_plain`. Raises unless every input is a contiguous
+  CUDA tensor of the compute dtype (float32 or bfloat16)."""
+  name = 'imagine_cuda'
+  dtype, device = stoch0.dtype, stoch0.device
+  _check_dtype(name, dtype)
+  H, B, A = actions.shape
+  SC, U = params['w_in_s'].shape
+  D = params['w_gru_d'].shape[0]
+  S, C = params['stoch_n'], params['classes']
+  _check_shapes(name, params, dict(
+      _cell_shapes(A, D, U, SC), w_st=(U, SC), b_st=(SC,)))
+  _check_shapes(name, {'stoch0': stoch0, 'deter0': deter0},
+                {'stoch0': (B, S * C), 'deter0': (B, D)})
+  layers = _prior_layers(name, params, D, U)
+  _check_shared(name, _cell_bytes(D, U, S, C, A))
+  weights = [*(params[k] for k in _CELL), params['w_st'], params['b_st'],
+             *layers[0], *layers[1], *layers[2]]
+  inputs = [stoch0, deter0, actions]
+  build.check(name, [(f'input {i}', x) for i, x in enumerate(inputs)]
+              + [(f'weight {i}', x) for i, x in enumerate(weights)],
+              device, dtype)
+  if noise is not None:
+    noise = noise.to(f32).contiguous()
+    build.check(name, [('noise', noise)], device, f32)
+    if tuple(noise.shape) != (H, B, SC):
+      raise ValueError(f'{name}: noise has the wrong shape.')
+  deters = torch.empty((H, B, D), dtype=dtype, device=device)
+  logits = torch.empty((H, B, SC), dtype=f32, device=device)
+  stochs = torch.empty((H, B, SC), dtype=dtype, device=device)
+  ptrs = [*inputs, noise, deters, logits, stochs, *weights]
+  build.launch(IMAGINE, 'imagine', dtype, ptrs,
+               [H, B, A, D, U, S, C, len(layers[0])], [unimix], device)
+  return deters, logits, stochs
+
+
+def imagine(params, stoch0, deter0, actions, generator=None, unimix=0.01,
+            sample=True, noise=None):
+  """H-step imagination rollout on given actions [H,B,A] (see the module
+  docstring). With `sample`, the Gumbel noise is `noise` [H,B,S*C] when
+  given, else drawn from `generator` on the inputs' device. A CUDA input
+  launches the kernel, a CPU input runs the plain version."""
+  if sample and noise is None:
+    H, B = actions.shape[:2]
+    noise = gumbel((H, B, stoch0.shape[-1]), generator, stoch0.device)
+  if not sample:
+    noise = None
+  fn = imagine_plain if stoch0.device.type == 'cpu' else imagine_cuda
+  return fn(params, stoch0, deter0, actions, noise=noise, unimix=unimix)
+
+
+# ---------------------------------------------------------------------------
+# The posterior chain, forward only.
+
+
+@torch.no_grad()
+def observe_plain(params, stoch0, deter0, actions, embeds, is_first,
+                  noise=None, unimix=0.01):
+  """The posterior chain in PyTorch (the arithmetic of the JAX package's
+  `observe_scan`). actions [T,B,A], embeds [T,B,E], is_first [T,B]; noise
+  [T,B,S*C] float32, or None for argmax latents. Returns (deters [T,B,D],
+  posterior logits [T,B,S*C] float32 raw, stochs [T,B,S*C])."""
+  S, C = params['stoch_n'], params['classes']
+  dtype = stoch0.dtype
+  stoch, deter = stoch0, deter0
+  outs = []
+  for t in range(actions.shape[0]):
+    keep = (1.0 - is_first[t].float())[:, None]
+    stoch = (stoch.float() * keep).to(dtype)
+    deter = (deter.float() * keep).to(dtype)
+    action = (actions[t].float() * keep).to(dtype)
+    deter = _img_deter(stoch, deter, action, params)
+    x = _dot(deter, params['w_obs_d']) + _dot(embeds[t], params['w_obs_e'])
+    x = _elu(_layernorm(
+        x.to(dtype), params['ln_obs_scale'], params['ln_obs_bias']))
+    logit = _dot(x, params['w_post']) + params['b_post'].float()
+    stoch = _sample(logit, None if noise is None else noise[t], S, C,
+                    unimix).to(dtype)
+    outs.append((deter, logit, stoch))
+  return tuple(torch.stack(x, 0) for x in zip(*outs))
+
+
+def observe_cuda(params, stoch0, deter0, actions, embeds, is_first,
+                 noise=None, unimix=0.01):
+  """The posterior chain as one launch of `csrc/observe.cu`; same contract
+  as `observe_plain`. Raises unless every input is a contiguous CUDA tensor
+  of the compute dtype (float32 or bfloat16) at widths the kernel takes.
+  The prior head's weights (`w_out*`, `w_st`, `b_st`) are not read."""
+  name = 'observe_cuda'
+  dtype, device = stoch0.dtype, stoch0.device
+  _check_dtype(name, dtype)
+  T, B, A = actions.shape
+  E = embeds.shape[-1]
+  SC, U = params['w_in_s'].shape
+  D = params['w_gru_d'].shape[0]
+  S, C = params['stoch_n'], params['classes']
+  _check_shapes(name, params, dict(
+      _cell_shapes(A, D, U, SC), w_obs_d=(D, U), w_obs_e=(E, U),
+      ln_obs_scale=(U,), ln_obs_bias=(U,), w_post=(U, SC), b_post=(SC,)))
+  _check_shapes(
+      name, {'stoch0': stoch0, 'deter0': deter0, 'embeds': embeds,
+             'is_first': is_first},
+      {'stoch0': (B, S * C), 'deter0': (B, D), 'embeds': (T, B, E),
+       'is_first': (T, B)})
+  if D % 8 or U % 8 or SC % 8:
+    raise ValueError(f'{name}: the kernel reads 16 bytes of a weight row at '
+                     'a time; deter, units and stoch*classes must be '
+                     'multiples of 8.')
+  # `smem_bytes` of csrc/observe.cu: 2 rows a block, 32 warps, and the
+  # product's scratch of 16384 floats.
+  _check_shared(name, 4 * (2 * (SC + 2 * D + A + E + 2 * U + max(3 * D, SC)
+                                + 1 + 32 + S) + 16384))
+  weights = [*(params[k] for k in _CELL), params['w_obs_d'],
+             params['w_obs_e'], params['ln_obs_scale'],
+             params['ln_obs_bias'], params['w_post'], params['b_post']]
+  inputs = [stoch0, deter0, actions, embeds]
+  build.check(name, [(f'input {i}', x) for i, x in enumerate(inputs)]
+              + [(f'weight {i}', x) for i, x in enumerate(weights)],
+              device, dtype)
+  first = is_first.to(f32).contiguous()
+  build.check(name, [('is_first', first)], device, f32)
+  if noise is not None:
+    noise = noise.to(f32).contiguous()
+    build.check(name, [('noise', noise)], device, f32)
+    if tuple(noise.shape) != (T, B, SC):
+      raise ValueError(f'{name}: noise has the wrong shape.')
+  deters = torch.empty((T, B, D), dtype=dtype, device=device)
+  logits = torch.empty((T, B, SC), dtype=f32, device=device)
+  stochs = torch.empty((T, B, SC), dtype=dtype, device=device)
+  ptrs = [*inputs, first, noise, deters, logits, stochs, *weights]
+  build.launch(OBSERVE, 'observe', dtype, ptrs, [T, B, A, E, D, U, S, C],
+               [unimix], device)
+  return deters, logits, stochs
+
+
+def observe(params, stoch0, deter0, actions, embeds, is_first,
+            generator=None, unimix=0.01, sample=True, noise=None):
+  """T-step posterior chain, forward only (see the module docstring). With
+  `sample`, the Gumbel noise is `noise` [T,B,S*C] when given, else drawn
+  from `generator` on the inputs' device. A CUDA input launches the kernel,
+  a CPU input runs the plain version."""
+  if sample and noise is None:
+    T, B = actions.shape[:2]
+    noise = gumbel((T, B, stoch0.shape[-1]), generator, stoch0.device)
+  if not sample:
+    noise = None
+  fn = observe_plain if stoch0.device.type == 'cpu' else observe_cuda
+  return fn(params, stoch0, deter0, actions, embeds, is_first, noise=noise,
+            unimix=unimix)
+
+
+# ---------------------------------------------------------------------------
+# Random weights for the tests and the proof entry point.
+
+
+def _uniform(rng, shape, dtype, device):
+  lim = np.sqrt(3.0 / np.mean(shape))
+  values = rng.uniform(-lim, lim, shape).astype(np.float32)
+  return torch.as_tensor(values).to(device, dtype)
+
+
+def make_actor_params(seed, deter, units, stoch, classes, action_dim,
+                      layers=4, dtype=torch.float32, device='cpu'):
+  """Random actor-MLP weights in the layout `imagine_actor` takes (an MLP
+  over [deter, stoch] and a one-hot head), from a numpy seed: uniform
+  fan-average kernels, unit norm scales, zero biases."""
+  rng = np.random.default_rng(seed)
+  uni = lambda *shape: _uniform(rng, shape, dtype, device)
+  SC = stoch * classes
+  return {
+      'w_d': uni(deter, units), 'w_s': uni(SC, units),
+      'w_h': [uni(units, units) for _ in range(layers - 1)],
+      'ln_scale': [torch.ones(units, dtype=dtype, device=device)
+                   for _ in range(layers)],
+      'ln_bias': [torch.zeros(units, dtype=dtype, device=device)
+                  for _ in range(layers)],
+      'w_out': uni(units, action_dim),
+      'b_out': torch.zeros(action_dim, dtype=dtype, device=device)}
+
+
+def make_params(seed, deter, units, stoch, classes, action_dim, embed_dim,
+                prior_layers=3, dtype=torch.float32, device='cpu'):
+  """Random cell weights in the layout every function of this module
+  takes, from a numpy seed: uniform fan-average kernels, unit norm scales,
+  zero biases."""
+  rng = np.random.default_rng(seed)
+  uni = lambda *shape: _uniform(rng, shape, dtype, device)
+  ones = lambda n: torch.ones(n, dtype=dtype, device=device)
+  zeros = lambda n: torch.zeros(n, dtype=dtype, device=device)
+  SC = stoch * classes
+  return {
+      'w_in_s': uni(SC, units), 'w_in_a': uni(action_dim, units),
+      'ln_in_scale': ones(units), 'ln_in_bias': zeros(units),
+      'w_gru_d': uni(deter, 3 * deter), 'w_gru_x': uni(units, 3 * deter),
+      'ln_gru_scale': ones(3 * deter), 'ln_gru_bias': zeros(3 * deter),
+      'w_out': [uni(deter if i == 0 else units, units)
+                for i in range(prior_layers)],
+      'ln_out_scale': [ones(units) for _ in range(prior_layers)],
+      'ln_out_bias': [zeros(units) for _ in range(prior_layers)],
+      'w_st': uni(units, SC), 'b_st': zeros(SC),
+      'w_obs_d': uni(deter, units), 'w_obs_e': uni(embed_dim, units),
+      'ln_obs_scale': ones(units), 'ln_obs_bias': zeros(units),
+      'w_post': uni(units, SC), 'b_post': zeros(SC),
+      'stoch_n': stoch, 'classes': classes}

@@ -34,8 +34,6 @@ maximum in the kernel and in the plain version alike.
 through a plain loop) that the gradient tests hold the chain to.
 """
 
-import ctypes
-
 import torch
 
 from . import build
@@ -43,19 +41,15 @@ from ..nn.dists import gumbel
 
 f32 = torch.float32
 
-_SIGNATURE = (ctypes.c_int, [
-    ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
-    ctypes.POINTER(ctypes.c_int), ctypes.c_float, ctypes.c_void_p])
-
 OBSERVE_FWD = build.register(build.Kernel(
     'observe_fwd', 'observe_fwd.cu',
     'daydreamer_tpu/ops/pallas_rssm_vjp.py:239 (_obs_fwd_kernel)',
-    {'observe_fwd': _SIGNATURE}, headers=('observe_common.cuh',)))
+    {'observe_fwd': build.signature()}, headers=('observe_common.cuh',)))
 
 OBSERVE_BWD = build.register(build.Kernel(
     'observe_bwd', 'observe_bwd.cu',
     'daydreamer_tpu/ops/pallas_rssm_vjp.py:280 (_obs_bwd_kernel)',
-    {'observe_bwd': _SIGNATURE}, headers=('observe_common.cuh',)))
+    {'observe_bwd': build.signature()}, headers=('observe_common.cuh',)))
 
 # The order of the weights everywhere in this module (and of the gradients
 # `ObserveFused.backward` returns): eight cell entries, the prior layers'
@@ -396,18 +390,6 @@ def observe_weight_grads(params, stoch0, deter0, actions, embeds, is_first,
 # The CUDA wrappers.
 
 
-def _check(name, tensors, device, dtype):
-  for key, x in tensors:
-    if x.device != device or x.device.type != 'cuda':
-      raise ValueError(f'{name}: {key} lies on {x.device}, not on a card.')
-    if x.dtype != dtype:
-      raise TypeError(f'{name}: {key} is {x.dtype} among {dtype}.')
-    if not x.is_contiguous():
-      raise ValueError(f'{name}: {key} is not contiguous.')
-    if x.data_ptr() % 16:
-      raise ValueError(f'{name}: {key} is not aligned to 16 bytes.')
-
-
 def _shapes(name, params, stoch0, deter0, actions, width_e):
   """Read and check the chain's widths; returns (T, B, A, D, U, S, C, SC,
   n_out)."""
@@ -442,19 +424,6 @@ def _shapes(name, params, stoch0, deter0, actions, width_e):
   return T, B, A, D, U, S, C, SC, n_out
 
 
-def _launch(kernel, fn, dtype, ptrs, dims, unimix, device):
-  ptr_array = (ctypes.c_void_p * len(ptrs))(
-      *[x.data_ptr() if x is not None else 0 for x in ptrs])
-  dims = (ctypes.c_int * len(dims))(*dims)
-  lib = kernel.lib()
-  stream = torch.cuda.current_stream(device).cuda_stream
-  err = getattr(lib, fn)(int(dtype == torch.bfloat16), ptr_array, dims,
-                         float(unimix), ctypes.c_void_p(stream))
-  if err != 0:
-    raise RuntimeError(f'{fn} kernel failed: CUDA error {err}.')
-  kernel.launches += 1
-
-
 def observe_fwd_cuda(params, stoch0, deter0, actions, embeds, is_first,
                      noise=None, unimix=0.01, sample=True):
   """The forward chain as one launch of `csrc/observe_fwd.cu`; same
@@ -469,27 +438,27 @@ def observe_fwd_cuda(params, stoch0, deter0, actions, embeds, is_first,
       name, params, stoch0, deter0, actions, E)
   flat, _ = flatten_params(params)
   inputs = [stoch0, deter0, actions, embeds]
-  _check(name, [(f'input {i}', x) for i, x in enumerate(inputs)]
+  build.check(name, [(f'input {i}', x) for i, x in enumerate(inputs)]
          + [(f'weight {i}', x) for i, x in enumerate(flat)], device, dtype)
   if tuple(embeds.shape) != (T, B, E) or tuple(is_first.shape) != (T, B):
     raise ValueError(f'{name}: embeds or is_first has the wrong shape.')
   first = is_first.to(f32).contiguous()
   if sample and noise is not None:
     noise = noise.to(f32).contiguous()
-    _check(name, [('noise', noise), ('is_first', first)], device, f32)
+    build.check(name, [('noise', noise), ('is_first', first)], device, f32)
     if tuple(noise.shape) != (T, B, SC):
       raise ValueError(f'{name}: noise has the wrong shape.')
   else:
     noise = None
-    _check(name, [('is_first', first)], device, f32)
+    build.check(name, [('is_first', first)], device, f32)
   deters = torch.empty((T, B, D), dtype=dtype, device=device)
   post = torch.empty((T, B, SC), dtype=f32, device=device)
   prior = torch.empty((T, B, SC), dtype=f32, device=device)
   stochs = torch.empty((T, B, SC), dtype=dtype, device=device)
   ptrs = [stoch0, deter0, actions, embeds, first, noise,
           deters, post, prior, stochs, *flat]
-  _launch(OBSERVE_FWD, 'observe_fwd', dtype, ptrs,
-          [T, B, A, E, D, U, S, C, n_out], unimix, device)
+  build.launch(OBSERVE_FWD, 'observe_fwd', dtype, ptrs,
+               [T, B, A, E, D, U, S, C, n_out], [unimix], device)
   return deters, post, prior, stochs
 
 
@@ -508,11 +477,11 @@ def observe_bwd_cuda(params, stoch0, deter0, actions, e_proj, is_first,
       name, params, stoch0, deter0, actions, params['w_obs_e'].shape[0])
   flat, _ = flatten_params(params)
   typed = [stoch0, deter0, actions, e_proj, deters, stochs]
-  _check(name, [(f'input {i}', x) for i, x in enumerate(typed)]
+  build.check(name, [(f'input {i}', x) for i, x in enumerate(typed)]
          + [(f'weight {i}', x) for i, x in enumerate(flat)], device, dtype)
   first = is_first.to(f32).contiguous()
   cts = [x.to(f32).contiguous() for x in cts]
-  _check(name, [('is_first', first), ('post_logits', post_logits)]
+  build.check(name, [('is_first', first), ('post_logits', post_logits)]
          + [(f'cotangent {i}', x) for i, x in enumerate(cts)], device, f32)
   shapes = [(e_proj, (T, B, U)), (first, (T, B)), (deters, (T, B, D)),
             (post_logits, (T, B, SC)), (stochs, (T, B, SC)),
@@ -536,8 +505,8 @@ def observe_bwd_cuda(params, stoch0, deter0, actions, e_proj, is_first,
   ptrs = [stoch0, deter0, actions, e_proj, first, deters, post_logits,
           stochs, *cts, dz1, dn1, dzg, dng, dz2, dn2, dpl_total, ds0, dd0,
           *cell, *heads, *transposed, *dqs, *dms]
-  _launch(OBSERVE_BWD, 'observe_bwd', dtype, ptrs,
-          [T, B, A, D, U, S, C, n_out], unimix, device)
+  build.launch(OBSERVE_BWD, 'observe_bwd', dtype, ptrs,
+               [T, B, A, D, U, S, C, n_out], [unimix], device)
   return dz1, dn1, dzg, dng, dz2, dn2, dqs, dms, dpl_total, ds0, dd0
 
 

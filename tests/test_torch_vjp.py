@@ -265,8 +265,9 @@ def test_cuda_wrappers_refuse_cpu_tensors(setup):
 
 
 def test_cuda_sources_emulated_on_cpu(tmp_path):
-  """The two CUDA sources themselves, compiled with g++ against the
-  stand-in headers (`ops/emulate.py`), agree with the plain versions at
+  """The five CUDA sources themselves (the fused observe chain's two,
+  `imagine_actor.cu`, `imagine.cu`, `observe.cu`), compiled with g++ against
+  the stand-in headers (`ops/emulate.py`), agree with the plain versions at
   tiny widths in float32 and bfloat16. Run in a process of its own: the
   emulation starts a thousand threads per block."""
   import subprocess
@@ -278,7 +279,8 @@ def test_cuda_sources_emulated_on_cpu(tmp_path):
   if done.returncode == emulate.CANNOT_RUN:
     pytest.skip(f'No g++ with C++20 here: {done.stderr[-200:]}')
   assert done.returncode == 0, done.stdout + done.stderr
-  assert done.stdout.count(': ok') == len(emulate.CASES), done.stdout
+  assert done.stdout.count(': ok') == len(emulate.CASES) + len(
+      emulate.ROLLOUT_CASES), done.stdout
 
 
 def test_library_name_follows_source_and_headers(tmp_path):
