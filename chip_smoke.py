@@ -34,12 +34,14 @@ the script exits non-zero and prints no result. `--phases` runs a subset;
 the extra phase `profile` (not run by default) prints where an update's
 device time goes, its launches and the device's idle share.
 
-`--compare NAME=SOURCE` (NAME one of imagine_actor, imagine, observe) runs
-no phase and prints no result line: it builds the kernel's source in the tree and the other
-version of it in the file SOURCE (its includes beside it), runs both on
-the xarm inputs, says whether their outputs are equal bit for bit, and
-times them in turns (tree, other, other, tree) in float32 and bfloat16:
-how a change to a kernel is held against its parent inside one run.
+`--compare NAME=SOURCE` (NAME one of imagine_actor, imagine, observe,
+observe_fwd, observe_bwd; the option may be given several times) runs no
+phase and prints no result line: it builds the kernel's source in the tree
+and the other version of it in the file SOURCE (its includes beside it),
+runs both on the xarm inputs of the kernel check, says whether their
+outputs are equal bit for bit, and times them in turns (tree, other, other,
+tree) in bfloat16 and float32: how a change to a kernel is held against its
+parent inside one run.
 """
 
 import argparse
@@ -706,14 +708,17 @@ def check_proof_kernels():
 
 
 def phase_compare(spec):
-  """The tree's build of a rollout kernel against another version of its
+  """The tree's build of a CUDA kernel against another version of its
   source (see the module docstring)."""
   import torch
-  from daydreamer_tpu_torch.ops import build, rssm
+  from daydreamer_tpu_torch.ops import build, rssm, rssm_vjp
   name, _, source = spec.partition('=')
-  if name not in ('imagine_actor', 'imagine', 'observe') or not source:
+  modules = {'imagine_actor': rssm, 'imagine': rssm, 'observe': rssm,
+             'observe_fwd': rssm_vjp, 'observe_bwd': rssm_vjp}
+  if name not in modules or not source:
     raise SystemExit(f'--compare takes NAME=SOURCE, not {spec!r}.')
-  tree = getattr(rssm, name.upper())
+  module = modules[name]
+  tree = getattr(module, name.upper())
   other = build.Kernel(f'{name}_other', str(pathlib.Path(source).resolve()),
                        'another version', tree.signature)
   build.build_all([tree, other])
@@ -726,6 +731,24 @@ def phase_compare(spec):
     if name == 'observe':
       params, data, is_first, noise, _ = observe_inputs(dtype, PROOF_OBSERVE)
       call = lambda: rssm.observe_cuda(params, *data, is_first, noise=noise)
+    elif module is rssm_vjp:
+      # The inputs of `check_observe`; the backward runs on the saved
+      # forward of the tree's forward kernel.
+      shape = xarm_observe_shape()
+      params, data, is_first, noise, cts = observe_inputs(dtype, shape)
+      kw = dict(noise=noise, unimix=shape['unimix'], sample=True)
+      if name == 'observe_fwd':
+        call = lambda: rssm_vjp.observe_fwd_cuda(params, *data, is_first, **kw)
+      else:
+        deters, post, _, stochs = rssm_vjp.observe_fwd_cuda(
+            params, *data, is_first, **kw)
+        stoch0, deter0, actions, embeds = data
+        e_proj = (embeds.float() @ params['w_obs_e'].float()).to(dtype)
+        flat = lambda out: [x for o in out
+                            for x in (o if isinstance(o, list) else [o])]
+        call = lambda: flat(rssm_vjp.observe_bwd_cuda(
+            params, stoch0, deter0, actions, e_proj, is_first, deters, post,
+            stochs, cts, unimix=shape['unimix']))
     else:
       shape = XARM if name == 'imagine_actor' else PROOF_IMAGINE
       params, actor, stoch0, deter0, action0, gen = imagine_inputs(
@@ -744,16 +767,19 @@ def phase_compare(spec):
             params, stoch0, deter0, actions, noise=noise)
 
     def run(kernel):
-      setattr(rssm, name.upper(), kernel)
+      setattr(module, name.upper(), kernel)
       try:
         return call()
       finally:
-        setattr(rssm, name.upper(), tree)
+        setattr(module, name.upper(), tree)
 
     a, b = run(tree), run(other)
     torch.cuda.synchronize()
     equal = all(bool((x == y).all()) for x, y in zip(a, b))
-    log(f'compare {name} {dtype}: outputs equal bit for bit: {equal}')
+    worst = max(float((x.float() - y.float()).abs().max())
+                for x, y in zip(a, b))
+    log(f'compare {name} {dtype}: outputs equal bit for bit: {equal} '
+        f'(largest difference {worst:.3g})')
     for label, kernel in (('tree', tree), ('other', other), ('other', other),
                           ('tree', tree)):
       log(f'compare {name} {dtype}: {label} '
@@ -861,7 +887,8 @@ def main(argv=None):
   parser = argparse.ArgumentParser()
   parser.add_argument(
       '--phases', default='device,build,kernel,slice,proof,learner')
-  parser.add_argument('--compare', default='', metavar='NAME=SOURCE')
+  parser.add_argument('--compare', action='append', default=[],
+                      metavar='NAME=SOURCE')
   args = parser.parse_args(argv)
   phases = args.phases.split(',')
   import torch
@@ -878,7 +905,8 @@ def main(argv=None):
   del lambda_returns, rssm, rssm_vjp  # Imported to register their kernels.
   name = phase_device()
   if args.compare:
-    phase_compare(args.compare)
+    for spec in args.compare:
+      phase_compare(spec)
     return 0
   if 'build' in phases:
     phase_build()

@@ -9,29 +9,49 @@
 // kernel's interpret path computes: the Gumbel noise arrives as inputs,
 // and the logits it returns are raw (the caller applies the unimix).
 //
-// Bound: at the xarm shape (B=1024, H=15, D=U=512, S*C=1024, A=6, three
-// prior layers, a four-layer actor) each row-step is ~3.94 M dense
+// Bound. At the xarm shape (B=1024, H=15, D=U=512, S*C=1024, A=6, three
+// prior layers, a four-layer actor) each row-step is 3.94 M dense
 // multiply-adds plus the products with the one-hot stoch, which are sums
-// of S = 32 weight rows (S*U adds) except the first step's stoch0 @ W_in,
-// which is dense: ~122.5 GFLOP in all, ~0.124 ms at 989 TFLOP/s bf16,
-// against ~56 us for the bytes (10 MB of weights, 110 MB of outputs, 63 MB
-// of noise). So the operations bound it.
+// of S = 32 weight rows: 122.5 GFLOP in all, 0.124 ms at 989 TFLOP/s bf16,
+// against 0.056 ms for the bytes. So by the roofline the operations bound
+// it. This design has a floor of its own well above that: rows are
+// independent for the whole horizon, so a block owns R = 8 rows for all H
+// steps, 128 blocks, and every block streams all the dense weights of a
+// step, 7.9 MB in bf16, from L2 in every step: 128 x 15 x 7.9 MB = 15 GB
+// through the L2, 3-4 ms at the few TB/s it delivers, about 1 ms through
+// one SM's port. The tensor-core time of the same work is 0.2 ms. Sharing
+// each tile among the blocks of a cluster would divide the 15 GB.
 //
-// Design. Rows are independent for the whole horizon, so a block owns
-// R = 8 rows for all H steps and loops over time inside; nothing crosses
-// blocks and no grid-wide sync is needed. The block keeps its rows'
-// carries (deter, action, and the stoch as its sampled classes [S][R])
-// and every intermediate in shared memory; the weights stream from L2
-// (about 10 MB in bf16, which the 50 MB L2 holds across blocks and steps).
-// The layout, the product and the rounding are in imagine_common.cuh,
-// shared with imagine.cu. mma.sync / wgmma and an in-kernel Philox
-// generator are later work.
+// Design. The block keeps its rows' carries (deter, action, and the stoch
+// as its sampled classes [S][R]) and every intermediate in shared memory.
+// In bfloat16 the dense products run on the tensor cores (mma.sync
+// m16n8k16 with the operands swapped: the output columns are M, the 8
+// rows are N) from a ring of weight tiles that cp.async fills four stages
+// deep and that runs on across layers and steps; imagine_mma.cuh has the
+// product, the ring and their layouts. The parent kernel read two weights
+// a thread from L2 inside the k loop and multiplied in float FMAs: 18.4 ms
+// (NVIDIA H100 80GB HBM3, 700 W, xarm shape, bfloat16), paced by L2
+// latency; this one takes 6.5 ms there, of which the 15 GB alone are 5 ms
+// at the 3 TB/s the blocks draw together. Each mma starts from zero and
+// its sums are added by FADD: accumulating in the tensor cores, which
+// round toward zero, left only 88.6 % of (step, row) samples equal to the
+// plain version's, against 95.1 % so. float32, the products with the action (K or N = A) and any
+// width that is no multiple of 16 keep that FMA product, in full
+// precision; the products with the rollout's own one-hot sample stay
+// gathers of S weight rows. The action logits (N = A columns) split K
+// among the threads. Values are rounded to T exactly where the JAX cell
+// rounds (after each product, LayerNorm and ELU), so activations lose
+// nothing as bf16 operands and the kernel differs from its plain PyTorch
+// version only in the order of the sums. An in-kernel Philox generator is
+// later work.
 
-#include "imagine_common.cuh"
+#include <type_traits>
+
+#include "imagine_mma.cuh"
 
 namespace {
 
-using namespace img;
+using namespace imm;
 
 struct Params {
   const void *stoch0, *deter0, *action0;
@@ -48,83 +68,165 @@ struct Params {
   float unimix, act_unimix;
 };
 
+// Shared memory, in this order: Y [G][R] float (every product's sum), the
+// action logits [Ap][R] float, the sampled classes [S][R] int, then in T
+// the product inputs stoch0 [SC][R], deter [D][R], action [Ap][R] and two
+// hidden vectors [U][R], the schedule, and the ring's stages.
+size_t fixed_bytes(const Params& p, size_t item) {
+  const int SC = p.S * p.C;
+  const int G = 3 * p.D > SC ? 3 * p.D : SC;
+  const int Ap = (p.A + 3) / 4 * 4;
+  return (size_t)R * (4 * (G + Ap + p.S) + item * (SC + p.D + Ap + 2 * p.U)) +
+         sizeof(Schedule);
+}
+
+// Y[n][r] = X0 @ W0 (+ X1 @ W1) (+ extra) (+ bias) for product q of the
+// schedule: on the tensor cores where the schedule says so (a gather or a
+// product with the action is then added by FMA), else by FMA. The buffers
+// come as arguments, not through a closure: the compiler must go on
+// knowing that they point into shared memory.
 template <typename T>
-__global__ void __launch_bounds__(NT) imagine_actor_kernel(Params p) {
+__device__ __forceinline__ void dense(Ring& ring, const Product& q,
+                                      const T* X0, const T* X1,
+                                      const Src<T>& extra, const void* bias_,
+                                      bool round, int C, float* Y) {
+  const T* bias = static_cast<const T*>(bias_);
+  const Src<T> none = {nullptr, nullptr, 0, nullptr};
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (q.mma) {
+      dense_mma(ring, q, X0, X1, extra.W ? nullptr : bias, round && !extra.W,
+                Y);
+      if (extra.W) dense_fma<T>(extra, none, C, q.N, bias, round, Y, Y);
+      return;
+    }
+  }
+  const void* w0 = q.W[0];
+  const void* w1 = q.W[1];
+  const Src<T> first = {X0, nullptr, q.K[0], static_cast<const T*>(w0)};
+  const Src<T> second = {X1, nullptr, q.K[1], static_cast<const T*>(w1)};
+  dense_fma<T>(first, X1 ? second : extra, C, q.N, bias, round, Y, nullptr);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT) imagine_actor_kernel(Params p,
+                                                           int stages) {
   extern __shared__ __align__(16) float smem[];
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
   const int D = p.D, U = p.U, A = p.A, S = p.S, C = p.C, SC = S * C;
   const int B = p.B;
   const int G = max(3 * D, SC);
   const int Ap = (A + 3) / 4 * 4;
-  float* s_stoch = smem;
-  float* s_deter = s_stoch + SC * R;
-  float* s_act = s_deter + D * R;
-  float* s_g = s_act + Ap * R;
-  float* s_ha = s_g + G * R;
-  float* s_hb = s_ha + U * R;
-  float* s_alog = s_hb + U * R;
+  float* s_g = smem;
+  float* s_alog = s_g + G * R;
   int* s_idx = reinterpret_cast<int*>(s_alog + Ap * R);  // [S][R] classes.
-  const In none = {nullptr, nullptr, 0, nullptr};
+  T* x_stoch = reinterpret_cast<T*>(s_idx + S * R);
+  T* x_deter = x_stoch + SC * R;
+  T* x_act = x_deter + D * R;
+  T* x_ha = x_act + Ap * R;
+  T* x_hb = x_ha + U * R;
+  Schedule* sched = reinterpret_cast<Schedule*>(x_hb + U * R);
   const int row0 = blockIdx.x * R;
   const int tid = threadIdx.x;
+  auto W = [](const void* w) { return static_cast<const T*>(w); };
+  const Src<T> none = {nullptr, nullptr, 0, nullptr};
 
-  // Carries in: [B, width] in global -> [width][R] float in shared.
+  // A step's dense products, in the order the step takes them.
+  const int J_IN = 0, J_GRU = 1, J_OUT = 2, J_ST = 2 + p.n_out;
+  const int J_AD = J_ST + 1, J_AH = J_AD + 1;
+  if (tid == 0) {
+    auto set = [&](int j, const void* w0, int k0, const void* w1, int k1,
+                   int n, bool first_only) {
+      Product& q = sched->prod[j];
+      q.W[0] = static_cast<const bf16*>(w0);
+      q.W[1] = static_cast<const bf16*>(w1);
+      q.K[0] = k0;
+      q.K[1] = k1;
+      q.N = n;
+      q.mma = kBf16 && stages >= 2 && k0 % 16 == 0 && k1 % 16 == 0 &&
+              n % 16 == 0;
+      q.first_only = first_only;
+    };
+    set(J_IN, p.w_in_s, SC, nullptr, 0, U, true);
+    set(J_GRU, p.w_gru_d, D, p.w_gru_x, U, 3 * D, false);
+    for (int l = 0; l < p.n_out; ++l)
+      set(J_OUT + l, p.w_out[l], l == 0 ? D : U, nullptr, 0, U, false);
+    set(J_ST, p.w_st, U, nullptr, 0, SC, false);
+    set(J_AD, p.a_w_d, D, nullptr, 0, U, false);
+    for (int l = 0; l + 1 < p.n_act; ++l)
+      set(J_AH + l, p.a_w_h[l], U, nullptr, 0, U, false);
+    sched->count = J_AH + p.n_act - 1;
+  }
+  __syncthreads();
+  Ring ring;
+  ring.base = reinterpret_cast<bf16*>(sched + 1);
+  ring.sched = sched;
+  ring.stages = stages;
+  ring.steps = p.H;
+  if (kBf16 && stages >= 2) start(ring);
+
+  // Carries in: [B, width] in global -> [width][R] in shared.
   for (int i = tid; i < R * SC; i += NT) {
     const int r = i / SC, j = i % SC, row = row0 + r;
-    s_stoch[j * R + r] =
-        row < B ? to_f(static_cast<const T*>(p.stoch0)[(size_t)row * SC + j])
-                : 0.f;
+    x_stoch[j * R + r] =
+        row < B ? W(p.stoch0)[(size_t)row * SC + j] : from_f<T>(0.f);
   }
   for (int i = tid; i < R * D; i += NT) {
     const int r = i / D, j = i % D, row = row0 + r;
-    s_deter[j * R + r] =
-        row < B ? to_f(static_cast<const T*>(p.deter0)[(size_t)row * D + j])
-                : 0.f;
+    x_deter[j * R + r] =
+        row < B ? W(p.deter0)[(size_t)row * D + j] : from_f<T>(0.f);
   }
   for (int i = tid; i < R * Ap; i += NT) {
     const int r = i / Ap, j = i % Ap, row = row0 + r;
-    s_act[j * R + r] =
-        (row < B && j < A)
-            ? to_f(static_cast<const T*>(p.action0)[(size_t)row * A + j])
-            : 0.f;
+    x_act[j * R + r] = (row < B && j < A)
+                           ? W(p.action0)[(size_t)row * A + j]
+                           : from_f<T>(0.f);
   }
   __syncthreads();
 
   for (int t = 0; t < p.H; ++t) {
     // Image cell input: [stoch, action] @ W_in, LN, ELU. From step 1 the
     // stoch is the kernel's own one-hot sample; stoch0 may be any value.
-    dense<T>({s_stoch, t > 0 ? s_idx : nullptr, SC, p.w_in_s},
-             {s_act, nullptr, A, p.w_in_a}, C, U, nullptr, true, s_ha);
-    ln_act<T>(s_ha, U, p.ln_in_s, p.ln_in_b, true);
+    const Src<T> act = {x_act, nullptr, A, W(p.w_in_a)};
+    if (t == 0) {
+      dense<T>(ring, sched->prod[J_IN], x_stoch, nullptr, act, nullptr, true,
+             C, s_g);
+    } else {
+      const Src<T> onehot = {nullptr, s_idx, SC, W(p.w_in_s)};
+      dense_fma<T>(onehot, act, C, U, nullptr, true, s_g, nullptr);
+    }
+    ln_act_to<T>(s_g, U, W(p.ln_in_s), W(p.ln_in_b), true, x_ha, nullptr);
     // GRU gates: [deter, x] @ W_gru, LN; update bias -1.
-    dense<T>({s_deter, nullptr, D, p.w_gru_d}, {s_ha, nullptr, U, p.w_gru_x},
-             C, 3 * D, nullptr, true, s_g);
-    ln_act<T>(s_g, 3 * D, p.ln_gru_s, p.ln_gru_b, false);
+    dense<T>(ring, sched->prod[J_GRU], x_deter, x_ha, none, nullptr, true,
+             C, s_g);
+    ln_act_to<T>(s_g, 3 * D, W(p.ln_gru_s), W(p.ln_gru_b), false, nullptr,
+                 s_g);
     for (int i = tid; i < D * R; i += NT) {
       const int d = i / R, r = i % R;
       const float reset = sigmoid(s_g[d * R + r]);
       const float cand = tanhf(reset * s_g[(D + d) * R + r]);
       const float update = sigmoid(s_g[(2 * D + d) * R + r] - 1.f);
-      s_deter[i] = rnd<T>(update * cand + (1.f - update) * s_deter[i]);
+      x_deter[i] =
+          from_f<T>(update * cand + (1.f - update) * to_f(x_deter[i]));
     }
     __syncthreads();
     for (int i = tid; i < R * D; i += NT) {
       const int r = i / D, j = i % D, row = row0 + r;
       if (row < B)
         static_cast<T*>(p.deter_out)[((size_t)t * B + row) * D + j] =
-            from_f<T>(s_deter[j * R + r]);
+            x_deter[j * R + r];
     }
     // Prior MLP and the raw prior logits.
-    const float* h = s_deter;
-    int width = D;
+    const T* h = x_deter;
     for (int l = 0; l < p.n_out; ++l) {
-      float* out = (l % 2 == 0) ? s_ha : s_hb;
-      dense<T>({h, nullptr, width, p.w_out[l]}, none, C, U, nullptr, true,
-               out);
-      ln_act<T>(out, U, p.ln_out_s[l], p.ln_out_b[l], true);
+      T* out = (l % 2 == 0) ? x_ha : x_hb;
+      dense<T>(ring, sched->prod[J_OUT + l], h, nullptr, none, nullptr, true,
+             C, s_g);
+      ln_act_to<T>(s_g, U, W(p.ln_out_s[l]), W(p.ln_out_b[l]), true, out,
+                   nullptr);
       h = out;
-      width = U;
     }
-    dense<T>({h, nullptr, width, p.w_st}, none, C, SC, p.b_st, false, s_g);
+    dense<T>(ring, sched->prod[J_ST], h, nullptr, none, p.b_st, false,
+             C, s_g);
     for (int i = tid; i < R * SC; i += NT) {
       const int r = i / SC, j = i % SC, row = row0 + r;
       if (row < B)
@@ -164,19 +266,28 @@ __global__ void __launch_bounds__(NT) imagine_actor_kernel(Params p) {
     }
     __syncthreads();
     // Actor MLP over [deter, stoch], then the action logits.
-    dense<T>({s_deter, nullptr, D, p.a_w_d}, {nullptr, s_idx, SC, p.a_w_s}, C,
-             U, nullptr, true, s_ha);
-    ln_act<T>(s_ha, U, p.a_ln_s[0], p.a_ln_b[0], true);
-    h = s_ha;
+    const Src<T> sampled = {nullptr, s_idx, SC, W(p.a_w_s)};
+    dense<T>(ring, sched->prod[J_AD], x_deter, nullptr, sampled, nullptr, true,
+             C, s_g);
+    ln_act_to<T>(s_g, U, W(p.a_ln_s[0]), W(p.a_ln_b[0]), true, x_ha, nullptr);
+    h = x_ha;
     for (int l = 1; l < p.n_act; ++l) {
-      float* out = (l % 2 == 1) ? s_hb : s_ha;
-      dense<T>({h, nullptr, U, p.a_w_h[l - 1]}, none, C, U, nullptr, true,
-               out);
-      ln_act<T>(out, U, p.a_ln_s[l], p.a_ln_b[l], true);
+      T* out = (l % 2 == 1) ? x_hb : x_ha;
+      dense<T>(ring, sched->prod[J_AH + l - 1], h, nullptr, none, nullptr, true,
+             C, s_g);
+      ln_act_to<T>(s_g, U, W(p.a_ln_s[l]), W(p.a_ln_b[l]), true, out,
+                   nullptr);
       h = out;
     }
-    dense<T>({h, nullptr, U, p.a_w_out}, none, C, A, p.a_b_out, false,
-             s_alog);
+    // Y is free now: scratch for the K slices of the A action logits.
+    const int slices = min(NT, G) / max(A, 1);
+    if (slices >= 2) {
+      dense_narrow<T>(h, U, W(p.a_w_out), A, W(p.a_b_out), slices, s_g,
+                      s_alog);
+    } else {
+      const Src<T> last = {h, nullptr, U, W(p.a_w_out)};
+      dense_fma<T>(last, none, C, A, W(p.a_b_out), false, s_alog, nullptr);
+    }
     // Action: act-unimix on the logits, then a Gumbel-max one-hot.
     if (tid < R) {
       const int r = tid, row = row0 + r;
@@ -197,7 +308,7 @@ __global__ void __launch_bounds__(NT) imagine_actor_kernel(Params p) {
       }
       for (int a = 0; a < A; ++a) {
         const float v = (a == best) ? 1.f : 0.f;
-        s_act[a * R + r] = v;
+        x_act[a * R + r] = from_f<T>(v);
         if (row < B)
           static_cast<T*>(p.action_out)[((size_t)t * B + row) * A + a] =
               from_f<T>(v);
@@ -205,22 +316,29 @@ __global__ void __launch_bounds__(NT) imagine_actor_kernel(Params p) {
     }
     __syncthreads();
   }
+  if (kBf16 && stages >= 2) ptx::cp_async_wait<0>();
 }
+
+// A block's dynamic shared memory on sm_90a.
+constexpr size_t SHARED_LIMIT = 232448;
 
 template <typename T>
 int launch(const Params& p, cudaStream_t stream) {
-  const int SC = p.S * p.C;
-  const int G = 3 * p.D > SC ? 3 * p.D : SC;
-  const int Ap = (p.A + 3) / 4 * 4;
-  const size_t floats =
-      (size_t)R * (SC + p.D + Ap + G + 2 * p.U + Ap + p.S);  // + s_idx.
-  const size_t bytes = floats * sizeof(float);
+  size_t bytes = fixed_bytes(p, sizeof(T));
+  // As many stages as fit, at most MAXSTAGES; under two the bfloat16
+  // products go by FMA too.
+  int stages = 0;
+  if (std::is_same<T, bf16>::value && bytes < SHARED_LIMIT) {
+    const size_t fit = (SHARED_LIMIT - bytes) / (TILE * sizeof(bf16));
+    stages = fit >= MAXSTAGES ? MAXSTAGES : (fit >= 2 ? (int)fit : 0);
+  }
+  bytes += (size_t)stages * TILE * sizeof(bf16);
   cudaError_t err = cudaFuncSetAttribute(
       imagine_actor_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (p.B + R - 1) / R;
-  imagine_actor_kernel<T><<<blocks, NT, bytes, stream>>>(p);
+  imagine_actor_kernel<T><<<blocks, NT, bytes, stream>>>(p, stages);
   return (int)cudaGetLastError();
 }
 

@@ -18,26 +18,42 @@
 // (2.6 M to recompute, 4.2 M transposed) plus a gather, 14.0 GFLOP in all,
 // 14.2 us at 989 TFLOP/s; the bytes are 8 MB of bf16 weights once and about
 // 61 MB of saved forward, cotangents and emitted adjoints, 20.8 us at
-// 3.35 TB/s, so by the roofline the bytes bound it. As in the forward
-// kernel the roofline does not describe it: 32 independent rows and 32
-// dependent steps of some fifteen dependent layers make it a latency-bound
-// chain.
+// 3.35 TB/s, so by the roofline the bytes bound it. The roofline does not
+// describe it: 32 independent rows and 32 dependent steps of fifteen
+// dependent products make it a chain, and each pair of rows pulls the
+// 13.6 MB of weights and transposed copies from L2 in every step: 16 x 32
+// x 13.6 MB = 7 GB, about 1.5 ms at the L2's rate, whatever the number of
+// SMs that share the pulling. The chain is float32 throughout and its
+// gradients are held to 1e-4 of their scale, so bf16 tensor cores are not
+// the tool.
 //
-// Design. The forward kernel's (observe_common.cuh): a block owns R = 2
-// rows for all T steps, everything a step recomputes (the layers' xhat and
-// 1/std, the masked inputs, this step's deter) and its adjoints stay in
-// shared memory, about 160 KB, and the weights stream from L2. The GRU's
-// gates are recomputed from the gates' xhat where the adjoint needs them,
-// which saves four vectors per row. A transposed product a @ W^T reads a
-// transposed copy of W that the wrapper makes, so it is the same coalesced
-// dense() as every other product. From step 1 on the incoming stoch is the
-// forward's one-hot, read back as its classes, and its product is a gather.
+// Design. With a block for each pair of rows (the parent kernel) 16 SMs
+// worked and 116 idled: 8.5 ms (NVIDIA H100 80GB HBM3, 700 W, xarm shape,
+// bfloat16), of which 4.9 ms were the products, each SM pulling its
+// 13.6 MB a step at 90 GB/s, close to what one SM's port takes in. Here a
+// thread block cluster of 4 blocks owns the pair of rows, 16 clusters on 64
+// SMs (why not 8 blocks: observe_cluster.cuh). Every rank keeps the step's
+// vectors in its own shared memory, about 160 KB, and computes a quarter of
+// every product's columns, which it writes into all four shared memories
+// before the cluster's barrier; everything between the products every
+// rank computes for itself, in the same order, so the ranks never differ
+// by a bit. That brings the products to 2.5 ms and the kernel to 6.3 ms.
+// What is left is no product: 3.7 ms of LayerNorms, the softmax of the
+// posterior gradient, the GRU's elementwise part, loads, stores and some
+// 110 block barriers a step, a chain of small dependent phases that a
+// cluster does not shorten, because every rank repeats it. Each emitted
+// adjoint is stored by one rank, in turns. The GRU's gates are recomputed
+// from the gates' xhat where the adjoint needs them, which saves four
+// vectors per row. A transposed product a @ W^T reads a transposed copy of
+// W that the wrapper makes, so it is the same coalesced product as every
+// other. From step 1 on the incoming stoch is the forward's one-hot, read
+// back as its classes, and its product is a gather.
 
-#include "observe_common.cuh"
+#include "observe_cluster.cuh"
 
 namespace {
 
-using namespace obs;
+using namespace obc;
 
 struct Params {
   const void *stoch0, *deter0, *actions, *eproj;
@@ -69,8 +85,14 @@ __device__ __forceinline__ void elu_bwd(float* G, int N, const float* xhat,
   __syncthreads();
 }
 
+// Every rank holds every emitted vector; one of them stores it, in turns.
+__device__ __forceinline__ bool my_turn(int& turn, int rank) {
+  return turn++ % CL == rank;
+}
+
 template <typename T>
-__global__ void __launch_bounds__(NT) observe_bwd_kernel(Params p) {
+__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT)
+    observe_bwd_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
   const int D = p.D, U = p.U, A = p.A, S = p.S, C = p.C, B = p.B;
   const int SC = S * C, n_out = p.n_out;
@@ -94,19 +116,22 @@ __global__ void __launch_bounds__(NT) observe_bwd_kernel(Params p) {
   float* s_inv = c_dd + D * R;          // 1/std: in, gru, obs, prior i.
   float* s_keep = s_inv + (3 + MAXL) * R;
   float* s_red = s_keep + R;
-  float* s_scratch = s_red + NW * R;
+  float* s_scratch = s_red + 2 * NW * R;
   int* s_idx = reinterpret_cast<int*>(s_scratch + SCRATCH);
   float* inv1 = s_inv;
   float* invg = s_inv + R;
   float* inv2 = s_inv + 2 * R;
   float* invq = s_inv + 3 * R;
-  const int tid = threadIdx.x, row0 = blockIdx.x * R;
+  const int tid = threadIdx.x, row0 = blockIdx.x / CL * R;
+  const int rank = ptx::cluster_rank();
+  int turn = 0;  // Counts the emitted vectors, see my_turn().
   const In<T> none = {nullptr, nullptr, nullptr, 0, nullptr};
   auto W = [](const void* w) { return static_cast<const T*>(w); };
 
   for (int i = tid; i < SC * R; i += NT) c_ds[i] = 0.f;
   for (int i = tid; i < D * R; i += NT) c_dd[i] = 0.f;
-  __syncthreads();
+  // No rank writes into another's shared memory before all have started.
+  ptx::cluster_sync();
 
   for (int t = p.T - 1; t >= 0; --t) {
     const size_t tb = (size_t)t * B;
@@ -137,18 +162,25 @@ __global__ void __launch_bounds__(NT) observe_bwd_kernel(Params p) {
     }
     load_rows(b_a, W(p.actions) + tb * A, A, row0, B, s_keep);
     load_rows(b_xh2, W(p.eproj) + tb * U, U, row0, B, nullptr);
+    // dd_out + carry, which two products of the step add to: set up here,
+    // before the barrier ahead of the first of them (see cdense()).
+    for (int i = tid; i < R * D; i += NT) {
+      const int r = i / D, j = i % D, row = row0 + r;
+      b_ddt[j * R + r] =
+          (row < B ? p.dd_out[(tb + row) * D + j] : 0.f) + c_dd[j * R + r];
+    }
     __syncthreads();
     const In<T> stoch = t == 0
         ? In<T>{b_big, nullptr, nullptr, SC, W(p.w_in_s)}
         : In<T>{nullptr, s_idx, s_keep, SC, W(p.w_in_s)};
-    dense<T>(b_xh1, U, stoch, {b_a, nullptr, nullptr, A, W(p.w_in_a)}, C,
-             nullptr, nullptr, s_scratch);
-    ln_fwd<T>(b_xh1, U, W(p.ln_in_s), W(p.ln_in_b), b_xh1, inv1, true, b_x1,
+    cdense<T>(b_xh1, U, stoch, {b_a, nullptr, nullptr, A, W(p.w_in_a)}, C,
+             nullptr, nullptr, s_scratch, rank);
+    ln_forward<T>(b_xh1, U, W(p.ln_in_s), W(p.ln_in_b), b_xh1, inv1, true, b_x1,
               s_red);
-    dense<T>(b_xhg, 3 * D, {b_dm, nullptr, nullptr, D, W(p.w_gru_d)},
+    cdense<T>(b_xhg, 3 * D, {b_dm, nullptr, nullptr, D, W(p.w_gru_d)},
              {b_x1, nullptr, nullptr, U, W(p.w_gru_x)}, C, nullptr, nullptr,
-             s_scratch);
-    ln_fwd<T>(b_xhg, 3 * D, W(p.ln_gru_s), W(p.ln_gru_b), b_xhg, invg, false,
+             s_scratch, rank);
+    ln_forward<T>(b_xhg, 3 * D, W(p.ln_gru_s), W(p.ln_gru_b), b_xhg, invg, false,
               nullptr, s_red);
     {
       const T* gs = W(p.ln_gru_s);
@@ -173,18 +205,18 @@ __global__ void __launch_bounds__(NT) observe_bwd_kernel(Params p) {
       for (int l = 0; l < n_out; ++l) {
         float* xh = b_xhq + (size_t)l * U * R;
         float* act = l + 1 == n_out ? nullptr : (l % 2 == 0 ? b_p0 : b_p1);
-        dense<T>(xh, U, {h, nullptr, nullptr, width, W(p.w_out[l])}, none, C,
-                 nullptr, nullptr, s_scratch);
-        ln_fwd<T>(xh, U, W(p.ln_out_s[l]), W(p.ln_out_b[l]), xh, invq + l * R,
+        cdense<T>(xh, U, {h, nullptr, nullptr, width, W(p.w_out[l])}, none, C,
+                 nullptr, nullptr, s_scratch, rank);
+        ln_forward<T>(xh, U, W(p.ln_out_s[l]), W(p.ln_out_b[l]), xh, invq + l * R,
                   true, act, s_red);
         h = act;
         width = U;
       }
     }
     // z2 = d_t @ w_obs_d + e_proj (loaded into b_xh2 above).
-    dense<T>(b_xh2, U, {b_dt, nullptr, nullptr, D, W(p.w_obs_d)}, none, C,
-             nullptr, b_xh2, s_scratch);
-    ln_fwd<T>(b_xh2, U, W(p.ln_obs_s), W(p.ln_obs_b), b_xh2, inv2, false,
+    cdense<T>(b_xh2, U, {b_dt, nullptr, nullptr, D, W(p.w_obs_d)}, none, C,
+             nullptr, b_xh2, s_scratch, rank);
+    ln_forward<T>(b_xh2, U, W(p.ln_obs_s), W(p.ln_obs_b), b_xh2, inv2, false,
               nullptr, s_red);
 
     // ---- Posterior-logit gradient --------------------------------------
@@ -215,30 +247,30 @@ __global__ void __launch_bounds__(NT) observe_bwd_kernel(Params p) {
       }
     }
     __syncthreads();
+    const bool emit = my_turn(turn, rank);
     for (int i = tid; i < R * SC; i += NT) {
       const int r = i / SC, j = i % SC, row = row0 + r;
       if (row < B) {
         const float v = b_big[j * R + r] + p.dpl[(tb + row) * SC + j];
         b_big[j * R + r] = v;
-        p.dpl_total[(tb + row) * SC + j] = v;
+        if (emit) p.dpl_total[(tb + row) * SC + j] = v;
       }
     }
     __syncthreads();
 
     // ---- Posterior head --------------------------------------------------
-    dense<T>(b_t1, U, {b_big, nullptr, nullptr, SC, W(p.t_post)}, none, C,
-             nullptr, nullptr, s_scratch);
+    cdense<T>(b_t1, U, {b_big, nullptr, nullptr, SC, W(p.t_post)}, none, C,
+             nullptr, nullptr, s_scratch, rank);
     elu_bwd<T>(b_t1, U, b_xh2, W(p.ln_obs_s), W(p.ln_obs_b));
-    store_rows(p.dn2 + tb * U, b_t1, U, row0, B);
-    ln_bwd<T>(b_t1, U, b_xh2, inv2, W(p.ln_obs_s), s_red);
-    store_rows(p.dz2 + tb * U, b_t1, U, row0, B);
-    // dd_t = dd_out + carry + dz2 @ w_obs_d^T.
-    load_rows(b_ddt, p.dd_out + tb * D, D, row0, B, nullptr);
-    __syncthreads();
-    for (int i = tid; i < D * R; i += NT) b_ddt[i] += c_dd[i];
-    __syncthreads();
-    dense<T>(b_ddt, D, {b_t1, nullptr, nullptr, U, W(p.t_obs_d)}, none, C,
-             nullptr, b_ddt, s_scratch);
+    if (my_turn(turn, rank))
+      store_rows(p.dn2 + tb * U, b_t1, U, row0, B);
+    ln_backward<T>(b_t1, U, b_xh2, inv2, W(p.ln_obs_s), s_red);
+    if (my_turn(turn, rank))
+      store_rows(p.dz2 + tb * U, b_t1, U, row0, B);
+    // dd_t = dd_out + carry (in b_ddt since the step's start) + dz2 @
+    // w_obs_d^T.
+    cdense<T>(b_ddt, D, {b_t1, nullptr, nullptr, U, W(p.t_obs_d)}, none, C,
+             nullptr, b_ddt, s_scratch, rank);
 
     // ---- Prior head ------------------------------------------------------
     load_rows(b_big, p.dprl + tb * SC, SC, row0, B, nullptr);
@@ -246,23 +278,25 @@ __global__ void __launch_bounds__(NT) observe_bwd_kernel(Params p) {
     {
       float* cur = b_p0;
       float* other = b_p1;
-      dense<T>(cur, U, {b_big, nullptr, nullptr, SC, W(p.t_st)}, none, C,
-               nullptr, nullptr, s_scratch);
+      cdense<T>(cur, U, {b_big, nullptr, nullptr, SC, W(p.t_st)}, none, C,
+               nullptr, nullptr, s_scratch, rank);
       for (int l = n_out - 1; l >= 0; --l) {
         const float* xh = b_xhq + (size_t)l * U * R;
         elu_bwd<T>(cur, U, xh, W(p.ln_out_s[l]), W(p.ln_out_b[l]));
-        store_rows(p.dm[l] + tb * U, cur, U, row0, B);
-        ln_bwd<T>(cur, U, xh, invq + l * R, W(p.ln_out_s[l]), s_red);
-        store_rows(p.dq[l] + tb * U, cur, U, row0, B);
+        if (my_turn(turn, rank))
+          store_rows(p.dm[l] + tb * U, cur, U, row0, B);
+        ln_backward<T>(cur, U, xh, invq + l * R, W(p.ln_out_s[l]), s_red);
+        if (my_turn(turn, rank))
+          store_rows(p.dq[l] + tb * U, cur, U, row0, B);
         if (l > 0) {
-          dense<T>(other, U, {cur, nullptr, nullptr, U, W(p.t_out[l])}, none,
-                   C, nullptr, nullptr, s_scratch);
+          cdense<T>(other, U, {cur, nullptr, nullptr, U, W(p.t_out[l])}, none,
+                   C, nullptr, nullptr, s_scratch, rank);
           float* swap = cur;
           cur = other;
           other = swap;
         } else {
-          dense<T>(b_ddt, D, {cur, nullptr, nullptr, U, W(p.t_out[0])}, none,
-                   C, nullptr, b_ddt, s_scratch);
+          cdense<T>(b_ddt, D, {cur, nullptr, nullptr, U, W(p.t_out[0])}, none,
+                   C, nullptr, b_ddt, s_scratch, rank);
         }
       }
     }
@@ -292,34 +326,40 @@ __global__ void __launch_bounds__(NT) observe_bwd_kernel(Params p) {
       }
     }
     __syncthreads();
-    store_rows(p.dng + tb * 3 * D, b_dng, 3 * D, row0, B);
-    ln_bwd<T>(b_dng, 3 * D, b_xhg, invg, W(p.ln_gru_s), s_red);
-    store_rows(p.dzg + tb * 3 * D, b_dng, 3 * D, row0, B);
-    dense<T>(b_t1, U, {b_dng, nullptr, nullptr, 3 * D, W(p.t_gru_x)}, none, C,
-             nullptr, nullptr, s_scratch);
-    dense<T>(b_ddm, D, {b_dng, nullptr, nullptr, 3 * D, W(p.t_gru_d)}, none,
-             C, nullptr, b_ddm, s_scratch);
+    if (my_turn(turn, rank))
+      store_rows(p.dng + tb * 3 * D, b_dng, 3 * D, row0, B);
+    ln_backward<T>(b_dng, 3 * D, b_xhg, invg, W(p.ln_gru_s), s_red);
+    if (my_turn(turn, rank))
+      store_rows(p.dzg + tb * 3 * D, b_dng, 3 * D, row0, B);
+    cdense<T>(b_t1, U, {b_dng, nullptr, nullptr, 3 * D, W(p.t_gru_x)}, none, C,
+             nullptr, nullptr, s_scratch, rank);
+    cdense<T>(b_ddm, D, {b_dng, nullptr, nullptr, 3 * D, W(p.t_gru_d)}, none,
+             C, nullptr, b_ddm, s_scratch, rank);
 
     // ---- Input layer -------------------------------------------------------
     elu_bwd<T>(b_t1, U, b_xh1, W(p.ln_in_s), W(p.ln_in_b));
-    store_rows(p.dn1 + tb * U, b_t1, U, row0, B);
-    ln_bwd<T>(b_t1, U, b_xh1, inv1, W(p.ln_in_s), s_red);
-    store_rows(p.dz1 + tb * U, b_t1, U, row0, B);
-    dense<T>(c_ds, SC, {b_t1, nullptr, nullptr, U, W(p.t_in_s)}, none, C,
-             nullptr, nullptr, s_scratch);
+    if (my_turn(turn, rank))
+      store_rows(p.dn1 + tb * U, b_t1, U, row0, B);
+    ln_backward<T>(b_t1, U, b_xh1, inv1, W(p.ln_in_s), s_red);
+    if (my_turn(turn, rank))
+      store_rows(p.dz1 + tb * U, b_t1, U, row0, B);
+    cdense<T>(c_ds, SC, {b_t1, nullptr, nullptr, U, W(p.t_in_s)}, none, C,
+             nullptr, nullptr, s_scratch, rank);
     for (int i = tid; i < SC * R; i += NT) c_ds[i] *= s_keep[i % R];
     for (int i = tid; i < D * R; i += NT) c_dd[i] = b_ddm[i] * s_keep[i % R];
     __syncthreads();
   }
-  store_rows(p.ds0, c_ds, SC, row0, B);
-  store_rows(p.dd0, c_dd, D, row0, B);
+  if (my_turn(turn, rank))
+    store_rows(p.ds0, c_ds, SC, row0, B);
+  if (my_turn(turn, rank))
+    store_rows(p.dd0, c_dd, D, row0, B);
 }
 
 size_t smem_bytes(const Params& p) {
   const int SC = p.S * p.C;
   const size_t floats =
       (size_t)R * (2 * SC + 11 * p.D + p.A + (6 + p.n_out) * p.U +
-                   (3 + MAXL) + 1 + NW + SCRATCH / R + p.S);
+                   (3 + MAXL) + 1 + 2 * NW + SCRATCH / R + p.S);
   return floats * sizeof(float);
 }
 
@@ -330,7 +370,7 @@ int launch(const Params& p, cudaStream_t stream) {
       observe_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (p.B + R - 1) / R;
+  const int blocks = (p.B + R - 1) / R * CL;  // A cluster a pair of rows.
   observe_bwd_kernel<T><<<blocks, NT, bytes, stream>>>(p);
   return (int)cudaGetLastError();
 }

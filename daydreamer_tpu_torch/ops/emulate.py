@@ -4,12 +4,15 @@
 
 compiles every source of `csrc/` (`observe_fwd.cu`, `observe_bwd.cu`,
 `imagine_actor.cu`, `imagine.cu`, `observe.cu`) with g++ against the
-stand-in headers of `csrc/emulate/` (one OS thread per CUDA thread, see
-`emulate.h`), calls them through the real wrappers of `rssm_vjp.py` and
+stand-in headers of `csrc/emulate/` (one OS thread per CUDA thread, the
+blocks of a cluster side by side, see `emulate.h`; `cp.async`, `ldmatrix`,
+`mma.sync` and the cluster's barrier and shared memory as `ptx.h` stands in
+for them), calls them through the real wrappers of `rssm_vjp.py` and
 `rssm.py` on CPU tensors at tiny widths, and holds each against its plain
-version in float32 and bfloat16. It checks a kernel's indices, layouts and formulas before a
-card is at hand; it does not replace the check on the card (`chip_smoke.py`)
-and says nothing about speed. Exit code 0: agreed; 1: disagreed; 75: cannot
+version in float32 and bfloat16. It checks a kernel's indices, layouts and
+formulas before a card is at hand; it does not replace the check on the
+card (`chip_smoke.py`), cannot be relied on for a missing barrier or a race
+between the ranks of a cluster, and says nothing about speed. Exit code 0: agreed; 1: disagreed; 75: cannot
 run here (no g++ with C++20).
 """
 
@@ -35,21 +38,38 @@ SHIM = build.CSRC / 'emulate'
 CANNOT_RUN = 75
 _SHARED = re.compile(r'extern __shared__ __align__\(16\) float (\w+)\[\];')
 _LAUNCH = re.compile(r'(\w+<T>)<<<(.*?)>>>\((.*?)\);')
+_CLUSTER = re.compile(r'__cluster_dims__\((\w+)')
 
 
 class Unavailable(RuntimeError):
   """There is no compiler here that can build the emulation."""
 
 
-def compile_kernel(kernel, outdir):
-  """g++ the kernel's source, with its launch and its shared memory handed
-  to the stand-in, into a shared library; returns the loaded library."""
+def _gxx(args):
+  """Runs g++ with the emulation's flags; raises Unavailable where there is
+  no g++ or it lacks C++20."""
   compiler = shutil.which('g++')
   if compiler is None:
     raise Unavailable('g++ not found.')
+  done = subprocess.run(
+      [compiler, '-std=c++20', '-O1', '-shared', '-fPIC', '-pthread',
+       '-Wno-unknown-pragmas', f'-I{SHIM}', f'-I{build.CSRC}', *args],
+      capture_output=True, text=True)
+  if done.returncode != 0:
+    if '<barrier>' in done.stderr or 'c++20' in done.stderr:
+      raise Unavailable(done.stderr)
+    raise RuntimeError(f'g++ failed:\n{done.stderr}')
+
+
+def compile_kernel(kernel, outdir):
+  """g++ the kernel's source, with its launch and its shared memory handed
+  to the stand-in, into a shared library; returns the loaded library."""
   text = kernel.source.read_text()
   text, shared = _SHARED.subn(r'float* \1 = emu::smem;', text)
-  text, launches = _LAUNCH.subn(r'emu::launch(\1, \2, \3);', text)
+  cluster = _CLUSTER.search(text)  # Its blocks run side by side.
+  cluster = cluster.group(1) if cluster else '1'
+  text, launches = _LAUNCH.subn(
+      rf'emu::launch({cluster}, \1, \2, \3);', text)
   if not (shared and launches):
     raise ValueError(f'{kernel.source.name}: no launch or no dynamic shared '
                      'memory found to hand to the emulation.')
@@ -57,18 +77,24 @@ def compile_kernel(kernel, outdir):
   source = outdir / f'{kernel.name}.cpp'
   library = outdir / f'lib{kernel.name}_emulated.so'
   source.write_text(text)
-  done = subprocess.run(
-      [compiler, '-std=c++20', '-O1', '-shared', '-fPIC', '-pthread',
-       '-Wno-unknown-pragmas', f'-I{SHIM}', f'-I{build.CSRC}', '-o',
-       str(library), str(source)], capture_output=True, text=True)
-  if done.returncode != 0:
-    if '<barrier>' in done.stderr or 'c++20' in done.stderr:
-      raise Unavailable(done.stderr)
-    raise RuntimeError(f'g++ failed:\n{done.stderr}')
+  _gxx(['-o', str(library), str(source)])
   lib = ctypes.CDLL(str(library))
   for fn, (restype, argtypes) in kernel.signature.items():
     getattr(lib, fn).restype = restype
     getattr(lib, fn).argtypes = argtypes
+  return lib
+
+
+def compile_selftest(outdir):
+  """The library of `csrc/emulate/ptx_selftest.cpp`: `mma_fragments(a, b,
+  d)` and `mma_ldmatrix(w, x, d)` run the stand-ins of the tensor-core
+  operations on bfloat16 bit patterns and write a float [16][8]."""
+  library = pathlib.Path(outdir) / 'libptx_selftest.so'
+  _gxx(['-o', str(library), str(SHIM / 'ptx_selftest.cpp')])
+  lib = ctypes.CDLL(str(library))
+  for fn in (lib.mma_fragments, lib.mma_ldmatrix):
+    fn.restype = None
+    fn.argtypes = [ctypes.c_void_p] * 3
   return lib
 
 
@@ -212,9 +238,12 @@ def compare_rollouts(dtype, sample=True, unimix=0.01, n_act=3, **shape):
   return all(r[0] for r in results), max(r[1] for r in results)
 
 
-# The default widths; no noise# The default widths; no noise, no unimix, one prior layer; bfloat16; widths
+# The default widths; no noise, no unimix, one prior layer; bfloat16; widths
 # that are no power of two, five rows; widths that take two passes of the
-# product (3 * D and S * C above 512).
+# product (3 * D and S * C above 512); bfloat16 at the narrow widths,
+# where the backward's cluster splits 5, 9 and 2 groups of
+# columns among its 4 ranks, so that the split is ragged and ranks go
+# empty. Every case has a first step inside the chunk (`make_inputs`).
 CASES = (
     (torch.float32, {}),
     (torch.float32, dict(sample=False, unimix=0.0, B=2, T=2, n_out=1)),
@@ -222,6 +251,8 @@ CASES = (
     (torch.float32, dict(D=24, U=40, S=4, C=4, A=3, E=10, B=5, T=3,
                          n_out=3)),
     (torch.bfloat16, dict(D=176, U=64, S=36, C=16, A=6, E=24, B=2, T=2)),
+    (torch.bfloat16, dict(D=24, U=40, S=4, C=4, A=3, E=10, B=2, T=3,
+                          n_out=2)),
 )
 
 
@@ -230,7 +261,13 @@ CASES = (
 # and a one-layer actor; bfloat16; widths that are no power of two (a
 # multiple of 8, as observe's product asks), ten rows, so that the rollouts
 # take two blocks, and an action width that is a multiple of 4; widths
-# that take two passes of either product.
+# that take two passes of either product. In bfloat16 `imagine_actor` takes
+# its products to the tensor cores where every K and N is a multiple of 16
+# (the default widths: one tile a product), so once more at the widths of
+# two passes, where a product is several tiles of 16 columns a warp and 6 to
+# 18 slices of K, more than the ring's stages, the last of them half a
+# tile; and at the widths that are no multiple of 16, where every product
+# falls to the FMAs on its bfloat16 inputs.
 ROLLOUT_CASES = (
     (torch.float32, {}),
     (torch.float32, dict(sample=False, unimix=0.0, B=2, T=2, n_out=1,
@@ -239,6 +276,9 @@ ROLLOUT_CASES = (
     (torch.float32, dict(D=24, U=40, S=4, C=4, A=12, E=10, B=10, T=3,
                          n_out=3)),
     (torch.float32, dict(D=176, U=64, S=36, C=16, A=6, E=24, B=2, T=2)),
+    (torch.bfloat16, dict(D=176, U=64, S=36, C=16, A=6, E=24, B=2, T=2)),
+    (torch.bfloat16, dict(D=24, U=40, S=4, C=4, A=12, E=10, B=10, T=3,
+                          n_out=3)),
 )
 
 

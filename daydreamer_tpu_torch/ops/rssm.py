@@ -41,7 +41,7 @@ IMAGINE_ACTOR = build.register(build.Kernel(
     'imagine_actor', 'imagine_actor.cu',
     'daydreamer_tpu/ops/pallas_rssm.py:427 (_imagine_actor_kernel)',
     {'imagine_actor': build.signature(scalars=2)},
-    headers=('imagine_common.cuh',)))
+    headers=('imagine_common.cuh', 'imagine_mma.cuh', 'hopper_ptx.cuh')))
 
 IMAGINE = build.register(build.Kernel(
     'imagine', 'imagine.cu',
@@ -172,9 +172,19 @@ def _check_shared(name, nbytes):
 
 def _cell_bytes(D, U, S, C, A):
   """Shared memory of the image cell's buffers in `csrc/imagine.cu` (8 rows
-  a block); `csrc/imagine_actor.cu` adds a block of action logits."""
+  a block)."""
   padded = (A + 3) // 4 * 4
   return 4 * 8 * (S * C + D + padded + max(3 * D, S * C) + 2 * U + S)
+
+
+def _actor_bytes(D, U, S, C, A, itemsize):
+  """The least shared memory `csrc/imagine_actor.cu` takes (8 rows a
+  block): every product's float sum, the action logits, the sampled
+  classes, the product inputs in the compute type and the schedule. The
+  ring of weight tiles takes what is left, or nothing."""
+  padded = (A + 3) // 4 * 4
+  floats = max(3 * D, S * C) + padded + S
+  return 8 * (4 * floats + itemsize * (S * C + D + padded + 2 * U)) + 656
 
 
 _CELL = ('w_in_s', 'w_in_a', 'ln_in_scale', 'ln_in_bias', 'w_gru_d',
@@ -225,7 +235,7 @@ def imagine_actor_cuda(params, actor, stoch0, deter0, action0, horizon,
   n_out, n_act = len(params['w_out']), len(actor['ln_scale'])
   if S * C != SC or len(actor['w_h']) != n_act - 1:
     raise ValueError(f'{name}: inconsistent shapes.')
-  _check_shared(name, _cell_bytes(D, U, S, C, A) + 4 * 8 * ((A + 3) // 4 * 4))
+  _check_shared(name, _actor_bytes(D, U, S, C, A, stoch0.element_size()))
   weights = [
       params['w_in_s'], params['w_in_a'], params['ln_in_scale'],
       params['ln_in_bias'], params['w_gru_d'], params['w_gru_x'],

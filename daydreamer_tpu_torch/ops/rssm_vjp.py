@@ -49,7 +49,8 @@ OBSERVE_FWD = build.register(build.Kernel(
 OBSERVE_BWD = build.register(build.Kernel(
     'observe_bwd', 'observe_bwd.cu',
     'daydreamer_tpu/ops/pallas_rssm_vjp.py:280 (_obs_bwd_kernel)',
-    {'observe_bwd': build.signature()}, headers=('observe_common.cuh',)))
+    {'observe_bwd': build.signature()},
+    headers=('observe_common.cuh', 'observe_cluster.cuh', 'hopper_ptx.cuh')))
 
 # The order of the weights everywhere in this module (and of the gradients
 # `ObserveFused.backward` returns): eight cell entries, the prior layers'

@@ -268,14 +268,17 @@ def test_cuda_sources_emulated_on_cpu(tmp_path):
   """The five CUDA sources themselves (the fused observe chain's two,
   `imagine_actor.cu`, `imagine.cu`, `observe.cu`), compiled with g++ against
   the stand-in headers (`ops/emulate.py`), agree with the plain versions at
-  tiny widths in float32 and bfloat16. Run in a process of its own: the
-  emulation starts a thousand threads per block."""
+  tiny widths in float32 and bfloat16. Run in a process of its own, at a
+  lower priority: the emulation starts a thousand threads per block, four
+  blocks at once for a cluster, and would crowd the tests beside it."""
+  import os
   import subprocess
   import sys
   from daydreamer_tpu_torch.ops import emulate
   done = subprocess.run(
       [sys.executable, '-m', 'daydreamer_tpu_torch.ops.emulate', '--out',
-       str(tmp_path)], capture_output=True, text=True, timeout=600)
+       str(tmp_path)], capture_output=True, text=True, timeout=600,
+      preexec_fn=lambda: os.nice(10))
   if done.returncode == emulate.CANNOT_RUN:
     pytest.skip(f'No g++ with C++20 here: {done.stderr[-200:]}')
   assert done.returncode == 0, done.stdout + done.stderr
@@ -296,7 +299,10 @@ def test_library_name_follows_source_and_headers(tmp_path):
   second = kernel.library
   source.write_text('#include "k.cuh"\n// edited\n')
   assert len({first, second, kernel.library}) == 3
-  assert ops.OBSERVE_FWD.headers == ops.OBSERVE_BWD.headers
+  # The backward includes the forward's header and, on top of it, its own.
+  assert set(ops.OBSERVE_FWD.headers) < set(ops.OBSERVE_BWD.headers)
+  for kernel in (ops.OBSERVE_FWD, ops.OBSERVE_BWD):
+    assert all(header.exists() for header in kernel.headers)
   assert all(h.exists() for h in ops.OBSERVE_FWD.headers)
 
 
