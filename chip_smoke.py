@@ -13,7 +13,9 @@ Phases, each of which must pass:
                imagine, observe, gve) against its plain PyTorch version at
                the xarm shape, in float32 and in bfloat16 (gve: float32),
                and time both; in float32 also the whole fused observe
-               gradient against autograd of a plain loop.
+               gradient against autograd of a plain loop. It prints how
+               many thread block clusters of observe_fwd's chain fit the
+               card at once.
   4. slice   - the training path: the xarm `run=train` CLI in this process
                at its default config (`rssm.impl: pallas`) with `--imag_impl
                pallas`, a few dozen updates, with every kernel's launch
@@ -385,6 +387,12 @@ def check_observe(shape):
   T, B, S, C = (shape[k] for k in 'TBSC')
   unimix = shape['unimix']
   results = {'observe_fwd': {}, 'observe_bwd': {}}
+  dims = [shape[k] for k in ('T', 'B', 'A', 'E', 'D', 'U', 'S', 'C', 'n_out')]
+  fit = ops.observe_fwd_clusters(torch.bfloat16, *dims)
+  log(f'observe_fwd: one call launches 3 CUDA kernels (embed product, chain, '
+      f'prior head); clusters of the chain that fit the card at once '
+      f'(cudaOccupancyMaxActiveClusters, bfloat16): {fit[0]} of 4 blocks, '
+      f'{fit[1]} of 8; it needs {(B + 1) // 2}, one per pair of rows')
   for dtype in (torch.float32, torch.bfloat16):
     name = str(dtype).split('.')[-1]
     params, data, is_first, noise, cts = observe_inputs(dtype, shape)
@@ -719,8 +727,10 @@ def phase_compare(spec):
     raise SystemExit(f'--compare takes NAME=SOURCE, not {spec!r}.')
   module = modules[name]
   tree = getattr(module, name.upper())
+  # The other version exports the launch function, the tree may export
+  # more (observe_fwd_clusters).
   other = build.Kernel(f'{name}_other', str(pathlib.Path(source).resolve()),
-                       'another version', tree.signature)
+                       'another version', {name: tree.signature[name]})
   build.build_all([tree, other])
   for kernel in (tree, other):
     for line in kernel.build_log().splitlines():
@@ -878,7 +888,13 @@ def phase_profile(updates=5):
       f'busy per update, idle share {1 - busy / (wall * 1e3):.3f}, '
       f'{sum(e.count for e in kernels) // updates} kernel launches per '
       f'update')
-  for e in sorted(kernels, key=device, reverse=True)[:15]:
+  # The most device time, then the kernels of an anonymous namespace below
+  # those: the port's CUDA kernels (observe_fwd's embed product and prior
+  # head among them) and a few of PyTorch's.
+  ranked = sorted(kernels, key=device, reverse=True)
+  own = [e for e in ranked[15:]
+         if e.key.startswith('void (anonymous namespace)::')]
+  for e in ranked[:15] + own:
     log(f'  {device(e) / 1e3 / updates:9.3f} ms/update {e.count // updates:6d}'
         f' calls/update  {e.key[:90]}')
 

@@ -55,13 +55,16 @@ class Kernel:
     self._lib = None
     self._lock = threading.Lock()
 
-  @property
-  def library(self):
+  def digest(self):
+    """A hash of the source and of the headers it includes."""
     digest = hashlib.sha256(self.source.read_bytes())
     for header in self.headers:
       digest.update(header.read_bytes())
-    digest = digest.hexdigest()[:12]
-    return BUILD / f'lib{self.name}_{digest}.so'
+    return digest.hexdigest()[:12]
+
+  @property
+  def library(self):
+    return BUILD / f'lib{self.name}_{self.digest()}.so'
 
   def start_build(self):
     """Start nvcc unless the library exists; returns the process or None."""

@@ -1,25 +1,32 @@
 """Run the kernels' CUDA sources on the CPU, without nvcc or a card.
 
-    python -m daydreamer_tpu_torch.ops.emulate
+    python -m daydreamer_tpu_torch.ops.emulate [--out DIR] [--case NAME]...
 
 compiles every source of `csrc/` (`observe_fwd.cu`, `observe_bwd.cu`,
 `imagine_actor.cu`, `imagine.cu`, `observe.cu`) with g++ against the
-stand-in headers of `csrc/emulate/` (one OS thread per CUDA thread, the
+stand-in headers of `csrc/emulate/` (one fiber per CUDA thread, the
 blocks of a cluster side by side, see `emulate.h`; `cp.async`, `ldmatrix`,
 `mma.sync` and the cluster's barrier and shared memory as `ptx.h` stands in
 for them), calls them through the real wrappers of `rssm_vjp.py` and
 `rssm.py` on CPU tensors at tiny widths, and holds each against its plain
-version in float32 and bfloat16. It checks a kernel's indices, layouts and
-formulas before a card is at hand; it does not replace the check on the
-card (`chip_smoke.py`), cannot be relied on for a missing barrier or a race
-between the ranks of a cluster, and says nothing about speed. Exit code 0: agreed; 1: disagreed; 75: cannot
-run here (no g++ with C++20).
+version in float32 and bfloat16, one case after another (`--case` picks
+cases by name, `--list` names them). The libraries go to `--out` (made if
+missing; without it, a temporary directory), named by the contents of the
+source, its headers and the stand-ins, so that a library already there is
+loaded and not built again; `--build-only` builds them and stops. It checks a
+kernel's indices, layouts and formulas before a card is at hand; it does
+not replace the check on the card (`chip_smoke.py`), cannot be relied on
+for a missing barrier or a race between the ranks of a cluster, and says
+nothing about speed. Exit code 0: agreed; 1: disagreed; 75: cannot run here
+(no g++ with C++20).
 """
 
 import argparse
 import concurrent.futures
 import contextlib
 import ctypes
+import hashlib
+import os
 import pathlib
 import re
 import shutil
@@ -37,8 +44,11 @@ from . import rssm_vjp
 SHIM = build.CSRC / 'emulate'
 CANNOT_RUN = 75
 _SHARED = re.compile(r'extern __shared__ __align__\(16\) float (\w+)\[\];')
-_LAUNCH = re.compile(r'(\w+<T>)<<<(.*?)>>>\((.*?)\);')
-_CLUSTER = re.compile(r'__cluster_dims__\((\w+)')
+_LAUNCH = re.compile(r'(\w+)(<\w+>)?<<<(.*?)>>>\((.*?)\);')
+# A kernel's definition: its cluster size, where it has one, and its name.
+_KERNEL = re.compile(r'__global__\s+void\s+'
+                     r'(?:__cluster_dims__\((\w+)[^)]*\)\s+)?'
+                     r'(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(')
 
 
 class Unavailable(RuntimeError):
@@ -61,23 +71,39 @@ def _gxx(args):
     raise RuntimeError(f'g++ failed:\n{done.stderr}')
 
 
+def _shim_digest():
+  """A hash of the stand-in headers, which every emulated library
+  includes."""
+  digest = hashlib.sha256()
+  for path in sorted(SHIM.iterdir()):
+    digest.update(path.read_bytes())
+  return digest.hexdigest()[:12]
+
+
 def compile_kernel(kernel, outdir):
-  """g++ the kernel's source, with its launch and its shared memory handed
-  to the stand-in, into a shared library; returns the loaded library."""
-  text = kernel.source.read_text()
-  text, shared = _SHARED.subn(r'float* \1 = emu::smem;', text)
-  cluster = _CLUSTER.search(text)  # Its blocks run side by side.
-  cluster = cluster.group(1) if cluster else '1'
-  text, launches = _LAUNCH.subn(
-      rf'emu::launch({cluster}, \1, \2, \3);', text)
-  if not (shared and launches):
-    raise ValueError(f'{kernel.source.name}: no launch or no dynamic shared '
-                     'memory found to hand to the emulation.')
+  """g++ the kernel's source, with its launches and its shared memory
+  handed to the stand-in, into a shared library in `outdir`, unless one
+  for the same source, headers and stand-ins is there; returns the loaded
+  library."""
   outdir = pathlib.Path(outdir)
-  source = outdir / f'{kernel.name}.cpp'
-  library = outdir / f'lib{kernel.name}_emulated.so'
-  source.write_text(text)
-  _gxx(['-o', str(library), str(source)])
+  library = outdir / f'lib{kernel.name}_{kernel.digest()}_{_shim_digest()}.so'
+  if not library.exists():
+    text = kernel.source.read_text()
+    text, shared = _SHARED.subn(r'float* \1 = emu::smem;', text)
+    # Each launch takes its kernel's cluster size, whose blocks run side by
+    # side (a launch through cudaLaunchKernelEx names its own).
+    clusters = {name: size or '1' for size, name in _KERNEL.findall(text)}
+    text, launches = _LAUNCH.subn(
+        lambda m: f'emu::launch({clusters.get(m[1], "1")}, '
+                  f'{m[1]}{m[2] or ""}, {m[3]}, {m[4]});', text)
+    if not (shared and launches):
+      raise ValueError(f'{kernel.source.name}: no launch or no dynamic '
+                       'shared memory found to hand to the emulation.')
+    source = library.with_suffix(f'.{os.getpid()}.cpp')
+    source.write_text(text)
+    tmp = library.with_suffix(f'.{os.getpid()}.tmp')
+    _gxx(['-o', str(tmp), str(source)])
+    os.replace(tmp, library)
   lib = ctypes.CDLL(str(library))
   for fn, (restype, argtypes) in kernel.signature.items():
     getattr(lib, fn).restype = restype
@@ -105,6 +131,7 @@ def emulated(outdir):
   stays). The sources compile side by side."""
   kernels = (rssm_vjp.OBSERVE_FWD, rssm_vjp.OBSERVE_BWD, rssm.IMAGINE_ACTOR,
              rssm.IMAGINE, rssm.OBSERVE)
+  pathlib.Path(outdir).mkdir(parents=True, exist_ok=True)
   with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
     compiled = list(pool.map(lambda k: compile_kernel(k, outdir), kernels))
   libs = {fn: lib for kernel, lib in zip(kernels, compiled)
@@ -176,8 +203,7 @@ def compare(dtype, sample=True, unimix=0.01, **shape):
   out = rssm_vjp.observe_fwd_cuda(params, *data, first, **kw)
   ref = rssm_vjp.observe_fwd_plain(params, *data, first, **kw)
   equal = bool((out[3] == ref[3]).all())
-  fwd_err = max(float((a.float() - b.float()).abs().max())
-                for a, b in zip(out[:3], ref[:3]))
+  fwd_err = max(_error(a, b) for a, b in zip(out[:3], ref[:3]))
   stoch0, deter0, actions, embeds = data
   e_proj = (embeds.float() @ params['w_obs_e'].float()).to(dtype)
   args = (params, stoch0, deter0, actions, e_proj, first, ref[0], ref[1],
@@ -194,11 +220,19 @@ def compare(dtype, sample=True, unimix=0.01, **shape):
   return equal, fwd_err, bwd_err
 
 
+def _error(a, b):
+  """The largest |a - b|; infinite where either holds a NaN or an
+  infinity, which max() would otherwise pass over."""
+  diff = (a.float() - b.float()).abs()
+  return float(diff.max()) if bool(torch.isfinite(diff).all()) else (
+      float('inf'))
+
+
 def _forward_errors(out, ref):
   """(one-hots equal, the largest error of the other outputs); the
   one-hots come last."""
   *values, (onehot, onehot_ref) = zip(out, ref)
-  err = max(float((a.float() - b.float()).abs().max()) for a, b in values)
+  err = max(_error(a, b) for a, b in values)
   return bool((onehot == onehot_ref).all()), err
 
 
@@ -238,12 +272,21 @@ def compare_rollouts(dtype, sample=True, unimix=0.01, n_act=3, **shape):
   return all(r[0] for r in results), max(r[1] for r in results)
 
 
-# The default widths; no noise, no unimix, one prior layer; bfloat16; widths
-# that are no power of two, five rows; widths that take two passes of the
-# product (3 * D and S * C above 512); bfloat16 at the narrow widths,
-# where the backward's cluster splits 5, 9 and 2 groups of
-# columns among its 4 ranks, so that the split is ragged and ranks go
-# empty. Every case has a first step inside the chunk (`make_inputs`).
+# The default widths (T x B = 3 x 3: the last tile of 8 rows of
+# observe_fwd's embed product and prior head holds one row, the chain's
+# last pair of rows one); no noise, no unimix, one prior layer; bfloat16;
+# widths that are no power of two, five rows, an embed width E = 10; widths
+# that take two passes of the product (3 * D and S * C above 512); bfloat16
+# at the narrow widths, where the chains' cluster splits 5, 9 and 2 groups
+# of columns among its 4 ranks, so that the split is ragged and ranks go
+# empty. Then cases for the forward's prologue, chain and epilogue:
+# bfloat16 with E = 12, no multiple of 8 (a row of embeds is 24 bytes), one
+# prior layer; bfloat16 at widths of one or two groups of 8 columns a
+# product (U = 16, S * C = 8: three ranks of four own nothing), three prior
+# layers, four rows and four steps; float32 with C = 40 classes, more than
+# a warp's lanes, so that a lane of the sample takes two classes, and an
+# E = 7 with T x B = 2 x 7 rows. Every case has a first step inside the
+# chunk (`make_inputs`).
 CASES = (
     (torch.float32, {}),
     (torch.float32, dict(sample=False, unimix=0.0, B=2, T=2, n_out=1)),
@@ -253,6 +296,10 @@ CASES = (
     (torch.bfloat16, dict(D=176, U=64, S=36, C=16, A=6, E=24, B=2, T=2)),
     (torch.bfloat16, dict(D=24, U=40, S=4, C=4, A=3, E=10, B=2, T=3,
                           n_out=2)),
+    (torch.bfloat16, dict(E=12, n_out=1)),
+    (torch.bfloat16, dict(D=8, U=16, S=2, C=4, A=2, E=5, B=4, T=4,
+                          n_out=3)),
+    (torch.float32, dict(D=16, U=24, S=2, C=40, A=3, E=7, B=7, T=2)),
 )
 
 
@@ -261,13 +308,13 @@ CASES = (
 # and a one-layer actor; bfloat16; widths that are no power of two (a
 # multiple of 8, as observe's product asks), ten rows, so that the rollouts
 # take two blocks, and an action width that is a multiple of 4; widths
-# that take two passes of either product. In bfloat16 `imagine_actor` takes
-# its products to the tensor cores where every K and N is a multiple of 16
-# (the default widths: one tile a product), so once more at the widths of
-# two passes, where a product is several tiles of 16 columns a warp and 6 to
-# 18 slices of K, more than the ring's stages, the last of them half a
-# tile; and at the widths that are no multiple of 16, where every product
-# falls to the FMAs on its bfloat16 inputs.
+# that take two passes of either product. In bfloat16 `imagine_actor` and
+# `imagine` take their products to the tensor cores where every K and N is
+# a multiple of 16 (the default widths: one tile a product), so once more
+# at the widths of two passes, where a product is several tiles of 16
+# columns a warp and 6 to 18 slices of K, more than the ring's stages, the
+# last of them half a tile; and at the widths that are no multiple of 16,
+# where every product falls to the FMAs on its bfloat16 inputs.
 ROLLOUT_CASES = (
     (torch.float32, {}),
     (torch.float32, dict(sample=False, unimix=0.0, B=2, T=2, n_out=1,
@@ -282,10 +329,53 @@ ROLLOUT_CASES = (
 )
 
 
+# Every case by name: the fused chain's (forward and backward, `CASES`) and
+# the rollouts' (`ROLLOUT_CASES`), as (kind, dtype, shape).
+NAMES = {
+    f'{kind}{i}-{str(dtype).split(".")[-1]}': (kind, dtype, case)
+    for kind, cases in (('chain', CASES), ('rollout', ROLLOUT_CASES))
+    for i, (dtype, case) in enumerate(cases)}
+
+
+def run_case(name):
+  """Runs one case (call inside `emulated`); prints its line, ending in
+  ': ok' or ': DISAGREES', and returns whether it agreed."""
+  kind, dtype, case = NAMES[name]
+  if kind == 'chain':
+    equal, fwd_err, bwd_err = compare(dtype, **case)
+    # float32 arithmetic on both sides, summed in another order.
+    good = equal and fwd_err <= 1e-4 and bwd_err <= 1e-4
+    print(f'{name} {dtype} {case}: stochs equal {equal}, forward error '
+          f'{fwd_err:.3g}, scaled backward error {bwd_err:.3g} '
+          f'(tolerance 1e-4): {"ok" if good else "DISAGREES"}', flush=True)
+    return good
+  equal, err = compare_rollouts(dtype, **case)
+  # float32: the same arithmetic summed in another order. bfloat16: a sum
+  # that rounds to the other side moves a value by one unit in the last
+  # place (2^-8 of its size) and the next layers carry it on.
+  limit = 1e-4 if dtype == torch.float32 else 5e-2
+  good = equal and err <= limit
+  print(f'{name} {dtype} {case}: one-hots equal {equal}, largest error of '
+        f'deters and logits {err:.3g} (tolerance {limit:g}): '
+        f'{"ok" if good else "DISAGREES"}', flush=True)
+  return good
+
+
 def main(argv=None):
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-  parser.add_argument('--out', default=None, help='Build directory.')
+  parser.add_argument('--out', default=None,
+                      help='Build directory, made if missing; libraries '
+                      'already there for the same sources are loaded.')
+  parser.add_argument('--case', action='append', choices=NAMES,
+                      help='Run this case (repeats; default: all).')
+  parser.add_argument('--list', action='store_true',
+                      help='Print the cases\' names and stop.')
+  parser.add_argument('--build-only', action='store_true',
+                      help='Build the libraries and stop.')
   args = parser.parse_args(argv)
+  if args.list:
+    print('\n'.join(NAMES))
+    return 0
   torch.set_num_threads(1)
   with contextlib.ExitStack() as stack:
     outdir = args.out or stack.enter_context(tempfile.TemporaryDirectory())
@@ -294,27 +384,10 @@ def main(argv=None):
     except Unavailable as e:
       print(f'emulate: cannot run here: {e}', file=sys.stderr)
       return CANNOT_RUN
-    ok = True
-    for dtype, case in CASES:
-      equal, fwd_err, bwd_err = compare(dtype, **case)
-      # float32 arithmetic on both sides, summed in another order.
-      good = equal and fwd_err <= 1e-4 and bwd_err <= 1e-4
-      ok = ok and good
-      print(f'{dtype} {case}: stochs equal {equal}, forward error '
-            f'{fwd_err:.3g}, scaled backward error {bwd_err:.3g} '
-            f'(tolerance 1e-4): {"ok" if good else "DISAGREES"}', flush=True)
-    for dtype, case in ROLLOUT_CASES:
-      equal, err = compare_rollouts(dtype, **case)
-      # float32: the same arithmetic summed in another order. bfloat16:
-      # a sum that rounds to the other side moves a value by one unit in
-      # the last place (2^-8 of its size) and the next layers carry it on.
-      limit = 1e-4 if dtype == torch.float32 else 5e-2
-      good = equal and err <= limit
-      ok = ok and good
-      print(f'rollouts {dtype} {case}: one-hots equal {equal}, largest '
-            f'error of deters and logits {err:.3g} (tolerance {limit:g}): '
-            f'{"ok" if good else "DISAGREES"}', flush=True)
-  return 0 if ok else 1
+    if args.build_only:
+      return 0
+    results = [run_case(name) for name in args.case or NAMES]
+  return 0 if all(results) else 1
 
 
 if __name__ == '__main__':

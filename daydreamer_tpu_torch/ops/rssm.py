@@ -46,7 +46,8 @@ IMAGINE_ACTOR = build.register(build.Kernel(
 IMAGINE = build.register(build.Kernel(
     'imagine', 'imagine.cu',
     'daydreamer_tpu/ops/pallas_rssm.py:207 (_imagine_kernel)',
-    {'imagine': build.signature()}, headers=('imagine_common.cuh',)))
+    {'imagine': build.signature()},
+    headers=('imagine_common.cuh', 'imagine_mma.cuh', 'hopper_ptx.cuh')))
 
 OBSERVE = build.register(build.Kernel(
     'observe', 'observe.cu',
@@ -170,20 +171,15 @@ def _check_shared(name, nbytes):
         f'block; the card gives {build.SHARED_MEMORY_LIMIT}.')
 
 
-def _cell_bytes(D, U, S, C, A):
-  """Shared memory of the image cell's buffers in `csrc/imagine.cu` (8 rows
-  a block)."""
+def _actor_bytes(D, U, S, C, A, itemsize, actor=True):
+  """The least shared memory `csrc/imagine_actor.cu` (or, without the
+  actor, `csrc/imagine.cu`) takes, 8 rows a block: every product's float
+  sum, the action logits (the actor's only), the sampled classes, the
+  product inputs in the compute type and the schedule (float32
+  `imagine.cu` keeps no schedule and needs its 656 bytes less). The ring
+  of weight tiles takes what is left, or nothing."""
   padded = (A + 3) // 4 * 4
-  return 4 * 8 * (S * C + D + padded + max(3 * D, S * C) + 2 * U + S)
-
-
-def _actor_bytes(D, U, S, C, A, itemsize):
-  """The least shared memory `csrc/imagine_actor.cu` takes (8 rows a
-  block): every product's float sum, the action logits, the sampled
-  classes, the product inputs in the compute type and the schedule. The
-  ring of weight tiles takes what is left, or nothing."""
-  padded = (A + 3) // 4 * 4
-  floats = max(3 * D, S * C) + padded + S
+  floats = max(3 * D, S * C) + (padded if actor else 0) + S
   return 8 * (4 * floats + itemsize * (S * C + D + padded + 2 * U)) + 656
 
 
@@ -340,7 +336,8 @@ def imagine_cuda(params, stoch0, deter0, actions, noise=None, unimix=0.01):
   _check_shapes(name, {'stoch0': stoch0, 'deter0': deter0},
                 {'stoch0': (B, S * C), 'deter0': (B, D)})
   layers = _prior_layers(name, params, D, U)
-  _check_shared(name, _cell_bytes(D, U, S, C, A))
+  _check_shared(name, _actor_bytes(D, U, S, C, A, stoch0.element_size(),
+                                   actor=False))
   weights = [*(params[k] for k in _CELL), params['w_st'], params['b_st'],
              *layers[0], *layers[1], *layers[2]]
   inputs = [stoch0, deter0, actions]

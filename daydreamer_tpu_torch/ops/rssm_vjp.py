@@ -2,14 +2,16 @@
 `daydreamer_tpu/ops/pallas_rssm_vjp.py`.
 
 `observe_fused` runs the whole T-step posterior chain of a chunk as ONE
-forward kernel and, under autograd, ONE backward kernel:
+forward call and, under autograd, ONE backward kernel:
 
   - forward (`csrc/observe_fwd.cu`, replaces `_obs_fwd_kernel`): per step
     the `is_first` mask, the image cell (img_in + LN + ELU, GRU with LN and
     update bias -1, the prior MLP), the raw prior logits, the posterior
     head, the unimix softmax within each group of C classes and a
     Gumbel-max one-hot. Outputs: deters, post logits (raw, float32), prior
-    logits (raw, float32), stochs (exact one-hots).
+    logits (raw, float32), stochs (exact one-hots). The call launches three
+    CUDA kernels: the embed product and the prior head over all T*B rows
+    at once, and between them the serial chain.
   - backward (`csrc/observe_bwd.cu`, replaces `_obs_bwd_kernel`): the
     sequential part of backpropagation through time. It walks t = T-1..0,
     recomputes each step's forward from the saved carries, and emits the
@@ -34,6 +36,8 @@ maximum in the kernel and in the plain version alike.
 through a plain loop) that the gradient tests hold the chain to.
 """
 
+import ctypes
+
 import torch
 
 from . import build
@@ -41,16 +45,24 @@ from ..nn.dists import gumbel
 
 f32 = torch.float32
 
+# Both kernels run a thread block cluster per pair of rows, on the same
+# headers.
+_CLUSTER_HEADERS = ('observe_common.cuh', 'observe_cluster.cuh',
+                    'hopper_ptx.cuh')
+
 OBSERVE_FWD = build.register(build.Kernel(
     'observe_fwd', 'observe_fwd.cu',
     'daydreamer_tpu/ops/pallas_rssm_vjp.py:239 (_obs_fwd_kernel)',
-    {'observe_fwd': build.signature()}, headers=('observe_common.cuh',)))
+    {'observe_fwd': build.signature(),
+     'observe_fwd_clusters': (ctypes.c_int, [
+         ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+         ctypes.POINTER(ctypes.c_int)])},
+    headers=_CLUSTER_HEADERS))
 
 OBSERVE_BWD = build.register(build.Kernel(
     'observe_bwd', 'observe_bwd.cu',
     'daydreamer_tpu/ops/pallas_rssm_vjp.py:280 (_obs_bwd_kernel)',
-    {'observe_bwd': build.signature()},
-    headers=('observe_common.cuh', 'observe_cluster.cuh', 'hopper_ptx.cuh')))
+    {'observe_bwd': build.signature()}, headers=_CLUSTER_HEADERS))
 
 # The order of the weights everywhere in this module (and of the gradients
 # `ObserveFused.backward` returns): eight cell entries, the prior layers'
@@ -456,11 +468,30 @@ def observe_fwd_cuda(params, stoch0, deter0, actions, embeds, is_first,
   post = torch.empty((T, B, SC), dtype=f32, device=device)
   prior = torch.empty((T, B, SC), dtype=f32, device=device)
   stochs = torch.empty((T, B, SC), dtype=dtype, device=device)
+  # Scratch of the kernel's three launches: embeds @ w_obs_e, and the
+  # chain's deters in float32 for the prior head. They go last: the
+  # kernel's parent reads the list in order as far as the weights.
+  e_proj = torch.empty((T, B, U), dtype=f32, device=device)
+  d_t = torch.empty((T, B, D), dtype=f32, device=device)
   ptrs = [stoch0, deter0, actions, embeds, first, noise,
-          deters, post, prior, stochs, *flat]
+          deters, post, prior, stochs, *flat, e_proj, d_t]
   build.launch(OBSERVE_FWD, 'observe_fwd', dtype, ptrs,
                [T, B, A, E, D, U, S, C, n_out], [unimix], device)
   return deters, post, prior, stochs
+
+
+def observe_fwd_clusters(dtype, T, B, A, E, D, U, S, C, n_out):
+  """How many thread block clusters of the forward's chain fit the card at
+  once at these widths: (clusters of 4 blocks, the size it launches,
+  clusters of 8), from `cudaOccupancyMaxActiveClusters`. The chain takes
+  one cluster per pair of rows. Builds the kernel; needs a card."""
+  fit = (ctypes.c_int * 2)()
+  err = OBSERVE_FWD.lib().observe_fwd_clusters(
+      int(dtype == torch.bfloat16),
+      (ctypes.c_int * 9)(T, B, A, E, D, U, S, C, n_out), fit)
+  if err != 0:
+    raise RuntimeError(f'observe_fwd_clusters failed: CUDA error {err}.')
+  return fit[0], fit[1]
 
 
 def observe_bwd_cuda(params, stoch0, deter0, actions, e_proj, is_first,

@@ -1,0 +1,53 @@
+"""The five CUDA sources themselves (the fused observe chain's two,
+`imagine_actor.cu`, `imagine.cu`, `observe.cu`), compiled with g++ against
+the stand-in headers (`ops/emulate.py`), agree with the plain versions at
+tiny widths in float32 and bfloat16: one test per case of
+`emulate.NAMES`.
+
+The sources are built once for the module, into a directory that every
+case loads them from. Each case runs in a process of its own at a lower
+priority, with a time limit of its own: a cluster's 4096 CUDA threads are
+fibers of one OS thread there, and a case that hangs or crashes takes
+only its own test with it."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+from daydreamer_tpu_torch.ops import emulate
+
+# Seconds a case may take. With this file run alone on an 8-core machine
+# the longest case took 13 s and the build 7 s; the margin covers a machine
+# crowded by the other workers of the test run.
+BUILD_LIMIT = 600
+CASE_LIMIT = 300
+
+
+def _emulate(*args, timeout):
+  return subprocess.run(
+      [sys.executable, '-m', 'daydreamer_tpu_torch.ops.emulate', *args],
+      capture_output=True, text=True, timeout=timeout,
+      preexec_fn=lambda: os.nice(10))
+
+
+@pytest.fixture(scope='module')
+def libraries(tmp_path_factory):
+  out = tmp_path_factory.mktemp('emulated')
+  done = _emulate('--out', str(out), '--build-only', timeout=BUILD_LIMIT)
+  if done.returncode == emulate.CANNOT_RUN:
+    pytest.skip(f'No g++ with C++20 here: {done.stderr[-200:]}')
+  assert done.returncode == 0, done.stdout + done.stderr
+  return out
+
+
+@pytest.mark.parametrize('case', list(emulate.NAMES))
+def test_cuda_source_emulated_on_cpu(libraries, case):
+  built = sorted(libraries.glob('*.so'))
+  done = _emulate('--out', str(libraries), '--case', case,
+                  timeout=CASE_LIMIT)
+  assert done.returncode == 0, done.stdout + done.stderr
+  assert done.stdout.count(': ok') == 1, done.stdout
+  # The case loaded the module's libraries and built none of its own.
+  assert sorted(libraries.glob('*.so')) == built

@@ -264,28 +264,6 @@ def test_cuda_wrappers_refuse_cpu_tensors(setup):
   assert (ops.OBSERVE_FWD.launches, ops.OBSERVE_BWD.launches) == before
 
 
-def test_cuda_sources_emulated_on_cpu(tmp_path):
-  """The five CUDA sources themselves (the fused observe chain's two,
-  `imagine_actor.cu`, `imagine.cu`, `observe.cu`), compiled with g++ against
-  the stand-in headers (`ops/emulate.py`), agree with the plain versions at
-  tiny widths in float32 and bfloat16. Run in a process of its own, at a
-  lower priority: the emulation starts a thousand threads per block, four
-  blocks at once for a cluster, and would crowd the tests beside it."""
-  import os
-  import subprocess
-  import sys
-  from daydreamer_tpu_torch.ops import emulate
-  done = subprocess.run(
-      [sys.executable, '-m', 'daydreamer_tpu_torch.ops.emulate', '--out',
-       str(tmp_path)], capture_output=True, text=True, timeout=600,
-      preexec_fn=lambda: os.nice(10))
-  if done.returncode == emulate.CANNOT_RUN:
-    pytest.skip(f'No g++ with C++20 here: {done.stderr[-200:]}')
-  assert done.returncode == 0, done.stdout + done.stderr
-  assert done.stdout.count(': ok') == len(emulate.CASES) + len(
-      emulate.ROLLOUT_CASES), done.stdout
-
-
 def test_library_name_follows_source_and_headers(tmp_path):
   """An edit of a kernel's source or of a header it includes gives the
   library another name, so it builds anew."""
@@ -299,11 +277,72 @@ def test_library_name_follows_source_and_headers(tmp_path):
   second = kernel.library
   source.write_text('#include "k.cuh"\n// edited\n')
   assert len({first, second, kernel.library}) == 3
-  # The backward includes the forward's header and, on top of it, its own.
-  assert set(ops.OBSERVE_FWD.headers) < set(ops.OBSERVE_BWD.headers)
-  for kernel in (ops.OBSERVE_FWD, ops.OBSERVE_BWD):
-    assert all(header.exists() for header in kernel.headers)
-  assert all(h.exists() for h in ops.OBSERVE_FWD.headers)
+  # The forward and the backward include the same headers, and an edit of
+  # any of them renames both libraries (checked on copies).
+  headers = ops.OBSERVE_FWD.headers
+  assert set(headers) == set(ops.OBSERVE_BWD.headers)
+  copies = {}
+  for path in (*headers, ops.OBSERVE_FWD.source, ops.OBSERVE_BWD.source):
+    copies[path] = tmp_path / path.name
+    copies[path].write_bytes(path.read_bytes())
+  pair = [build.Kernel(k.name, str(copies[k.source]), 'none', {},
+                       headers=[str(copies[h]) for h in k.headers])
+          for k in (ops.OBSERVE_FWD, ops.OBSERVE_BWD)]
+  for header in headers:
+    before = [k.library for k in pair]
+    copies[header].write_text(copies[header].read_text() + '\n// edited\n')
+    assert all(k.library != name for k, name in zip(pair, before)), header
+
+
+def test_registered_headers_are_what_sources_include():
+  """Each CUDA kernel names as its headers exactly the files of `csrc/` its
+  source includes, directly or through another header, so that an edit of
+  any of them builds it anew."""
+  import re
+  from daydreamer_tpu_torch.ops import build
+  from daydreamer_tpu_torch.ops import rssm  # noqa: F401 (registers)
+  include = re.compile(r'^#include "([^"/]+)"', re.M)
+  for kernel in build.KERNELS:
+    if kernel.route != 'cuda':
+      continue
+    found, todo = set(), [kernel.source]
+    while todo:
+      for name in include.findall(todo.pop().read_text()):
+        if name not in found:
+          found.add(name)
+          todo.append(build.CSRC / name)
+    assert {h.name for h in kernel.headers} == found, kernel.name
+
+
+def test_observe_fwd_pointers_keep_the_parent_order(setup, monkeypatch):
+  """`observe_fwd_cuda` hands the kernel the pointers in the order of the
+  kernel's parent design, which reads them one after another, and adds its
+  two float32 scratch tensors (the embed product, the chain's float32
+  deter) at the end only: so a parent's source still runs under the tree's
+  wrapper (`chip_smoke.py --compare`)."""
+  from daydreamer_tpu_torch.ops import build
+  params, data, is_first, gumbel, _ = setup
+  params, data = _torch(params), _torch(data)
+  calls = []
+  monkeypatch.setattr(build, 'check', lambda *args: None)
+  monkeypatch.setattr(build, 'launch', lambda *args: calls.append(args))
+  outs = ops.observe_fwd_cuda(params, *data, torch.as_tensor(is_first),
+                              noise=torch.as_tensor(gumbel), unimix=UNIMIX)
+  (kernel, fn, dtype, ptrs, dims, scalars, _), = calls
+  assert (kernel, fn, dtype) == (ops.OBSERVE_FWD, 'observe_fwd', torch.float32)
+  assert dims == [T, B, A, E, D, U, S, C, 2] and scalars == [UNIMIX]
+  flat, _ = ops.flatten_params(params)
+  parent = [*data, None, None, *outs, *flat]
+  assert len(ptrs) == len(parent) + 2
+  for i, (got, want) in enumerate(zip(ptrs, parent)):
+    if want is not None:
+      assert got is want, i
+  first, noise = ptrs[4:6]
+  assert torch.equal(first, torch.as_tensor(is_first).float())
+  assert torch.equal(noise, torch.as_tensor(gumbel))
+  e_proj, d_t = ptrs[len(parent):]
+  assert e_proj.dtype == d_t.dtype == torch.float32
+  assert e_proj.shape == (T, B, U) and d_t.shape == (T, B, D)
 
 
 # ---------------------------------------------------------------------------
