@@ -14,8 +14,10 @@ Phases, each of which must pass:
                the xarm shape, in float32 and in bfloat16 (gve: float32),
                and time both; in float32 also the whole fused observe
                gradient against autograd of a plain loop. It prints how
-               many thread block clusters of observe_fwd's chain fit the
-               card at once.
+               many thread block clusters of observe_fwd's and observe's
+               chains fit the card at once, and the device time of each
+               CUDA kernel that a call of observe and of gve launches
+               (torch.profiler).
   4. slice   - the training path: the xarm `run=train` CLI in this process
                at its default config (`rssm.impl: pallas`) with `--imag_impl
                pallas`, a few dozen updates, with every kernel's launch
@@ -42,8 +44,9 @@ phase and prints no result line: it builds the kernel's source in the tree
 and the other version of it in the file SOURCE (its includes beside it),
 runs both on the xarm inputs of the kernel check, says whether their
 outputs are equal bit for bit, and times them in turns (tree, other, other,
-tree) in bfloat16 and float32: how a change to a kernel is held against its
-parent inside one run.
+tree) in bfloat16 and float32 (observe at the xarm and a1 shapes of the proof
+entry point): how a change to a kernel is held against its parent inside one
+run.
 """
 
 import argparse
@@ -524,10 +527,12 @@ def check_observe(shape):
 # --------------------------------------------------------------------------
 # The proof path's kernels: imagine, observe (forward only), gve.
 
-# The xarm shapes of the proof entry point (scripts/pallas_proof.py CASES).
+# The xarm shapes of the proof entry point (scripts/pallas_proof.py CASES),
+# and its a1 shape of `observe`.
 PROOF_IMAGINE = dict(B=1024, H=15, D=512, U=512, S=32, C=32, A=5, n_out=3)
 PROOF_OBSERVE = dict(T=32, B=32, D=512, U=512, S=32, C=32, A=5, E=512,
                      n_out=3)
+PROOF_OBSERVE_A1 = dict(PROOF_OBSERVE, D=256, U=256, A=12)
 PROOF_GVE = (15, 2048)  # (horizon, lanes), the largest of its sizes.
 
 
@@ -650,6 +655,34 @@ def _compare_rollout(label, kernel, plain, args, kw, dims, dtype, bound):
               bound_by=bound['bound_by'], max_abs_err=worst)
 
 
+def device_times(fn, calls=20):
+  """Device time and launches per call of `fn` of each CUDA kernel it
+  launches, from torch.profiler over `calls` calls after one more: {kernel
+  name: (ms, launches)}. Empty where the profiler saw no device time."""
+  import torch
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    for _ in range(calls):
+      fn()
+    torch.cuda.synchronize()
+  return {e.key: (e.self_device_time_total / 1e3 / calls, e.count / calls)
+          for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and e.self_device_time_total > 0}
+
+
+def log_device_times(label, times):
+  if not times:
+    log(f'{label}: device time per call not measured (the profiler saw no '
+        f'device time)')
+  for key, (ms, count) in sorted(times.items(), key=lambda x: -x[1][0]):
+    log(f'{label}: device {ms:.5f} ms per call in {count:g} launch(es) of '
+        f'{key[:100]}')
+
+
 def check_proof_kernels():
   """`imagine`, `observe` and `gve` against their plain versions at the
   xarm shapes of the proof entry point."""
@@ -657,6 +690,13 @@ def check_proof_kernels():
   from daydreamer_tpu_torch.ops import lambda_returns as lr
   from daydreamer_tpu_torch.ops import rssm
   results = {'imagine': {}, 'observe': {}, 'gve': {}}
+  for label, s in (('xarm', PROOF_OBSERVE), ('a1', PROOF_OBSERVE_A1)):
+    fit = rssm.observe_clusters(torch.bfloat16, *(s[k] for k in 'TBAEDUSC'))
+    log(f'observe ({label} proof shape): one call launches 2 CUDA kernels '
+        f'(embed product, chain); clusters of the chain that fit the card '
+        f'at once (cudaOccupancyMaxActiveClusters, bfloat16): {fit[0]} of 4 '
+        f'blocks, {fit[1]} of 8; it needs {(s["B"] + 1) // 2}, one per pair '
+        f'of rows')
   for dtype in (torch.float32, torch.bfloat16):
     name = str(dtype).split('.')[-1]
     # imagine: the rollout's weights and carries, unit normal actions.
@@ -683,6 +723,9 @@ def check_proof_kernels():
         (params, *data, is_first), dict(noise=noise, unimix=0.01),
         (s['T'], s['B'], s['S'], s['C']), dtype,
         rollout_bounds(params, *data, dtype))
+    # The prologue's and the chain's device times apart.
+    log_device_times(f'observe {name}', device_times(
+        lambda: rssm.observe_cuda(params, *data, is_first, noise=noise)))
   # gve: float32 only.
   H, n = PROOF_GVE
   rng = np.random.default_rng(0)
@@ -704,9 +747,18 @@ def check_proof_kernels():
   plain_ms = cuda_time(lambda: lr.gve_plain(interm, disc, boot, 0.95),
                        reps=50)
   bound = _bound(2.0 * H * n, 4 * (3 * H * n + n), torch.float32)
-  log(f'gve float32: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, bound '
+  # The call time above is CUDA events around back-to-back calls, so for a
+  # kernel of 0.1 us of work it is the host's launch rate; the profiler
+  # reads the kernel's own time on the device.
+  times = device_times(lambda: lr.gve_triton(interm, disc, boot, 0.95),
+                       calls=200)
+  device_ms = sum(ms for key, (ms, _) in times.items() if 'gve' in key)
+  log(f'gve float32: kernel {ms:.5f} ms a call (CUDA events around 200 '
+      f'calls), device {device_ms:.5f} ms a launch (torch.profiler; 0: not '
+      f'measured), plain {plain_ms:.5f} ms, bound '
       f'{bound["bound_ms"]:.6f} ms ({bound["bound_by"]}; '
       f'{bound["nbytes"] / 1e3:.1f} kB)')
+  log_device_times('gve float32', times)
   entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound['bound_ms'],
                bound_by=bound['bound_by'], max_abs_err=err)
   # The kernels line reads each kernel's bfloat16 entry, the main path's
@@ -737,9 +789,13 @@ def phase_compare(spec):
       if 'registers' in line or 'spill' in line:
         log(f'  {kernel.name}: {line.strip()}')
   rng = np.random.default_rng(2)
-  for dtype in (torch.bfloat16, torch.float32):
+  # observe at both shapes of the proof entry point, the others at one.
+  shapes = ((' xarm', PROOF_OBSERVE), (' a1', PROOF_OBSERVE_A1)) if (
+      name == 'observe') else (('', None),)
+  for dtype, at, proof_shape in [(dtype, *shape) for dtype in (
+      torch.bfloat16, torch.float32) for shape in shapes]:
     if name == 'observe':
-      params, data, is_first, noise, _ = observe_inputs(dtype, PROOF_OBSERVE)
+      params, data, is_first, noise, _ = observe_inputs(dtype, proof_shape)
       call = lambda: rssm.observe_cuda(params, *data, is_first, noise=noise)
     elif module is rssm_vjp:
       # The inputs of `check_observe`; the backward runs on the saved
@@ -788,11 +844,11 @@ def phase_compare(spec):
     equal = all(bool((x == y).all()) for x, y in zip(a, b))
     worst = max(float((x.float() - y.float()).abs().max())
                 for x, y in zip(a, b))
-    log(f'compare {name} {dtype}: outputs equal bit for bit: {equal} '
+    log(f'compare {name}{at} {dtype}: outputs equal bit for bit: {equal} '
         f'(largest difference {worst:.3g})')
     for label, kernel in (('tree', tree), ('other', other), ('other', other),
                           ('tree', tree)):
-      log(f'compare {name} {dtype}: {label} '
+      log(f'compare {name}{at} {dtype}: {label} '
           f'{cuda_time(lambda: run(kernel)):.4f} ms')
 
 

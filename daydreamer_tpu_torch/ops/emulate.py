@@ -272,6 +272,23 @@ def compare_rollouts(dtype, sample=True, unimix=0.01, n_act=3, **shape):
   return all(r[0] for r in results), max(r[1] for r in results)
 
 
+def compare_observe(dtype, unimix=0.01, restart=None, **shape):
+  """The emulated `observe` kernel against its plain version, sampled and
+  unsampled, on one set of inputs (call inside `emulated`); with `restart`
+  every row starts anew at that step as well. Returns (every one-hot
+  equal, the largest error of deters and logits)."""
+  params, data, first, noise, _ = make_inputs(dtype, **shape)
+  if restart is not None:
+    first[restart] = True
+  results = []
+  for sampled in (noise, None):
+    kw = dict(noise=sampled, unimix=unimix)
+    args = (params, *data, first)
+    results.append(_forward_errors(
+        rssm.observe_cuda(*args, **kw), rssm.observe_plain(*args, **kw)))
+  return all(r[0] for r in results), max(r[1] for r in results)
+
+
 # The default widths (T x B = 3 x 3: the last tile of 8 rows of
 # observe_fwd's embed product and prior head holds one row, the chain's
 # last pair of rows one); no noise, no unimix, one prior layer; bfloat16;
@@ -329,11 +346,32 @@ ROLLOUT_CASES = (
 )
 
 
-# Every case by name: the fused chain's (forward and backward, `CASES`) and
-# the rollouts' (`ROLLOUT_CASES`), as (kind, dtype, shape).
+# `observe` alone, sampled and unsampled, at what its clustered chain and
+# its prologue meet and the rollout cases do not: bfloat16 at one or two
+# groups of 8 columns a product (U = 16, S * C = 8: the cluster splits 1, 2
+# and 1 groups among its 4 ranks, three of which own nothing); five rows in
+# float32, so that the last cluster holds one row; bfloat16 with E = 12, no
+# multiple of 8 (a row of embeds is 24 bytes); float32 with C = 40 classes,
+# more than a warp's lanes, so that a lane of the sample takes two classes
+# and the first maximum is met across lanes; and bfloat16 with every row
+# starting anew at step 2 of 5, besides the first steps of `make_inputs`.
+OBSERVE_CASES = (
+    (torch.bfloat16, dict(D=8, U=16, S=2, C=4, A=2, E=5, B=4, T=4)),
+    (torch.float32, dict(D=24, U=40, S=4, C=4, A=3, E=10, B=5, T=3)),
+    (torch.bfloat16, dict(E=12, B=4, T=3)),
+    (torch.float32, dict(D=16, U=24, S=2, C=40, A=3, E=7, B=7, T=2)),
+    (torch.bfloat16, dict(D=16, U=24, S=4, C=8, A=4, E=9, B=3, T=5,
+                          restart=2)),
+)
+
+
+# Every case by name: the fused chain's (forward and backward, `CASES`),
+# the rollouts' (`ROLLOUT_CASES`) and `observe`'s own (`OBSERVE_CASES`), as
+# (kind, dtype, shape).
 NAMES = {
     f'{kind}{i}-{str(dtype).split(".")[-1]}': (kind, dtype, case)
-    for kind, cases in (('chain', CASES), ('rollout', ROLLOUT_CASES))
+    for kind, cases in (('chain', CASES), ('rollout', ROLLOUT_CASES),
+                        ('observe', OBSERVE_CASES))
     for i, (dtype, case) in enumerate(cases)}
 
 
@@ -349,11 +387,16 @@ def run_case(name):
           f'{fwd_err:.3g}, scaled backward error {bwd_err:.3g} '
           f'(tolerance 1e-4): {"ok" if good else "DISAGREES"}', flush=True)
     return good
-  equal, err = compare_rollouts(dtype, **case)
+  compare_fn = compare_rollouts if kind == 'rollout' else compare_observe
+  equal, err = compare_fn(dtype, **case)
   # float32: the same arithmetic summed in another order. bfloat16: a sum
   # that rounds to the other side moves a value by one unit in the last
-  # place (2^-8 of its size) and the next layers carry it on.
-  limit = 1e-4 if dtype == torch.float32 else 5e-2
+  # place (2^-8 of its size) and the next layers carry it on. `observe`'s
+  # own cases hold bfloat16 to float32's limit: at their widths and inputs
+  # no sum of either route lands on the other side of a rounding (the
+  # largest error is 2.4e-7), while a rounding that the kernel drops or
+  # adds moves its logits by 2.8e-3 or more.
+  limit = 1e-4 if dtype == torch.float32 or kind == 'observe' else 5e-2
   good = equal and err <= limit
   print(f'{name} {dtype} {case}: one-hots equal {equal}, largest error of '
         f'deters and logits {err:.3g} (tolerance {limit:g}): '

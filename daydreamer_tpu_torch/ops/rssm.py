@@ -29,6 +29,8 @@ caller applies the unimix to store log-probs. `make_params` and
 `make_actor_params` build random weights in this layout from a numpy seed.
 """
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -52,7 +54,11 @@ IMAGINE = build.register(build.Kernel(
 OBSERVE = build.register(build.Kernel(
     'observe', 'observe.cu',
     'daydreamer_tpu/ops/pallas_rssm.py:682 (_observe_kernel)',
-    {'observe': build.signature()}, headers=('observe_common.cuh',)))
+    {'observe': build.signature(),
+     'observe_clusters': (ctypes.c_int, [
+         ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+         ctypes.POINTER(ctypes.c_int)])},
+    headers=('observe_common.cuh', 'observe_cluster.cuh', 'hopper_ptx.cuh')))
 
 
 def _elu(x):
@@ -406,10 +412,12 @@ def observe_plain(params, stoch0, deter0, actions, embeds, is_first,
 
 def observe_cuda(params, stoch0, deter0, actions, embeds, is_first,
                  noise=None, unimix=0.01):
-  """The posterior chain as one launch of `csrc/observe.cu`; same contract
-  as `observe_plain`. Raises unless every input is a contiguous CUDA tensor
-  of the compute dtype (float32 or bfloat16) at widths the kernel takes.
-  The prior head's weights (`w_out*`, `w_st`, `b_st`) are not read."""
+  """The posterior chain as one call of `csrc/observe.cu` (two launches on
+  the current stream: the embed product over all rows, then the clustered
+  chain); same contract as `observe_plain`. Raises unless every input is a
+  contiguous CUDA tensor of the compute dtype (float32 or bfloat16) at
+  widths the kernel takes. The prior head's weights (`w_out*`, `w_st`,
+  `b_st`) are not read."""
   name = 'observe_cuda'
   dtype, device = stoch0.dtype, stoch0.device
   _check_dtype(name, dtype)
@@ -428,12 +436,13 @@ def observe_cuda(params, stoch0, deter0, actions, embeds, is_first,
        'is_first': (T, B)})
   if D % 8 or U % 8 or SC % 8:
     raise ValueError(f'{name}: the kernel reads 16 bytes of a weight row at '
-                     'a time; deter, units and stoch*classes must be '
+                     'a time, and its chain splits every product into groups '
+                     'of 8 columns; deter, units and stoch*classes must be '
                      'multiples of 8.')
-  # `smem_bytes` of csrc/observe.cu: 2 rows a block, 32 warps, and the
-  # product's scratch of 16384 floats.
-  _check_shared(name, 4 * (2 * (SC + 2 * D + A + E + 2 * U + max(3 * D, SC)
-                                + 1 + 32 + S) + 16384))
+  # `chain_bytes` of csrc/observe.cu: 2 rows a block, 32 warps, and the
+  # product's scratch of 16384 floats (its prologue takes 80 KB at most).
+  _check_shared(name, 4 * (2 * (2 * SC + 5 * D + A + 2 * U + 1 + 32 + S)
+                           + 16384))
   weights = [*(params[k] for k in _CELL), params['w_obs_d'],
              params['w_obs_e'], params['ln_obs_scale'],
              params['ln_obs_bias'], params['w_post'], params['b_post']]
@@ -451,10 +460,27 @@ def observe_cuda(params, stoch0, deter0, actions, embeds, is_first,
   deters = torch.empty((T, B, D), dtype=dtype, device=device)
   logits = torch.empty((T, B, SC), dtype=f32, device=device)
   stochs = torch.empty((T, B, SC), dtype=dtype, device=device)
-  ptrs = [*inputs, first, noise, deters, logits, stochs, *weights]
+  # The prologue's embeds @ w_obs_e, float32, last: the kernel's parent
+  # reads the list in order as far as the weights.
+  e_proj = torch.empty((T, B, U), dtype=f32, device=device)
+  ptrs = [*inputs, first, noise, deters, logits, stochs, *weights, e_proj]
   build.launch(OBSERVE, 'observe', dtype, ptrs, [T, B, A, E, D, U, S, C],
                [unimix], device)
   return deters, logits, stochs
+
+
+def observe_clusters(dtype, T, B, A, E, D, U, S, C):
+  """How many thread block clusters of `observe`'s chain fit the card at
+  once at these widths: (clusters of 4 blocks, the size it launches,
+  clusters of 8), from `cudaOccupancyMaxActiveClusters`. The chain takes
+  one cluster per pair of rows. Builds the kernel; needs a card."""
+  fit = (ctypes.c_int * 2)()
+  err = OBSERVE.lib().observe_clusters(
+      int(dtype == torch.bfloat16), (ctypes.c_int * 8)(T, B, A, E, D, U, S, C),
+      fit)
+  if err != 0:
+    raise RuntimeError(f'observe_clusters failed: CUDA error {err}.')
+  return fit[0], fit[1]
 
 
 def observe(params, stoch0, deter0, actions, embeds, is_first,

@@ -240,6 +240,51 @@ def test_wrappers_refuse_shapes_the_kernels_cannot_take(setup):
                      is_first)
   with pytest.raises(TypeError):
     ops.imagine_cuda(params, stoch0.double(), deter0, actions)
+  # observe's chain splits every product into groups of 8 columns, and one
+  # block of a cluster holds every vector of its pair of rows.
+  for d, u, s, c in ((12, U, S, C), (D, 20, S, C), (D, U, 3, 5)):
+    narrow = ops.make_params(0, d, u, s, c, A, E)
+    with pytest.raises(ValueError, match='multiples of 8'):
+      ops.observe_cuda(narrow, torch.zeros(B, s * c), torch.zeros(B, d),
+                       actions, embeds, is_first)
+  wide = ops.make_params(0, 4096, 512, 32, 32, A, E)
+  with pytest.raises(ValueError, match='shared memory'):
+    ops.observe_cuda(wide, torch.zeros(B, 1024), torch.zeros(B, 4096),
+                     actions, embeds, is_first)
+
+
+def test_observe_pointers_keep_the_parent_order(setup, monkeypatch):
+  """`observe_cuda` hands the kernel the pointers in the order of the
+  kernel's parent design, which reads them one after another, and adds its
+  float32 scratch (the prologue's embed product) at the end only: so a
+  parent's source still runs under the tree's wrapper (`chip_smoke.py
+  --compare`)."""
+  from daydreamer_tpu_torch.ops import build
+  params, stoch0, deter0, actions, embeds, is_first = setup
+  noise = torch.as_tensor(np.random.default_rng(1).gumbel(
+      size=(H, B, S * C)).astype(np.float32))
+  calls = []
+  monkeypatch.setattr(build, 'check', lambda *args: None)
+  monkeypatch.setattr(build, 'launch', lambda *args: calls.append(args))
+  outs = ops.observe_cuda(params, stoch0, deter0, actions, embeds, is_first,
+                          noise=noise, unimix=0.01)
+  (kernel, fn, dtype, ptrs, dims, scalars, _), = calls
+  assert (kernel, fn, dtype) == (ops.OBSERVE, 'observe', torch.float32)
+  assert dims == [H, B, A, E, D, U, S, C] and scalars == [0.01]
+  weights = [params[k] for k in (
+      'w_in_s', 'w_in_a', 'ln_in_scale', 'ln_in_bias', 'w_gru_d', 'w_gru_x',
+      'ln_gru_scale', 'ln_gru_bias', 'w_obs_d', 'w_obs_e', 'ln_obs_scale',
+      'ln_obs_bias', 'w_post', 'b_post')]
+  parent = [stoch0, deter0, actions, embeds, None, None, *outs, *weights]
+  assert len(parent) == 23 and len(ptrs) == len(parent) + 1
+  for i, (got, want) in enumerate(zip(ptrs, parent)):
+    if want is not None:
+      assert got is want, i
+  first, noise_ptr = ptrs[4:6]
+  assert torch.equal(first, is_first.float())
+  assert torch.equal(noise_ptr, noise)
+  e_proj = ptrs[-1]
+  assert e_proj.dtype == torch.float32 and e_proj.shape == (H, B, U)
 
 
 # ---------------------------------------------------------------------------
