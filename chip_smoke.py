@@ -32,11 +32,26 @@ Phases, each of which must pass:
                three dispatches of `train_fused: 16` from a device-resident
                ring of 2e4 steps; then the same with `replay: prio`, the
                prioritized ring. Counts set to 0 before each and read after.
+  7. a1      - the paper's A1 config (`--configs a1 --task a1_dummy`,
+               `run=train`, cut in length as the xarm slice is) through the
+               CLI three times, counts set to 0 before each and read after:
+               as the config file has it, the loop path, where no kernel may
+               launch; with `--rssm.impl pallas`, where observe_fwd and
+               observe_bwd must launch once an update; and with
+               `--data_loader native`, where the native batcher must run on
+               the library that g++ builds into native/_build/. Each logs
+               its updates/s, its policy step at batch 1 and its last
+               losses, which must be finite.
+The kernel phase also holds observe_fwd and observe_bwd at the a1 training
+shape (T = B = 32, D = U = 256, E = 512, 12 continuous actions) against
+their plain versions.
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}. Without a card, or outside the repository,
 the script exits non-zero and prints no result. `--phases` runs a subset;
 the extra phase `profile` (not run by default) prints where an update's
-device time goes, its launches and the device's idle share.
+device time goes, its launches and the device's idle share; the extra
+phase `sphero` (not run by default) trains `--configs sphero` (its dummy
+task, whose tracker and resize need OpenCV) as the slice trains xarm.
 
 `--compare NAME=SOURCE` (NAME one of imagine_actor, imagine, observe,
 observe_fwd, observe_bwd; the option may be given several times) runs no
@@ -70,6 +85,7 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s.
 # imag_horizon 15, deter = units = 512, 32x32 latents, 6 actions, three
 # prior layers and a four-layer actor.
 XARM = dict(B=1024, H=15, D=512, U=512, S=32, C=32, A=6, n_out=3, n_act=4)
+XARM_OBSERVE = dict(D=512, U=512, S=32, C=32, A=6, n_out=3, discrete=True)
 
 
 def log(*args):
@@ -239,15 +255,25 @@ def check_imagine_actor():
 # The fused observe chain: shape, inputs, bounds, comparison.
 
 
-def xarm_observe_shape():
+# The a1 configuration's world-model update with `rssm.impl: pallas`: T x B
+# = 32 x 32 rows of the replay chunk, deter = units = 256, 32x32 latents,
+# 12 continuous actions, and E = 512, the MLP encoder's width over the
+# proprio vector.
+A1_OBSERVE = dict(T=32, B=32, D=256, U=256, S=32, C=32, A=12, E=512,
+                  n_out=3, discrete=False)
+
+
+def observe_shape(name, expect, **update):
   """The widths of the world-model update's observe chain, read from an
-  xarm agent at its default config: T x B rows of the replay chunk, the
-  RSSM's widths, and E, the encoder's output width."""
+  agent of the config block `name` (with `update`) with the fused observe
+  chain: T x B rows of the replay chunk, the RSSM's widths, E, the
+  encoder's output width, and whether the actions are one-hots. Each of
+  `expect` must match."""
   import daydreamer_tpu_torch as ddp
   from daydreamer_tpu_torch import envs
   from daydreamer_tpu_torch.agents.dreamer import Agent
   config = ddp.Config(Agent.configs['defaults']).update(
-      Agent.configs['xarm'])
+      Agent.configs[name]).update(update)
   env = envs.load_env(config.task, **config.env)
   try:
     agent = Agent(env.obs_space, env.act_space, ddp.Counter(), config)
@@ -262,16 +288,17 @@ def xarm_observe_shape():
       T=config.replay_chunk, B=config.batch_size, D=D,
       U=kernel('img_in')[1], S=S, C=C, A=kernel('img_in')[0] - S * C,
       E=kernel('obs_out')[0] - D, n_out=rssm._prior_layers,
-      unimix=rssm._unimix)
-  for key in 'DUSCA':
-    assert shape[key] == XARM[key], (key, shape, XARM)
-  assert shape['n_out'] == XARM['n_out'] and rssm._impl == 'pallas', shape
+      discrete=bool(env.act_space['action'].discrete), unimix=rssm._unimix)
+  for key, value in expect.items():
+    assert shape[key] == value, (key, shape, expect)
+  assert rssm._impl == 'pallas', shape
   return shape
 
 
 def observe_inputs(dtype, shape, seed=0):
   """Random weights and one chunk of inputs at `shape`, made with numpy
-  from a seed: uniform fan-in weights, one-hot stoch0 and actions, unit
+  from a seed: uniform fan-in weights, one-hot stoch0, one-hot actions or
+  (`shape['discrete']` false) continuous ones uniform in [-1, 1], unit
   normal embeds, is_first on most rows at step 0 and on a few inside the
   chunk, Gumbel noise, and four cotangents."""
   import torch
@@ -293,7 +320,10 @@ def observe_inputs(dtype, shape, seed=0):
   params['ln_obs_scale'] = t(1 + 0.1 * rng.standard_normal(U))
   params['ln_obs_bias'] = t(0.1 * rng.standard_normal(U))
   params['w_post'], params['b_post'] = w(U, SC), t(rng.standard_normal(SC) * .1)
-  actions = t(np.eye(A)[rng.integers(0, A, (T, B))])
+  if shape.get('discrete', True):
+    actions = t(np.eye(A)[rng.integers(0, A, (T, B))])
+  else:
+    actions = t(rng.uniform(-1, 1, (T, B, A)))
   embeds = t(rng.standard_normal((T, B, E)))
   first = np.zeros((T, B), bool)
   first[0, :B - B // 4] = True
@@ -384,7 +414,10 @@ ADJOINTS = ('dz1', 'dn1', 'dzg', 'dng', 'dz2', 'dn2', 'dq', 'dm',
             'dpl_total', 'ds0', 'dd0')
 
 
-def check_observe(shape):
+def check_observe(shape, at='xarm'):
+  """observe_fwd and observe_bwd against their plain versions at `shape`
+  (its name `at` on every line), in float32 and bfloat16; in float32 also
+  the whole gradient through ObserveFused."""
   import torch
   from daydreamer_tpu_torch.ops import rssm_vjp as ops
   T, B, S, C = (shape[k] for k in 'TBSC')
@@ -392,8 +425,8 @@ def check_observe(shape):
   results = {'observe_fwd': {}, 'observe_bwd': {}}
   dims = [shape[k] for k in ('T', 'B', 'A', 'E', 'D', 'U', 'S', 'C', 'n_out')]
   fit = ops.observe_fwd_clusters(torch.bfloat16, *dims)
-  log(f'observe_fwd: one call launches 3 CUDA kernels (embed product, chain, '
-      f'prior head); clusters of the chain that fit the card at once '
+  log(f'observe_fwd {at}: one call launches 3 CUDA kernels (embed product, '
+      f'chain, prior head); clusters of the chain that fit the card at once '
       f'(cudaOccupancyMaxActiveClusters, bfloat16): {fit[0]} of 4 blocks, '
       f'{fit[1]} of 8; it needs {(B + 1) // 2}, one per pair of rows')
   for dtype in (torch.float32, torch.bfloat16):
@@ -442,15 +475,15 @@ def check_observe(shape):
     plain_ms = cuda_time(lambda: ops.observe_fwd_plain(*args, **kw),
                          reps=3, warmup=1)
     bound = bounds['observe_fwd']
-    log(f'observe_fwd {name}: valid one-hots {valid}, agreeing (step, row) '
-        f'pairs {agree:.6f}, max |d deter| {err_d:.3g}, max |d logit| '
+    log(f'observe_fwd {at} {name}: valid one-hots {valid}, agreeing (step, '
+        f'row) pairs {agree:.6f}, max |d deter| {err_d:.3g}, max |d logit| '
         f'{err_l:.3g} on agreeing rows, step-0 error {err0:.3g} (tolerance: '
         f'{tolerance}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
         f'{bound["bound_ms"]:.4f} ms ({bound["bound_by"]}; '
         f'{bound["flops"] / 1e9:.2f} GFLOP, {bound["nbytes"] / 1e6:.1f} MB)')
     if not ok:
       raise AssertionError(f'observe_fwd disagrees with its plain version '
-                           f'in {name}.')
+                           f'at {at} in {name}.')
     results['observe_fwd'][name] = dict(
         ms=ms, plain_ms=plain_ms, bound_ms=bound['bound_ms'],
         bound_by=bound['bound_by'], max_abs_err=max(err0, err_d, err_l))
@@ -484,7 +517,7 @@ def check_observe(shape):
         lambda: ops.observe_bwd_plain(*bargs, unimix=unimix), reps=3,
         warmup=1)
     bound = bounds['observe_bwd']
-    log(f'observe_bwd {name}: finite {finite}, worst scaled error '
+    log(f'observe_bwd {at} {name}: finite {finite}, worst scaled error '
         f'{worst:.3g} over {len(errs)} tensors ({ADJOINTS}), largest '
         f'absolute error {abs_err:.3g} (tolerance: {tolerance}); kernel '
         f'{ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
@@ -492,7 +525,7 @@ def check_observe(shape):
         f'{bound["flops"] / 1e9:.2f} GFLOP, {bound["nbytes"] / 1e6:.1f} MB)')
     if not ok:
       raise AssertionError(f'observe_bwd disagrees with its plain version '
-                           f'in {name}: {errs}')
+                           f'at {at} in {name}: {errs}')
     results['observe_bwd'][name] = dict(
         ms=ms, plain_ms=plain_ms, bound_ms=bound['bound_ms'],
         bound_by=bound['bound_by'], max_abs_err=abs_err)
@@ -514,13 +547,14 @@ def check_observe(shape):
       torch.cuda.synchronize()
       scan = grads(ops.observe_scan_full)
       errs = _scaled_errors(fused, scan)
-      log(f'observe_fused float32: gradient of {len(errs)} leaves (19 '
+      log(f'observe_fused {at} float32: gradient of {len(errs)} leaves (19 '
           f'weight groups, stoch0, deter0, actions, embeds) on the card '
           f'against autograd of observe_scan_full, worst scaled error '
           f'{max(errs):.3g} (tolerance: each leaf within 1e-4 of its '
           f'largest entry)')
       if not max(errs) <= 1e-4:
-        raise AssertionError(f'ObserveFused gradient disagrees: {errs}')
+        raise AssertionError(f'ObserveFused gradient disagrees at {at}: '
+                             f'{errs}')
   return results
 
 
@@ -800,7 +834,7 @@ def phase_compare(spec):
     elif module is rssm_vjp:
       # The inputs of `check_observe`; the backward runs on the saved
       # forward of the tree's forward kernel.
-      shape = xarm_observe_shape()
+      shape = observe_shape('xarm', XARM_OBSERVE)
       params, data, is_first, noise, cts = observe_inputs(dtype, shape)
       kw = dict(noise=noise, unimix=shape['unimix'], sample=True)
       if name == 'observe_fwd':
@@ -856,10 +890,16 @@ def phase_kernel():
   import torch
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
-  shape = xarm_observe_shape()
+  shape = observe_shape('xarm', XARM_OBSERVE)
   log(f'xarm observe shape: {shape}')
   results = {'imagine_actor': check_imagine_actor()}
   results.update(check_observe(shape))
+  # The a1 training shape, whose rows go on earlier lines only: the kernels
+  # line carries the xarm rows.
+  shape = observe_shape('a1', A1_OBSERVE, task='a1_dummy',
+                        **{'rssm.impl': 'pallas'})
+  log(f'a1 observe shape: {shape}')
+  check_observe(shape, 'a1')
   results.update(check_proof_kernels())
   return results
 
@@ -958,7 +998,7 @@ def phase_profile(updates=5):
 def main(argv=None):
   parser = argparse.ArgumentParser()
   parser.add_argument(
-      '--phases', default='device,build,kernel,slice,proof,learner')
+      '--phases', default='device,build,kernel,slice,proof,learner,a1')
   parser.add_argument('--compare', action='append', default=[],
                       metavar='NAME=SOURCE')
   args = parser.parse_args(argv)
@@ -985,7 +1025,8 @@ def main(argv=None):
   kernel = phase_kernel() if 'kernel' in phases else {}
   launches = {}
   if 'slice' in phases:
-    launches.update(phase_slice('slice', SLICE_ARGS, TRAIN_KERNELS))
+    counts = phase_slice('slice', SLICE_ARGS, TRAIN_KERNELS)
+    launches.update({k: counts[k] for k in TRAIN_KERNELS})
     phase_slice('slice (rssm.impl scan)', SCAN_SLICE_ARGS, (
         'imagine_actor',))
   if 'proof' in phases:
@@ -993,6 +1034,10 @@ def main(argv=None):
   if 'learner' in phases:
     phase_learner('learner (uniform ring)', 'fixed')
     phase_learner('learner (prioritized ring)', 'prio')
+  if 'a1' in phases:
+    phase_a1()
+  if 'sphero' in phases:
+    phase_slice('sphero', SPHERO_ARGS, OBSERVE_KERNELS)
   if 'profile' in phases:
     phase_profile()
   entries = []
@@ -1245,7 +1290,60 @@ def phase_slice(label, cli_args, expect):
   log(f'{label}: {len(train_s) / sum(train_s):.3f} updates/s over '
       f'{len(train_s)} updates, policy step {1e3 * np.mean(policy_s):.3f} ms '
       f'mean over {len(policy_s)} steps')
-  return {k: launches[k] for k in expect}
+  return launches
+
+
+# The paper's A1 config as its file has it (proprio only: the MLP encoder
+# over the 16-wide vector, deter = units = 256, 12 continuous actions), on
+# the env's dummy task, which needs no simulator. The length is cut as the
+# xarm slice's is: 200 steps of fill, then 50 updates, one every 4 steps.
+A1_ARGS = [
+    '--configs', 'a1', '--task', 'a1_dummy',
+    '--run', 'train', '--train.train_fill', '200', '--train.steps', '400',
+    '--train.eval_every', '200', '--train.log_every', '100']
+OBSERVE_KERNELS = ('observe_fwd', 'observe_bwd')
+# The sphero config as its file has it (`rssm.impl: pallas`), cut alike.
+SPHERO_ARGS = [
+    '--configs', 'sphero', '--run', 'train', '--train.train_fill', '200',
+    '--train.steps', '400', '--train.eval_every', '200',
+    '--train.log_every', '100']
+
+
+def phase_a1():
+  """a1 through the CLI three times: as the config file has it (the loop
+  path: no kernel may launch), with the fused observe chain (`--rssm.impl
+  pallas`: observe_fwd and observe_bwd at D = U = 256, E = 512, A = 12),
+  and through the native batcher (`--data_loader native`), whose library
+  g++ must have built into native/_build/ and loaded."""
+  from daydreamer_tpu_torch.agents.dreamer import torchagent
+  from daydreamer_tpu_torch.native.build import BUILD
+  from daydreamer_tpu_torch.replay import batcher
+  library = BUILD / 'libfastcopy.so'
+  built_before = library.exists()
+  launches = phase_slice('a1', A1_ARGS, ())
+  if any(launches.values()):
+    raise AssertionError(f'a1: a kernel launched on the loop path: '
+                         f'{launches}')
+  phase_slice('a1 (rssm.impl pallas)', [*A1_ARGS, '--rssm.impl', 'pallas'],
+              OBSERVE_KERNELS)
+  made = []
+  dataset = torchagent.TorchAgent.dataset
+  torchagent.TorchAgent.dataset = lambda self, generator: made.append(
+      dataset(self, generator)) or made[-1]
+  try:
+    phase_slice('a1 (data_loader native)',
+                [*A1_ARGS, '--data_loader', 'native'], ())
+  finally:
+    torchagent.TorchAgent.dataset = dataset
+  if not made or not all(
+      isinstance(d, batcher.NativeBatcher) and d._lib is not None
+      for d in made) or not library.exists():
+    raise AssertionError(f'a1 (data_loader native): the native batcher did '
+                         f'not run on its library: {made}, {library}')
+  origin = 'found from an earlier run' if built_before else (
+      'built by g++ in this run')
+  log(f'a1 (data_loader native): {len(made)} NativeBatcher(s) on '
+      f'{pathlib.Path(made[0]._lib._name).relative_to(ROOT)}, {origin}')
 
 
 if __name__ == '__main__':

@@ -289,15 +289,17 @@ class TorchAgent:
     """Iterator of Prestacked groups for `train_multi`, one group ahead.
 
     Pulls `steps` batches from `source`, stacks them along a leading axis
-    into pinned memory and starts their host->device copy on a stream of
-    its own one group before the consumer needs it: a train call returns
-    before the card has finished, so the stacking and the copy of group
-    N+1 run while the card still trains on group N (reference capability:
-    tf.data prefetch-to-device, agent.py:108-121). Deliberately
+    (GIL-released C++ gather) into pinned memory and starts their
+    host->device copy on a stream of its own one group before the consumer
+    needs it: a train call returns before the card has finished, so the
+    stacking and the copy of group N+1 run while the card still trains on
+    group N (reference capability: tf.data prefetch-to-device,
+    agent.py:108-121). Deliberately
     single-threaded, like the JAX package's: produced inline, in the gap
     that the device's work leaves the host.
     """
     self._create()
+    from ...replay.batcher import native_stack
     it = iter(source)
     on_card = self.device.type == 'cuda'
     stream = torch.cuda.Stream(self.device) if on_card else None
@@ -306,8 +308,8 @@ class TorchAgent:
       datas = [dict(next(it)) for _ in range(steps)]
       keys = [d.pop('key', None) for d in datas]
       names = [k for k in datas[0] if not k.startswith('log_')]
-      stacked = {k: torch.from_numpy(np.stack([d[k] for d in datas]))
-                 for k in names}
+      stacked = native_stack([{k: d[k] for k in names} for d in datas])
+      stacked = {k: torch.from_numpy(v) for k, v in stacked.items()}
       if not on_card:
         return Prestacked(stacked, keys, steps), None
       with torch.cuda.stream(stream):
@@ -400,6 +402,11 @@ class TorchAgent:
     return _to_numpy(report)
 
   def dataset(self, generator):
+    loader = self.config.data_loader
+    if loader == 'native' and hasattr(generator, '__self__'):
+      # Threaded C++ batch assembly straight from the replay's store.
+      from ...replay.batcher import NativeBatcher
+      return NativeBatcher(generator.__self__, self.config.batch_size)
     from ...core import Prefetch
     return Prefetch(
         sources=[generator] * self.config.batch_size, workers=8, prefetch=4)

@@ -1,5 +1,4 @@
-"""Environment registry and assembly (the dummy and robot suites; the
-other suites of the reference package are not ported yet).
+"""Environment registry and assembly.
 
 Covers the reference's env loading capability (reference:
 embodied/envs/__init__.py:17-102) with a registry design: each suite
@@ -17,7 +16,9 @@ import typing
 from .. import core
 from ..core import wrappers
 from .dummy import Dummy
+from .a1 import A1
 from .robot import PickPlace, EnvConfig, RobotType
+from .sphero import SpheroEnv
 
 SUITES = {}
 
@@ -54,6 +55,21 @@ def _dummy(task, spec):
   return Dummy(task, spec.size, spec.length or 100)
 
 
+@suite('gym')
+def _gym(task, spec):
+  from .gym import Gym
+  return Gym(task)
+
+
+@suite('a1')
+def _a1(task, spec):
+  # `render` gates the per-step 64x64 camera render: software EGL costs
+  # ~45ms/frame, dominating proprio-only training where the image is
+  # never encoded (a1 config uses cnn_keys '$^').
+  return A1(task, spec.repeat, spec.length or 1000, spec.render, spec.size,
+            seed=spec.seed, sensor_latency=spec.sensor_latency)
+
+
 @suite('xarm')
 def _xarm(task, spec):
   assert task in ('real', 'dummy')
@@ -68,6 +84,61 @@ def _ur5(task, spec):
   return PickPlace(EnvConfig(
       use_real=(task == 'real'), robot_type=RobotType.UR5,
       length=spec.length or 100))
+
+
+@suite('sphero')
+def _sphero(task, spec):
+  from .sphero import EnvConfig as SpheroConfig
+  assert task in ('real', 'dummy')
+  return SpheroEnv(SpheroConfig(
+      use_real=(task == 'real'), length=spec.length or 100))
+
+
+@suite('dmc')
+def _dmc(task, spec):
+  from .dmc import DMC
+  return DMC(task, spec.repeat, spec.size, spec.camera, spec.render)
+
+
+@suite('atari')
+def _atari(task, spec):
+  from .atari import Atari
+  return Atari(task, spec.repeat, spec.size, spec.gray,
+               lives=spec.lives, sticky=spec.sticky)
+
+
+@suite('crafter')
+def _crafter(task, spec):
+  from .crafter import Crafter
+  assert spec.repeat == 1
+  outdir = core.Path(spec.logdir) / 'crafter' if spec.mode == 'train' else None
+  return Crafter(task, spec.size, outdir)
+
+
+@suite('dmlab')
+def _dmlab(task, spec):
+  from .dmlab import DMLab
+  return DMLab(task, spec.repeat, spec.size, spec.mode,
+               seed=spec.seed, episodic=spec.episodic)
+
+
+@suite('minecraft')
+def _minecraft(task, spec):
+  from .minecraft import Minecraft
+  return Minecraft(task, spec.repeat, spec.size)
+
+
+@suite('loconav')
+def _loconav(task, spec):
+  from .loconav import LocoNav
+  return LocoNav(task, spec.repeat, spec.size, spec.camera)
+
+
+@suite('hrlgrid')
+def _hrlgrid(task, spec):
+  from .hrlgrid import HRLGrid
+  assert spec.repeat == 1
+  return HRLGrid(int(task), spec.length or 1000)
 
 
 def load_single_env(task, **options):
@@ -114,5 +185,5 @@ def load_env(
 
 __all__ = [
     'load_env', 'load_single_env', 'suite', 'SUITES', 'EnvSpec', 'Dummy',
-    'PickPlace', 'EnvConfig', 'RobotType',
+    'A1', 'PickPlace', 'EnvConfig', 'RobotType', 'SpheroEnv',
 ]

@@ -302,8 +302,10 @@ def compare_observe(dtype, unimix=0.01, restart=None, **shape):
 # product (U = 16, S * C = 8: three ranks of four own nothing), three prior
 # layers, four rows and four steps; float32 with C = 40 classes, more than
 # a warp's lanes, so that a lane of the sample takes two classes, and an
-# E = 7 with T x B = 2 x 7 rows. Every case has a first step inside the
-# chunk (`make_inputs`).
+# E = 7 with T x B = 2 x 7 rows; last, float32 at the a1 config's widths
+# (D = U = 256, S * C = 1024, E = 512) with its 12 continuous actions, on
+# two rows of two steps. Every case has a first step inside the chunk
+# (`make_inputs`).
 CASES = (
     (torch.float32, {}),
     (torch.float32, dict(sample=False, unimix=0.0, B=2, T=2, n_out=1)),
@@ -317,6 +319,7 @@ CASES = (
     (torch.bfloat16, dict(D=8, U=16, S=2, C=4, A=2, E=5, B=4, T=4,
                           n_out=3)),
     (torch.float32, dict(D=16, U=24, S=2, C=40, A=3, E=7, B=7, T=2)),
+    (torch.float32, dict(D=256, U=256, S=32, C=32, A=12, E=512, B=2, T=2)),
 )
 
 

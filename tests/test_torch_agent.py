@@ -38,18 +38,20 @@ OVERRIDES = {
     'env.amount': 1, 'env.length': 10}
 
 
-def jax_config(**kw):
+def jax_config(base='debug', **kw):
   from daydreamer_tpu.agents.dreamer import Agent
   config = ddt.Config(Agent.configs['defaults'])
-  config = config.update(Agent.configs['debug'])
-  return config.update({'jax.platform': 'cpu', **OVERRIDES, **kw})
+  config = config.update(Agent.configs[base])
+  return config.update({'jax.platform': 'cpu', 'jax.precision': 'float32',
+                        **OVERRIDES, **kw})
 
 
-def port_config(**kw):
+def port_config(base='debug', **kw):
   from daydreamer_tpu_torch.agents.dreamer import Agent
   config = ddp.Config(Agent.configs['defaults'])
-  config = config.update(Agent.configs['debug'])
-  return config.update({'torch.device': 'cpu', **OVERRIDES, **kw})
+  config = config.update(Agent.configs[base])
+  return config.update({'torch.device': 'cpu', 'torch.precision': 'float32',
+                        **OVERRIDES, **kw})
 
 
 def make_batch(env, B, T, seed=0):
@@ -66,7 +68,10 @@ def make_batch(env, B, T, seed=0):
       data[key] = rng.standard_normal((B, T) + space.shape).astype(
           space.dtype)
   A = env.act_space['action'].shape[0]
-  data['action'] = np.eye(A, dtype=np.float32)[rng.integers(0, A, (B, T))]
+  if env.act_space['action'].discrete:
+    data['action'] = np.eye(A, dtype=np.float32)[rng.integers(0, A, (B, T))]
+  else:
+    data['action'] = rng.uniform(-1, 1, (B, T, A)).astype(np.float32)
   data['reward'] = rng.uniform(0, 1, (B, T)).astype(np.float32)
   data['is_first'][:, 0] = True
   data['is_terminal'][1, -1] = True
@@ -96,18 +101,20 @@ def env():
   env.close()
 
 
-def _jax_run(env, **kw):
+def _jax_run(env, base='debug', **kw):
   from daydreamer_tpu.agents.dreamer import Agent
   mp = pytest.MonkeyPatch()
   sg = jax.lax.stop_gradient
   mp.setattr(jdists.OneHotDist, 'sample',
              lambda self, key: sg(self.mode()) + self.probs - sg(self.probs))
+  # Continuous actions: the mean, with the reparameterized gradient.
+  mp.setattr(jdists.Normal, 'sample', lambda self, key: self._mean)
   fused = jvjp.observe_fused
   mp.setattr(jvjp, 'observe_fused',
              lambda *a, **k: fused(*a, **{**k, 'sample': False}))
   try:
     agent = Agent(env.obs_space, env.act_space, ddt.Counter(),
-                  jax_config(**kw))
+                  jax_config(base, **kw))
     before = agent.save()
     data = make_batch(env, 4, 8)
     _, _, mets = agent.train(data)
@@ -131,9 +138,10 @@ def jax_run_fused(env):
   return _jax_run(env, **{'rssm.impl': 'pallas'})
 
 
-def port_agent(env, **kw):
+def port_agent(env, base='debug', **kw):
   from daydreamer_tpu_torch.agents.dreamer import Agent
-  return Agent(env.obs_space, env.act_space, ddp.Counter(), port_config(**kw))
+  return Agent(env.obs_space, env.act_space, ddp.Counter(),
+               port_config(base, **kw))
 
 
 @pytest.mark.parametrize('imag_impl', ['scan', 'pallas'])
@@ -187,6 +195,50 @@ def test_train_step_matches_jax_fused_observe(env, jax_run_fused,
     pmets = dict(pmets)
   assert calls['observe_fwd_plain'] and calls['observe_bwd_plain'], calls
   assert [k.launches for k in kernels] == launches  # CPU: no kernel.
+  assert set(pmets) == set(jmets)
+  for key in sorted(jmets):
+    np.testing.assert_allclose(pmets[key], jmets[key], rtol=1e-4,
+                               atol=1e-5, err_msg=key)
+  state = agent.save()
+  assert set(state) == set(after)
+  for key, value in after.items():
+    np.testing.assert_allclose(
+        state[key], np.asarray(value), atol=3e-4, rtol=0, err_msg=key)
+
+
+@pytest.fixture(scope='module')
+def a1_env():
+  env = jenvs.load_env('a1_dummy', amount=1, parallel='none', length=10)
+  yield env
+  env.close()
+
+
+def test_a1_train_step_matches_jax_fused_observe(a1_env, mode_sampling,
+                                                 monkeypatch):
+  """The paper's A1 config (deter = units = 256, 32 x 32 latents, an MLP
+  encoder of 512 units over the 16-wide proprio vector, 12 continuous
+  actions, the actor trained by backprop through the dynamics) with the
+  fused observe chain on both sides, one train step at batch 4 x 8: the
+  port's plain forward and adjoint chain against the JAX package's
+  kernels in interpret mode. Continuous actions are the actor's mean on
+  both sides."""
+  monkeypatch.setattr(pdists.Normal, 'sample',
+                      lambda self, generator=None: self._mean)
+  impl = {'rssm.impl': 'pallas'}
+  before, after, data, jmets = _jax_run(a1_env, 'a1', **impl)
+  agent = port_agent(a1_env, 'a1', **impl)
+  rssm = agent.agent.wm.rssm
+  assert (rssm._deter, rssm._stoch, rssm._classes) == (256, 32, 32)
+  assert a1_env.act_space['action'].shape == (12,)
+  agent.load(before)
+  calls = []
+  plain = pvjp.observe_bwd_plain
+  with pytest.MonkeyPatch.context() as mp:
+    mp.setattr(pvjp, 'observe_bwd_plain',
+               lambda *a, **k: calls.append(1) or plain(*a, **k))
+    _, _, pmets = agent.train(data)
+    pmets = dict(pmets)
+  assert calls, 'The fused observe chain took no update.'
   assert set(pmets) == set(jmets)
   for key in sorted(jmets):
     np.testing.assert_allclose(pmets[key], jmets[key], rtol=1e-4,

@@ -1,0 +1,81 @@
+"""The port's import rule: `daydreamer_tpu_torch/` and `chip_smoke.py`
+import neither JAX nor the JAX package `daydreamer_tpu`, and the port's
+native build writes only into its own build directory."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / 'daydreamer_tpu_torch'
+
+
+def _forbidden(name):
+  top = name.split('.')[0]
+  return (top.startswith(('jax', 'daydreamer_tpu'))
+          and not top.endswith('_torch'))
+
+
+def _sources():
+  return sorted(PORT.rglob('*.py')) + [ROOT / 'chip_smoke.py']
+
+
+def test_forbidden_name_rule():
+  for name in ('jax', 'jax.numpy', 'jaxlib', 'daydreamer_tpu',
+               'daydreamer_tpu.envs', 'daydreamer_tpu_other'):
+    assert _forbidden(name), name
+  for name in ('daydreamer_tpu_torch', 'daydreamer_tpu_torch.envs', 'torch',
+               'numpy', 'json'):
+    assert not _forbidden(name), name
+
+
+def test_sources_import_no_jax():
+  """Every import statement of every source, at any depth (the lazy ones
+  inside functions too)."""
+  sources = _sources()
+  assert len(sources) > 80 and (PORT / 'envs' / 'a1.py') in sources
+  bad = []
+  for path in sources:
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+      if isinstance(node, ast.Import):
+        names = [a.name for a in node.names]
+      elif isinstance(node, ast.ImportFrom) and not node.level:
+        names = [node.module]
+      else:
+        continue
+      bad += [(str(path.relative_to(ROOT)), node.lineno, name)
+              for name in names if _forbidden(name)]
+  assert not bad, bad
+
+
+def test_modules_load_without_jax(tmp_path):
+  """The host-side layers import in a fresh interpreter without pulling in
+  JAX or the JAX package; building the native libraries writes only under
+  `daydreamer_tpu_torch/native/_build/`."""
+  native = PORT / 'native'
+  before = {p: p.stat().st_mtime_ns for p in native.iterdir() if p.is_file()}
+  script = (
+      'import sys\n'
+      'import daydreamer_tpu_torch.envs, daydreamer_tpu_torch.control\n'
+      'import daydreamer_tpu_torch.native\n'
+      'import daydreamer_tpu_torch.replay.batcher\n'
+      'from daydreamer_tpu_torch.native import load\n'
+      'from daydreamer_tpu_torch.native.build import SOURCES\n'
+      'libs = [str(load(name)._name) for name in SOURCES]\n'
+      'mods = [m for m in sys.modules\n'
+      '        if m.split(".")[0] in ("jax", "jaxlib", "daydreamer_tpu")]\n'
+      'print(repr((mods, libs)))\n')
+  env = dict(os.environ, PYTHONPATH=str(ROOT))
+  out = subprocess.run([sys.executable, '-c', script], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=300,
+                       check=True).stdout
+  mods, libs = ast.literal_eval(out.strip().splitlines()[-1])
+  assert not mods, mods
+  for lib in libs:
+    assert pathlib.Path(lib).parent == native / '_build', lib
+  after = {p: p.stat().st_mtime_ns for p in native.iterdir() if p.is_file()}
+  assert after == before  # Nothing written next to the sources.
+  assert not list(native.glob('*.so'))
+  assert not list(tmp_path.iterdir())
