@@ -42,6 +42,22 @@ Phases, each of which must pass:
                the library that g++ builds into native/_build/. Each logs
                its updates/s, its policy step at batch 1 and its last
                losses, which must be finite.
+  8. explore - the rest of the agent at xarm's full width, through the CLI
+               as the slice (200 steps of fill, then 200 policy steps, about
+               50 updates), counts set to 0 before each run and read after:
+               `--configs xarm plan2explore` (Explore with the extrinsic
+               reward and an ensemble of 8 disagreement heads beside the
+               Greedy task behavior), where imagine_actor must launch twice
+               an update, observe_fwd and observe_bwd once, every `expl_`
+               loss must be finite and every policy step must run
+               Explore's actor; `--task_behavior DisagWhen`, where
+               imagine_actor must launch twice an update and the
+               disagreement buffer must lie on the card and hold states;
+               and `--torch.policy_devices cpu --torch.policy_sync 20`,
+               where the kernels launch on the card while the policy runs
+               on the host-CPU mirror, which must have refreshed more than
+               once. Each logs its updates/s and policy step; the mirror's
+               host policy step is logged beside the card's from the slice.
 The kernel phase also holds observe_fwd and observe_bwd at the a1 training
 shape (T = B = 32, D = U = 256, E = 512, 12 continuous actions) against
 their plain versions.
@@ -49,7 +65,8 @@ The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}. Without a card, or outside the repository,
 the script exits non-zero and prints no result. `--phases` runs a subset;
 the extra phase `profile` (not run by default) prints where an update's
-device time goes, its launches and the device's idle share; the extra
+device time goes, its launches and the device's idle share, and
+`profile_explore` the same for `--configs xarm plan2explore`; the extra
 phase `sphero` (not run by default) trains `--configs sphero` (its dummy
 task, whose tracker and resize need OpenCV) as the slice trains xarm.
 
@@ -934,18 +951,22 @@ def phase_build():
         log(f'  {kernel.name}: {line.strip()}')
 
 
-def phase_profile(updates=5):
-  """Where an xarm update's time goes: torch.profiler over `updates`
-  train steps (after three warm-up steps) on a random batch. Prints the
-  wall time per update, the device's busy and idle share, and the kernels
-  with the most device time. Not part of the default phases."""
+def phase_profile(configs=('xarm',), updates=5):
+  """Where an update's time goes at the named config blocks (xarm by
+  default): torch.profiler over `updates` train steps (after three warm-up
+  steps) on a random batch. Prints the wall time per update, the device's
+  busy and idle share, and the kernels with the most device time. Not part
+  of the default phases."""
   import torch
   from torch.profiler import ProfilerActivity, profile
   import daydreamer_tpu_torch as ddp
   from daydreamer_tpu_torch import envs
   from daydreamer_tpu_torch.agents.dreamer import Agent
-  config = ddp.Config(Agent.configs['defaults']).update(
-      Agent.configs['xarm']).update({'imag_impl': 'pallas'})
+  config = ddp.Config(Agent.configs['defaults'])
+  for name in configs:
+    config = config.update(Agent.configs[name])
+  config = config.update({'imag_impl': 'pallas'})
+  label = f'profile ({" ".join(configs)})'
   env = envs.load_env(config.task, **config.env)
   agent = Agent(env.obs_space, env.act_space, ddp.Counter(), config)
   rng = np.random.default_rng(0)
@@ -980,7 +1001,7 @@ def phase_profile(updates=5):
              if e.device_type == torch.autograd.DeviceType.CUDA]
   device = lambda e: e.self_device_time_total
   busy = sum(device(e) for e in kernels) / 1e3 / updates
-  log(f'profile: {wall * 1e3:.3f} ms wall per update, {busy:.3f} ms device '
+  log(f'{label}: {wall * 1e3:.3f} ms wall per update, {busy:.3f} ms device '
       f'busy per update, idle share {1 - busy / (wall * 1e3):.3f}, '
       f'{sum(e.count for e in kernels) // updates} kernel launches per '
       f'update')
@@ -998,7 +1019,8 @@ def phase_profile(updates=5):
 def main(argv=None):
   parser = argparse.ArgumentParser()
   parser.add_argument(
-      '--phases', default='device,build,kernel,slice,proof,learner,a1')
+      '--phases',
+      default='device,build,kernel,slice,proof,learner,a1,explore')
   parser.add_argument('--compare', action='append', default=[],
                       metavar='NAME=SOURCE')
   args = parser.parse_args(argv)
@@ -1024,8 +1046,9 @@ def main(argv=None):
     phase_build()
   kernel = phase_kernel() if 'kernel' in phases else {}
   launches = {}
+  slice_run = None
   if 'slice' in phases:
-    counts = phase_slice('slice', SLICE_ARGS, TRAIN_KERNELS)
+    counts, slice_run = phase_slice('slice', SLICE_ARGS, TRAIN_KERNELS)
     launches.update({k: counts[k] for k in TRAIN_KERNELS})
     phase_slice('slice (rssm.impl scan)', SCAN_SLICE_ARGS, (
         'imagine_actor',))
@@ -1036,10 +1059,14 @@ def main(argv=None):
     phase_learner('learner (prioritized ring)', 'prio')
   if 'a1' in phases:
     phase_a1()
+  if 'explore' in phases:
+    phase_explore(slice_run)
   if 'sphero' in phases:
     phase_slice('sphero', SPHERO_ARGS, OBSERVE_KERNELS)
   if 'profile' in phases:
     phase_profile()
+  if 'profile_explore' in phases:
+    phase_profile(('xarm', 'plan2explore'))
   entries = []
   for k in build.KERNELS:
     # The main path computes in bfloat16; each kernel's own result. The
@@ -1287,10 +1314,13 @@ def phase_slice(label, cli_args, expect):
                          f'world-model updates.')
   # The first call of each entry point carries the creation pass.
   train_s, policy_s = times['train'][1:], times['policy'][1:]
-  log(f'{label}: {len(train_s) / sum(train_s):.3f} updates/s over '
-      f'{len(train_s)} updates, policy step {1e3 * np.mean(policy_s):.3f} ms '
-      f'mean over {len(policy_s)} steps')
-  return launches
+  run = dict(updates=len(times['train']), policy_steps=len(times['policy']),
+             rate=len(train_s) / sum(train_s),
+             policy_ms=1e3 * float(np.mean(policy_s)), losses=losses)
+  log(f'{label}: {run["rate"]:.3f} updates/s over {len(train_s)} updates, '
+      f'policy step {run["policy_ms"]:.3f} ms mean over {len(policy_s)} '
+      f'steps')
+  return launches, run
 
 
 # The paper's A1 config as its file has it (proprio only: the MLP encoder
@@ -1320,7 +1350,7 @@ def phase_a1():
   from daydreamer_tpu_torch.replay import batcher
   library = BUILD / 'libfastcopy.so'
   built_before = library.exists()
-  launches = phase_slice('a1', A1_ARGS, ())
+  launches, _ = phase_slice('a1', A1_ARGS, ())
   if any(launches.values()):
     raise AssertionError(f'a1: a kernel launched on the loop path: '
                          f'{launches}')
@@ -1344,6 +1374,121 @@ def phase_a1():
       'built by g++ in this run')
   log(f'a1 (data_loader native): {len(made)} NativeBatcher(s) on '
       f'{pathlib.Path(made[0]._lib._name).relative_to(ROOT)}, {origin}')
+
+
+# The rest of the agent at xarm's full width (deter = units = 512, 32x32
+# latents, 64x64 image and depth, batch 32 x chunk 32; the disagreement
+# ensemble of 8 heads of 4 x 512), cut in length only, as the slice is.
+PLAN2EXPLORE_ARGS = ['--configs', 'xarm', 'plan2explore', *SLICE_ARGS[2:]]
+DISAG_WHEN_ARGS = [*SLICE_ARGS, '--task_behavior', 'DisagWhen']
+MIRROR_ARGS = [*SLICE_ARGS, '--torch.policy_devices', 'cpu',
+               '--torch.policy_sync', '20']
+
+
+def _leaves(tree):
+  if isinstance(tree, dict):
+    return [x for v in tree.values() for x in _leaves(v)]
+  if isinstance(tree, (tuple, list)):
+    return [x for v in tree for x in _leaves(v)]
+  return [tree]
+
+
+@contextlib.contextmanager
+def policy_probe():
+  """Within the block, records each TorchAgent whose policy runs and the
+  device types of the tensors in each policy state it returns."""
+  from daydreamer_tpu_torch.agents.dreamer import torchagent
+  seen = {'agents': [], 'devices': set()}
+  inner = torchagent.TorchAgent.policy
+
+  def policy(self, *args, **kwargs):
+    outs, state = inner(self, *args, **kwargs)
+    if self not in seen['agents']:
+      seen['agents'].append(self)
+    seen['devices'].update(x.device.type for x in _leaves(state))
+    return outs, state
+
+  torchagent.TorchAgent.policy = policy
+  try:
+    yield seen
+  finally:
+    torchagent.TorchAgent.policy = inner
+
+
+def _twice_per_update(label, launches, run):
+  updates = run['updates']
+  if launches['imagine_actor'] < 2 * (updates - 1) or any(
+      launches[k] < updates - 1 for k in OBSERVE_KERNELS):
+    raise AssertionError(
+        f'{label}: launches {launches} in {updates} updates: imagine_actor '
+        f'not twice an update, or observe_fwd/observe_bwd not once.')
+  log(f'{label}: launches per update: ' + ', '.join(
+      f'{k} {launches[k] / updates:.2f}' for k in TRAIN_KERNELS))
+
+
+def phase_explore(slice_run):
+  """plan2explore, DisagWhen and the host-CPU policy mirror through the
+  CLI at xarm's full width (see the module's docstring, phase 8)."""
+  from daydreamer_tpu_torch import nn
+  from daydreamer_tpu_torch.agents.dreamer import behaviors
+  explore_calls = []
+  explore_policy = behaviors.Explore.policy
+  behaviors.Explore.policy = lambda self, *a: (
+      explore_calls.append(1) or explore_policy(self, *a))
+  try:
+    label = 'explore (plan2explore)'
+    launches, run = phase_slice(label, PLAN2EXPLORE_ARGS, TRAIN_KERNELS)
+  finally:
+    behaviors.Explore.policy = explore_policy
+  _twice_per_update(label, launches, run)
+  expl = {k: v for k, v in run['losses'].items()
+          if k.startswith('train/expl_')}
+  if not expl:
+    raise AssertionError(f'{label}: no expl_ loss was logged.')
+  # `train.expl_until: 0`: every policy step runs in mode 'explore'.
+  if len(explore_calls) < run['policy_steps']:
+    raise AssertionError(
+        f'{label}: Explore acted {len(explore_calls)} times in '
+        f'{run["policy_steps"]} policy steps.')
+  log(f'{label}: Explore\'s actor in {len(explore_calls)} policy calls; '
+      f'last logged expl_ losses {expl}')
+
+  label = 'explore (DisagWhen)'
+  with policy_probe() as seen:
+    launches, run = phase_slice(label, DISAG_WHEN_ARGS, TRAIN_KERNELS)
+  _twice_per_update(label, launches, run)
+  agent, = seen['agents']
+  buffers = {k: v for k, v in nn.state(agent.agent).items()
+             if k.endswith(('/buffer', '/disags'))}
+  if len(buffers) != 2 or not all(
+      v.device.type == 'cuda' and bool((v != 0).any())
+      for v in buffers.values()):
+    raise AssertionError(f'{label}: the disagreement buffer is not on the '
+                         f'card, or holds nothing: {list(buffers)}')
+  disags = buffers['agent/task_behavior/disags']
+  log(f'{label}: buffer of {len(disags)} states on the card, '
+      f'{int((disags != 0).sum())} held, disagreement '
+      f'{float(disags.max()):.4f} at most')
+
+  label = 'explore (policy mirror)'
+  with policy_probe() as seen:
+    launches, run = phase_slice(label, MIRROR_ARGS, TRAIN_KERNELS)
+  agent, = seen['agents']
+  mirror = nn.state(agent._mirror)
+  if agent.device.type != 'cuda' or seen['devices'] != {'cpu'} or not all(
+      v.device.type == 'cpu' for v in mirror.values()):
+    raise AssertionError(
+        f'{label}: the agent is on {agent.device}, the policy states on '
+        f'{seen["devices"]}: the policy did not run on the host mirror.')
+  if agent._mirror_syncs < 2:
+    raise AssertionError(f'{label}: the mirror refreshed '
+                         f'{agent._mirror_syncs} times.')
+  card = (f'{slice_run["policy_ms"]:.3f} ms on the card (slice phase)'
+          if slice_run else 'the card\'s not measured in this call')
+  log(f'{label}: {len(mirror)} of {len(nn.state(agent.agent))} entries on '
+      f'the host, refreshed {agent._mirror_syncs} times in '
+      f'{agent._train_steps} updates; host policy step '
+      f'{run["policy_ms"]:.3f} ms beside {card}')
 
 
 if __name__ == '__main__':

@@ -75,8 +75,9 @@ class Agent(nn.Module):
     if config.expl_behavior == 'None':
       self.ref('expl_behavior', self.task_behavior)
     else:
-      raise NotImplementedError(
-          f'expl_behavior {config.expl_behavior} is not ported yet.')
+      self.expl_behavior = self.sub(
+          'expl_behavior', getattr(behaviors, config.expl_behavior),
+          self.wm, self.act_space, config)
 
   def policy_initial(self, batch_size):
     return (
@@ -132,6 +133,9 @@ class Agent(nn.Module):
         lambda x: x.reshape((-1,) + tuple(x.shape[2:])), context)
     _, mets = self.task_behavior.train(self.wm.imagine, start, context)
     metrics.update(mets)
+    if self.config.expl_behavior != 'None':
+      _, mets = self.expl_behavior.train(self.wm.imagine, start, context)
+      metrics.update({'expl_' + k: v for k, v in mets.items()})
     outs = {}
     if 'prob' in data:
       criteria = {**data, **wm_outs}
@@ -144,6 +148,9 @@ class Agent(nn.Module):
     report.update(self.wm.report(data))
     mets = self.task_behavior.report(data)
     report.update({f'task_{k}': v for k, v in mets.items()})
+    if self.expl_behavior is not self.task_behavior:
+      mets = self.expl_behavior.report(data)
+      report.update({f'expl_{k}': v for k, v in mets.items()})
     return report
 
   def preprocess(self, obs):
@@ -512,7 +519,7 @@ class VFunction(nn.Module):
   def __init__(self, name, rewfn, config):
     super().__init__(name)
     assert 'action' not in config.critic.inputs, config.critic.inputs
-    self.rewfn = rewfn
+    self.ref('rewfn', rewfn)  # May be a module of the behavior's.
     self.config = config
     self.net = self.sub('net', nets.MLP, (), **config.critic)
     if config.slow_target:
@@ -576,6 +583,156 @@ class VFunction(nn.Module):
     _slow_update(
         self, self.net, self.target_net,
         self.config.slow_target_update, self.config.slow_target_fraction)
+
+
+class QFunction(nn.Module):
+  """Q(s,a) critic with Peng's Q(λ) targets (reference: agent.py:457-525)."""
+
+  def __init__(self, name, rewfn, config):
+    super().__init__(name)
+    assert config.actor_grad_disc == 'backprop'
+    assert config.actor_grad_cont == 'backprop'
+    assert 'action' in config.actor.inputs
+    self.ref('rewfn', rewfn)
+    self.config = config
+    self.net = self.sub('net', nets.MLP, (), **config.critic)
+    if config.slow_target:
+      self.target_net = self.sub('target_net', nets.MLP, (), **config.critic)
+    else:
+      self.ref('target_net', self.net)
+    self.opt = self.sub('critic_opt', nn.Optimizer, **config.critic_opt)
+
+  def score(self, traj, actor):
+    traj = sg(traj)
+    action = actor(traj).sample(nn.rng())
+    ret = self.net({**traj, 'action': action}).mode()[:-1]
+    baseline = torch.zeros_like(ret)
+    return ret, baseline
+
+  def train(self, traj, actor):
+    metrics = {}
+    with torch.no_grad():
+      reward = self.rewfn(traj)
+      target = self.target(traj, actor, reward)
+
+    def lossfn():
+      dist = self.net({k: v[:-1] for k, v in traj.items()})
+      loss = -(dist.log_prob(target) * traj['weight'][:-1]).mean()
+      value = dist.mean().detach()
+      return loss, value.mean(), _std(value)
+
+    mets, (critic_mean, critic_std) = self.opt(lossfn, self.net)
+    metrics.update(mets)
+    metrics.update({
+        'imag_reward_mean': reward.mean(),
+        'imag_reward_std': _std(reward),
+        'imag_critic_mean': critic_mean,
+        'imag_critic_std': critic_std,
+        'imag_target_mean': target.mean(),
+        'imag_target_std': _std(target),
+    })
+    self.update_slow()
+    return metrics
+
+  def target(self, traj, actor, reward):
+    assert len(reward) == len(traj['action']) - 1
+    disc = traj['cont'][1:] * self.config.discount
+    action = actor(traj).sample(nn.rng())
+    value = self.target_net({**traj, 'action': action}).mean()
+    return _q_target(reward, disc, value, self.config)
+
+  def update_slow(self):
+    if not self.config.slow_target:
+      return
+    _slow_update(
+        self, self.net, self.target_net,
+        self.config.slow_target_update, self.config.slow_target_fraction)
+
+
+class TwinQFunction(nn.Module):
+  """Twin-min Q critics (reference: agent.py:528-610)."""
+
+  def __init__(self, name, rewfn, config):
+    super().__init__(name)
+    assert config.actor_grad_disc == 'backprop'
+    assert config.actor_grad_cont == 'backprop'
+    assert 'action' in config.actor.inputs
+    self.ref('rewfn', rewfn)
+    self.config = config
+    self.net1 = self.sub('net1', nets.MLP, (), **config.critic)
+    self.net2 = self.sub('net2', nets.MLP, (), **config.critic)
+    if config.slow_target:
+      self.target_net1 = self.sub('target_net1', nets.MLP, (),
+                                  **config.critic)
+      self.target_net2 = self.sub('target_net2', nets.MLP, (),
+                                  **config.critic)
+    else:
+      self.ref('target_net1', self.net1)
+      self.ref('target_net2', self.net2)
+    self.opt = self.sub('critic_opt', nn.Optimizer, **config.critic_opt)
+
+  def score(self, traj, actor):
+    traj = sg(traj)
+    inps = {**traj, 'action': actor(traj).sample(nn.rng())}
+    ret = torch.minimum(self.net1(inps).mode(), self.net2(inps).mode())[:-1]
+    baseline = torch.zeros_like(ret)
+    return ret, baseline
+
+  def train(self, traj, actor):
+    metrics = {}
+    with torch.no_grad():
+      reward = self.rewfn(traj)
+      target = self.target(traj, actor, reward)
+    inps = {k: v[:-1] for k, v in traj.items()}
+
+    def lossfn():
+      dist1 = self.net1(inps)
+      dist2 = self.net2(inps)
+      loss1 = -(dist1.log_prob(target) * traj['weight'][:-1]).mean()
+      loss2 = -(dist2.log_prob(target) * traj['weight'][:-1]).mean()
+      return loss1 + loss2, dist1.mean().detach().mean()
+
+    mets, (critic_mean,) = self.opt(lossfn, [self.net1, self.net2])
+    metrics.update(mets)
+    metrics.update({
+        'imag_reward_mean': reward.mean(),
+        'imag_reward_std': _std(reward),
+        'imag_critic_mean': critic_mean,
+        'imag_target_mean': target.mean(),
+        'imag_target_std': _std(target),
+    })
+    self.update_slow()
+    return metrics
+
+  def target(self, traj, actor, reward):
+    assert len(reward) == len(traj['action']) - 1
+    disc = traj['cont'][1:] * self.config.discount
+    action = actor(traj).sample(nn.rng())
+    value = torch.minimum(
+        self.target_net1({**traj, 'action': action}).mean(),
+        self.target_net2({**traj, 'action': action}).mean())
+    return _q_target(reward, disc, value, self.config)
+
+  def update_slow(self):
+    if not self.config.slow_target:
+      return
+    _slow_update(
+        self, self.net1, self.target_net1,
+        self.config.slow_target_update, self.config.slow_target_fraction)
+    _slow_update(
+        self, self.net2, self.target_net2,
+        self.config.slow_target_update, self.config.slow_target_fraction)
+
+
+def _q_target(reward, disc, value, config):
+  """Peng's Q(λ) return, or the one-step target without `pengs_qlambda`."""
+  if config.pengs_qlambda:
+    lam = config.return_lambda
+    interm = reward + disc * value[1:] * (1 - lam)
+    return _reverse_scan(
+        lambda nxt, inp: inp[0] + inp[1] * lam * nxt,
+        (interm, disc), value[-1])
+  return reward + disc * value[1:]
 
 
 def _reverse_scan(step, inputs, bootstrap):

@@ -9,6 +9,10 @@ jaxagent.py` (reference: embodied/agents/dreamerv2plus/tfagent.py:14-178).
   in the JAX package: layers compute in bf16, parameters and optimizer
   state stay float32, norms and distribution statistics run in float32.
 - One `torch.Generator` on the device per agent carries every random draw.
+- `config.torch.policy_devices: cpu` serves the policy from a host-CPU
+  mirror of the entries it reads, with a CPU generator of its own,
+  refreshed at most every `policy_sync` train steps (`all`: the policy runs
+  on the agent's device).
 - The state is created by an explicit pass on dummy zero batches built
   from the spaces, on the first call of any entry point.
 - `save()` returns a flat dict of numpy arrays under the JAX package's
@@ -17,6 +21,7 @@ jaxagent.py` (reference: embodied/agents/dreamerv2plus/tfagent.py:14-178).
 """
 
 import collections
+import copy
 
 import numpy as np
 import torch
@@ -153,6 +158,21 @@ class TorchAgent:
     self._metric_names = None
     self._policy_read_log = set()
     self._created = False
+    # Host-CPU policy mirror (the JAX package's jaxagent.py:291-312): the
+    # policy runs on the host against a copy of the entries it reads,
+    # refreshed from the live state at most every `policy_sync` train
+    # steps, the staleness of the reference's actor/learner checkpoint
+    # polling (reference: acting.py:82-96). Built at the first policy call.
+    self._policy_devices = str(config.torch.policy_devices)
+    if self._policy_devices not in ('all', 'cpu'):
+      raise ValueError(f'torch.policy_devices: {self._policy_devices}')
+    self._policy_sync = int(config.torch.policy_sync)
+    self._policy_generator = torch.Generator(device='cpu')
+    self._policy_generator.manual_seed(int(config.seed))
+    self._mirror = None
+    self._mirror_at = None  # Train step of the last refresh; None: due.
+    self._mirror_syncs = 0
+    self._train_steps = 0
 
   def _scope(self, create=False, read_log=None):
     return nn.scope(dtype=self.dtype, generator=self.generator,
@@ -200,26 +220,74 @@ class TorchAgent:
     data['is_first'][:, 0] = True
     return data
 
-  def _to_device(self, data):
+  def _to_device(self, data, device=None):
+    device = self.device if device is None else device
     out = {}
     for key, value in data.items():
       if key.startswith('log_') or key == 'key':
         continue
       if isinstance(value, torch.Tensor):
-        out[key] = value.to(self.device)
+        out[key] = value.to(device)
       else:
-        out[key] = torch.as_tensor(np.asarray(value), device=self.device)
+        out[key] = torch.as_tensor(np.asarray(value), device=device)
     return out
+
+  # -- host-CPU policy mirror --------------------------------------------------
+
+  def _policy_agent(self):
+    """The module the policy runs on and its generator: the agent itself,
+    or the host mirror, refreshed first when it is due."""
+    if self._policy_devices == 'all':
+      return self.agent, self.generator
+    if self._mirror is None:
+      self._mirror = self._build_mirror()
+    due = self._mirror_at is None or (
+        self._train_steps - self._mirror_at >= self._policy_sync
+        and self._mirror_at != self._train_steps)
+    if due:
+      live = nn.state(self.agent)
+      nn.assign(self._mirror, {k: live[k] for k in nn.state(self._mirror)})
+      self._mirror_at = self._train_steps
+      self._mirror_syncs += 1
+    return self._mirror, self._policy_generator
+
+  def _build_mirror(self):
+    """A copy of the agent's module tree on the CPU that holds only the
+    entries the policy reads (captured at creation). The non-trainable
+    entries live in plain dicts that `Module.to()` does not move, so every
+    entry is mapped to its CPU copy explicitly; the values are filled in by
+    the first refresh."""
+    live = nn.state(self.agent)
+    read = {k for k in self._policy_read_log if k in live}
+    memo = {}
+    for key, value in live.items():
+      if key in read:
+        copied = torch.empty_like(value, device='cpu')
+        if isinstance(value, torch.nn.Parameter):
+          copied = torch.nn.Parameter(copied, requires_grad=False)
+        memo[id(value)] = copied
+      else:
+        memo[id(value)] = value  # Not copied; dropped below.
+    mirror = copy.deepcopy(self.agent, memo)
+    for module in mirror.modules():
+      if not isinstance(module, nn.Module):
+        continue
+      for entries in (module._parameters, module.values):
+        for name in list(entries):
+          if f'{module.path}/{name}' not in read:
+            del entries[name]
+    return mirror
 
   # -- entry points ----------------------------------------------------------
 
   def policy(self, obs, state=None, mode='train'):
     self._create()
-    obs = self._to_device(obs)
-    with torch.no_grad(), self._scope():
+    agent, generator = self._policy_agent()
+    obs = self._to_device(obs, generator.device)
+    with torch.no_grad(), nn.scope(dtype=self.dtype, generator=generator):
       if state is None:
-        state = self.agent.policy_initial(len(obs['is_first']))
-      outs, state = self.agent.policy(obs, state, mode=mode)
+        state = agent.policy_initial(len(obs['is_first']))
+      outs, state = agent.policy(obs, state, mode=mode)
     return _to_numpy(outs), state
 
   def _train_step(self, data, state, pack=True):
@@ -250,6 +318,7 @@ class TorchAgent:
     self._create()
     keys = data.get('key')
     outs, state, packed = self._train_step(self._to_device(data), state)
+    self._train_steps += 1
     outs = _to_numpy(outs)
     if keys is not None and 'priority' in outs:
       outs['key'] = keys
@@ -279,6 +348,7 @@ class TorchAgent:
       return packed
 
     mets = self._fused_steps(steps, update)
+    self._train_steps += steps
     outs = _to_numpy(
         {k: torch.stack([o[k] for o in outs_list]) for k in outs_list[0]})
     if keys[0] is not None and 'priority' in outs:
@@ -377,6 +447,7 @@ class TorchAgent:
       return packed
 
     mets = self._fused_steps(steps, update)
+    self._train_steps += steps
     return {}, carry[0], mets
 
   def make_device_replay(self, capacity=None, block=None, prioritized=None):
@@ -454,3 +525,4 @@ class TorchAgent:
         raise ValueError(f'Cannot zip {len(src)} values into {len(dst)}.')
       loaded = self.from_jax_state(dict(zip(dst, src)))
     nn.assign(self.agent, loaded)
+    self._mirror_at = None  # The host policy mirror refreshes after a load.

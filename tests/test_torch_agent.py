@@ -322,3 +322,51 @@ def test_train_continuous_backprop():
       assert np.isfinite(mets[key]), key
   finally:
     env.close()
+
+
+def test_cpu_policy_mirror(env):
+  """`torch.policy_devices: cpu` serves the policy from a host-CPU mirror
+  of only the entries it reads, refreshed at most every `policy_sync`
+  train steps (the assertions of the JAX package's
+  `tests/test_agent.py::test_cpu_policy_mirror`)."""
+  from daydreamer_tpu_torch import nn
+  agent = port_agent(env, **{'torch.policy_devices': 'cpu',
+                             'torch.policy_sync': 2})
+  data = make_batch(env, 4, 8)
+  obs = {k: v[:, 0] for k, v in data.items() if k != 'action'}
+  _, state = agent.policy(obs, mode='eval')
+  assert agent._mirror is not None and agent._mirror is not agent.agent
+  mirror, live = nn.state(agent._mirror), nn.state(agent.agent)
+  # The mirror holds only what the policy reads: no optimizer slots, and a
+  # strict subset of the full state, on the CPU.
+  assert set(mirror) == agent._policy_read_log < set(live)
+  assert not any('_opt/' in k for k in mirror)
+  assert any('actor' in k for k in mirror)
+  assert all(v.device.type == 'cpu' for v in mirror.values())
+  latent, _, _, action = state
+  assert all(x.device.type == 'cpu' for x in [*latent.values(), action])
+  synced_at = agent._mirror_at
+  # One train step: below the sync cadence, the mirror must stay stale.
+  _, tstate, _ = agent.train(data)
+  agent.policy(obs, state, mode='eval')
+  assert agent._mirror_at == synced_at
+  key = 'agent/task_behavior/ac/actor/dense0/kernel'
+  assert not torch.equal(nn.state(agent._mirror)[key],
+                         nn.state(agent.agent)[key])
+  # Crossing the cadence refreshes it.
+  agent.train(data, tstate)
+  agent.policy(obs, state, mode='eval')
+  assert agent._mirror_at == 2 and agent._mirror_syncs == 2
+  # The refreshed mirror equals the live state for every mirrored key.
+  live = nn.state(agent.agent)
+  for key, value in nn.state(agent._mirror).items():
+    np.testing.assert_array_equal(value.numpy(), live[key].detach().numpy())
+  # A load makes it refresh at the next policy call.
+  agent.load(agent.save())
+  agent.policy(obs, state, mode='eval')
+  assert agent._mirror_syncs == 3
+
+
+def test_unknown_policy_devices_raises(env):
+  with pytest.raises(ValueError):
+    port_agent(env, **{'torch.policy_devices': 'tpu'})

@@ -36,6 +36,7 @@ def test_sources_import_no_jax():
   inside functions too)."""
   sources = _sources()
   assert len(sources) > 80 and (PORT / 'envs' / 'a1.py') in sources
+  assert PORT / 'agents' / 'dreamer' / 'expl.py' in sources
   bad = []
   for path in sources:
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
