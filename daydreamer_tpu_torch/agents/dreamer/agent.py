@@ -17,6 +17,7 @@ import torch
 
 from ... import nn
 from ...models import nets
+from ...parallel import distributed
 from . import behaviors
 from .torchagent import Wrapper
 
@@ -236,7 +237,7 @@ class WorldModel(nn.Module):
     model_loss = sum(scaled.values())
     if 'prob' in data and self.config.priority_correct:
       weights = (1.0 / data['prob']) ** self.config.priority_correct
-      weights = weights / weights.max()
+      weights = weights / distributed.all_max(weights.max())
       assert weights.shape == model_loss.shape
       model_loss = model_loss * weights
     out = {'embed': embed, 'post': post, 'prior': prior}

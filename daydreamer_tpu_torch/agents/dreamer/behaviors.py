@@ -7,6 +7,7 @@ import math
 import torch
 
 from ... import nn
+from ...parallel import distributed
 from . import agent as agentlib
 from . import expl
 
@@ -216,7 +217,10 @@ class DisagWhen(nn.Module):
     # Update the disagreement buffer with the batch's mid-sequence states.
     buffer, disags = self._buffer()
     with torch.no_grad():
-      states = data['deter'][:, data['deter'].shape[1] // 2].float()
+      # The global batch's states in rank order, so that every replica
+      # merges the same ones into the same buffer.
+      states = distributed.all_gather_rows(
+          data['deter'][:, data['deter'].shape[1] // 2].float())
       merged = torch.cat([buffer, states], 0)
       merged_disags = torch.cat([disags, self._disagreement(states)], 0)
       # Stable, as jnp.argsort is: the merged scores start with ties (the

@@ -162,7 +162,9 @@ class PBE(nn.Module):
   of the JAX package's `[N, N, D]` differences, computed pairwise by
   `torch.cdist` without the matrix-product form, which keeps each state's
   distance to itself exactly 0 (the kNN counts it, as the reference's
-  does); in float32 whatever the compute dtype."""
+  does); in float32 whatever the compute dtype. Under data parallelism the
+  neighbours are those among the rank's own states, not the global
+  batch's (PBE cannot train in either package, so nothing reads that)."""
 
   def __init__(self, name, wm, act_space, config):
     super().__init__(name)

@@ -18,6 +18,19 @@ jaxagent.py` (reference: embodied/agents/dreamerv2plus/tfagent.py:14-178).
 - `save()` returns a flat dict of numpy arrays under the JAX package's
   names and layouts; `load()` takes such a dict in the three forms of
   `jaxagent.py` (exact names, a strict subset, a name-sorted zip).
+- Data parallelism (`parallel/`): in a process group of W ranks, the agent
+  spans a `data` mesh over all of them, as the JAX agent's mesh spans its
+  devices (`jaxagent.py:406-413`), and each rank trains on its
+  `batch_size // W` rows. A batch size that W does not divide raises: the
+  JAX agent drops devices until the count divides, but a rank cannot be
+  dropped. `cuda` means the card `LOCAL_RANK` where that is set. Every rank
+  creates the state alike, then takes rank 0's (`replicate`); from there
+  the gradients, the controllers' statistics, the importance weights'
+  maximum and DisagWhen's buffer are reduced over the ranks inside the
+  update, so the replicas stay equal, and the packed metrics and the
+  report's scalars are reduced as the JAX package's global ones read.
+  Rank r seeds its generators from `seed + r * 2**32`, so rank 0 draws what
+  a single process draws. `save` and `load` are the same on every rank.
 """
 
 import collections
@@ -27,6 +40,8 @@ import numpy as np
 import torch
 
 from ... import nn
+from ...parallel import distributed
+from ...parallel import mesh as meshlib
 
 
 # A group of `steps` training batches already stacked along a leading axis
@@ -131,21 +146,98 @@ def _to_numpy(tree):
       else x, tree)
 
 
+def _reduce_plan(names, device):
+  """How each scalar of `names` combines over the ranks into the global
+  batch's value: `_max` and `_min` by MAX and MIN; `X_std` beside `X_mean`
+  from the ranks' variances and means; the ratios of `nn.balance_stats`
+  (`nn.BALANCE_RATIOS`, beside their `X_rate`) weighted by each rank's
+  share of that class; every other one, a mean over equal row counts, by
+  the average."""
+  index = {name: i for i, name in enumerate(names)}
+  plan = {'mean': [], 'max': [], 'min': [], 'std': [], 'std_of': [],
+          'ratio': [], 'ratio_of': [], 'positive': []}
+  for i, name in enumerate(names):
+    base, _, kind = name.rpartition('_')
+    prefix, _, stat = base.rpartition('_')
+    if kind in ('max', 'min'):
+      plan[kind].append(i)
+    elif kind == 'std' and f'{base}_mean' in index:
+      plan['std'].append(i)
+      plan['std_of'].append(index[f'{base}_mean'])
+    elif (f'{stat}_{kind}' in nn.BALANCE_RATIOS
+          and f'{prefix}_rate' in index):
+      plan['ratio'].append(i)
+      plan['ratio_of'].append(index[f'{prefix}_rate'])
+      plan['positive'].append(nn.BALANCE_RATIOS[f'{stat}_{kind}'])
+    else:
+      plan['mean'].append(i)
+  return {k: torch.tensor(v, dtype=torch.bool if k == 'positive' else
+                          torch.long, device=device)
+          for k, v in plan.items()}
+
+
+def _reduce_scalars(plan, values):
+  """The ranks' scalars `values` (1-D float32, in the order of the plan's
+  names) combined as `_reduce_plan` says, in two collectives: one sum, one
+  MAX. The identity for one rank."""
+  world = distributed.world_size()
+  if world == 1:
+    return values
+  means = values[plan['mean']]
+  variances = values[plan['std']] ** 2
+  # Each rank's means of the std entries in its own slot of a [world, n]
+  # block: the sum gathers them all.
+  slots = values.new_zeros((world, len(plan['std'])))
+  slots[distributed.rank()] = values[plan['std_of']]
+  rate = values[plan['ratio_of']]
+  share = torch.where(plan['positive'], rate, 1 - rate)
+  weighted = torch.where(share > 0, values[plan['ratio']] * share,
+                         torch.zeros_like(share))
+  sums = torch.cat([means, variances, slots.reshape(-1), weighted, share])
+  torch.distributed.all_reduce(sums)
+  means, variances, slots, weighted, share = sums.split(
+      [len(means), len(variances), slots.numel(), len(weighted),
+       len(share)])
+  slots = slots.reshape(world, -1)
+  spread = ((slots - slots.mean(0)) ** 2).mean(0)
+  extremes = torch.cat([values[plan['max']], -values[plan['min']]])
+  torch.distributed.all_reduce(extremes, op=torch.distributed.ReduceOp.MAX)
+  out = values.clone()
+  out[plan['mean']] = means / world
+  out[plan['std']] = torch.sqrt(variances / world + spread)
+  out[plan['ratio']] = weighted / share
+  out[plan['max']] = extremes[:len(plan['max'])]
+  out[plan['min']] = -extremes[len(plan['max']):]
+  return out
+
+
 class TorchAgent:
 
   def __init__(self, agent_cls, obs_space, act_space, step, config):
     self.config = config
     self.obs_space = obs_space
     self.act_space = act_space
-    self.device = torch.device(config.torch.device)
+    self.device = distributed.local_device(config.torch.device)
     if self.device.type == 'cuda' and not torch.cuda.is_available():
       raise RuntimeError(
           'torch.device is cuda but no CUDA device is available; pass '
           '--torch.device cpu to run on the CPU.')
+    world = distributed.world_size()
+    if config.batch_size % world:
+      raise ValueError(f'batch_size {config.batch_size} does not split over '
+                       f'{world} ranks.')
+    self._local_batch = config.batch_size // world
+    self.mesh = None
+    if torch.distributed.is_initialized():
+      if self.device.type == 'cuda' and self.device.index is not None:
+        torch.cuda.set_device(self.device)
+      self.mesh = meshlib.make_mesh({'data': world}, device_type=(
+          self.device.type))
+    seed = int(config.seed) + distributed.rank() * 2 ** 32
     self.dtype = {'bfloat16': torch.bfloat16, 'float32': torch.float32}[
         config.torch.precision]
     self.generator = torch.Generator(device=self.device)
-    self.generator.manual_seed(int(config.seed))
+    self.generator.manual_seed(seed)
     self.agent = agent_cls('agent', obs_space, act_space, step, config)
     # Metric policy of the fused entry points (`train_multi`,
     # `train_device`): 'all' packs every update's metrics (merged at fetch
@@ -168,7 +260,7 @@ class TorchAgent:
       raise ValueError(f'torch.policy_devices: {self._policy_devices}')
     self._policy_sync = int(config.torch.policy_sync)
     self._policy_generator = torch.Generator(device='cpu')
-    self._policy_generator.manual_seed(int(config.seed))
+    self._policy_generator.manual_seed(seed)
     self._mirror = None
     self._mirror_at = None  # Train step of the last refresh; None: due.
     self._mirror_syncs = 0
@@ -201,7 +293,10 @@ class TorchAgent:
       with self._scope(create=True):
         self.agent.report(data)
     self._created = True
+    self._metric_plan = _reduce_plan(self._metric_names, self.device)
     values = nn.state(self.agent)
+    if self.mesh is not None:
+      meshlib.replicate(values, self.mesh)
     params = sum(v.numel() for v in self.agent.parameters())
     total = sum(v.numel() for v in values.values())
     print(f'Created agent state: {params:,} trainable parameters, '
@@ -297,9 +392,9 @@ class TorchAgent:
       outs, state, mets = self.agent.train(data, state)
     packed = None
     if pack:
-      packed = torch.stack([
+      packed = _reduce_scalars(self._metric_plan, torch.stack([
           torch.as_tensor(mets[k], device=self.device).float().reshape(())
-          for k in self._metric_names])
+          for k in self._metric_names]))
     return outs, state, packed
 
   def _fused_steps(self, steps, update):
@@ -424,7 +519,7 @@ class TorchAgent:
     if replay.chunk != self.config.replay_chunk:
       raise ValueError(f'The ring\'s chunk {replay.chunk} is not the '
                        f'config\'s {self.config.replay_chunk}.')
-    batch, chunk = self.config.batch_size, self.config.replay_chunk
+    batch, chunk = self._local_batch, self.config.replay_chunk
     # Match the host FixedLength sampler's episode-boundary oversampling
     # so run=learning has the same data distribution on both paths.
     prio_ends = float(self.config.replay_fixed.prio_ends)
@@ -470,6 +565,13 @@ class TorchAgent:
     self._create()
     with torch.no_grad(), self._scope():
       report = self.agent.report(self._to_device(data))
+      names = sorted(k for k, v in report.items()
+                     if isinstance(v, torch.Tensor) and v.ndim == 0
+                     and v.is_floating_point())
+      if names and distributed.world_size() > 1:
+        values = _reduce_scalars(_reduce_plan(names, self.device),
+                                 torch.stack([report[k] for k in names]))
+        report.update(zip(names, values))
     return _to_numpy(report)
 
   def dataset(self, generator):
@@ -477,10 +579,10 @@ class TorchAgent:
     if loader == 'native' and hasattr(generator, '__self__'):
       # Threaded C++ batch assembly straight from the replay's store.
       from ...replay.batcher import NativeBatcher
-      return NativeBatcher(generator.__self__, self.config.batch_size)
+      return NativeBatcher(generator.__self__, self._local_batch)
     from ...core import Prefetch
     return Prefetch(
-        sources=[generator] * self.config.batch_size, workers=8, prefetch=4)
+        sources=[generator] * self._local_batch, workers=8, prefetch=4)
 
   # -- checkpointing ---------------------------------------------------------
 

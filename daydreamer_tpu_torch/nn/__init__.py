@@ -5,8 +5,8 @@ from . import module
 from .layers import Linear, Conv2D, Norm, Input, get_act
 from .opt import Optimizer
 from .utils import (
-    AutoAdapt, Normalize, action_noise, balance_stats, video_grid, symlog,
-    symexp)
+    AutoAdapt, Normalize, action_noise, balance_stats, BALANCE_RATIOS,
+    video_grid, symlog, symexp)
 from . import dists
 from .dists import (
     OneHotDist, Independent, Normal, MultivariateNormalDiag, TruncNormal,

@@ -6,12 +6,19 @@ with `/` in the parameter name written as `.`), so they checkpoint under
 the JAX package's names. Parameters and slots are updated in place. A
 gradient norm that is not finite skips the whole update, `step` included,
 without a host sync: the skip is a `torch.where` on the device.
+
+Under data parallelism (`parallel/`) each rank's gradients are of the mean
+over its own rows; they are averaged over the ranks in one flat bucket
+before the norm, which makes them the global batch's, as in the JAX
+package's one program. A gradient that is not finite on one rank then
+makes every rank's norm non-finite, so every rank skips.
 """
 
 import re
 
 import torch
 
+from ..parallel import distributed
 from .module import Module, creating
 
 
@@ -62,6 +69,7 @@ class Optimizer(Module):
         loss, [params[k] for k in keys], allow_unused=True)
     grads = [torch.zeros_like(params[k]) if g is None else g.float()
              for k, g in zip(keys, grads)]
+    grads = distributed.all_mean_flat(grads)
 
     with torch.no_grad():
       # Global-norm clipping. A nonfinite norm means some gradient overflowed

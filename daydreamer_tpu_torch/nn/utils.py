@@ -5,6 +5,7 @@ Controller statistics are non-trainable state entries written by `write`.
 
 import torch
 
+from ..parallel import distributed
 from . import dists
 from .module import Module, device
 from .dists import symlog, symexp  # noqa: F401  (re-exported)
@@ -43,6 +44,14 @@ def balance_stats(dist, target, thres):
       avg=target.mean(),
       pred=dist.mean().float().mean(),
   )
+
+
+# The entries of `balance_stats` that are ratios over the rows of one class,
+# with whether that class is the positive one: the share of a rank's rows
+# that they average is `rate`, or `1 - rate`. Every other entry is a mean
+# over all rows.
+BALANCE_RATIOS = {'pos_loss': True, 'neg_loss': False, 'pos_acc': True,
+                  'neg_acc': False}
 
 
 def _std(x):
@@ -92,8 +101,9 @@ class AutoAdapt(Module):
   def update(self, reg):
     if self._impl == 'fixed':
       return
-    avg = reg.detach().mean(
-        tuple(range(len(reg.shape) - len(self._shape))))
+    # The mean over the global batch: the ranks' means averaged.
+    avg = distributed.all_mean(reg.detach().mean(
+        tuple(range(len(reg.shape) - len(self._shape)))))
     scale = self._scale_value()
     if self._impl == 'mult':
       below = avg < (1 / (1 + self._thres)) * self._target
@@ -144,9 +154,11 @@ class Normalize(Module):
     x = values.detach().float()
     m = self._decay
     step, mean, sqrs = self._stats()
+    # The global batch's moments: the ranks' averaged, in one collective.
+    moments = distributed.all_mean(torch.stack([x.mean(), (x ** 2).mean()]))
     self.write('step', step + 1)
-    self.write('mean', m * mean + (1 - m) * x.mean())
-    self.write('sqrs', m * sqrs + (1 - m) * (x ** 2).mean())
+    self.write('mean', m * mean + (1 - m) * moments[0])
+    self.write('sqrs', m * sqrs + (1 - m) * moments[1])
 
   def transform(self, values):
     if self._impl == 'off':
