@@ -76,6 +76,29 @@ Phases, each of which must pass:
                against the JAX package on the CPU
                (tests/test_torch_multihost.py). Neither rate is a scaling
                figure: two ranks share one card.
+ 10. imitation - the imitation trainer's PPO learner (imitation/ppo.py) at
+               imitation/train.py's defaults on the card: observations of
+               30 (A1's 16 proprio values and the task's 14 target
+               features), 12 actions, a rollout of 2048 batch-1 `act`
+               calls, then `gae` and two `update`s of 10 epochs x 4
+               minibatches of 512 (the first and a warm one); each timed.
+               The card's machine has no MuJoCo, so the proprio part comes
+               from a generator seeded by `--seed` and the targets from the
+               trot clip at the sim's times. The update's metrics must be
+               finite; the loss and its gradients on one minibatch must
+               agree with a CPU agent loaded from the card's `save()`
+               within 1e-4 of the largest magnitude, and so must that
+               agent's values.
+ 11. tooling - the port's two instruments, as subprocesses:
+               `scripts/profile_train.py --shape xarm --dispatches 2` (80
+               updates from the device ring, 32 traced), whose trace must
+               show observe_fwd's three device functions and observe_bwd's
+               one launched once an update and a device busy time under
+               the wall time; its wrappers' launches go on the kernels line
+               under `launches_profile`. Then `scripts/policy_latency.py`
+               at `--shape a1` and `--shape test`, on the card and on the
+               host mirror; the card's whole policy call at a1 must take
+               under 50 ms.
 The kernel phase also holds observe_fwd and observe_bwd at the a1 training
 shape (T = B = 32, D = U = 256, E = 512, 12 continuous actions), and
 observe_fwd, observe_bwd and imagine_actor at the rows of one rank of the
@@ -88,7 +111,10 @@ the extra phase `profile` (not run by default) prints where an update's
 device time goes, its launches and the device's idle share, and
 `profile_explore` the same for `--configs xarm plan2explore`; the extra
 phase `sphero` (not run by default) trains `--configs sphero` (its dummy
-task, whose tracker and resize need OpenCV) as the slice trains xarm.
+task, whose tracker and resize need OpenCV) as the slice trains xarm; the
+extra phase `imitation_sim` (not run by default) runs the imitation
+trainer on the card with its MuJoCo sim, 4096 steps in rollouts of 2048,
+and fails where MuJoCo is missing.
 
 `--compare NAME=SOURCE` (NAME one of imagine_actor, imagine, observe,
 observe_fwd, observe_bwd; the option may be given several times) runs no
@@ -1034,13 +1060,15 @@ def phase_profile(configs=('xarm',), updates=5):
   """Where an update's time goes at the named config blocks (xarm by
   default): torch.profiler over `updates` train steps (after three warm-up
   steps) on a random batch. Prints the wall time per update, the device's
-  busy and idle share, and the kernels with the most device time. Not part
-  of the default phases."""
+  busy and idle share, the device time of each category of kernel (those
+  of `scripts/profile_train.py`) and the kernels with the most device time.
+  Not part of the default phases."""
   import torch
   from torch.profiler import ProfilerActivity, profile
   import daydreamer_tpu_torch as ddp
   from daydreamer_tpu_torch import envs
   from daydreamer_tpu_torch.agents.dreamer import Agent
+  from daydreamer_tpu_torch.scripts import profile_train
   config = ddp.Config(Agent.configs['defaults'])
   for name in configs:
     config = config.update(Agent.configs[name])
@@ -1074,34 +1102,31 @@ def phase_profile(configs=('xarm',), updates=5):
     torch.cuda.synchronize()
     wall = (time.perf_counter() - begin) / updates
   env.close()
-  # Kernel events only (the operators' rows would count their kernels
-  # twice).
-  kernels = [e for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-  device = lambda e: e.self_device_time_total
-  busy = sum(device(e) for e in kernels) / 1e3 / updates
+  rows, categories, busy = profile_train.summarize(prof, updates, True)
   log(f'{label}: {wall * 1e3:.3f} ms wall per update, {busy:.3f} ms device '
       f'busy per update, idle share {1 - busy / (wall * 1e3):.3f}, '
-      f'{sum(e.count for e in kernels) // updates} kernel launches per '
-      f'update')
-  # The most device time, then the kernels of an anonymous namespace below
-  # those: the port's CUDA kernels (observe_fwd's embed product and prior
-  # head among them) and a few of PyTorch's.
-  ranked = sorted(kernels, key=device, reverse=True)
-  own = [e for e in ranked[15:]
-         if e.key.startswith('void (anonymous namespace)::')]
-  for e in ranked[:15] + own:
-    log(f'  {device(e) / 1e3 / updates:9.3f} ms/update {e.count // updates:6d}'
-        f' calls/update  {e.key[:90]}')
+      f'{sum(r["launches_per_update"] for r in rows):.0f} kernel launches '
+      f'per update')
+  for row in categories:
+    log(f'  {row["ms_per_update"]:9.3f} ms/update '
+        f'{row["launches_per_update"]:8.1f} calls/update  {row["category"]}')
+  # The most device time, then the port's own kernels below those.
+  own = [r for r in rows[15:] if r['category'] in profile_train.OWN_NAMES]
+  for row in rows[:15] + own:
+    log(f'  {row["ms_per_update"]:9.3f} ms/update '
+        f'{row["launches_per_update"]:6.0f} calls/update  '
+        f'{row["category"]:14s} {row["name"][:90]}')
 
 
 def main(argv=None):
   parser = argparse.ArgumentParser()
   parser.add_argument(
       '--phases',
-      default='device,build,kernel,slice,proof,learner,a1,explore,parallel')
+      default='device,build,kernel,slice,proof,learner,a1,explore,parallel,'
+              'imitation,tooling')
   parser.add_argument('--compare', action='append', default=[],
                       metavar='NAME=SOURCE')
+  parser.add_argument('--seed', type=int, default=0)
   args = parser.parse_args(argv)
   phases = args.phases.split(',')
   import torch
@@ -1142,6 +1167,11 @@ def main(argv=None):
     phase_explore(slice_run)
   if 'parallel' in phases:
     parallel = phase_parallel()
+  if 'imitation' in phases:
+    phase_imitation(args.seed)
+  if 'imitation_sim' in phases:
+    phase_imitation_sim()
+  profiled = phase_tooling() if 'tooling' in phases else {}
   if 'sphero' in phases:
     phase_slice('sphero', SPHERO_ARGS, OBSERVE_KERNELS)
   if 'profile' in phases:
@@ -1153,7 +1183,8 @@ def main(argv=None):
     # The main path computes in bfloat16; each kernel's own result. The
     # launches are those of the kernel's own path: the training slice for
     # the first three, the proof for the others; beside them, each rank's
-    # of the parallel phase.
+    # of the parallel phase and those of the tooling phase's profile of the
+    # learner's ring dispatches.
     timing = kernel.get(k.name, {}).get('bfloat16', {})
     entries.append(dict(
         name=k.name, route=k.route,
@@ -1161,6 +1192,7 @@ def main(argv=None):
         launches=launches.get(k.name, 0),
         launches_parallel={rank: counts.get(k.name, 0)
                            for rank, counts in parallel.items()},
+        launches_profile=profiled.get(k.name, 0),
         max_abs_err=timing.get('max_abs_err'), ms=timing.get('ms'),
         plain_ms=timing.get('plain_ms'), bound_ms=timing.get('bound_ms'),
         bound_by=timing.get('bound_by'), library_ms=None))
@@ -1668,6 +1700,204 @@ def phase_parallel():
   ranks['nccl_rank0'] = single[0]
   return {name: {k: v for k, v in r['launches'].items() if k != 'updates'}
           for name, r in ranks.items()}
+
+
+def phase_imitation(seed):
+  """The imitation trainer's PPO learner at its defaults on the card. The
+  card's machine has no MuJoCo, so the rollout's observations are made
+  here: the proprio part from a NumPy generator seeded by `seed`, the
+  target features from `task.a1_gait_clip('trot')` at the sim times that
+  `ImitationA1._clip_time` gives (episode step x repeat x the physics
+  step). Times 2048 `act` calls at batch 1 (their launches from
+  torch.profiler over ten), `gae` and two `update`s (the first pays the
+  first launch of each kernel), whose metrics must be finite; then holds
+  `_loss` and its gradients on one minibatch against a CPU agent loaded
+  from the card's `save()` (within 1e-4 of the largest magnitude), and
+  that agent's values on the same observations."""
+  import torch
+  from torch.profiler import ProfilerActivity, profile
+  from daydreamer_tpu_torch.envs import a1, a1_model
+  from daydreamer_tpu_torch.imitation import PPOImitation, task
+  from daydreamer_tpu_torch.scripts import profile_train
+  # imitation/train.py's defaults: a rollout of 2048 steps in episodes of
+  # 500 env steps of 2 physics steps each, 12 actions.
+  horizon, length, repeat, act_dim = 2048, 500, 2, 12
+  obs_dim = a1.VECTOR_DIM + task.ImitationA1.TARGET_FEATURES
+  rng = np.random.default_rng(seed)
+  clip = task.a1_gait_clip('trot')
+  times = (np.arange(horizon) % length) * repeat * a1_model.SIM_TIMESTEP
+  phase = 2 * np.pi * np.array([clip.phase(t) for t in times])
+  obs = np.concatenate([
+      rng.standard_normal((horizon, a1.VECTOR_DIM)),
+      np.sin(phase)[:, None], np.cos(phase)[:, None],
+      np.stack([clip.joints_at(t) for t in times])], 1).astype(np.float32)
+  agent = PPOImitation(obs_dim, act_dim, horizon=horizon, seed=seed)
+  assert agent.device.type == 'cuda', agent.device
+  agent.act(obs[:1])  # Warm.
+  activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+  with profile(activities=activities) as prof:
+    for i in range(10):
+      agent.act(obs[i:i + 1])
+  rows, _, busy = profile_train.summarize(prof, 10, True)
+  act_launches = sum(r['launches_per_update'] for r in rows)
+  seg = {k: [] for k in ('action', 'logp', 'value')}
+  act_s = []
+  for i in range(horizon):
+    begin = time.perf_counter()
+    action, logp, value = agent.act(obs[i:i + 1])
+    act_s.append(time.perf_counter() - begin)
+    for key, x in zip(seg, (action, logp, value)):
+      seg[key].append(x[0])
+  seg = {k: np.asarray(v, np.float32) for k, v in seg.items()}
+  rewards = rng.uniform(0, 1, horizon).astype(np.float32)
+  conts = (rng.uniform(size=horizon) > 0.002).astype(np.float32)
+  begin = time.perf_counter()
+  adv, ret = agent.gae(rewards, seg['value'], conts, seg['value'][-1])
+  gae_s = time.perf_counter() - begin
+  rollout = dict(obs=obs, action=seg['action'], logp=seg['logp'], adv=adv,
+                 ret=ret)
+  update_s = []  # The first update, then a warm one on the same rollout.
+  for _ in range(2):
+    begin = time.perf_counter()
+    metrics = agent.update(rollout)
+    update_s.append(time.perf_counter() - begin)
+  bad = {k: v for k, v in metrics.items() if not math.isfinite(v)}
+  if bad or metrics['ppo_opt_grad_steps'] != 80:
+    raise AssertionError(f'imitation: update metrics {metrics}')
+  # The same weights on the CPU: the loss and its gradients on one
+  # minibatch, and the values of the first rows.
+  host = PPOImitation(obs_dim, act_dim, horizon=horizon, seed=seed,
+                      device='cpu')
+  host.load(agent.save())
+  batch = {k: v[:horizon // agent.minibatches] for k, v in rollout.items()}
+  outs = []
+  for side in (agent, host):
+    params = dict(side.net.named_state(trainable=True))
+    loss, aux = side._loss(side._to_device(batch))
+    grads = torch.autograd.grad(loss, list(params.values()))
+    value = torch.as_tensor(side.act(obs[:64])[2])
+    names = ['loss', *aux, *params, 'value']
+    outs.append([x.detach().cpu() for x in (
+        loss, *aux.values(), *grads, value)])
+  errors = dict(zip(names, _scaled_errors(*outs)))
+  worst = max(errors, key=errors.get)
+  if errors[worst] > 1e-4:
+    raise AssertionError(f'imitation: card and CPU differ at {worst}: '
+                         f'{errors}')
+  act_ms = 1e3 * np.asarray(act_s)
+  log(f'imitation: PPO at obs {obs_dim}, {act_dim} actions, horizon '
+      f'{horizon}, {agent.epochs} x {agent.minibatches} minibatches of '
+      f'{horizon // agent.minibatches} on {torch.cuda.get_device_name(0)} '
+      f'({profile_train.card()}): act at batch 1 {act_ms.mean():.4f} ms mean, '
+      f'{np.median(act_ms):.4f} median over {horizon} calls '
+      f'({act_launches:.1f} launches and {busy:.4f} ms device busy a call, '
+      f'torch.profiler over 10); gae {1e3 * gae_s:.3f} ms; an update of '
+      f'{agent.epochs * agent.minibatches} Adam steps {1e3 * update_s[0]:.3f}'
+      f' ms the first, {1e3 * update_s[1]:.3f} ms the next; metrics '
+      f'{metrics}; card against CPU, worst scaled error '
+      f'{errors[worst]:.3g} ({worst}), loss {outs[0][0].item()!r} / '
+      f'{outs[1][0].item()!r}')
+
+
+def phase_imitation_sim():
+  """The imitation trainer end to end on the card, MuJoCo's A1 included
+  (not run by default: the card's machine has no MuJoCo, and then the
+  trainer's first env step raises its ImportError, which fails the run)."""
+  from daydreamer_tpu_torch.imitation import train
+  logdir = new_logdir('imitation_sim')
+  begin = time.perf_counter()
+  returns = train.main(['--steps', '4096', '--horizon', '2048', '--length',
+                        '500', '--logdir', str(logdir)])
+  rows = [json.loads(line) for line in
+          (logdir / 'metrics.jsonl').read_text().splitlines()]
+  losses = [row['ppo_opt_loss'] for row in rows if 'ppo_opt_loss' in row]
+  if len(losses) != 2 or not all(map(math.isfinite, losses)):
+    raise AssertionError(f'imitation_sim: losses {losses}')
+  log(f'imitation_sim: 4096 steps in {time.perf_counter() - begin:.1f} s, '
+      f'{len(returns)} episodes, returns {returns}, losses {losses}')
+
+
+def run_tool(label, module, args, rundir):
+  """`python -m module args` from the repository's root; its output goes to
+  a file in `rundir`. Returns its last line, parsed as JSON."""
+  import os
+  path = rundir / f'{label}.log'
+  begin = time.perf_counter()
+  with open(path, 'w') as out:
+    code = subprocess.run(
+        [sys.executable, '-m', module, *args], cwd=ROOT, stdout=out,
+        stderr=subprocess.STDOUT, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(ROOT))).returncode
+  text = path.read_text()
+  if code != 0:
+    raise AssertionError(f'{label}: exited {code}:\n{text[-3000:]}')
+  log(f'{label}: {time.perf_counter() - begin:.1f} s; output in {path}')
+  return json.loads(text.strip().splitlines()[-1])
+
+
+# observe_fwd's three device functions and observe_bwd's one.
+PROFILED_OBSERVE = ('embed_kernel', 'chain_kernel', 'prior_kernel',
+                    'observe_bwd_kernel')
+
+
+def phase_tooling():
+  """The port's two instruments as a user runs them. First
+  `scripts/profile_train.py --shape xarm --dispatches 2` (K = 16: one
+  dispatch that creates the state, two warm, two traced, so 80 updates):
+  its wrappers must count observe_fwd and observe_bwd once a traced update
+  and `observe` never, its trace must show observe_fwd's three device
+  functions and observe_bwd's one launched once an update, and the
+  device's busy time must be under the wall time. Then
+  `scripts/policy_latency.py` at `--shape a1` and `--shape test`, the card
+  and the host mirror: each must print its result, and the card's whole
+  policy call at a1 must take under 50 ms. Returns the profile's launches
+  of each kernel."""
+  rundir = new_logdir('tooling')
+  report = run_tool('profile_train (xarm)',
+                    'daydreamer_tpu_torch.scripts.profile_train',
+                    ['--shape', 'xarm', '--dispatches', '2', '--out',
+                     str(rundir / 'profile_xarm.json')], rundir)
+  updates, launches = report['updates_traced'], report['wrapper_launches']
+  traced = {}
+  for row in report['own_kernels']:
+    for function in PROFILED_OBSERVE:
+      if f'::{function}' in row['name']:
+        traced[function] = traced.get(function, 0) + row[
+            'launches_per_update']
+  if (launches['observe_fwd'] != updates or launches['observe_bwd'] != updates
+      or launches['observe'] or any(
+          traced.get(f) != 1 for f in PROFILED_OBSERVE)
+      or not report['device_busy_ms_per_update'] < report[
+          'wall_ms_per_update']):
+    raise AssertionError(
+        f'profile_train: {updates} updates, wrapper launches {launches}, '
+        f'device functions a traced update {traced}, busy '
+        f'{report["device_busy_ms_per_update"]} against wall '
+        f'{report["wall_ms_per_update"]} ms')
+  log(f'profile_train (xarm): {report["wall_ms_per_update"]:.3f} ms wall '
+      f'per update traced ({report["untraced_wall_ms_per_update"]:.3f} '
+      f'untraced), {report["device_busy_ms_per_update"]:.3f} ms device '
+      f'busy, idle share {report["idle_share"]:.3f} (untraced '
+      f'{report["idle_share_untraced"]:.3f}), '
+      f'{report["launches_per_update"]:.1f} launches an update; by '
+      f'category (ms, launches an update): ' + ', '.join(
+          f'{r["category"]} {r["ms_per_update"]:.3f} / '
+          f'{r["launches_per_update"]:.1f}' for r in report['categories']))
+  for shape in ('a1', 'test'):
+    result = run_tool(f'policy_latency ({shape})',
+                      'daydreamer_tpu_torch.scripts.policy_latency',
+                      ['--shape', shape, '--out',
+                       str(rundir / f'policy_latency_{shape}.json')], rundir)
+    device, mirror = result['device'], result['cpu_mirror']
+    if not device['on'].startswith('cuda') or mirror['on'] != 'cpu':
+      raise AssertionError(f'policy_latency ({shape}): {result}')
+    if shape == 'a1' and not device['whole_ms'] < 50:
+      raise AssertionError(f'policy_latency (a1): the card took '
+                           f'{device["whole_ms"]} ms a call')
+    log(f'policy_latency ({shape}): card {device}, host mirror {mirror}, '
+        f'null round trip {result["null_rtt_ms"]:.4f} / '
+        f'{result["null_rtt_after_ms"]:.4f} ms ({result["card"]})')
+  return launches
 
 
 if __name__ == '__main__':

@@ -22,15 +22,15 @@ import torch.distributed as dist
 
 
 def initialize(coordinator_address=None, num_processes=None,
-               process_id=None, backend=None):
+               process_id=None, backend='nccl'):
   """Join the process group; a no-op that returns False for a single
   process (no address given or in the environment, at most one process).
 
   Reads torchrun's `MASTER_ADDR`, `MASTER_PORT`, `WORLD_SIZE` and `RANK`
   where an argument is missing. `coordinator_address` is `host:port` or an
-  init URL (`tcp://host:port`, `file:///path`). `backend` defaults to
-  `nccl` where CUDA is available and `gloo` elsewhere; a backend that does
-  not come up raises, and no other is tried in its place.
+  init URL (`tcp://host:port`, `file:///path`). `backend` is `nccl` unless
+  the caller names another (`gloo` on the CPU); a backend that does not
+  come up raises, and no other is tried in its place.
   """
   env = os.environ
   if coordinator_address is None and env.get('MASTER_ADDR'):
@@ -50,7 +50,6 @@ def initialize(coordinator_address=None, num_processes=None,
     if num_processes != 1:
       raise ValueError('process_id is missing.')
     process_id = 0
-  backend = backend or ('nccl' if torch.cuda.is_available() else 'gloo')
   if not dist.is_available() or not dist.is_backend_available(backend):
     raise RuntimeError(f'The {backend} backend is not available in this '
                        f'build of PyTorch.')

@@ -29,10 +29,10 @@ from torch.distributed.tensor import Replicate, Shard
 from . import distributed
 
 
-def make_mesh(axes=None, devices=None, device_type=None):
+def make_mesh(axes=None, devices=None, device_type='cuda'):
   """A `DeviceMesh` over the ranks. axes: dict of axis name -> size, with at
   most one -1 (the remaining ranks). Default: all ranks on one 'data' axis.
-  `device_type` defaults to `cuda` where CUDA is available, else `cpu`."""
+  `device_type` is `cuda` unless the caller names another."""
   if not dist.is_initialized():
     raise RuntimeError('A mesh spans the ranks of a process group; start '
                        'one first (parallel.initialize).')
@@ -51,8 +51,6 @@ def make_mesh(axes=None, devices=None, device_type=None):
     sizes[sizes.index(-1)] = world // known
   if int(np.prod(sizes)) != world:
     raise ValueError(f'{axes} does not cover {world} ranks.')
-  device_type = device_type or ('cuda' if torch.cuda.is_available()
-                                else 'cpu')
   return DeviceMesh(device_type,
                     torch.tensor(devices, dtype=torch.int).reshape(sizes),
                     mesh_dim_names=tuple(axes.keys()))

@@ -18,9 +18,10 @@ ADDRESS is a port on localhost or an init URL (`tcp://host:port`,
 `file:///path`). `--configs debug` (the default) is the JAX worker's shape
 (4 rows per rank, chunk 8, imag_horizon 3) and `--tiny` its MULTIHOST_TINY
 cut of the widths; `--configs xarm` is xarm at full width, its batch of 32
-split over the ranks. The device defaults to the card where there is one;
-ranks on one host share its cards (`LOCAL_RANK`). The backend defaults to
-nccl on the card and gloo on the CPU; two ranks on one card need gloo.
+split over the ranks. The device defaults to the card, and without one
+the worker raises unless `--device cpu` is given; ranks on one host share
+its cards (`LOCAL_RANK`). The backend defaults to nccl on the card and
+gloo on the CPU; two ranks on one card need gloo.
 
 Prints `RESULT <rank> <model_loss> <updates_per_s> <state_checksum>`, the
 loss in full precision and the checksum a hash of the whole saved state,
@@ -91,7 +92,7 @@ def main(argv):
   parser.add_argument('--fused', type=int, default=4)
   parser.add_argument('--tiny', action='store_true')
   parser.add_argument('--configs', nargs='+', default=['debug'])
-  parser.add_argument('--device', default=None)
+  parser.add_argument('--device', default='cuda')
   parser.add_argument('--backend', default=None)
   args, other = parser.parse_known_args(argv)
 
@@ -106,8 +107,11 @@ def main(argv):
   from daydreamer_tpu_torch.parallel import distributed
   from daydreamer_tpu_torch.parallel import mesh as meshlib
 
-  device = args.device or ('cuda' if torch.cuda.is_available() else 'cpu')
-  device = distributed.local_device(device)
+  device = distributed.local_device(args.device)
+  if device.type == 'cuda' and not torch.cuda.is_available():
+    raise RuntimeError(
+        '--device is cuda but no CUDA device is available; pass --device '
+        'cpu to run on the CPU.')
   if device.index is not None:
     torch.cuda.set_device(device)
   backend = args.backend or ('nccl' if device.type == 'cuda' else 'gloo')

@@ -1,0 +1,308 @@
+"""Where an update of the learner's device-ring dispatches spends its time
+on the card: the port of `scripts/profile_train.py`.
+
+Builds the agent at one of the JAX script's shapes (`test`, `a1`, `xarm`,
+with its overrides and its K fused updates a dispatch), fills a device ring
+of 4096 steps (block 64), runs one dispatch of `agent.train_device(replay,
+K)` that creates the state and two warm ones (timed, untraced), then traces
+`--dispatches` more with `torch.profiler` (CPU and CUDA activities), each
+window ending in a fetch of the last update's model loss. The report ranks
+the CUDA kernels by device time per update with their launches per update,
+sorts them into categories by kernel name (the port's six kernels, GEMM,
+convolution, LayerNorm, casts and copies, elementwise, reductions,
+host-to-device copies, other) and gives the device's busy ms, the wall ms
+and the idle share per update (against the traced wall time, and against
+the untraced dispatches' pace, since the profiler slows the host but not
+the device), and the launches that each of the port's kernel wrappers
+counted in the traced window.
+
+With `--device cpu` there is no device timeline: the rows are the CPU
+operators by self time, and the device metrics are null.
+
+Usage:
+  python -m daydreamer_tpu_torch.scripts.profile_train --shape xarm \\
+      [--dispatches 8] [--out FILE] [--device cuda|cpu]
+
+The last line printed is the report as JSON.
+"""
+
+import argparse
+import collections
+import json
+import pathlib
+import re
+import subprocess
+import time
+
+import numpy as np
+
+# The JAX script's shapes: (task, overrides, K).
+SHAPES = {
+    'test': ('dummy_discrete', {
+        'replay_chunk': 8, 'batch_size': 8,
+        r'.*\.layers': 2, r'.*\.units': 128,
+        r'.*\.cnn_depth': 16}, 256),
+    'a1': ('a1_dummy', {
+        'replay_chunk': 32, 'batch_size': 32,
+        'rssm.deter': 256, 'rssm.units': 256,
+        'encoder.cnn_keys': '$^', 'decoder.cnn_keys': '$^',
+        'encoder.mlp_keys': 'vector', 'decoder.mlp_keys': 'vector'}, 64),
+    'xarm': ('xarm_dummy', {
+        'replay_chunk': 32, 'batch_size': 32,
+        'rssm.deter': 512, 'rssm.units': 512,
+        'encoder.cnn_keys': 'image|depth',
+        'decoder.cnn_keys': 'image|depth',
+        'encoder.mlp_keys': 'cartesian|joint|gripper|grasped',
+        'decoder.mlp_keys': 'cartesian|joint|gripper|grasped',
+        'rssm.impl': 'pallas'}, 16),
+}
+RING, BLOCK = 4096, 64
+
+# The port's kernels by the name of their device function. observe_fwd's
+# and observe's `embed_kernel` and `chain_kernel` lie in anonymous
+# namespaces of two libraries and carry the same name, so a trace cannot
+# tell them apart; the wrappers' launch counts of the same window can.
+OWN = {
+    'observe_bwd_kernel': 'observe_bwd',
+    'prior_kernel': 'observe_fwd',
+    'embed_kernel': 'observe_fwd|observe',
+    'chain_kernel': 'observe_fwd|observe',
+    'imagine_actor_kernel': 'imagine_actor',
+    'imagine_kernel': 'imagine',
+    'imagine_fma_kernel': 'imagine',
+}
+# The other categories: the first pattern that matches the lowercased name.
+CATEGORIES = (
+    ('host_to_device', r'memcpy htod'),
+    ('cast_copy', r'memcpy|memset|copy|aten::_?to\b|aten::_to_copy'),
+    ('convolution', r'conv|cudnn|fprop|dgrad|wgrad|implicit|nchw|nhwc'),
+    ('gemm', r'gemm|gemv|nvjet|cutlass|cublas|splitk|xmma'
+             r'|aten::(addmm|mm|bmm|matmul|linear)\b'),
+    ('layernorm', r'layer_?norm|gammabeta'),
+    ('reduction', r'reduce|aten::(sum|mean|amax|amin|max|min|std|var|norm)\b'),
+    ('elementwise', r'elementwise|aten::(add|sub|mul|div|neg|exp|log|tanh'
+                    r'|sigmoid|elu|silu|relu|where|clamp|sqrt|pow|abs)_?\b'),
+)
+
+
+def categorize(name):
+  """The category of a kernel (or, on the CPU, an operator) by its name:
+  one of the port's kernels by the name of its wrapper, or one of
+  CATEGORIES, or 'other'."""
+  if name.startswith('gve_kernel'):  # Triton names the kernel after its
+    return 'gve'                     # function.
+  if '(anonymous namespace)::' in name:
+    for function, kernel in OWN.items():
+      if re.search(rf'::{function}\b', name):
+        return kernel
+  lowered = name.lower()
+  for category, pattern in CATEGORIES:
+    if re.search(pattern, lowered):
+      return category
+  return 'other'
+
+
+OWN_NAMES = (*OWN.values(), 'gve')
+
+
+def _totals(prof, on_card):
+  """{name: (microseconds, count)} of a finished `torch.profiler` run. On
+  the card: every kernel, copy and set on the device, read from the raw
+  events (the profiler's own event tree takes minutes to build for a
+  million launches). On the CPU: each operator's self time, which needs
+  that tree."""
+  import torch
+  if not on_card:
+    return {e.key: (e.self_cpu_time_total, e.count)
+            for e in prof.key_averages() if e.self_cpu_time_total > 0}
+  totals = collections.defaultdict(lambda: [0, 0])
+  for event in prof.profiler.kineto_results.events():
+    if (event.device_type() == torch.autograd.DeviceType.CUDA
+        and not event.is_user_annotation()):
+      total = totals[event.name()]
+      total[0] += event.duration_ns() / 1e3
+      total[1] += 1
+  return totals
+
+
+def summarize(prof, updates, on_card):
+  """From a finished `torch.profiler` run over `updates` updates: the
+  rows (each kernel, or on the CPU each operator, with its category, ms and
+  launches per update, the most time first), the categories' sums in the
+  same units, and the busy ms per update."""
+  rows = sorted(({
+      'name': name[:200], 'category': categorize(name),
+      'ms_per_update': us / 1e3 / updates,
+      'launches_per_update': count / updates}
+      for name, (us, count) in _totals(prof, on_card).items()),
+      key=lambda r: -r['ms_per_update'])
+  busy = sum(r['ms_per_update'] for r in rows)
+  sums = collections.defaultdict(lambda: [0.0, 0.0])
+  for row in rows:
+    sums[row['category']][0] += row['ms_per_update']
+    sums[row['category']][1] += row['launches_per_update']
+  categories = sorted(({
+      'category': c, 'ms_per_update': ms, 'launches_per_update': n,
+      'share': ms / busy if busy else None} for c, (ms, n) in sums.items()),
+      key=lambda r: -r['ms_per_update'])
+  return rows, categories, busy
+
+
+def card():
+  """The card's name and power limit as nvidia-smi gives them."""
+  return subprocess.run(
+      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+      capture_output=True, text=True, check=True).stdout.strip().splitlines(
+      )[0]
+
+
+def resolve_device(device):
+  import torch
+  device = torch.device(device)
+  if device.type == 'cuda' and not torch.cuda.is_available():
+    raise RuntimeError('No CUDA device is available; pass --device cpu to '
+                       'run on the CPU.')
+  return device
+
+
+def build_agent(task, overrides, device):
+  """The agent and a batch of one chunk per row, with the settings of the
+  root `bench.py::build_agent` that mean something here: no weight decay,
+  and only the last fused update's metrics packed."""
+  import daydreamer_tpu_torch as ddp
+  from daydreamer_tpu_torch.agents.dreamer import Agent
+  from daydreamer_tpu_torch.envs import load_env
+  config = ddp.Config(Agent.configs['defaults']).update({
+      'env.parallel': 'none', r'.*\.wd$': 0.0,
+      'torch.fused_metrics': 'last', 'torch.device': str(device),
+      **overrides})
+  env = load_env(task, amount=1, parallel='none', length=10)
+  agent = Agent(env.obs_space, env.act_space, ddp.Counter(), config)
+  B, T = config.batch_size, config.replay_chunk
+  rng = np.random.default_rng(0)
+  data = {}
+  for key, space in env.obs_space.items():
+    if key.startswith('log_'):
+      continue
+    if space.dtype == np.uint8:
+      data[key] = rng.integers(0, 255, (B, T) + space.shape, np.uint8)
+    else:
+      data[key] = np.zeros((B, T) + space.shape, space.dtype)
+  data['action'] = np.zeros((B, T) + env.act_space['action'].shape,
+                            np.float32)
+  data['is_first'][:, 0] = True
+  data['reward'] = rng.uniform(0, 1, (B, T)).astype(np.float32)
+  env.close()
+  return agent, data
+
+
+def _dispatch(agent, replay, K, state):
+  """One dispatch of K updates, ended by a fetch of the last model loss."""
+  _, state, mets = agent.train_device(replay, K, state)
+  loss = float(np.asarray(mets['model_loss_mean']).ravel()[-1])
+  return state, loss
+
+
+def profile_shape(shape, dispatches, K=None, device='cuda'):
+  """Trace `dispatches` warm dispatches at `shape`; returns the report.
+  `K` replaces the shape's fused updates (the tests pass a small one)."""
+  import torch
+  from torch.profiler import ProfilerActivity, profile
+  from daydreamer_tpu_torch.ops import build, lambda_returns
+  del lambda_returns  # Imported to register its kernel's count.
+  device = resolve_device(device)
+  task, overrides, shape_k = SHAPES[shape]
+  K = shape_k if K is None else K
+  agent, data = build_agent(task, overrides, device)
+  replay = agent.make_device_replay(capacity=RING, block=BLOCK)
+  episode = {k: v.reshape((-1,) + v.shape[2:]) for k, v in data.items()}
+  for _ in range(RING // len(episode['reward']) + 1):
+    replay.add_steps(episode)
+
+  begin = time.perf_counter()
+  state, _ = _dispatch(agent, replay, K, None)
+  creation_s = time.perf_counter() - begin
+  begin = time.perf_counter()
+  for _ in range(2):
+    state, _ = _dispatch(agent, replay, K, state)
+  untraced_s = time.perf_counter() - begin
+
+  on_card = device.type == 'cuda'
+  activities = [ProfilerActivity.CPU] + (
+      [ProfilerActivity.CUDA] if on_card else [])
+  for kernel in build.KERNELS:
+    kernel.launches = 0
+  with profile(activities=activities) as prof:
+    begin = time.perf_counter()
+    for _ in range(dispatches):
+      state, loss = _dispatch(agent, replay, K, state)
+    wall_s = time.perf_counter() - begin
+  launches = {k.name: k.launches for k in build.KERNELS}
+  updates = dispatches * K
+  rows, categories, busy = summarize(prof, updates, on_card)
+  wall = 1e3 * wall_s / updates
+  untraced = 1e3 * untraced_s / (2 * K)
+  return {
+      'shape': shape, 'fused_K': K, 'dispatches': dispatches,
+      'updates_traced': updates,
+      'device': torch.cuda.get_device_name(device) if on_card else 'cpu',
+      'card': card() if on_card else None,
+      'timeline': 'cuda kernels, device time' if on_card else (
+          'cpu operators, self time'),
+      'creation_s': creation_s,
+      'untraced_wall_ms_per_update': untraced,
+      'wall_ms_per_update': wall,
+      'device_busy_ms_per_update': busy if on_card else None,
+      'idle_share': 1 - busy / wall if on_card else None,
+      # The profiler slows the host and not the device: the device's idle
+      # share at the untraced dispatches' pace.
+      'idle_share_untraced': 1 - busy / untraced if on_card else None,
+      'launches_per_update': sum(
+          r['launches_per_update'] for r in rows) if on_card else None,
+      'model_loss': loss,
+      'wrapper_launches': launches,
+      'categories': categories,
+      'own_kernels': [r for r in rows if r['category'] in OWN_NAMES],
+      'top': rows[:30],
+  }
+
+
+def print_report(report):
+  unit = 'device' if report['device_busy_ms_per_update'] is not None else (
+      'cpu self')
+  print(f"{report['shape']} (K = {report['fused_K']}, "
+        f"{report['updates_traced']} updates traced) on {report['device']} "
+        f"({report['card']}): wall {report['wall_ms_per_update']:.3f} ms per "
+        f"update traced, {report['untraced_wall_ms_per_update']:.3f} "
+        f"untraced; device busy {report['device_busy_ms_per_update']} ms, "
+        f"idle share {report['idle_share']} (untraced "
+        f"{report['idle_share_untraced']}), launches "
+        f"{report['launches_per_update']} per update; wrapper launches "
+        f"{report['wrapper_launches']}", flush=True)
+  for row in report['categories']:
+    print(f"  {row['ms_per_update']:9.3f} ms/update {unit} "
+          f"{row['launches_per_update']:9.2f} launches/update  "
+          f"{row['category']}", flush=True)
+  for row in report['top']:
+    print(f"  {row['ms_per_update']:9.3f} ms/update "
+          f"{row['launches_per_update']:7.2f}/update  {row['category']:14s} "
+          f"{row['name'][:90]}", flush=True)
+
+
+def main(argv=None):
+  parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+  parser.add_argument('--shape', default='xarm', choices=sorted(SHAPES))
+  parser.add_argument('--dispatches', type=int, default=8)
+  parser.add_argument('--out', default='')
+  parser.add_argument('--device', default='cuda', choices=['cuda', 'cpu'])
+  args = parser.parse_args(argv)
+  report = profile_shape(args.shape, args.dispatches, device=args.device)
+  print_report(report)
+  if args.out:
+    pathlib.Path(args.out).write_text(json.dumps(report, indent=1) + '\n')
+  print(json.dumps(report), flush=True)
+  return report
+
+
+if __name__ == '__main__':
+  main()

@@ -35,8 +35,11 @@ def test_sources_import_no_jax():
   """Every import statement of every source, at any depth (the lazy ones
   inside functions too)."""
   sources = _sources()
-  assert len(sources) > 80 and (PORT / 'envs' / 'a1.py') in sources
+  assert len(sources) > 100 and (PORT / 'envs' / 'a1.py') in sources
   assert PORT / 'agents' / 'dreamer' / 'expl.py' in sources
+  assert PORT / 'imitation' / 'ppo.py' in sources
+  for script in ('profile_train.py', 'policy_latency.py'):
+    assert PORT / 'scripts' / script in sources
   bad = []
   for path in sources:
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
@@ -52,8 +55,10 @@ def test_sources_import_no_jax():
 
 
 def test_modules_load_without_jax(tmp_path):
-  """The host-side layers import in a fresh interpreter without pulling in
-  JAX or the JAX package; building the native libraries writes only under
+  """The host-side layers, imitation and the tooling scripts import in a
+  fresh interpreter without pulling in JAX, the JAX package or MuJoCo
+  (which the card's machine lacks: the A1 sim imports it at its first
+  use); building the native libraries writes only under
   `daydreamer_tpu_torch/native/_build/`."""
   native = PORT / 'native'
   before = {p: p.stat().st_mtime_ns for p in native.iterdir() if p.is_file()}
@@ -62,11 +67,14 @@ def test_modules_load_without_jax(tmp_path):
       'import daydreamer_tpu_torch.envs, daydreamer_tpu_torch.control\n'
       'import daydreamer_tpu_torch.native\n'
       'import daydreamer_tpu_torch.replay.batcher\n'
+      'import daydreamer_tpu_torch.imitation\n'
+      'import daydreamer_tpu_torch.scripts.profile_train\n'
+      'import daydreamer_tpu_torch.scripts.policy_latency\n'
       'from daydreamer_tpu_torch.native import load\n'
       'from daydreamer_tpu_torch.native.build import SOURCES\n'
       'libs = [str(load(name)._name) for name in SOURCES]\n'
-      'mods = [m for m in sys.modules\n'
-      '        if m.split(".")[0] in ("jax", "jaxlib", "daydreamer_tpu")]\n'
+      'mods = [m for m in sys.modules if m.split(".")[0] in\n'
+      '        ("jax", "jaxlib", "daydreamer_tpu", "mujoco")]\n'
       'print(repr((mods, libs)))\n')
   env = dict(os.environ, PYTHONPATH=str(ROOT))
   out = subprocess.run([sys.executable, '-c', script], cwd=tmp_path, env=env,

@@ -1,0 +1,99 @@
+"""The port's tooling scripts on the CPU (`scripts/profile_train.py`,
+`scripts/policy_latency.py`) and the data-parallel worker's device
+default. On the CPU the scripts give host times only: the profile's rows are
+CPU operators and its device metrics are null; on the card they are
+measured by `chip_smoke.py`'s `tooling` phase."""
+
+import json
+import math
+
+import pytest
+import torch
+
+from daydreamer_tpu_torch.scripts import multihost_worker
+from daydreamer_tpu_torch.scripts import policy_latency
+from daydreamer_tpu_torch.scripts import profile_train
+
+torch.set_num_threads(1)
+
+
+def _json_lines(text):
+  return [json.loads(line) for line in text.splitlines()
+          if line.startswith('{')]
+
+
+def test_policy_latency_on_cpu(capsys):
+  result = policy_latency.main(
+      ['--shape', 'test', '--reps', '2', '--device', 'cpu'])
+  lines = _json_lines(capsys.readouterr().out)
+  variants = {line['variant']: line for line in lines if 'variant' in line}
+  assert set(variants) == {'device', 'cpu_mirror'}
+  for name in ('device', 'cpu_mirror'):
+    assert variants[name]['on'] == 'cpu'
+    for key in ('whole_ms', 'dispatch_ms', 'synced_ms', 'fetch_ms'):
+      assert math.isfinite(variants[name][key]), key
+      assert variants[name][key] == result[name][key], key
+  assert lines[-1] == json.loads(json.dumps(result))
+  assert result['backend'] == 'cpu' and result['card'] is None
+
+
+def test_profile_train_on_cpu(capsys, monkeypatch):
+  report = profile_train.profile_shape('test', 1, K=2, device='cpu')
+  assert report['updates_traced'] == 2 and report['fused_K'] == 2
+  assert report['device'] == 'cpu' and report['timeline'].startswith('cpu')
+  assert report['device_busy_ms_per_update'] is None
+  assert report['idle_share'] is None
+  names = [row['name'] for row in report['top']]
+  assert 'aten::mm' in names and len(names) == 30
+  categories = {row['category'] for row in report['categories']}
+  assert {'gemm', 'elementwise', 'cast_copy'} <= categories
+  assert report['wrapper_launches']['observe_fwd'] == 0  # rssm.impl: scan.
+  # The CLI prints the report's table and the report as its last line.
+  monkeypatch.setattr(profile_train, 'profile_shape',
+                      lambda *args, **kwargs: report)
+  profile_train.main(['--shape', 'test', '--device', 'cpu'])
+  last = capsys.readouterr().out.strip().splitlines()[-1]
+  assert json.loads(last) == json.loads(json.dumps(report))
+
+
+@pytest.mark.parametrize('name,category', [
+    ('void (anonymous namespace)::prior_kernel<__nv_bfloat16>('
+     '(anonymous namespace)::Params)', 'observe_fwd'),
+    ('void (anonymous namespace)::embed_kernel<__nv_bfloat16>('
+     '(anonymous namespace)::Params)', 'observe_fwd|observe'),
+    ('void (anonymous namespace)::observe_bwd_kernel<float>('
+     '(anonymous namespace)::Params)', 'observe_bwd'),
+    ('void (anonymous namespace)::imagine_actor_kernel<__nv_bfloat16>('
+     '(anonymous namespace)::Params, int)', 'imagine_actor'),
+    ('void (anonymous namespace)::imagine_kernel<float>('
+     '(anonymous namespace)::Params, int)', 'imagine'),
+    ('gve_kernel', 'gve'),
+    ('Memcpy HtoD (Pageable -> Device)', 'host_to_device'),
+    ('void at::native::vectorized_elementwise_kernel<4, '
+     'at::native::bfloat16_copy_kernel_cuda(at::TensorIteratorBase&)',
+     'cast_copy'),
+    ('nvjet_tst_128x64_64x4_1x2_h_bz_TNT', 'gemm'),
+    ('sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc',
+     'convolution'),
+    ('void at::native::(anonymous namespace)::vectorized_layer_norm_kernel'
+     '<c10::BFloat16, float, true>(int, float, ...)', 'layernorm'),
+    ('void at::native::reduce_kernel<512, 1, at::native::ReduceOp<float, '
+     'at::native::func_wrapper_t<float, at::native::sum_functor>>>',
+     'reduction'),
+    ('void at::native::vectorized_elementwise_kernel<4, '
+     'at::native::tanh_kernel_cuda>', 'elementwise'),
+    ('void at::native::(anonymous namespace)::distribution_elementwise_'
+     'grid_stride_kernel', 'elementwise'),
+    ('void at_cuda_detail::cub::DeviceRadixSortOnesweepKernel', 'other'),
+])
+def test_categorize(name, category):
+  assert profile_train.categorize(name) == category
+
+
+def test_multihost_worker_needs_card(monkeypatch):
+  """Without `--device`, the worker asks for the card and raises when
+  there is none, naming `--device cpu`; it joins no group."""
+  monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+  with pytest.raises(RuntimeError, match='--device cpu'):
+    multihost_worker.main(['file:///nonexistent/store', '2', '0', '--tiny'])
+  assert not torch.distributed.is_initialized()
