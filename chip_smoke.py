@@ -99,6 +99,21 @@ Phases, each of which must pass:
                at `--shape a1` and `--shape test`, on the card and on the
                host mirror; the card's whole policy call at a1 must take
                under 50 ms.
+ 12. soak    - the paper's deployment: the port's `scripts/async_soak.py`
+               as a subprocess for 2 minutes, `run=learning` on the card
+               (`--configs a1 --rssm.impl pallas` on a1_dummy, so the
+               learner trains through observe_fwd and observe_bwd) and
+               `run=acting` on the CPU (a1_dummy: the card's machine has no
+               MuJoCo) as two OS processes over ZMQ. All five gates of its
+               summary must pass (the actor's policy step within 50 ms, the
+               steady sync age within 2 x sync_every, replay growth, a
+               trained learner, a clean SIGINT shutdown within 90 s), the
+               learner's resolved config, as its log prints it, must read
+               `rssm.impl: pallas` and `torch.device: cuda`, and the
+               launches that the learner process prints at its end must
+               hold observe_fwd and observe_bwd at least once for each of
+               its updates; they go on the kernels line under
+               `launches_soak`.
 The kernel phase also holds observe_fwd and observe_bwd at the a1 training
 shape (T = B = 32, D = U = 256, E = 512, 12 continuous actions), and
 observe_fwd, observe_bwd and imagine_actor at the rows of one rank of the
@@ -114,7 +129,17 @@ phase `sphero` (not run by default) trains `--configs sphero` (its dummy
 task, whose tracker and resize need OpenCV) as the slice trains xarm; the
 extra phase `imitation_sim` (not run by default) runs the imitation
 trainer on the card with its MuJoCo sim, 4096 steps in rollouts of 2048,
-and fails where MuJoCo is missing.
+and fails where MuJoCo is missing; the extra phase `curve` (not run by
+default) trains a robot config block as its file has it, `--configs NAME
+--task NAME_dummy --run train --seed 0` for `--curve-steps` env steps
+(21 400 by default: the span of the JAX package's xarm curve), NAME from
+`--curve-config` (xarm, ur5 or sphero). observe_fwd and observe_bwd must
+launch once an update (the kernels line's `launches_curve`) and every
+logged loss must be finite. It exports the episode returns through the
+port's `scripts/scores.py` to `scores/NAME_dreamer_torch.json` with the
+provenance in `scores/provenance/NAME_torch_seed0/` (config.yaml,
+metrics.jsonl, scores.jsonl, RUN.json), and prints the final-10 % mean
+beside that of the JAX package's curve `scores/NAME_dreamer_tpu.json`.
 
 `--compare NAME=SOURCE` (NAME one of imagine_actor, imagine, observe,
 observe_fwd, observe_bwd; the option may be given several times) runs no
@@ -1123,10 +1148,12 @@ def main(argv=None):
   parser.add_argument(
       '--phases',
       default='device,build,kernel,slice,proof,learner,a1,explore,parallel,'
-              'imitation,tooling')
+              'imitation,tooling,soak')
   parser.add_argument('--compare', action='append', default=[],
                       metavar='NAME=SOURCE')
   parser.add_argument('--seed', type=int, default=0)
+  parser.add_argument('--curve-config', default='xarm', choices=CURVES)
+  parser.add_argument('--curve-steps', type=int, default=21400)
   args = parser.parse_args(argv)
   phases = args.phases.split(',')
   import torch
@@ -1172,6 +1199,10 @@ def main(argv=None):
   if 'imitation_sim' in phases:
     phase_imitation_sim()
   profiled = phase_tooling() if 'tooling' in phases else {}
+  soak = phase_soak() if 'soak' in phases else {}
+  curve = {}
+  if 'curve' in phases:
+    curve = phase_curve(args.curve_config, args.curve_steps)
   if 'sphero' in phases:
     phase_slice('sphero', SPHERO_ARGS, OBSERVE_KERNELS)
   if 'profile' in phases:
@@ -1183,8 +1214,9 @@ def main(argv=None):
     # The main path computes in bfloat16; each kernel's own result. The
     # launches are those of the kernel's own path: the training slice for
     # the first three, the proof for the others; beside them, each rank's
-    # of the parallel phase and those of the tooling phase's profile of the
-    # learner's ring dispatches.
+    # of the parallel phase, those of the tooling phase's profile of the
+    # learner's ring dispatches, those of the soak's learner process and
+    # those of the curve phase's run.
     timing = kernel.get(k.name, {}).get('bfloat16', {})
     entries.append(dict(
         name=k.name, route=k.route,
@@ -1193,6 +1225,8 @@ def main(argv=None):
         launches_parallel={rank: counts.get(k.name, 0)
                            for rank, counts in parallel.items()},
         launches_profile=profiled.get(k.name, 0),
+        launches_soak=soak.get(k.name, 0),
+        launches_curve=curve.get(k.name, 0),
         max_abs_err=timing.get('max_abs_err'), ms=timing.get('ms'),
         plain_ms=timing.get('plain_ms'), bound_ms=timing.get('bound_ms'),
         bound_by=timing.get('bound_by'), library_ms=None))
@@ -1897,6 +1931,125 @@ def phase_tooling():
     log(f'policy_latency ({shape}): card {device}, host mirror {mirror}, '
         f'null round trip {result["null_rtt_ms"]:.4f} / '
         f'{result["null_rtt_after_ms"]:.4f} ms ({result["card"]})')
+  return launches
+
+
+# Two minutes of the deployment pair; the learner on the card with the fused
+# observe chain, the actor on a1_dummy (no MuJoCo on the card's machine).
+SOAK_ARGS = ['--minutes', '2', '--learner-device', 'cuda', '--actor-task',
+             'a1_dummy', '--rssm.impl', 'pallas']
+
+
+def printed_config(text):
+  """The resolved config that the CLI prints at its start: {key: value}."""
+  return dict(re.findall(r'^(\S+):\s+(\S+)\s+\(\w+\)$', text, re.M))
+
+
+def phase_soak():
+  """The port's `scripts/async_soak.py` as a subprocess (see the module's
+  docstring, phase 12). Both processes write `config.yaml` into the one
+  logdir, so the learner's resolved config is read where its log prints
+  it."""
+  import os
+  rundir = new_logdir('soak')
+  out, logdir = rundir / 'soak.json', rundir / 'pair'
+  begin = time.perf_counter()
+  with open(rundir / 'soak.log', 'w') as log_file:
+    code = subprocess.run(
+        [sys.executable, '-m', 'daydreamer_tpu_torch.scripts.async_soak',
+         *SOAK_ARGS, '--out', str(out), '--logdir', str(logdir)],
+        cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(ROOT))).returncode
+  if code != 0 or not out.exists():
+    raise AssertionError(f'soak: exited {code}:\n'
+                         f'{(rundir / "soak.log").read_text()[-3000:]}')
+  result = json.loads(out.read_text())
+  config = printed_config((logdir / 'learner.log').read_text())
+  log(f'soak: {time.perf_counter() - begin:.1f} s; summary '
+      f'{json.dumps(result["summary"])}')
+  launches = result['learner_launches'] or {}
+  updates = launches.get('updates', 0)
+  log(f'soak: gates {json.dumps(result["gates"])}; learner '
+      f'torch.device {config.get("torch.device")}, rssm.impl '
+      f'{config.get("rssm.impl")}, launches {json.dumps(launches)}; logs '
+      f'in {logdir}')
+  if not result['passed'] or config.get('torch.device') != 'cuda' or (
+      config.get('rssm.impl') != 'pallas'):
+    raise AssertionError(f'soak: gates {result["gates"]}, learner config '
+                         f'{config.get("torch.device")} / '
+                         f'{config.get("rssm.impl")}')
+  # At least one launch of each an update: an update cut short by the
+  # SIGINT may have launched without being counted.
+  if not updates or any(launches.get(k, 0) < updates
+                        for k in OBSERVE_KERNELS):
+    raise AssertionError(f'soak: the learner launched {launches}, not '
+                         f'each of {OBSERVE_KERNELS} once an update.')
+  return {k: v for k, v in launches.items() if k != 'updates'}
+
+
+# The robot config blocks with a JAX curve on their dummy task: the task's
+# label in the curve files.
+CURVES = {'xarm': 'xarm_pickplace_dummy', 'ur5': 'ur5_pickplace_dummy',
+          'sphero': 'sphero_navigate_dummy'}
+
+
+def phase_curve(name, steps, seed=0):
+  """A return curve of the config block `name` as its file has it (see the
+  module's docstring, the extra phase `curve`). Returns the run's launches
+  of every kernel."""
+  from daydreamer_tpu_torch.scripts import provenance, scores
+  label = f'curve ({name})'
+  logdir = new_logdir(f'curve_{name}')
+  flags = {'configs': name, 'task': f'{name}_dummy', 'run': 'train',
+           'train.steps': steps, 'seed': seed, 'logdir': logdir}
+  log(f'{label}: {flags}; the CLI writes its output to {logdir / "cli.log"}')
+
+  def record():
+    """The run's launches and counts, checked before anything is kept."""
+    launches = read_launches(label, OBSERVE_KERNELS)
+    finite_losses(label, logdir)
+    updates = len(times['train'])
+    # The creation pass adds one launch of each; the reports more forwards.
+    if not (updates <= launches['observe_bwd'] <= updates + 1
+            and launches['observe_fwd'] >= updates):
+      raise AssertionError(f'{label}: launches {launches} in {updates} '
+                           f'updates, not one of each an update.')
+    return dict(steps=steps, updates=updates,
+                policy_steps=len(times['policy']),
+                launches={k: launches[k] for k in OBSERVE_KERNELS})
+
+  out = ROOT / 'scores' / f'{name}_dreamer_torch.json'
+  prov = ROOT / 'scores' / 'provenance' / f'{name}_torch_seed{seed}'
+  reset_launches()
+  begin = time.perf_counter()
+  with timed_calls(['train', 'policy']) as times, open(
+      logdir / 'cli.log', 'w') as cli, contextlib.redirect_stdout(cli):
+    run = provenance.run_curve(
+        flags, [], prov, out, task=CURVES[name], seed=seed,
+        script='chip_smoke.py --phases curve', record=record)
+  wall = time.perf_counter() - begin
+  launches = read_launches(label, OBSERVE_KERNELS)
+  losses = finite_losses(label, logdir)
+  updates = len(times['train'])
+  reference = json.loads(
+      (ROOT / 'scores' / f'{name}_dreamer_tpu.json').read_text())[0]
+  ys = run['ys']
+  tenth = max(1, len(ys) // 10)
+  train_s, policy_s = times['train'][1:], times['policy'][1:]
+  log(f'{label}: {steps} env steps in {wall:.1f} s, {updates} updates '
+      f'({len(train_s) / sum(train_s):.3f} updates/s, the first '
+      f'excluded), {len(times["policy"])} policy steps '
+      f'({1e3 * float(np.mean(policy_s)):.3f} ms mean), launches '
+      f'{({k: launches[k] for k in OBSERVE_KERNELS})}, last logged losses '
+      f'{losses}')
+  log(f'{label}: {len(ys)} episodes to {run["xs"][-1] if ys else 0} env '
+      f'steps; return over the first tenth {np.mean(ys[:tenth]):.3f}, '
+      f'final-10 % mean {scores.final_mean(ys):.3f} (the JAX curve '
+      f'{reference["method"]}: {scores.final_mean(reference["ys"]):.3f} '
+      f'over {len(reference["ys"])} episodes to {reference["xs"][-1]} env '
+      f'steps); the curve in {out.relative_to(ROOT)}')
+  log(f'{label}: mean return a window of 2000 env steps, the port '
+      f'{provenance.bins(run)}, the JAX curve {provenance.bins(reference)}')
   return launches
 
 

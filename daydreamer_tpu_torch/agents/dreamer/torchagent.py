@@ -9,6 +9,17 @@ jaxagent.py` (reference: embodied/agents/dreamerv2plus/tfagent.py:14-178).
   in the JAX package: layers compute in bf16, parameters and optimizer
   state stay float32, norms and distribution statistics run in float32.
 - One `torch.Generator` on the device per agent carries every random draw.
+- `config.torch.debug_nans` raises FloatingPointError at the first NaN that
+  an update (`train`, `train_multi`, `train_device`) or a policy call
+  returns, as `jax.debug_nans` does for the JAX package's jitted calls: the
+  outputs, the carried state, the metrics and, for an update, the agent's
+  whole state after it. One host sync a call, so only when it is set;
+  infinities pass, as they do there. Two NaNs are by design and pass: the
+  creation pass is not checked, and neither are the balance diagnostics
+  that `_reduce_plan` finds (`nn.BALANCE_RATIOS` beside their `X_rate`),
+  which are NaN when a batch holds no example of a class.
+  `jax.debug_nans` raises on both, so the JAX agent cannot even be created
+  with it: its creation pass's zero batch has no positive reward.
 - `config.torch.policy_devices: cpu` serves the policy from a host-CPU
   mirror of the entries it reads, with a CPU generator of its own,
   refreshed at most every `policy_sync` train steps (`all`: the policy runs
@@ -146,6 +157,30 @@ def _to_numpy(tree):
       else x, tree)
 
 
+def _nan_paths(trees):
+  """The paths of the floating tensors of `trees` (a dict of trees) that
+  hold a NaN, fetched in one device->host copy."""
+  paths, flags = [], []
+
+  def visit(x, path):
+    if isinstance(x, dict):
+      for key, value in x.items():
+        visit(value, f'{path}/{key}')
+    elif isinstance(x, (tuple, list)):
+      for i, value in enumerate(x):
+        visit(value, f'{path}/{i}')
+    elif isinstance(x, torch.Tensor) and x.is_floating_point():
+      paths.append(path)
+      flags.append(torch.isnan(x.detach()).any())
+
+  for name, tree in trees.items():
+    visit(tree, name)
+  if not flags:
+    return []
+  flags = torch.stack(flags).cpu().tolist()
+  return [path for path, flag in zip(paths, flags) if flag]
+
+
 def _reduce_plan(names, device):
   """How each scalar of `names` combines over the ranks into the global
   batch's value: `_max` and `_min` by MAX and MIN; `X_std` beside `X_mean`
@@ -236,6 +271,7 @@ class TorchAgent:
     seed = int(config.seed) + distributed.rank() * 2 ** 32
     self.dtype = {'bfloat16': torch.bfloat16, 'float32': torch.float32}[
         config.torch.precision]
+    self._debug_nans = bool(config.torch.debug_nans)
     self.generator = torch.Generator(device=self.device)
     self.generator.manual_seed(seed)
     self.agent = agent_cls('agent', obs_space, act_space, step, config)
@@ -294,6 +330,10 @@ class TorchAgent:
         self.agent.report(data)
     self._created = True
     self._metric_plan = _reduce_plan(self._metric_names, self.device)
+    # The balance ratios by the plan's rule: NaN where a batch holds no
+    # example of a class, so `torch.debug_nans` lets them pass.
+    self._ratio_names = frozenset(
+        self._metric_names[i] for i in self._metric_plan['ratio'].tolist())
     values = nn.state(self.agent)
     if self.mesh is not None:
       meshlib.replicate(values, self.mesh)
@@ -375,6 +415,16 @@ class TorchAgent:
 
   # -- entry points ----------------------------------------------------------
 
+  @staticmethod
+  def _check_nans(where, **trees):
+    """Raises FloatingPointError if a floating tensor of `trees` holds a
+    NaN (called under `torch.debug_nans` only: one host sync)."""
+    paths = _nan_paths(trees)
+    if paths:
+      raise FloatingPointError(
+          f'invalid value (nan) encountered in {where}: {paths[:8]}'
+          f'{" ..." if len(paths) > 8 else ""} ({len(paths)} tensors)')
+
   def policy(self, obs, state=None, mode='train'):
     self._create()
     agent, generator = self._policy_agent()
@@ -383,6 +433,8 @@ class TorchAgent:
       if state is None:
         state = agent.policy_initial(len(obs['is_first']))
       outs, state = agent.policy(obs, state, mode=mode)
+    if self._debug_nans:
+      self._check_nans('policy', outs=outs, state=state)
     return _to_numpy(outs), state
 
   def _train_step(self, data, state, pack=True):
@@ -390,6 +442,11 @@ class TorchAgent:
       if state is None:
         state = self.agent.train_initial(len(data['is_first']))
       outs, state, mets = self.agent.train(data, state)
+    if self._debug_nans:
+      checked = {k: v for k, v in mets.items()
+                 if k not in self._ratio_names}
+      self._check_nans('train', outs=outs, state=state, metrics=checked,
+                       agent=nn.state(self.agent))
     packed = None
     if pack:
       packed = _reduce_scalars(self._metric_plan, torch.stack([

@@ -4,11 +4,15 @@
 No environment: episodes arrive through the replay's StoreServer (ZMQ) or a
 shared-filesystem DiskStore sync; the train loop runs continuously on the
 card; weights are published for actors every `sync_every` wall-clock seconds
-via an atomically-written checkpoint file.
+via an atomically-written checkpoint file. At its end the learner prints
+`LAUNCHES <json>`: each kernel wrapper's launches in this process and, as
+`updates`, the updates of this run, so that a caller can hold the
+deployment to its kernels.
 """
 
 import collections
 import concurrent.futures
+import json
 import time
 import warnings
 
@@ -65,6 +69,7 @@ def learning(agent, train_replay, eval_replay, logger, args):
   learner_cp.train_replay = train_replay
   learner_cp.step = step
   learner_cp.load_or_save()
+  first_step = int(step)
 
   # Wait for prefill data from at least one actor to avoid overfitting to
   # the first few episodes.
@@ -218,6 +223,10 @@ def learning(agent, train_replay, eval_replay, logger, args):
               {k: np.mean(xs) for k, xs in scalars.items()}, prefix='eval')
           logger.write()
   finally:
+    from ..ops import build
+    launches = {k.name: k.launches for k in build.KERNELS}
+    launches['updates'] = int(step) - first_step
+    print(f'LAUNCHES {json.dumps(launches)}', flush=True)
     if publish is not None:
       publish.result()  # Surface publish errors; finish the last write.
     publisher.shutdown(wait=True)

@@ -1,6 +1,7 @@
 """The port's import rule: `daydreamer_tpu_torch/` and `chip_smoke.py`
-import neither JAX nor the JAX package `daydreamer_tpu`, and the port's
-native build writes only into its own build directory."""
+import neither JAX nor the JAX package `daydreamer_tpu`, the port imports
+nothing of the repository's root `scripts/` package, and the port's native
+build writes only into its own build directory."""
 
 import ast
 import os
@@ -22,6 +23,22 @@ def _sources():
   return sorted(PORT.rglob('*.py')) + [ROOT / 'chip_smoke.py']
 
 
+# The port's copies of the repository's run scripts (beside the tooling).
+RUN_SCRIPTS = ('scores', 'async_soak', 'train_a1_curve', 'train_dmc_curve',
+               'train_short_a1', 'provenance')
+
+
+def _imports(path):
+  """(line, module) of every absolute import of `path`, at any depth (the
+  lazy ones inside functions too)."""
+  for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+    if isinstance(node, ast.Import):
+      for alias in node.names:
+        yield node.lineno, alias.name
+    elif isinstance(node, ast.ImportFrom) and not node.level:
+      yield node.lineno, node.module
+
+
 def test_forbidden_name_rule():
   for name in ('jax', 'jax.numpy', 'jaxlib', 'daydreamer_tpu',
                'daydreamer_tpu.envs', 'daydreamer_tpu_other'):
@@ -38,19 +55,26 @@ def test_sources_import_no_jax():
   assert len(sources) > 100 and (PORT / 'envs' / 'a1.py') in sources
   assert PORT / 'agents' / 'dreamer' / 'expl.py' in sources
   assert PORT / 'imitation' / 'ppo.py' in sources
-  for script in ('profile_train.py', 'policy_latency.py'):
-    assert PORT / 'scripts' / script in sources
-  bad = []
-  for path in sources:
+  for script in ('profile_train', 'policy_latency', *RUN_SCRIPTS):
+    assert PORT / 'scripts' / f'{script}.py' in sources
+  bad = [(str(path.relative_to(ROOT)), line, name)
+         for path in sources for line, name in _imports(path)
+         if _forbidden(name)]
+  assert not bad, bad
+
+
+def test_port_imports_no_root_scripts():
+  """No port module (nor `chip_smoke.py`) imports the root `scripts`
+  package or a module of it, nor names one to run (`-m scripts.NAME`): the
+  port keeps its own copies."""
+  bad = [(str(path.relative_to(ROOT)), line, name)
+         for path in _sources() for line, name in _imports(path)
+         if name.split('.')[0] == 'scripts']
+  for path in _sources():
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
-      if isinstance(node, ast.Import):
-        names = [a.name for a in node.names]
-      elif isinstance(node, ast.ImportFrom) and not node.level:
-        names = [node.module]
-      else:
-        continue
-      bad += [(str(path.relative_to(ROOT)), node.lineno, name)
-              for name in names if _forbidden(name)]
+      if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+          and node.value.startswith('scripts.')):
+        bad.append((str(path.relative_to(ROOT)), node.lineno, node.value))
   assert not bad, bad
 
 
@@ -70,11 +94,15 @@ def test_modules_load_without_jax(tmp_path):
       'import daydreamer_tpu_torch.imitation\n'
       'import daydreamer_tpu_torch.scripts.profile_train\n'
       'import daydreamer_tpu_torch.scripts.policy_latency\n'
+      'from daydreamer_tpu_torch.scripts import (\n'
+      '    scores, async_soak, train_a1_curve, train_dmc_curve,\n'
+      '    train_short_a1, provenance)\n'
       'from daydreamer_tpu_torch.native import load\n'
       'from daydreamer_tpu_torch.native.build import SOURCES\n'
       'libs = [str(load(name)._name) for name in SOURCES]\n'
       'mods = [m for m in sys.modules if m.split(".")[0] in\n'
-      '        ("jax", "jaxlib", "daydreamer_tpu", "mujoco")]\n'
+      '        ("jax", "jaxlib", "daydreamer_tpu", "mujoco", "scripts",\n'
+      '         "matplotlib")]\n'
       'print(repr((mods, libs)))\n')
   env = dict(os.environ, PYTHONPATH=str(ROOT))
   out = subprocess.run([sys.executable, '-c', script], cwd=tmp_path, env=env,
