@@ -114,6 +114,19 @@ Phases, each of which must pass:
                hold observe_fwd and observe_bwd at least once for each of
                its updates; they go on the kernels line under
                `launches_soak`.
+ 13. bench   - the port's `scripts/bench.py` in this process at its three
+               shapes (test, a1, xarm; from a device ring of 4096 steps)
+               with short budgets: 12 s of
+               windows a shape, one dispatch a window of 64 updates at
+               test and 16 at a1 and xarm, and two windows of
+               the policy on the card and on the host mirror at the test
+               shape. Every rate must be finite and positive, the
+               update's work (`bench.train_flops`, counted on the loop
+               path) above 0, the device named the card, and at xarm the
+               MFU between 0 and 1 and observe_fwd and observe_bwd launched
+               once a timed update; those launches go on the kernels line
+               under `launches_bench`. The policy gates are printed, not
+               asserted.
 The kernel phase also holds observe_fwd and observe_bwd at the a1 training
 shape (T = B = 32, D = U = 256, E = 512, 12 continuous actions), and
 observe_fwd, observe_bwd and imagine_actor at the rows of one rank of the
@@ -139,7 +152,12 @@ logged loss must be finite. It exports the episode returns through the
 port's `scripts/scores.py` to `scores/NAME_dreamer_torch.json` with the
 provenance in `scores/provenance/NAME_torch_seed0/` (config.yaml,
 metrics.jsonl, scores.jsonl, RUN.json), and prints the final-10 % mean
-beside that of the JAX package's curve `scores/NAME_dreamer_tpu.json`.
+beside that of the JAX package's curve `scores/NAME_dreamer_tpu.json`; the
+extra phase `impl_bench` (not run by default) runs the port's
+`scripts/fused_impl_bench.py` (`rssm.impl` pallas against scan at a1 and
+xarm) and `scripts/imag_impl_bench.py` (`imag_impl` at xarm) in this process
+at their own budgets, 90 s of windows an arm, and writes their results under
+`runs/chip_smoke_*_impl_bench/`.
 
 `--compare NAME=SOURCE` (NAME one of imagine_actor, imagine, observe,
 observe_fwd, observe_bwd; the option may be given several times) runs no
@@ -1148,7 +1166,7 @@ def main(argv=None):
   parser.add_argument(
       '--phases',
       default='device,build,kernel,slice,proof,learner,a1,explore,parallel,'
-              'imitation,tooling,soak')
+              'imitation,tooling,soak,bench')
   parser.add_argument('--compare', action='append', default=[],
                       metavar='NAME=SOURCE')
   parser.add_argument('--seed', type=int, default=0)
@@ -1200,6 +1218,9 @@ def main(argv=None):
     phase_imitation_sim()
   profiled = phase_tooling() if 'tooling' in phases else {}
   soak = phase_soak() if 'soak' in phases else {}
+  benched = phase_bench(device_name) if 'bench' in phases else {}
+  if 'impl_bench' in phases:
+    phase_impl_bench()
   curve = {}
   if 'curve' in phases:
     curve = phase_curve(args.curve_config, args.curve_steps)
@@ -1216,7 +1237,8 @@ def main(argv=None):
     # the first three, the proof for the others; beside them, each rank's
     # of the parallel phase, those of the tooling phase's profile of the
     # learner's ring dispatches, those of the soak's learner process and
-    # those of the curve phase's run.
+    # those of the curve phase's run and those of the bench phase's timed
+    # windows at xarm.
     timing = kernel.get(k.name, {}).get('bfloat16', {})
     entries.append(dict(
         name=k.name, route=k.route,
@@ -1227,6 +1249,7 @@ def main(argv=None):
         launches_profile=profiled.get(k.name, 0),
         launches_soak=soak.get(k.name, 0),
         launches_curve=curve.get(k.name, 0),
+        launches_bench=benched.get(k.name, 0),
         max_abs_err=timing.get('max_abs_err'), ms=timing.get('ms'),
         plain_ms=timing.get('plain_ms'), bound_ms=timing.get('bound_ms'),
         bound_by=timing.get('bound_by'), library_ms=None))
@@ -1985,6 +2008,75 @@ def phase_soak():
     raise AssertionError(f'soak: the learner launched {launches}, not '
                          f'each of {OBSERVE_KERNELS} once an update.')
   return {k: v for k, v in launches.items() if k != 'updates'}
+
+
+BENCH_BUDGET = 12.0  # Seconds of windows a shape in the bench phase.
+# Its updates a dispatch: the bench's K at xarm, fewer at test (256) and a1
+# (64), whose dispatches take 20-30 s each on the card.
+BENCH_K = {'test': 64, 'a1': 16, 'xarm': 16}
+
+
+def phase_bench(device_name):
+  """The port's `scripts/bench.py` pieces at its three shapes with short
+  budgets (see the module's docstring, phase 13). Returns the launches of
+  each kernel in the timed windows at xarm."""
+  import torch
+  from daydreamer_tpu_torch.scripts import bench
+  device = torch.device('cuda')
+  results = {}
+  for shape in ('test', 'a1', 'xarm'):
+    begin = time.perf_counter()
+    agent, data, res = bench.measure_shape(
+        shape, device, sample_budget_s=BENCH_BUDGET, calls=1,
+        K=BENCH_K[shape])
+    if shape == 'test':
+      policy = bench.measure_policy(agent, data, budget_s=3.0, max_windows=2)
+    del agent, data
+    bench.free_memory(device)
+    rates = [res['updates_per_s'], *res['rate_windows']]
+    log(f'bench ({shape}): {time.perf_counter() - begin:.1f} s; '
+        f'{res["updates_per_s"]} updates/s median of {rates[1:]}, first '
+        f'dispatch {res["first_dispatch_s"]:.3f} s, '
+        f'{res["flops_per_update"]} FLOPs an update, MFU {res["mfu"]}, '
+        f'launches {res["launches"]} in {res["updates_timed"]} timed '
+        f'updates, model loss {res["model_loss"]}, on {res["device"]}')
+    if (not all(math.isfinite(r) and r > 0 for r in rates)
+        or not res['flops_per_update'] > 0 or res['device'] != device_name
+        or not math.isfinite(res['model_loss'])):
+      raise AssertionError(f'bench ({shape}): {res}')
+    results[shape] = res
+  xarm = results['xarm']
+  launches, updates = xarm['launches'], xarm['updates_timed']
+  if not 0 < (xarm['mfu'] or 0) < 1 or any(
+      launches[k] != updates for k in OBSERVE_KERNELS):
+    raise AssertionError(
+        f'bench (xarm): MFU {xarm["mfu"]}, launches {launches} in {updates} '
+        f'timed updates; observe_fwd and observe_bwd must launch once each')
+  if policy['device_on'] != 'cuda' or policy['mirror_on'] != 'cpu':
+    raise AssertionError(f'bench policy: {policy}')
+  log(f'bench policy (test shape): card {policy["device"]}, host mirror '
+      f'{policy["cpu_mirror"]}, null round trip {policy["null_rtt"]}; gates '
+      f'{json.dumps(bench.gates(policy))}')
+  return launches
+
+
+def phase_impl_bench():
+  """The port's two impl benches at their own budgets (see the module's
+  docstring); each checks that its pallas arm launched its kernels once a
+  timed update and its scan arm never."""
+  from daydreamer_tpu_torch.scripts import fused_impl_bench, imag_impl_bench
+  rundir = new_logdir('impl_bench')
+  for script in (fused_impl_bench, imag_impl_bench):
+    label = script.__name__.rsplit('.', 1)[-1]
+    begin = time.perf_counter()
+    result = script.main(['--out', str(rundir / f'{label}.json')])
+    speedups = {shape: rows['speedup'] for shape, rows in result.items()
+                if isinstance(rows, dict) and 'speedup' in rows}
+    log(f'{label}: {time.perf_counter() - begin:.1f} s; pallas over scan '
+        f'{speedups}; results in {rundir}')
+    if not speedups or not all(
+        math.isfinite(v) and v > 0 for v in speedups.values()):
+      raise AssertionError(f'{label}: {result}')
 
 
 # The robot config blocks with a JAX curve on their dummy task: the task's

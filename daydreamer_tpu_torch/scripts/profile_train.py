@@ -196,6 +196,17 @@ def build_agent(task, overrides, device):
   return agent, data
 
 
+def fill_ring(agent, data):
+  """A device ring of RING steps (blocks of BLOCK) filled with `data`'s
+  rows, one after another, as often as it takes."""
+  replay = agent.make_device_replay(capacity=RING, block=BLOCK)
+  episode = {k: v.reshape((-1,) + v.shape[2:]) for k, v in data.items()}
+  for _ in range(RING // len(episode['reward']) + 1):
+    replay.add_steps(episode)
+  assert replay.filled == RING, replay.filled
+  return replay
+
+
 def _dispatch(agent, replay, K, state):
   """One dispatch of K updates, ended by a fetch of the last model loss."""
   _, state, mets = agent.train_device(replay, K, state)
@@ -214,10 +225,7 @@ def profile_shape(shape, dispatches, K=None, device='cuda'):
   task, overrides, shape_k = SHAPES[shape]
   K = shape_k if K is None else K
   agent, data = build_agent(task, overrides, device)
-  replay = agent.make_device_replay(capacity=RING, block=BLOCK)
-  episode = {k: v.reshape((-1,) + v.shape[2:]) for k, v in data.items()}
-  for _ in range(RING // len(episode['reward']) + 1):
-    replay.add_steps(episode)
+  replay = fill_ring(agent, data)
 
   begin = time.perf_counter()
   state, _ = _dispatch(agent, replay, K, None)

@@ -1,7 +1,8 @@
 """The port's import rule: `daydreamer_tpu_torch/` and `chip_smoke.py`
-import neither JAX nor the JAX package `daydreamer_tpu`, the port imports
-nothing of the repository's root `scripts/` package, and the port's native
-build writes only into its own build directory."""
+import neither JAX nor the JAX package `daydreamer_tpu`, nor the
+repository's root `bench` module (the port's `scripts/bench.py` shares its
+name) or root `scripts/` package, and the port's native build writes only
+into its own build directory."""
 
 import ast
 import os
@@ -15,8 +16,8 @@ PORT = ROOT / 'daydreamer_tpu_torch'
 
 def _forbidden(name):
   top = name.split('.')[0]
-  return (top.startswith(('jax', 'daydreamer_tpu'))
-          and not top.endswith('_torch'))
+  return top in ('bench', 'scripts') or (
+      top.startswith(('jax', 'daydreamer_tpu')) and not top.endswith('_torch'))
 
 
 def _sources():
@@ -26,6 +27,9 @@ def _sources():
 # The port's copies of the repository's run scripts (beside the tooling).
 RUN_SCRIPTS = ('scores', 'async_soak', 'train_a1_curve', 'train_dmc_curve',
                'train_short_a1', 'provenance')
+# The port's copies of the repository's measuring scripts.
+BENCH_SCRIPTS = ('bench', 'fused_impl_bench', 'imag_impl_bench',
+                 'multihost_bench')
 
 
 def _imports(path):
@@ -41,10 +45,12 @@ def _imports(path):
 
 def test_forbidden_name_rule():
   for name in ('jax', 'jax.numpy', 'jaxlib', 'daydreamer_tpu',
-               'daydreamer_tpu.envs', 'daydreamer_tpu_other'):
+               'daydreamer_tpu.envs', 'daydreamer_tpu_other', 'bench',
+               'scripts', 'scripts.fused_impl_bench'):
     assert _forbidden(name), name
   for name in ('daydreamer_tpu_torch', 'daydreamer_tpu_torch.envs', 'torch',
-               'numpy', 'json'):
+               'numpy', 'json', 'daydreamer_tpu_torch.scripts.bench',
+               'benchmark'):
     assert not _forbidden(name), name
 
 
@@ -55,7 +61,8 @@ def test_sources_import_no_jax():
   assert len(sources) > 100 and (PORT / 'envs' / 'a1.py') in sources
   assert PORT / 'agents' / 'dreamer' / 'expl.py' in sources
   assert PORT / 'imitation' / 'ppo.py' in sources
-  for script in ('profile_train', 'policy_latency', *RUN_SCRIPTS):
+  for script in ('profile_train', 'policy_latency', *RUN_SCRIPTS,
+                 *BENCH_SCRIPTS):
     assert PORT / 'scripts' / f'{script}.py' in sources
   bad = [(str(path.relative_to(ROOT)), line, name)
          for path in sources for line, name in _imports(path)
@@ -97,12 +104,14 @@ def test_modules_load_without_jax(tmp_path):
       'from daydreamer_tpu_torch.scripts import (\n'
       '    scores, async_soak, train_a1_curve, train_dmc_curve,\n'
       '    train_short_a1, provenance)\n'
+      'from daydreamer_tpu_torch.scripts import (\n'
+      '    bench, fused_impl_bench, imag_impl_bench, multihost_bench)\n'
       'from daydreamer_tpu_torch.native import load\n'
       'from daydreamer_tpu_torch.native.build import SOURCES\n'
       'libs = [str(load(name)._name) for name in SOURCES]\n'
       'mods = [m for m in sys.modules if m.split(".")[0] in\n'
       '        ("jax", "jaxlib", "daydreamer_tpu", "mujoco", "scripts",\n'
-      '         "matplotlib")]\n'
+      '         "bench", "matplotlib")]\n'
       'print(repr((mods, libs)))\n')
   env = dict(os.environ, PYTHONPATH=str(ROOT))
   out = subprocess.run([sys.executable, '-c', script], cwd=tmp_path, env=env,
