@@ -115,18 +115,44 @@ Phases, each of which must pass:
                its updates; they go on the kernels line under
                `launches_soak`.
  13. bench   - the port's `scripts/bench.py` in this process at its three
-               shapes (test, a1, xarm; from a device ring of 4096 steps)
-               with short budgets: 12 s of
-               windows a shape, one dispatch a window of 64 updates at
-               test and 16 at a1 and xarm, and two windows of
-               the policy on the card and on the host mirror at the test
-               shape. Every rate must be finite and positive, the
+               shapes (test, a1, xarm; from a device ring of 4096 steps),
+               each eagerly and graphed (`torch.graphs` False and True,
+               `bench.compare_graphs`), with short budgets: 6 s of
+               windows an arm, one dispatch a window of 32 updates at
+               test and 16 at a1 and xarm, each arm's batch-1 policy on
+               the card at the test shape, then two windows of the
+               (graphed) policy on the card and on the host mirror there. Every rate must be finite and positive, the
                update's work (`bench.train_flops`, counted on the loop
                path) above 0, the device named the card, and at xarm the
                MFU between 0 and 1 and observe_fwd and observe_bwd launched
                once a timed update; those launches go on the kernels line
                under `launches_bench`. The policy gates are printed, not
                asserted.
+ 14. graphs  - `torch.graphs` (on by default: every phase above and below
+               runs its updates and policy steps as CUDA graphs but where
+               it says otherwise) held to the eager path. For xarm (the
+               fused observe chain and the fused rollout, so observe_fwd,
+               observe_bwd and imagine_actor run inside the graph) and a1
+               (the loop path), each with a uniform and a prioritized
+               ring of 8192 steps half filled: an eager and a graphed agent
+               from one state and one generator state make two dispatches
+               of 4 updates each from the same ring; every state entry,
+               every update's packed metrics, the carry and the priorities
+               must be equal bit for bit, the kernels must be counted once
+               an update (the graphed arm's launches credited at each
+               replay), and each update's model loss must differ from the
+               one before (replays draw other windows and other noise).
+               After the capture, 1024 steps are added to the prioritized
+               ring and a graphed dispatch must draw some of them. A
+               registered generator must draw under replay what eager
+               calls draw in turn. The xarm policy at batch 1 in each mode,
+               eager and graphed, must give equal actions and states. It
+               prints each arm's updates/s (the second dispatch), its
+               first dispatch, the capture's seconds and the graph pool's
+               bytes, and the policy's ms a call both ways. It runs after
+               the kernel phase (`--phases device,build,graphs` alone).
+               The parallel phase passes `--torch.graphs False`: its ranks
+               share the card over gloo, which a graph cannot capture.
 The kernel phase also holds observe_fwd and observe_bwd at the a1 training
 shape (T = B = 32, D = U = 256, E = 512, 12 continuous actions), and
 observe_fwd, observe_bwd and imagine_actor at the rows of one rank of the
@@ -1165,8 +1191,8 @@ def main(argv=None):
   parser = argparse.ArgumentParser()
   parser.add_argument(
       '--phases',
-      default='device,build,kernel,slice,proof,learner,a1,explore,parallel,'
-              'imitation,tooling,soak,bench')
+      default='device,build,kernel,graphs,slice,proof,learner,a1,explore,'
+              'parallel,imitation,tooling,soak,bench')
   parser.add_argument('--compare', action='append', default=[],
                       metavar='NAME=SOURCE')
   parser.add_argument('--seed', type=int, default=0)
@@ -1194,6 +1220,8 @@ def main(argv=None):
   if 'build' in phases:
     phase_build()
   kernel = phase_kernel() if 'kernel' in phases else {}
+  if 'graphs' in phases:
+    phase_graphs()
   launches, parallel = {}, {}
   slice_run = None
   if 'slice' in phases:
@@ -1466,6 +1494,290 @@ def phase_learner(label, replay_kind, updates=48, prefill=2048,
       f'({smi})')
 
 
+# The graphs phase: K updates a dispatch, two dispatches an arm.
+GRAPHS_K = 4
+GRAPHS_RING = 8192      # Steps the ring holds; half of it filled first.
+GRAPHS_POLICY_STEPS = 8  # Batch-1 policy steps a mode and arm.
+
+
+def _graphs_config(name, graphs, replay_kind='fixed'):
+  """The `name` config block as its file has it (xarm with the fused
+  rollout too), on its dummy task, with `torch.graphs` set."""
+  import daydreamer_tpu_torch as ddp
+  from daydreamer_tpu_torch.agents.dreamer import Agent
+  config = ddp.Config(Agent.configs['defaults']).update(Agent.configs[name])
+  config = config.update({
+      'task': f'{name}_dummy', 'env.parallel': 'none', 'env.amount': 1,
+      'torch.graphs': graphs, 'replay': replay_kind,
+      'torch.fused_metrics': 'all'})
+  if name == 'xarm':
+    config = config.update({'imag_impl': 'pallas'})
+  return config
+
+
+def _random_steps(env, rows, seed):
+  """`rows` steps of random observations and actions from `seed`, in
+  episodes of 100 steps."""
+  rng = np.random.default_rng(seed)
+  steps = {}
+  for key, space in env.obs_space.items():
+    if key.startswith('log_'):
+      continue
+    shape = (rows,) + space.shape
+    if space.dtype == np.uint8:
+      steps[key] = rng.integers(0, 256, shape, np.uint8)
+    elif space.dtype == bool:
+      steps[key] = np.zeros(shape, bool)
+    else:
+      steps[key] = rng.standard_normal(shape).astype(space.dtype)
+  space = env.act_space['action']
+  if space.discrete:
+    steps['action'] = np.eye(space.shape[0], dtype=np.float32)[
+        rng.integers(0, space.shape[0], rows)]
+  else:
+    steps['action'] = rng.uniform(-1, 1, (rows,) + space.shape).astype(
+        np.float32)
+  steps['reward'] = rng.uniform(0, 1, rows).astype(np.float32)
+  steps['is_first'][::100] = True
+  steps['is_last'][99::100] = True
+  return steps
+
+
+def _snapshot(agent, ring, mets, state):
+  """What an arm leaves: every state entry, the packed metrics of each
+  dispatch, the carry and, on a prioritized ring, the priorities."""
+  from daydreamer_tpu_torch import nn
+  return dict(
+      state={k: v.detach().clone() for k, v in nn.state(agent.agent).items()},
+      metrics=[m._packed.clone() for m in mets],
+      carry={k: v.clone() for k, v in state.items()},
+      prios=ring.prios.clone() if ring.prioritized else None)
+
+
+def _differences(a, b, path=''):
+  """[(path, max abs difference, count of differing values)] of two trees
+  of tensors, NaN equal to NaN; empty when they are equal bit for bit."""
+  import torch
+  if isinstance(a, dict):
+    return [d for k in a for d in _differences(a[k], b[k], f'{path}/{k}')]
+  if isinstance(a, list):
+    return [d for i, (x, y) in enumerate(zip(a, b))
+            for d in _differences(x, y, f'{path}/{i}')]
+  if a is None:
+    return []
+  same = (a == b) | (torch.isnan(a) & torch.isnan(b)) if (
+      a.is_floating_point()) else a == b
+  if bool(same.all()):
+    return []
+  diff = (a.float() - b.float()).abs()
+  diff = torch.where(same, torch.zeros_like(diff), diff)
+  return [(path, float(diff.nan_to_num(float('inf')).max()),
+           int((~same).sum()))]
+
+
+def _graphs_learner(name, replay_kind):
+  """One eager and one graphed agent of the `name` block from one state and
+  one generator state, each GRAPHS_K updates a dispatch for two dispatches
+  from the same ring (the prioritized ring's priorities reset between the
+  arms). Returns the row of the comparison."""
+  import torch
+  from daydreamer_tpu_torch import envs, nn
+  from daydreamer_tpu_torch.agents.dreamer import Agent
+  import daydreamer_tpu_torch as ddp
+  label = f'graphs ({name}, {replay_kind} ring)'
+  env = envs.load_env(f'{name}_dummy', amount=1, parallel='none')
+  try:
+    agents = {flag: Agent(env.obs_space, env.act_space, ddp.Counter(),
+                          _graphs_config(name, flag, replay_kind))
+              for flag in (False, True)}
+    for agent in agents.values():
+      agent._create()
+    eager, graphed = agents[False], agents[True]
+    nn.assign(graphed.agent, nn.state(eager.agent))
+    graphed.generator.set_state(eager.generator.get_state())
+    ring = eager.make_device_replay(capacity=GRAPHS_RING, block=64)
+    ring.add_steps(_random_steps(env, GRAPHS_RING // 2, seed=0))
+    prios = ring.prios.clone() if ring.prioritized else None
+    snaps, rates = {}, {}
+    for flag, agent in ((False, eager), (True, graphed)):
+      if prios is not None:
+        ring.prios.copy_(prios)
+      reset_launches()
+      mets, state = [], None
+      times = []
+      for _ in range(2):
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        _, state, m = agent.train_device(ring, GRAPHS_K, state)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - begin)
+        mets.append(m)
+      launches = read_launches(label, ())
+      snaps[flag] = _snapshot(agent, ring, mets, state)
+      rates[flag] = (GRAPHS_K / times[1], times[0], launches)
+    stats = graphed.graphs.stats()['train_device']
+    diffs = _differences(snaps[False], snaps[True])
+    updates = 2 * GRAPHS_K
+    kernels = OBSERVE_KERNELS + ('imagine_actor',) if name == 'xarm' else ()
+    for flag in (False, True):
+      launches = rates[flag][2]
+      if any(launches[k] != updates for k in kernels) or (
+          not kernels and any(launches.values())):
+        raise AssertionError(
+            f'{label}: graphs {flag}: launches {launches} in {updates} '
+            f'updates; each kernel of the path once an update')
+    # Later replays drew other windows and other noise: each update's
+    # metrics differ from the one before.
+    rows = torch.cat([m for m in snaps[True]['metrics']])
+    index = graphed._metric_names.index('model_loss_mean')
+    if not bool((rows[1:, index] != rows[:-1, index]).all()):
+      raise AssertionError(f'{label}: two replays gave the same model loss: '
+                           f'{rows[:, index].tolist()}')
+    reached = None
+    if ring.prioritized:
+      # Blocks added after the capture: the graph reads the ring's counts
+      # on the device, so its next dispatch draws the new, unseen rows.
+      from daydreamer_tpu_torch.replay.device_replay import UNSEEN_PRIORITY
+      start = ring.filled
+      ring.add_steps(_random_steps(env, 1024, seed=1))
+      graphed.train_device(ring, GRAPHS_K, state)
+      reached = int((ring.prios[start:start + 1024]
+                     != UNSEEN_PRIORITY).sum())
+      if not reached:
+        raise AssertionError(f'{label}: no window reached the {1024} rows '
+                             f'added after the capture.')
+  finally:
+    env.close()
+  row = dict(
+      eager_updates_per_s=rates[False][0],
+      graphed_updates_per_s=rates[True][0],
+      eager_first_dispatch_s=rates[False][1],
+      graphed_first_dispatch_s=rates[True][1],
+      capture_s=stats['capture_s'], pool_bytes=stats['pool_bytes'],
+      replays=stats['replays'], launches=rates[True][2],
+      differences=diffs, rows_reached_after_capture=reached)
+  log(f'{label}: eager {row["eager_updates_per_s"]:.3f} updates/s, graphed '
+      f'{row["graphed_updates_per_s"]:.3f} (second dispatch of '
+      f'{GRAPHS_K}); first dispatch eager {row["eager_first_dispatch_s"]:.3f}'
+      f' s, graphed {row["graphed_first_dispatch_s"]:.3f} s with a capture '
+      f'of {row["capture_s"]:.3f} s; graph pool {row["pool_bytes"]} bytes; '
+      f'{row["replays"]} replays; graphed launches {row["launches"]}; '
+      f'rows added after the capture and drawn: {reached}')
+  if diffs:
+    raise AssertionError(f'{label}: graphed and eager differ: {diffs[:10]} '
+                         f'({len(diffs)} tensors)')
+  log(f'{label}: every state entry, the packed metrics of every update, '
+      f'the carry{" and the priorities" if ring.prioritized else ""} equal '
+      f'bit for bit')
+  del agents, eager, graphed
+  import gc
+  gc.collect()
+  torch.cuda.empty_cache()
+  return row
+
+
+def _graphs_noise():
+  """A registered generator under replay: each replay draws new numbers,
+  the numbers that eager calls draw in turn, and leaves the generator
+  where those calls leave it."""
+  import torch
+  from daydreamer_tpu_torch.agents.dreamer import graphs as graphslib
+  gen = torch.Generator(device='cuda').manual_seed(5)
+  runner = graphslib.Runner('cuda', [gen])
+  zeros = torch.zeros(4, device='cuda')
+  fn = lambda x: x + torch.rand(4, generator=gen, device='cuda')
+  drawn = [runner('noise', None, fn, (zeros,)) for _ in range(4)]
+  twin = torch.Generator(device='cuda').manual_seed(5)
+  eager = [zeros + torch.rand(4, generator=twin, device='cuda')
+           for _ in range(4)]
+  if not all(torch.equal(a, b) for a, b in zip(drawn, eager)) or torch.equal(
+      drawn[2], drawn[3]) or not torch.equal(gen.get_state(),
+                                             twin.get_state()):
+    raise AssertionError(f'graphs (noise): replays drew {drawn}, eager '
+                         f'calls {eager}')
+  log('graphs (noise): two replays drew different numbers, equal to the '
+      'eager calls\' in turn, and advanced the generator as they do')
+
+
+def _graphs_policy():
+  """The xarm policy at batch 1 in each mode, eager and graphed from one
+  state and generator state; the actions and the carried states must be
+  equal bit for bit. Returns the ms a call of each arm."""
+  import torch
+  import daydreamer_tpu_torch as ddp
+  from daydreamer_tpu_torch import envs, nn
+  from daydreamer_tpu_torch.agents.dreamer import Agent
+  env = envs.load_env('xarm_dummy', amount=1, parallel='none')
+  try:
+    agents = {flag: Agent(env.obs_space, env.act_space, ddp.Counter(),
+                          _graphs_config('xarm', flag))
+              for flag in (False, True)}
+    for agent in agents.values():
+      agent._create()
+    nn.assign(agents[True].agent, nn.state(agents[False].agent))
+    steps = _random_steps(env, GRAPHS_POLICY_STEPS, seed=2)
+    obs = [{k: v[i:i + 1] for k, v in steps.items() if k != 'action'}
+           for i in range(GRAPHS_POLICY_STEPS)]
+    start = agents[False].generator.get_state()
+    ms, diffs = {}, []
+    for mode in ('train', 'eval', 'explore'):
+      outs = {}
+      for flag, agent in agents.items():
+        agent.generator.set_state(start)
+        state, acts, times = None, [], []
+        for o in obs:
+          torch.cuda.synchronize()
+          begin = time.perf_counter()
+          out, state = agent.policy(o, state, mode=mode)
+          times.append(time.perf_counter() - begin)
+          acts.append(torch.as_tensor(out['action']))
+        # The first call carries no state (eager in both arms), the second
+        # warms up and captures in the graphed arm.
+        ms[(mode, flag)] = 1e3 * float(np.mean(times[2:]))
+        outs[flag] = dict(actions=acts, state=_tree_dict(state))
+      diffs += [(mode, *d) for d in _differences(outs[False], outs[True])]
+    stats = agents[True].graphs.stats()['policy']
+  finally:
+    env.close()
+  log(f'graphs (xarm policy, batch 1): ms a call eager / graphed: ' +
+      ', '.join(f'{mode} {ms[(mode, False)]:.3f} / {ms[(mode, True)]:.3f}'
+                for mode in ('train', 'eval', 'explore')) +
+      f'; {stats["graphs"]} graphs captured in {stats["capture_s"]:.3f} s, '
+      f'pool {stats["pool_bytes"]} bytes')
+  if diffs:
+    raise AssertionError(f'graphs (xarm policy): graphed and eager differ: '
+                         f'{diffs[:10]}')
+  log('graphs (xarm policy): actions and carried states equal bit for bit '
+      'in each mode')
+  del agents
+  return dict(ms={f'{m}_{"graphed" if f else "eager"}': v
+                  for (m, f), v in ms.items()}, **stats)
+
+
+def _tree_dict(tree, path=''):
+  """A tree of tensors as a flat {path: tensor}."""
+  if isinstance(tree, dict):
+    return {p: v for k, x in tree.items()
+            for p, v in _tree_dict(x, f'{path}/{k}').items()}
+  if isinstance(tree, (tuple, list)):
+    return {p: v for i, x in enumerate(tree)
+            for p, v in _tree_dict(x, f'{path}/{i}').items()}
+  return {path: tree} if tree is not None else {}
+
+
+def phase_graphs():
+  """`torch.graphs` held to the eager path (see the module's docstring,
+  phase 14). Returns the rows for the kernels line's neighbours."""
+  _graphs_noise()
+  rows = {}
+  for name in ('xarm', 'a1'):
+    for replay_kind in ('fixed', 'prio'):
+      rows[f'{name}_{replay_kind}'] = _graphs_learner(name, replay_kind)
+  rows['policy'] = _graphs_policy()
+  log(f'graphs: {json.dumps(rows, default=str)}')
+  return rows
+
+
 def phase_slice(label, cli_args, expect):
   """The xarm run=train CLI in this process with `cli_args`. Every kernel's
   launch count is set to 0 just before and read just after; the kernels
@@ -1485,8 +1797,9 @@ def phase_slice(label, cli_args, expect):
       times['train']) - 1:
     raise AssertionError(f'{label}: fewer observe_bwd launches than '
                          f'world-model updates.')
-  # The first call of each entry point carries the creation pass.
-  train_s, policy_s = times['train'][1:], times['policy'][1:]
+  # The first call of each entry point carries the creation pass, and
+  # under torch.graphs the second the capture of its graph.
+  train_s, policy_s = times['train'][2:], times['policy'][2:]
   run = dict(updates=len(times['train']), policy_steps=len(times['policy']),
              rate=len(train_s) / sum(train_s),
              policy_ms=1e3 * float(np.mean(policy_s)), losses=losses)
@@ -1604,16 +1917,28 @@ def phase_explore(slice_run):
   CLI at xarm's full width (see the module's docstring, phase 8)."""
   from daydreamer_tpu_torch import nn
   from daydreamer_tpu_torch.agents.dreamer import behaviors
+  import torch
   explore_calls = []
   explore_policy = behaviors.Explore.policy
-  behaviors.Explore.policy = lambda self, *a: (
-      explore_calls.append(1) or explore_policy(self, *a))
+  # A call made while a CUDA graph is being captured runs nothing; each
+  # replay of the graph it was captured into runs Explore's actor instead.
+  def counted(self, *args):
+    if not torch.cuda.is_current_stream_capturing():
+      explore_calls.append(1)
+    return explore_policy(self, *args)
+
+  behaviors.Explore.policy = counted
   try:
     label = 'explore (plan2explore)'
-    launches, run = phase_slice(label, PLAN2EXPLORE_ARGS, TRAIN_KERNELS)
+    with policy_probe() as seen:
+      launches, run = phase_slice(label, PLAN2EXPLORE_ARGS, TRAIN_KERNELS)
   finally:
     behaviors.Explore.policy = explore_policy
   _twice_per_update(label, launches, run)
+  agent, = seen['agents']
+  explore_calls += [1] * sum(
+      call.replays for (name, mode, _), call in agent.graphs.captured.items()
+      if name == 'policy' and mode == 'explore')
   expl = {k: v for k, v in run['losses'].items()
           if k.startswith('train/expl_')}
   if not expl:
@@ -1623,8 +1948,9 @@ def phase_explore(slice_run):
     raise AssertionError(
         f'{label}: Explore acted {len(explore_calls)} times in '
         f'{run["policy_steps"]} policy steps.')
-  log(f'{label}: Explore\'s actor in {len(explore_calls)} policy calls; '
-      f'last logged expl_ losses {expl}')
+  log(f'{label}: Explore\'s actor in {len(explore_calls)} policy calls '
+      f'(eager calls and replays of the graphs that hold it); last logged '
+      f'expl_ losses {expl}')
 
   label = 'explore (DisagWhen)'
   with policy_probe() as seen:
@@ -1669,7 +1995,7 @@ def phase_explore(slice_run):
 # batch of 32 over the ranks (the xarm block's widths and `rssm.impl:
 # pallas`; bfloat16, the defaults' precision), 3 timed dispatches of 4.
 PARALLEL_ARGS = ['--configs', 'xarm', '--imag_impl', 'pallas', '--steps', '3',
-                 '--fused', '4', '--device', 'cuda']
+                 '--fused', '4', '--device', 'cuda', '--torch.graphs', 'False']
 RANK_TIMEOUT = 240  # Seconds, for each rank process.
 
 
@@ -2010,54 +2336,60 @@ def phase_soak():
   return {k: v for k, v in launches.items() if k != 'updates'}
 
 
-BENCH_BUDGET = 12.0  # Seconds of windows a shape in the bench phase.
+BENCH_BUDGET = 6.0  # Seconds of windows an arm in the bench phase.
 # Its updates a dispatch: the bench's K at xarm, fewer at test (256) and a1
-# (64), whose dispatches take 20-30 s each on the card.
-BENCH_K = {'test': 64, 'a1': 16, 'xarm': 16}
+# (64), whose eager dispatches take 20-40 s each on the card.
+BENCH_K = {'test': 32, 'a1': 16, 'xarm': 16}
 
 
 def phase_bench(device_name):
   """The port's `scripts/bench.py` pieces at its three shapes with short
-  budgets (see the module's docstring, phase 13). Returns the launches of
-  each kernel in the timed windows at xarm."""
+  budgets (see the module's docstring, phase 13), each shape's eager and
+  graphed arm (`bench.compare_graphs`) in turn. Returns the launches of
+  each kernel in the graphed arm's timed windows at xarm."""
   import torch
   from daydreamer_tpu_torch.scripts import bench
   device = torch.device('cuda')
   results = {}
   for shape in ('test', 'a1', 'xarm'):
     begin = time.perf_counter()
-    agent, data, res = bench.measure_shape(
-        shape, device, sample_budget_s=BENCH_BUDGET, calls=1,
-        K=BENCH_K[shape])
-    if shape == 'test':
-      policy = bench.measure_policy(agent, data, budget_s=3.0, max_windows=2)
-    del agent, data
-    bench.free_memory(device)
-    rates = [res['updates_per_s'], *res['rate_windows']]
-    log(f'bench ({shape}): {time.perf_counter() - begin:.1f} s; '
-        f'{res["updates_per_s"]} updates/s median of {rates[1:]}, first '
-        f'dispatch {res["first_dispatch_s"]:.3f} s, '
-        f'{res["flops_per_update"]} FLOPs an update, MFU {res["mfu"]}, '
-        f'launches {res["launches"]} in {res["updates_timed"]} timed '
-        f'updates, model loss {res["model_loss"]}, on {res["device"]}')
-    if (not all(math.isfinite(r) and r > 0 for r in rates)
-        or not res['flops_per_update'] > 0 or res['device'] != device_name
-        or not math.isfinite(res['model_loss'])):
-      raise AssertionError(f'bench ({shape}): {res}')
-    results[shape] = res
-  xarm = results['xarm']
-  launches, updates = xarm['launches'], xarm['updates_timed']
-  if not 0 < (xarm['mfu'] or 0) < 1 or any(
-      launches[k] != updates for k in OBSERVE_KERNELS):
-    raise AssertionError(
-        f'bench (xarm): MFU {xarm["mfu"]}, launches {launches} in {updates} '
-        f'timed updates; observe_fwd and observe_bwd must launch once each')
+    rows = bench.compare_graphs(
+        shape, device, BENCH_BUDGET, K=BENCH_K[shape],
+        policy_budget_s=3.0 if shape == 'test' else None)
+    for arm in ('eager', 'graphed'):
+      res = rows[arm]
+      rates = [res['updates_per_s'], *res['rate_windows']]
+      log(f'bench ({shape}, {arm}): {res["updates_per_s"]} updates/s median '
+          f'of {rates[1:]}, first dispatch {res["first_dispatch_s"]:.3f} s, '
+          f'capture {res["capture_s"]} s, pool {res["pool_bytes"]} bytes, '
+          f'{rows["flops_per_update"]} FLOPs an update, MFU {res["mfu"]}, '
+          f'launches {res["launches"]} in {res["updates_timed"]} timed '
+          f'updates, model loss {res["model_loss"]}'
+          + (f', policy {res["policy"]["median_s"] * 1e3:.4f} ms a call'
+             if 'policy' in res else ''))
+      if (not all(math.isfinite(r) and r > 0 for r in rates)
+          or not rows['flops_per_update'] > 0 or res['device'] != device_name
+          or not math.isfinite(res['model_loss'])):
+        raise AssertionError(f'bench ({shape}, {arm}): {res}')
+    log(f'bench ({shape}): {time.perf_counter() - begin:.1f} s; graphed over '
+        f'eager {rows["speedup"]:.3f}'
+        + (f', policy {rows["policy_speedup"]:.3f}'
+           if 'policy_speedup' in rows else '') + f' ({device_name})')
+    results[shape] = rows
+  for arm in ('eager', 'graphed'):
+    xarm = results['xarm'][arm]
+    if not 0 < (xarm['mfu'] or 0) < 1:
+      raise AssertionError(f'bench (xarm, {arm}): MFU {xarm["mfu"]}')
+  agent, data = bench.build_agent(*bench.SHAPES['test'][:2], device)
+  policy = bench.measure_policy(agent, data, budget_s=3.0, max_windows=2)
+  del agent, data
+  bench.free_memory(device)
   if policy['device_on'] != 'cuda' or policy['mirror_on'] != 'cpu':
     raise AssertionError(f'bench policy: {policy}')
-  log(f'bench policy (test shape): card {policy["device"]}, host mirror '
-      f'{policy["cpu_mirror"]}, null round trip {policy["null_rtt"]}; gates '
-      f'{json.dumps(bench.gates(policy))}')
-  return launches
+  log(f'bench policy (test shape, graphed): card {policy["device"]}, host '
+      f'mirror {policy["cpu_mirror"]}, null round trip {policy["null_rtt"]}; '
+      f'gates {json.dumps(bench.gates(policy))}')
+  return results['xarm']['graphed']['launches']
 
 
 def phase_impl_bench():
@@ -2127,10 +2459,10 @@ def phase_curve(name, steps, seed=0):
       (ROOT / 'scores' / f'{name}_dreamer_tpu.json').read_text())[0]
   ys = run['ys']
   tenth = max(1, len(ys) // 10)
-  train_s, policy_s = times['train'][1:], times['policy'][1:]
+  train_s, policy_s = times['train'][2:], times['policy'][2:]
   log(f'{label}: {steps} env steps in {wall:.1f} s, {updates} updates '
-      f'({len(train_s) / sum(train_s):.3f} updates/s, the first '
-      f'excluded), {len(times["policy"])} policy steps '
+      f'({len(train_s) / sum(train_s):.3f} updates/s, the first two '
+      f'excluded: creation and capture), {len(times["policy"])} policy steps '
       f'({1e3 * float(np.mean(policy_s)):.3f} ms mean), launches '
       f'{({k: launches[k] for k in OBSERVE_KERNELS})}, last logged losses '
       f'{losses}')

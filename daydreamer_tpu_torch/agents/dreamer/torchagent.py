@@ -20,6 +20,16 @@ jaxagent.py` (reference: embodied/agents/dreamerv2plus/tfagent.py:14-178).
   which are NaN when a batch holds no example of a class.
   `jax.debug_nans` raises on both, so the JAX agent cannot even be created
   with it: its creation pass's zero batch has no positive reward.
+- `config.torch.graphs` is the counterpart of `jax.jit`. `True` (the
+  default), on the card: `train`, `train_multi`, `train_device` (one
+  graph holds a ring draw, one update and, on a prioritized ring, the
+  scatter of its priorities) and `policy` (one graph per mode and batch
+  size; the call with no state stays eager) each capture their work once
+  as a CUDA graph and replay it (`graphs.py`). `False` runs every call
+  eagerly, as `jax.jit: False` does. On the CPU the same bookkeeping calls
+  the functions eagerly. A capture that fails raises; several ranks on the
+  card with `graphs: True` raise at construction (gloo cannot be
+  captured, and capture under NCCL is not written yet).
 - `config.torch.policy_devices: cpu` serves the policy from a host-CPU
   mirror of the entries it reads, with a CPU generator of its own,
   refreshed at most every `policy_sync` train steps (`all`: the policy runs
@@ -53,6 +63,7 @@ import torch
 from ... import nn
 from ...parallel import distributed
 from ...parallel import mesh as meshlib
+from . import graphs as graphslib
 
 
 # A group of `steps` training batches already stacked along a leading axis
@@ -274,6 +285,13 @@ class TorchAgent:
     self._debug_nans = bool(config.torch.debug_nans)
     self.generator = torch.Generator(device=self.device)
     self.generator.manual_seed(seed)
+    self._use_graphs = bool(config.torch.graphs)
+    if self._use_graphs and self.device.type == 'cuda' and world > 1:
+      raise ValueError(
+          f'torch.graphs is True on {world} ranks: gloo cannot be captured '
+          'in a CUDA graph and capture under NCCL is not written; pass '
+          '--torch.graphs False.')
+    self.graphs = graphslib.Runner(self.device, [self.generator])
     self.agent = agent_cls('agent', obs_space, act_space, step, config)
     # Metric policy of the fused entry points (`train_multi`,
     # `train_device`): 'all' packs every update's metrics (merged at fetch
@@ -367,6 +385,14 @@ class TorchAgent:
         out[key] = torch.as_tensor(np.asarray(value), device=device)
     return out
 
+  def _tensors(self, data):
+    """The entries of `data` that `_to_device` keeps, as tensors where they
+    lie (numpy on the CPU): what a graph's static buffers are loaded from,
+    in one copy each."""
+    return {k: v if isinstance(v, torch.Tensor) else torch.as_tensor(
+        np.asarray(v)) for k, v in data.items()
+            if not (k.startswith('log_') or k == 'key')}
+
   # -- host-CPU policy mirror --------------------------------------------------
 
   def _policy_agent(self):
@@ -428,21 +454,31 @@ class TorchAgent:
   def policy(self, obs, state=None, mode='train'):
     self._create()
     agent, generator = self._policy_agent()
-    obs = self._to_device(obs, generator.device)
-    with torch.no_grad(), nn.scope(dtype=self.dtype, generator=generator):
-      if state is None:
-        state = agent.policy_initial(len(obs['is_first']))
-      outs, state = agent.policy(obs, state, mode=mode)
+    if self._use_graphs and state is not None and agent is self.agent:
+      obs = self._tensors(obs)
+      outs, state = self.graphs(
+          'policy', mode, lambda o, s: self._policy_step(o, s, mode),
+          (obs, state))
+    else:
+      obs = self._to_device(obs, generator.device)
+      with torch.no_grad(), nn.scope(dtype=self.dtype, generator=generator):
+        if state is None:
+          state = agent.policy_initial(len(obs['is_first']))
+        outs, state = agent.policy(obs, state, mode=mode)
     if self._debug_nans:
       self._check_nans('policy', outs=outs, state=state)
     return _to_numpy(outs), state
 
-  def _train_step(self, data, state, pack=True):
+  def _policy_step(self, obs, state, mode):
+    with torch.no_grad(), self._scope():
+      return self.agent.policy(obs, state, mode=mode)
+
+  def _train_step(self, data, state, pack=True, check=True):
     with self._scope():
       if state is None:
         state = self.agent.train_initial(len(data['is_first']))
       outs, state, mets = self.agent.train(data, state)
-    if self._debug_nans:
+    if check and self._debug_nans:
       checked = {k: v for k, v in mets.items()
                  if k not in self._ratio_names}
       self._check_nans('train', outs=outs, state=state, metrics=checked,
@@ -452,6 +488,29 @@ class TorchAgent:
       packed = _reduce_scalars(self._metric_plan, torch.stack([
           torch.as_tensor(mets[k], device=self.device).float().reshape(())
           for k in self._metric_names]))
+    return outs, state, packed
+
+  def _check_packed(self, outs, state, packed):
+    """`torch.debug_nans` after a captured update: its outputs, its carry,
+    its packed metrics (but the balance ratios) and the agent's state."""
+    checked = {k: packed[..., i] for i, k in enumerate(self._metric_names)
+               if k not in self._ratio_names}
+    self._check_nans('train', outs=outs, state=state, metrics=checked,
+                     agent=nn.state(self.agent))
+
+  def _graphed_update(self, data, state):
+    """One update through the `train` graph of batches like `data` (on any
+    device); returns (outs, state, packed), cloned out of the graph. A
+    call with no carry runs eagerly: its carry's start is the learned
+    initial state, whose parameters its gradient reaches."""
+    if state is None:
+      return self._train_step(self._to_device(data), None)
+    outs, state, packed = self.graphs(
+        'train', None,
+        lambda d, s: self._train_step(d, s, pack=True, check=False),
+        (data, state))
+    if self._debug_nans:
+      self._check_packed(outs, state, packed)
     return outs, state, packed
 
   def _fused_steps(self, steps, update):
@@ -469,7 +528,10 @@ class TorchAgent:
   def train(self, data, state=None):
     self._create()
     keys = data.get('key')
-    outs, state, packed = self._train_step(self._to_device(data), state)
+    if self._use_graphs:
+      outs, state, packed = self._graphed_update(self._tensors(data), state)
+    else:
+      outs, state, packed = self._train_step(self._to_device(data), state)
     self._train_steps += 1
     outs = _to_numpy(outs)
     if keys is not None and 'priority' in outs:
@@ -480,7 +542,9 @@ class TorchAgent:
     """len(datas) gradient updates in a row, or the `steps` of a
     `Prestacked` group; the same updates as one `train` call per batch,
     with outs stacked along a leading axis and the metrics merged over
-    the group as the JAX package's fused dispatch merges them."""
+    the group as the JAX package's fused dispatch merges them. Under
+    `torch.graphs` each update replays the `train` graph, its batch copied
+    into the graph's static buffer first."""
     self._create()
     if isinstance(datas, Prestacked):
       stacked, keys, steps = datas
@@ -494,8 +558,12 @@ class TorchAgent:
     carry = [state]
 
     def update(i, pack):
-      outs, carry[0], packed = self._train_step(
-          self._to_device(batches[i]), carry[0], pack)
+      if self._use_graphs:
+        outs, carry[0], packed = self._graphed_update(
+            self._tensors(batches[i]), carry[0])
+      else:
+        outs, carry[0], packed = self._train_step(
+            self._to_device(batches[i]), carry[0], pack)
       outs_list.append(outs)
       return packed
 
@@ -566,7 +634,10 @@ class TorchAgent:
     variant writes each update's priorities back into the ring at the
     sampled rows, so update k draws from the priorities of update k - 1.
 
-    Returns (outs, state, metrics) like `train`, with outs empty.
+    Returns (outs, state, metrics) like `train`, with outs empty. Under
+    `torch.graphs` the K updates are K replays of one graph, whose packed
+    metrics are copied into a [K, M] buffer (its last row only under
+    `fused_metrics: last`).
     """
     from ...replay import device_replay as drlib
     self._create()
@@ -582,25 +653,67 @@ class TorchAgent:
     prio_ends = float(self.config.replay_fixed.prio_ends)
     exponent = float(self.config.replay_prio.exponent)
     constant = float(self.config.replay_prio.constant)
-    carry = [state]
 
-    def update(i, pack):
+    def update(carry, pack, check=True):
+      # The ring's counts as device scalars: a graph reads them at replay.
+      ring_state = replay.device_state
       if replay.prioritized:
         data, rows = drlib.sample_prioritized(
-            replay.state, replay.prios, self.generator, batch, chunk,
+            ring_state, replay.prios, self.generator, batch, chunk,
             exponent, constant)
       else:
         data = drlib.sample(
-            replay.state, self.generator, batch, chunk, prio_ends)
-      outs, carry[0], packed = self._train_step(data, carry[0], pack)
+            ring_state, self.generator, batch, chunk, prio_ends)
+      outs, carry, packed = self._train_step(data, carry, pack, check)
       if replay.prioritized:
-        replay.prios[rows.reshape(-1)] = outs['priority'].detach().to(
-            torch.float32).reshape(-1)
-      return packed
+        drlib.write_priorities(replay.prios, rows, outs['priority'].detach())
+      return outs, carry, packed
 
-    mets = self._fused_steps(steps, update)
-    self._train_steps += steps
-    return {}, carry[0], mets
+    if not self._use_graphs:
+      carry = [state]
+
+      def eager(i, pack):
+        _, carry[0], packed = update(carry[0], pack)
+        return packed
+
+      mets = self._fused_steps(steps, eager)
+      self._train_steps += steps
+      return {}, carry[0], mets
+
+    # One graph: a draw from the ring's device counts, one update, the
+    # priorities' scatter; the carry is written back into the graph's own
+    # input, so K replays chain as K eager updates do. An update with no
+    # carry runs eagerly (see `_graphed_update`).
+    first = None
+    if state is None:
+      _, state, first = update(None, True)
+      steps -= 1
+
+    def graphed(carry):
+      outs, new, packed = update(carry, True, False)
+      with torch.no_grad():
+        graphslib.copy_into(carry, new)
+      return outs, packed
+
+    tensors = [*replay.buffers.values(), replay.prios]
+    key = (id(replay), tuple(x.data_ptr() for x in tensors
+                             if x is not None))
+    call = self.graphs.get('train_device', key, graphed, (state,))
+    call.load((state,))
+    kept = steps if self._fused_metrics == 'all' else min(steps, 1)
+    packeds = torch.empty((kept, len(self._metric_names)),
+                          dtype=torch.float32, device=self.device)
+    for i in range(steps):
+      outs, packed = call.run()
+      if i >= steps - kept:
+        packeds[i - (steps - kept)].copy_(packed)
+      if self._debug_nans:
+        self._check_packed(outs, call.inputs[0], packed)
+    if first is not None and (self._fused_metrics == 'all' or not steps):
+      packeds = torch.cat([first[None], packeds])
+    self._train_steps += steps + (first is not None)
+    return {}, graphslib.clone(call.inputs[0]), LazyMetrics(
+        self._metric_names, packeds, fused=True)
 
   def make_device_replay(self, capacity=None, block=None, prioritized=None):
     """Construct a DeviceReplay matching this agent's batch layout, on

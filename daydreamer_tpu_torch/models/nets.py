@@ -180,7 +180,7 @@ class RSSM(Module):
         'deter': _swap(deters).to(dtype),
         'logit': post_logit.to(dtype)}
     prior_logit = self._unimix_logit(_swap(shape(prior_logits)))
-    prior_mode = F.one_hot(prior_logit.argmax(-1), self._classes)
+    prior_mode = distslib.one_hot(prior_logit.argmax(-1), self._classes)
     prior = {
         'stoch': prior_mode.to(dtype),
         'deter': post['deter'],

@@ -15,6 +15,14 @@ def f32(x):
   return torch.as_tensor(x).float()
 
 
+def one_hot(indices, classes):
+  """`F.one_hot` as float32, without its range check, which reads the
+  indices on the host on the CPU; the same ones and zeros, and nothing
+  for a CUDA graph to wait on."""
+  return (indices[..., None] == torch.arange(
+      classes, device=indices.device)).float()
+
+
 def symlog(x):
   return torch.sign(x) * torch.log(1 + torch.abs(x))
 
@@ -53,15 +61,14 @@ class OneHotDist:
   def sample(self, generator=None):
     noise = gumbel(self.logits.shape, generator, self.logits.device)
     indices = torch.argmax(self.logits.detach() + noise, -1)
-    sample = F.one_hot(indices, self.num_classes).float()
+    sample = one_hot(indices, self.num_classes)
     # Straight-through biased gradient estimator: forward pass is the hard
     # sample, backward pass flows through the softmax probabilities.
     probs = self.probs
     return sample + probs - probs.detach()
 
   def mode(self):
-    return F.one_hot(
-        torch.argmax(self.logits, -1), self.num_classes).float()
+    return one_hot(torch.argmax(self.logits, -1), self.num_classes)
 
   def log_prob(self, value):
     return torch.sum(f32(value) * self.logits, -1)

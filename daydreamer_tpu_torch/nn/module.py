@@ -19,6 +19,10 @@ Layouts follow PyTorch's operators where they differ from the JAX package;
   `F.conv_transpose2d` (the gradient of a convolution) takes them.
 - Optimizer slots `m/<param>` and `v/<param>` follow their parameter.
 
+Every entry keeps, after creation, the tensor it was created with: the
+optimizer and `write` update entries in place, so a CUDA graph captured
+over an update reads and writes the live state at every replay.
+
 A call runs inside `scope(...)`, which carries what `nn.pure` carried in the
 JAX package: the compute dtype, the agent's `torch.Generator`, whether this
 is the creation pass, and an optional log of the state names read (to find
@@ -171,10 +175,24 @@ class Module(torch.nn.Module):
     return tensor
 
   def write(self, name, value):
-    """Replace a non-trainable state entry."""
-    if name not in self.values and not creating():
-      raise KeyError(f'Cannot write unknown state entry {self._path}/{name}.')
-    self.values[name] = value.detach()
+    """Update a non-trainable state entry in place: the tensor made at
+    creation keeps its address, so a captured CUDA graph that writes it
+    writes the live entry. Raises on a shape or dtype other than the
+    entry's. On the creation pass an entry that does not exist yet is
+    made."""
+    if name not in self.values:
+      if not creating():
+        raise KeyError(
+            f'Cannot write unknown state entry {self._path}/{name}.')
+      self.values[name] = value.detach().clone()
+      return value
+    target = self.values[name]
+    if target.shape != value.shape or target.dtype != value.dtype:
+      raise ValueError(
+          f'{self._path}/{name}: cannot write {tuple(value.shape)} '
+          f'{value.dtype} into {tuple(target.shape)} {target.dtype}.')
+    with torch.no_grad():
+      target.copy_(value)
     return value
 
   def named_state(self, trainable=None):

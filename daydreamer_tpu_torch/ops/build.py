@@ -9,8 +9,15 @@ library's name carries a hash of the source and of the headers under
 Every kernel's C function takes `(int bf16, void* const* ptrs, const int*
 dims, float..., void* stream)` and returns `cudaGetLastError()`; `check`
 holds the tensors to what a kernel reads and `launch` makes the call.
+
+A launch is counted on its kernel (`count`). While a CUDA graph is being
+captured on the calling thread's stream nothing launches: the call is
+recorded for the graph instead (`take_captured`), and the graph's runner
+credits it to the kernel at every replay (`credit`), so a kernel's count
+is the number of times the card ran it either way.
 """
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -164,7 +171,34 @@ def launch(kernel, fn, dtype, ptrs, dims, scalars, device):
                          ctypes.c_void_p(stream))
   if err != 0:
     raise RuntimeError(f'{fn} kernel failed: CUDA error {err}.')
-  kernel.launches += 1
+  count(kernel)
+
+
+# Launches recorded into the CUDA graph being captured: {kernel: calls}.
+_CAPTURED = collections.Counter()
+
+
+def count(kernel):
+  """One launch of `kernel` on the current stream: counted, or recorded
+  for the graph when that stream is capturing one."""
+  if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+    _CAPTURED[kernel] += 1
+  else:
+    kernel.launches += 1
+
+
+def take_captured():
+  """The launches recorded since the last call, {kernel: calls}, and
+  forget them: what one replay of the graph just captured launches."""
+  taken = dict(_CAPTURED)
+  _CAPTURED.clear()
+  return taken
+
+
+def credit(captured, times=1):
+  """Count the launches of `times` replays of a graph that `captured`."""
+  for kernel, calls in captured.items():
+    kernel.launches += calls * times
 
 
 # A block's dynamic shared memory on sm_90a.

@@ -90,7 +90,7 @@ def gve_triton(interm, disc, bootstrap, lam):
     kernel[((n + BLOCK - 1) // BLOCK,)](
         interm, disc, bootstrap, out, n, float(lam), HORIZON=horizon,
         LANES=BLOCK, num_warps=4)
-  GVE.launches += 1
+  build.count(GVE)
   return out
 
 

@@ -17,7 +17,11 @@ Steps are flushed to the device in fixed `block`-row slabs: a slab's keys
 are packed into one pinned host buffer and cross the link in one copy
 (capacity % block == 0 keeps the cursor aligned; a partial tail stays
 staged host-side until it fills). `filled` and `cursor` live on the host,
-so neither a flush nor a draw waits for the device.
+so neither a flush nor a draw waits for the device, and beside them as
+device scalars (`device_state`), which a flush updates in place: a draw
+that reads those works out its span on the device, as the JAX package's
+jitted sampler does, so a CUDA graph captured over it draws from the rows
+added after the capture. The samplers take either form.
 """
 
 import numpy as np
@@ -50,6 +54,9 @@ class DeviceReplay:
     self.prios = None      # tensor [capacity] raw step priorities (PER).
     self.cursor = 0        # Next write row (multiple of block).
     self.filled = 0        # Valid rows (<= capacity).
+    # The same two as device scalars, updated in place at every flush.
+    self._filled_t = torch.zeros((), dtype=torch.long, device=self.device)
+    self._cursor_t = torch.zeros((), dtype=torch.long, device=self.device)
     self._staged = []      # Host-side steps awaiting a full block.
     self._staged_count = 0
     self._layout = None    # {key: (offset, nbytes, numpy dtype, shape)}.
@@ -114,6 +121,8 @@ class DeviceReplay:
       self.prios[rows] = UNSEEN_PRIORITY
     self.cursor = (self.cursor + self.block) % self.capacity
     self.filled = min(self.filled + self.block, self.capacity)
+    self._cursor_t.fill_(self.cursor)
+    self._filled_t.fill_(self.filled)
 
   def _allocate(self, merged):
     """The rings, and the layout of a slab, from the first block's keys."""
@@ -145,8 +154,15 @@ class DeviceReplay:
 
   @property
   def state(self):
-    """(buffers, filled, cursor) for `sample` and `sample_prioritized`."""
+    """(buffers, filled, cursor) for `sample` and `sample_prioritized`, the
+    counts as host ints."""
     return (self.buffers, self.filled, self.cursor)
+
+  @property
+  def device_state(self):
+    """The same with the counts as device scalars that every flush updates
+    in place: what a captured draw reads."""
+    return (self.buffers, self._filled_t, self._cursor_t)
 
 
 class StoreMirror:
@@ -186,15 +202,29 @@ class StoreMirror:
 
 def valid_span(state, chunk):
   """(capacity, span, base) of a ring: window starts are `base + offset`
-  (mod capacity) for offset in [0, span], all on the host.
+  (mod capacity) for offset in [0, span].
   - ring not yet full: starts in [0, filled - chunk];
   - ring full: starts at cursor + [0, capacity - chunk], so no window
-    crosses the write seam at `cursor`."""
+    crosses the write seam at `cursor`.
+  Host ints for host counts; device scalars, worked out on the device
+  without a sync, for device counts (`DeviceReplay.device_state`)."""
   buffers, filled, cursor = state
   capacity = len(next(iter(buffers.values())))
+  if isinstance(filled, torch.Tensor):
+    full = filled >= capacity
+    span = torch.where(full, capacity - chunk, (filled - chunk).clamp_min(0))
+    base = torch.where(full, cursor, torch.zeros_like(cursor))
+    return capacity, span, base
   if filled >= capacity:
     return capacity, capacity - chunk, int(cursor)
   return capacity, max(int(filled) - chunk, 0), 0
+
+
+def _rolled(x, base):
+  """`torch.roll(x, -base)` along the first axis, by index arithmetic
+  modulo its length, for a host or a device `base`."""
+  index = (base + torch.arange(len(x), device=x.device)) % len(x)
+  return x[index]
 
 
 def gather(state, offset, chunk):
@@ -215,7 +245,8 @@ def gather(state, offset, chunk):
 def sample(state, generator, batch, chunk, prio_ends=0.0):
   """Draw a [batch, chunk, ...] dict from a DeviceReplay state, uniformly
   over the seam-free window starts (see `valid_span`), with `generator` on
-  the ring's device.
+  the ring's device. An offset is a uniform draw scaled by `span + 1`, so
+  a span on the device needs no host value.
 
   ``prio_ends`` reproduces the host FixedLength sampler's episode-boundary
   oversampling (fixed_length.py): each episode end inside the valid span
@@ -227,13 +258,14 @@ def sample(state, generator, batch, chunk, prio_ends=0.0):
   buffers = state[0]
   capacity, span, base = valid_span(state, chunk)
   device = next(iter(buffers.values())).device
-  offset = torch.randint(
-      0, span + 1, (batch,), generator=generator, device=device)
+  uniform = torch.rand(batch, generator=generator, device=device,
+                       dtype=torch.float64)
+  offset = (uniform * (span + 1)).long().clamp_max(span)
   if prio_ends and 'is_last' in buffers:
     # Offsets are relative to `base`; roll the termination flags so index i
     # corresponds to offset i, then mask window-END offsets that are
     # episode ends and whose window start lies in the valid span.
-    flags = torch.roll(buffers['is_last'].bool(), -base)
+    flags = _rolled(buffers['is_last'].bool(), base)
     pos = torch.arange(capacity, device=device)
     end_ok = flags & (pos >= chunk - 1) & (pos <= span + chunk - 1)
     n_ends = end_ok.sum()
@@ -258,13 +290,28 @@ def window_weights(state, prios, chunk, exponent=0.5, constant=0.0):
   over the window of |priority|**exponent + constant, by a rolled cumsum;
   zero past the valid span."""
   capacity, span, base = valid_span(state, chunk)
-  rolled = torch.roll(prios, -base)
+  rolled = _rolled(prios, base)
   stepw = rolled.abs() ** exponent + constant
   csum = torch.cat([stepw.new_zeros(1), torch.cumsum(stepw, 0)])
   weights = csum[chunk:] - csum[:capacity - chunk + 1]
   offsets = torch.arange(capacity - chunk + 1, device=prios.device)
   return torch.where(
       offsets <= span, weights.clamp_min(1e-9), weights.new_zeros(()))
+
+
+def write_priorities(prios, rows, values):
+  """`prios[rows] = values` for the rows [batch, chunk] of a draw, the same
+  on every run: where windows overlap, one row is written several times,
+  and it keeps the value of the last of those writes in row-major order
+  (what a write on the CPU leaves), where an index write on the card would
+  keep whichever write lands last. Sync-free: each write first takes the
+  value of the last write to its row."""
+  rows = rows.reshape(-1)
+  values = values.reshape(-1).to(prios.dtype)
+  order = torch.arange(len(rows), device=rows.device)
+  same = rows[:, None] == rows[None, :]
+  last = torch.where(same, order[None, :], -1).amax(1)
+  prios[rows] = values[last]
 
 
 def sample_prioritized(state, prios, generator, batch, chunk,
@@ -283,7 +330,8 @@ def sample_prioritized(state, prios, generator, batch, chunk,
   is_first flags as in uniform `sample`.
 
   Returns (chunk_dict incl. 'prob', rows [batch, chunk]) so the caller can
-  scatter fresh priorities back into the ring after the train step.
+  scatter fresh priorities back into the ring after the train step
+  (`write_priorities`).
   """
   weights = window_weights(state, prios, chunk, exponent, constant)
   offset = torch.multinomial(

@@ -43,6 +43,14 @@ the mirror within 50 ms (the robot's 20 Hz budget, reference
 robot_interface.py:293), and the card's call minus the null round trip
 within 10 ms.
 
+`--graphs-arms` runs each shape twice instead, as `fused_impl_bench` runs
+its two arms: eagerly (`torch.graphs: False`) and with each update replayed
+as a CUDA graph (`True`, the default, the counterpart of `jax.jit`),
+reporting each arm's updates/s, first dispatch (the capture included),
+MFU, launches, the graph's capture seconds and pool bytes, graphed over
+eager, and the batch-1 policy on the card both ways at the test shape.
+Every other measurement runs with the config's default, graphed.
+
 `--sweep PATH` runs the batch sweep of the JAX bench instead (updates/s,
 replayed steps/s and MFU against the batch at a1 and xarm) and writes it to
 PATH; a row that runs out of the card's memory records the error.
@@ -52,7 +60,7 @@ card it prints the card's name and power limit before its result.
 
 Usage:
   python -m daydreamer_tpu_torch.scripts.bench [--shape all|test|a1|xarm] \\
-      [--sweep PATH] [--device cuda|cpu]
+      [--graphs-arms] [--sweep PATH] [--device cuda|cpu]
 
 The last line printed is one JSON object.
 """
@@ -88,8 +96,10 @@ UNITS = {
     'xarm': ('updates/s median (xarm shape: image cnn64 + proprio, '
              'deter512, batch32,chunk32, fused x16, 1 card)'),
 }
-# The twin whose update `train_flops` counts: no custom kernel.
-LOOP_PATH = {'rssm.impl': 'scan', 'imag_impl': 'scan'}
+# The twin whose update `train_flops` counts: no custom kernel, and eager,
+# so that the counter sees the update once (a graph's first call runs it
+# and then captures it, and the counter would see both).
+LOOP_PATH = {'rssm.impl': 'scan', 'imag_impl': 'scan', 'torch.graphs': False}
 
 
 def device_name(device):
@@ -219,6 +229,16 @@ def measure_latency(fn, warmup=2, calls=25, max_windows=8, budget_s=90.0):
   }
 
 
+def policy_fn(agent, obs):
+  """A batch-1 `agent.policy` call in mode eval that carries its state
+  from call to call (the first call starts it)."""
+  state = [None]
+
+  def call():
+    _, state[0] = agent.policy(obs, state[0], mode='eval')
+  return call
+
+
 def measure_policy(agent, data, budget_s=60.0, max_windows=8):
   """Batch-1 policy latency on the agent's device and on the host-CPU
   mirror, and the device's null round trip (an add of 8 values and its
@@ -233,20 +253,13 @@ def measure_policy(agent, data, budget_s=60.0, max_windows=8):
                         max_windows=min(4, max_windows),
                         budget_s=budget_s / 3)
 
-  def policy_fn():
-    state = [None]
-
-    def call():
-      _, state[0] = agent.policy(obs, state[0], mode='eval')
-    return call
-
   devices = agent._policy_devices
   try:
     agent._policy_devices = 'all'
-    device = measure_latency(policy_fn(), max_windows=max_windows,
+    device = measure_latency(policy_fn(agent, obs), max_windows=max_windows,
                              budget_s=budget_s)
     agent._policy_devices, agent._mirror = 'cpu', None
-    mirror = measure_latency(policy_fn(), max_windows=max_windows,
+    mirror = measure_latency(policy_fn(agent, obs), max_windows=max_windows,
                              budget_s=budget_s)
     mirror_on = str(agent._policy_agent()[1].device)
   finally:
@@ -314,6 +327,57 @@ def compare_impls(label, key, task, overrides, K, budget_s, device, names):
   rows['flops_per_update'] = flops
   rows['speedup'] = (rows['pallas']['updates_per_s']
                      / rows['scan']['updates_per_s'])
+  return rows
+
+
+def compare_graphs(shape, device, budget_s, K=None, calls=1,
+                   policy_budget_s=None):
+  """`shape` eagerly, then graphed (`torch.graphs` False, True): each
+  arm's updates/s, first dispatch, MFU and launches (divided by one count of
+  the update's work), the graphed arm's capture seconds and pool bytes, and
+  graphed over eager. With `policy_budget_s`, each arm's batch-1 policy on
+  the agent's device too. On the card observe_fwd and observe_bwd must
+  launch once a timed update in both arms where the shape takes the fused
+  observe chain (`rssm.impl: pallas`), the graphed arm's launches credited
+  at each replay."""
+  device = resolve_device(device)
+  task, overrides, shape_k = SHAPES[shape]
+  K = K or shape_k
+  flops = train_flops(task, overrides, device)
+  rows = {}
+  for arm, flag in (('eager', False), ('graphed', True)):
+    agent, data = build_agent(
+        task, {**overrides, 'torch.graphs': flag}, device)
+    result, _ = measure_updates(agent, data, K, budget_s, calls=calls,
+                                flops=flops)
+    row = {k: result[k] for k in (
+        'updates_per_s', 'first_dispatch_s', 'mfu', 'rate_windows',
+        'updates_timed', 'launches', 'model_loss', 'device')}
+    stats = agent.graphs.stats().get('train_device', {})
+    row['capture_s'] = stats.get('capture_s')
+    row['pool_bytes'] = stats.get('pool_bytes')
+    if policy_budget_s:
+      obs = {k: v[:1, 0] for k, v in data.items() if k != 'action'}
+      row['policy'] = measure_latency(policy_fn(agent, obs), max_windows=4,
+                                      budget_s=policy_budget_s)
+    del agent, data
+    free_memory(device)
+    expect = result['updates_timed'] if device.type == 'cuda' else 0
+    fused = overrides.get('rssm.impl') == 'pallas'
+    for name in ('observe_fwd', 'observe_bwd') if fused else ():
+      if result['launches'][name] != expect:
+        raise AssertionError(
+            f'{shape} {arm}: launches {result["launches"]} in '
+            f'{result["updates_timed"]} timed updates; expected {expect} of '
+            f'{name}')
+    rows[arm] = row
+    print(shape, arm, json.dumps(row), flush=True)
+  rows['flops_per_update'] = flops
+  rows['speedup'] = (rows['graphed']['updates_per_s']
+                     / rows['eager']['updates_per_s'])
+  if policy_budget_s:
+    rows['policy_speedup'] = (rows['eager']['policy']['median_s']
+                              / rows['graphed']['policy']['median_s'])
   return rows
 
 
@@ -394,6 +458,8 @@ def main(argv=None):
   parser.add_argument('--sweep', default='',
                       help='run the batch sweep instead and write it to '
                            'this path')
+  parser.add_argument('--graphs-arms', action='store_true',
+                      help='run each shape eagerly and graphed instead')
   parser.add_argument('--device', default='cuda', choices=['cuda', 'cpu'])
   args = parser.parse_args(argv)
   device = resolve_device(args.device)
@@ -407,6 +473,17 @@ def main(argv=None):
               'kernel_build': built}
     text = json.dumps(result, indent=1)
     pathlib.Path(args.sweep).write_text(text + '\n')
+    print(json.dumps(result), flush=True)
+    return result
+
+  if args.graphs_arms:
+    shapes = ('test', 'a1', 'xarm') if args.shape == 'all' else (
+        args.shape,)
+    result = {name: compare_graphs(
+        name, device, BUDGETS[name][0], calls=BUDGETS[name][1],
+        policy_budget_s=60.0 if name == 'test' else None)
+        for name in shapes}
+    result.update(device=about, kernel_build=built)
     print(json.dumps(result), flush=True)
     return result
 

@@ -133,6 +133,10 @@ def main(argv):
     config = config.update(DEBUG, batch_size=4 * world)
   if args.tiny:
     config = config.update(TINY)
+  # Eager unless a flag says otherwise: several ranks on the card cannot
+  # capture CUDA graphs (gloo is not capturable; NCCL capture is not
+  # written), and the agent raises there with `torch.graphs: True`.
+  config = config.update({'torch.graphs': False})
   config = ddp.Flags(config).parse(other)
   config = config.update({'torch.device': str(device)})
   env = envs.load_env(config.task, **config.env)

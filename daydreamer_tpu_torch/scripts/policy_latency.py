@@ -4,13 +4,16 @@ host-CPU policy mirror: the port of `scripts/policy_latency.py`.
 The reference asserts 0.007 s steady policy latency on its training GPU
 (embodied/agents/dreamerv2plus/tests.py:87-89); the robot actor's budget
 is 50 ms at 20 Hz (robot_interface.py:293). For the policy on the agent's
-device and for the mirror (`torch.policy_devices: cpu`), each over
-`--reps` calls after two warm ones:
+device, replayed as a CUDA graph (`torch.graphs: True`, the default) and
+eagerly (`device_eager`), and for the mirror (`torch.policy_devices: cpu`,
+always eager), each over `--reps` calls after two warm ones (the second
+captures the graph):
 
   - whole_ms: the full `agent.policy` call (observations in as numpy,
     actions out as numpy, so it ends synced);
   - dispatch_ms: the policy's forward on observations already on its
-    device, returning with its kernels queued, no sync;
+    device, returning with its kernels queued, no sync (graphed: the copy
+    into the graph's inputs, its replay and the copy of its outputs);
   - synced_ms: the same forward followed by `torch.cuda.synchronize()`;
   - fetch_ms: whole_ms - synced_ms (the copies in and out and the host
     conversions).
@@ -90,8 +93,11 @@ def measure(agent, obs, reps):
   module, generator = agent._policy_agent()
   device = generator.device
   inputs = agent._to_device(obs, device)
+  graphed = agent._use_graphs and module is agent.agent
 
   def forward():
+    if graphed:  # The graph that the calls above captured.
+      return agent.graphs('policy', 'eval', None, (inputs, pstate))
     with torch.no_grad(), nn.scope(dtype=agent.dtype, generator=generator):
       return module.policy(inputs, pstate, mode='eval')
 
@@ -106,7 +112,7 @@ def measure(agent, obs, reps):
     forward()
     _sync(device)
   synced = (time.perf_counter() - begin) / reps
-  return dict(on=str(device), whole_ms=whole * 1e3,
+  return dict(on=str(device), graphed=graphed, whole_ms=whole * 1e3,
               dispatch_ms=dispatch * 1e3, synced_ms=synced * 1e3,
               fetch_ms=(whole - synced) * 1e3)
 
@@ -142,9 +148,14 @@ def main(argv=None):
       'null_rtt_ms': null_rtt(device, args.reps)}
   agent, obs = build_agent(args.shape, device)
   results['device'] = measure(agent, obs, args.reps)
-  # Bracket the device's measurement with a second sample of the floor.
-  results['null_rtt_after_ms'] = null_rtt(device, args.reps)
   print(json.dumps({'variant': 'device', **results['device']}), flush=True)
+  graphs, agent._use_graphs = agent._use_graphs, False
+  results['device_eager'] = measure(agent, obs, args.reps)
+  agent._use_graphs = graphs
+  print(json.dumps({'variant': 'device_eager', **results['device_eager']}),
+        flush=True)
+  # Bracket the device's measurements with a second sample of the floor.
+  results['null_rtt_after_ms'] = null_rtt(device, args.reps)
   agent._policy_devices = 'cpu'
   agent._mirror = None
   results['cpu_mirror'] = measure(agent, obs, args.reps)

@@ -16,12 +16,23 @@ the untraced dispatches' pace, since the profiler slows the host but not
 the device), and the launches that each of the port's kernel wrappers
 counted in the traced window.
 
+`--graphs True` (the config's default) replays each update as a CUDA graph
+(`torch.graphs`), `False` runs it eagerly. Launches an update come two
+ways: `launches_per_update` counts the kernels, copies and sets that the
+device executed (the trace's device events, whether a graph or the host
+launched them), `host_launches_per_update` the launch calls that the host
+made (the trace's CUDA API calls, `cuda*` and `cu*`, that launch a kernel,
+a copy, a set or a graph). Eagerly the two are about equal; under graphs
+the second is about one an update. The wrappers' counts include the
+launches that replays of a graph credit (`ops/build.py`).
+
 With `--device cpu` there is no device timeline: the rows are the CPU
 operators by self time, and the device metrics are null.
 
 Usage:
   python -m daydreamer_tpu_torch.scripts.profile_train --shape xarm \\
-      [--dispatches 8] [--out FILE] [--device cuda|cpu]
+      [--dispatches 8] [--graphs True|False] [--out FILE] \\
+      [--device cuda|cpu]
 
 The last line printed is the report as JSON.
 """
@@ -125,6 +136,23 @@ def _totals(prof, on_card):
   return totals
 
 
+# The host's calls that put work on the device: a kernel, a copy, a set or
+# a whole graph.
+HOST_LAUNCH = re.compile(
+    r'^(cuda|cu)(LaunchKernel\w*|LaunchCooperativeKernel\w*|GraphLaunch\w*'
+    r'|Memcpy\w*Async\w*|Memset\w*Async\w*)$')
+
+
+def host_launches(prof):
+  """The launch calls the host made in a finished `torch.profiler` run on
+  the card (CUDA API calls, `HOST_LAUNCH`)."""
+  import torch
+  return sum(
+      1 for event in prof.profiler.kineto_results.events()
+      if event.device_type() != torch.autograd.DeviceType.CUDA
+      and HOST_LAUNCH.match(event.name()))
+
+
 def summarize(prof, updates, on_card):
   """From a finished `torch.profiler` run over `updates` updates: the
   rows (each kernel, or on the CPU each operator, with its category, ms and
@@ -168,7 +196,8 @@ def resolve_device(device):
 def build_agent(task, overrides, device):
   """The agent and a batch of one chunk per row, with the settings of the
   root `bench.py::build_agent` that mean something here: no weight decay,
-  and only the last fused update's metrics packed."""
+  and only the last fused update's metrics packed. `overrides` may set
+  `torch.graphs`."""
   import daydreamer_tpu_torch as ddp
   from daydreamer_tpu_torch.agents.dreamer import Agent
   from daydreamer_tpu_torch.envs import load_env
@@ -214,9 +243,10 @@ def _dispatch(agent, replay, K, state):
   return state, loss
 
 
-def profile_shape(shape, dispatches, K=None, device='cuda'):
-  """Trace `dispatches` warm dispatches at `shape`; returns the report.
-  `K` replaces the shape's fused updates (the tests pass a small one)."""
+def profile_shape(shape, dispatches, K=None, device='cuda', graphs=True):
+  """Trace `dispatches` warm dispatches at `shape`, graphed or eager;
+  returns the report. `K` replaces the shape's fused updates (the tests
+  pass a small one)."""
   import torch
   from torch.profiler import ProfilerActivity, profile
   from daydreamer_tpu_torch.ops import build, lambda_returns
@@ -224,7 +254,8 @@ def profile_shape(shape, dispatches, K=None, device='cuda'):
   device = resolve_device(device)
   task, overrides, shape_k = SHAPES[shape]
   K = shape_k if K is None else K
-  agent, data = build_agent(task, overrides, device)
+  agent, data = build_agent(
+      task, {**overrides, 'torch.graphs': bool(graphs)}, device)
   replay = fill_ring(agent, data)
 
   begin = time.perf_counter()
@@ -248,10 +279,14 @@ def profile_shape(shape, dispatches, K=None, device='cuda'):
   launches = {k.name: k.launches for k in build.KERNELS}
   updates = dispatches * K
   rows, categories, busy = summarize(prof, updates, on_card)
+  graph = agent.graphs.stats().get('train_device', {})
   wall = 1e3 * wall_s / updates
   untraced = 1e3 * untraced_s / (2 * K)
   return {
       'shape': shape, 'fused_K': K, 'dispatches': dispatches,
+      'graphs': bool(graphs),
+      'capture_s': graph.get('capture_s'),
+      'pool_bytes': graph.get('pool_bytes'),
       'updates_traced': updates,
       'device': torch.cuda.get_device_name(device) if on_card else 'cpu',
       'card': card() if on_card else None,
@@ -265,8 +300,12 @@ def profile_shape(shape, dispatches, K=None, device='cuda'):
       # The profiler slows the host and not the device: the device's idle
       # share at the untraced dispatches' pace.
       'idle_share_untraced': 1 - busy / untraced if on_card else None,
+      # Device work executed, whoever launched it.
       'launches_per_update': sum(
           r['launches_per_update'] for r in rows) if on_card else None,
+      # Launch calls from the host.
+      'host_launches_per_update': host_launches(prof) / updates
+      if on_card else None,
       'model_loss': loss,
       'wrapper_launches': launches,
       'categories': categories,
@@ -278,14 +317,18 @@ def profile_shape(shape, dispatches, K=None, device='cuda'):
 def print_report(report):
   unit = 'device' if report['device_busy_ms_per_update'] is not None else (
       'cpu self')
-  print(f"{report['shape']} (K = {report['fused_K']}, "
+  print(f"{report['shape']} (K = {report['fused_K']}, graphs "
+        f"{report['graphs']}, "
         f"{report['updates_traced']} updates traced) on {report['device']} "
         f"({report['card']}): wall {report['wall_ms_per_update']:.3f} ms per "
         f"update traced, {report['untraced_wall_ms_per_update']:.3f} "
         f"untraced; device busy {report['device_busy_ms_per_update']} ms, "
         f"idle share {report['idle_share']} (untraced "
         f"{report['idle_share_untraced']}), launches "
-        f"{report['launches_per_update']} per update; wrapper launches "
+        f"{report['launches_per_update']} per update executed on the device, "
+        f"{report['host_launches_per_update']} launch calls from the host; "
+        f"capture {report['capture_s']} s, pool {report['pool_bytes']} "
+        f"bytes; wrapper launches "
         f"{report['wrapper_launches']}", flush=True)
   for row in report['categories']:
     print(f"  {row['ms_per_update']:9.3f} ms/update {unit} "
@@ -301,10 +344,12 @@ def main(argv=None):
   parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
   parser.add_argument('--shape', default='xarm', choices=sorted(SHAPES))
   parser.add_argument('--dispatches', type=int, default=8)
+  parser.add_argument('--graphs', default='True', choices=['True', 'False'])
   parser.add_argument('--out', default='')
   parser.add_argument('--device', default='cuda', choices=['cuda', 'cpu'])
   args = parser.parse_args(argv)
-  report = profile_shape(args.shape, args.dispatches, device=args.device)
+  report = profile_shape(args.shape, args.dispatches, device=args.device,
+                         graphs=args.graphs == 'True')
   print_report(report)
   if args.out:
     pathlib.Path(args.out).write_text(json.dumps(report, indent=1) + '\n')

@@ -188,6 +188,28 @@ def test_measure_policy_on_cpu():
   assert all(isinstance(v, bool) for v in gates.values())
 
 
+def test_compare_graphs_on_cpu():
+  """The eager and the graphed arm at the test shape. On the CPU both run
+  the same functions, the graphed one through the runner's bookkeeping, so
+  both arms train alike; nothing is captured."""
+  rows = bench.compare_graphs('test', 'cpu', 0.0, K=K,
+                              policy_budget_s=1e-9)
+  for arm in ('eager', 'graphed'):
+    row = rows[arm]
+    assert row['updates_per_s'] > 0 and row['mfu'] is None
+    assert row['updates_timed'] == K and math.isfinite(row['model_loss'])
+    assert not any(row['launches'].values())
+    assert row['capture_s'] is None and row['pool_bytes'] is None
+    assert row['policy']['median_s'] > 0
+  assert rows['eager']['model_loss'] == rows['graphed']['model_loss']
+  assert rows['speedup'] == (rows['graphed']['updates_per_s']
+                             / rows['eager']['updates_per_s'])
+  assert rows['policy_speedup'] > 0 and rows['flops_per_update'] > 1e10
+  # The counted twin runs eagerly: on the card a graph's first call runs
+  # the update and then captures it, and the counter would see both.
+  assert bench.LOOP_PATH['torch.graphs'] is False
+
+
 @pytest.mark.parametrize('script,kernels', [
     (fused_impl_bench, ('observe_fwd', 'observe_bwd')),
     (imag_impl_bench, ('imagine_actor',))])

@@ -27,8 +27,10 @@ def test_policy_latency_on_cpu(capsys):
       ['--shape', 'test', '--reps', '2', '--device', 'cpu'])
   lines = _json_lines(capsys.readouterr().out)
   variants = {line['variant']: line for line in lines if 'variant' in line}
-  assert set(variants) == {'device', 'cpu_mirror'}
-  for name in ('device', 'cpu_mirror'):
+  assert set(variants) == {'device', 'device_eager', 'cpu_mirror'}
+  assert variants['device']['graphed'] and not variants['device_eager'][
+      'graphed']
+  for name in ('device', 'device_eager', 'cpu_mirror'):
     assert variants[name]['on'] == 'cpu'
     for key in ('whole_ms', 'dispatch_ms', 'synced_ms', 'fetch_ms'):
       assert math.isfinite(variants[name][key]), key
