@@ -62,11 +62,18 @@ Phases, each of which must pass:
                `scripts/multihost_worker.py` share the card over gloo at
                xarm's full width (global batch 32, 16 rows a rank, chunk
                32, imag_horizon 15, `rssm.impl: pallas`, `--imag_impl
-               pallas`, bfloat16), 3 timed dispatches of 4 fused updates
-               after one that creates the state; then one rank over NCCL
-               (world 1) with the same settings. Each rank must exit 0,
-               the two ranks' losses must be finite and equal and their
-               state checksums equal, and each rank must have launched
+               pallas`, bfloat16), eagerly (`--torch.graphs False`: a CUDA
+               graph cannot capture gloo), 3 timed dispatches of 4 fused
+               updates after one that creates the state; then one rank
+               over NCCL (world 1) with the same settings, graphed (each
+               update a replay of one CUDA graph, its collectives inside;
+               the graph must have replayed once a timed update at least)
+               and eagerly, which must end with the same loss, state
+               checksum and checksum of a report's scalars. Each rank must
+               exit 0, the two ranks' losses must be finite and equal and
+               their state checksums and their reports' equal (each worker
+               reports on its rows after its updates, the scalars reduced
+               over the ranks), and each rank must have launched
                observe_bwd and imagine_actor once an update and observe_fwd
                at least once. Each rank's launches go on the kernels line
                under `launches_parallel`, apart from the slice's and the
@@ -75,13 +82,21 @@ Phases, each of which must pass:
                the ranks as the JAX program's global batch does is checked
                against the JAX package on the CPU
                (tests/test_torch_multihost.py). Neither rate is a scaling
-               figure: two ranks share one card.
+               figure: two ranks share one card. One card cannot hold two
+               NCCL ranks, so no collective is captured here: at world 1
+               each reduction is the identity (the extra phase
+               `parallel_cards` captures them, one rank a card).
  10. imitation - the imitation trainer's PPO learner (imitation/ppo.py) at
                imitation/train.py's defaults on the card: observations of
                30 (A1's 16 proprio values and the task's 14 target
                features), 12 actions, a rollout of 2048 batch-1 `act`
                calls, then `gae` and two `update`s of 10 epochs x 4
-               minibatches of 512 (the first and a warm one); each timed.
+               minibatches of 512 (the first and a warm one); each timed,
+               for the default agent (`act` and `update` replay CUDA
+               graphs) and for an eager twin (`graphs=False`) loaded from
+               its `save()` with its generator state: every `act` output,
+               both updates' metrics and the state after them must be
+               equal bit for bit in the two arms.
                The card's machine has no MuJoCo, so the proprio part comes
                from a generator seeded by `--seed` and the targets from the
                trot clip at the sim's times. The update's metrics must be
@@ -146,13 +161,18 @@ Phases, each of which must pass:
                ring and a graphed dispatch must draw some of them. A
                registered generator must draw under replay what eager
                calls draw in turn. The xarm policy at batch 1 in each mode,
-               eager and graphed, must give equal actions and states. It
+               eager and graphed, must give equal actions and states; the
+               xarm `report` at the config's batch (32 x 32), four calls
+               an arm from one generator state, must give every scalar and
+               video equal bit for bit, and launch observe_fwd as often in
+               each arm, at least once a call. It
                prints each arm's updates/s (the second dispatch), its
                first dispatch, the capture's seconds and the graph pool's
-               bytes, and the policy's ms a call both ways. It runs after
-               the kernel phase (`--phases device,build,graphs` alone).
-               The parallel phase passes `--torch.graphs False`: its ranks
-               share the card over gloo, which a graph cannot capture.
+               bytes, and the policy's and the report's ms a call both
+               ways. It runs after the kernel phase (`--phases
+               device,build,graphs` alone). The parallel phase's gloo pair
+               passes `--torch.graphs False`: its ranks share the card
+               over gloo, which a graph cannot capture.
 The kernel phase also holds observe_fwd and observe_bwd at the a1 training
 shape (T = B = 32, D = U = 256, E = 512, 12 continuous actions), and
 observe_fwd, observe_bwd and imagine_actor at the rows of one rank of the
@@ -161,7 +181,13 @@ against their plain versions.
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}. Without a card, or outside the repository,
 the script exits non-zero and prints no result. `--phases` runs a subset;
-the extra phase `profile` (not run by default) prints where an update's
+the extra phase `parallel_cards` (not run by default; it needs two cards
+or more) runs one rank of the worker on each card over NCCL at the
+parallel phase's settings, graphed and eagerly (on a machine of four
+cards), so that the collectives captured in the graphs reduce over real
+ranks: the ranks of each arm, and the two arms, must agree exactly in the
+loss, the state's checksum and the report's; its ranks' launches go under
+`launches_parallel` as `cards_*`; the extra phase `profile` (not run by default) prints where an update's
 device time goes, its launches and the device's idle share, and
 `profile_explore` the same for `--configs xarm plan2explore`; the extra
 phase `sphero` (not run by default) trains `--configs sphero` (its dummy
@@ -1200,6 +1226,7 @@ def main(argv=None):
   parser.add_argument('--curve-steps', type=int, default=21400)
   args = parser.parse_args(argv)
   phases = args.phases.split(',')
+  begin = time.perf_counter()
   import torch
   if not torch.cuda.is_available():
     print('chip_smoke: torch.cuda.is_available() is false.', file=sys.stderr)
@@ -1240,6 +1267,8 @@ def main(argv=None):
     phase_explore(slice_run)
   if 'parallel' in phases:
     parallel = phase_parallel()
+  if 'parallel_cards' in phases:
+    parallel.update(phase_parallel_cards())
   if 'imitation' in phases:
     phase_imitation(args.seed)
   if 'imitation_sim' in phases:
@@ -1281,6 +1310,8 @@ def main(argv=None):
         max_abs_err=timing.get('max_abs_err'), ms=timing.get('ms'),
         plain_ms=timing.get('plain_ms'), bound_ms=timing.get('bound_ms'),
         bound_by=timing.get('bound_by'), library_ms=None))
+  log(f'chip_smoke: phases {",".join(phases)} in '
+      f'{time.perf_counter() - begin:.1f} s')
   log(json.dumps({'kernels': entries}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': device_name,
@@ -1481,9 +1512,7 @@ def phase_learner(label, replay_kind, updates=48, prefill=2048,
         f'kernel per update.')
   # The first dispatch carries the creation pass.
   rate = fused * len(dispatches[1:]) / sum(dispatches[1:])
-  smi = subprocess.run(
-      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-      capture_output=True, text=True, check=True).stdout.strip()
+  smi = smi_cards()
   log(f'{label}: {done} updates in {len(dispatches)} dispatches of {fused}, '
       f'launches {({k: launches[k] for k in TRAIN_KERNELS})}, last logged '
       f'losses {losses}')
@@ -1498,6 +1527,7 @@ def phase_learner(label, replay_kind, updates=48, prefill=2048,
 GRAPHS_K = 4
 GRAPHS_RING = 8192      # Steps the ring holds; half of it filled first.
 GRAPHS_POLICY_STEPS = 8  # Batch-1 policy steps a mode and arm.
+GRAPHS_REPORTS = 4  # Report calls an arm, at the config's batch.
 
 
 def _graphs_config(name, graphs, replay_kind='fixed'):
@@ -1699,46 +1729,33 @@ def _graphs_noise():
       'eager calls\' in turn, and advanced the generator as they do')
 
 
-def _graphs_policy():
+def _graphs_policy(agents, env):
   """The xarm policy at batch 1 in each mode, eager and graphed from one
   state and generator state; the actions and the carried states must be
   equal bit for bit. Returns the ms a call of each arm."""
   import torch
-  import daydreamer_tpu_torch as ddp
-  from daydreamer_tpu_torch import envs, nn
-  from daydreamer_tpu_torch.agents.dreamer import Agent
-  env = envs.load_env('xarm_dummy', amount=1, parallel='none')
-  try:
-    agents = {flag: Agent(env.obs_space, env.act_space, ddp.Counter(),
-                          _graphs_config('xarm', flag))
-              for flag in (False, True)}
-    for agent in agents.values():
-      agent._create()
-    nn.assign(agents[True].agent, nn.state(agents[False].agent))
-    steps = _random_steps(env, GRAPHS_POLICY_STEPS, seed=2)
-    obs = [{k: v[i:i + 1] for k, v in steps.items() if k != 'action'}
-           for i in range(GRAPHS_POLICY_STEPS)]
-    start = agents[False].generator.get_state()
-    ms, diffs = {}, []
-    for mode in ('train', 'eval', 'explore'):
-      outs = {}
-      for flag, agent in agents.items():
-        agent.generator.set_state(start)
-        state, acts, times = None, [], []
-        for o in obs:
-          torch.cuda.synchronize()
-          begin = time.perf_counter()
-          out, state = agent.policy(o, state, mode=mode)
-          times.append(time.perf_counter() - begin)
-          acts.append(torch.as_tensor(out['action']))
-        # The first call carries no state (eager in both arms), the second
-        # warms up and captures in the graphed arm.
-        ms[(mode, flag)] = 1e3 * float(np.mean(times[2:]))
-        outs[flag] = dict(actions=acts, state=_tree_dict(state))
-      diffs += [(mode, *d) for d in _differences(outs[False], outs[True])]
-    stats = agents[True].graphs.stats()['policy']
-  finally:
-    env.close()
+  steps = _random_steps(env, GRAPHS_POLICY_STEPS, seed=2)
+  obs = [{k: v[i:i + 1] for k, v in steps.items() if k != 'action'}
+         for i in range(GRAPHS_POLICY_STEPS)]
+  start = agents[False].generator.get_state()
+  ms, diffs = {}, []
+  for mode in ('train', 'eval', 'explore'):
+    outs = {}
+    for flag, agent in agents.items():
+      agent.generator.set_state(start)
+      state, acts, times = None, [], []
+      for o in obs:
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        out, state = agent.policy(o, state, mode=mode)
+        times.append(time.perf_counter() - begin)
+        acts.append(torch.as_tensor(out['action']))
+      # The first call carries no state (eager in both arms), the second
+      # warms up and captures in the graphed arm.
+      ms[(mode, flag)] = 1e3 * float(np.mean(times[2:]))
+      outs[flag] = dict(actions=acts, state=_tree_dict(state))
+    diffs += [(mode, *d) for d in _differences(outs[False], outs[True])]
+  stats = agents[True].graphs.stats()['policy']
   log(f'graphs (xarm policy, batch 1): ms a call eager / graphed: ' +
       ', '.join(f'{mode} {ms[(mode, False)]:.3f} / {ms[(mode, True)]:.3f}'
                 for mode in ('train', 'eval', 'explore')) +
@@ -1749,9 +1766,76 @@ def _graphs_policy():
                          f'{diffs[:10]}')
   log('graphs (xarm policy): actions and carried states equal bit for bit '
       'in each mode')
-  del agents
   return dict(ms={f'{m}_{"graphed" if f else "eager"}': v
                   for (m, f), v in ms.items()}, **stats)
+
+
+def _graphs_report(agents, env):
+  """The xarm report, eager and graphed from one state and generator
+  state, on GRAPHS_REPORTS batches of the config's shape: every scalar and
+  video equal bit for bit, the generators left in one state, and the
+  kernels launched as often in each arm (observe_fwd at least once a call;
+  the graphed arm's launches credited at each replay). Returns the row."""
+  import torch
+  label = 'graphs (xarm report)'
+  config = agents[False].config
+  B, T = config.batch_size, config.replay_chunk
+  batches = []
+  for i in range(GRAPHS_REPORTS):
+    steps = _random_steps(env, B * T, seed=10 + i)
+    batch = {k: v.reshape((B, T) + v.shape[1:]) for k, v in steps.items()}
+    batch['is_first'][:, 0] = True
+    batches.append(batch)
+  start = agents[False].generator.get_state()
+  outs, times, launches = {}, {}, {}
+  for flag, agent in agents.items():
+    agent.generator.set_state(start)
+    reset_launches()
+    outs[flag], times[flag] = [], []
+    for batch in batches:
+      torch.cuda.synchronize()
+      begin = time.perf_counter()
+      report = agent.report(batch)  # Numpy: synced.
+      times[flag].append(time.perf_counter() - begin)
+      outs[flag].append({k: torch.as_tensor(v) for k, v in report.items()})
+    launches[flag] = read_launches(label, ('observe_fwd',))
+  stats = agents[True].graphs.stats()['report']
+  diffs = _differences(outs[False], outs[True])
+  # The first call of the graphed arm warms up and captures.
+  ms = {flag: 1e3 * float(np.mean(times[flag][1:])) for flag in times}
+  row = dict(eager_ms=ms[False], graphed_ms=ms[True],
+             eager_first_s=times[False][0], graphed_first_s=times[True][0],
+             capture_s=stats['capture_s'], pool_bytes=stats['pool_bytes'],
+             replays=stats['replays'], launches=launches[True],
+             entries=sorted(outs[True][0]))
+  log(f'{label}: batch {B} x {T}, {GRAPHS_REPORTS} calls an arm: ms a call '
+      f'eager {ms[False]:.3f}, graphed {ms[True]:.3f} (calls 2-'
+      f'{GRAPHS_REPORTS}); first call eager {times[False][0]:.3f} s, graphed '
+      f'{times[True][0]:.3f} s with a capture of {stats["capture_s"]:.3f} s; '
+      f'graph pool {stats["pool_bytes"]} bytes; {stats["replays"]} replays; '
+      f'launches eager {launches[False]}, graphed {launches[True]}; '
+      f'{len(row["entries"])} entries ({", ".join(row["entries"])})')
+  if diffs:
+    raise AssertionError(f'{label}: graphed and eager differ: {diffs[:10]} '
+                         f'({len(diffs)} tensors)')
+  if launches[True] != launches[False] or (
+      launches[True]['observe_fwd'] < GRAPHS_REPORTS):
+    raise AssertionError(f'{label}: launches eager {launches[False]}, '
+                         f'graphed {launches[True]} in {GRAPHS_REPORTS} calls')
+  if not torch.equal(agents[False].generator.get_state(),
+                     agents[True].generator.get_state()):
+    raise AssertionError(f'{label}: the generators differ after the calls')
+  log(f'{label}: every scalar and video equal bit for bit; observe_fwd '
+      f'{launches[True]["observe_fwd"] // GRAPHS_REPORTS} launches a call in '
+      f'each arm; the generators in one state')
+  # What of a graphed call is the replay: its device time alone (CUDA
+  # events), against the copies in and out and the numpy conversion.
+  call, = [c for c in agents[True].graphs.captured.values()
+           if c.name == 'report']
+  row['replay_ms'] = cuda_time(call.run, reps=3, warmup=1)
+  log(f'{label}: a replay alone {row["replay_ms"]:.3f} ms of the graphed '
+      f'call\'s {ms[True]:.3f}')
+  return row
 
 
 def _tree_dict(tree, path=''):
@@ -1768,12 +1852,33 @@ def _tree_dict(tree, path=''):
 def phase_graphs():
   """`torch.graphs` held to the eager path (see the module's docstring,
   phase 14). Returns the rows for the kernels line's neighbours."""
+  import torch
+  import daydreamer_tpu_torch as ddp
+  from daydreamer_tpu_torch import envs, nn
+  from daydreamer_tpu_torch.agents.dreamer import Agent
   _graphs_noise()
   rows = {}
   for name in ('xarm', 'a1'):
     for replay_kind in ('fixed', 'prio'):
       rows[f'{name}_{replay_kind}'] = _graphs_learner(name, replay_kind)
-  rows['policy'] = _graphs_policy()
+  # One eager and one graphed xarm agent from one state for the policy and
+  # the report.
+  env = envs.load_env('xarm_dummy', amount=1, parallel='none')
+  try:
+    agents = {flag: Agent(env.obs_space, env.act_space, ddp.Counter(),
+                          _graphs_config('xarm', flag))
+              for flag in (False, True)}
+    for agent in agents.values():
+      agent._create()
+    nn.assign(agents[True].agent, nn.state(agents[False].agent))
+    rows['policy'] = _graphs_policy(agents, env)
+    rows['report'] = _graphs_report(agents, env)
+  finally:
+    env.close()
+  del agents
+  import gc
+  gc.collect()
+  torch.cuda.empty_cache()
   log(f'graphs: {json.dumps(rows, default=str)}')
   return rows
 
@@ -1995,25 +2100,30 @@ def phase_explore(slice_run):
 # batch of 32 over the ranks (the xarm block's widths and `rssm.impl:
 # pallas`; bfloat16, the defaults' precision), 3 timed dispatches of 4.
 PARALLEL_ARGS = ['--configs', 'xarm', '--imag_impl', 'pallas', '--steps', '3',
-                 '--fused', '4', '--device', 'cuda', '--torch.graphs', 'False']
+                 '--fused', '4', '--device', 'cuda']
 RANK_TIMEOUT = 240  # Seconds, for each rank process.
 
 
-def run_ranks(label, world, backend, rundir):
-  """`world` ranks of the worker on the card with `backend`, through a
-  `file://` store in `rundir`; each rank's output goes to a file there.
+def run_ranks(label, world, backend, rundir, graphs, card_each=False):
+  """`world` ranks of the worker with `backend` and `--torch.graphs
+  graphs`, all on card 0 or, with `card_each`, rank r on card r, through
+  a `file://` store in `rundir`; each rank's output goes to a file there.
   Returns, per rank, its INFO, LAUNCHES and RESULT lines, parsed."""
   import os
-  store = (rundir / f'store_{backend}_{world}').as_uri()
+  tag = f'{backend}_{world}_{"graphed" if graphs else "eager"}'
+  store = (rundir / f'store_{tag}').as_uri()
   env = dict(os.environ, PYTHONPATH=str(ROOT))
-  env.pop('LOCAL_RANK', None)  # Every rank on card 0.
+  env.pop('LOCAL_RANK', None)
   outs, procs = [], []
   for rank in range(world):
-    out = open(rundir / f'{backend}_{world}_rank{rank}.log', 'w')
+    out = open(rundir / f'{tag}_rank{rank}.log', 'w')
     outs.append(out)
+    if card_each:
+      env = dict(env, LOCAL_RANK=str(rank))
     procs.append(subprocess.Popen(
         [sys.executable, '-m', 'daydreamer_tpu_torch.scripts.multihost_worker',
-         store, str(world), str(rank), '--backend', backend, *PARALLEL_ARGS],
+         store, str(world), str(rank), '--backend', backend, *PARALLEL_ARGS,
+         '--torch.graphs', str(graphs)],
         cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT))
   try:
     codes = [proc.wait(timeout=RANK_TIMEOUT) for proc in procs]
@@ -2026,7 +2136,7 @@ def run_ranks(label, world, backend, rundir):
       out.close()
   ranks = []
   for rank, code in enumerate(codes):
-    text = (rundir / f'{backend}_{world}_rank{rank}.log').read_text()
+    text = (rundir / f'{tag}_rank{rank}.log').read_text()
     if code != 0:
       raise AssertionError(f'{label}: rank {rank} exited {code}:\n'
                            f'{text[-3000:]}')
@@ -2046,6 +2156,11 @@ def run_ranks(label, world, backend, rundir):
           f'{label}: launches {launches} in {updates} updates (observe_bwd '
           f'and imagine_actor once an update, observe_fwd at least once), '
           f'loss {rank["loss"]}')
+    replays = rank['info']['graphs'].get('train', {}).get('replays', 0)
+    if graphs != (replays >= updates):
+      raise AssertionError(f'{label}: graphs {graphs}, but the update '
+                           f'graph replayed {replays} times in {updates} '
+                           f'updates: {rank["info"]["graphs"]}')
   for rank, result in enumerate(ranks):
     log(f'{label}: rank {rank}: {result["rate"]:.3f} updates/s over '
         f'{result["launches"]["updates"]} updates, model loss '
@@ -2055,34 +2170,142 @@ def run_ranks(label, world, backend, rundir):
   return ranks
 
 
+def _outcome(rank):
+  """What the replicas and the arms must agree on: the loss, the state's
+  checksum and the report's."""
+  return rank['loss'], rank['checksum'], rank['info']['report_checksum']
+
+
 def phase_parallel():
-  """Two ranks on the card over gloo, then one over NCCL (see the module
-  docstring, phase 9). Returns each rank's launches of every kernel, by
-  rank (`gloo_rank0`, `gloo_rank1`, `nccl_rank0`)."""
+  """Two ranks on the card over gloo, eager, then one over NCCL graphed and
+  eager (see the module docstring, phase 9). Returns each rank's launches
+  of every kernel, by rank (`gloo_rank0`, `gloo_rank1`, `nccl_rank0`,
+  graphed, and `nccl_rank0_eager`)."""
   import torch
   begin = time.perf_counter()
   torch.cuda.empty_cache()  # The earlier phases' cached blocks.
   rundir = new_logdir('parallel')
-  smi = subprocess.run(
-      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-      capture_output=True, text=True, check=True).stdout.strip()
-  pair = run_ranks('parallel (2 ranks, gloo)', 2, 'gloo', rundir)
-  if pair[0]['loss'] != pair[1]['loss'] or (
-      pair[0]['checksum'] != pair[1]['checksum']):
+  smi = smi_cards()
+  pair = run_ranks('parallel (2 ranks, gloo)', 2, 'gloo', rundir, False)
+  if len({_outcome(r) for r in pair}) != 1:
     raise AssertionError(f'parallel (2 ranks, gloo): the replicas differ: '
-                         f'{[(r["loss"], r["checksum"]) for r in pair]}')
-  single = run_ranks('parallel (1 rank, nccl)', 1, 'nccl', rundir)
+                         f'{[_outcome(r) for r in pair]}')
+  graphed, = run_ranks('parallel (1 rank, nccl, graphed)', 1, 'nccl', rundir,
+                       True)
+  eager, = run_ranks('parallel (1 rank, nccl, eager)', 1, 'nccl', rundir,
+                     False)
+  if _outcome(graphed) != _outcome(eager):
+    raise AssertionError(
+        f'parallel (1 rank, nccl): graphed and eager differ: '
+        f'{_outcome(graphed)} / {_outcome(eager)}')
   grad_bytes = pair[0]['info']['grad_bytes']
-  log(f'parallel: the two ranks agree (loss {pair[0]["loss"]!r}, checksum '
-      f'{pair[0]["checksum"]}); {grad_bytes} bytes of gradients averaged '
-      f'over the ranks an update; updates/s of each rank of the pair '
-      f'{[r["rate"] for r in pair]} against one rank over NCCL '
-      f'{single[0]["rate"]} (a correctness run on one shared card, not a '
-      f'scaling figure; {smi}); phase {time.perf_counter() - begin:.1f} s')
+  log(f'parallel: the two gloo ranks agree (loss {pair[0]["loss"]!r}, '
+      f'checksum {pair[0]["checksum"]}); {grad_bytes} bytes of gradients '
+      f'averaged over the ranks an update; updates/s of each rank of the '
+      f'pair {[r["rate"] for r in pair]}; one rank over NCCL graphed '
+      f'{graphed["rate"]}, eager {eager["rate"]}, the same loss '
+      f'{graphed["loss"]!r}, state checksum {graphed["checksum"]} and '
+      f'report checksum {graphed["info"]["report_checksum"]}; its graphs '
+      f'{graphed["info"]["graphs"]} (a correctness run on one shared card, '
+      f'not a scaling figure; {smi}); phase '
+      f'{time.perf_counter() - begin:.1f} s')
   ranks = {f'gloo_rank{i}': r for i, r in enumerate(pair)}
-  ranks['nccl_rank0'] = single[0]
+  ranks['nccl_rank0'] = graphed
+  ranks['nccl_rank0_eager'] = eager
   return {name: {k: v for k, v in r['launches'].items() if k != 'updates'}
           for name, r in ranks.items()}
+
+
+def _imitation_arm(agent, obs, rng_seed):
+  """One arm of the imitation phase: a warm `act`, ten under
+  torch.profiler, the rollout's batch-1 `act` calls, `gae` and two
+  `update`s on the same rollout. Returns its outputs and times."""
+  from torch.profiler import ProfilerActivity, profile
+  from daydreamer_tpu_torch.scripts import profile_train
+  horizon = len(obs)
+  acts = [agent.act(obs[:1])]  # Warm; the graphed arm captures here.
+  activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+  with profile(activities=activities) as prof:
+    for i in range(10):
+      acts.append(agent.act(obs[i:i + 1]))
+  rows, _, busy = profile_train.summarize(prof, 10, True)
+  launches = sum(r['launches_per_update'] for r in rows)
+  seg = {k: [] for k in ('action', 'logp', 'value')}
+  act_s = []
+  for i in range(horizon):
+    begin = time.perf_counter()
+    out = agent.act(obs[i:i + 1])
+    act_s.append(time.perf_counter() - begin)
+    acts.append(out)
+    for key, x in zip(seg, out):
+      seg[key].append(x[0])
+  seg = {k: np.asarray(v, np.float32) for k, v in seg.items()}
+  rng = np.random.default_rng(rng_seed)
+  rewards = rng.uniform(0, 1, horizon).astype(np.float32)
+  conts = (rng.uniform(size=horizon) > 0.002).astype(np.float32)
+  begin = time.perf_counter()
+  adv, ret = agent.gae(rewards, seg['value'], conts, seg['value'][-1])
+  gae_s = time.perf_counter() - begin
+  rollout = dict(obs=obs, action=seg['action'], logp=seg['logp'], adv=adv,
+                 ret=ret)
+  update_s, metrics = [], []  # The first update, then a warm one.
+  for _ in range(2):
+    begin = time.perf_counter()
+    metrics.append(agent.update(rollout))
+    update_s.append(time.perf_counter() - begin)
+  return dict(acts=acts, act_ms=1e3 * np.asarray(act_s), launches=launches,
+              busy=busy, gae_s=gae_s, rollout=rollout, update_s=update_s,
+              metrics=metrics, state=agent.save())
+
+
+def phase_parallel_cards():
+  """One rank of the worker on each visible card over NCCL (at least two;
+  the extra phase `parallel_cards`), graphed and eagerly, at the parallel
+  phase's settings: the ranks of each arm must agree exactly (the
+  collectives captured in the graphs reduce over the ranks at every
+  replay), and so must the two arms, in the loss, the state's checksum and
+  the report's. Returns each rank's launches of every kernel, by arm and
+  rank."""
+  import torch
+  begin = time.perf_counter()
+  world = torch.cuda.device_count()
+  if world < 2:
+    raise AssertionError(f'parallel_cards: {world} card; the phase needs '
+                         f'one card a rank, two at least.')
+  rundir = new_logdir('parallel_cards')
+  arms = {}
+  for graphs in (True, False):
+    name = 'graphed' if graphs else 'eager'
+    label = f'parallel_cards ({world} ranks, nccl, {name})'
+    ranks = run_ranks(label, world, 'nccl', rundir, graphs, card_each=True)
+    if len({_outcome(r) for r in ranks}) != 1:
+      raise AssertionError(f'{label}: the replicas differ: '
+                           f'{[_outcome(r) for r in ranks]}')
+    arms[name] = ranks
+  graphed, eager = arms['graphed'][0], arms['eager'][0]
+  devices = sorted({r['info']['device'] for r in arms['graphed']})
+  log(f'parallel_cards: {world} ranks on {devices}; graphed: every rank '
+      f'{_outcome(graphed)}, updates/s {[r["rate"] for r in arms["graphed"]]}'
+      f', graphs {graphed["info"]["graphs"]}; eager: {_outcome(eager)}, '
+      f'updates/s {[r["rate"] for r in arms["eager"]]}; all-reduce of '
+      f'{graphed["info"]["grad_bytes"]} bytes '
+      f'{graphed["info"]["allreduce_ms"]} ms; {smi_cards()}; phase '
+      f'{time.perf_counter() - begin:.1f} s')
+  if _outcome(graphed) != _outcome(eager):
+    raise AssertionError(f'parallel_cards: graphed and eager differ: '
+                         f'{_outcome(graphed)} / {_outcome(eager)}')
+  log('parallel_cards: graphed and eager equal in the loss, the state and '
+      'the report')
+  return {f'cards_{name}_rank{i}': {k: v for k, v in r['launches'].items()
+                                    if k != 'updates'}
+          for name, ranks in arms.items() for i, r in enumerate(ranks)}
+
+
+def smi_cards():
+  """The cards' names and power limits as nvidia-smi gives them."""
+  return '; '.join(subprocess.run(
+      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+      capture_output=True, text=True, check=True).stdout.strip().splitlines())
 
 
 def phase_imitation(seed):
@@ -2091,14 +2314,17 @@ def phase_imitation(seed):
   here: the proprio part from a NumPy generator seeded by `seed`, the
   target features from `task.a1_gait_clip('trot')` at the sim times that
   `ImitationA1._clip_time` gives (episode step x repeat x the physics
-  step). Times 2048 `act` calls at batch 1 (their launches from
-  torch.profiler over ten), `gae` and two `update`s (the first pays the
-  first launch of each kernel), whose metrics must be finite; then holds
-  `_loss` and its gradients on one minibatch against a CPU agent loaded
-  from the card's `save()` (within 1e-4 of the largest magnitude), and
-  that agent's values on the same observations."""
+  step). The default agent (`act` and `update` replay CUDA graphs) runs
+  beside an eager twin (`graphs=False`) loaded from its `save()` with its
+  generator state: each times 2048 `act` calls at batch 1 (their launches
+  from torch.profiler over ten), `gae` and two `update`s (the first pays
+  the capture or the first launch of each kernel), and every `act` output,
+  both updates' metrics and the state after them must be equal bit for
+  bit in the two arms, and the metrics finite. Then it holds `_loss` and
+  its gradients on one minibatch against a CPU agent loaded from the
+  card's `save()` (within 1e-4 of the largest magnitude), and that agent's
+  values on the same observations."""
   import torch
-  from torch.profiler import ProfilerActivity, profile
   from daydreamer_tpu_torch.envs import a1, a1_model
   from daydreamer_tpu_torch.imitation import PPOImitation, task
   from daydreamer_tpu_torch.scripts import profile_train
@@ -2115,43 +2341,36 @@ def phase_imitation(seed):
       np.sin(phase)[:, None], np.cos(phase)[:, None],
       np.stack([clip.joints_at(t) for t in times])], 1).astype(np.float32)
   agent = PPOImitation(obs_dim, act_dim, horizon=horizon, seed=seed)
-  assert agent.device.type == 'cuda', agent.device
-  agent.act(obs[:1])  # Warm.
-  activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-  with profile(activities=activities) as prof:
-    for i in range(10):
-      agent.act(obs[i:i + 1])
-  rows, _, busy = profile_train.summarize(prof, 10, True)
-  act_launches = sum(r['launches_per_update'] for r in rows)
-  seg = {k: [] for k in ('action', 'logp', 'value')}
-  act_s = []
-  for i in range(horizon):
-    begin = time.perf_counter()
-    action, logp, value = agent.act(obs[i:i + 1])
-    act_s.append(time.perf_counter() - begin)
-    for key, x in zip(seg, (action, logp, value)):
-      seg[key].append(x[0])
-  seg = {k: np.asarray(v, np.float32) for k, v in seg.items()}
-  rewards = rng.uniform(0, 1, horizon).astype(np.float32)
-  conts = (rng.uniform(size=horizon) > 0.002).astype(np.float32)
-  begin = time.perf_counter()
-  adv, ret = agent.gae(rewards, seg['value'], conts, seg['value'][-1])
-  gae_s = time.perf_counter() - begin
-  rollout = dict(obs=obs, action=seg['action'], logp=seg['logp'], adv=adv,
-                 ret=ret)
-  update_s = []  # The first update, then a warm one on the same rollout.
-  for _ in range(2):
-    begin = time.perf_counter()
-    metrics = agent.update(rollout)
-    update_s.append(time.perf_counter() - begin)
+  assert agent.device.type == 'cuda' and agent._use_graphs
+  twin = PPOImitation(obs_dim, act_dim, horizon=horizon, seed=seed,
+                      graphs=False)
+  twin.load(agent.save())
+  twin.generator.set_state(agent.generator.get_state())
+  arms = {'graphed': _imitation_arm(agent, obs, seed + 1),
+          'eager': _imitation_arm(twin, obs, seed + 1)}
+  graphed, eager = arms['graphed'], arms['eager']
+  unequal = [i for i, (a, b) in enumerate(zip(graphed['acts'], eager['acts']))
+             if not all(np.array_equal(x, y) for x, y in zip(a, b))]
+  unequal_state = [k for k in graphed['state']
+                   if not np.array_equal(graphed['state'][k],
+                                         eager['state'][k])]
+  if unequal or unequal_state or graphed['metrics'] != eager['metrics']:
+    raise AssertionError(
+        f'imitation: graphed and eager differ: act calls {unequal[:10]} '
+        f'({len(unequal)} of {len(graphed["acts"])}), state entries '
+        f'{unequal_state}, metrics {graphed["metrics"]} / '
+        f'{eager["metrics"]}')
+  metrics = graphed['metrics'][-1]
   bad = {k: v for k, v in metrics.items() if not math.isfinite(v)}
   if bad or metrics['ppo_opt_grad_steps'] != 80:
     raise AssertionError(f'imitation: update metrics {metrics}')
+  stats = agent.graphs.stats()
   # The same weights on the CPU: the loss and its gradients on one
   # minibatch, and the values of the first rows.
   host = PPOImitation(obs_dim, act_dim, horizon=horizon, seed=seed,
                       device='cpu')
   host.load(agent.save())
+  rollout = graphed['rollout']
   batch = {k: v[:horizon // agent.minibatches] for k, v in rollout.items()}
   outs = []
   for side in (agent, host):
@@ -2167,19 +2386,23 @@ def phase_imitation(seed):
   if errors[worst] > 1e-4:
     raise AssertionError(f'imitation: card and CPU differ at {worst}: '
                          f'{errors}')
-  act_ms = 1e3 * np.asarray(act_s)
   log(f'imitation: PPO at obs {obs_dim}, {act_dim} actions, horizon '
       f'{horizon}, {agent.epochs} x {agent.minibatches} minibatches of '
       f'{horizon // agent.minibatches} on {torch.cuda.get_device_name(0)} '
-      f'({profile_train.card()}): act at batch 1 {act_ms.mean():.4f} ms mean, '
-      f'{np.median(act_ms):.4f} median over {horizon} calls '
-      f'({act_launches:.1f} launches and {busy:.4f} ms device busy a call, '
-      f'torch.profiler over 10); gae {1e3 * gae_s:.3f} ms; an update of '
-      f'{agent.epochs * agent.minibatches} Adam steps {1e3 * update_s[0]:.3f}'
-      f' ms the first, {1e3 * update_s[1]:.3f} ms the next; metrics '
-      f'{metrics}; card against CPU, worst scaled error '
-      f'{errors[worst]:.3g} ({worst}), loss {outs[0][0].item()!r} / '
-      f'{outs[1][0].item()!r}')
+      f'({profile_train.card()}); graphed / eager: ' + '; '.join(
+          f'{name}: act at batch 1 {arm["act_ms"].mean():.4f} ms mean, '
+          f'{np.median(arm["act_ms"]):.4f} median over {horizon} calls '
+          f'({arm["launches"]:.1f} launches and {arm["busy"]:.4f} ms device '
+          f'busy a call, torch.profiler over 10); gae '
+          f'{1e3 * arm["gae_s"]:.3f} ms; an update of '
+          f'{agent.epochs * agent.minibatches} Adam steps '
+          f'{1e3 * arm["update_s"][0]:.3f} ms the first, '
+          f'{1e3 * arm["update_s"][1]:.3f} ms the next'
+          for name, arm in arms.items()) +
+      f'; graphs {stats}; every act output, both updates\' metrics and the '
+      f'state after them equal bit for bit; metrics {metrics}; card against '
+      f'CPU, worst scaled error {errors[worst]:.3g} ({worst}), loss '
+      f'{outs[0][0].item()!r} / {outs[1][0].item()!r}')
 
 
 def phase_imitation_sim():

@@ -28,6 +28,13 @@ them as an eager call does.
 
 On the CPU there is no graph: the same bookkeeping calls the function on
 its static buffers every time. The CPU runs only where it was asked for.
+
+The Dreamer agent (`torchagent.py`: `train`, `train_multi`, `train_device`,
+`policy`, `report`) and the imitation PPO learner (`imitation/ppo.py`:
+`act`, `update`) run through a `Runner`. Under NCCL a captured function's
+collectives are captured with it; a warm-up's collectives come first, so
+the communicator exists before any capture, and every rank captures in
+the order of its calls, which is the same on every rank.
 """
 
 import time

@@ -23,13 +23,17 @@ jaxagent.py` (reference: embodied/agents/dreamerv2plus/tfagent.py:14-178).
 - `config.torch.graphs` is the counterpart of `jax.jit`. `True` (the
   default), on the card: `train`, `train_multi`, `train_device` (one
   graph holds a ring draw, one update and, on a prioritized ring, the
-  scatter of its priorities) and `policy` (one graph per mode and batch
-  size; the call with no state stays eager) each capture their work once
-  as a CUDA graph and replay it (`graphs.py`). `False` runs every call
-  eagerly, as `jax.jit: False` does. On the CPU the same bookkeeping calls
-  the functions eagerly. A capture that fails raises; several ranks on the
-  card with `graphs: True` raise at construction (gloo cannot be
-  captured, and capture under NCCL is not written yet).
+  scatter of its priorities), `policy` (one graph per mode and batch
+  size; the call with no state stays eager) and `report` (one graph per
+  batch signature, the reduction of its scalars over the ranks inside)
+  each capture their work once as a CUDA graph and replay it
+  (`graphs.py`). `False` runs every call eagerly, as `jax.jit: False`
+  does. On the CPU the same bookkeeping calls the functions eagerly. A
+  capture that fails raises. Several ranks on the card capture their
+  collectives with the rest under NCCL; under any other backend (gloo
+  cannot be captured) `graphs: True` raises at construction. Host-side
+  collectives (`host_local_batch`'s count check, the creation pass's
+  `replicate`) stay outside every graph.
 - `config.torch.policy_devices: cpu` serves the policy from a host-CPU
   mirror of the entries it reads, with a CPU generator of its own,
   refreshed at most every `policy_sync` train steps (`all`: the policy runs
@@ -286,11 +290,13 @@ class TorchAgent:
     self.generator = torch.Generator(device=self.device)
     self.generator.manual_seed(seed)
     self._use_graphs = bool(config.torch.graphs)
-    if self._use_graphs and self.device.type == 'cuda' and world > 1:
+    if self._use_graphs and self.device.type == 'cuda' and world > 1 and (
+        torch.distributed.get_backend() != 'nccl'):
       raise ValueError(
-          f'torch.graphs is True on {world} ranks: gloo cannot be captured '
-          'in a CUDA graph and capture under NCCL is not written; pass '
-          '--torch.graphs False.')
+          f'torch.graphs is True on {world} ranks over '
+          f'{torch.distributed.get_backend()}: a CUDA graph captures NCCL\'s '
+          'collectives only; use the nccl backend or pass --torch.graphs '
+          'False.')
     self.graphs = graphslib.Runner(self.device, [self.generator])
     self.agent = agent_cls('agent', obs_space, act_space, step, config)
     # Metric policy of the fused entry points (`train_multi`,
@@ -345,9 +351,15 @@ class TorchAgent:
         for mode in ('train', 'eval', 'explore'):
           self.agent.policy(obs, state, mode=mode)
       with self._scope(create=True):
-        self.agent.report(data)
+        report = self.agent.report(data)
     self._created = True
     self._metric_plan = _reduce_plan(self._metric_names, self.device)
+    # The report's scalars and their plan, made here: a captured report
+    # cannot copy a plan from the host.
+    self._report_names = sorted(
+        k for k, v in report.items() if isinstance(v, torch.Tensor)
+        and v.ndim == 0 and v.is_floating_point())
+    self._report_plan = _reduce_plan(self._report_names, self.device)
     # The balance ratios by the plan's rule: NaN where a batch holds no
     # example of a class, so `torch.debug_nans` lets them pass.
     self._ratio_names = frozenset(
@@ -732,17 +744,28 @@ class TorchAgent:
                         prioritized=prioritized)
 
   def report(self, data):
+    """The world model's and the behaviors' report on `data`: scalars
+    (reduced over the ranks as the JAX package's global ones read) and
+    videos, as numpy arrays. Under `torch.graphs` one graph per batch
+    signature, the batch copied into its static buffers and the report
+    cloned out of its pool."""
     self._create()
-    with torch.no_grad(), self._scope():
-      report = self.agent.report(self._to_device(data))
-      names = sorted(k for k, v in report.items()
-                     if isinstance(v, torch.Tensor) and v.ndim == 0
-                     and v.is_floating_point())
-      if names and distributed.world_size() > 1:
-        values = _reduce_scalars(_reduce_plan(names, self.device),
-                                 torch.stack([report[k] for k in names]))
-        report.update(zip(names, values))
+    if self._use_graphs:
+      report = self.graphs(
+          'report', None, self._report_step, (self._tensors(data),))
+    else:
+      report = self._report_step(self._to_device(data))
     return _to_numpy(report)
+
+  def _report_step(self, data):
+    with torch.no_grad(), self._scope():
+      report = self.agent.report(data)
+    names = self._report_names
+    if names and distributed.world_size() > 1:
+      values = _reduce_scalars(self._report_plan,
+                               torch.stack([report[k] for k in names]))
+      report.update(zip(names, values))
+    return report
 
   def dataset(self, generator):
     loader = self.config.data_loader

@@ -6,18 +6,29 @@ critic and its Adam optimizer carry the JAX package's state names
 (`ppo/...`, `ppo_opt/step`, `ppo_opt/m/...`, `ppo_opt/v/...`), so `load`
 takes what the JAX agent's `save` gives and `save` gives what its `load`
 takes. The JAX update is one jitted program of `epochs x minibatches`
-optimizer steps; here the same steps run eagerly on the agent's device,
-each epoch over a permutation drawn from the agent's generator, and the
-metrics returned are the last step's, as there. One `torch.Generator`,
-seeded from `seed`, serves sampling and permutations (`jax.random` cannot
-be reproduced), so the two packages agree on log-probs and values of given
+optimizer steps; here the same steps run on the agent's device, each epoch
+over a permutation drawn from the agent's generator, and the metrics
+returned are the last step's, as there. One `torch.Generator`, seeded from
+`seed`, serves sampling and permutations (`jax.random` cannot be
+reproduced), so the two packages agree on log-probs and values of given
 actions, not on samples.
+
+`act` and `update` are what the JAX trainer jits. With `graphs=True` (the
+default) each is captured once per input shape as a CUDA graph on the card
+and replayed (`agents/dreamer/graphs.py`, the Dreamer agent's
+`torch.graphs`): `act` holds the sample, its log-prob, the value and their
+concatenation, `update` every optimizer step and the stacking of the
+metrics; the one copy to the host follows each replay. `graphs=False` runs
+them eagerly. The creation pass, `mean_act` (not jitted in the JAX trainer
+either) and the host-side `gae` stay eager. On the CPU the graph runner's
+bookkeeping calls the functions eagerly.
 """
 
 import numpy as np
 import torch
 
 from .. import nn
+from ..agents.dreamer import graphs as graphslib
 from ..nn import dists
 from ..nn.module import Module
 from ..models.nets import MLP
@@ -57,11 +68,12 @@ class ActorCritic(Module):
 class PPOImitation:
   """PPO agent with the embodied policy surface (obs dict in, act out).
 
-  Runs on `device`, the card unless the caller names the CPU."""
+  Runs on `device`, the card unless the caller names the CPU; `graphs`
+  captures `act` and `update` there (see the module's docstring)."""
 
   def __init__(self, obs_dim, act_dim, lr=3e-4, gamma=0.95, lam=0.95,
                clip=0.2, epochs=10, minibatches=4, ent_coef=0.0,
-               horizon=2048, seed=0, device='cuda'):
+               horizon=2048, seed=0, device='cuda', graphs=True):
     self.device = resolve_device(device)
     self.net = ActorCritic('ppo', act_dim)
     self.opt = nn.Optimizer('ppo_opt', lr, eps=1e-5, clip=0.5)
@@ -76,6 +88,8 @@ class PPOImitation:
     self.horizon = horizon
     self.generator = torch.Generator(device=self.device)
     self.generator.manual_seed(seed)
+    self._use_graphs = bool(graphs)
+    self.graphs = graphslib.Runner(self.device, [self.generator])
     # Creation pass on tiny data allocates every entry, optimizer slots
     # included.
     with self._scope(create=True):
@@ -84,7 +98,7 @@ class PPOImitation:
       batch = dict(obs=torch.zeros((8, obs_dim)),
                    action=torch.zeros((8, act_dim)), logp=torch.zeros(8),
                    adv=torch.zeros(8), ret=torch.zeros(8))
-      self._update_fn(self._to_device(batch))
+      self._metric_names = sorted(self._update_fn(self._to_device(batch)))
 
   def _scope(self, create=False):
     return nn.scope(generator=self.generator, create=create)
@@ -131,13 +145,24 @@ class PPOImitation:
         metrics = {**mets, **aux}
     return nn.sg(metrics)
 
+  def _run(self, name, fn, inputs):
+    """`fn(inputs)` through its graph, or eagerly on the device without
+    graphs; the output fetched to the host in one copy."""
+    if not self._use_graphs:
+      return fn(self._to_device(inputs)).cpu()
+    inputs = {k: torch.as_tensor(np.asarray(v, np.float32))
+              for k, v in inputs.items()}
+    return self.graphs(name, None, fn, (inputs,)).cpu()
+
+  def _act_step(self, inputs):
+    with torch.no_grad(), self._scope():
+      (action, logp), value = self._act_fn(inputs['obs'])
+      return torch.cat([action, logp[:, None], value[:, None]], -1)
+
   def act(self, obs):
     """Sampled actions, their log-probs and the values, as numpy arrays,
     fetched from the device in one copy."""
-    with torch.no_grad(), self._scope():
-      (action, logp), value = self._act_fn(self._tensor(obs))
-      out = torch.cat([action, logp[:, None], value[:, None]], -1).cpu()
-    out = out.numpy()
+    out = self._run('act', self._act_step, {'obs': obs}).numpy()
     return out[:, :-2], out[:, -2], out[:, -1]
 
   def mean_act(self, obs):
@@ -158,12 +183,14 @@ class PPOImitation:
       adv[t] = lastgaelam
     return adv, adv + values
 
-  def update(self, rollout):
+  def _update_step(self, batch):
     with self._scope():
-      metrics = self._update_fn(self._to_device(rollout))
-    names = sorted(metrics)
-    values = torch.stack([metrics[k].float() for k in names]).cpu().numpy()
-    return {k: float(v) for k, v in zip(names, values)}
+      metrics = self._update_fn(batch)
+    return torch.stack([metrics[k].float() for k in self._metric_names])
+
+  def update(self, rollout):
+    values = self._run('update', self._update_step, rollout).numpy()
+    return {k: float(v) for k, v in zip(self._metric_names, values)}
 
   def save(self):
     """Every state entry by its JAX name, as numpy arrays in the JAX

@@ -6,7 +6,9 @@ updates, logging through the framework Logger. The flags and the loop are
 the JAX trainer's. One default differs: `platform` is `cuda`, and without
 a card the trainer raises unless `--platform cpu` is given. The JAX
 trainer defaults to the host CPU because its nets are tiny MLPs whose cost
-is per-call dispatch; the port runs on the card unless asked otherwise.
+is per-call dispatch; the port runs on the card unless asked otherwise,
+where `act` and `update` replay CUDA graphs, the counterpart of the JAX
+trainer's `jax.jit`.
 
 Usage:
   python -m daydreamer_tpu_torch.imitation.train --gait trot \\

@@ -28,8 +28,17 @@ loss in full precision and the checksum a hash of the whole saved state,
 and before it `LAUNCHES <json>`, the launches of each kernel in the timed
 dispatches of this rank and their count of updates, and `INFO <json>`,
 the world, the backend, the rows of this rank, the bytes of the
-gradients averaged over the ranks in each update and the wall time of one
-all-reduce of that many bytes on this group.
+gradients averaged over the ranks in each update, the wall time of one
+all-reduce of that many bytes on this group, the CUDA graphs of the
+agent (`graphs`: per entry point its graphs, replays, capture seconds and
+pool bytes; empty when it ran eagerly) and a hash of the scalars of a
+report on this rank's rows after the updates (`report_checksum`: reduced
+over the ranks, so the same on every rank; null where the chunk is too
+short for the report's open loop).
+
+Over NCCL the agent runs with `torch.graphs` as the config has it (True by
+default: each update replays one CUDA graph, its collectives inside); over
+gloo it runs eagerly, since a graph cannot capture gloo's collectives.
 """
 
 import argparse
@@ -133,10 +142,12 @@ def main(argv):
     config = config.update(DEBUG, batch_size=4 * world)
   if args.tiny:
     config = config.update(TINY)
-  # Eager unless a flag says otherwise: several ranks on the card cannot
-  # capture CUDA graphs (gloo is not capturable; NCCL capture is not
-  # written), and the agent raises there with `torch.graphs: True`.
-  config = config.update({'torch.graphs': False})
+  # Over gloo eager unless a flag says otherwise: a CUDA graph cannot
+  # capture gloo's collectives, and the agent raises on several ranks on
+  # the card with `torch.graphs: True` there. Over NCCL the updates are
+  # captured with their collectives, as in a single process.
+  if backend != 'nccl':
+    config = config.update({'torch.graphs': False})
   config = ddp.Flags(config).parse(other)
   config = config.update({'torch.device': str(device)})
   env = envs.load_env(config.task, **config.env)
@@ -168,6 +179,15 @@ def main(argv):
   loss = float(mets['model_loss_mean'])
   launches = {k.name: k.launches for k in build.KERNELS}
   launches['updates'] = args.steps * K
+  # The report on this rank's rows, twice (graphed: a capture, then a
+  # replay); its scalars are reduced over the ranks inside the call. Its
+  # open loop starts at step 5, so a shorter chunk (`--tiny`) has none.
+  report_sum = None
+  if config.replay_chunk > 5:
+    for _ in range(2):
+      report = agent.report(local)
+    report_sum = checksum(
+        {k: v for k, v in report.items() if not np.ndim(v)})
   params = sum(p.numel() for p in agent.agent.parameters())
   total = checksum(agent.save())
   # What one average of all the gradients costs on this group: a float32
@@ -180,13 +200,17 @@ def main(argv):
     torch.distributed.all_reduce(bucket)
   sync()
   allreduce_ms = (time.perf_counter() - begin) / 3 * 1e3
+  graphs = agent.graphs.stats()
+  # The graphs may hold the group's collectives: released before it.
+  agent.graphs.captured.clear()
   torch.distributed.destroy_process_group()
   if not np.isfinite(loss):
     raise SystemExit(f'rank {rank}: model loss {loss}')
   # The gradients that the ranks average each update, in float32.
   info = dict(world=world, backend=backend, device=str(device),
               rows=len(local['is_first']), params=params,
-              grad_bytes=4 * params, allreduce_ms=round(allreduce_ms, 3))
+              grad_bytes=4 * params, allreduce_ms=round(allreduce_ms, 3),
+              graphs=graphs, report_checksum=report_sum)
   print(f'INFO {json.dumps(info)}', flush=True)
   print(f'LAUNCHES {json.dumps(launches)}', flush=True)
   print(f'RESULT {rank} {loss!r} {rate:.3f} {total}', flush=True)
