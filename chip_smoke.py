@@ -136,13 +136,18 @@ Phases, each of which must pass:
                windows an arm, one dispatch a window of 32 updates at
                test and 16 at a1 and xarm, each arm's batch-1 policy on
                the card at the test shape, then two windows of the
-               (graphed) policy on the card and on the host mirror there. Every rate must be finite and positive, the
-               update's work (`bench.train_flops`, counted on the loop
-               path) above 0, the device named the card, and at xarm the
-               MFU between 0 and 1 and observe_fwd and observe_bwd launched
-               once a timed update; those launches go on the kernels line
-               under `launches_bench`. The policy gates are printed, not
-               asserted.
+               (graphed) policy on the card and on the host mirror there.
+               Every rate must be finite and positive, the update's work
+               (`bench.train_cost`, FLOPs and bytes counted on the loop
+               path by `nn.cost.CostMode`) above 0, the device named the
+               card, every arm's share of the card's memory rate
+               (`hbm_bw_util`) in (0, 1], and at xarm the MFU between 0
+               and 1 and observe_fwd and observe_bwd launched once a timed
+               update; those launches go on the kernels line under
+               `launches_bench`. At xarm it also prints the configured
+               agent's own count of an update (`train_device_cost`, the
+               fused observe kernels by their formulas) beside the loop
+               path's. The policy gates are printed, not asserted.
  14. graphs  - `torch.graphs` (on by default: every phase above and below
                runs its updates and policy steps as CUDA graphs but where
                it says otherwise) held to the eager path. For xarm (the
@@ -235,9 +240,6 @@ import time
 import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
-PEAK_BF16 = 989e12   # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet).
-PEAK_F32 = 67e12     # H100 SXM float32 FLOP/s outside the tensor cores.
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s.
 
 # The xarm configuration (agents/dreamer/configs.yaml): B*T = 32*32 rows,
 # imag_horizon 15, deter = units = 512, 32x32 latents, 6 actions, three
@@ -315,39 +317,6 @@ def imagine_inputs(dtype, seed=0, **shape):
   return params, actor, stoch0, deter0, action0, gen
 
 
-def imagine_bound(params, actor, stoch0, deter0, action0, H, dtype):
-  """Least time for the rollout: the larger of its operations over the
-  card's peak for the type and its bytes (inputs read once, outputs
-  written once) over the memory rate."""
-  import torch
-  B, SC = stoch0.shape
-  D, A = deter0.shape[1], action0.shape[1]
-  S, U = params['stoch_n'], params['w_in_s'].shape[1]
-  products = [params['w_in_a'], params['w_gru_d'], params['w_gru_x'],
-              *params['w_out'], params['w_st'], actor['w_d'], *actor['w_h'],
-              actor['w_out']]
-  weights = products + [params['w_in_s'], actor['w_s']]
-  # The stoch that the actor's w_s takes, and that w_in_s takes from step 1
-  # on, is the rollout's own one-hot sample: a sum of S weight rows (S * U
-  # adds), not a product. stoch0 @ w_in_s at step 0 is a product.
-  flops = B * (2.0 * H * sum(x.numel() for x in products)
-               + 2.0 * SC * U + (2 * H - 1) * S * U)
-  vectors = [params['ln_in_scale'], params['ln_in_bias'],
-             params['ln_gru_scale'], params['ln_gru_bias'], params['b_st'],
-             *params['ln_out_scale'], *params['ln_out_bias'],
-             *actor['ln_scale'], *actor['ln_bias'], actor['b_out']]
-  item = torch.finfo(dtype).bits // 8
-  bytes_in = item * sum(x.numel() for x in weights + vectors)
-  bytes_in += item * (stoch0.numel() + deter0.numel() + action0.numel())
-  bytes_in += 4 * H * B * (SC + A)                       # Gumbel noise.
-  bytes_out = H * B * (item * (D + SC + A) + 4 * SC)  # Carries, logits.
-  peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
-  t_ops = flops / peak * 1e3
-  t_bytes = (bytes_in + bytes_out) / PEAK_BYTES * 1e3
-  bound_by = 'operations' if t_ops >= t_bytes else 'bytes'
-  return max(t_ops, t_bytes), bound_by, flops, bytes_in + bytes_out
-
-
 def first_flips(out, ref, noise, actor, unimix, act_unimix):
   """Where each row's choices first differ from the plain version's, and
   by how much the plain version's Gumbel-perturbed scores there prefer its
@@ -384,8 +353,10 @@ def check_imagine_actor(at='xarm', **shape):
   """imagine_actor against its plain version at xarm's widths (`shape`
   overrides, e.g. the rows B), in float32 and bfloat16."""
   import torch
+  from daydreamer_tpu_torch.nn import cost
   from daydreamer_tpu_torch.ops import rssm
   H = XARM['H']
+  widths = dict(XARM, **shape)
   results = {}
   for dtype in (torch.float32, torch.bfloat16):
     params, actor, stoch0, deter0, action0, gen = imagine_inputs(
@@ -415,8 +386,10 @@ def check_imagine_actor(at='xarm', **shape):
     ms = cuda_time(lambda: rssm.imagine_actor_cuda(*args, **kw))
     plain_ms = cuda_time(lambda: rssm.imagine_actor_plain(*args, **kw),
                          reps=3, warmup=1)
-    bound_ms, bound_by, flops, nbytes = imagine_bound(
-        params, actor, stoch0, deter0, action0, H, dtype)
+    bound = cost.bound(*rssm.imagine_actor_work(
+        B, H, widths['D'], widths['U'], widths['S'], widths['C'],
+        widths['A'], widths['n_out'], widths['n_act'], dtype), dtype)
+    bound_ms, bound_by = bound['bound_ms'], bound['bound_by']
     name = str(dtype).split('.')[-1]
     steps, gaps = first_flips(out, ref, noise, actor, kw['unimix'],
                               kw['act_unimix'])
@@ -455,7 +428,7 @@ def check_imagine_actor(at='xarm', **shape):
         f'{err0:.3g}; {flips} (tolerance: {tolerance}); kernel '
         f'{ms:.4f} ms, plain '
         f'{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; '
-        f'{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)')
+        f'{bound["flops"] / 1e9:.1f} GFLOP, {bound["nbytes"] / 1e6:.1f} MB)')
     if not ok:
       raise AssertionError(f'imagine_actor disagrees with its plain version '
                            f'in {name} at {at} (B = {B}).')
@@ -549,69 +522,6 @@ def observe_inputs(dtype, shape, seed=0):
   return params, (stoch0, deter0, actions, embeds), is_first, noise, cts
 
 
-def _numel(xs):
-  return sum(x.numel() for x in xs)
-
-
-def observe_bounds(params, data, is_first, dtype):
-  """Least times of the forward and the backward chain: the larger of the
-  operations over the card's peak for the type and the bytes (each input
-  read once, each output written once) over the memory rate. The product
-  of `w_in_s` with the chain's own one-hot (steps 1 .. T-1) is a gather of
-  S rows, S * U adds; with stoch0 (step 0) it is a product."""
-  import torch
-  stoch0, deter0, actions, embeds = data
-  T, B, A = actions.shape
-  SC, U = params['w_in_s'].shape
-  D, S, E = deter0.shape[1], params['stoch_n'], embeds.shape[-1]
-  n_out = len(params['w_out'])
-  item = torch.finfo(dtype).bits // 8
-  peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
-  cell = [params['w_in_a'], params['w_gru_d'], params['w_gru_x'],
-          *params['w_out']]
-  cell_vectors = [params['ln_in_scale'], params['ln_in_bias'],
-                  params['ln_gru_scale'], params['ln_gru_bias'],
-                  *params['ln_out_scale'], *params['ln_out_bias']]
-  obs_vectors = [params['ln_obs_scale'], params['ln_obs_bias']]
-  stoch_ops = B * (2.0 * SC * U + (T - 1) * S * U)
-  bounds = {}
-  # Forward.
-  products = cell + [params['w_st'], params['w_obs_d'], params['w_obs_e'],
-                     params['w_post']]
-  flops = 2.0 * T * B * _numel(products) + stoch_ops
-  weights = products + [params['w_in_s']] + cell_vectors + obs_vectors + [
-      params['b_st'], params['b_post']]
-  nbytes = item * (_numel(weights) + _numel(data))
-  nbytes += 4 * T * B + 4 * T * B * SC                    # is_first, noise.
-  nbytes += T * B * (item * (D + SC) + 2 * 4 * SC)        # The four outputs.
-  bounds['observe_fwd'] = (flops, nbytes)
-  # Backward: the recomputed cell and z2's deter half, then every
-  # transposed product.
-  recomputed = cell + [params['w_obs_d']]
-  transposed = [params['w_post'], params['w_obs_d'], params['w_st'],
-                *params['w_out'], params['w_gru_x'], params['w_gru_d'],
-                params['w_in_s']]
-  flops = 2.0 * T * B * (_numel(recomputed) + _numel(transposed)) + stoch_ops
-  weights = cell + [params['w_in_s'], params['w_st'], params['w_obs_d'],
-                    params['w_post']] + cell_vectors + obs_vectors
-  nbytes = item * (_numel(weights) + _numel([stoch0, deter0, actions]))
-  nbytes += 4 * T * B                                      # is_first.
-  nbytes += T * B * (item * (U + D + SC) + 4 * SC)  # e_proj, saved forward.
-  nbytes += 4 * T * B * (D + 3 * SC)                       # Cotangents.
-  nbytes += 4 * T * B * ((4 + 2 * n_out) * U + 6 * D + SC)  # Adjoints.
-  nbytes += 4 * B * (SC + D)                               # ds0, dd0.
-  bounds['observe_bwd'] = (flops, nbytes)
-  out = {}
-  for name, (flops, nbytes) in bounds.items():
-    t_ops = flops / peak * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    out[name] = dict(
-        bound_ms=max(t_ops, t_bytes),
-        bound_by='operations' if t_ops >= t_bytes else 'bytes',
-        flops=flops, nbytes=nbytes)
-  return out
-
-
 def _scaled_errors(got, want):
   """Largest |got - want| over the largest |want|, per tensor."""
   errs = []
@@ -632,6 +542,7 @@ def check_observe(shape, at='xarm'):
   (its name `at` on every line), in float32 and bfloat16; in float32 also
   the whole gradient through ObserveFused."""
   import torch
+  from daydreamer_tpu_torch.nn import cost
   from daydreamer_tpu_torch.ops import rssm_vjp as ops
   T, B, S, C = (shape[k] for k in 'TBSC')
   unimix = shape['unimix']
@@ -645,7 +556,12 @@ def check_observe(shape, at='xarm'):
   for dtype in (torch.float32, torch.bfloat16):
     name = str(dtype).split('.')[-1]
     params, data, is_first, noise, cts = observe_inputs(dtype, shape)
-    bounds = observe_bounds(params, data, is_first, dtype)
+    dims = dict(T=T, B=B, A=shape['A'], D=shape['D'], U=shape['U'], S=S,
+                C=C, n_out=shape['n_out'], dtype=dtype)
+    bounds = {
+        'observe_fwd': cost.bound(*ops.observe_fwd_work(
+            E=shape['E'], **dims), dtype),
+        'observe_bwd': cost.bound(*ops.observe_bwd_work(**dims), dtype)}
     args = (params, *data, is_first)
     kw = dict(noise=noise, unimix=unimix, sample=True)
 
@@ -783,50 +699,6 @@ PROOF_OBSERVE_A1 = dict(PROOF_OBSERVE, D=256, U=256, A=12)
 PROOF_GVE = (15, 2048)  # (horizon, lanes), the largest of its sizes.
 
 
-def _bound(flops, nbytes, dtype):
-  import torch
-  peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
-  t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-  return dict(bound_ms=max(t_ops, t_bytes),
-              bound_by='operations' if t_ops >= t_bytes else 'bytes',
-              flops=flops, nbytes=nbytes)
-
-
-def rollout_bounds(params, stoch0, deter0, actions, embeds, dtype):
-  """Least time of `imagine` (embeds None) or of the forward-only `observe`
-  on these inputs, by the method of `imagine_bound`: every product dense
-  but the one with the chain's own one-hot stoch (steps 1 .. T-1), which is
-  a gather of S weight rows. `observe` reads no prior head, so none of
-  `w_out*`, `w_st`, `b_st` is counted for it."""
-  import torch
-  T, B, A = actions.shape
-  SC, U = params['w_in_s'].shape
-  D, S = deter0.shape[1], params['stoch_n']
-  item = torch.finfo(dtype).bits // 8
-  products = [params['w_in_a'], params['w_gru_d'], params['w_gru_x']]
-  vectors = [params['ln_in_scale'], params['ln_in_bias'],
-             params['ln_gru_scale'], params['ln_gru_bias']]
-  data = [stoch0, deter0, actions]
-  if embeds is None:
-    products += [*params['w_out'], params['w_st']]
-    vectors += [*params['ln_out_scale'], *params['ln_out_bias'],
-                params['b_st']]
-  else:
-    products += [params['w_obs_d'], params['w_obs_e'], params['w_post']]
-    vectors += [params['ln_obs_scale'], params['ln_obs_bias'],
-                params['b_post']]
-    data.append(embeds)
-  flops = (2.0 * T * B * _numel(products)
-           + B * (2.0 * SC * U + (T - 1) * S * U))
-  nbytes = item * (_numel(products) + _numel([params['w_in_s']])
-                   + _numel(vectors) + _numel(data))
-  nbytes += 4 * T * B * SC                              # Gumbel noise.
-  if embeds is not None:
-    nbytes += 4 * T * B                                 # is_first.
-  nbytes += T * B * (item * (D + SC) + 4 * SC)          # The three outputs.
-  return _bound(flops, nbytes, dtype)
-
-
 def _compare_rollout(label, kernel, plain, args, kw, dims, dtype, bound):
   """One rollout kernel against its plain version on shared noise (kw), and
   again without noise. Returns its entry of the result."""
@@ -934,6 +806,7 @@ def check_proof_kernels():
   """`imagine`, `observe` and `gve` against their plain versions at the
   xarm shapes of the proof entry point."""
   import torch
+  from daydreamer_tpu_torch.nn import cost
   from daydreamer_tpu_torch.ops import lambda_returns as lr
   from daydreamer_tpu_torch.ops import rssm
   results = {'imagine': {}, 'observe': {}, 'gve': {}}
@@ -960,7 +833,9 @@ def check_proof_kernels():
         'imagine', rssm.imagine_cuda, rssm.imagine_plain,
         (params, stoch0, deter0, actions), dict(noise=noise, unimix=0.01),
         (s['H'], s['B'], s['S'], s['C']), dtype,
-        rollout_bounds(params, stoch0, deter0, actions, None, dtype))
+        cost.bound(*rssm.rollout_work(
+            s['H'], s['B'], s['A'], s['D'], s['U'], s['S'], s['C'],
+            s['n_out'], dtype), dtype))
     # observe: a chunk with first steps at step 0 and inside it.
     s = PROOF_OBSERVE
     params, data, is_first, noise, _ = observe_inputs(dtype, s)
@@ -969,7 +844,9 @@ def check_proof_kernels():
         'observe', rssm.observe_cuda, rssm.observe_plain,
         (params, *data, is_first), dict(noise=noise, unimix=0.01),
         (s['T'], s['B'], s['S'], s['C']), dtype,
-        rollout_bounds(params, *data, dtype))
+        cost.bound(*rssm.rollout_work(
+            s['T'], s['B'], s['A'], s['D'], s['U'], s['S'], s['C'],
+            s['n_out'], dtype, E=s['E']), dtype))
     # The prologue's and the chain's device times apart.
     log_device_times(f'observe {name}', device_times(
         lambda: rssm.observe_cuda(params, *data, is_first, noise=noise)))
@@ -993,7 +870,7 @@ def check_proof_kernels():
   ms = cuda_time(lambda: lr.gve_triton(interm, disc, boot, 0.95), reps=200)
   plain_ms = cuda_time(lambda: lr.gve_plain(interm, disc, boot, 0.95),
                        reps=50)
-  bound = _bound(2.0 * H * n, 4 * (3 * H * n + n), torch.float32)
+  bound = cost.bound(*lr.gve_work(H, n), torch.float32)
   # The call time above is CUDA events around back-to-back calls, so for a
   # kernel of 0.1 us of work it is the host's launch rate; the profiler
   # reads the kernel's own time on the device.
@@ -2448,21 +2325,24 @@ PROFILED_OBSERVE = ('embed_kernel', 'chain_kernel', 'prior_kernel',
 
 def phase_tooling():
   """The port's two instruments as a user runs them. First
-  `scripts/profile_train.py --shape xarm --dispatches 2` (K = 16: one
-  dispatch that creates the state, two warm, two traced, so 80 updates):
-  its wrappers must count observe_fwd and observe_bwd once a traced update
-  and `observe` never, its trace must show observe_fwd's three device
-  functions and observe_bwd's one launched once an update, and the
-  device's busy time must be under the wall time. Then
+  `scripts/profile_train.py --shape xarm --dispatches 2` (K = 16:
+  one dispatch that creates the state, two warm, two traced, so 80
+  updates; then the bytes of an update by category): its wrappers must
+  count observe_fwd and observe_bwd once a traced update and `observe`
+  never, its trace must show observe_fwd's three device functions and
+  observe_bwd's one launched once an update, the device's busy time must
+  be under the wall time, and the bytes of an update over the busy time
+  must stay under the card's memory rate. Then
   `scripts/policy_latency.py` at `--shape a1` and `--shape test`, the card
   and the host mirror: each must print its result, and the card's whole
   policy call at a1 must take under 50 ms. Returns the profile's launches
   of each kernel."""
+  from daydreamer_tpu_torch.nn import cost
   rundir = new_logdir('tooling')
   report = run_tool('profile_train (xarm)',
                     'daydreamer_tpu_torch.scripts.profile_train',
-                    ['--shape', 'xarm', '--dispatches', '2', '--out',
-                     str(rundir / 'profile_xarm.json')], rundir)
+                    ['--shape', 'xarm', '--dispatches', '2',
+                     '--out', str(rundir / 'profile_xarm.json')], rundir)
   updates, launches = report['updates_traced'], report['wrapper_launches']
   traced = {}
   for row in report['own_kernels']:
@@ -2489,6 +2369,19 @@ def phase_tooling():
       f'category (ms, launches an update): ' + ', '.join(
           f'{r["category"]} {r["ms_per_update"]:.3f} / '
           f'{r["launches_per_update"]:.1f}' for r in report['categories']))
+  counted = report['bytes']
+  rate = counted['bytes_per_update'] / report['device_busy_ms_per_update'] / (
+      1e6)
+  log(f'profile_train (xarm): {counted["bytes_per_update"]} bytes an update '
+      f'(train_device_cost), {counted["twin_bytes_per_update"]} on the '
+      f'loop-path twin; {rate:.1f} GB/s over the busy time; by category '
+      f'(GB an update, twin GB, device ms, GB/s): ' + ', '.join(
+          f'{r["category"]} {r["bytes_per_update"] / 1e9:.4f} / '
+          f'{r["twin_bytes_per_update"] / 1e9:.4f} / '
+          f'{r["device_ms_per_update"]} / {r["gb_per_s"]}'
+          for r in counted['categories']))
+  if not 0 < rate <= cost.H100['hbm_bytes'] / 1e9:
+    raise AssertionError(f'profile_train: {rate} GB/s over the busy time')
   for shape in ('a1', 'test'):
     result = run_tool(f'policy_latency ({shape})',
                       'daydreamer_tpu_torch.scripts.policy_latency',
@@ -2568,8 +2461,13 @@ BENCH_K = {'test': 32, 'a1': 16, 'xarm': 16}
 def phase_bench(device_name):
   """The port's `scripts/bench.py` pieces at its three shapes with short
   budgets (see the module's docstring, phase 13), each shape's eager and
-  graphed arm (`bench.compare_graphs`) in turn. Returns the launches of
-  each kernel in the graphed arm's timed windows at xarm."""
+  graphed arm (`bench.compare_graphs`) in turn. `hbm_bw_util` holds the
+  loop-path twin's bytes (`bytes_per_update`) to the timed program's rate,
+  so where the timed program's own count is smaller (the fused observe
+  kernels at xarm) it reads high by the ratio of the two, and the gate at 1
+  holds the twin's count, not the timed program's; at xarm the share of
+  the agent's own count is printed beside it. Returns the launches of each
+  kernel in the graphed arm's timed windows at xarm."""
   import torch
   from daydreamer_tpu_torch.scripts import bench
   device = torch.device('cuda')
@@ -2585,15 +2483,32 @@ def phase_bench(device_name):
       log(f'bench ({shape}, {arm}): {res["updates_per_s"]} updates/s median '
           f'of {rates[1:]}, first dispatch {res["first_dispatch_s"]:.3f} s, '
           f'capture {res["capture_s"]} s, pool {res["pool_bytes"]} bytes, '
-          f'{rows["flops_per_update"]} FLOPs an update, MFU {res["mfu"]}, '
+          f'{rows["flops_per_update"]} FLOPs and {rows["bytes_per_update"]} '
+          f'bytes an update, MFU {res["mfu"]}, HBM share '
+          f'{res["hbm_bw_util"]}, '
           f'launches {res["launches"]} in {res["updates_timed"]} timed '
           f'updates, model loss {res["model_loss"]}'
           + (f', policy {res["policy"]["median_s"] * 1e3:.4f} ms a call'
              if 'policy' in res else ''))
       if (not all(math.isfinite(r) and r > 0 for r in rates)
-          or not rows['flops_per_update'] > 0 or res['device'] != device_name
+          or not rows['flops_per_update'] > 0
+          or not (rows['bytes_per_update'] or 0) > 0
+          or not 0 < (res['hbm_bw_util'] or 0) <= 1.0
+          or res['device'] != device_name
           or not math.isfinite(res['model_loss'])):
         raise AssertionError(f'bench ({shape}, {arm}): {res}')
+    if shape == 'xarm':
+      own = rows.get('own_cost') or {}
+      if not (own.get('bytes accessed') or 0) > 0:
+        raise AssertionError(f'bench (xarm): no count of its own: {own}')
+      share = own['bytes accessed'] / rows['bytes_per_update']
+      log(f'bench (xarm): an update of the configured agent '
+          f'(train_device_cost) {own["flops"]} FLOPs, '
+          f'{own["bytes accessed"]} bytes; of the loop-path twin '
+          f'{rows["flops_per_update"]} FLOPs, {rows["bytes_per_update"]} '
+          f'bytes; bytes over the twin\'s '
+          f'{share:.4f}; HBM share of its own bytes, graphed '
+          f'{rows["graphed"]["hbm_bw_util"] * share:.4f}')
     log(f'bench ({shape}): {time.perf_counter() - begin:.1f} s; graphed over '
         f'eager {rows["speedup"]:.3f}'
         + (f', policy {rows["policy_speedup"]:.3f}'

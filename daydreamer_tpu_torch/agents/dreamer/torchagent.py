@@ -727,6 +727,44 @@ class TorchAgent:
     return {}, graphslib.clone(call.inputs[0]), LazyMetrics(
         self._metric_names, packeds, fused=True)
 
+  def train_device_cost(self, replay, steps, state):
+    """The work of ONE `train_device` dispatch of `steps` updates from
+    `replay` as the agent is configured, the counterpart of the JAX
+    agent's XLA cost analysis: {'flops': ..., 'bytes accessed': ...}, and
+    under 'table' the count by op and kernel ({name: [calls, flops,
+    bytes]}). `nn.cost.CostMode` counts the dispatch as it runs on the
+    agent's device: the ring's draw, the updates and, on a prioritized
+    ring, the priorities' writes; each kernel by its formula. A graph's
+    replay dispatches no aten op, so the counted dispatch runs eagerly.
+
+    Unlike XLA's lowering, it executes. So it leaves everything as it
+    found it: the agent's state (parameters, optimizer state), its
+    generators, the ring's priorities and its count of updates are put
+    back bit for bit, and `state` is not touched. Kernels launched on the
+    card count their launches as any launch does."""
+    from ...nn import cost
+    self._create()
+    live = nn.state(self.agent)
+    saved = {k: v.detach().clone() for k, v in live.items()}
+    generators = [(g, g.get_state()) for g in (
+        self.generator, self._policy_generator)]
+    prios = None if replay.prios is None else replay.prios.clone()
+    use_graphs, train_steps = self._use_graphs, self._train_steps
+    try:
+      self._use_graphs = False
+      with cost.CostMode(self.device) as counter:
+        self.train_device(replay, steps, graphslib.clone(state))
+    finally:
+      self._use_graphs, self._train_steps = use_graphs, train_steps
+      with torch.no_grad():
+        for key, value in live.items():
+          value.copy_(saved[key])
+        if prios is not None:
+          replay.prios.copy_(prios)
+      for generator, generator_state in generators:
+        generator.set_state(generator_state)
+    return {**counter.cost(), 'table': dict(counter.table)}
+
   def make_device_replay(self, capacity=None, block=None, prioritized=None):
     """Construct a DeviceReplay matching this agent's batch layout, on
     the agent's device."""

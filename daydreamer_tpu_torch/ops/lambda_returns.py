@@ -20,6 +20,7 @@ is nothing else to fuse or to tile.
 import torch
 
 from . import build
+from ..nn import cost
 
 f32 = torch.float32
 BLOCK = 128  # Lanes per program.
@@ -94,8 +95,17 @@ def gve_triton(interm, disc, bootstrap, lam):
   return out
 
 
+def gve_work(H, n):
+  """(flops, bytes) of one launch over H steps of n float32 lanes: a
+  multiply-add a value; interm and disc read, the bootstrap read, the
+  returns written."""
+  return 2.0 * H * n, 4 * (3 * H * n + n)
+
+
 def gve(interm, disc, bootstrap, lam):
   """ret[t] = interm[t] + disc[t] * lam * ret[t + 1], ret[H] = bootstrap.
   A CUDA input launches the Triton kernel, a CPU input runs the loop."""
   fn = gve_plain if interm.device.type == 'cpu' else gve_triton
-  return fn(interm, disc, bootstrap, lam)
+  with cost.kernel('gve', lambda: gve_work(interm.shape[0],
+                                           bootstrap.numel())):
+    return fn(interm, disc, bootstrap, lam)

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from . import build
+from ..nn import cost
 from ..nn.dists import gumbel
 
 f32 = torch.float32
@@ -221,6 +222,75 @@ def _prior_layers(name, params, D, U):
   return layers
 
 
+# The work of each kernel: its operations (2 a product's multiply-add; the
+# product of `w_in_s`, and of the actor's `w_s`, with the chain's own
+# one-hot stoch a gather of S weight rows, S * U adds) and its bytes (each
+# input read once, each output written once), at these widths in `dtype`.
+# `cost.bound` turns them into the least time on the card, and the
+# wrappers count them under `cost.CostMode`.
+
+
+def cell_numel(A, D, U, n_out=None):
+  """(products, vectors) of the image cell (w_in_a, the GRU's two kernels,
+  their norms' scales and biases) and, with `n_out`, the prior MLP's
+  layers without their head."""
+  products = A * U + 3 * D * D + 3 * U * D
+  vectors = 2 * U + 6 * D
+  if n_out:
+    products += D * U + (n_out - 1) * U * U
+    vectors += 2 * U * n_out
+  return products, vectors
+
+
+def widths(params, actions, E=None):
+  """(T, B, A[, E], D, U, S, C, n_out) of a chain, read from its inputs:
+  the widths the `*_work` functions take."""
+  T, B, A = actions.shape
+  SC, U = params['w_in_s'].shape
+  D = params['w_gru_d'].shape[0]
+  S, C = params['stoch_n'], params['classes']
+  return (T, B, A) + ((E,) if E is not None else ()) + (
+      D, U, S, C, len(params['w_out']))
+
+
+def imagine_actor_work(B, H, D, U, S, C, A, n_out, n_act, dtype):
+  """(flops, bytes) of one call of `csrc/imagine_actor.cu`. The stoch that
+  the actor's w_s takes, and that w_in_s takes from step 1 on, is the
+  rollout's own one-hot sample; stoch0 @ w_in_s at step 0 is a product."""
+  item, SC = cost.itemsize(dtype), S * C
+  cell, cell_vectors = cell_numel(A, D, U, n_out)
+  products = cell + U * SC + D * U + (n_act - 1) * U * U + U * A
+  flops = B * (2.0 * H * products + 2.0 * SC * U + (2 * H - 1) * S * U)
+  weights = products + 2 * SC * U                      # w_in_s, actor w_s.
+  vectors = cell_vectors + SC + 2 * U * n_act + A
+  nbytes = item * (weights + vectors + B * (SC + D + A))
+  nbytes += 4 * H * B * (SC + A)                       # Gumbel noise.
+  nbytes += H * B * (item * (D + SC + A) + 4 * SC)     # Carries, logits.
+  return flops, nbytes
+
+
+def rollout_work(T, B, A, D, U, S, C, n_out, dtype, E=None):
+  """(flops, bytes) of one call of `csrc/imagine.cu` (E None) or of the
+  forward-only `csrc/observe.cu` (E, the embeds' width). `observe` reads
+  no prior head, so none of `w_out*`, `w_st`, `b_st` counts for it."""
+  item, SC = cost.itemsize(dtype), S * C
+  products, vectors = cell_numel(A, D, U, n_out if E is None else None)
+  products += U * SC                                   # w_st or w_post.
+  vectors += SC
+  data = B * SC + B * D + T * B * A                    # stoch0, deter0, acts.
+  if E is not None:
+    products += D * U + E * U                          # w_obs_d, w_obs_e.
+    vectors += 2 * U
+    data += T * B * E
+  flops = 2.0 * T * B * products + B * (2.0 * SC * U + (T - 1) * S * U)
+  nbytes = item * (products + SC * U + vectors + data)
+  nbytes += 4 * T * B * SC                             # Gumbel noise.
+  if E is not None:
+    nbytes += 4 * T * B                                # is_first.
+  nbytes += T * B * (item * (D + SC) + 4 * SC)         # The three outputs.
+  return flops, nbytes
+
+
 def imagine_actor_cuda(params, actor, stoch0, deter0, action0, horizon,
                        noise=None, unimix=0.01, act_unimix=0.01):
   """The rollout as one launch of the CUDA kernel; same contract as
@@ -289,8 +359,13 @@ def imagine_actor(params, actor, stoch0, deter0, action0, horizon,
     noise = None
   fn = imagine_actor_plain if stoch0.device.type == 'cpu' else (
       imagine_actor_cuda)
-  return fn(params, actor, stoch0, deter0, action0, horizon, noise=noise,
-            unimix=unimix, act_unimix=act_unimix)
+  work = lambda: imagine_actor_work(
+      stoch0.shape[0], horizon, deter0.shape[1], params['w_in_s'].shape[1],
+      params['stoch_n'], params['classes'], action0.shape[-1],
+      len(params['w_out']), len(actor['ln_scale']), stoch0.dtype)
+  with cost.kernel('imagine_actor', work):
+    return fn(params, actor, stoch0, deter0, action0, horizon, noise=noise,
+              unimix=unimix, act_unimix=act_unimix)
 
 
 # ---------------------------------------------------------------------------
@@ -376,7 +451,9 @@ def imagine(params, stoch0, deter0, actions, generator=None, unimix=0.01,
   if not sample:
     noise = None
   fn = imagine_plain if stoch0.device.type == 'cpu' else imagine_cuda
-  return fn(params, stoch0, deter0, actions, noise=noise, unimix=unimix)
+  work = lambda: rollout_work(*widths(params, actions), stoch0.dtype)
+  with cost.kernel('imagine', work):
+    return fn(params, stoch0, deter0, actions, noise=noise, unimix=unimix)
 
 
 # ---------------------------------------------------------------------------
@@ -495,8 +572,11 @@ def observe(params, stoch0, deter0, actions, embeds, is_first,
   if not sample:
     noise = None
   fn = observe_plain if stoch0.device.type == 'cpu' else observe_cuda
-  return fn(params, stoch0, deter0, actions, embeds, is_first, noise=noise,
-            unimix=unimix)
+  work = lambda: rollout_work(*widths(params, actions), stoch0.dtype,
+                              E=embeds.shape[-1])
+  with cost.kernel('observe', work):
+    return fn(params, stoch0, deter0, actions, embeds, is_first, noise=noise,
+              unimix=unimix)
 
 
 # ---------------------------------------------------------------------------

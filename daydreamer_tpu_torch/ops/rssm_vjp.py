@@ -41,6 +41,8 @@ import ctypes
 import torch
 
 from . import build
+from .rssm import cell_numel, widths
+from ..nn import cost
 from ..nn.dists import gumbel
 
 f32 = torch.float32
@@ -543,6 +545,48 @@ def observe_bwd_cuda(params, stoch0, deter0, actions, e_proj, is_first,
 
 
 # ---------------------------------------------------------------------------
+# The work of each kernel: its operations (2 a product's multiply-add, the
+# product of `w_in_s` with the chain's own one-hot at steps 1 .. T-1 a
+# gather of S weight rows, S * U adds; with stoch0 at step 0 a product)
+# and its bytes (each input read once, each output written once), at
+# these widths in `dtype`. `cost.bound` turns them into the least time on
+# the card, and the wrappers count them under `cost.CostMode`.
+
+
+def observe_fwd_work(T, B, A, E, D, U, S, C, n_out, dtype):
+  """(flops, bytes) of one call of `csrc/observe_fwd.cu`."""
+  item, SC = cost.itemsize(dtype), S * C
+  cell, cell_vectors = cell_numel(A, D, U, n_out)
+  products = cell + U * SC + D * U + E * U + U * SC  # w_st, obs, w_post.
+  flops = 2.0 * T * B * products + B * (2.0 * SC * U + (T - 1) * S * U)
+  weights = products + SC * U + cell_vectors + 2 * U + 2 * SC
+  data = B * SC + B * D + T * B * (A + E)  # stoch0, deter0, actions, embeds.
+  nbytes = item * (weights + data)
+  nbytes += 4 * T * B + 4 * T * B * SC                    # is_first, noise.
+  nbytes += T * B * (item * (D + SC) + 2 * 4 * SC)        # The four outputs.
+  return flops, nbytes
+
+
+def observe_bwd_work(T, B, A, D, U, S, C, n_out, dtype):
+  """(flops, bytes) of one call of `csrc/observe_bwd.cu`: the recomputed
+  cell and z2's deter half, then every transposed product."""
+  item, SC = cost.itemsize(dtype), S * C
+  cell, cell_vectors = cell_numel(A, D, U, n_out)
+  recomputed = cell + D * U
+  transposed = cell - A * U + 2 * U * SC + D * U + SC * U
+  flops = (2.0 * T * B * (recomputed + transposed)
+           + B * (2.0 * SC * U + (T - 1) * S * U))
+  weights = cell + SC * U + U * SC + D * U + U * SC + cell_vectors + 2 * U
+  nbytes = item * (weights + B * SC + B * D + T * B * A)
+  nbytes += 4 * T * B                                      # is_first.
+  nbytes += T * B * (item * (U + D + SC) + 4 * SC)  # e_proj, saved forward.
+  nbytes += 4 * T * B * (D + 3 * SC)                       # Cotangents.
+  nbytes += 4 * T * B * ((4 + 2 * n_out) * U + 6 * D + SC)  # Adjoints.
+  nbytes += 4 * B * (SC + D)                               # ds0, dd0.
+  return flops, nbytes
+
+
+# ---------------------------------------------------------------------------
 # Autograd.
 
 
@@ -558,9 +602,12 @@ class ObserveFused(torch.autograd.Function):
     params = unflatten_params(flat, n_out, stoch_n, classes)
     fn = observe_fwd_plain if stoch0.device.type == 'cpu' else (
         observe_fwd_cuda)
-    deters, post_logits, prior_logits, stochs = fn(
-        params, stoch0, deter0, actions, embeds, is_first, noise=noise,
-        unimix=unimix, sample=sample)
+    work = lambda: observe_fwd_work(
+        *widths(params, actions, embeds.shape[-1]), stoch0.dtype)
+    with cost.kernel('observe_fwd', work):
+      deters, post_logits, prior_logits, stochs = fn(
+          params, stoch0, deter0, actions, embeds, is_first, noise=noise,
+          unimix=unimix, sample=sample)
     ctx.save_for_backward(stoch0, deter0, actions, embeds, is_first, deters,
                           post_logits, stochs, *flat)
     ctx.cfg = (n_out, stoch_n, classes, unimix)
@@ -576,8 +623,11 @@ class ObserveFused(torch.autograd.Function):
     e_proj = (embeds.float() @ params['w_obs_e'].float()).to(actions.dtype)
     fn = observe_bwd_plain if stoch0.device.type == 'cpu' else (
         observe_bwd_cuda)
-    adjoints = fn(params, stoch0, deter0, actions, e_proj, is_first, deters,
-                  post_logits, stochs, cts, unimix=unimix)
+    work = lambda: observe_bwd_work(*widths(params, actions),
+                                    stoch0.dtype)
+    with cost.kernel('observe_bwd', work):
+      adjoints = fn(params, stoch0, deter0, actions, e_proj, is_first,
+                    deters, post_logits, stochs, cts, unimix=unimix)
     grads, da, de = observe_weight_grads(
         params, stoch0, deter0, actions, embeds, is_first, deters, stochs,
         adjoints, cts[2])

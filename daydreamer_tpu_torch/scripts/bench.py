@@ -24,16 +24,28 @@ but the kernels, which are built before the first shape (`kernel_build`).
 Each kernel's launches in the timed windows are reported beside them.
 
 The work of an update is counted from the program, not from XLA
-(`train_flops`): the matmul and convolution FLOPs of one gradient update
-under `torch.utils.flop_counter.FlopCounterMode`, on a twin of the agent
-that takes the loop path (`rssm.impl: scan`, `imag_impl: scan`), since the
-counter cannot see inside the custom kernels. It is the same work whatever
-implements it, so it is the count for every `impl` of a config. `mfu` is
-that count times updates/s over the card's dense bfloat16 peak (`PEAKS`,
-keyed by `torch.cuda.get_device_name`); on a card the table lacks, and on
-the CPU, it is null. `bytes_per_update` and `hbm_bw_util` are null: XLA's
-count of the bytes an update accesses has no honest counterpart in an eager
-program yet.
+(`train_cost`): one gradient update under `nn.cost.CostMode`, on a twin of
+the agent that takes the loop path (`rssm.impl: scan`, `imag_impl: scan`)
+eagerly, one pass for both counts. `flops_per_update` is its matmul and
+convolution FLOPs, the formulas of `torch.utils.flop_counter` (equal to
+`train_flops`, `FlopCounterMode`'s count); `bytes_per_update` the bytes its
+aten ops access on the device, each op's operands read once and results
+written once. It is the same work whatever implements it, so it is the
+count for every `impl` and both graphs arms of a config: the numerator
+stays fixed. This deliberately differs from the JAX bench's XLA count,
+which is taken after fusion: here every op of the eager loop path is one
+kernel, so an intermediate is written and read where XLA's fused program
+keeps it on chip, and every step of a loop counts. `mfu` is the FLOPs times
+updates/s over the card's dense bfloat16 peak, `hbm_bw_util` the bytes
+times updates/s over its memory rate (`PEAKS`, keyed by
+`torch.cuda.get_device_name`); on a card the table lacks, and on the CPU,
+both are null. At xarm the configured agent's own count of an update
+(`TorchAgent.train_device_cost`, the fused observe kernels by their
+formulas) is printed beside the twin's, under `own_cost`. Where the timed
+program's own count is smaller than the twin's, as there, `hbm_bw_util`
+reads high by the ratio of the two: it is the twin's bytes at the timed
+program's rate, and a share over 1 says that the twin's count exceeds what
+the card could have moved in the timed program's time.
 
 The policy (`measure_policy`): batch-1 `agent.policy` calls on the card and
 on the host-CPU mirror (`torch.policy_devices: cpu`), which must run, and
@@ -74,13 +86,14 @@ import time
 import numpy as np
 
 from . import profile_train
+from ..nn import cost
 from .profile_train import card, resolve_device
 
 BASELINE_UPDATES_PER_S = 1.0 / 0.02  # Reference tests.py:70-71.
 
 # Dense bfloat16 FLOP/s and HBM bytes/s of a card, keyed by
-# torch.cuda.get_device_name: NVIDIA's data sheet, H100 SXM.
-PEAKS = {'NVIDIA H100 80GB HBM3': {'bf16_flops': 989e12, 'hbm_bytes': 3.35e12}}
+# torch.cuda.get_device_name.
+PEAKS = {'NVIDIA H100 80GB HBM3': cost.H100}
 
 SHAPES = profile_train.SHAPES
 build_agent = profile_train.build_agent
@@ -96,7 +109,7 @@ UNITS = {
     'xarm': ('updates/s median (xarm shape: image cnn64 + proprio, '
              'deter512, batch32,chunk32, fused x16, 1 card)'),
 }
-# The twin whose update `train_flops` counts: no custom kernel, and eager,
+# The twin whose update `train_cost` counts: no custom kernel, and eager,
 # so that the counter sees the update once (a graph's first call runs it
 # and then captures it, and the counter would see both).
 LOOP_PATH = {'rssm.impl': 'scan', 'imag_impl': 'scan', 'torch.graphs': False}
@@ -122,29 +135,49 @@ def free_memory(device):
     torch.cuda.empty_cache()
 
 
-def train_flops(task, overrides, device):
-  """The matmul and convolution FLOPs of one gradient update at (task,
-  overrides): `agent.train` on the shape's batch, under FlopCounterMode, on
-  a twin that takes the loop path, after one update that creates its state.
-  The twin is freed before this returns."""
-  from torch.utils.flop_counter import FlopCounterMode
+def _twin_update(task, overrides, device, mode):
+  """One gradient update at (task, overrides), `agent.train` on the
+  shape's batch, under `mode`, on a twin that takes the loop path, after one
+  update that creates its state. The twin is freed before this returns."""
   device = resolve_device(device)
   twin, data = build_agent(task, {**overrides, **LOOP_PATH}, device)
   _, state, _ = twin.train(data)
-  with FlopCounterMode(display=False) as counter:
+  with mode:
     twin.train(data, state)
   del twin, state
   free_memory(device)
+  return mode
+
+
+def train_flops(task, overrides, device):
+  """The matmul and convolution FLOPs of one gradient update at (task,
+  overrides) under `torch.utils.flop_counter.FlopCounterMode`: the count
+  that `train_cost`'s FLOPs are held to."""
+  from torch.utils.flop_counter import FlopCounterMode
+  counter = _twin_update(task, overrides, device,
+                         FlopCounterMode(display=False))
   return int(counter.get_total_flops())
 
 
+def train_cost(task, overrides, device):
+  """The work of one gradient update at (task, overrides), one pass of
+  `nn.cost.CostMode` on the device over the loop-path twin: {'flops',
+  'bytes', 'table'} ({op: [calls, flops, bytes]})."""
+  device = resolve_device(device)
+  counter = _twin_update(task, overrides, device, cost.CostMode(device))
+  return {'flops': counter.flops, 'bytes': counter.nbytes,
+          'table': dict(counter.table)}
+
+
 def measure_updates(agent, data, K, sample_budget_s, windows=60, calls=2,
-                    flops=None):
+                    flops=None, nbytes=None, own_cost=False):
   """Median steady-state updates/s of `agent.train_device` from a ring of
   4096 steps, K updates a dispatch, over windows of `calls` dispatches that
-  stop once `sample_budget_s` has passed. `flops` is the work of an update
-  (`train_flops`); with it and a card of `PEAKS`, `mfu`. Returns (result,
-  state)."""
+  stop once `sample_budget_s` has passed. `flops` and `nbytes` are the
+  work of an update (`train_cost`); with them and a card of `PEAKS`, `mfu`
+  and `hbm_bw_util`. With `own_cost`, after the windows, the agent's own
+  count of one update from the same ring (`train_device_cost`) under
+  `own_cost`. Returns (result, state)."""
   replay = profile_train.fill_ring(agent, data)
   begin = time.perf_counter()
   state, loss = profile_train._dispatch(agent, replay, K, None)
@@ -169,8 +202,13 @@ def measure_updates(agent, data, K, sample_budget_s, windows=60, calls=2,
   launches = {k.name: k.launches for k in kernels()}
   updates_per_s = float(np.median(rates))
   name = device_name(agent.device)
-  peak = PEAKS.get(name, {}).get('bf16_flops')
-  mfu = flops * updates_per_s / peak if flops and peak else None
+  peaks = PEAKS.get(name, {})
+  rate = lambda work, key: (work * updates_per_s / peaks[key]
+                            if work and key in peaks else None)
+  own = None
+  if own_cost:
+    own = agent.train_device_cost(replay, 1, state)
+    own = {k: own[k] for k in ('flops', 'bytes accessed')}
   return {
       'updates_per_s': updates_per_s,
       'first_dispatch_s': first_dispatch_s,
@@ -179,9 +217,10 @@ def measure_updates(agent, data, K, sample_budget_s, windows=60, calls=2,
       'launches': launches,
       'model_loss': loss,
       'flops_per_update': flops,
-      'bytes_per_update': None,
-      'mfu': mfu,
-      'hbm_bw_util': None,
+      'bytes_per_update': nbytes,
+      'mfu': rate(flops, 'bf16_flops'),
+      'hbm_bw_util': rate(nbytes, 'hbm_bytes'),
+      'own_cost': own,
       'device': name,
   }, state
 
@@ -193,12 +232,25 @@ def measure_shape(shape, device, sample_budget_s=None, calls=None,
   task, overrides, shape_k = SHAPES[shape]
   K = K or shape_k
   budget, shape_calls = BUDGETS[shape]
-  flops = train_flops(task, overrides, device)
+  work = train_cost(task, overrides, device)
   agent, data = build_agent(task, overrides, device)
   result, _ = measure_updates(
       agent, data, K, budget if sample_budget_s is None else sample_budget_s,
-      windows, calls or shape_calls, flops=flops)
+      windows, calls or shape_calls, flops=work['flops'],
+      nbytes=work['bytes'], own_cost=shape == 'xarm')
+  print_own_cost(shape, result)
   return agent, data, result
+
+
+def print_own_cost(shape, result):
+  """The line that puts the agent's own count of an update beside the
+  loop-path twin's, where the bench took it."""
+  own = result.get('own_cost')
+  if own:
+    print(f'{shape}: bytes an update, loop-path twin '
+          f'{result["bytes_per_update"]}, configured agent '
+          f'{own["bytes accessed"]} (train_device_cost); FLOPs '
+          f'{result["flops_per_update"]} and {own["flops"]}', flush=True)
 
 
 def measure_latency(fn, warmup=2, calls=25, max_windows=8, budget_s=90.0):
@@ -304,12 +356,12 @@ def compare_impls(label, key, task, overrides, K, budget_s, device, names):
   the scan arm; on the CPU the wrappers run their plain versions, which
   launch nothing."""
   device = resolve_device(device)
-  flops = train_flops(task, overrides, device)
+  work = train_cost(task, overrides, device)
   rows = {}
   for impl in ('scan', 'pallas'):
     agent, data = build_agent(task, {**overrides, key: impl}, device)
     result, _ = measure_updates(agent, data, K, budget_s, calls=1,
-                                flops=flops)
+                                flops=work['flops'], nbytes=work['bytes'])
     del agent, data
     free_memory(device)
     on_card = impl == 'pallas' and device.type == 'cuda'
@@ -320,11 +372,12 @@ def compare_impls(label, key, task, overrides, K, budget_s, device, names):
           f'{label} {key}={impl}: launches {launched} in '
           f'{result["updates_timed"]} timed updates; expected {expect} each')
     rows[impl] = {k: result[k] for k in (
-        'updates_per_s', 'first_dispatch_s', 'mfu', 'rate_windows',
-        'updates_timed')}
+        'updates_per_s', 'first_dispatch_s', 'mfu', 'hbm_bw_util',
+        'rate_windows', 'updates_timed')}
     rows[impl]['launches'] = launched
     print(label, key, impl, json.dumps(rows[impl]), flush=True)
-  rows['flops_per_update'] = flops
+  rows['flops_per_update'] = work['flops']
+  rows['bytes_per_update'] = work['bytes']
   rows['speedup'] = (rows['pallas']['updates_per_s']
                      / rows['scan']['updates_per_s'])
   return rows
@@ -333,8 +386,10 @@ def compare_impls(label, key, task, overrides, K, budget_s, device, names):
 def compare_graphs(shape, device, budget_s, K=None, calls=1,
                    policy_budget_s=None):
   """`shape` eagerly, then graphed (`torch.graphs` False, True): each
-  arm's updates/s, first dispatch, MFU and launches (divided by one count of
-  the update's work), the graphed arm's capture seconds and pool bytes, and
+  arm's updates/s, first dispatch, MFU, HBM share and launches (divided by
+  one count of the update's work; at xarm the eager arm also takes the
+  agent's own count, `own_cost`), the graphed arm's capture seconds and
+  pool bytes, and
   graphed over eager. With `policy_budget_s`, each arm's batch-1 policy on
   the agent's device too. On the card observe_fwd and observe_bwd must
   launch once a timed update in both arms where the shape takes the fused
@@ -343,16 +398,21 @@ def compare_graphs(shape, device, budget_s, K=None, calls=1,
   device = resolve_device(device)
   task, overrides, shape_k = SHAPES[shape]
   K = K or shape_k
-  flops = train_flops(task, overrides, device)
+  work = train_cost(task, overrides, device)
   rows = {}
   for arm, flag in (('eager', False), ('graphed', True)):
     agent, data = build_agent(
         task, {**overrides, 'torch.graphs': flag}, device)
-    result, _ = measure_updates(agent, data, K, budget_s, calls=calls,
-                                flops=flops)
+    result, _ = measure_updates(
+        agent, data, K, budget_s, calls=calls, flops=work['flops'],
+        nbytes=work['bytes'], own_cost=shape == 'xarm' and not flag)
+    print_own_cost(shape, result)
     row = {k: result[k] for k in (
-        'updates_per_s', 'first_dispatch_s', 'mfu', 'rate_windows',
-        'updates_timed', 'launches', 'model_loss', 'device')}
+        'updates_per_s', 'first_dispatch_s', 'mfu', 'hbm_bw_util',
+        'rate_windows', 'updates_timed', 'launches', 'model_loss',
+        'device')}
+    if result['own_cost']:
+      rows['own_cost'] = result['own_cost']
     stats = agent.graphs.stats().get('train_device', {})
     row['capture_s'] = stats.get('capture_s')
     row['pool_bytes'] = stats.get('pool_bytes')
@@ -372,7 +432,8 @@ def compare_graphs(shape, device, budget_s, K=None, calls=1,
             f'{name}')
     rows[arm] = row
     print(shape, arm, json.dumps(row), flush=True)
-  rows['flops_per_update'] = flops
+  rows['flops_per_update'] = work['flops']
+  rows['bytes_per_update'] = work['bytes']
   rows['speedup'] = (rows['graphed']['updates_per_s']
                      / rows['eager']['updates_per_s'])
   if policy_budget_s:
@@ -413,10 +474,11 @@ def sweep(device, budget_s=45.0):
       shape = {**overrides, 'batch_size': batch}
       agent = data = None
       try:
-        flops = train_flops(task, shape, device)
+        work = train_cost(task, shape, device)
         agent, data = build_agent(task, shape, device)
-        result, _ = measure_updates(agent, data, K, budget_s, windows=20,
-                                    calls=1, flops=flops)
+        result, _ = measure_updates(
+            agent, data, K, budget_s, windows=20, calls=1,
+            flops=work['flops'], nbytes=work['bytes'])
       except torch.cuda.OutOfMemoryError as e:
         rows.append({'batch': batch, 'fused_K': K,
                      'error': f'{type(e).__name__}: {e}'[:300]})
@@ -431,8 +493,10 @@ def sweep(device, budget_s=45.0):
           'replay_steps_per_s': result['updates_per_s'] * batch * int(
               shape['replay_chunk']),
           'first_dispatch_s': result['first_dispatch_s'],
-          'flops_per_update': flops,
+          'flops_per_update': work['flops'],
+          'bytes_per_update': work['bytes'],
           'mfu': result['mfu'],
+          'hbm_bw_util': result['hbm_bw_util'],
       }
       rows.append(row)
       print(name, json.dumps(row), flush=True)

@@ -29,6 +29,15 @@ launches that replays of a graph credit (`ops/build.py`).
 With `--device cpu` there is no device timeline: the rows are the CPU
 operators by self time, and the device metrics are null.
 
+After the trace it counts the bytes an update accesses
+(`nn.cost.CostMode`): one update of the loop-path twin
+(`bench.train_cost`, the bench's `bytes_per_update`) and one of the
+profiled agent itself (`TorchAgent.train_device_cost`, its kernels by their
+formulas), each sorted into the same categories (an aten op by its name,
+a kernel by its own). Beside each category's device ms it gives the
+achieved GB/s: the profiled agent's bytes over that time, since the two
+describe the same program.
+
 Usage:
   python -m daydreamer_tpu_torch.scripts.profile_train --shape xarm \\
       [--dispatches 8] [--graphs True|False] [--out FILE] \\
@@ -243,10 +252,75 @@ def _dispatch(agent, replay, K, state):
   return state, loss
 
 
+# Where an aten op's name and its kernel's name fall into different
+# categories, the op takes its kernel's: a concatenation runs a copy
+# kernel, an argmax a reduction, and the pointwise ops that CATEGORIES
+# does not name (backward functions, comparisons, fills, random draws,
+# indexing) run elementwise kernels. Only the ops that match none of
+# these stay 'other', as their kernels do.
+OP_CATEGORIES = (
+    ('cast_copy', r'aten::(cat|stack|_local_scalar_dense)\b'),
+    ('reduction', r'aten::(argmax|argmin|any|all|prod|logsumexp)\b'),
+    ('other', r'aten::\w*(softmax|cumsum|cumprod|sort|topk|multinomial'
+              r'|embedding|unique|nonzero)'),
+)
+
+
+def op_category(name):
+  """The category of a row of a `CostMode` table: a kernel of the port by
+  its own name, an aten op by the category of the kernel it launches."""
+  if name in OWN_NAMES:
+    return name
+  category = categorize(name)
+  if category != 'other' or not name.startswith('aten::'):
+    return category
+  for category, pattern in OP_CATEGORIES:
+    if re.search(pattern, name):
+      return category
+  return 'elementwise'
+
+
+def category_bytes(table):
+  """{category: bytes} of a `CostMode` table, by `op_category`."""
+  out = collections.Counter()
+  for name, (_, _, nbytes) in table.items():
+    out[op_category(name)] += nbytes
+  return out
+
+
+def bytes_report(agent, replay, state, task, overrides, categories):
+  """The bytes of one update by category, the loop-path twin's and the
+  profiled agent's, with the GB/s that the agent's bytes make over the
+  device time of each of `categories` (None where there is none)."""
+  from . import bench
+  twin = bench.train_cost(task, overrides, agent.device)
+  own = agent.train_device_cost(replay, 1, state)
+  twin_bytes = category_bytes(twin['table'])
+  own_bytes = category_bytes(own['table'])
+  device_ms = {r['category']: r['ms_per_update'] for r in categories}
+  rows = sorted(({
+      'category': c, 'bytes_per_update': own_bytes.get(c, 0),
+      'twin_bytes_per_update': twin_bytes.get(c, 0),
+      'device_ms_per_update': device_ms.get(c),
+      'gb_per_s': own_bytes.get(c, 0) / device_ms[c] / 1e6
+      if device_ms.get(c) else None}
+      for c in set(own_bytes) | set(twin_bytes) | set(device_ms)),
+      key=lambda r: -r['bytes_per_update'])
+  top = sorted(own['table'].items(), key=lambda x: -x[1][2])[:25]
+  return {'bytes_per_update': own['bytes accessed'],
+          'twin_bytes_per_update': twin['bytes'],
+          'flops_per_update': own['flops'], 'twin_flops_per_update':
+          twin['flops'], 'categories': rows,
+          'top': [{'name': name, 'category': op_category(name),
+                   'calls': calls, 'bytes': nbytes}
+                  for name, (calls, _, nbytes) in top]}
+
+
 def profile_shape(shape, dispatches, K=None, device='cuda', graphs=True):
   """Trace `dispatches` warm dispatches at `shape`, graphed or eager;
-  returns the report. `K` replaces the shape's fused updates (the tests
-  pass a small one)."""
+  returns the report, with the bytes of an update under `bytes`
+  (`bytes_report`). `K` replaces the shape's fused updates (the
+  tests pass a small one)."""
   import torch
   from torch.profiler import ProfilerActivity, profile
   from daydreamer_tpu_torch.ops import build, lambda_returns
@@ -282,6 +356,8 @@ def profile_shape(shape, dispatches, K=None, device='cuda', graphs=True):
   graph = agent.graphs.stats().get('train_device', {})
   wall = 1e3 * wall_s / updates
   untraced = 1e3 * untraced_s / (2 * K)
+  counted = bytes_report(agent, replay, state, task, overrides,
+                         categories if on_card else [])
   return {
       'shape': shape, 'fused_K': K, 'dispatches': dispatches,
       'graphs': bool(graphs),
@@ -311,6 +387,7 @@ def profile_shape(shape, dispatches, K=None, device='cuda', graphs=True):
       'categories': categories,
       'own_kernels': [r for r in rows if r['category'] in OWN_NAMES],
       'top': rows[:30],
+      'bytes': counted,
   }
 
 
@@ -338,6 +415,20 @@ def print_report(report):
     print(f"  {row['ms_per_update']:9.3f} ms/update "
           f"{row['launches_per_update']:7.2f}/update  {row['category']:14s} "
           f"{row['name'][:90]}", flush=True)
+  counted = report['bytes']
+  print(f"bytes an update: {counted['bytes_per_update']} (this agent, "
+        f"train_device_cost), {counted['twin_bytes_per_update']} (the "
+        f"loop-path twin, the bench's bytes_per_update)", flush=True)
+  for row in counted['categories']:
+    rate = row['gb_per_s']
+    print(f"  {row['bytes_per_update'] / 1e9:10.4f} GB/update "
+          f"{row['twin_bytes_per_update'] / 1e9:10.4f} GB twin  "
+          f"{row['device_ms_per_update'] or 0:9.3f} ms  "
+          f"{'-' if rate is None else f'{rate:9.1f}'} GB/s  "
+          f"{row['category']}", flush=True)
+  for row in counted['top']:
+    print(f"  {row['bytes'] / 1e9:10.4f} GB/update {row['calls']:6d} "
+          f"calls  {row['category']:14s} {row['name']}", flush=True)
 
 
 def main(argv=None):

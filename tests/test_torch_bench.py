@@ -47,6 +47,17 @@ K = 2
 UNROLL = ('rssm.unroll', 'imag_unroll')
 
 
+@pytest.fixture(autouse=True)
+def _jax_compute_dtype():
+  """Creating a JAX agent sets its package's compute dtype for the whole
+  process (`nn.set_compute_dtype`, bfloat16 at the bench's config): put it
+  back, so that a later test in this process computes as it expects."""
+  from daydreamer_tpu.nn import module
+  dtype = module.COMPUTE_DTYPE
+  yield
+  module.set_compute_dtype(dtype)
+
+
 def _json_lines(text):
   return [json.loads(line) for line in text.splitlines()
           if line.startswith('{')]
@@ -162,7 +173,7 @@ def test_train_flops_matches_jax():
 def test_measure_updates_on_cpu():
   agent, data = bench.build_agent(TASK, OVERRIDES, 'cpu')
   result, _ = bench.measure_updates(agent, data, K, 1e9, windows=2, calls=1,
-                                    flops=1e9)
+                                    flops=1e9, nbytes=10**9)
   assert len(result['rate_windows']) == 2 and result['updates_timed'] == 4
   for rate in [result['updates_per_s'], *result['rate_windows']]:
     assert math.isfinite(rate) and rate > 0
@@ -170,7 +181,7 @@ def test_measure_updates_on_cpu():
   assert math.isfinite(result['model_loss'])
   # The CPU has no peak: a CPU run writes no device metric.
   assert result['device'] == 'cpu' and result['mfu'] is None
-  assert result['bytes_per_update'] is None and result['hbm_bw_util'] is None
+  assert result['bytes_per_update'] == 10**9 and result['hbm_bw_util'] is None
   assert set(result['launches']) == {k.name for k in bench.kernels()}
   assert not any(result['launches'].values())  # The loop path.
 
@@ -205,6 +216,9 @@ def test_compare_graphs_on_cpu():
   assert rows['speedup'] == (rows['graphed']['updates_per_s']
                              / rows['eager']['updates_per_s'])
   assert rows['policy_speedup'] > 0 and rows['flops_per_update'] > 1e10
+  assert isinstance(rows['bytes_per_update'], int)
+  assert rows['bytes_per_update'] > 0
+  assert all(rows[arm]['hbm_bw_util'] is None for arm in ('eager', 'graphed'))
   # The counted twin runs eagerly: on the card a graph's first call runs
   # the update and then captures it, and the counter would see both.
   assert bench.LOOP_PATH['torch.graphs'] is False
@@ -223,7 +237,7 @@ def test_impl_bench_on_cpu(script, kernels):
     assert rows[arm]['launches'] == dict.fromkeys(kernels, 0)
   assert rows['speedup'] == (rows['pallas']['updates_per_s']
                              / rows['scan']['updates_per_s'])
-  assert rows['flops_per_update'] > 1e10
+  assert rows['flops_per_update'] > 1e10 and rows['bytes_per_update'] > 0
 
 
 def test_multihost_bench_actors(capsys):
