@@ -8,7 +8,8 @@ Run from the root of the repository with no arguments:
 Phases, each of which must pass:
   1. device  - print the card, and its name and power limit from nvidia-smi.
   2. build   - build every CUDA kernel from ops/csrc/ with nvcc (sm_90a),
-               all at once.
+               all at once (the six RSSM kernels' sources, layer_norm.cu
+               and adam.cu).
   3. kernel  - hold each kernel (imagine_actor, observe_fwd, observe_bwd,
                imagine, observe, gve) against its plain PyTorch version at
                the xarm shape, in float32 and in bfloat16 (gve: float32),
@@ -177,7 +178,42 @@ Phases, each of which must pass:
                ways. It runs after the kernel phase (`--phases
                device,build,graphs` alone). The parallel phase's gloo pair
                passes `--torch.graphs False`: its ranks share the card
-               over gloo, which a graph cannot capture.
+               over gloo, which a graph cannot capture. Every update
+               launches the four kernels of phase 15 as well: each must be
+               counted in both arms, as often in each.
+ 15. fused   - the kernels that stand for XLA's fusions on the update
+               (ops/norm.py, ops/adam.py; run after the kernel phase,
+               `--phases device,build,fused` alone). layer_norm_act's
+               forward and backward against the plain version (the
+               layer's F.layer_norm on the upcast input, its two casts and
+               F.elu) and its autograd at each norm site of the xarm
+               update (rows x C: 984 064 x 64, 921 600 x 64, 200 704 x
+               128, 36 864 x 256, 4 096 x 512, 16 384 x 512, 1 024 x 1 536,
+               the a1 GRU's 1 024 x 768, and 4 096 x 130), in float32 and
+               bfloat16, within the tolerances it prints, with the times of
+               kernel, plain version, F.layer_norm alone where it is the
+               same function (float32, no activation) and the bound.
+               Then one xarm update with the kernels and one with the plain
+               versions (`build.plain_versions()`) from one state and one
+               generator state (eager, after two updates), in bfloat16 and
+               in float32, and one a1 update the same way, each from
+               `--fused-seeds` seeds (1 by default): the losses, the grad
+               norms and each optimizer's update must agree within
+               FUSED_TOLERANCE. At xarm the plain arm trains on the
+               kernels' arm's imagined rollout, whose sampled choices may
+               flip on a near tie, and the choices in which the two arms'
+               own rollouts differ are counted. The optimizer's kernels on the tensors of
+               that xarm update's three optimizers (recorded as it ran):
+               adam_sumsq against the plain norm within 1e-5 relative,
+               adam_update equal to the plain loop bit for bit from the same
+               norm and state, and a NaN gradient that must give a NaN norm
+               and change nothing; times of each, of the plain versions and
+               of `torch._fused_adamw_` (a library kernel whose rounding
+               order differs). Last, an optimizer module on the card fed a
+               NaN loss must leave its parameters, moments and step as they
+               were. The slice, a1, tooling and bench phases check that the
+               four launch in every update and show their launches an
+               update; the tooling phase's trace gives each its own row.
 The kernel phase also holds observe_fwd and observe_bwd at the a1 training
 shape (T = B = 32, D = U = 256, E = 512, 12 continuous actions), and
 observe_fwd, observe_bwd and imagine_actor at the rows of one rank of the
@@ -215,6 +251,14 @@ extra phase `impl_bench` (not run by default) runs the port's
 xarm) and `scripts/imag_impl_bench.py` (`imag_impl` at xarm) in this process
 at their own budgets, 90 s of windows an arm, and writes their results under
 `runs/chip_smoke_*_impl_bench/`.
+
+The kernels line lists the six RSSM kernels, then the four of XLA's
+fusions (their `launches` those of the training slice; `library_ms`
+`torch.nn.utils.get_total_norm` for adam_sumsq, `torch._fused_adamw_` for
+adam_update, null for layer_norm_act, whose bfloat16 row no single call
+computes). With
+`--seed N` other than 0 the curve phase writes
+`scores/NAME_dreamer_torch_sN.json`, so that seed 0's file stays.
 
 `--compare NAME=SOURCE` (NAME one of imagine_actor, imagine, observe,
 observe_fwd, observe_bwd; the option may be given several times) runs no
@@ -999,6 +1043,505 @@ def phase_kernel():
 
 
 # --------------------------------------------------------------------------
+# The counterparts of XLA's fusions on the learner's update: layer_norm_act
+# (forward and backward) and the optimizer's two kernels.
+
+
+# (rows, C, act) of the norms of the xarm update, largest first: the image
+# encoder's four stages (1024 frames x 31 x 31, 14 x 14, 6 x 6, 2 x 2
+# positions), the decoder's last stage (30 x 30), the MLPs and heads over
+# the 16 x B x T rows of the imagined trajectories, the GRU's norm over
+# 3 x 512 columns (a1: 3 x 256) without an activation, and a width that is
+# no multiple of 32 (nor of a vector).
+LAYER_NORM_SITES = (
+    (1024 * 961, 64, 'elu'), (1024 * 900, 64, 'elu'), (1024 * 196, 128, 'elu'),
+    (1024 * 36, 256, 'elu'), (1024 * 4, 512, 'elu'), (16 * 1024, 512, 'elu'),
+    (1024, 1536, 'none'), (1024, 768, 'none'), (4096, 130, 'elu'))
+
+
+def device_ms(fn, calls=10, tries=3):
+  """Device time of one call of `fn`, ms: the sum over the CUDA kernels
+  it launches (torch.profiler, `device_times`), without the host's time
+  between them, as a replay of a CUDA graph runs them. A trace that holds
+  no device time (the profiler now and then loses a trace's kernels) is
+  taken again, `tries` times in all; then it raises."""
+  for attempt in range(tries):
+    times = device_times(fn, calls)
+    if times:
+      return sum(ms for ms, _ in times.values())
+    log(f'device_ms: trace {attempt + 1} of {tries} held no device time')
+  raise AssertionError('the profiler saw no device time')
+
+
+def _layer_norm_inputs(rows, C, dtype, seed=0, device='cuda'):
+  import torch
+  gen = torch.Generator(device=device).manual_seed(seed)
+  rand = lambda *shape: torch.randn(*shape, generator=gen, device=device)
+  x = (3 * rand(rows, C) + 1).to(dtype)
+  return x, 1 + 0.2 * rand(C), 0.3 * rand(C), rand(rows, C).to(dtype)
+
+
+def check_layer_norm(sites=LAYER_NORM_SITES, device='cuda'):
+  """layer_norm_act's two kernels against the plain version (the layer's
+  F.layer_norm on the upcast input, its two casts and the F.elu) and its
+  autograd at each site of LAYER_NORM_SITES, in float32 and bfloat16, with
+  the times of both and the bound. The plain version is the library's
+  composition; `library_ms` times one library call where one computes the
+  same function, F.layer_norm itself in float32 without an activation,
+  and is None elsewhere: no call fuses the norm with the ELU, nor in
+  bfloat16 with its casts (F.layer_norm takes scale and bias in x's dtype
+  there). Returns the rows of the largest site, the encoder's first
+  stage."""
+  import torch
+  import torch.nn.functional as F
+  from daydreamer_tpu_torch.nn import cost
+  from daydreamer_tpu_torch.ops import norm
+  results = {}
+  for dtype in (torch.float32, torch.bfloat16):
+    name = str(dtype).split('.')[-1]
+    for rows, C, act in sites:
+      x, scale, bias, dy = _layer_norm_inputs(rows, C, dtype, device=device)
+      y, mean, rstd = norm.layer_norm_act_fwd_cuda(x, scale, bias, act)
+      got = norm.layer_norm_act_bwd_cuda(x, scale, bias, mean, rstd, dy, act)
+      leaves = [v.clone().requires_grad_() for v in (x, scale, bias)]
+      ref = norm.layer_norm_act_plain(*leaves, act)
+      want = torch.autograd.grad(ref, leaves, dy, retain_graph=True)
+      ref = ref.detach()
+      # Forward: float32 the same arithmetic in another order; bfloat16 a
+      # value may round to the other side: one unit in the last place.
+      fwd = float(((y.float() - ref.float()).abs()
+                   / ref.float().abs().clamp_min(1)).max())
+      # Backward, scaled by each tensor's largest magnitude: dx within 1e-4
+      # in float32, dscale and dbias (sums over up to 984 064 rows in
+      # another order) within 1e-3; in bfloat16 a rounding of y or of the
+      # ELU's gradient that falls the other way moves the row sums: 2e-2.
+      scaled = [float((g.float() - w.float()).abs().max())
+                / max(1e-6, float(w.float().abs().max()))
+                for g, w in zip(got, want)]
+      limits = ((1e-5, (1e-4, 1e-3, 1e-3)) if dtype == torch.float32
+                else (2 ** -7, (2e-2, 2e-2, 2e-2)))
+      ok = (fwd <= limits[0]
+            and all(e <= lim for e, lim in zip(scaled, limits[1]))
+            and all(bool(torch.isfinite(g).all()) for g in got))
+      work = [cost.bound(*norm.layer_norm_act_work(
+          rows, C, dtype, act, backward=b), dtype) for b in (False, True)]
+      # Device times (`device_ms`); the call's time with the host's
+      # (`cuda_time`) beside the kernel's.
+      fwd_call = lambda: norm.layer_norm_act_fwd_cuda(x, scale, bias, act)
+      bwd_call = lambda: norm.layer_norm_act_bwd_cuda(
+          x, scale, bias, mean, rstd, dy, act)
+      ms, bwd_ms = device_ms(fwd_call), device_ms(bwd_call)
+      call_ms, bwd_call_ms = cuda_time(fwd_call), cuda_time(bwd_call)
+      plain_ms = device_ms(lambda: norm.layer_norm_act_plain(
+          x, scale, bias, act))
+      again = norm.layer_norm_act_plain(*leaves, act)
+      plain_bwd_ms = device_ms(lambda: torch.autograd.grad(
+          again, leaves, dy, retain_graph=True))
+      library_ms = library_bwd_ms = None
+      if dtype == torch.float32 and act == 'none':
+        library_ms = device_ms(lambda: F.layer_norm(
+            x, (C,), scale, bias, eps=norm.EPS))
+        lib = F.layer_norm(leaves[0], (C,), leaves[1], leaves[2],
+                           eps=norm.EPS)
+        library_bwd_ms = device_ms(lambda: torch.autograd.grad(
+            lib, leaves, dy, retain_graph=True))
+        del lib
+      library = lambda ms: 'none' if ms is None else f'{ms:.4f}'
+      log(f'layer_norm_act {name} rows {rows} x C {C} ({act}): forward '
+          f'error {fwd:.3g} (tolerance {limits[0]:g} of max(|y|, 1)), '
+          f'backward scaled errors dx {scaled[0]:.3g}, dscale '
+          f'{scaled[1]:.3g}, dbias {scaled[2]:.3g} (tolerances '
+          f'{limits[1]}); device ms: forward {ms:.4f} (a call with the '
+          f'host {call_ms:.4f}; plain {plain_ms:.4f}, library '
+          f'{library(library_ms)}, bound {work[0]["bound_ms"]:.4f} '
+          f'{work[0]["bound_by"]}), backward {bwd_ms:.4f} (a call '
+          f'{bwd_call_ms:.4f}; plain {plain_bwd_ms:.4f}, library '
+          f'{library(library_bwd_ms)}, bound {work[1]["bound_ms"]:.4f} '
+          f'{work[1]["bound_by"]})')
+      if not ok:
+        raise AssertionError(f'layer_norm_act disagrees with its plain '
+                             f'version in {name} at rows {rows} x C {C}.')
+      if (rows, C) == sites[0][:2]:
+        results.setdefault('layer_norm_act_fwd', {})[name] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=work[0]['bound_ms'], bound_by=work[0]['bound_by'],
+            max_abs_err=float((y.float() - ref.float()).abs().max()))
+        results.setdefault('layer_norm_act_bwd', {})[name] = dict(
+            ms=bwd_ms, plain_ms=plain_bwd_ms, library_ms=library_bwd_ms,
+            bound_ms=work[1]['bound_ms'], bound_by=work[1]['bound_by'],
+            max_abs_err=max(float((g.float() - w.float()).abs().max())
+                            for g, w in zip(got, want)))
+      del x, y, got, want, leaves, ref, again
+  return results
+
+
+@contextlib.contextmanager
+def recorded_adam():
+  """Within the block every call of `ops.adam.adam_update` is recorded
+  with copies of its inputs, taken before it runs, into the list this
+  yields."""
+  from daydreamer_tpu_torch.ops import adam
+  calls, inner = [], adam.adam_update
+  copy = lambda xs: [x.detach().clone() for x in xs]
+
+  def record(params, grads, ms, vs, decayed, norm, finite, scale, lr, bias1,
+             bias2, wd, beta1, beta2, eps):
+    calls.append(dict(
+        params=copy(params), grads=copy(grads), ms=copy(ms), vs=copy(vs),
+        decayed=list(decayed), norm=norm.clone(), finite=finite.clone(),
+        scale=scale.clone(), lr=lr.clone() if hasattr(lr, 'clone') else lr,
+        bias1=bias1.clone(), bias2=bias2.clone(), wd=wd, beta1=beta1,
+        beta2=beta2, eps=eps))
+    return inner(params, grads, ms, vs, decayed, norm, finite, scale, lr,
+                 bias1, bias2, wd, beta1, beta2, eps)
+
+  adam.adam_update = record
+  try:
+    yield calls
+  finally:
+    adam.adam_update = inner
+
+
+def _adam_args(call, state=None):
+  state = state or [[x.clone() for x in call[k]] for k in ('params', 'ms',
+                                                            'vs')]
+  params, ms, vs = state
+  return (params, call['grads'], ms, vs, call['decayed'], call['norm'],
+          call['finite'], call['scale'], call['lr'], call['bias1'],
+          call['bias2'], call['wd'], call['beta1'], call['beta2'],
+          call['eps']), state
+
+
+def _without_norm(args):
+  """`adam_update`'s arguments as `adam_update_plain` takes them."""
+  return args[:5] + args[6:]
+
+
+def check_adam(calls):
+  """The optimizer's kernels on the tensors of the xarm update's three
+  optimizers (`recorded_adam`): adam_sumsq against the plain norm within
+  1e-5 relative (float32 sums of up to 29.5 M squares in another order),
+  adam_update equal to the plain loop bit for bit from the same norm and
+  state, and a NaN gradient, whose norm must come out NaN, leaving every
+  tensor as it was. Times of each, of the plain versions and, for the step,
+  of `torch._fused_adamw_` over the same tensors (a library kernel whose
+  order of operations and roundings differ: Adam with the decay folded in,
+  no clip) and, for the norm, of `torch.nn.utils.get_total_norm` (the
+  same function in one library call: per-tensor norms of a multi-tensor
+  kernel, then their norm). Returns the rows of the world model's
+  optimizer."""
+  import torch
+  from daydreamer_tpu_torch.nn import cost
+  from daydreamer_tpu_torch.ops import adam
+  results = {}
+  names = ('model', 'actor', 'critic')
+  for label, call in zip(names, calls):
+    sizes = [p.numel() for p in call['params']]
+    flags = [bool(call['wd'] and d) for d in call['decayed']]
+    norm = adam.global_norm(call['grads'])
+    want = adam.global_norm_plain(call['grads'])
+    rel = abs(float(norm) - float(want)) / float(want)
+    args, state = _adam_args(call)
+    adam.adam_update(*args)
+    plain_args, plain = _adam_args(call)
+    adam.adam_update_plain(*_without_norm(plain_args))
+    same = all(torch.equal(a, b) for xs, ys in zip(state, plain)
+               for a, b in zip(xs, ys))
+    poisoned = dict(call, grads=[g.clone() for g in call['grads']])
+    poisoned['grads'][0].view(-1)[0] = float('nan')
+    bad = adam.global_norm(poisoned['grads'])
+    poisoned.update(norm=bad, finite=torch.isfinite(bad))
+    args, state = _adam_args(poisoned)
+    adam.adam_update(*args)
+    kept = not bool(torch.isfinite(bad)) and all(
+        torch.equal(a, b) for xs, key in zip(state, ('params', 'ms', 'vs'))
+        for a, b in zip(xs, call[key]))
+    # Device times (`device_ms`); a call's time with the host's beside.
+    # Timed on contiguous gradients: a convolution's comes in the
+    # channels-last layout of cuDNN, which the wrappers copy first (and
+    # `torch._fused_adamw_`'s lists must share strides), and the copy is
+    # not the kernels' work.
+    timed = dict(call, grads=[g.contiguous() for g in call['grads']])
+    grads = timed['grads']
+    sum_call = lambda: adam.global_norm(grads)
+    sum_ms, sum_call_ms = device_ms(sum_call), cuda_time(sum_call)
+    sum_plain_ms = device_ms(lambda: adam.global_norm_plain(grads))
+    sum_library_ms = device_ms(lambda: torch.nn.utils.get_total_norm(grads))
+    args, _ = _adam_args(timed)
+    step_call = lambda: adam.adam_update(*args)
+    step_ms, step_call_ms = device_ms(step_call), cuda_time(step_call)
+    plain_args = _without_norm(_adam_args(timed)[0])
+    step_plain_ms = device_ms(lambda: adam.adam_update_plain(*plain_args))
+    params, ms, vs = [[x.clone() for x in call[k]]
+                      for k in ('params', 'ms', 'vs')]
+    steps = [torch.ones((), device=params[0].device) for _ in params]
+    lr = float(call['lr'])
+    library_ms = device_ms(lambda: torch._fused_adamw_(
+        params, grads, ms, vs, [], steps, lr=lr,
+        beta1=call['beta1'], beta2=call['beta2'], weight_decay=call['wd'],
+        eps=call['eps'], amsgrad=False, maximize=False))
+    sum_bound = cost.bound(*adam.global_norm_work(sizes), torch.float32)
+    step_bound = cost.bound(*adam.adam_update_work(sizes, flags),
+                            torch.float32)
+    log(f'adam ({label} optimizer, {len(sizes)} tensors, {sum(sizes)} '
+        f'values, {sum(flags)} decayed): adam_sumsq relative error '
+        f'{rel:.3g} (tolerance 1e-5), device {sum_ms:.4f} ms (a call '
+        f'{sum_call_ms:.4f}; plain '
+        f'{sum_plain_ms:.4f}, torch.nn.utils.get_total_norm '
+        f'{sum_library_ms:.4f}, bound {sum_bound["bound_ms"]:.4f} '
+        f'{sum_bound["bound_by"]}); adam_update equal to the plain loop bit '
+        f'for bit {same}, a NaN gradient gives a NaN norm and changes '
+        f'nothing {kept}; device {step_ms:.4f} ms (a call '
+        f'{step_call_ms:.4f}; plain {step_plain_ms:.4f}, '
+        f'torch._fused_adamw_ {library_ms:.4f}, bound '
+        f'{step_bound["bound_ms"]:.4f} {step_bound["bound_by"]})')
+    if not (rel <= 1e-5 and same and kept):
+      raise AssertionError(f'adam ({label}): the kernels disagree with '
+                           f'their plain versions.')
+    if label == 'model':
+      results['adam_sumsq'] = {'float32': dict(
+          ms=sum_ms, plain_ms=sum_plain_ms, library_ms=sum_library_ms,
+          bound_ms=sum_bound['bound_ms'], bound_by=sum_bound['bound_by'],
+          max_abs_err=abs(float(norm) - float(want)))}
+      results['adam_update'] = {'float32': dict(
+          ms=step_ms, plain_ms=step_plain_ms, library_ms=library_ms,
+          bound_ms=step_bound['bound_ms'], bound_by=step_bound['bound_by'],
+          max_abs_err=0.0)}
+  return results
+
+
+def check_optimizer_skip(device='cuda'):
+  """A gradient that is not finite on the card: the optimizer module's
+  update leaves the parameters, the moments and `step` as they were."""
+  import torch
+  from daydreamer_tpu_torch import nn
+  gen = torch.Generator(device=device).manual_seed(0)
+  lin = nn.Linear('agent/lin', 64, act='elu', norm='layer')
+  opt = nn.Optimizer('agent/opt', lr=1e-2, wd=1e-2, clip=100.0)
+  x = torch.randn(32, 48, device=device, generator=gen)
+  with nn.scope(create=True, generator=gen):
+    opt(lambda: lin(x).sum(), lin)
+  with nn.scope(generator=gen):
+    opt(lambda: lin(x).square().sum(), lin)
+  before = {k: v.clone() for m in (lin, opt) for k, v in nn.state(m).items()}
+  with nn.scope(generator=gen):
+    mets, _ = opt(lambda: lin(x).sum() * float('nan'), lin)
+  after = {k: v for m in (lin, opt) for k, v in nn.state(m).items()}
+  kept = all(torch.equal(after[k], v) for k, v in before.items())
+  log(f'optimizer on the card, a NaN loss: overflow '
+      f'{float(mets["opt_overflow"])}, step {int(after["agent/opt/step"])}, '
+      f'every parameter, moment and the step unchanged {kept}')
+  if not kept or float(mets['opt_overflow']) != 1.0:
+    raise AssertionError('optimizer: a NaN gradient changed the state.')
+
+
+@contextlib.contextmanager
+def rollouts(agent, replay=None):
+  """Within the block each fused imagined rollout of `agent` (the
+  `_imagine_fused` of an ImagActorCritic: ops/rssm.imagine_actor) runs, and
+  a copy of its output goes to the list this yields; with `replay`, such a
+  list, each call then returns the next output of `replay` instead of its
+  own, having drawn the same random numbers."""
+  from daydreamer_tpu_torch.agents.dreamer.agent import ImagActorCritic
+  kept, patched = [], []
+  for module in agent.modules():
+    if isinstance(module, ImagActorCritic):
+      def run(start, horizon, inner=module._imagine_fused):
+        traj = inner(start, horizon)
+        kept.append({k: v.detach().clone() for k, v in traj.items()})
+        if replay is None:
+          return traj
+        return {k: v.clone() for k, v in replay[len(kept) - 1].items()}
+      module._imagine_fused = run
+      patched.append(module)
+  try:
+    yield kept
+  finally:
+    for module in patched:
+      del module._imagine_fused
+
+
+def sampled_differences(ours, theirs):
+  """(actions, latents) of two lists of rollouts that differ in their
+  sampled choice (the arg max of a one-hot sample), each as (differing,
+  all) over the imagined steps."""
+  count = lambda key, a, b: (
+      int((a[key][1:].argmax(-1) != b[key][1:].argmax(-1)).sum()),
+      a[key][1:].argmax(-1).numel())
+  totals = []
+  for key in ('action', 'stoch'):
+    pairs = [count(key, a, b) for a, b in zip(ours, theirs)]
+    totals.append(tuple(sum(x) for x in zip(*pairs)) if pairs else (0, 0))
+  return tuple(totals)
+
+
+# Tolerances of one update with the kernels against one with the plain
+# versions from the same state, the same generator state and, at xarm, the
+# same imagined rollout: differences of the losses relative to max(|the
+# plain arm's|, 1) (the actor's loss, a mean of normalized advantages times
+# log-probabilities, lies near 0, where a relative difference says
+# nothing), relative differences of the optimizers' global norms, and of
+# the whole update of each optimizer's parameters, |u_kernels - u_plain| /
+# |u_plain|, the largest over the seeds (`--fused-seeds`).
+# The rollout is shared because it samples: its kernel (imagine_actor, run
+# in both arms) draws each action and latent as the arg max of logits plus
+# noise, and where two choices lie closer than the arms' last-place
+# difference in the start states the sample flips, the rollout differs
+# from that step on, and the actor's and critic's updates with it (one run
+# of a tuning taken back flipped one and moved the actor's update 7.6e-3 in
+# float32). So the plain arm draws its own rollout, which is only counted
+# against the kernels' (`sampled_differences`), and trains on the kernels'
+# arm's: what remains is the arithmetic of the kernels against that of the
+# plain versions. a1 samples its continuous actions with no such choice.
+# float32: the same arithmetic in another order; the largest readings over
+# four seeds (losses 1.1e-7, norms 1.5e-7, updates 2.8e-6, 5.2e-6, 3.5e-6)
+# lie 19 to 90 times below the limits. bfloat16: the norms' and ELUs'
+# outputs round to the other side here and there (one unit in the last
+# place) and every layer after carries it on; the largest readings over
+# four seeds of xarm and a1 (losses 2.1e-3, norms 7.2e-3, model 0.033,
+# actor 0.025, critic 0.013) lie 1.5 to 5 times below (PERF.md, section 6).
+FUSED_TOLERANCE = {
+    'float32': dict(losses=1e-5, norms=1e-5, model=1e-4, actor=1e-4,
+                    critic=1e-4),
+    'bfloat16': dict(losses=1e-2, norms=2e-2, model=5e-2, actor=0.1,
+                     critic=5e-2)}
+
+
+def _update_arms(name, precision, seed=0):
+  """One update of the `name` block (eager) with the kernels and one with
+  the plain versions, from one state after two updates and one generator
+  state, from one ring made from `seed` (the agent's seed too); at xarm the
+  plain arm trains on the kernels' arm's imagined rollout (`rollouts`).
+  Returns {plain: (metrics, state after, launches)}, the state before, the
+  adam calls recorded in the kernels' arm and the sampled choices of the
+  two arms' own rollouts that differ (`sampled_differences`)."""
+  import torch
+  import daydreamer_tpu_torch as ddp
+  from daydreamer_tpu_torch import envs, nn
+  from daydreamer_tpu_torch.agents.dreamer import Agent
+  from daydreamer_tpu_torch.ops import build
+  env = envs.load_env(f'{name}_dummy', amount=1, parallel='none')
+  config = _graphs_config(name, False).update({
+      'torch.precision': precision, 'seed': seed})
+  try:
+    agent = Agent(env.obs_space, env.act_space, ddp.Counter(), config)
+    agent._create()
+    ring = agent.make_device_replay(capacity=4096, block=64)
+    ring.add_steps(_random_steps(env, 2048, seed=seed))
+    _, carry, _ = agent.train_device(ring, 2, None)
+    start = {k: v.detach().clone() for k, v in nn.state(agent.agent).items()}
+    generator = agent.generator.get_state()
+    carry = {k: v.clone() for k, v in carry.items()}
+    arms, calls, drawn = {}, [], {}
+    for plain in (False, True):
+      nn.assign(agent.agent, start)
+      agent.generator.set_state(generator)
+      reset_launches()
+      with contextlib.ExitStack() as stack:
+        if plain:
+          stack.enter_context(build.plain_versions())
+        else:
+          calls = stack.enter_context(recorded_adam())
+        drawn[plain] = stack.enter_context(rollouts(
+            agent.agent, drawn[False] if plain else None))
+        _, _, mets = agent.train_device(
+            ring, 1, {k: v.clone() for k, v in carry.items()})
+      launches = read_launches(f'{name} update', () if plain else (
+          'layer_norm_act_fwd', 'layer_norm_act_bwd', 'adam_sumsq',
+          'adam_update'))
+      values = dict(zip(agent._metric_names, mets._packed[-1].tolist()))
+      after = {k: v.detach().clone() for k, v in nn.state(
+          agent.agent).items()}
+      arms[plain] = (values, after, launches)
+  finally:
+    env.close()
+  differ = sampled_differences(drawn[False], drawn[True])
+  del agent, ring, drawn
+  return arms, start, calls, differ
+
+
+def compare_updates(name, precision, seeds=1):
+  """`_update_arms` from each of `seeds` seeds, held to FUSED_TOLERANCE.
+  Returns the adam calls of the first."""
+  import torch
+  from daydreamer_tpu_torch.ops import build
+  limits = FUSED_TOLERANCE[precision]
+  fusions = [k.name for k in build.KERNELS if k.name in FUSION_KERNELS]
+  rel = lambda a, b: abs(a - b) / max(abs(b), 1e-8)
+  first, worst_all = None, {}
+  for seed in range(seeds):
+    arms, start, calls, differ = _update_arms(name, precision, seed)
+    first = first if first is not None else calls
+    (kmets, kstate, klaunches), (pmets, pstate, plaunches) = (
+        arms[False], arms[True])
+    if any(plaunches[k] for k in fusions):
+      raise AssertionError(f'{name}: a kernel launched with the plain '
+                           f'versions: {plaunches}')
+    losses = {k: abs(kmets[k] - pmets[k]) / max(abs(pmets[k]), 1.0)
+              for k in kmets
+              if k.endswith('_loss_mean') or k.endswith('_opt_loss')}
+    norms = {k: rel(kmets[k], pmets[k]) for k in kmets
+             if k.endswith('_grad_norm')}
+    updates = {}
+    for opt in ('model', 'actor', 'critic'):
+      slot = f'/{opt}_opt/m/'
+      keys = [k.split(slot, 1)[1].replace('.', '/') for k in start
+              if slot in k]
+      du_k = torch.cat([(kstate[k] - start[k]).reshape(-1) for k in keys])
+      du_p = torch.cat([(pstate[k] - start[k]).reshape(-1) for k in keys])
+      updates[opt] = float((du_k - du_p).norm() / du_p.norm())
+    worst = dict(losses=max(losses.values()), norms=max(norms.values()),
+                 **updates)
+    (actions, all_actions), (latents, all_latents) = differ
+    shared = (f'the arms\' own imagined rollouts differ in {actions} of '
+              f'{all_actions} sampled actions and {latents} of {all_latents} '
+              f'sampled latents (the plain arm trained on the kernels\' '
+              f'rollout)' if all_actions else 'no fused rollout')
+    log(f'update ({name}, {precision}, seed {seed}), kernels against plain '
+        f'versions from one state: launches '
+        f'{({k: klaunches[k] for k in fusions})}; {shared}; largest '
+        f'difference of the losses over max(|plain|, 1) '
+        f'{worst["losses"]:.3g} ({max(losses, key=losses.get)}), relative '
+        f'of the grad norms {worst["norms"]:.3g} '
+        f'({ {k: float(f"{v:.3g}") for k, v in norms.items()} }), of each '
+        f'optimizer\'s update '
+        f'{({k: float(f"{v:.3g}") for k, v in updates.items()})} '
+        f'(tolerances {limits})')
+    compared = [v for m in (kmets, pmets) for k, v in m.items()
+                if k in losses or k in norms]
+    if any(worst[k] > limits[k] for k in limits) or not all(
+        math.isfinite(v) for v in compared):
+      raise AssertionError(f'update ({name}, {precision}, seed {seed}): '
+                           f'kernels and plain versions differ beyond '
+                           f'{limits}: {worst}')
+    worst_all = {k: max(v, worst_all.get(k, 0.0)) for k, v in worst.items()}
+  log(f'update ({name}, {precision}): the largest over {seeds} seed(s) '
+      f'{({k: float(f"{v:.3g}") for k, v in worst_all.items()})}')
+  return first
+
+
+def phase_fused(seeds=1):
+  """The counterparts of XLA's fusions (see the module's docstring, phase
+  15), the updates compared from `seeds` seeds. Returns the kernels' rows
+  for the kernels line."""
+  import gc
+  import torch
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  results = check_layer_norm()
+  compare_updates('xarm', 'float32', seeds)
+  calls = compare_updates('xarm', 'bfloat16', seeds)
+  results.update(check_adam(calls))
+  del calls
+  gc.collect()
+  compare_updates('a1', 'bfloat16', seeds)
+  check_optimizer_skip()
+  gc.collect()
+  torch.cuda.empty_cache()
+  return results
+
+
+# --------------------------------------------------------------------------
 
 
 def phase_device():
@@ -1094,11 +1637,12 @@ def main(argv=None):
   parser = argparse.ArgumentParser()
   parser.add_argument(
       '--phases',
-      default='device,build,kernel,graphs,slice,proof,learner,a1,explore,'
-              'parallel,imitation,tooling,soak,bench')
+      default='device,build,kernel,fused,graphs,slice,proof,learner,a1,'
+              'explore,parallel,imitation,tooling,soak,bench')
   parser.add_argument('--compare', action='append', default=[],
                       metavar='NAME=SOURCE')
   parser.add_argument('--seed', type=int, default=0)
+  parser.add_argument('--fused-seeds', type=int, default=1)
   parser.add_argument('--curve-config', default='xarm', choices=CURVES)
   parser.add_argument('--curve-steps', type=int, default=21400)
   args = parser.parse_args(argv)
@@ -1124,13 +1668,16 @@ def main(argv=None):
   if 'build' in phases:
     phase_build()
   kernel = phase_kernel() if 'kernel' in phases else {}
+  if 'fused' in phases:
+    kernel.update(phase_fused(args.fused_seeds))
   if 'graphs' in phases:
     phase_graphs()
   launches, parallel = {}, {}
   slice_run = None
   if 'slice' in phases:
-    counts, slice_run = phase_slice('slice', SLICE_ARGS, TRAIN_KERNELS)
-    launches.update({k: counts[k] for k in TRAIN_KERNELS})
+    counts, slice_run = phase_slice('slice', SLICE_ARGS,
+                                    TRAIN_KERNELS + FUSION_KERNELS)
+    launches.update({k: counts[k] for k in TRAIN_KERNELS + FUSION_KERNELS})
     phase_slice('slice (rssm.impl scan)', SCAN_SLICE_ARGS, (
         'imagine_actor',))
   if 'proof' in phases:
@@ -1157,7 +1704,7 @@ def main(argv=None):
     phase_impl_bench()
   curve = {}
   if 'curve' in phases:
-    curve = phase_curve(args.curve_config, args.curve_steps)
+    curve = phase_curve(args.curve_config, args.curve_steps, args.seed)
   if 'sphero' in phases:
     phase_slice('sphero', SPHERO_ARGS, OBSERVE_KERNELS)
   if 'profile' in phases:
@@ -1165,15 +1712,19 @@ def main(argv=None):
   if 'profile_explore' in phases:
     phase_profile(('xarm', 'plan2explore'))
   entries = []
-  for k in build.KERNELS:
-    # The main path computes in bfloat16; each kernel's own result. The
-    # launches are those of the kernel's own path: the training slice for
-    # the first three, the proof for the others; beside them, each rank's
+  # The six counterparts of the TPU kernels, then the four of XLA's fusions.
+  ordered = sorted(build.KERNELS, key=lambda k: k.name in FUSION_KERNELS)
+  for k in ordered:
+    # The main path computes in bfloat16 (the optimizer in float32); each
+    # kernel's own result. The launches are those of the kernel's own path:
+    # the training slice for the first three and the fusions' four, the
+    # proof for the others; beside them, each rank's
     # of the parallel phase, those of the tooling phase's profile of the
     # learner's ring dispatches, those of the soak's learner process and
     # those of the curve phase's run and those of the bench phase's timed
     # windows at xarm.
-    timing = kernel.get(k.name, {}).get('bfloat16', {})
+    timing = kernel.get(k.name, {})
+    timing = timing.get('bfloat16', timing.get('float32', {}))
     entries.append(dict(
         name=k.name, route=k.route,
         source=str(k.source.relative_to(ROOT)), replaces=k.replaces,
@@ -1186,7 +1737,8 @@ def main(argv=None):
         launches_bench=benched.get(k.name, 0),
         max_abs_err=timing.get('max_abs_err'), ms=timing.get('ms'),
         plain_ms=timing.get('plain_ms'), bound_ms=timing.get('bound_ms'),
-        bound_by=timing.get('bound_by'), library_ms=None))
+        bound_by=timing.get('bound_by'),
+        library_ms=timing.get('library_ms')))
   log(f'chip_smoke: phases {",".join(phases)} in '
       f'{time.perf_counter() - begin:.1f} s')
   log(json.dumps({'kernels': entries}))
@@ -1206,6 +1758,10 @@ SLICE_ARGS = [
 SCAN_SLICE_ARGS = [*SLICE_ARGS, '--rssm.impl', 'scan']
 TRAIN_KERNELS = ('observe_fwd', 'observe_bwd', 'imagine_actor')
 PROOF_KERNELS = ('imagine', 'observe', 'gve')
+# The counterparts of XLA's fusions, which every gradient update launches.
+FUSION_KERNELS = ('layer_norm_act_fwd', 'layer_norm_act_bwd', 'adam_sumsq',
+                  'adam_update')
+RSSM_KERNELS = TRAIN_KERNELS + PROOF_KERNELS
 
 
 def reset_launches():
@@ -1529,10 +2085,15 @@ def _graphs_learner(name, replay_kind):
     for flag in (False, True):
       launches = rates[flag][2]
       if any(launches[k] != updates for k in kernels) or (
-          not kernels and any(launches.values())):
+          not kernels and any(launches[k] for k in RSSM_KERNELS)) or any(
+              launches[k] < updates for k in FUSION_KERNELS):
         raise AssertionError(
             f'{label}: graphs {flag}: launches {launches} in {updates} '
-            f'updates; each kernel of the path once an update')
+            f'updates; each RSSM kernel of the path once an update, each '
+            f'of the fusions at least once')
+    if rates[False][2] != rates[True][2]:
+      raise AssertionError(f'{label}: launches eager {rates[False][2]}, '
+                           f'graphed {rates[True][2]}')
     # Later replays drew other windows and other noise: each update's
     # metrics differ from the one before.
     rows = torch.cat([m for m in snaps[True]['metrics']])
@@ -1809,7 +2370,7 @@ SPHERO_ARGS = [
 
 def phase_a1():
   """a1 through the CLI three times: as the config file has it (the loop
-  path: no kernel may launch), with the fused observe chain (`--rssm.impl
+  path: no RSSM kernel may launch, the four of XLA's fusions must), with the fused observe chain (`--rssm.impl
   pallas`: observe_fwd and observe_bwd at D = U = 256, E = 512, A = 12),
   and through the native batcher (`--data_loader native`), whose library
   g++ must have built into native/_build/ and loaded."""
@@ -1818,12 +2379,12 @@ def phase_a1():
   from daydreamer_tpu_torch.replay import batcher
   library = BUILD / 'libfastcopy.so'
   built_before = library.exists()
-  launches, _ = phase_slice('a1', A1_ARGS, ())
-  if any(launches.values()):
-    raise AssertionError(f'a1: a kernel launched on the loop path: '
+  launches, _ = phase_slice('a1', A1_ARGS, FUSION_KERNELS)
+  if any(launches[k] for k in RSSM_KERNELS):
+    raise AssertionError(f'a1: an RSSM kernel launched on the loop path: '
                          f'{launches}')
   phase_slice('a1 (rssm.impl pallas)', [*A1_ARGS, '--rssm.impl', 'pallas'],
-              OBSERVE_KERNELS)
+              OBSERVE_KERNELS + FUSION_KERNELS)
   made = []
   dataset = torchagent.TorchAgent.dataset
   torchagent.TorchAgent.dataset = lambda self, generator: made.append(
@@ -2369,6 +2930,19 @@ def phase_tooling():
       f'category (ms, launches an update): ' + ', '.join(
           f'{r["category"]} {r["ms_per_update"]:.3f} / '
           f'{r["launches_per_update"]:.1f}' for r in report['categories']))
+  # The counterparts of XLA's fusions: counted by their wrappers and seen
+  # by name in the trace, each in a category of its own.
+  fused = {k: launches[k] / updates for k in FUSION_KERNELS}
+  categories = {r['category']: r for r in report['categories']}
+  if any(v < 1 for v in fused.values()) or any(
+      k not in categories for k in FUSION_KERNELS):
+    raise AssertionError(f'profile_train: the fusions\' launches an update '
+                         f'{fused}, categories {sorted(categories)}')
+  log('profile_train (xarm): the fusions\' kernels, wrapper launches / '
+      'device ms / device launches an update: ' + ', '.join(
+          f'{k} {fused[k]:.2f} / {categories[k]["ms_per_update"]:.3f} / '
+          f'{categories[k]["launches_per_update"]:.1f}'
+          for k in FUSION_KERNELS))
   counted = report['bytes']
   rate = counted['bytes_per_update'] / report['device_busy_ms_per_update'] / (
       1e6)
@@ -2490,7 +3064,12 @@ def phase_bench(device_name):
           f'updates, model loss {res["model_loss"]}'
           + (f', policy {res["policy"]["median_s"] * 1e3:.4f} ms a call'
              if 'policy' in res else ''))
+      fused = {k: res['launches'].get(k, 0) / res['updates_timed']
+               for k in FUSION_KERNELS}
+      log(f'bench ({shape}, {arm}): the fusions\' launches an update '
+          f'{fused}')
       if (not all(math.isfinite(r) and r > 0 for r in rates)
+          or any(v < 1 for v in fused.values())
           or not rows['flops_per_update'] > 0
           or not (rows['bytes_per_update'] or 0) > 0
           or not 0 < (res['hbm_bw_util'] or 0) <= 1.0
@@ -2580,7 +3159,9 @@ def phase_curve(name, steps, seed=0):
                 policy_steps=len(times['policy']),
                 launches={k: launches[k] for k in OBSERVE_KERNELS})
 
-  out = ROOT / 'scores' / f'{name}_dreamer_torch.json'
+  # Seed 0 keeps its file; another seed writes one of its own.
+  out = ROOT / 'scores' / (f'{name}_dreamer_torch.json' if not seed else
+                           f'{name}_dreamer_torch_s{seed}.json')
   prov = ROOT / 'scores' / 'provenance' / f'{name}_torch_seed{seed}'
   reset_launches()
   begin = time.perf_counter()

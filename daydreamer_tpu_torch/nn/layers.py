@@ -6,12 +6,21 @@ so matrix products run in bf16 under `precision: bfloat16` while the
 optimizer state stays full precision. Images stay NHWC at every public
 function, as in the JAX package; a convolution hands cuDNN a channels-last
 view of the same memory.
+
+A LayerNorm and the activation after it run as one call of
+`ops.norm.layer_norm_act` (one kernel each way on the card, as XLA fuses
+them in the JAX program), which takes the activation's name and callable
+and decides which activations its kernel applies (`none` and `elu`, the
+only ones the configs pair with `norm: layer`).
 """
+
+import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops import norm as fused
 from .module import Module, cast, uniform
 
 
@@ -46,6 +55,7 @@ class Linear(Module):
     super().__init__(name)
     self._units = units
     self._act = get_act(act)
+    self._actname = act
     self._norm = norm
     self._bias = bias and norm == 'none'
     self._outscale = outscale
@@ -58,8 +68,18 @@ class Linear(Module):
     if self._bias:
       x = x + cast(self.value('bias', torch.zeros(self._units)))
     if self._norm != 'none':
-      x = self.sub('norm', Norm, self._norm)(x)
+      return norm_act(self, x)
     return self._act(x)
+
+
+def norm_act(layer, x):
+  """The layer's norm and then its activation: one call of
+  `ops.norm.layer_norm_act` under `norm: layer`."""
+  if layer._norm == 'none':
+    return layer._act(x)
+  norm = layer.sub('norm', Norm, layer._norm)
+  return fused.layer_norm_act(x, *norm.affine(x.shape[-1]), layer._actname,
+                              layer._act)
 
 
 class Conv2D(Module):
@@ -74,6 +94,7 @@ class Conv2D(Module):
     self._stride = stride
     self._transp = transp
     self._act = get_act(act)
+    self._actname = act
     self._norm = norm
     self._pad = pad.upper()
     self._preact = preact
@@ -82,12 +103,8 @@ class Conv2D(Module):
 
   def forward(self, x):
     if self._preact:
-      x = self.sub('norm', Norm, self._norm)(x)
-      x = self._act(x)
-      return self._layer(x)
-    x = self._layer(x)
-    x = self.sub('norm', Norm, self._norm)(x)
-    return self._act(x)
+      return self._layer(norm_act(self, x))
+    return norm_act(self, self._layer(x))
 
   def _layer(self, x):
     k, depth, cin = self._kernel, self._depth, x.shape[-1]
@@ -104,31 +121,49 @@ class Conv2D(Module):
         x = (x.reshape(x.shape[0], cin) @ w).reshape(
             x.shape[0], k, k, depth)
       else:
-        if self._pad != 'VALID':
-          raise NotImplementedError('Transposed conv with same padding.')
         x = F.conv_transpose2d(
             x.permute(0, 3, 1, 2), kernel, stride=self._stride)
+        if self._pad != 'VALID':
+          # The full output, (H - 1) * s + k, pads k - 1 on either side of
+          # the dilated input; XLA's SAME pads (a, b) of `same_transposed`:
+          # crop (or pad with zeros) the difference.
+          a, b = same_transposed(k, self._stride)
+          x = F.pad(x, [a - (k - 1), b - (k - 1)] * 2)
         x = x.permute(0, 2, 3, 1)
     else:
       limit = np.sqrt(3.0 / np.mean([cin, depth]))
       kernel = cast(self.value(
           'kernel', lambda: uniform((depth, cin, k, k), limit)))
-      if self._pad == 'VALID':
-        padding = 0
-      elif self._stride == 1 and k % 2 == 1:
-        padding = k // 2
-      else:
-        raise NotImplementedError((self._pad, self._stride, k))
-      x = F.conv2d(cast(x).permute(0, 3, 1, 2), kernel,
-                   stride=self._stride, padding=padding)
+      x = cast(x).permute(0, 3, 1, 2)
+      if self._pad != 'VALID':
+        (top, bottom), (left, right) = (
+            same(n, k, self._stride) for n in x.shape[2:])
+        x = F.pad(x, [left, right, top, bottom])
+      x = F.conv2d(x, kernel, stride=self._stride)
       x = x.permute(0, 2, 3, 1)
     if self._bias:
       x = x + cast(self.value('bias', torch.zeros(depth)))
     return x
 
 
+def same(n, k, s):
+  """XLA's SAME padding of a convolution along an axis of n: (before,
+  after), the smaller half before."""
+  total = max((math.ceil(n / s) - 1) * s + k - n, 0)
+  return total // 2, total - total // 2
+
+
+def same_transposed(k, s):
+  """`lax.conv_transpose`'s SAME padding of the dilated input (before,
+  after), which makes the output n * s (`_conv_transpose_padding`)."""
+  total = k + s - 2
+  before = k - 1 if s > k - 1 else math.ceil(total / 2)
+  return before, total - before
+
+
 class Norm(Module):
-  """LayerNorm over the last axis in float32 with eps 1e-3."""
+  """LayerNorm over the last axis in float32 with eps 1e-3, rounded to the
+  input's dtype."""
 
   def __init__(self, name, impl):
     super().__init__(name)
@@ -137,13 +172,14 @@ class Norm(Module):
   def forward(self, x):
     if self._impl == 'none':
       return x
-    elif self._impl == 'layer':
-      scale = self.value('scale', torch.ones(x.shape[-1]))
-      bias = self.value('bias', torch.zeros(x.shape[-1]))
-      y = F.layer_norm(x.float(), (x.shape[-1],), scale, bias, eps=1e-3)
-      return y.to(x.dtype)
-    else:
+    return fused.layer_norm_act(x, *self.affine(x.shape[-1]))
+
+  def affine(self, C):
+    """The float32 scale and bias over C columns."""
+    if self._impl != 'layer':
       raise NotImplementedError(self._impl)
+    return (self.value('scale', torch.ones(C)),
+            self.value('bias', torch.zeros(C)))
 
 
 class Input:

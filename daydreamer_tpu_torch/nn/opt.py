@@ -5,7 +5,11 @@ state entries of the optimizer module (`step`, `m/<param>`, `v/<param>`,
 with `/` in the parameter name written as `.`), so they checkpoint under
 the JAX package's names. Parameters and slots are updated in place. A
 gradient norm that is not finite skips the whole update, `step` included,
-without a host sync: the skip is a `torch.where` on the device.
+without a host sync: the skip is decided on the device.
+
+The global norm and the per-tensor step run in `ops/adam.py`: on the card
+as a few multi-tensor kernel launches, on the CPU as the plain loop, in
+the order of operations of `daydreamer_tpu/nn/opt.py`.
 
 Under data parallelism (`parallel/`) each rank's gradients are of the mean
 over its own rows; they are averaged over the ranks in one flat bucket
@@ -18,6 +22,7 @@ import re
 
 import torch
 
+from ..ops import adam
 from ..parallel import distributed
 from .module import Module, creating
 
@@ -75,7 +80,7 @@ class Optimizer(Module):
       # Global-norm clipping. A nonfinite norm means some gradient overflowed
       # or produced a NaN; then the whole update is skipped so neither the
       # params nor the Adam moments absorb the poison.
-      norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+      norm = adam.global_norm(grads)
       finite = torch.isfinite(norm)
       # Skipped updates do not advance the Adam step either, so the bias
       # correction stays consistent with the number of moment updates.
@@ -92,20 +97,12 @@ class Optimizer(Module):
       scale = torch.where(finite, scale, torch.zeros_like(scale))
       bias1 = 1 - self._beta1 ** t
       bias2 = 1 - self._beta2 ** t
-      for key, grad in zip(keys, grads):
-        grad = grad * scale
-        m, v = slots[key]
-        m.copy_(torch.where(
-            finite, self._beta1 * m + (1 - self._beta1) * grad, m))
-        v.copy_(torch.where(
-            finite, self._beta2 * v + (1 - self._beta2) * grad * grad, v))
-        param = params[key]
-        decayed = param
-        if self._wd and self._wd_pattern.search(key):
-          decayed = (1 - self._wd * lr) * param
-        update = decayed - lr * (m / bias1) / (torch.sqrt(v / bias2)
-                                               + self._eps)
-        param.copy_(torch.where(finite, update, param))
+      adam.adam_update(
+          [params[k] for k in keys], grads, [slots[k][0] for k in keys],
+          [slots[k][1] for k in keys],
+          [bool(self._wd_pattern.search(k)) for k in keys], norm, finite,
+          scale, lr, bias1, bias2, self._wd, self._beta1, self._beta2,
+          self._eps)
 
     metrics = {
         f'{name}_loss': loss.detach(),

@@ -1,5 +1,7 @@
 """CUDA kernels of the port and their plain PyTorch versions."""
 
+from . import adam  # noqa: F401  (registers its two kernels)
 from . import build
+from . import norm  # noqa: F401  (registers its two kernels)
 from . import rssm  # noqa: F401  (registers its kernel)
 from . import rssm_vjp  # noqa: F401  (registers its two kernels)

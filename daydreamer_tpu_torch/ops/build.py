@@ -10,6 +10,9 @@ Every kernel's C function takes `(int bf16, void* const* ptrs, const int*
 dims, float..., void* stream)` and returns `cudaGetLastError()`; `check`
 holds the tensors to what a kernel reads and `launch` makes the call.
 
+Two kernels may share one source and its library (`shares`): each keeps
+its own launch count.
+
 A launch is counted on its kernel (`count`). While a CUDA graph is being
 captured on the calling thread's stream nothing launches: the call is
 recorded for the graph instead (`take_captured`), and the graph's runner
@@ -18,6 +21,7 @@ is the number of times the card ran it either way.
 """
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -52,15 +56,19 @@ class Kernel:
 
   route = 'cuda'
 
-  def __init__(self, name, source, replaces, signature, headers=()):
+  def __init__(self, name, source, replaces, signature=None, headers=(),
+               shares=None):
     self.name = name
     self.source = CSRC / source
     self.headers = [CSRC / header for header in headers]
     self.replaces = replaces
     self.signature = signature  # {C function: (restype, argtypes)}
+    self.shares = shares  # The kernel whose library holds this one.
     self.launches = 0
     self._lib = None
     self._lock = threading.Lock()
+    if shares is not None:
+      self.headers, self.signature = shares.headers, shares.signature
 
   def digest(self):
     """A hash of the source and of the headers it includes."""
@@ -71,11 +79,14 @@ class Kernel:
 
   @property
   def library(self):
+    if self.shares is not None:
+      return self.shares.library
     return BUILD / f'lib{self.name}_{self.digest()}.so'
 
   def start_build(self):
-    """Start nvcc unless the library exists; returns the process or None."""
-    if self.library.exists():
+    """Start nvcc unless the library exists (or is another kernel's to
+    build); returns the process or None."""
+    if self.library.exists() or self.shares is not None:
       return None
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = self.library.with_suffix(f'.{os.getpid()}.tmp')
@@ -98,6 +109,8 @@ class Kernel:
     os.replace(proc.tmp, log.with_suffix('.so'))
 
   def lib(self):
+    if self.shares is not None:
+      return self.shares.lib()
     with self._lock:
       if self._lib is None:
         self.finish_build(self.start_build())
@@ -144,9 +157,9 @@ def signature(scalars=1):
       ctypes.c_void_p])
 
 
-def check(name, tensors, device, dtype):
-  """Raises unless every (key, tensor) is a contiguous, 16-byte aligned
-  tensor of `dtype` on the card `device`."""
+def check(name, tensors, device, dtype, align=16):
+  """Raises unless every (key, tensor) is a contiguous, `align`-byte
+  aligned tensor of `dtype` on the card `device`."""
   for key, x in tensors:
     if x.device != device or x.device.type != 'cuda':
       raise ValueError(f'{name}: {key} lies on {x.device}, not on a card.')
@@ -154,8 +167,8 @@ def check(name, tensors, device, dtype):
       raise TypeError(f'{name}: {key} is {x.dtype} among {dtype}.')
     if not x.is_contiguous():
       raise ValueError(f'{name}: {key} is not contiguous.')
-    if x.data_ptr() % 16:
-      raise ValueError(f'{name}: {key} is not aligned to 16 bytes.')
+    if x.data_ptr() % align:
+      raise ValueError(f'{name}: {key} is not aligned to {align} bytes.')
 
 
 def launch(kernel, fn, dtype, ptrs, dims, scalars, device):
@@ -199,6 +212,27 @@ def credit(captured, times=1):
   """Count the launches of `times` replays of a graph that `captured`."""
   for kernel, calls in captured.items():
     kernel.launches += calls * times
+
+
+_PLAIN = [0]
+
+
+@contextlib.contextmanager
+def plain_versions():
+  """Within the block the wrappers of `ops/norm.py` and `ops/adam.py` run
+  their plain versions on a card too, as PyTorch ops under autograd. For
+  the tests and `chip_smoke.py`, which hold the kernels' path against the
+  plain one; nothing else calls it."""
+  _PLAIN[0] += 1
+  try:
+    yield
+  finally:
+    _PLAIN[0] -= 1
+
+
+def plain():
+  """Whether `plain_versions` is open."""
+  return _PLAIN[0] > 0
 
 
 # A block's dynamic shared memory on sm_90a.

@@ -346,6 +346,13 @@ inline int __shfl_xor_sync(unsigned mask, int v, int offset) {
   return v;
 }
 inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }
+// The intrinsics of one IEEE rounding each: g++ contracts nothing here.
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fsqrt_rn(float a) { return std::sqrt(a); }
+using std::isfinite;
 using std::max;
 using std::min;
 

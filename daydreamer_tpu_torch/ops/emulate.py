@@ -3,12 +3,13 @@
     python -m daydreamer_tpu_torch.ops.emulate [--out DIR] [--case NAME]...
 
 compiles every source of `csrc/` (`observe_fwd.cu`, `observe_bwd.cu`,
-`imagine_actor.cu`, `imagine.cu`, `observe.cu`) with g++ against the
+`imagine_actor.cu`, `imagine.cu`, `observe.cu`, `layer_norm.cu`,
+`adam.cu`) with g++ against the
 stand-in headers of `csrc/emulate/` (one fiber per CUDA thread, the
 blocks of a cluster side by side, see `emulate.h`; `cp.async`, `ldmatrix`,
 `mma.sync` and the cluster's barrier and shared memory as `ptx.h` stands in
-for them), calls them through the real wrappers of `rssm_vjp.py` and
-`rssm.py` on CPU tensors at tiny widths, and holds each against its plain
+for them), calls them through the real wrappers of `rssm_vjp.py`,
+`rssm.py`, `norm.py` and `adam.py` on CPU tensors at tiny widths, and holds each against its plain
 version in float32 and bfloat16, one case after another (`--case` picks
 cases by name, `--list` names them). The libraries go to `--out` (made if
 missing; without it, a temporary directory), named by the contents of the
@@ -37,7 +38,9 @@ import tempfile
 import numpy as np
 import torch
 
+from . import adam
 from . import build
+from . import norm
 from . import rssm
 from . import rssm_vjp
 
@@ -126,20 +129,21 @@ def compile_selftest(outdir):
 
 @contextlib.contextmanager
 def emulated(outdir):
-  """Within the block, the CUDA wrappers of `rssm_vjp.py` and `rssm.py`
-  take CPU tensors and run the emulated kernels (every other check
-  stays). The sources compile side by side."""
+  """Within the block, the CUDA wrappers of `rssm_vjp.py`, `rssm.py`,
+  `norm.py` and `adam.py` take CPU tensors and run the emulated kernels
+  (every other check stays). The sources compile side by side."""
   kernels = (rssm_vjp.OBSERVE_FWD, rssm_vjp.OBSERVE_BWD, rssm.IMAGINE_ACTOR,
-             rssm.IMAGINE, rssm.OBSERVE)
+             rssm.IMAGINE, rssm.OBSERVE, norm.LAYER_NORM_ACT_FWD,
+             adam.ADAM_SUMSQ)
   pathlib.Path(outdir).mkdir(parents=True, exist_ok=True)
   with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
     compiled = list(pool.map(lambda k: compile_kernel(k, outdir), kernels))
   libs = {fn: lib for kernel, lib in zip(kernels, compiled)
           for fn in kernel.signature}
 
-  def check(name, tensors, device, dtype):
+  def check(name, tensors, device, dtype, align=16):
     for key, x in tensors:
-      if x.dtype != dtype or not x.is_contiguous() or x.data_ptr() % 16:
+      if x.dtype != dtype or not x.is_contiguous() or x.data_ptr() % align:
         raise ValueError(f'{name}: {key} is not what the kernel reads.')
 
   def launch(kernel, fn, dtype, ptrs, dims, scalars, device):
@@ -368,20 +372,162 @@ OBSERVE_CASES = (
 )
 
 
+def _scaled(got, want):
+  """The largest |got - want| over the largest |want|; infinite where got
+  holds a NaN or an infinity."""
+  return _error(got, want) / max(1e-6, float(want.float().abs().max()))
+
+
+def compare_layer_norm(dtype, C, rows, act, blocks=None, seed=0):
+  """The emulated `layer_norm_act_fwd` and `layer_norm_act_bwd` against
+  the plain version and its autograd (call inside `emulated`); `blocks`
+  caps the backward's blocks, so that a block takes several runs of rows.
+  Returns (the largest error of y relative to max(|y|, 1), the largest
+  scaled error of dx, dscale and dbias)."""
+  rng = np.random.default_rng(seed)
+  t = lambda *shape: torch.as_tensor(
+      rng.standard_normal(shape).astype(np.float32))
+  x = (3 * t(rows, C) + 1).to(dtype)
+  scale, bias, dy = 1 + 0.2 * t(C), 0.3 * t(C), t(rows, C).to(dtype)
+  y, mean, rstd = norm.layer_norm_act_fwd_cuda(x, scale, bias, act)
+  leaves = [v.clone().requires_grad_() for v in (x, scale, bias)]
+  ref = norm.layer_norm_act_plain(*leaves, act)
+  want = torch.autograd.grad(ref, leaves, dy)
+  ref = ref.detach()
+  fwd = float(((y.float() - ref.float()).abs()
+               / ref.float().abs().clamp_min(1)).max())
+  saved = norm.BWD_BLOCKS
+  norm.BWD_BLOCKS = blocks or saved
+  try:
+    got = norm.layer_norm_act_bwd_cuda(x, scale, bias, mean, rstd, dy, act)
+  finally:
+    norm.BWD_BLOCKS = saved
+  return fwd, max(_scaled(g, w) for g, w in zip(got, want))
+
+
+def compare_adam(sizes, decayed, warmup, seed=0):
+  """The emulated `adam_sumsq` and `adam_update` against the plain versions
+  from the same state (call inside `emulated`), in two steps: one with
+  finite gradients, one with a NaN in a gradient. Returns (the norm's
+  relative error, p, m and v equal to the plain loop's bit for bit after
+  the finite step, and left as they were by the NaN one)."""
+  rng = np.random.default_rng(seed)
+  t = lambda n: torch.as_tensor(rng.standard_normal(n).astype(np.float32))
+  params = [t(n) for n in sizes]
+  ms = [0.1 * t(n) for n in sizes]
+  vs = [t(n).square() for n in sizes]
+  # The gradients as views of one flat bucket, as the data-parallel mean
+  # hands them over: the second starts off 16-byte alignment.
+  grads = list(t(sum(sizes)).split(list(sizes)))
+  step = torch.tensor(3.0)
+  lr = 1e-3 * torch.clamp(step / 10, 0, 1) if warmup else 1e-3
+  kw = dict(wd=1e-2, beta1=0.9, beta2=0.999, eps=1e-5)
+  norm_ = adam.global_norm_cuda(grads)
+  want = adam.global_norm_plain(grads)
+  rel = abs(float(norm_) - float(want)) / float(want)
+  same = True
+  for poison in (False, True):
+    if poison:
+      grads[1][2] = float('nan')
+      want = adam.global_norm_plain(grads)
+    finite = torch.isfinite(want)
+    scale = torch.where(finite, torch.clamp_max(
+        100 / torch.clamp_min(want, 1e-8), 1.0), torch.zeros(()))
+    bias1, bias2 = 1 - 0.9 ** step, 1 - 0.999 ** step
+    states = [[x.clone() for x in xs] for xs in (params, ms, vs)]
+    plain = [[x.clone() for x in xs] for xs in (params, ms, vs)]
+    adam.adam_update_cuda(*states[:1], grads, *states[1:], decayed, want,
+                          scale, lr, bias1, bias2, **kw)
+    adam.adam_update_plain(plain[0], grads, plain[1], plain[2], decayed,
+                           finite, scale, lr, bias1, bias2, **kw)
+    for got, ref, old in zip(states, plain, (params, ms, vs)):
+      for g, r, o in zip(got, ref, old):
+        same &= bool(torch.equal(g, r))
+        if poison:
+          same &= bool(torch.equal(g, o))
+    if not poison:
+      params, ms, vs = states
+  return rel, same
+
+
+# layer_norm_act: C = 64 and C = 130 in both dtypes, with the ELU and
+# without, on 37 rows (no multiple of a block's 32, 16 or 8 rows): bfloat16
+# at 64 takes 16-byte vectors and groups of 8 lanes, float32 at 64 groups
+# of 16; 130 is no multiple of a vector, so a value a lane, a warp a row
+# and 6 values a lane, 2 of them past the row. Then C = 9 (groups of 16
+# lanes, 7 of them idle) and C = 1536 (a warp a row, 6 vectors a lane) in
+# bfloat16; 64 once more on 600 rows with the backward capped at 2 blocks,
+# so that each group takes 10 rows and the two blocks' partial sums meet
+# in the second launch; 768 on 20 rows (the GRU's norm at a1, 3 vectors a
+# lane); float32 at 1536 (12 vectors a lane, the most); and bfloat16 at
+# 3072 with the backward capped at 1 block, two warps a row whose sums go
+# through shared memory. Each as (dtype, C, rows, act, blocks).
+LAYER_NORM_CASES = (
+    (torch.bfloat16, 64, 37, 'elu', None),
+    (torch.float32, 64, 37, 'elu', None),
+    (torch.bfloat16, 130, 37, 'none', None),
+    (torch.float32, 130, 37, 'elu', None),
+    (torch.bfloat16, 9, 21, 'elu', None),
+    (torch.bfloat16, 1536, 5, 'elu', None),
+    (torch.bfloat16, 64, 600, 'elu', 2),
+    (torch.bfloat16, 768, 20, 'none', None),
+    (torch.float32, 1536, 11, 'elu', None),
+    (torch.bfloat16, 3072, 9, 'elu', 1),
+)
+# adam: three tensors of odd sizes, the second decayed, one of them over a
+# block's chunk; with a constant lr and with a warmup's tensor lr. Then 200
+# small tensors, four of them empty, every third decayed: more than a
+# launch of either kernel takes. Each as (sizes, decayed, warmup).
+ADAM_CASES = (
+    ((7, adam.CHUNK + 13, 301), (False, True, False), False),
+    ((7, adam.CHUNK + 13, 301), (False, True, False), True),
+    (tuple(i * 37 % 50 for i in range(200)),
+     tuple(i % 3 == 0 for i in range(200)), False),
+)
+
+
 # Every case by name: the fused chain's (forward and backward, `CASES`),
-# the rollouts' (`ROLLOUT_CASES`) and `observe`'s own (`OBSERVE_CASES`), as
-# (kind, dtype, shape).
+# the rollouts' (`ROLLOUT_CASES`), `observe`'s own (`OBSERVE_CASES`),
+# `layer_norm_act`'s and the optimizer's, as (kind, dtype, shape).
 NAMES = {
     f'{kind}{i}-{str(dtype).split(".")[-1]}': (kind, dtype, case)
     for kind, cases in (('chain', CASES), ('rollout', ROLLOUT_CASES),
                         ('observe', OBSERVE_CASES))
     for i, (dtype, case) in enumerate(cases)}
+NAMES.update({
+    f'layer_norm{i}-{str(case[0]).split(".")[-1]}': (
+        'layer_norm', case[0], case[1:])
+    for i, case in enumerate(LAYER_NORM_CASES)})
+NAMES.update({f'adam{i}-float32': ('adam', torch.float32, case)
+              for i, case in enumerate(ADAM_CASES)})
 
 
 def run_case(name):
   """Runs one case (call inside `emulated`); prints its line, ending in
   ': ok' or ': DISAGREES', and returns whether it agreed."""
   kind, dtype, case = NAMES[name]
+  if kind == 'layer_norm':
+    fwd_err, bwd_err = compare_layer_norm(dtype, *case)
+    # float32: the same arithmetic summed in another order. bfloat16: y
+    # may round to the other side, one unit in the last place (2^-7 of
+    # |y| in [1, 2)); here none does, and the backward in float32 after
+    # the same roundings agrees as float32 does (a dn left unrounded
+    # moves dx by 6e-3 of its scale).
+    limits = (1e-5, 1e-4) if dtype == torch.float32 else (2 ** -7, 1e-3)
+    good = fwd_err <= limits[0] and bwd_err <= limits[1]
+    print(f'{name} {dtype} C, rows, act, blocks {case}: forward error '
+          f'{fwd_err:.3g} (tolerance {limits[0]:g} of max(|y|, 1)), scaled '
+          f'backward error {bwd_err:.3g} (tolerance {limits[1]:g}): '
+          f'{"ok" if good else "DISAGREES"}', flush=True)
+    return good
+  if kind == 'adam':
+    rel, same = compare_adam(*case)
+    good = same and rel <= 1e-6
+    print(f'{name} sizes, decayed, warmup {case}: norm relative error '
+          f'{rel:.3g} (tolerance 1e-6), update equal bit for bit and a NaN '
+          f'gradient changes nothing {same}: '
+          f'{"ok" if good else "DISAGREES"}', flush=True)
+    return good
   if kind == 'chain':
     equal, fwd_err, bwd_err = compare(dtype, **case)
     # float32 arithmetic on both sides, summed in another order.

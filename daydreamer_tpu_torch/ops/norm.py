@@ -1,0 +1,184 @@
+"""LayerNorm with its casts and the activation after it, one pass each way:
+the port's counterpart of the loop fusion that XLA makes of the JAX
+package's `Norm` (`daydreamer_tpu/nn/layers.py:140-160`: the upcast to
+float32, the two-pass mean and variance, `rsqrt`, the affine step, the
+downcast) with the ELU that follows it in a layer.
+
+`layer_norm_act(x, scale, bias, act)` normalizes the last axis of `x`
+(float32 or bfloat16, any leading shape) with eps 1e-3 in float32, applies
+the float32 `scale` and `bias`, rounds to x's dtype, and applies `act`,
+rounding again: `none` or `elu`, the activations the configs pair with
+`norm: layer` (`configs.yaml`); any other activation, named by the layer
+with its callable, is applied after the norm by that callable.
+
+- On a CUDA tensor it launches `csrc/layer_norm.cu`: `layer_norm_act_fwd`
+  (y, and each row's float32 mean and rstd) and, under autograd,
+  `layer_norm_act_bwd`: the activation's gradient from the pre-activation
+  recomputed from x, mean, rstd, scale and bias, rounded to x's dtype as
+  autograd of the plain version rounds it, then the LayerNorm backward in
+  float32; dx in x's dtype, and dscale and dbias summed over the rows in a
+  fixed order (per-block partial sums, then a second launch over them), so
+  that a graphed call equals an eager one bit for bit.
+- On a CPU tensor it runs `layer_norm_act_plain`, the same function in
+  PyTorch ops (the layer's code before the kernel), and differentiates it
+  by autograd.
+- Inside `build.plain_versions()` (tests and `chip_smoke.py` only) it runs
+  the plain version on a card too.
+"""
+
+import torch
+import torch.nn.functional as F
+
+from . import build
+from ..nn import cost
+
+EPS = 1e-3
+# The activations the kernel applies, and their plain versions.
+ACTS = {'none': lambda x: x, 'elu': F.elu}
+# Blocks of a backward launch at most: 4 for each of the H100's 132 SMs.
+# Each writes one row of partial sums of dscale and dbias.
+BWD_BLOCKS = 528
+
+LAYER_NORM_ACT_FWD = build.register(build.Kernel(
+    'layer_norm_act_fwd', 'layer_norm.cu',
+    'daydreamer_tpu/nn/layers.py:140 (Norm.__call__ and the activation '
+    'after it, one loop fusion of XLA)',
+    {'layer_norm_act_fwd': build.signature(),
+     'layer_norm_act_bwd': build.signature()}))
+LAYER_NORM_ACT_BWD = build.register(build.Kernel(
+    'layer_norm_act_bwd', 'layer_norm.cu',
+    'daydreamer_tpu/nn/layers.py:140 (the gradient of Norm and its '
+    'activation, fused by XLA)', shares=LAYER_NORM_ACT_FWD))
+
+
+def layer_norm_act_plain(x, scale, bias, act='none'):
+  """The function in PyTorch ops: LayerNorm of float32(x), rounded to x's
+  dtype, then `act` in that dtype."""
+  y = F.layer_norm(x.float(), (x.shape[-1],), scale, bias, eps=EPS)
+  return ACTS[act](y.to(x.dtype))
+
+
+def _rows(x):
+  return x.numel() // x.shape[-1], x.shape[-1]
+
+
+def _aligned(x):
+  """x as the kernel reads it: contiguous and 16-byte aligned (a view
+  that starts inside its storage may not be), copied where it is not."""
+  x = x.contiguous()
+  return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _check(name, x, scale, bias, act):
+  if x.dtype not in (torch.float32, torch.bfloat16):
+    raise TypeError(f'{name} takes float32 or bfloat16, not {x.dtype}.')
+  if act not in ACTS:
+    raise ValueError(f'{name}: no activation {act!r} in the kernel.')
+  rows, C = _rows(x)
+  build.check(name, [('scale', scale), ('bias', bias)], x.device,
+              torch.float32)
+  if tuple(scale.shape) != (C,) or tuple(bias.shape) != (C,):
+    raise ValueError(f'{name}: scale and bias must have shape ({C},).')
+  # A row wider than csrc/layer_norm.cu's `plan` takes (past 16 384
+  # bfloat16 or 12 288 float32 values, 4 096 where C is no multiple of a
+  # 16-byte vector) is refused by the launch.
+  return rows, C
+
+
+def layer_norm_act_fwd_cuda(x, scale, bias, act='none'):
+  """y, mean, rstd from one launch of `layer_norm_act_fwd`; x on a card.
+  mean and rstd are float32, one a row."""
+  name = 'layer_norm_act_fwd'
+  x = _aligned(x)
+  rows, C = _check(name, x, scale, bias, act)
+  build.check(name, [('x', x)], x.device, x.dtype)
+  y = torch.empty_like(x)
+  mean = torch.empty(rows, dtype=torch.float32, device=x.device)
+  rstd = torch.empty(rows, dtype=torch.float32, device=x.device)
+  build.launch(LAYER_NORM_ACT_FWD, 'layer_norm_act_fwd', x.dtype,
+               [x, scale, bias, y, mean, rstd],
+               [rows, C, int(act == 'elu'), 1], [EPS], x.device)
+  return y, mean, rstd
+
+
+def layer_norm_act_bwd_cuda(x, scale, bias, mean, rstd, dy, act='none'):
+  """dx, dscale, dbias from one launch of `layer_norm_act_bwd` (its two
+  kernels); the forward's x, mean and rstd."""
+  name = 'layer_norm_act_bwd'
+  x, dy = _aligned(x), _aligned(dy.to(x.dtype))
+  rows, C = _check(name, x, scale, bias, act)
+  build.check(name, [('x', x), ('dy', dy)], x.device, x.dtype)
+  build.check(name, [('mean', mean), ('rstd', rstd)], x.device,
+              torch.float32)
+  dx = torch.empty_like(x)
+  dscale = torch.empty(C, dtype=torch.float32, device=x.device)
+  dbias = torch.empty(C, dtype=torch.float32, device=x.device)
+  partial = torch.empty((BWD_BLOCKS, 2, C), dtype=torch.float32,
+                        device=x.device)
+  build.launch(LAYER_NORM_ACT_BWD, 'layer_norm_act_bwd', x.dtype,
+               [x, scale, bias, mean, rstd, dy, dx, partial, dscale, dbias],
+               [rows, C, int(act == 'elu'), BWD_BLOCKS], [EPS], x.device)
+  return dx, dscale, dbias
+
+
+def layer_norm_act_work(rows, C, dtype, act='none', backward=False):
+  """(operations, bytes) of one launch at these widths: each input read
+  once, each output written once. Forward: x, scale and bias in; y, mean
+  and rstd out; about 8 operations a value, 10 with the ELU. Backward: x,
+  dy, scale, bias, mean and rstd in; dx, dscale and dbias out; about 16
+  operations a value, 18 with the ELU. The partial sums are the kernel's
+  own scratch, and no product is done (`cost.CostMode` counts products
+  only, as `FlopCounterMode`, so the wrappers count no FLOPs)."""
+  item, n = cost.itemsize(dtype), rows * C
+  elu = 2 * (act == 'elu')
+  if backward:
+    return ((16 + elu) * n,
+            3 * item * n + 4 * 2 * rows + 4 * 2 * C + 4 * 2 * C)
+  return (8 + elu) * n, 2 * item * n + 4 * 2 * C + 4 * 2 * rows
+
+
+class LayerNormAct(torch.autograd.Function):
+  """(x, scale, bias, act) -> y. A CUDA input launches the kernels, a CPU
+  input runs the plain version (its backward by autograd)."""
+
+  @staticmethod
+  def forward(ctx, x, scale, bias, act):
+    rows, C = _rows(x)
+    work = lambda: (0, layer_norm_act_work(rows, C, x.dtype, act)[1])
+    with cost.kernel('layer_norm_act_fwd', work):
+      if x.device.type == 'cpu':
+        y, stats = layer_norm_act_plain(x, scale, bias, act), ()
+      else:
+        y, *stats = layer_norm_act_fwd_cuda(x, scale, bias, act)
+    ctx.save_for_backward(x, scale, bias, *stats)
+    ctx.act = act
+    return y
+
+  @staticmethod
+  def backward(ctx, dy):
+    x, scale, bias, *stats = ctx.saved_tensors
+    rows, C = _rows(x)
+    work = lambda: (0, layer_norm_act_work(
+        rows, C, x.dtype, ctx.act, backward=True)[1])
+    with cost.kernel('layer_norm_act_bwd', work):
+      if x.device.type == 'cpu':
+        with torch.enable_grad():
+          inputs = [t.detach().requires_grad_() for t in (x, scale, bias)]
+          y = layer_norm_act_plain(*inputs, ctx.act)
+          dx, dscale, dbias = torch.autograd.grad(y, inputs, dy)
+      else:
+        dx, dscale, dbias = layer_norm_act_bwd_cuda(
+            x, scale, bias, *stats, dy, ctx.act)
+    return dx, dscale, dbias, None
+
+
+def layer_norm_act(x, scale, bias, act='none', fn=None):
+  """act(LayerNorm(x) * scale + bias), rounded to x's dtype after each (see
+  the module docstring); differentiable in x, scale and bias. An `act` the
+  kernel does not apply (not in ACTS) is `fn`, applied after the norm."""
+  inner = act if act in ACTS else 'none'
+  if build.plain():
+    y = layer_norm_act_plain(x, scale, bias, inner)
+  else:
+    y = LayerNormAct.apply(x, scale, bias, inner)
+  return y if inner == act else fn(y)

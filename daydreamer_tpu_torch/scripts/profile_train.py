@@ -8,7 +8,8 @@ K)` that creates the state and two warm ones (timed, untraced), then traces
 `--dispatches` more with `torch.profiler` (CPU and CUDA activities), each
 window ending in a fetch of the last update's model loss. The report ranks
 the CUDA kernels by device time per update with their launches per update,
-sorts them into categories by kernel name (the port's six kernels, GEMM,
+sorts them into categories by kernel name (the port's six kernels and the
+four that stand for XLA's fusions, each its own, GEMM,
 convolution, LayerNorm, casts and copies, elementwise, reductions,
 host-to-device copies, other) and gives the device's busy ms, the wall ms
 and the idle share per update (against the traced wall time, and against
@@ -90,6 +91,14 @@ OWN = {
     'imagine_actor_kernel': 'imagine_actor',
     'imagine_kernel': 'imagine',
     'imagine_fma_kernel': 'imagine',
+    # The counterparts of XLA's fusions on the update (ops/norm.py,
+    # ops/adam.py).
+    'ln_fwd_kernel': 'layer_norm_act_fwd',
+    'ln_bwd_kernel': 'layer_norm_act_bwd',
+    'ln_param_grads_kernel': 'layer_norm_act_bwd',
+    'sumsq_kernel': 'adam_sumsq',
+    'sumsq_total_kernel': 'adam_sumsq',
+    'adam_update_kernel': 'adam_update',
 }
 # The other categories: the first pattern that matches the lowercased name.
 CATEGORIES = (

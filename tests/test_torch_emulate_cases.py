@@ -1,5 +1,6 @@
-"""The five CUDA sources themselves (the fused observe chain's two,
-`imagine_actor.cu`, `imagine.cu`, `observe.cu`), compiled with g++ against
+"""The seven CUDA sources themselves (the fused observe chain's two,
+`imagine_actor.cu`, `imagine.cu`, `observe.cu`, and the fused update's
+`layer_norm.cu` and `adam.cu`), compiled with g++ against
 the stand-in headers (`ops/emulate.py`), agree with the plain versions at
 tiny widths in float32 and bfloat16: one test per case of
 `emulate.NAMES`.

@@ -82,6 +82,14 @@ def test_linear(kw):
      (2, 6, 6, 3)),
     (dict(depth=4, kernel=5, stride=2, transp=True, pad='valid'),
      (2, 1, 1, 9)),  # The dense path of a 1x1 transposed conv.
+    # SAME padding at any stride and kernel, as XLA pads it: forward
+    # convs whose padding is uneven or strided, transposed convs whose
+    # output is H * stride.
+    (dict(depth=4, kernel=4, stride=2), (2, 7, 7, 3)),
+    (dict(depth=4, kernel=4, stride=1), (2, 6, 6, 3)),
+    (dict(depth=4, kernel=3, stride=2), (2, 8, 8, 3)),
+    (dict(depth=4, kernel=4, stride=2, transp=True), (2, 5, 5, 3)),
+    (dict(depth=4, kernel=5, stride=2, transp=True), (2, 4, 4, 3)),
 ])
 def test_conv(kw, shape):
   jout, pout, state, pmod = carry(

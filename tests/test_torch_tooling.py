@@ -87,6 +87,21 @@ def test_profile_train_on_cpu(capsys, monkeypatch):
     ('void at::native::(anonymous namespace)::distribution_elementwise_'
      'grid_stride_kernel', 'elementwise'),
     ('void at_cuda_detail::cub::DeviceRadixSortOnesweepKernel', 'other'),
+    # The counterparts of XLA's fusions, each under its wrapper's name.
+    ('void (anonymous namespace)::ln_fwd_kernel<__nv_bfloat16, 8, 1>('
+     '__nv_bfloat16 const*, float const*, float const*, __nv_bfloat16*, '
+     'float*, float*, (anonymous namespace)::Shape, float)',
+     'layer_norm_act_fwd'),
+    ('void (anonymous namespace)::ln_bwd_kernel<float, 4, 1>(float const*)',
+     'layer_norm_act_bwd'),
+    ('(anonymous namespace)::ln_param_grads_kernel(float const*, float*, '
+     'float*, int, int)', 'layer_norm_act_bwd'),
+    ('(anonymous namespace)::sumsq_kernel((anonymous namespace)::Tensors, '
+     'float*)', 'adam_sumsq'),
+    ('(anonymous namespace)::sumsq_total_kernel(float const*, int, float*)',
+     'adam_sumsq'),
+    ('(anonymous namespace)::adam_update_kernel((anonymous namespace)::'
+     'Tensors, (anonymous namespace)::Scalars)', 'adam_update'),
 ])
 def test_categorize(name, category):
   assert profile_train.categorize(name) == category
