@@ -189,10 +189,16 @@ Phases, each of which must pass:
                F.elu) and its autograd at each norm site of the xarm
                update (rows x C: 984 064 x 64, 921 600 x 64, 200 704 x
                128, 36 864 x 256, 4 096 x 512, 16 384 x 512, 1 024 x 1 536,
-               the a1 GRU's 1 024 x 768, and 4 096 x 130), in float32 and
-               bfloat16, within the tolerances it prints, with the times of
-               kernel, plain version, F.layer_norm alone where it is the
-               same function (float32, no activation) and the bound.
+               the a1 GRU's 1 024 x 768, and 4 096 x 130) and of the a1
+               update (32 x 256 and 32 x 768, a step of observe; 1 024 x
+               256 and 1 024 x 512, a step of the rollout), in float32 and
+               bfloat16, within the tolerances it prints, a second
+               backward launch equal to the first bit for bit, with the
+               times of kernel, plain version, F.layer_norm alone where it
+               is the same function (float32, no activation) and the
+               bound; first each instantiation's registers and spills from
+               the build log (the extra phase `layer_norm`, not run by
+               default, runs this part alone).
                Then one xarm update with the kernels and one with the plain
                versions (`build.plain_versions()`) from one state and one
                generator state (eager, after two updates), in bfloat16 and
@@ -261,14 +267,16 @@ computes). With
 `scores/NAME_dreamer_torch_sN.json`, so that seed 0's file stays.
 
 `--compare NAME=SOURCE` (NAME one of imagine_actor, imagine, observe,
-observe_fwd, observe_bwd; the option may be given several times) runs no
+observe_fwd, observe_bwd, layer_norm; the option may be given several
+times) runs no
 phase and prints no result line: it builds the kernel's source in the tree
 and the other version of it in the file SOURCE (its includes beside it),
 runs both on the xarm inputs of the kernel check, says whether their
 outputs are equal bit for bit, and times them in turns (tree, other, other,
 tree) in bfloat16 and float32 (observe at the xarm and a1 shapes of the proof
-entry point): how a change to a kernel is held against its parent inside one
-run.
+entry point; layer_norm at each site of LAYER_NORM_SITES, forward and
+backward, after each version's registers and spills): how a change to a
+kernel is held against its parent inside one run.
 """
 
 import argparse
@@ -935,12 +943,57 @@ def check_proof_kernels():
   return results
 
 
+def compare_layer_norm(source):
+  """`--compare layer_norm=SOURCE`: the tree's layer_norm.cu against
+  another version of it with the same C interface, at each site of
+  LAYER_NORM_SITES in both types: whether the two give the same bits
+  (forward and backward), and their device times in turns (tree, other,
+  other, tree)."""
+  import torch
+  from daydreamer_tpu_torch.ops import build, norm
+  tree = norm.LAYER_NORM_ACT_FWD
+  other = build.Kernel('layer_norm_other', str(pathlib.Path(source).resolve()),
+                       'another version', tree.signature)
+  build.build_all([tree, other])
+  for kernel in (tree, other):
+    layer_norm_registers(kernel)
+
+  def run(kernel, fn):
+    norm.LAYER_NORM_ACT_FWD = norm.LAYER_NORM_ACT_BWD = kernel
+    try:
+      return fn()
+    finally:
+      norm.LAYER_NORM_ACT_FWD, norm.LAYER_NORM_ACT_BWD = saved
+
+  saved = norm.LAYER_NORM_ACT_FWD, norm.LAYER_NORM_ACT_BWD
+  for dtype in (torch.bfloat16, torch.float32):
+    for rows, C, act in LAYER_NORM_SITES:
+      x, scale, bias, dy = _layer_norm_inputs(rows, C, dtype)
+      fwd = lambda: norm.layer_norm_act_fwd_cuda(x, scale, bias, act)
+      y, mean, rstd = fwd()
+      bwd = lambda: norm.layer_norm_act_bwd_cuda(x, scale, bias, mean, rstd,
+                                                 dy, act)
+      outs = [run(k, fwd) + run(k, bwd) for k in (tree, other)]
+      equal = all(torch.equal(a, b) for a, b in zip(*outs))
+      times = [(label, run(k, lambda: device_ms(fwd)),
+                run(k, lambda: device_ms(bwd)))
+               for label, k in (('tree', tree), ('other', other),
+                                ('other', other), ('tree', tree))]
+      log(f'compare layer_norm {str(dtype).split(".")[-1]} rows {rows} x C '
+          f'{C} ({act}): outputs equal bit for bit: {equal}; device ms '
+          'forward / backward: ' + ', '.join(
+              f'{label} {f:.4f} / {b:.4f}' for label, f, b in times))
+      del x, dy, y, outs
+
+
 def phase_compare(spec):
   """The tree's build of a CUDA kernel against another version of its
   source (see the module docstring)."""
   import torch
   from daydreamer_tpu_torch.ops import build, rssm, rssm_vjp
   name, _, source = spec.partition('=')
+  if name == 'layer_norm' and source:
+    return compare_layer_norm(source)
   modules = {'imagine_actor': rssm, 'imagine': rssm, 'observe': rssm,
              'observe_fwd': rssm_vjp, 'observe_bwd': rssm_vjp}
   if name not in modules or not source:
@@ -1052,11 +1105,61 @@ def phase_kernel():
 # positions), the decoder's last stage (30 x 30), the MLPs and heads over
 # the 16 x B x T rows of the imagined trajectories, the GRU's norm over
 # 3 x 512 columns (a1: 3 x 256) without an activation, and a width that is
-# no multiple of 32 (nor of a vector).
+# no multiple of 32 (nor of a vector). Then a1's: a step of the observe
+# loop (B = 32 rows: the RSSM's layers at 256 with the ELU, the GRU's norm
+# at 768 without) and of the imagined rollout (1 024 rows at 256 and 512).
 LAYER_NORM_SITES = (
     (1024 * 961, 64, 'elu'), (1024 * 900, 64, 'elu'), (1024 * 196, 128, 'elu'),
     (1024 * 36, 256, 'elu'), (1024 * 4, 512, 'elu'), (16 * 1024, 512, 'elu'),
-    (1024, 1536, 'none'), (1024, 768, 'none'), (4096, 130, 'elu'))
+    (1024, 1536, 'none'), (1024, 768, 'none'), (4096, 130, 'elu'),
+    (32, 256, 'elu'), (32, 768, 'none'), (1024, 256, 'elu'),
+    (1024, 512, 'elu'))
+
+
+# ptxas -v's lines in a build log: the function it compiles, then its
+# stack and spills, then its registers.
+_PTXAS_FUNCTION = re.compile(r"(?:Compiling entry function|Function "
+                             r"properties for) '?(\w+)'?")
+_PTXAS_SPILLS = re.compile(r'(\d+) bytes spill stores, (\d+) bytes spill '
+                           r'loads')
+_PTXAS_REGISTERS = re.compile(r'Used (\d+) registers')
+# A layer_norm.cu kernel's mangled name: kernel, T, VEC and N.
+_LN_MANGLED = re.compile(r'(ln_\w+?_kernel)I(13__nv_bfloat16|f)Li(\d+)E'
+                         r'Li(\d+)E')
+
+
+def layer_norm_registers(kernel=None):
+  """Each instantiation of layer_norm.cu's kernels with its registers and
+  spill bytes, from ptxas -v in the build log (of `kernel`, by default the
+  tree's layer_norm.cu): rows of (kernel, type, VEC, N, registers, spill
+  stores, spill loads), logged."""
+  from daydreamer_tpu_torch.ops import norm
+  kernel = kernel or norm.LAYER_NORM_ACT_FWD
+  found, function = {}, None
+  for line in kernel.build_log().splitlines():
+    match = _PTXAS_FUNCTION.search(line)
+    if match:
+      function = match[1]
+      continue
+    name = _LN_MANGLED.search(function or '')
+    if name is None:
+      continue
+    row = found.setdefault(name.groups(), [None, None, None])
+    if _PTXAS_SPILLS.search(line):
+      row[1:] = [int(v) for v in _PTXAS_SPILLS.search(line).groups()]
+    if _PTXAS_REGISTERS.search(line):
+      row[0] = int(_PTXAS_REGISTERS.search(line)[1])
+  rows, source = [], kernel.source.name
+  for (kernel, dtype, vec, n), (regs, stores, loads) in sorted(
+      found.items(), key=lambda kv: (kv[0][0], kv[0][1], int(kv[0][2]),
+                                     int(kv[0][3]))):
+    dtype = 'bfloat16' if 'bfloat16' in dtype else 'float32'
+    rows.append((kernel, dtype, int(vec), int(n), regs, stores, loads))
+    log(f'{source} {kernel}<{dtype}, VEC {vec}, N {n}>: {regs} '
+        f'registers, spill stores {stores} bytes, spill loads {loads} bytes')
+  if not rows:
+    raise AssertionError('the build log of layer_norm.cu names no kernel')
+  return rows
 
 
 def device_ms(fn, calls=10, tries=3):
@@ -1103,6 +1206,10 @@ def check_layer_norm(sites=LAYER_NORM_SITES, device='cuda'):
       x, scale, bias, dy = _layer_norm_inputs(rows, C, dtype, device=device)
       y, mean, rstd = norm.layer_norm_act_fwd_cuda(x, scale, bias, act)
       got = norm.layer_norm_act_bwd_cuda(x, scale, bias, mean, rstd, dy, act)
+      # A second launch on the same inputs: the same bits (the sums over
+      # blocks in a fixed order, the counters reset by the first).
+      same = all(torch.equal(a, b) for a, b in zip(got, (
+          norm.layer_norm_act_bwd_cuda(x, scale, bias, mean, rstd, dy, act))))
       leaves = [v.clone().requires_grad_() for v in (x, scale, bias)]
       ref = norm.layer_norm_act_plain(*leaves, act)
       want = torch.autograd.grad(ref, leaves, dy, retain_graph=True)
@@ -1120,7 +1227,7 @@ def check_layer_norm(sites=LAYER_NORM_SITES, device='cuda'):
                 for g, w in zip(got, want)]
       limits = ((1e-5, (1e-4, 1e-3, 1e-3)) if dtype == torch.float32
                 else (2 ** -7, (2e-2, 2e-2, 2e-2)))
-      ok = (fwd <= limits[0]
+      ok = (fwd <= limits[0] and same
             and all(e <= lim for e, lim in zip(scaled, limits[1]))
             and all(bool(torch.isfinite(g).all()) for g in got))
       work = [cost.bound(*norm.layer_norm_act_work(
@@ -1151,7 +1258,8 @@ def check_layer_norm(sites=LAYER_NORM_SITES, device='cuda'):
           f'error {fwd:.3g} (tolerance {limits[0]:g} of max(|y|, 1)), '
           f'backward scaled errors dx {scaled[0]:.3g}, dscale '
           f'{scaled[1]:.3g}, dbias {scaled[2]:.3g} (tolerances '
-          f'{limits[1]}); device ms: forward {ms:.4f} (a call with the '
+          f'{limits[1]}), two backward launches equal {same}; device ms: '
+          f'forward {ms:.4f} (a call with the '
           f'host {call_ms:.4f}; plain {plain_ms:.4f}, library '
           f'{library(library_ms)}, bound {work[0]["bound_ms"]:.4f} '
           f'{work[0]["bound_by"]}), backward {bwd_ms:.4f} (a call '
@@ -1528,6 +1636,7 @@ def phase_fused(seeds=1):
   import torch
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
+  layer_norm_registers()
   results = check_layer_norm()
   compare_updates('xarm', 'float32', seeds)
   calls = compare_updates('xarm', 'bfloat16', seeds)
@@ -1670,6 +1779,9 @@ def main(argv=None):
   kernel = phase_kernel() if 'kernel' in phases else {}
   if 'fused' in phases:
     kernel.update(phase_fused(args.fused_seeds))
+  elif 'layer_norm' in phases:
+    layer_norm_registers()
+    kernel.update(check_layer_norm())
   if 'graphs' in phases:
     phase_graphs()
   launches, parallel = {}, {}

@@ -40,17 +40,20 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__
 
 struct uint3 { unsigned x, y, z; };
-inline thread_local uint3 threadIdx, blockIdx;
+inline thread_local uint3 threadIdx, blockIdx, gridDim;
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 struct uint2 { unsigned x, y; };
 struct uint4 { unsigned x, y, z, w; };
 struct int4 { int x, y, z, w; };
 inline float2 make_float2(float x, float y) { return {x, y}; }
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned x = 1, unsigned y = 1, unsigned z = 1) : x(x), y(y), z(z) {}
@@ -87,12 +90,35 @@ struct cudaLaunchConfig_t {
   cudaLaunchAttribute* attrs;
   unsigned numAttrs;
 };
-// How many clusters fit the card at once: nothing to say without one.
+// The card the launches go to, and what it holds: an H100's 132 SMs, 4
+// blocks of any kernel each, so that a launch's grid is what its caller
+// caps it at.
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* device) {
+  *device = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
+  *value = 132;
+  return cudaSuccess;
+}
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, F, int,
+                                                          size_t) {
+  *blocks = 4;
+  return cudaSuccess;
+}
+// How many clusters fit the card at once: as many as its blocks above
+// make, whole clusters of the launch's size.
 template <class F>
 cudaError_t cudaOccupancyMaxActiveClusters(int* count, F,
-                                           const cudaLaunchConfig_t*) {
-  *count = 0;
-  return cudaErrorNotSupported;
+                                           const cudaLaunchConfig_t* config) {
+  int cluster = 1;
+  for (unsigned i = 0; i < config->numAttrs; ++i)
+    if (config->attrs[i].id == cudaLaunchAttributeClusterDimension)
+      cluster = static_cast<int>(config->attrs[i].val.clusterDim.x);
+  *count = 132 * 4 / cluster;
+  return cudaSuccess;
 }
 
 // Saves the callee-saved registers and the stack pointer of the running
@@ -281,6 +307,7 @@ template <class K, class... Args>
 void launch(int cluster, K kernel, int blocks, int threads, size_t bytes,
             cudaStream_t, Args... args) {
   const std::function<void()> body = [&]() { kernel(args...); };
+  gridDim = {(unsigned)blocks, 1, 1};
   for (int first = 0; first < blocks; first += cluster) {
     std::vector<std::unique_ptr<Block>> alive;
     std::vector<float*> bases;
@@ -345,6 +372,16 @@ inline int __shfl_xor_sync(unsigned mask, int v, int offset) {
   memcpy(&v, &other, 4);
   return v;
 }
+// Blocks run one after another here, so an atomic is a plain
+// read-modify-write, a fence orders nothing that is not already in order,
+// and a load past L1 is a load.
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  const unsigned old = *p;
+  *p = old + v;
+  return old;
+}
+inline void __threadfence() {}
+inline float4 __ldcg(const float4* p) { return *p; }
 inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }
 // The intrinsics of one IEEE rounding each: g++ contracts nothing here.
 inline float __fadd_rn(float a, float b) { return a + b; }

@@ -21,41 +21,89 @@
 //   xhat = (x - mean) * rstd, g = dn * scale,
 //   dx = rstd * (g - mean(g) - xhat * mean(g * xhat)),
 //   dscale = sum over rows of dn * xhat, dbias = sum over rows of dn.
-// Each block sums its rows' dscale and dbias into one row of partial sums
-// in a fixed order; ln_param_grads sums those rows in a fixed order. No
-// atomic add: the same inputs give the same bits in any launch.
 //
-// Layout: a group of G lanes takes a row, G the power of two >= the row's
-// vectors and at most a warp, so that a group's sums are warp shuffles.
-// Each lane loads 16-byte vectors (VEC = 8 bfloat16 or 4 float32 values; 1
-// value where C is no multiple of that) and keeps its N of them in
-// registers between the passes, so x is read from memory once; the
-// backward keeps dy too (overwritten in its first pass with the gradient
-// at the norm's output, a value of T), and the sums of its N * VEC columns
-// of dscale and dbias over its rows; scale and bias are read as 16-byte
-// vectors. N is one of 1, 2, 3, 4, 6, 8, 12 and 16, with at
-// most 64 values a lane in bfloat16 and 48 in float32 (about 200 registers
-// in the backward): a warp takes rows of up to 2 048 bfloat16 or 1 536
-// float32 values (512 where C is no multiple of a vector), every width of
-// the xarm and a1 updates. A wider row (the GRU's norm over 3 x 1 024 of
-// the default config) takes 2, 4 or 8 warps, whose sums go through shared
-// memory. Rows a block of 256 threads takes at once, bfloat16: C = 64, 32
-// rows (G = 8, N = 1); C = 128, 16 (G = 16); C = 256, 8 (G = 32); C = 512,
-// 8 (N = 2); C = 768, 8 (N = 3); C = 1 536, 8 (N = 6); C = 3 072, 4 (G =
-// 64, N = 6); float32: C = 64, 16 (G = 16); C = 512, 8 (N = 4); C = 1 536,
-// 8 (N = 12). The forward gives each group one row; the backward gives
-// each block a run of rows (at most BWD_BLOCKS blocks, a multiple of its
-// groups a block), so that its partial sums stay few.
+// Both kernels are bound by bytes: about 8 operations a value forward and
+// 16 backward against 4 and 6 bytes a bfloat16 value. But with the ELU's
+// exponential and the roundings they issue about 25 and 37 instructions a
+// value, near the card's issue rate, and a row's sums are a dependent
+// chain of shuffles: warps an SM hide it, so registers count twice. What
+// kept them from the bound at the update's sites (PERF.md, section 6) and
+// what this design does about it:
+// - A second launch on every backward call, to sum the blocks' partial
+//   dscale and dbias. Here the backward is one launch of clusters of up to
+//   8 blocks (the grid no more clusters than the card holds at once): each
+//   block sums its rows into a row of partial sums in shared memory; block
+//   r of a cluster sums its share r of the columns over the cluster's
+//   blocks in rank order (distributed shared memory), into dscale and
+//   dbias where the grid is one cluster, else into the cluster's row of
+//   `partial`, and takes a ticket of counter r (an integer atomicAdd by
+//   one thread, after a fence that orders the stores the cluster's
+//   barrier made it see); the block of rank r that draws the last ticket
+//   sums its share of the clusters' rows in cluster order into dscale and
+//   dbias and resets counter r to 0. The counters (ops/norm.py keeps
+//   them, one array a card, zeroed once) are so ready for the next launch
+//   and the next replay of a CUDA graph. The same inputs give the same
+//   bits in any launch: no float atomic, every sum in a fixed order.
+// - Loads issued only after a row's sums. A block walks many steps of
+//   rows: the forward steps b, b + grid, ... (the grid what the card holds
+//   at once, at most FWD_BLOCKS), the backward a run of consecutive steps
+//   (at most BWD_BLOCKS blocks). Where a lane's row is at most 16 bytes of
+//   x (and 16 of dy in the backward) the next step's row is in flight
+//   while the current one is reduced; past that a second row's registers
+//   cost more warps than it gains. The backward's scale and bias go into
+//   shared memory once, before its first row's sums. The forward reads its
+//   lane's scale and bias after the sums, from L1 (every row of a block
+//   reads the same columns): held across the sums in registers, or staged
+//   through shared memory, they cost more than they gain (PERF.md).
+// - Registers, and rows of 768 and more in one warp. A lane keeps at most
+//   SPREAD = 16 values of a row: wider rows take 2 to 8 warps (768 bfloat16
+//   values: 2 warps, 1 536: 4), whose sums meet in shared memory, so that
+//   the backward's column sums (2 x 16 floats a lane) stay in registers;
+//   __launch_bounds__ asks for 6 forward or 4 backward blocks an SM at 8
+//   values a lane, where the backward spills 12 bytes: the variant
+//   measured without the spill, at 3 blocks an SM, was slower (PERF.md).
+//   Registers and spills of each instantiation: chip_smoke.py prints them
+//   from the build log.
+//
+// Layout: a group of G lanes takes a row, G a power of two, the narrowest
+// whose lanes keep at most SPREAD values each, so that a group of up to a
+// warp sums by shuffles and a wider one through shared memory. Each lane
+// loads 16-byte vectors (VEC = 8 bfloat16 or 4 float32 values; 1 value
+// where C is no multiple of that) and keeps its N of them in registers
+// between the passes, so x is read from memory once; the backward keeps dy
+// too (overwritten in its first pass with the gradient at the norm's
+// output, a value of T). Rows a block of 256 threads takes at a step,
+// bfloat16: C = 64, 32 rows (G = 8, N = 1); C = 128, 16 (G = 16); C = 256,
+// 8 (G = 32); C = 512, 8 (N = 2); C = 768, 4 (G = 64, N = 2); C = 1 536, 2
+// (G = 128, N = 2); C = 3 072, 1 (G = 256, N = 2); float32: C = 64, 16 (G =
+// 16); C = 512, 8 (N = 4); C = 1 536, 2 (G = 128, N = 3). Past 256 lanes
+// of SPREAD values a lane keeps up to 64 bfloat16 or 48 float32 values
+// (rows of up to 16 384 and 12 288, 4 096 where C is no multiple of a
+// vector).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+
+#include "hopper_ptx.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
+// Floats of shared memory before the per-column arrays: two a warp for the
+// group sums, then the ticket's flag (16-byte aligned after it).
+constexpr int HEAD = 2 * WARPS + 4;
+// Blocks of a backward cluster at most: the portable cluster size.
+constexpr int CLUSTER = 8;
+// How a block walks the steps of `groups` rows: the forward takes steps
+// blockIdx.x, blockIdx.x + gridDim.x, ...; the backward a run of
+// consecutive steps.
+constexpr bool FWD_CONTIGUOUS = false;
+constexpr bool BWD_CONTIGUOUS = true;
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
@@ -81,6 +129,44 @@ struct Shape {
   int rows, C, nvec, G, groups, act;
 };
 
+// What a lane keeps of a row of N vectors of VEC values of T, and how the
+// kernels hold it.
+template <class T, int VEC, int N>
+struct Lane {
+  static constexpr int V = N * VEC;                 // Values of a row.
+  static constexpr int BYTES = V * (int)sizeof(T);  // Of x, or of dy.
+  // The next row in flight while a row is reduced, where its registers
+  // leave room: x's (and in the backward dy's) bytes of a row.
+  static constexpr bool FWD_AHEAD = BYTES <= 16;
+  static constexpr bool BWD_AHEAD = 2 * BYTES <= 32;
+  // Blocks an SM that the registers must leave room for, up to SPREAD
+  // values a lane (past that, rows wider than the update's).
+  static constexpr int FWD_MIN_BLOCKS = V <= 8 ? 6 : V <= 16 ? 4 : 1;
+  static constexpr int BWD_MIN_BLOCKS = V <= 8 ? 4 : V <= 16 ? 2 : 1;
+  // The backward's column sums in registers up to 16 values a lane.
+  static constexpr bool SHARED_SUMS = V > 16;
+  // Floats of the column sums' two halves (dscale, dbias), at least the
+  // THREADS float4 that `sum_rows` takes after them.
+  static constexpr int SUMS = 2 * THREADS * V > 4 * THREADS
+                                  ? 2 * THREADS * V
+                                  : 4 * THREADS;
+};
+
+// A lane's share of a row for the backward: x, dy (then dn), mean, rstd.
+template <class T, int VEC, int N>
+struct GradRow {
+  Pack<T, VEC> x[N], g[N];
+  float mu, rs;
+};
+
+// The index of a lane's column sum (vector i, value k) in one half of the
+// sums: 16-byte slots of consecutive lanes side by side.
+template <int VEC>
+__device__ __forceinline__ int sum_index(int i, int k, int lane) {
+  constexpr int Q = VEC % 4 == 0 ? 4 : 1;
+  return ((i * (VEC / Q) + k / Q) * THREADS + lane) * Q + k % Q;
+}
+
 // The sum of `s` over a group of G lanes (a power of two, the group
 // aligned in its warp, or G / 32 whole warps); every lane of the group
 // gets the same bits. `red`: WARPS floats of shared memory. Every lane of
@@ -97,6 +183,30 @@ __device__ __forceinline__ float group_sum(float s, int G, float* red) {
     for (int w = 0; w < G / 32; ++w) s += red[first + w];
   }
   return s;
+}
+
+// group_sum of two values at once, each summed as group_sum sums it.
+// `red`: 2 * WARPS floats.
+__device__ __forceinline__ void group_sum2(float* a, float* b, int G,
+                                           float* red) {
+  for (int o = (G < 32 ? G : 32) / 2; o > 0; o >>= 1) {
+    *a += __shfl_xor_sync(FULL, *a, o);
+    *b += __shfl_xor_sync(FULL, *b, o);
+  }
+  if (G > 32) {
+    __syncthreads();
+    if ((threadIdx.x & 31) == 0) {
+      red[2 * (threadIdx.x >> 5)] = *a;
+      red[2 * (threadIdx.x >> 5) + 1] = *b;
+    }
+    __syncthreads();
+    const int first = (int)threadIdx.x / G * (G / 32);
+    *a = *b = 0.f;
+    for (int w = 0; w < G / 32; ++w) {
+      *a += red[2 * (first + w)];
+      *b += red[2 * (first + w) + 1];
+    }
+  }
 }
 
 // VEC float32 values from p (16-byte aligned where VEC is a multiple of 4).
@@ -118,102 +228,248 @@ __device__ __forceinline__ void load_vec(const float* __restrict__ p,
   }
 }
 
+// The steps a block takes: [first, last) by stride.
+struct Walk {
+  int first, last, stride;
+};
+template <bool CONTIGUOUS>
+__device__ __forceinline__ Walk walk(int steps) {
+  if constexpr (CONTIGUOUS) {
+    const int per = (steps + gridDim.x - 1) / gridDim.x;
+    const int first = blockIdx.x * per;
+    return {first, first + per < steps ? first + per : steps, 1};
+  }
+  return {(int)blockIdx.x, steps, (int)gridDim.x};
+}
+
+// A lane's vectors of `row` of p (nothing past the last row).
 template <class T, int VEC, int N>
-__global__ void __launch_bounds__(256)
-    ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                  const float* __restrict__ bias, T* __restrict__ y,
-                  float* __restrict__ mean_out, float* __restrict__ rstd_out,
-                  Shape s, float eps) {
-  extern __shared__ __align__(16) float smem[];
-  const int sub = threadIdx.x % s.G, group = threadIdx.x / s.G;
-  const long row = (long)blockIdx.x * s.groups + group;
-  const bool valid = row < s.rows;
-  const long base = valid ? row * s.C : 0;
-  Pack<T, VEC> xv[N];
-  float sum = 0.f;
+__device__ __forceinline__ void load_row(Pack<T, VEC> (&v)[N],
+                                         const T* __restrict__ p, long row,
+                                         const Shape& s, int sub) {
+  if (row >= s.rows) return;
+  const T* base = p + row * s.C;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     const int j = i * s.G + sub;
-    if (valid && j < s.nvec) {
-      xv[i] = *reinterpret_cast<const Pack<T, VEC>*>(x + base + j * VEC);
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) sum += widen(xv[i].v[k]);
-    }
+    if (j < s.nvec)
+      v[i] = *reinterpret_cast<const Pack<T, VEC>*>(base + j * VEC);
   }
-  const float mean = group_sum(sum, s.G, smem) / s.C;
-  float sq = 0.f;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const int j = i * s.G + sub;
-    if (valid && j < s.nvec) {
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        const float d = widen(xv[i].v[k]) - mean;
-        sq += d * d;
-      }
-    }
-  }
-  const float rstd = rsqrtf(group_sum(sq, s.G, smem) / s.C + eps);
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const int j = i * s.G + sub;
-    if (valid && j < s.nvec) {
-      Pack<T, VEC> out;
-      float sc[VEC], bi[VEC];
-      load_vec<VEC>(scale + j * VEC, sc);
-      load_vec<VEC>(bias + j * VEC, bi);
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        const float xhat = (widen(xv[i].v[k]) - mean) * rstd;
-        float n = rounded<T>(xhat * sc[k] + bi[k]);
-        if (s.act) n = n > 0.f ? n : expm1f(n);
-        narrow(n, &out.v[k]);
-      }
-      *reinterpret_cast<Pack<T, VEC>*>(y + base + j * VEC) = out;
-    }
-  }
-  if (valid && sub == 0) {
-    mean_out[row] = mean;
-    rstd_out[row] = rstd;
+}
+
+// scale and bias into shared memory, C floats each from `at`, by the whole
+// block (ahead of a barrier that the caller keeps).
+__device__ __forceinline__ void stage_params(const float* __restrict__ scale,
+                                             const float* __restrict__ bias,
+                                             float* at, int C, int Cp) {
+  for (int c = threadIdx.x; c < C; c += THREADS) {
+    at[c] = scale[c];
+    at[Cp + c] = bias[c];
   }
 }
 
 template <class T, int VEC, int N>
-__global__ void __launch_bounds__(256)
-    ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                  const float* __restrict__ bias,
-                  const float* __restrict__ mean,
-                  const float* __restrict__ rstd, const T* __restrict__ dy,
-                  T* __restrict__ dx, float* __restrict__ partial, Shape s,
-                  int rows_per_block) {
-  // WARPS floats for group_sum, then the slab of the partial sums: two
-  // halves (dscale, dbias) of [groups][G * VEC].
-  extern __shared__ __align__(16) float smem[];
-  float* slab = smem + WARPS;
+__global__ void __launch_bounds__(256, (Lane<T, VEC, N>::FWD_MIN_BLOCKS))
+    ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                  const float* __restrict__ bias, T* __restrict__ y,
+                  float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                  Shape s, float eps) {
+  using L = Lane<T, VEC, N>;
+  extern __shared__ __align__(16) float smem[];  // WARPS floats: group_sum.
   const int sub = threadIdx.x % s.G, group = threadIdx.x / s.G;
-  float acc_s[N][VEC], acc_b[N][VEC];
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) acc_s[i][k] = acc_b[i][k] = 0.f;
+  const Walk w = walk<FWD_CONTIGUOUS>((s.rows + s.groups - 1) / s.groups);
+  // The block's first step in flight before anything else.
+  Pack<T, VEC> cur[N], next[N];
+  load_row<T, VEC, N>(cur, x, w.first * s.groups + group, s, sub);
 
-  // Every group runs the same number of rows (rows_per_block is a multiple
-  // of the groups), so that the lanes of a warp shuffle together.
-  for (int r = group; r < rows_per_block; r += s.groups) {
-    const long row = (long)blockIdx.x * rows_per_block + r;
+  // Every thread of the block runs the same steps (the lanes of a warp
+  // shuffle together, the warps of a wide row meet at barriers).
+  for (int st = w.first; st < w.last; st += w.stride) {
+    // The next step's row in flight before this one's sums.
+    const int ahead =
+        st + w.stride < w.last ? (st + w.stride) * s.groups + group : s.rows;
+    if constexpr (L::FWD_AHEAD) load_row<T, VEC, N>(next, x, ahead, s, sub);
+    const int row = st * s.groups + group;
     const bool valid = row < s.rows;
-    const long base = valid ? row * s.C : 0;
-    const float mu = valid ? mean[row] : 0.f;
-    const float rs = valid ? rstd[row] : 0.f;
-    Pack<T, VEC> xv[N], gv[N];
+    float sum = 0.f;
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       const int j = i * s.G + sub;
       if (valid && j < s.nvec) {
-        xv[i] = *reinterpret_cast<const Pack<T, VEC>*>(x + base + j * VEC);
-        gv[i] = *reinterpret_cast<const Pack<T, VEC>*>(dy + base + j * VEC);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) sum += widen(cur[i].v[k]);
       }
     }
+    const float mean = group_sum(sum, s.G, smem) / s.C;
+    float sq = 0.f;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int j = i * s.G + sub;
+      if (valid && j < s.nvec) {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          const float e = widen(cur[i].v[k]) - mean;
+          sq += e * e;
+        }
+      }
+    }
+    const float rstd = rsqrtf(group_sum(sq, s.G, smem) / s.C + eps);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int j = i * s.G + sub;
+      if (valid && j < s.nvec) {
+        Pack<T, VEC> out;
+        // Scale and bias from L1 (every row of the block reads the
+        // lane's same columns), after the sums: held across them they
+        // would cost blocks an SM.
+        float scv[VEC], biv[VEC];
+        load_vec<VEC>(scale + j * VEC, scv);
+        load_vec<VEC>(bias + j * VEC, biv);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          const float xhat = (widen(cur[i].v[k]) - mean) * rstd;
+          float n = rounded<T>(xhat * scv[k] + biv[k]);
+          if (s.act) n = n > 0.f ? n : expm1f(n);
+          narrow(n, &out.v[k]);
+        }
+        *reinterpret_cast<Pack<T, VEC>*>(y + (long)row * s.C + j * VEC) = out;
+      }
+    }
+    if (valid && sub == 0) {
+      mean_out[row] = mean;
+      rstd_out[row] = rstd;
+    }
+    if constexpr (L::FWD_AHEAD) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) cur[i] = next[i];
+    } else {
+      load_row<T, VEC, N>(cur, x, ahead, s, sub);
+    }
+  }
+}
+
+// dscale and dbias at the 16-byte slots [lo, hi) of the rows of P floats
+// (dscale's columns [0, C), then dbias's from Cp): the sums over `count`
+// rows (`src`, P floats apart), each column over the rows in order, read
+// past L1 (other blocks wrote them). Where the slots are fewer than the
+// block's threads, slices of the rows are summed side by side and then in
+// slice order through `scratch` (THREADS float4). Every thread of the block
+// calls it.
+__device__ __forceinline__ void sum_rows(const float* src, int count, int P,
+                                         int lo, int hi, int C, int Cp,
+                                         float* __restrict__ dscale,
+                                         float* __restrict__ dbias,
+                                         float4* scratch) {
+  const int slots = hi - lo;
+  if (slots <= 0) return;
+  const int slices = slots >= THREADS ? 1 : THREADS / slots;
+  for (int base = 0; base < slots; base += THREADS) {
+    const int slot = slices == 1 ? base + (int)threadIdx.x
+                                 : (int)threadIdx.x % slots;
+    const int slice = slices == 1 ? 0 : (int)threadIdx.x / slots;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (slot < slots && slice < slices) {
+#pragma unroll 8
+      for (int r = slice; r < count; r += slices) {
+        const float4 v = __ldcg(reinterpret_cast<const float4*>(
+                                    src + (long)r * P) + lo + slot);
+        sum.x += v.x;
+        sum.y += v.y;
+        sum.z += v.z;
+        sum.w += v.w;
+      }
+    }
+    bool writes = slot < slots;
+    if (slices > 1) {
+      scratch[threadIdx.x] = sum;
+      __syncthreads();
+      writes = (int)threadIdx.x < slots;
+      if (writes) {
+        sum = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int w = 0; w < slices; ++w) {
+          const float4 v = scratch[w * slots + threadIdx.x];
+          sum.x += v.x;
+          sum.y += v.y;
+          sum.z += v.z;
+          sum.w += v.w;
+        }
+      }
+    }
+    if (writes) {
+      const float vals[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = (lo + slot) * 4 + e, half = col >= Cp;
+        const int c = col - half * Cp;
+        if (c < C) (half ? dbias : dscale)[c] = vals[e];
+      }
+    }
+  }
+}
+
+// A lane's share of `row` for the backward (nothing past the last row).
+template <class T, int VEC, int N>
+__device__ __forceinline__ void load_grad_row(
+    GradRow<T, VEC, N>* r, const T* __restrict__ x, const T* __restrict__ dy,
+    const float* __restrict__ mean, const float* __restrict__ rstd, long row,
+    const Shape& s, int sub) {
+  load_row<T, VEC, N>(r->x, x, row, s, sub);
+  load_row<T, VEC, N>(r->g, dy, row, s, sub);
+  if (row < s.rows) {
+    r->mu = mean[row];
+    r->rs = rstd[row];
+  }
+}
+
+template <class T, int VEC, int N>
+__global__ void __launch_bounds__(256, (Lane<T, VEC, N>::BWD_MIN_BLOCKS))
+    ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                  const float* __restrict__ bias,
+                  const float* __restrict__ mean,
+                  const float* __restrict__ rstd, const T* __restrict__ dy,
+                  T* __restrict__ dx, float* __restrict__ partial,
+                  float* __restrict__ dscale, float* __restrict__ dbias,
+                  unsigned* __restrict__ tickets, Shape s, int cluster) {
+  using L = Lane<T, VEC, N>;
+  constexpr int V = L::V;
+  // 2 * WARPS floats for group_sum2, the ticket's flag; from HEAD the two
+  // halves of the column sums (L::SUMS floats), then scale and bias, then
+  // the block's row of sums (P floats).
+  extern __shared__ __align__(16) float smem[];
+  float* sums = smem + HEAD;
+  const int Cp = (s.C + 3) & ~3;
+  float* params = sums + L::SUMS;
+  const int sub = threadIdx.x % s.G, group = threadIdx.x / s.G;
+  const Walk w = walk<BWD_CONTIGUOUS>((s.rows + s.groups - 1) / s.groups);
+
+  // The block's first step in flight before anything else.
+  GradRow<T, VEC, N> cur, next;
+  load_grad_row(&cur, x, dy, mean, rstd, w.first * s.groups + group, s, sub);
+  stage_params(scale, bias, params, s.C, Cp);
+  // The lane's column sums of dn * xhat and dn over its rows.
+  float acc_s[L::SHARED_SUMS ? 1 : V], acc_b[L::SHARED_SUMS ? 1 : V];
+  if constexpr (L::SHARED_SUMS) {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        const int at = sum_index<VEC>(i, k, threadIdx.x);
+        sums[at] = sums[THREADS * V + at] = 0.f;
+      }
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k) acc_s[k] = acc_b[k] = 0.f;
+  }
+  __syncthreads();
+
+  for (int st = w.first; st < w.last; st += w.stride) {
+    // The next step's rows in flight before this one's sums.
+    const int ahead =
+        st + w.stride < w.last ? (st + w.stride) * s.groups + group : s.rows;
+    if constexpr (L::BWD_AHEAD)
+      load_grad_row(&next, x, dy, mean, rstd, ahead, s, sub);
+    const int row = st * s.groups + group;
+    const bool valid = row < s.rows;
     // The gradient at the norm's rounded output, dn, a value of T, in
     // place of dy: the ELU's from the recomputed pre-activation n.
     float s1 = 0.f, s2 = 0.f;
@@ -221,96 +477,138 @@ __global__ void __launch_bounds__(256)
     for (int i = 0; i < N; ++i) {
       const int j = i * s.G + sub;
       if (valid && j < s.nvec) {
-        float sc[VEC], bi[VEC];
-        load_vec<VEC>(scale + j * VEC, sc);
-        if (s.act) load_vec<VEC>(bias + j * VEC, bi);
+        float scv[VEC], biv[VEC];
+        load_vec<VEC>(params + j * VEC, scv);
+        if (s.act) load_vec<VEC>(params + Cp + j * VEC, biv);
 #pragma unroll
         for (int k = 0; k < VEC; ++k) {
-          const float xhat = (widen(xv[i].v[k]) - mu) * rs;
-          float dn = widen(gv[i].v[k]);
+          const float xhat = (widen(cur.x[i].v[k]) - cur.mu) * cur.rs;
+          float dn = widen(cur.g[i].v[k]);
           if (s.act) {
-            const float n = rounded<T>(xhat * sc[k] + bi[k]);
+            const float n = rounded<T>(xhat * scv[k] + biv[k]);
             if (!(n > 0.f)) {
               dn = rounded<T>(dn * expf(n));
-              narrow(dn, &gv[i].v[k]);
+              narrow(dn, &cur.g[i].v[k]);
             }
           }
-          const float g = dn * sc[k];
+          const float g = dn * scv[k];
           s1 += g;
           s2 += g * xhat;
         }
       }
     }
-    const float m1 = group_sum(s1, s.G, smem) / s.C;
-    const float m2 = group_sum(s2, s.G, smem) / s.C;
+    group_sum2(&s1, &s2, s.G, smem);
+    const float m1 = s1 / s.C, m2 = s2 / s.C;
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       const int j = i * s.G + sub;
       if (valid && j < s.nvec) {
         Pack<T, VEC> out;
-        float sc[VEC];
-        load_vec<VEC>(scale + j * VEC, sc);
+        float scv[VEC];
+        load_vec<VEC>(params + j * VEC, scv);
 #pragma unroll
         for (int k = 0; k < VEC; ++k) {
-          const float xhat = (widen(xv[i].v[k]) - mu) * rs;
-          const float dn = widen(gv[i].v[k]);
-          narrow(rs * (dn * sc[k] - m1 - xhat * m2), &out.v[k]);
-          acc_s[i][k] += dn * xhat;
-          acc_b[i][k] += dn;
+          const float xhat = (widen(cur.x[i].v[k]) - cur.mu) * cur.rs;
+          const float dn = widen(cur.g[i].v[k]);
+          narrow(cur.rs * (dn * scv[k] - m1 - xhat * m2), &out.v[k]);
+          if constexpr (L::SHARED_SUMS) {
+            const int at = sum_index<VEC>(i, k, threadIdx.x);
+            sums[at] += dn * xhat;
+            sums[THREADS * V + at] += dn;
+          } else {
+            acc_s[i * VEC + k] += dn * xhat;
+            acc_b[i * VEC + k] += dn;
+          }
         }
-        *reinterpret_cast<Pack<T, VEC>*>(dx + base + j * VEC) = out;
+        *reinterpret_cast<Pack<T, VEC>*>(dx + (long)row * s.C + j * VEC) = out;
       }
     }
+    if constexpr (L::BWD_AHEAD)
+      cur = next;
+    else
+      load_grad_row(&cur, x, dy, mean, rstd, ahead, s, sub);
   }
 
-  // The block's partial sums, one slab of G * VEC columns at a time: each
-  // lane puts its columns' sums in its group's row, then the threads sum
-  // each column over the groups in order.
-  const int width = s.G * VEC;
+  // The block's sums: each column over the block's groups in order, into
+  // its row of P = 2 Cp floats in shared memory (dscale's columns, then
+  // dbias's).
+  if constexpr (!L::SHARED_SUMS) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    __syncthreads();
+    for (int i = 0; i < N; ++i)
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) {
-      slab[group * width + sub * VEC + k] = acc_s[i][k];
-      slab[THREADS * VEC + group * width + sub * VEC + k] = acc_b[i][k];
-    }
-    __syncthreads();
-    for (int t = threadIdx.x; t < 2 * width; t += THREADS) {
-      const int half = t / width, col = t % width;
-      float sum = 0.f;
-      for (int g = 0; g < s.groups; ++g)
-        sum += slab[half * THREADS * VEC + g * width + col];
-      const int c = i * width + col;
-      if (c < s.C) partial[((long)blockIdx.x * 2 + half) * s.C + c] = sum;
-    }
+      for (int k = 0; k < VEC; ++k) {
+        const int at = sum_index<VEC>(i, k, threadIdx.x);
+        sums[at] = acc_s[i * VEC + k];
+        sums[THREADS * V + at] = acc_b[i * VEC + k];
+      }
   }
-}
-
-// dscale and dbias: the sums of `blocks` rows of partial sums [blocks][2]
-// [C], each column over the blocks in a fixed order: 8 slices of the
-// blocks, one a warp, then the slices in order. A block takes 32 columns
-// of one half.
-__global__ void __launch_bounds__(256)
-    ln_param_grads_kernel(const float* __restrict__ partial,
-                          float* __restrict__ dscale,
-                          float* __restrict__ dbias, int C, int blocks) {
-  extern __shared__ __align__(16) float smem[];
-  const int col = threadIdx.x & 31, slice = threadIdx.x >> 5;
-  const int tiles = (C + 31) / 32;
-  const int half = blockIdx.x / tiles;
-  const int c = (blockIdx.x % tiles) * 32 + col;
-  float sum = 0.f;
-  if (c < C)
-    for (int b = slice; b < blocks; b += WARPS)
-      sum += partial[((long)b * 2 + half) * C + c];
-  smem[slice * 32 + col] = sum;
   __syncthreads();
-  if (slice == 0 && c < C) {
-    float total = 0.f;
-    for (int w = 0; w < WARPS; ++w) total += smem[w * 32 + col];
-    (half ? dbias : dscale)[c] = total;
+  const int P = 2 * Cp;
+  float* own = params + 2 * Cp;
+  for (int t = threadIdx.x; t < P; t += THREADS) {
+    const int half = t >= Cp, c = t - half * Cp;
+    float sum = 0.f;
+    if (c < s.C) {
+      const int j = c / VEC, k = c % VEC;
+      const int i = j / s.G, lane = j % s.G;
+      for (int g = 0; g < s.groups; ++g)
+        sum += sums[half * THREADS * V + sum_index<VEC>(i, k, g * s.G + lane)];
+    }
+    own[t] = sum;
   }
+
+  // The cluster's sums: rank r sums its share [lo, hi) of the row's
+  // 16-byte slots over the cluster's blocks in rank order (distributed
+  // shared memory), into dscale and dbias for a grid of one cluster, else
+  // into the cluster's row of `partial`.
+  const int rank = ptx::cluster_rank(), clusters = gridDim.x / cluster;
+  const int mine = blockIdx.x / cluster, per = (P / 4 + cluster - 1) / cluster;
+  const int lo = min(P / 4, rank * per), hi = min(P / 4, lo + per);
+  ptx::cluster_sync();
+  for (int slot = lo + threadIdx.x; slot < hi; slot += THREADS) {
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r = 0; r < cluster; ++r) {
+      const float4 v =
+          reinterpret_cast<const float4*>(ptx::cluster_map(own, r))[slot];
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    if (clusters == 1) {
+      const float vals[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = slot * 4 + e, half = col >= Cp, c = col - half * Cp;
+        if (c < s.C) (half ? dbias : dscale)[c] = vals[e];
+      }
+    } else {
+      reinterpret_cast<float4*>(partial + (long)mine * P)[slot] = sum;
+    }
+  }
+  // No block leaves before the cluster's reads of its row are done.
+  ptx::cluster_sync();
+  if (clusters == 1) return;
+
+  // Rank r's ticket (counter r): of the clusters' blocks of rank r, the
+  // one that draws the last ticket sums the clusters' rows in cluster
+  // order at its share of the slots into dscale and dbias, and resets the
+  // counter. One thread fences (the barrier made it see the block's
+  // stores of its share) and takes the ticket; the other threads' stores
+  // of dx are not waited for.
+  float* flag = smem + 2 * WARPS;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    flag[0] = atomicAdd(tickets + rank, 1u) == (unsigned)(clusters - 1)
+                  ? 1.f
+                  : 0.f;
+    __threadfence();
+  }
+  __syncthreads();
+  if (flag[0] == 0.f) return;
+  if (threadIdx.x == 0) tickets[rank] = 0;
+  sum_rows(partial, clusters, P, lo, hi, s.C, Cp, dscale, dbias,
+           reinterpret_cast<float4*>(sums));
 }
 
 // The vectors a lane may keep (the kernels' N), and the values a lane
@@ -320,6 +618,9 @@ template <class T>
 constexpr int max_values() {
   return sizeof(T) == 2 ? 64 : 48;
 }
+// The values a lane keeps where a group of up to a block's lanes can take
+// the row with no more.
+constexpr int SPREAD = 16;
 
 // The geometry of rows of C values of T: vectors, group, groups a block.
 // Returns the vectors a lane keeps (N), 0 where a row is too wide.
@@ -331,19 +632,49 @@ int plan(int rows, int C, int act, Shape* s, int* vec) {
   s->C = C;
   s->act = act;
   s->nvec = C / *vec;
-  s->G = 1;
-  while (s->G < s->nvec && s->G < 32) s->G *= 2;
-  for (; s->G <= THREADS; s->G *= 2) {
-    s->groups = THREADS / s->G;
-    const int need = (s->nvec + s->G - 1) / s->G;
-    for (const int n : NS)
-      if (n >= need && n * *vec <= max_values<T>()) return n;
+  int first = 1;
+  while (first < s->nvec && first < 32) first *= 2;
+  // The narrowest group whose lanes keep at most SPREAD values; past a
+  // block's lanes, at most max_values.
+  for (const int most : {SPREAD, max_values<T>()}) {
+    for (s->G = first; s->G <= THREADS; s->G *= 2) {
+      s->groups = THREADS / s->G;
+      const int need = (s->nvec + s->G - 1) / s->G;
+      for (const int n : NS)
+        if (n >= need && n * *vec <= most) return n;
+    }
   }
   return 0;
 }
 
+// Allows `kernel` the bytes of shared memory past 48 KB.
+template <class K>
+cudaError_t allow(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// Blocks of `kernel` the card holds at once with `bytes` of shared memory
+// each (allowed first).
+template <class K>
+int resident(K kernel, size_t bytes, cudaError_t* err) {
+  int device = 0, sms = 1, per_sm = 1;
+  *err = allow(kernel, bytes);
+  if (*err == cudaSuccess) *err = cudaGetDevice(&device);
+  if (*err == cudaSuccess)
+    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  device);
+  if (*err == cudaSuccess)
+    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                         THREADS, bytes);
+  return std::max(1, sms * per_sm);
+}
+
+// dims: rows, C, act, max_blocks.
 template <class T, int VEC, int N>
-cudaError_t fwd(void* const* p, Shape s, float eps, cudaStream_t stream) {
+cudaError_t fwd(void* const* p, Shape s, const int* dims, float eps,
+                cudaStream_t stream) {
   auto kernel = ln_fwd_kernel<T, VEC, N>;
   const T* x = static_cast<const T*>(p[0]);
   const float* scale = static_cast<const float*>(p[1]);
@@ -351,42 +682,61 @@ cudaError_t fwd(void* const* p, Shape s, float eps, cudaStream_t stream) {
   T* y = static_cast<T*>(p[3]);
   float* mean = static_cast<float*>(p[4]);
   float* rstd = static_cast<float*>(p[5]);
-  const int grid = (s.rows + s.groups - 1) / s.groups;
-  const size_t bytes = WARPS * sizeof(float);
+  const size_t bytes = HEAD * sizeof(float);
+  cudaError_t err;
+  const int fits = resident(kernel, bytes, &err);
+  if (err != cudaSuccess) return err;
+  const long steps = ((long)s.rows + s.groups - 1) / s.groups;
+  const int grid = (int)std::min<long>(steps, std::min(dims[3], fits));
   kernel<<<grid, THREADS, bytes, stream>>>(x, scale, bias, y, mean, rstd, s, eps);
   return cudaGetLastError();
 }
 
+// dims: rows, C, act, max_blocks, rows of `partial`, counters in `tickets`.
 template <class T, int VEC, int N>
-cudaError_t bwd(void* const* p, Shape s, int max_blocks,
+cudaError_t bwd(void* const* p, Shape s, const int* dims,
                 cudaStream_t stream) {
+  using L = Lane<T, VEC, N>;
   auto kernel = ln_bwd_kernel<T, VEC, N>;
-  const T* x = static_cast<const T*>(p[0]);
-  const float* scale = static_cast<const float*>(p[1]);
-  const float* bias = static_cast<const float*>(p[2]);
-  const float* mean = static_cast<const float*>(p[3]);
-  const float* rstd = static_cast<const float*>(p[4]);
-  const T* dy = static_cast<const T*>(p[5]);
-  T* dx = static_cast<T*>(p[6]);
-  float* partial = static_cast<float*>(p[7]);
-  float* dscale = static_cast<float*>(p[8]);
-  float* dbias = static_cast<float*>(p[9]);
-  // Runs of rows, a multiple of the groups each, over at most max_blocks.
-  const long steps = (s.rows + s.groups - 1) / s.groups;
-  const long per = (steps + max_blocks - 1) / max_blocks;
-  const int rows_per_block = (int)(per * s.groups);
-  const int blocks = (int)((s.rows + rows_per_block - 1) / rows_per_block);
-  // 16.4 KB at VEC = 8: under the 48 KB a launch may take unasked.
-  const size_t bytes = (WARPS + 2 * THREADS * VEC) * sizeof(float);
-  kernel<<<blocks, THREADS, bytes, stream>>>(x, scale, bias, mean, rstd, dy, dx, partial, s, rows_per_block);
-  const cudaError_t err = cudaGetLastError();
+  const int Cp = (s.C + 3) & ~3;
+  const size_t bytes = (HEAD + L::SUMS + 4 * Cp) * sizeof(float);
+  cudaError_t err = allow(kernel, bytes);
   if (err != cudaSuccess) return err;
-  auto sums = ln_param_grads_kernel;
-  const int grid = 2 * ((s.C + 31) / 32);
-  const size_t sum_bytes = THREADS * sizeof(float);
-  const int C = s.C;
-  sums<<<grid, THREADS, sum_bytes, stream>>>(partial, dscale, dbias, C, blocks);
-  return cudaGetLastError();
+  const long steps = ((long)s.rows + s.groups - 1) / s.groups;
+  int blocks = (int)std::min<long>(steps, dims[3]);
+  // Clusters of up to CLUSTER blocks, the grid a whole number of them and
+  // no more than the card holds at once: a cluster's blocks share a GPC,
+  // so that fewer fit than blocks an SM times SMs.
+  const int cluster = std::min(CLUSTER, blocks);
+  blocks = (blocks + cluster - 1) / cluster * cluster;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(blocks);
+  config.blockDim = dim3(THREADS);
+  config.dynamicSmemBytes = bytes;
+  config.stream = stream;
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  int held = 0;
+  err = cudaOccupancyMaxActiveClusters(&held, kernel, &config);
+  if (err != cudaSuccess) return err;
+  if (held > 0 && blocks > held * cluster) {
+    blocks = held * cluster;
+    config.gridDim = dim3(blocks);
+  }
+  if (blocks / cluster > dims[4] || dims[5] < cluster)
+    return cudaErrorInvalidValue;
+  return cudaLaunchKernelEx(
+      &config, kernel, static_cast<const T*>(p[0]),
+      static_cast<const float*>(p[1]), static_cast<const float*>(p[2]),
+      static_cast<const float*>(p[3]), static_cast<const float*>(p[4]),
+      static_cast<const T*>(p[5]), static_cast<T*>(p[6]),
+      static_cast<float*>(p[7]), static_cast<float*>(p[8]),
+      static_cast<float*>(p[9]), static_cast<unsigned*>(p[10]), s, cluster);
 }
 
 // One launch (forward or backward) at the plan's VEC and N.
@@ -396,12 +746,12 @@ cudaError_t run(bool backward, void* const* p, const int* dims, float eps,
   Shape s;
   int vec;
   const int n = plan<T>(dims[0], dims[1], dims[2], &s, &vec);
-  if (n == 0 || dims[0] <= 0) return cudaErrorInvalidValue;
+  if (n == 0 || dims[0] <= 0 || dims[3] <= 0) return cudaErrorInvalidValue;
 #define LN_CASE(V, NN)                                                  \
   if constexpr (V * NN <= max_values<T>())                              \
     if (vec == V && n == NN)                                            \
-      return backward ? bwd<T, V, NN>(p, s, dims[3], stream)            \
-                      : fwd<T, V, NN>(p, s, eps, stream);
+      return backward ? bwd<T, V, NN>(p, s, dims, stream)               \
+                      : fwd<T, V, NN>(p, s, dims, eps, stream);
 #define LN_CASES(V)                                                     \
   LN_CASE(V, 1) LN_CASE(V, 2) LN_CASE(V, 3) LN_CASE(V, 4) LN_CASE(V, 6) \
   LN_CASE(V, 8) LN_CASE(V, 12) LN_CASE(V, 16)
@@ -419,7 +769,7 @@ cudaError_t run(bool backward, void* const* p, const int* dims, float eps,
 }  // namespace
 
 // ptrs: x, scale, bias, y, mean, rstd. dims: rows, C, act (0 none, 1
-// elu), unused.
+// elu), max_blocks.
 extern "C" int layer_norm_act_fwd(int bf16, void* const* ptrs,
                                   const int* dims, float eps, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -427,8 +777,9 @@ extern "C" int layer_norm_act_fwd(int bf16, void* const* ptrs,
               : run<float>(false, ptrs, dims, eps, st);
 }
 
-// ptrs: x, scale, bias, mean, rstd, dy, dx, partial [max_blocks][2][C],
-// dscale, dbias. dims: rows, C, act, max_blocks.
+// ptrs: x, scale, bias, mean, rstd, dy, dx, partial [rows][2 Cp] (Cp: C
+// rounded up to 4), dscale, dbias, tickets (unsigned, zero between
+// launches). dims: rows, C, act, max_blocks, rows of partial, tickets.
 extern "C" int layer_norm_act_bwd(int bf16, void* const* ptrs,
                                   const int* dims, float eps, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

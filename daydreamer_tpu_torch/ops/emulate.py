@@ -378,31 +378,40 @@ def _scaled(got, want):
   return _error(got, want) / max(1e-6, float(want.float().abs().max()))
 
 
-def compare_layer_norm(dtype, C, rows, act, blocks=None, seed=0):
+def compare_layer_norm(dtype, C, rows, act, blocks=None, fwd_blocks=None,
+                       twice=False, seed=0):
   """The emulated `layer_norm_act_fwd` and `layer_norm_act_bwd` against
   the plain version and its autograd (call inside `emulated`); `blocks`
-  caps the backward's blocks, so that a block takes several runs of rows.
-  Returns (the largest error of y relative to max(|y|, 1), the largest
-  scaled error of dx, dscale and dbias)."""
+  and `fwd_blocks` cap the backward's and the forward's grid, so that a
+  block takes several steps of rows; with `twice` the backward runs a
+  second time on the same inputs. Returns (the largest error of y relative
+  to max(|y|, 1), the largest scaled error of dx, dscale and dbias over the
+  runs for each of the three, whether every run gave the same bits and
+  left the counters at zero)."""
   rng = np.random.default_rng(seed)
   t = lambda *shape: torch.as_tensor(
       rng.standard_normal(shape).astype(np.float32))
   x = (3 * t(rows, C) + 1).to(dtype)
   scale, bias, dy = 1 + 0.2 * t(C), 0.3 * t(C), t(rows, C).to(dtype)
-  y, mean, rstd = norm.layer_norm_act_fwd_cuda(x, scale, bias, act)
+  saved = norm.FWD_BLOCKS, norm.BWD_BLOCKS
+  norm.FWD_BLOCKS, norm.BWD_BLOCKS = fwd_blocks or saved[0], blocks or saved[1]
+  try:
+    y, mean, rstd = norm.layer_norm_act_fwd_cuda(x, scale, bias, act)
+    runs = [norm.layer_norm_act_bwd_cuda(x, scale, bias, mean, rstd, dy, act)
+            for _ in range(2 if twice else 1)]
+    zeroed = not bool(norm._tickets(x.device).any())
+  finally:
+    norm.FWD_BLOCKS, norm.BWD_BLOCKS = saved
   leaves = [v.clone().requires_grad_() for v in (x, scale, bias)]
   ref = norm.layer_norm_act_plain(*leaves, act)
   want = torch.autograd.grad(ref, leaves, dy)
   ref = ref.detach()
   fwd = float(((y.float() - ref.float()).abs()
                / ref.float().abs().clamp_min(1)).max())
-  saved = norm.BWD_BLOCKS
-  norm.BWD_BLOCKS = blocks or saved
-  try:
-    got = norm.layer_norm_act_bwd_cuda(x, scale, bias, mean, rstd, dy, act)
-  finally:
-    norm.BWD_BLOCKS = saved
-  return fwd, max(_scaled(g, w) for g, w in zip(got, want))
+  same = zeroed and all(torch.equal(a, b) for run in runs[1:]
+                        for a, b in zip(runs[0], run))
+  return fwd, [max(_scaled(got[i], want[i]) for got in runs)
+               for i in range(3)], same
 
 
 def compare_adam(sizes, decayed, warmup, seed=0):
@@ -455,13 +464,14 @@ def compare_adam(sizes, decayed, warmup, seed=0):
 # at 64 takes 16-byte vectors and groups of 8 lanes, float32 at 64 groups
 # of 16; 130 is no multiple of a vector, so a value a lane, a warp a row
 # and 6 values a lane, 2 of them past the row. Then C = 9 (groups of 16
-# lanes, 7 of them idle) and C = 1536 (a warp a row, 6 vectors a lane) in
-# bfloat16; 64 once more on 600 rows with the backward capped at 2 blocks,
-# so that each group takes 10 rows and the two blocks' partial sums meet
-# in the second launch; 768 on 20 rows (the GRU's norm at a1, 3 vectors a
-# lane); float32 at 1536 (12 vectors a lane, the most); and bfloat16 at
-# 3072 with the backward capped at 1 block, two warps a row whose sums go
-# through shared memory. Each as (dtype, C, rows, act, blocks).
+# lanes, 7 of them idle) and C = 1536 (four warps a row, 2 vectors a lane,
+# their sums through shared memory) in bfloat16; 64 once more on 600 rows
+# with the backward capped at 2 blocks, so that each block takes a run of
+# 10 steps and the two blocks' sums meet in a cluster of 2; 768 on 20 rows
+# (the GRU's norm at a1, two warps a row, 1.5 vectors a lane); float32 at
+# 1536 (four warps a row, 3 vectors a lane); and bfloat16 at 3072 with the
+# backward capped at 1 block, the whole block a row. Each as (dtype, C,
+# rows, act, blocks).
 LAYER_NORM_CASES = (
     (torch.bfloat16, 64, 37, 'elu', None),
     (torch.float32, 64, 37, 'elu', None),
@@ -473,6 +483,34 @@ LAYER_NORM_CASES = (
     (torch.bfloat16, 768, 20, 'none', None),
     (torch.float32, 1536, 11, 'elu', None),
     (torch.bfloat16, 3072, 9, 'elu', 1),
+)
+# The grid of rows, named after the cases above and held to the same
+# tolerances but for dx in bfloat16 (see `run_case`). The forward's walk
+# over the rows: bfloat16 at 64 on 600 rows with the forward capped at 2
+# blocks (each group takes 10 rows, the next in flight while it reduces
+# one), float32 at 512 on 40 rows in 1 block (5 rows, each loaded after the
+# last), float32 at 256 the same way with the next row in flight.
+# The backward's clusters and tickets: a grid of 1 block at 256 columns on
+# 50 rows (no ticket); 400 rows of 64 in 13 blocks, 2 clusters (the second
+# with 5 blocks of rows); 2000 rows of 64 in 63 blocks, 8 clusters of 8
+# (the last block empty); 1100 rows in 35 blocks, 5 clusters (the last with 3
+# blocks of rows); float32 at 768 on 200 rows (two warps a row) in 50
+# blocks, 7 clusters; 700 rows of 128 in 44 blocks twice, equal bit for
+# bit, the counters back at zero. Last, a1's observe step: 32 rows at 256
+# with the ELU and at 768 without. Each as (dtype, C, rows, act, blocks[,
+# fwd_blocks[, twice]]).
+LAYER_NORM_GRID_CASES = (
+    (torch.bfloat16, 64, 600, 'elu', None, 2),
+    (torch.float32, 512, 40, 'none', None, 1),
+    (torch.float32, 256, 40, 'elu', None, 1),
+    (torch.bfloat16, 256, 50, 'elu', 1),
+    (torch.bfloat16, 64, 400, 'none', None),
+    (torch.bfloat16, 64, 2000, 'elu', None),
+    (torch.bfloat16, 64, 1100, 'none', None),
+    (torch.float32, 768, 200, 'elu', None),
+    (torch.bfloat16, 128, 700, 'elu', None, None, True),
+    (torch.bfloat16, 256, 32, 'elu', None),
+    (torch.bfloat16, 768, 32, 'none', None),
 )
 # adam: three tensors of odd sizes, the second decayed, one of them over a
 # block's chunk; with a constant lr and with a warmup's tensor lr. Then 200
@@ -495,9 +533,10 @@ NAMES = {
                         ('observe', OBSERVE_CASES))
     for i, (dtype, case) in enumerate(cases)}
 NAMES.update({
-    f'layer_norm{i}-{str(case[0]).split(".")[-1]}': (
-        'layer_norm', case[0], case[1:])
-    for i, case in enumerate(LAYER_NORM_CASES)})
+    f'layer_norm{i}-{str(case[0]).split(".")[-1]}': (kind, case[0], case[1:])
+    for i, (kind, case) in enumerate(
+        [('layer_norm', case) for case in LAYER_NORM_CASES]
+        + [('layer_norm_grid', case) for case in LAYER_NORM_GRID_CASES])})
 NAMES.update({f'adam{i}-float32': ('adam', torch.float32, case)
               for i, case in enumerate(ADAM_CASES)})
 
@@ -506,19 +545,28 @@ def run_case(name):
   """Runs one case (call inside `emulated`); prints its line, ending in
   ': ok' or ': DISAGREES', and returns whether it agreed."""
   kind, dtype, case = NAMES[name]
-  if kind == 'layer_norm':
-    fwd_err, bwd_err = compare_layer_norm(dtype, *case)
+  if kind in ('layer_norm', 'layer_norm_grid'):
+    fwd_err, bwd_errs, same = compare_layer_norm(dtype, *case)
     # float32: the same arithmetic summed in another order. bfloat16: y
     # may round to the other side, one unit in the last place (2^-7 of
-    # |y| in [1, 2)); here none does, and the backward in float32 after
-    # the same roundings agrees as float32 does (a dn left unrounded
-    # moves dx by 6e-3 of its scale).
-    limits = (1e-5, 1e-4) if dtype == torch.float32 else (2 ** -7, 1e-3)
-    good = fwd_err <= limits[0] and bwd_err <= limits[1]
-    print(f'{name} {dtype} C, rows, act, blocks {case}: forward error '
-          f'{fwd_err:.3g} (tolerance {limits[0]:g} of max(|y|, 1)), scaled '
-          f'backward error {bwd_err:.3g} (tolerance {limits[1]:g}): '
-          f'{"ok" if good else "DISAGREES"}', flush=True)
+    # |y| in [1, 2)); in the first cases none does, and the backward in
+    # float32 after the same roundings agrees as float32 does (a dn left
+    # unrounded moves dx by 6e-3 of its scale). Over the grid's hundreds
+    # of rows some dx in bfloat16 lands on the other side of a rounding:
+    # one unit in the last place, up to 2^-7 of the largest |dx| (dx at
+    # -0.6055 for -0.6016 at 32 rows of 768); dscale and dbias, float32,
+    # stay within 1e-3.
+    limits = (1e-5, (1e-4,) * 3) if dtype == torch.float32 else (
+        2 ** -7, (2 ** -7 if kind == 'layer_norm_grid' else 1e-3, 1e-3, 1e-3))
+    good = (fwd_err <= limits[0] and same
+            and all(e <= lim for e, lim in zip(bwd_errs, limits[1])))
+    print(f'{name} {dtype} C, rows, act, blocks, fwd_blocks, twice {case}: '
+          f'forward error {fwd_err:.3g} (tolerance {limits[0]:g} of '
+          f'max(|y|, 1)), scaled backward errors dx, dscale, dbias '
+          f'{", ".join(f"{e:.3g}" for e in bwd_errs)} (tolerances '
+          f'{", ".join(f"{e:g}" for e in limits[1])}), runs equal and '
+          f'counters zero {same}: {"ok" if good else "DISAGREES"}',
+          flush=True)
     return good
   if kind == 'adam':
     rel, same = compare_adam(*case)

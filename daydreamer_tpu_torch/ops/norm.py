@@ -17,8 +17,11 @@ with its callable, is applied after the norm by that callable.
   recomputed from x, mean, rstd, scale and bias, rounded to x's dtype as
   autograd of the plain version rounds it, then the LayerNorm backward in
   float32; dx in x's dtype, and dscale and dbias summed over the rows in a
-  fixed order (per-block partial sums, then a second launch over them), so
-  that a graphed call equals an eager one bit for bit.
+  fixed order, so that a graphed call equals an eager one bit for bit. The
+  backward is one launch: its blocks' sums meet in clusters of up to 8
+  blocks (distributed shared memory), the clusters' in the blocks that
+  draw the last tickets of the counters (`_tickets`: one array a card,
+  zeroed once, outside any capture, and reset by the kernel itself).
 - On a CPU tensor it runs `layer_norm_act_plain`, the same function in
   PyTorch ops (the layer's code before the kernel), and differentiates it
   by autograd.
@@ -35,16 +38,23 @@ from ..nn import cost
 EPS = 1e-3
 # The activations the kernel applies, and their plain versions.
 ACTS = {'none': lambda x: x, 'elu': F.elu}
-# Blocks of a backward launch at most: 4 for each of the H100's 132 SMs.
-# Each writes one row of partial sums of dscale and dbias.
+# Blocks of a launch at most (each launch also takes no more than the card
+# holds at once): 8 and 4 for each of the H100's 132 SMs. A block walks its
+# share of the rows; each cluster of the backward writes one row of
+# partial sums of dscale and dbias.
+FWD_BLOCKS = 1056
 BWD_BLOCKS = 528
+# Counters of a backward launch's tickets: one for each rank of a cluster
+# (of up to 8 blocks).
+TICKETS = 8
+_TICKETS = {}
 
 LAYER_NORM_ACT_FWD = build.register(build.Kernel(
     'layer_norm_act_fwd', 'layer_norm.cu',
     'daydreamer_tpu/nn/layers.py:140 (Norm.__call__ and the activation '
     'after it, one loop fusion of XLA)',
     {'layer_norm_act_fwd': build.signature(),
-     'layer_norm_act_bwd': build.signature()}))
+     'layer_norm_act_bwd': build.signature()}, headers=('hopper_ptx.cuh',)))
 LAYER_NORM_ACT_BWD = build.register(build.Kernel(
     'layer_norm_act_bwd', 'layer_norm.cu',
     'daydreamer_tpu/nn/layers.py:140 (the gradient of Norm and its '
@@ -85,6 +95,27 @@ def _check(name, x, scale, bias, act):
   return rows, C
 
 
+def _tickets(device):
+  """The backward's counters on `device`: int32 zeros, made once and kept,
+  so that their address is the same in every launch and every graph. The
+  block that draws a counter's last ticket resets it, so they are zero
+  between launches. Launches on one card share them: the port runs the
+  backward on one stream at a time. Made outside any capture: a capture
+  that would make them raises."""
+  key = str(device)
+  if key not in _TICKETS:
+    if (device.type == 'cuda' and torch.cuda.is_available()
+        and torch.cuda.is_current_stream_capturing()):
+      raise RuntimeError(
+          'layer_norm_act_bwd: its counters are made at the first eager '
+          f'launch on {device}; a CUDA graph capture cannot make them.')
+    tickets = torch.zeros(TICKETS, dtype=torch.int32, device=device)
+    if device.type == 'cuda':
+      torch.cuda.synchronize(device)
+    _TICKETS[key] = tickets
+  return _TICKETS[key]
+
+
 def layer_norm_act_fwd_cuda(x, scale, bias, act='none'):
   """y, mean, rstd from one launch of `layer_norm_act_fwd`; x on a card.
   mean and rstd are float32, one a row."""
@@ -97,13 +128,13 @@ def layer_norm_act_fwd_cuda(x, scale, bias, act='none'):
   rstd = torch.empty(rows, dtype=torch.float32, device=x.device)
   build.launch(LAYER_NORM_ACT_FWD, 'layer_norm_act_fwd', x.dtype,
                [x, scale, bias, y, mean, rstd],
-               [rows, C, int(act == 'elu'), 1], [EPS], x.device)
+               [rows, C, int(act == 'elu'), FWD_BLOCKS], [EPS], x.device)
   return y, mean, rstd
 
 
 def layer_norm_act_bwd_cuda(x, scale, bias, mean, rstd, dy, act='none'):
-  """dx, dscale, dbias from one launch of `layer_norm_act_bwd` (its two
-  kernels); the forward's x, mean and rstd."""
+  """dx, dscale, dbias from one launch of `layer_norm_act_bwd`; the
+  forward's x, mean and rstd."""
   name = 'layer_norm_act_bwd'
   x, dy = _aligned(x), _aligned(dy.to(x.dtype))
   rows, C = _check(name, x, scale, bias, act)
@@ -113,11 +144,16 @@ def layer_norm_act_bwd_cuda(x, scale, bias, mean, rstd, dy, act='none'):
   dx = torch.empty_like(x)
   dscale = torch.empty(C, dtype=torch.float32, device=x.device)
   dbias = torch.empty(C, dtype=torch.float32, device=x.device)
-  partial = torch.empty((BWD_BLOCKS, 2, C), dtype=torch.float32,
-                        device=x.device)
+  # A row of partial sums a cluster (no more clusters than rows): dscale's
+  # C columns, then dbias's, each rounded up to 4 floats.
+  partial = torch.empty((min(BWD_BLOCKS, rows), 2 * (-(-C // 4) * 4)),
+                        dtype=torch.float32, device=x.device)
+  tickets = _tickets(x.device)
   build.launch(LAYER_NORM_ACT_BWD, 'layer_norm_act_bwd', x.dtype,
-               [x, scale, bias, mean, rstd, dy, dx, partial, dscale, dbias],
-               [rows, C, int(act == 'elu'), BWD_BLOCKS], [EPS], x.device)
+               [x, scale, bias, mean, rstd, dy, dx, partial, dscale, dbias,
+                tickets],
+               [rows, C, int(act == 'elu'), BWD_BLOCKS, partial.shape[0],
+                TICKETS], [EPS], x.device)
   return dx, dscale, dbias
 
 
@@ -126,9 +162,10 @@ def layer_norm_act_work(rows, C, dtype, act='none', backward=False):
   once, each output written once. Forward: x, scale and bias in; y, mean
   and rstd out; about 8 operations a value, 10 with the ELU. Backward: x,
   dy, scale, bias, mean and rstd in; dx, dscale and dbias out; about 16
-  operations a value, 18 with the ELU. The partial sums are the kernel's
-  own scratch, and no product is done (`cost.CostMode` counts products
-  only, as `FlopCounterMode`, so the wrappers count no FLOPs)."""
+  operations a value, 18 with the ELU. The partial sums and the counters
+  are the kernel's own scratch, and no product is done (`cost.CostMode`
+  counts products only, as `FlopCounterMode`, so the wrappers count no
+  FLOPs)."""
   item, n = cost.itemsize(dtype), rows * C
   elu = 2 * (act == 'elu')
   if backward:

@@ -92,10 +92,10 @@ OWN = {
     'imagine_kernel': 'imagine',
     'imagine_fma_kernel': 'imagine',
     # The counterparts of XLA's fusions on the update (ops/norm.py,
-    # ops/adam.py).
+    # ops/adam.py). The backward is one kernel: its blocks sum dscale and
+    # dbias across the grid themselves.
     'ln_fwd_kernel': 'layer_norm_act_fwd',
     'ln_bwd_kernel': 'layer_norm_act_bwd',
-    'ln_param_grads_kernel': 'layer_norm_act_bwd',
     'sumsq_kernel': 'adam_sumsq',
     'sumsq_total_kernel': 'adam_sumsq',
     'adam_update_kernel': 'adam_update',

@@ -233,6 +233,30 @@ def test_optimizer_steps_against_jax():
   assert int(live['agent/opt/step']) == 4
 
 
+@pytest.mark.parametrize('rows,C,dtype,act,fwd,bwd', [
+    (1024 * 961, 64, BF16, 'elu', (629800960, 259793408),
+     (1133641728, 385754112)),
+    (1024, 1536, F32, 'none', (12582912, 12603392), (25165824, 18907136)),
+    (32, 768, BF16, 'none', (196608, 104704), (393216, 160000)),
+    (4096, 130, F32, 'elu', (5324800, 4293648), (9584640, 6424608)),
+])
+def test_layer_norm_act_work_is_its_formula(rows, C, dtype, act, fwd, bwd):
+  """`layer_norm_act_work`, the bounds that `chip_smoke.py` and PERF.md
+  print, counts each input read once and each output written once, and
+  nothing of how the kernels reach them (the backward's partial sums and
+  counters are scratch): 8 operations a value forward and 16 backward, 2
+  more with the ELU; forward x in and y out, scale, bias, mean and rstd
+  in float32; backward x and dy in and dx out, mean, rstd, scale and bias
+  in, dscale and dbias out. The numbers are those of the kernels that
+  took two backward launches, whose work the one-launch backward leaves
+  as it was."""
+  item, n, elu = dtype.itemsize, rows * C, 2 * (act == 'elu')
+  assert norm.layer_norm_act_work(rows, C, dtype, act) == fwd == (
+      (8 + elu) * n, 2 * item * n + 4 * 2 * C + 4 * 2 * rows)
+  assert norm.layer_norm_act_work(rows, C, dtype, act, backward=True) == (
+      bwd) == ((16 + elu) * n, 3 * item * n + 4 * 2 * rows + 4 * 4 * C)
+
+
 def test_optimizer_counts_its_kernels_by_formula():
   """One update on the CPU counts `adam_sumsq` and `adam_update` once each,
   by their formulas' bytes, and no elementwise op of the plain loop; inside

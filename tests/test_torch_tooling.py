@@ -94,8 +94,11 @@ def test_profile_train_on_cpu(capsys, monkeypatch):
      'layer_norm_act_fwd'),
     ('void (anonymous namespace)::ln_bwd_kernel<float, 4, 1>(float const*)',
      'layer_norm_act_bwd'),
-    ('(anonymous namespace)::ln_param_grads_kernel(float const*, float*, '
-     'float*, int, int)', 'layer_norm_act_bwd'),
+    ('void (anonymous namespace)::ln_bwd_kernel<__nv_bfloat16, 8, 2>('
+     '__nv_bfloat16 const*, float const*, float const*, float const*, '
+     'float const*, __nv_bfloat16 const*, __nv_bfloat16*, float*, float*, '
+     'float*, unsigned int*, (anonymous namespace)::Shape, int)',
+     'layer_norm_act_bwd'),
     ('(anonymous namespace)::sumsq_kernel((anonymous namespace)::Tensors, '
      'float*)', 'adam_sumsq'),
     ('(anonymous namespace)::sumsq_total_kernel(float const*, int, float*)',
