@@ -8,8 +8,8 @@ Run from the root of the repository with no arguments:
 Phases, each of which must pass:
   1. device  - print the card, and its name and power limit from nvidia-smi.
   2. build   - build every CUDA kernel from ops/csrc/ with nvcc (sm_90a),
-               all at once (the six RSSM kernels' sources, layer_norm.cu
-               and adam.cu).
+               all at once (the six RSSM kernels' sources, layer_norm.cu,
+               adam.cu, gru.cu and onehot.cu).
   3. kernel  - hold each kernel (imagine_actor, observe_fwd, observe_bwd,
                imagine, observe, gve) against its plain PyTorch version at
                the xarm shape, in float32 and in bfloat16 (gve: float32),
@@ -23,8 +23,11 @@ Phases, each of which must pass:
                at its default config (`rssm.impl: pallas`) with `--imag_impl
                pallas`, a few dozen updates, with every kernel's launch
                count set to 0 just before and read just after; every logged
-               loss must be finite. Then the same run with `--rssm.impl
-               scan`, the loop path, for its updates/s beside the first.
+               loss must be finite, and the policy steps must launch the
+               RSSM step's forward kernels (gru_cell_fwd, onehot_head_fwd).
+               Then the same run with `--rssm.impl scan`, the loop path,
+               for its updates/s beside the first, where the RSSM step's
+               four kernels (forward and backward) must launch.
   5. proof   - the proof path: `scripts/pallas_proof.py --which all` in
                this process, which runs imagine, observe and gve at the a1
                and xarm shapes; counts set to 0 before and read after.
@@ -36,8 +39,10 @@ Phases, each of which must pass:
   7. a1      - the paper's A1 config (`--configs a1 --task a1_dummy`,
                `run=train`, cut in length as the xarm slice is) through the
                CLI three times, counts set to 0 before each and read after:
-               as the config file has it, the loop path, where no kernel may
-               launch; with `--rssm.impl pallas`, where observe_fwd and
+               as the config file has it, the loop path, where no RSSM
+               kernel may launch and the RSSM step's four (the GRU cell and
+               the stats head, forward and backward) must launch once an
+               update at least; with `--rssm.impl pallas`, where observe_fwd and
                observe_bwd must launch once an update; and with
                `--data_loader native`, where the native batcher must run on
                the library that g++ builds into native/_build/. Each logs
@@ -111,7 +116,10 @@ Phases, each of which must pass:
                show observe_fwd's three device functions and observe_bwd's
                one launched once an update and a device busy time under
                the wall time; its wrappers' launches go on the kernels line
-               under `launches_profile`. Then `scripts/policy_latency.py`
+               under `launches_profile`. Then the same at `--shape a1`, the
+               loop path, where no RSSM kernel may launch and the RSSM
+               step's four must, each under its own name in the trace
+               (`launches_profile_a1`). Then `scripts/policy_latency.py`
                at `--shape a1` and `--shape test`, on the card and on the
                host mirror; the card's whole policy call at a1 must take
                under 50 ms.
@@ -199,6 +207,20 @@ Phases, each of which must pass:
                bound; first each instantiation's registers and spills from
                the build log (the extra phase `layer_norm`, not run by
                default, runs this part alone).
+               Then the RSSM step's kernels (ops/gru.py, ops/onehot.py;
+               the extra phase `rssm_step` runs this part alone): gru_cell
+               forward and backward against the plain version (the norm of
+               the gru_out product and the gates) and its autograd at a1's
+               D = 256 and xarm's D = 512 on 1, 32 and 1 024 rows (a policy
+               step, a step of the observe loop, a step of the rollout),
+               and onehot_head (S = C = 32, unimix 0.01) on 1, 32 and 1 024
+               rows with the sample and on 32 with the mode, on the same
+               uniform draws, in float32 and bfloat16, within the
+               tolerances they print: the samples must choose the same
+               classes but at ties (counted), a second backward launch
+               must equal the first bit for bit; with the times of kernel
+               and plain version and the bound (no PyTorch call computes
+               either: library none).
                Then one xarm update with the kernels and one with the plain
                versions (`build.plain_versions()`) from one state and one
                generator state (eager, after two updates), in bfloat16 and
@@ -235,7 +257,8 @@ cards), so that the collectives captured in the graphs reduce over real
 ranks: the ranks of each arm, and the two arms, must agree exactly in the
 loss, the state's checksum and the report's; its ranks' launches go under
 `launches_parallel` as `cards_*`; the extra phase `profile` (not run by default) prints where an update's
-device time goes, its launches and the device's idle share, and
+device time goes, its launches and the device's idle share, at xarm (with
+the fused rollout) and at a1 (the loop path), and
 `profile_explore` the same for `--configs xarm plan2explore`; the extra
 phase `sphero` (not run by default) trains `--configs sphero` (its dummy
 task, whose tracker and resize need OpenCV) as the slice trains xarm; the
@@ -258,11 +281,13 @@ xarm) and `scripts/imag_impl_bench.py` (`imag_impl` at xarm) in this process
 at their own budgets, 90 s of windows an arm, and writes their results under
 `runs/chip_smoke_*_impl_bench/`.
 
-The kernels line lists the six RSSM kernels, then the four of XLA's
-fusions (their `launches` those of the training slice; `library_ms`
+The kernels line lists the six RSSM kernels, then the eight of XLA's
+fusions (their `launches` those of the training slice, the RSSM step's
+four those of its `--rssm.impl scan` run, `launches_a1` each kernel's in
+the a1 phase's loop path; `library_ms`
 `torch.nn.utils.get_total_norm` for adam_sumsq, `torch._fused_adamw_` for
 adam_update, null for layer_norm_act, whose bfloat16 row no single call
-computes). With
+computes, and for the GRU cell and the stats head). With
 `--seed N` other than 0 the curve phase writes
 `scores/NAME_dreamer_torch_sN.json`, so that seed 0's file stays.
 
@@ -1283,6 +1308,226 @@ def check_layer_norm(sites=LAYER_NORM_SITES, device='cuda'):
   return results
 
 
+# (rows, D) of the GRU cell's calls (`RSSM._gru` after its product): a1
+# (D = 256) and xarm (D = 512) at a policy step (1 row), a step of the
+# observe loop (B = 32 rows) and a step of the imagined rollout (1 024 rows,
+# B x T start states). The largest, xarm's rollout, goes on the kernels
+# line.
+GRU_SITES = ((1, 256), (32, 256), (1024, 256), (1, 512), (32, 512),
+             (1024, 512))
+# (rows, sample) of the categorical stats head, S = C = 32 and the configs'
+# unimix 0.01: a policy step, a step of the observe loop (its two samples,
+# and the mode of `initial()`'s `get_stoch` at the same rows), a step of the
+# rollout. The rollout's goes on the kernels line.
+HEAD_SITES = ((1, True), (32, True), (32, False), (1024, True))
+HEAD_S = HEAD_C = 32
+HEAD_UNIMIX = 0.01
+
+
+def step_ms(fn):
+  """`device_ms` over 100 calls: the RSSM step's kernels take 2-20 us a
+  call, and the profiler has lost every kernel of a 10-call window of such
+  kernels, three traces running."""
+  return device_ms(fn, calls=100)
+
+
+def _scaled_max(got, want):
+  """The largest |got - want| of each pair over the pair's largest |want|."""
+  return [float((g.float() - w.float()).abs().max())
+          / max(1e-6, float(w.float().abs().max())) for g, w in zip(got, want)]
+
+
+def check_gru_cell(sites=GRU_SITES, device='cuda'):
+  """gru_cell's two kernels against the plain version (the RSSM's norm of
+  the product and its gates, `gru.gru_cell_plain`) and its autograd at each
+  site of GRU_SITES, in float32 and bfloat16, with the times of both and
+  the bound. No PyTorch call computes the cell: `torch.nn.GRUCell` applies
+  the reset inside its product and has no update bias of -1 nor a norm, so
+  `library_ms` is None. Returns the rows of the largest site."""
+  import torch
+  from daydreamer_tpu_torch.nn import cost
+  from daydreamer_tpu_torch.ops import gru
+  results = {}
+  for dtype in (torch.float32, torch.bfloat16):
+    name = str(dtype).split('.')[-1]
+    for rows, D in sites:
+      gen = torch.Generator(device=device).manual_seed(rows + D)
+      rand = lambda *shape: torch.randn(*shape, generator=gen, device=device)
+      x = (2 * rand(rows, 3 * D) + 0.5).to(dtype)
+      deter = torch.tanh(rand(rows, D)).to(dtype)
+      scale, bias = 1 + 0.2 * rand(3 * D), 0.3 * rand(3 * D)
+      dout = rand(rows, D).to(dtype)
+      out, mean, rstd = gru.gru_cell_fwd_cuda(x, deter, scale, bias)
+      args = (x, deter, scale, bias, mean, rstd, dout)
+      got = gru.gru_cell_bwd_cuda(*args)
+      # A second launch on the same inputs: the same bits (the blocks' sums
+      # in a fixed order).
+      same = all(torch.equal(a, b)
+                 for a, b in zip(got, gru.gru_cell_bwd_cuda(*args)))
+      leaves = [v.clone().requires_grad_() for v in (x, deter, scale, bias)]
+      ref = gru.gru_cell_plain(*leaves)
+      want = torch.autograd.grad(ref, leaves, dout, retain_graph=True)
+      ref = ref.detach()
+      # Forward: float32 the same arithmetic in another order; bfloat16 a
+      # norm output or a gate may round to the other side (one unit in the
+      # last place) and the chain carries it on. Backward, scaled by each
+      # tensor's largest magnitude: float32 dx and ddeter within 1e-4,
+      # dscale and dbias (sums over rows in another order) 1e-3; bfloat16
+      # 2e-2, as layer_norm_act's (a rounding that falls the other way
+      # moves the row sums after it).
+      fwd = float(((out.float() - ref.float()).abs()
+                   / ref.float().abs().clamp_min(1)).max())
+      scaled = _scaled_max(got, want)
+      limits = ((1e-5, (1e-4, 1e-4, 1e-3, 1e-3)) if dtype == torch.float32
+                else (2 ** -7, (2e-2,) * 4))
+      ok = (fwd <= limits[0] and same
+            and all(e <= lim for e, lim in zip(scaled, limits[1]))
+            and all(bool(torch.isfinite(g).all()) for g in got))
+      work = [cost.bound(*gru.gru_cell_work(rows, D, dtype, backward=b),
+                         dtype) for b in (False, True)]
+      ms = step_ms(lambda: gru.gru_cell_fwd_cuda(x, deter, scale, bias))
+      bwd_ms = step_ms(lambda: gru.gru_cell_bwd_cuda(*args))
+      plain_ms = step_ms(lambda: gru.gru_cell_plain(x, deter, scale, bias))
+      again = gru.gru_cell_plain(*leaves)
+      plain_bwd_ms = step_ms(lambda: torch.autograd.grad(
+          again, leaves, dout, retain_graph=True))
+      log(f'gru_cell {name} rows {rows} x D {D}: forward error {fwd:.3g} '
+          f'(tolerance {limits[0]:g} of max(|y|, 1)), backward scaled errors'
+          f' dx {scaled[0]:.3g}, ddeter {scaled[1]:.3g}, dscale '
+          f'{scaled[2]:.3g}, dbias {scaled[3]:.3g} (tolerances '
+          f'{limits[1]}), two backward launches equal {same}; device ms: '
+          f'forward {ms:.4f} (plain {plain_ms:.4f}, library none, bound '
+          f'{work[0]["bound_ms"]:.4f} {work[0]["bound_by"]}), backward '
+          f'{bwd_ms:.4f} (plain {plain_bwd_ms:.4f}, library none, bound '
+          f'{work[1]["bound_ms"]:.4f} {work[1]["bound_by"]})')
+      if not ok:
+        raise AssertionError(f'gru_cell disagrees with its plain version in '
+                             f'{name} at rows {rows} x D {D}.')
+      if (rows, D) == max(sites):
+        results.setdefault('gru_cell_fwd', {})[name] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=None,
+            bound_ms=work[0]['bound_ms'], bound_by=work[0]['bound_by'],
+            max_abs_err=float((out.float() - ref.float()).abs().max()))
+        results.setdefault('gru_cell_bwd', {})[name] = dict(
+            ms=bwd_ms, plain_ms=plain_bwd_ms, library_ms=None,
+            bound_ms=work[1]['bound_ms'], bound_by=work[1]['bound_by'],
+            max_abs_err=max(float((g.float() - w.float()).abs().max())
+                            for g, w in zip(got, want)))
+      del x, out, got, want, leaves, ref, again
+  return results
+
+
+def _head_ties(stoch, ref_stoch, logit, ref_logit, u):
+  """(groups whose chosen class differs between the kernel's and the plain
+  version's stoch, whether each is a tie): the plain version's values of
+  the two classes (log_softmax of its logit, plus the noise of `u`) lie
+  apart by no more than twice the group's largest difference between the
+  values made from either logit, plus 1e-5 of max(their size, 1) for the
+  card's own exp and log."""
+  import torch
+  from daydreamer_tpu_torch.nn import dists
+  noise = dists.gumbel_noise(u) if u is not None else 0.0
+  value = lambda l: torch.log_softmax(l.float(), -1) + noise
+  ours, theirs = value(logit), value(ref_logit)
+  got, want = stoch.argmax(-1), ref_stoch.argmax(-1)
+  differ = got != want
+  a = theirs.gather(-1, got[..., None])[..., 0][differ]
+  b = theirs.gather(-1, want[..., None])[..., 0][differ]
+  slack = (ours - theirs).abs().amax(-1)[differ]
+  ties = (a - b).abs() <= 2 * slack + 1e-5 * torch.maximum(
+      a.abs(), torch.ones_like(a))
+  return int(differ.sum()), bool(ties.all())
+
+
+def check_onehot_head(sites=HEAD_SITES, device='cuda'):
+  """onehot_head's two kernels against the plain version (the unimix
+  logit, `OneHotDist` and its straight-through Gumbel-max sample or its
+  mode, `onehot.onehot_head_plain`) and its autograd at each site of
+  HEAD_SITES, in float32 and bfloat16, on the same uniform draws: the
+  samples must choose the same classes but at ties (counted), with the
+  times of both and the bound. No PyTorch call computes the head (none
+  mixes in a uniform floor, nor samples with the straight-through
+  estimator), so `library_ms` is None. Returns the rows of the rollout's
+  site."""
+  import torch
+  from daydreamer_tpu_torch.nn import cost
+  from daydreamer_tpu_torch.ops import onehot
+  results = {}
+  S, C, unimix = HEAD_S, HEAD_C, HEAD_UNIMIX
+  for dtype in (torch.float32, torch.bfloat16):
+    name = str(dtype).split('.')[-1]
+    for rows, sample in sites:
+      gen = torch.Generator(device=device).manual_seed(rows + sample)
+      rand = lambda *shape: torch.randn(*shape, generator=gen, device=device)
+      raw = (2 * rand(rows, S, C)).to(dtype)
+      u = torch.rand(rows, S, C, generator=gen, device=device) if sample else (
+          None)
+      dlogit, dstoch = rand(rows, S, C).to(dtype), rand(rows, S, C).to(dtype)
+      logit, stoch = onehot.onehot_head_fwd_cuda(raw, u, unimix)
+      args = (raw, logit, dlogit, dstoch, unimix, sample)
+      draw = onehot.onehot_head_bwd_cuda(*args)
+      same = torch.equal(draw, onehot.onehot_head_bwd_cuda(*args))
+      leaf = raw.clone().requires_grad_()
+      ref_logit, ref_stoch = onehot.onehot_head_plain(leaf, u, unimix)
+      outs = [ref_logit, ref_stoch] if sample else [ref_logit]
+      grads = [dlogit, dstoch] if sample else [dlogit]
+      want, = torch.autograd.grad(outs, leaf, grads, retain_graph=True)
+      ref_logit, ref_stoch = ref_logit.detach(), ref_stoch.detach()
+      flips, ties = _head_ties(stoch, ref_stoch, logit, ref_logit, u)
+      kept = (stoch.argmax(-1) == ref_stoch.argmax(-1))[..., None]
+      # The logit: float32 the same arithmetic, the card's exp and log in
+      # another order; bfloat16 a value may round to the other side (one
+      # unit in the last place). stoch where the choice is the same:
+      # (onehot + p) - p in float32, rounded to 1 or 0 in bfloat16. The
+      # gradient, scaled by its largest magnitude: float32 1e-4; bfloat16
+      # 2e-2, where a rounding falls the other way.
+      fwd = float(((logit.float() - ref_logit.float()).abs()
+                   / ref_logit.float().abs().clamp_min(1)).max())
+      stoch_err = float((stoch.float() * kept - ref_stoch.float() * kept)
+                        .abs().max())
+      grad_err, = _scaled_max([draw], [want])
+      limits = (1e-5, 1e-6, 1e-4) if dtype == torch.float32 else (
+          2 ** -7, 2 ** -8, 2e-2)
+      ok = (fwd <= limits[0] and ties and stoch_err <= limits[1]
+            and grad_err <= limits[2] and same
+            and bool(torch.isfinite(draw).all()))
+      work = [cost.bound(*onehot.onehot_head_work(
+          rows, S, C, dtype, unimix, sample, backward=b), dtype)
+              for b in (False, True)]
+      ms = step_ms(lambda: onehot.onehot_head_fwd_cuda(raw, u, unimix))
+      bwd_ms = step_ms(lambda: onehot.onehot_head_bwd_cuda(*args))
+      plain_ms = step_ms(lambda: onehot.onehot_head_plain(raw, u, unimix))
+      again = onehot.onehot_head_plain(leaf, u, unimix)[:len(outs)]
+      plain_bwd_ms = step_ms(lambda: torch.autograd.grad(
+          again, leaf, grads, retain_graph=True))
+      log(f'onehot_head {name} rows {rows} x {S} x {C} '
+          f'({"sample" if sample else "mode"}, unimix {unimix}): logit '
+          f'error {fwd:.3g} (tolerance {limits[0]:g} of max(|logit|, 1)), '
+          f'{flips} of {rows * S} groups choose another class, all ties '
+          f'{ties}, stoch error elsewhere {stoch_err:.3g} (tolerance '
+          f'{limits[1]:g}), scaled gradient error {grad_err:.3g} (tolerance '
+          f'{limits[2]:g}), two backward launches equal {same}; device ms: '
+          f'forward {ms:.4f} (plain {plain_ms:.4f}, library none, bound '
+          f'{work[0]["bound_ms"]:.4f} {work[0]["bound_by"]}), backward '
+          f'{bwd_ms:.4f} (plain {plain_bwd_ms:.4f}, library none, bound '
+          f'{work[1]["bound_ms"]:.4f} {work[1]["bound_by"]})')
+      if not ok:
+        raise AssertionError(f'onehot_head disagrees with its plain version '
+                             f'in {name} at rows {rows} (sample {sample}).')
+      if (rows, sample) == max(sites):
+        results.setdefault('onehot_head_fwd', {})[name] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=None,
+            bound_ms=work[0]['bound_ms'], bound_by=work[0]['bound_by'],
+            max_abs_err=float((logit.float() - ref_logit.float()).abs()
+                              .max()), ties=flips)
+        results.setdefault('onehot_head_bwd', {})[name] = dict(
+            ms=bwd_ms, plain_ms=plain_bwd_ms, library_ms=None,
+            bound_ms=work[1]['bound_ms'], bound_by=work[1]['bound_by'],
+            max_abs_err=float((draw.float() - want.float()).abs().max()))
+      del raw, logit, stoch, draw, want, leaf, again
+  return results
+
+
 @contextlib.contextmanager
 def recorded_adam():
   """Within the block every call of `ops.adam.adam_update` is recorded
@@ -1638,6 +1883,8 @@ def phase_fused(seeds=1):
   torch.backends.cudnn.allow_tf32 = False
   layer_norm_registers()
   results = check_layer_norm()
+  results.update(check_gru_cell())
+  results.update(check_onehot_head())
   compare_updates('xarm', 'float32', seeds)
   calls = compare_updates('xarm', 'bfloat16', seeds)
   results.update(check_adam(calls))
@@ -1680,10 +1927,11 @@ def phase_build():
         log(f'  {kernel.name}: {line.strip()}')
 
 
-def phase_profile(configs=('xarm',), updates=5):
+def phase_profile(configs=('xarm',), updates=5, overrides=None):
   """Where an update's time goes at the named config blocks (xarm by
-  default): torch.profiler over `updates` train steps (after three warm-up
-  steps) on a random batch. Prints the wall time per update, the device's
+  default, with the fused rollout; `overrides` replace that): torch.profiler
+  over `updates` train steps (after three warm-up steps) on a random
+  batch. Prints the wall time per update, the device's
   busy and idle share, the device time of each category of kernel (those
   of `scripts/profile_train.py`) and the kernels with the most device time.
   Not part of the default phases."""
@@ -1696,7 +1944,8 @@ def phase_profile(configs=('xarm',), updates=5):
   config = ddp.Config(Agent.configs['defaults'])
   for name in configs:
     config = config.update(Agent.configs[name])
-  config = config.update({'imag_impl': 'pallas'})
+  config = config.update(
+      {'imag_impl': 'pallas'} if overrides is None else overrides)
   label = f'profile ({" ".join(configs)})'
   env = envs.load_env(config.task, **config.env)
   agent = Agent(env.obs_space, env.act_space, ddp.Counter(), config)
@@ -1767,8 +2016,10 @@ def main(argv=None):
   except ImportError as e:
     print(f'chip_smoke: the port is not here ({e}).', file=sys.stderr)
     return 1
-  from daydreamer_tpu_torch.ops import build, lambda_returns, rssm, rssm_vjp
-  del lambda_returns, rssm, rssm_vjp  # Imported to register their kernels.
+  from daydreamer_tpu_torch.ops import (build, gru, lambda_returns, onehot,
+                                        rssm, rssm_vjp)
+  # Imported to register their kernels.
+  del gru, lambda_returns, onehot, rssm, rssm_vjp
   device_name = phase_device()
   if args.compare:
     for spec in args.compare:
@@ -1779,26 +2030,32 @@ def main(argv=None):
   kernel = phase_kernel() if 'kernel' in phases else {}
   if 'fused' in phases:
     kernel.update(phase_fused(args.fused_seeds))
-  elif 'layer_norm' in phases:
-    layer_norm_registers()
-    kernel.update(check_layer_norm())
+  else:
+    if 'layer_norm' in phases:
+      layer_norm_registers()
+      kernel.update(check_layer_norm())
+    if 'rssm_step' in phases:
+      kernel.update(check_gru_cell())
+      kernel.update(check_onehot_head())
   if 'graphs' in phases:
     phase_graphs()
   launches, parallel = {}, {}
   slice_run = None
   if 'slice' in phases:
     counts, slice_run = phase_slice('slice', SLICE_ARGS,
-                                    TRAIN_KERNELS + FUSION_KERNELS)
+                                    TRAIN_KERNELS + FUSION_KERNELS + STEP_FWD)
     launches.update({k: counts[k] for k in TRAIN_KERNELS + FUSION_KERNELS})
-    phase_slice('slice (rssm.impl scan)', SCAN_SLICE_ARGS, (
-        'imagine_actor',))
+    # The RSSM step's kernels: the loop path's observe, forward and
+    # backward.
+    counts, _ = phase_slice('slice (rssm.impl scan)', SCAN_SLICE_ARGS, (
+        'imagine_actor',) + STEP_KERNELS)
+    launches.update({k: counts[k] for k in STEP_KERNELS})
   if 'proof' in phases:
     launches.update(phase_proof())
   if 'learner' in phases:
     phase_learner('learner (uniform ring)', 'fixed')
     phase_learner('learner (prioritized ring)', 'prio')
-  if 'a1' in phases:
-    phase_a1()
+  a1 = phase_a1() if 'a1' in phases else {}
   if 'explore' in phases:
     phase_explore(slice_run)
   if 'parallel' in phases:
@@ -1809,7 +2066,8 @@ def main(argv=None):
     phase_imitation(args.seed)
   if 'imitation_sim' in phases:
     phase_imitation_sim()
-  profiled = phase_tooling() if 'tooling' in phases else {}
+  profiled, profiled_a1 = phase_tooling() if 'tooling' in phases else ({},
+                                                                       {})
   soak = phase_soak() if 'soak' in phases else {}
   benched = phase_bench(device_name) if 'bench' in phases else {}
   if 'impl_bench' in phases:
@@ -1821,16 +2079,21 @@ def main(argv=None):
     phase_slice('sphero', SPHERO_ARGS, OBSERVE_KERNELS)
   if 'profile' in phases:
     phase_profile()
+    phase_profile(('a1',), overrides={'task': 'a1_dummy'})
   if 'profile_explore' in phases:
     phase_profile(('xarm', 'plan2explore'))
   entries = []
-  # The six counterparts of the TPU kernels, then the four of XLA's fusions.
-  ordered = sorted(build.KERNELS, key=lambda k: k.name in FUSION_KERNELS)
+  # The six counterparts of the TPU kernels, then the eight of XLA's
+  # fusions.
+  ordered = sorted(build.KERNELS,
+                   key=lambda k: k.name in FUSION_KERNELS + STEP_KERNELS)
   for k in ordered:
     # The main path computes in bfloat16 (the optimizer in float32); each
     # kernel's own result. The launches are those of the kernel's own path:
-    # the training slice for the first three and the fusions' four, the
-    # proof for the others; beside them, each rank's
+    # the training slice for the first three and the fusions' four, its
+    # loop-path run (`--rssm.impl scan`) for the RSSM step's four, the
+    # proof for the others; beside them, those of the a1 phase's loop path
+    # (the paper's config as its file has it), each rank's
     # of the parallel phase, those of the tooling phase's profile of the
     # learner's ring dispatches, those of the soak's learner process and
     # those of the curve phase's run and those of the bench phase's timed
@@ -1843,7 +2106,9 @@ def main(argv=None):
         launches=launches.get(k.name, 0),
         launches_parallel={rank: counts.get(k.name, 0)
                            for rank, counts in parallel.items()},
+        launches_a1=a1.get(k.name, 0),
         launches_profile=profiled.get(k.name, 0),
+        launches_profile_a1=profiled_a1.get(k.name, 0),
         launches_soak=soak.get(k.name, 0),
         launches_curve=curve.get(k.name, 0),
         launches_bench=benched.get(k.name, 0),
@@ -1873,6 +2138,13 @@ PROOF_KERNELS = ('imagine', 'observe', 'gve')
 # The counterparts of XLA's fusions, which every gradient update launches.
 FUSION_KERNELS = ('layer_norm_act_fwd', 'layer_norm_act_bwd', 'adam_sumsq',
                   'adam_update')
+# The counterparts of XLA's fusions of the RSSM's scan step: every step of
+# the loop paths (observe with `rssm.impl: scan`, the rollout with
+# `imag_impl: scan`, the policy step) launches the forward pair, a step
+# under autograd the backward pair too.
+STEP_KERNELS = ('gru_cell_fwd', 'gru_cell_bwd', 'onehot_head_fwd',
+                'onehot_head_bwd')
+STEP_FWD = ('gru_cell_fwd', 'onehot_head_fwd')
 RSSM_KERNELS = TRAIN_KERNELS + PROOF_KERNELS
 
 
@@ -2196,9 +2468,12 @@ def _graphs_learner(name, replay_kind):
     kernels = OBSERVE_KERNELS + ('imagine_actor',) if name == 'xarm' else ()
     for flag in (False, True):
       launches = rates[flag][2]
+      # The loop path (a1) runs its observe loop and rollout through the
+      # RSSM step's kernels.
+      steps = () if kernels else STEP_KERNELS
       if any(launches[k] != updates for k in kernels) or (
           not kernels and any(launches[k] for k in RSSM_KERNELS)) or any(
-              launches[k] < updates for k in FUSION_KERNELS):
+              launches[k] < updates for k in FUSION_KERNELS + steps):
         raise AssertionError(
             f'{label}: graphs {flag}: launches {launches} in {updates} '
             f'updates; each RSSM kernel of the path once an update, each '
@@ -2482,19 +2757,29 @@ SPHERO_ARGS = [
 
 def phase_a1():
   """a1 through the CLI three times: as the config file has it (the loop
-  path: no RSSM kernel may launch, the four of XLA's fusions must), with the fused observe chain (`--rssm.impl
+  path: no RSSM kernel may launch, the four of XLA's fusions must, and the
+  RSSM step's four at least once an update), with the fused observe chain (`--rssm.impl
   pallas`: observe_fwd and observe_bwd at D = U = 256, E = 512, A = 12),
   and through the native batcher (`--data_loader native`), whose library
-  g++ must have built into native/_build/ and loaded."""
+  g++ must have built into native/_build/ and loaded. Returns the loop
+  path's launches."""
   from daydreamer_tpu_torch.agents.dreamer import torchagent
   from daydreamer_tpu_torch.native.build import BUILD
   from daydreamer_tpu_torch.replay import batcher
   library = BUILD / 'libfastcopy.so'
   built_before = library.exists()
-  launches, _ = phase_slice('a1', A1_ARGS, FUSION_KERNELS)
+  launches, run = phase_slice('a1', A1_ARGS, FUSION_KERNELS + STEP_KERNELS)
   if any(launches[k] for k in RSSM_KERNELS):
     raise AssertionError(f'a1: an RSSM kernel launched on the loop path: '
                          f'{launches}')
+  # Every update runs the observe loop and the rollout through the RSSM
+  # step's kernels (and the policy steps their forward pair).
+  if any(launches[k] < run['updates'] for k in STEP_KERNELS):
+    raise AssertionError(f'a1: the RSSM step\'s kernels launched less than '
+                         f'once an update: {launches}')
+  log('a1: the RSSM step\'s kernels, launches an update (the policy steps '
+      'included): ' + ', '.join(f'{k} {launches[k] / run["updates"]:.2f}'
+                                for k in STEP_KERNELS))
   phase_slice('a1 (rssm.impl pallas)', [*A1_ARGS, '--rssm.impl', 'pallas'],
               OBSERVE_KERNELS + FUSION_KERNELS)
   made = []
@@ -2515,6 +2800,7 @@ def phase_a1():
       'built by g++ in this run')
   log(f'a1 (data_loader native): {len(made)} NativeBatcher(s) on '
       f'{pathlib.Path(made[0]._lib._name).relative_to(ROOT)}, {origin}')
+  return launches
 
 
 # The rest of the agent at xarm's full width (deter = units = 512, 32x32
@@ -2996,26 +3282,15 @@ PROFILED_OBSERVE = ('embed_kernel', 'chain_kernel', 'prior_kernel',
                     'observe_bwd_kernel')
 
 
-def phase_tooling():
-  """The port's two instruments as a user runs them. First
-  `scripts/profile_train.py --shape xarm --dispatches 2` (K = 16:
-  one dispatch that creates the state, two warm, two traced, so 80
-  updates; then the bytes of an update by category): its wrappers must
-  count observe_fwd and observe_bwd once a traced update and `observe`
-  never, its trace must show observe_fwd's three device functions and
-  observe_bwd's one launched once an update, the device's busy time must
-  be under the wall time, and the bytes of an update over the busy time
-  must stay under the card's memory rate. Then
-  `scripts/policy_latency.py` at `--shape a1` and `--shape test`, the card
-  and the host mirror: each must print its result, and the card's whole
-  policy call at a1 must take under 50 ms. Returns the profile's launches
-  of each kernel."""
+def profile_tool(shape, rundir):
+  """`scripts/profile_train.py --shape SHAPE --dispatches 2` as a
+  subprocess, checked as `phase_tooling` says; returns its wrappers'
+  launches."""
   from daydreamer_tpu_torch.nn import cost
-  rundir = new_logdir('tooling')
-  report = run_tool('profile_train (xarm)',
-                    'daydreamer_tpu_torch.scripts.profile_train',
-                    ['--shape', 'xarm', '--dispatches', '2',
-                     '--out', str(rundir / 'profile_xarm.json')], rundir)
+  label = f'profile_train ({shape})'
+  report = run_tool(label, 'daydreamer_tpu_torch.scripts.profile_train',
+                    ['--shape', shape, '--dispatches', '2',
+                     '--out', str(rundir / f'profile_{shape}.json')], rundir)
   updates, launches = report['updates_traced'], report['wrapper_launches']
   traced = {}
   for row in report['own_kernels']:
@@ -3023,17 +3298,21 @@ def phase_tooling():
       if f'::{function}' in row['name']:
         traced[function] = traced.get(function, 0) + row[
             'launches_per_update']
-  if (launches['observe_fwd'] != updates or launches['observe_bwd'] != updates
-      or launches['observe'] or any(
-          traced.get(f) != 1 for f in PROFILED_OBSERVE)
-      or not report['device_busy_ms_per_update'] < report[
-          'wall_ms_per_update']):
+  if shape == 'xarm':
+    observed = (launches['observe_fwd'] == updates
+                and launches['observe_bwd'] == updates
+                and not launches['observe']
+                and all(traced.get(f) == 1 for f in PROFILED_OBSERVE))
+  else:
+    observed = not any(launches[k] for k in RSSM_KERNELS) and not traced
+  if not observed or not report['device_busy_ms_per_update'] < report[
+      'wall_ms_per_update']:
     raise AssertionError(
-        f'profile_train: {updates} updates, wrapper launches {launches}, '
+        f'{label}: {updates} updates, wrapper launches {launches}, '
         f'device functions a traced update {traced}, busy '
         f'{report["device_busy_ms_per_update"]} against wall '
         f'{report["wall_ms_per_update"]} ms')
-  log(f'profile_train (xarm): {report["wall_ms_per_update"]:.3f} ms wall '
+  log(f'{label}: {report["wall_ms_per_update"]:.3f} ms wall '
       f'per update traced ({report["untraced_wall_ms_per_update"]:.3f} '
       f'untraced), {report["device_busy_ms_per_update"]:.3f} ms device '
       f'busy, idle share {report["idle_share"]:.3f} (untraced '
@@ -3043,22 +3322,26 @@ def phase_tooling():
           f'{r["category"]} {r["ms_per_update"]:.3f} / '
           f'{r["launches_per_update"]:.1f}' for r in report['categories']))
   # The counterparts of XLA's fusions: counted by their wrappers and seen
-  # by name in the trace, each in a category of its own.
-  fused = {k: launches[k] / updates for k in FUSION_KERNELS}
+  # by name in the trace, each in a category of its own; at a1 (the loop
+  # path) the RSSM step's four as well.
+  names = FUSION_KERNELS + (STEP_KERNELS if shape == 'a1' else ())
+  fused = {k: launches[k] / updates for k in FUSION_KERNELS + STEP_KERNELS}
   categories = {r['category']: r for r in report['categories']}
-  if any(v < 1 for v in fused.values()) or any(
-      k not in categories for k in FUSION_KERNELS):
-    raise AssertionError(f'profile_train: the fusions\' launches an update '
+  if any(fused[k] < 1 for k in names) or any(
+      k not in categories for k in names):
+    raise AssertionError(f'{label}: the fusions\' launches an update '
                          f'{fused}, categories {sorted(categories)}')
-  log('profile_train (xarm): the fusions\' kernels, wrapper launches / '
+  empty = dict(ms_per_update=0.0, launches_per_update=0.0)
+  log(f'{label}: the fusions\' kernels, wrapper launches / '
       'device ms / device launches an update: ' + ', '.join(
-          f'{k} {fused[k]:.2f} / {categories[k]["ms_per_update"]:.3f} / '
-          f'{categories[k]["launches_per_update"]:.1f}'
-          for k in FUSION_KERNELS))
+          f'{k} {fused[k]:.2f} / '
+          f'{categories.get(k, empty)["ms_per_update"]:.3f} / '
+          f'{categories.get(k, empty)["launches_per_update"]:.1f}'
+          for k in FUSION_KERNELS + STEP_KERNELS))
   counted = report['bytes']
   rate = counted['bytes_per_update'] / report['device_busy_ms_per_update'] / (
       1e6)
-  log(f'profile_train (xarm): {counted["bytes_per_update"]} bytes an update '
+  log(f'{label}: {counted["bytes_per_update"]} bytes an update '
       f'(train_device_cost), {counted["twin_bytes_per_update"]} on the '
       f'loop-path twin; {rate:.1f} GB/s over the busy time; by category '
       f'(GB an update, twin GB, device ms, GB/s): ' + ', '.join(
@@ -3067,7 +3350,31 @@ def phase_tooling():
           f'{r["device_ms_per_update"]} / {r["gb_per_s"]}'
           for r in counted['categories']))
   if not 0 < rate <= cost.H100['hbm_bytes'] / 1e9:
-    raise AssertionError(f'profile_train: {rate} GB/s over the busy time')
+    raise AssertionError(f'{label}: {rate} GB/s over the busy time')
+  return launches
+
+
+def phase_tooling():
+  """The port's two instruments as a user runs them. First
+  `scripts/profile_train.py --shape xarm --dispatches 2` (K = 16:
+  one dispatch that creates the state, two warm, two traced, so 80
+  updates; then the bytes of an update by category): its wrappers must
+  count observe_fwd and observe_bwd once a traced update and `observe`
+  never, its trace must show observe_fwd's three device functions and
+  observe_bwd's one launched once an update, the device's busy time must
+  be under the wall time, and the bytes of an update over the busy time
+  must stay under the card's memory rate. Then the same at `--shape a1`
+  (K = 64, the loop path), whose wrappers must count no RSSM kernel and
+  each of the RSSM step's four at least once an update, each in a
+  category of its own in the trace. Then
+  `scripts/policy_latency.py` at `--shape a1` and `--shape test`, the card
+  and the host mirror: each must print its result, and the card's whole
+  policy call at a1 must take under 50 ms. Returns the profiles' launches
+  of each kernel, xarm's and a1's."""
+  rundir = new_logdir('tooling')
+  profiled = {}
+  for shape in ('xarm', 'a1'):
+    profiled[shape] = profile_tool(shape, rundir)
   for shape in ('a1', 'test'):
     result = run_tool(f'policy_latency ({shape})',
                       'daydreamer_tpu_torch.scripts.policy_latency',
@@ -3082,7 +3389,7 @@ def phase_tooling():
     log(f'policy_latency ({shape}): card {device}, host mirror {mirror}, '
         f'null round trip {result["null_rtt_ms"]:.4f} / '
         f'{result["null_rtt_after_ms"]:.4f} ms ({result["card"]})')
-  return launches
+  return profiled['xarm'], profiled['a1']
 
 
 # Two minutes of the deployment pair; the learner on the card with the fused
@@ -3178,10 +3485,16 @@ def phase_bench(device_name):
              if 'policy' in res else ''))
       fused = {k: res['launches'].get(k, 0) / res['updates_timed']
                for k in FUSION_KERNELS}
+      # The RSSM step's kernels: the loop paths (test, a1) forward and
+      # backward, xarm's rollout (`imag_impl: scan`) at least forward.
+      steps = {k: res['launches'].get(k, 0) / res['updates_timed']
+               for k in STEP_KERNELS}
       log(f'bench ({shape}, {arm}): the fusions\' launches an update '
-          f'{fused}')
+          f'{fused}, the RSSM step\'s {steps}')
+      needed = STEP_FWD if shape == 'xarm' else STEP_KERNELS
       if (not all(math.isfinite(r) and r > 0 for r in rates)
           or any(v < 1 for v in fused.values())
+          or any(steps[k] < 1 for k in needed)
           or not rows['flops_per_update'] > 0
           or not (rows['bytes_per_update'] or 0) > 0
           or not 0 < (res['hbm_bw_util'] or 0) <= 1.0

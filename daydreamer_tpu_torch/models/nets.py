@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from .. import nn
 from ..nn import Module, Linear, Conv2D, Input
 from ..nn import dists as distslib
+from ..ops import gru, onehot
 
 cast = nn.cast
 sg = nn.sg
@@ -216,9 +217,7 @@ class RSSM(Module):
     for i in range(self._post_layers - 1):
       x = self.sub(f'obs_out_{i}', Linear, **self._kw)(x)
     x = self.sub('obs_out', Linear, **self._kw)(x)
-    stats = self._stats_layer('obs_stats', x)
-    dist = self.get_dist(stats)
-    stoch = cast(dist.sample(nn.rng()))
+    stoch, stats = self._head('obs_stats', x, sample=True)
     post = {'stoch': stoch, 'deter': prior['deter'], **stats}
     return post, prior
 
@@ -235,41 +234,49 @@ class RSSM(Module):
     x, deter = self._gru(x, prev_state['deter'])
     for i in range(self._prior_layers):
       x = self.sub(f'img_out_{i}', Linear, **self._kw)(x)
-    stats = self._stats_layer('img_stats', x)
-    dist = self.get_dist(stats)
-    stoch = cast(dist.sample(nn.rng()))
+    stoch, stats = self._head('img_stats', x, sample=True)
     return {'stoch': stoch, 'deter': deter, **stats}
 
   def get_stoch(self, deter):
     x = deter
     for i in range(self._prior_layers):
       x = self.sub(f'img_out_{i}', Linear, **self._kw)(x)
-    stats = self._stats_layer('img_stats', x)
-    return cast(self.get_dist(stats).mode())
+    return self._head('img_stats', x, sample=False)[0]
+
+  def _head(self, name, x, sample):
+    """The stats layer, and from its stats a sample of the state's
+    distribution (or its mode): (stoch, stats). Discrete latents take
+    `ops.onehot.onehot_head` after the layer's product (one kernel each way
+    on the card, as XLA fuses the chain in the JAX program), its uniform
+    draws from the agent's generator where the Gumbel noise was drawn."""
+    if not self._classes:
+      stats = self._stats_layer(name, x)
+      dist = self.get_dist(stats)
+      return cast(dist.sample(nn.rng()) if sample else dist.mode()), stats
+    x = self.sub(name, Linear, self._stoch * self._classes)(x)
+    raw = x.reshape(x.shape[:-1] + (self._stoch, self._classes))
+    u = onehot.uniform(raw.shape, nn.rng(), raw.device) if sample else None
+    logit, stoch = onehot.onehot_head(raw, u, self._unimix)
+    return cast(stoch), {'logit': logit}
 
   def _gru(self, x, deter):
     """Custom GRU with update-bias -1 (reference: nets.py:149-160); one
-    fused 3*deter matmul over [deter, x]."""
+    fused 3*deter matmul over [deter, x], then the norm and the gates as
+    `ops.gru.gru_cell` (one kernel each way on the card, as XLA fuses them
+    in the JAX program)."""
     x = torch.cat([cast(deter), x], -1)
     for i in range(self._gru_layers - 1):
       x = self.sub(f'gru_{i}', Linear, **self._kw)(x)
     kw = {**self._kw, 'act': 'none', 'units': 3 * self._deter}
-    x = self.sub('gru_out', Linear, **kw)(x)
-    reset, cand, update = torch.chunk(x, 3, -1)
-    reset = torch.sigmoid(reset)
-    cand = torch.tanh(reset * cand)
-    update = torch.sigmoid(update - 1)
-    deter = update * cand + (1 - update) * cast(deter)
+    layer = self.sub('gru_out', Linear, **kw)
+    x = layer.product(x)
+    deter = gru.gru_cell(x, cast(deter), *layer.norm_affine(x.shape[-1]))
     return deter, deter
 
   def _unimix_logit(self, logit):
     # Mix the categorical with a uniform floor and store log-probs, so
     # every consumer (KL, entropy, sampling) sees the same distribution.
-    if not self._unimix:
-      return logit
-    probs = torch.softmax(logit.float(), -1)
-    probs = (1 - self._unimix) * probs + self._unimix / probs.shape[-1]
-    return torch.log(probs).to(logit.dtype)
+    return onehot.unimix_logit(logit, self._unimix)
 
   def _stats_layer(self, name, x):
     # Stats stay in the compute dtype so the carry has a uniform dtype;

@@ -31,17 +31,22 @@ def symexp(x):
   return torch.sign(x) * (torch.exp(torch.abs(x)) - 1)
 
 
-def _rand(shape, generator, like):
-  return torch.rand(shape, generator=generator, device=like.device,
+def uniform(shape, generator, device):
+  """Uniform float32 draws in [0, 1) from `generator`."""
+  return torch.rand(shape, generator=generator, device=device,
                     dtype=torch.float32)
+
+
+def gumbel_noise(u):
+  """Standard Gumbel noise from uniform draws, as jax.random.gumbel makes
+  it."""
+  tiny = torch.finfo(torch.float32).tiny
+  return -torch.log(-torch.log(u.clamp_min(tiny)))
 
 
 def gumbel(shape, generator, device):
   """Standard Gumbel noise, float32, as jax.random.gumbel draws it."""
-  tiny = torch.finfo(torch.float32).tiny
-  u = torch.rand(shape, generator=generator, device=device,
-                 dtype=torch.float32)
-  return -torch.log(-torch.log(u.clamp_min(tiny)))
+  return gumbel_noise(uniform(shape, generator, device))
 
 
 class OneHotDist:
@@ -201,7 +206,7 @@ class TruncNormal:
     alpha, beta = self._alpha_beta()
     lo = _ndtr(alpha)
     hi = _ndtr(beta)
-    u = _rand(self._mean.shape, generator, self._mean)
+    u = uniform(self._mean.shape, generator, self._mean.device)
     u = u * (1 - 2e-6) + 1e-6
     x = torch.special.ndtri(lo + u * (hi - lo))
     return torch.clamp(self._mean + self._std * x, self._low, self._high)
@@ -233,7 +238,7 @@ class Bernoulli:
     self.logits = f32(logits)
 
   def sample(self, generator=None):
-    u = _rand(self.logits.shape, generator, self.logits)
+    u = uniform(self.logits.shape, generator, self.logits.device)
     return (u < torch.sigmoid(self.logits)).float()
 
   def mode(self):

@@ -61,15 +61,25 @@ class Linear(Module):
     self._outscale = outscale
 
   def forward(self, x):
+    return norm_act(self, self.product(x))
+
+  def product(self, x):
+    """The layer before its norm and activation: x @ kernel, and the bias
+    where there is no norm."""
     shape = (x.shape[-1], self._units)
     limit = np.sqrt(3.0 * self._outscale / np.mean(shape))
     kernel = self.value('kernel', lambda: uniform(shape, limit))
     x = cast(x) @ cast(kernel)
     if self._bias:
       x = x + cast(self.value('bias', torch.zeros(self._units)))
-    if self._norm != 'none':
-      return norm_act(self, x)
-    return self._act(x)
+    return x
+
+  def norm_affine(self, C):
+    """The float32 scale and bias of the layer's norm over C columns, or
+    (None, None) under `norm: none`."""
+    if self._norm == 'none':
+      return None, None
+    return self.sub('norm', Norm, self._norm).affine(C)
 
 
 def norm_act(layer, x):

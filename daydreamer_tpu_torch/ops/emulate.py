@@ -4,12 +4,13 @@
 
 compiles every source of `csrc/` (`observe_fwd.cu`, `observe_bwd.cu`,
 `imagine_actor.cu`, `imagine.cu`, `observe.cu`, `layer_norm.cu`,
-`adam.cu`) with g++ against the
+`adam.cu`, `gru.cu`, `onehot.cu`) with g++ against the
 stand-in headers of `csrc/emulate/` (one fiber per CUDA thread, the
 blocks of a cluster side by side, see `emulate.h`; `cp.async`, `ldmatrix`,
 `mma.sync` and the cluster's barrier and shared memory as `ptx.h` stands in
 for them), calls them through the real wrappers of `rssm_vjp.py`,
-`rssm.py`, `norm.py` and `adam.py` on CPU tensors at tiny widths, and holds each against its plain
+`rssm.py`, `norm.py`, `adam.py`, `gru.py` and `onehot.py` on CPU tensors
+at tiny widths, and holds each against its plain
 version in float32 and bfloat16, one case after another (`--case` picks
 cases by name, `--list` names them). The libraries go to `--out` (made if
 missing; without it, a temporary directory), named by the contents of the
@@ -40,7 +41,9 @@ import torch
 
 from . import adam
 from . import build
+from . import gru
 from . import norm
+from . import onehot
 from . import rssm
 from . import rssm_vjp
 
@@ -92,16 +95,16 @@ def compile_kernel(kernel, outdir):
   library = outdir / f'lib{kernel.name}_{kernel.digest()}_{_shim_digest()}.so'
   if not library.exists():
     text = kernel.source.read_text()
-    text, shared = _SHARED.subn(r'float* \1 = emu::smem;', text)
+    text = _SHARED.sub(r'float* \1 = emu::smem;', text)
     # Each launch takes its kernel's cluster size, whose blocks run side by
     # side (a launch through cudaLaunchKernelEx names its own).
     clusters = {name: size or '1' for size, name in _KERNEL.findall(text)}
     text, launches = _LAUNCH.subn(
         lambda m: f'emu::launch({clusters.get(m[1], "1")}, '
                   f'{m[1]}{m[2] or ""}, {m[3]}, {m[4]});', text)
-    if not (shared and launches):
-      raise ValueError(f'{kernel.source.name}: no launch or no dynamic '
-                       'shared memory found to hand to the emulation.')
+    if not launches:
+      raise ValueError(f'{kernel.source.name}: no launch found to hand to '
+                       'the emulation.')
     source = library.with_suffix(f'.{os.getpid()}.cpp')
     source.write_text(text)
     tmp = library.with_suffix(f'.{os.getpid()}.tmp')
@@ -130,11 +133,12 @@ def compile_selftest(outdir):
 @contextlib.contextmanager
 def emulated(outdir):
   """Within the block, the CUDA wrappers of `rssm_vjp.py`, `rssm.py`,
-  `norm.py` and `adam.py` take CPU tensors and run the emulated kernels
-  (every other check stays). The sources compile side by side."""
+  `norm.py`, `adam.py`, `gru.py` and `onehot.py` take CPU tensors and run
+  the emulated kernels (every other check stays). The sources compile side
+  by side."""
   kernels = (rssm_vjp.OBSERVE_FWD, rssm_vjp.OBSERVE_BWD, rssm.IMAGINE_ACTOR,
              rssm.IMAGINE, rssm.OBSERVE, norm.LAYER_NORM_ACT_FWD,
-             adam.ADAM_SUMSQ)
+             adam.ADAM_SUMSQ, gru.GRU_CELL_FWD, onehot.ONEHOT_HEAD_FWD)
   pathlib.Path(outdir).mkdir(parents=True, exist_ok=True)
   with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
     compiled = list(pool.map(lambda k: compile_kernel(k, outdir), kernels))
@@ -524,6 +528,114 @@ ADAM_CASES = (
 )
 
 
+def compare_gru(dtype, D, rows, fwd_blocks=None, bwd_blocks=None, seed=0):
+  """The emulated `gru_cell_fwd` and `gru_cell_bwd` against the plain
+  version and its autograd (call inside `emulated`); `fwd_blocks` and
+  `bwd_blocks` cap the grids, so that a block takes several steps of rows.
+  The backward runs twice. Returns (the largest error of the new deter
+  relative to max(|deter|, 1), the largest scaled error of dx, ddeter,
+  dscale and dbias, whether the two backward runs gave the same bits)."""
+  rng = np.random.default_rng(seed)
+  t = lambda *shape: torch.as_tensor(
+      rng.standard_normal(shape).astype(np.float32))
+  x = (2 * t(rows, 3 * D) + 0.5).to(dtype)
+  deter = torch.tanh(t(rows, D)).to(dtype)
+  scale, bias, dout = 1 + 0.2 * t(3 * D), 0.3 * t(3 * D), t(rows, D).to(dtype)
+  saved = gru.FWD_BLOCKS, gru.BWD_BLOCKS
+  gru.FWD_BLOCKS = fwd_blocks or saved[0]
+  gru.BWD_BLOCKS = bwd_blocks or saved[1]
+  try:
+    out, mean, rstd = gru.gru_cell_fwd_cuda(x, deter, scale, bias)
+    runs = [gru.gru_cell_bwd_cuda(x, deter, scale, bias, mean, rstd, dout)
+            for _ in range(2)]
+  finally:
+    gru.FWD_BLOCKS, gru.BWD_BLOCKS = saved
+  leaves = [v.clone().requires_grad_() for v in (x, deter, scale, bias)]
+  ref = gru.gru_cell_plain(*leaves)
+  want = torch.autograd.grad(ref, leaves, dout)
+  ref = ref.detach()
+  # A NaN makes the error NaN, which no tolerance passes.
+  fwd = float(((out.float() - ref.float()).abs()
+               / ref.float().abs().clamp_min(1)).max())
+  bwd = [_scaled(got, w) for got, w in zip(runs[0], want)]
+  same = all(torch.equal(a, b) for a, b in zip(*runs))
+  return fwd, bwd, same
+
+
+def compare_onehot(dtype, rows, S, C, unimix, sample, seed=0):
+  """The emulated `onehot_head_fwd` and `onehot_head_bwd` against the plain
+  version and its autograd (call inside `emulated`). Returns (the largest
+  error of the logit relative to max(|logit|, 1), the groups whose choice
+  differs and whether each of them is a tie, the largest error of stoch on
+  the other groups, the scaled error of raw's gradient)."""
+  rng = np.random.default_rng(seed)
+  t = lambda *shape: torch.as_tensor(
+      rng.standard_normal(shape).astype(np.float32))
+  raw = (2 * t(rows, S, C)).to(dtype)
+  u = torch.as_tensor(rng.uniform(size=(rows, S, C)).astype(np.float32)) if (
+      sample) else None
+  dlogit, dstoch = t(rows, S, C).to(dtype), t(rows, S, C).to(dtype)
+  logit, stoch = onehot.onehot_head_fwd_cuda(raw, u, unimix)
+  draw = onehot.onehot_head_bwd_cuda(raw, logit, dlogit, dstoch, unimix,
+                                     sample)
+  leaf = raw.clone().requires_grad_()
+  ref_logit, ref_stoch = onehot.onehot_head_plain(leaf, u, unimix)
+  outs = [(ref_logit, dlogit)] + ([(ref_stoch, dstoch)] if sample else [])
+  want, = torch.autograd.grad([o for o, _ in outs], leaf,
+                              [g for _, g in outs])
+  logit_err = float(((logit.float() - ref_logit.detach().float()).abs()
+                     / ref_logit.detach().float().abs().clamp_min(1)).max())
+  flips, ties = _choices(stoch, ref_stoch.detach(), ref_logit.detach(), u)
+  keep = (stoch.argmax(-1) == ref_stoch.detach().argmax(-1))[..., None]
+  stoch_err = _error(stoch * keep, ref_stoch.detach() * keep)
+  return logit_err, (flips, ties), stoch_err, _scaled(draw, want)
+
+
+def _choices(stoch, ref, logit, u, rel=1e-5):
+  """(groups whose chosen class differs between `stoch` and `ref`, whether
+  every one of them is a tie): the two classes' values of the plain
+  version's arg max (log_softmax of `logit`, plus the noise of `u` where
+  sampled) within `rel` of max(their size, 1)."""
+  values = torch.log_softmax(logit.float(), -1)
+  if u is not None:
+    from ..nn import dists
+    values = values + dists.gumbel_noise(u)
+  got, want = stoch.argmax(-1), ref.argmax(-1)
+  differ = got != want
+  a = values.gather(-1, got[..., None])[..., 0][differ]
+  b = values.gather(-1, want[..., None])[..., 0][differ]
+  ties = bool(((a - b).abs() <= rel * torch.maximum(
+      a.abs(), torch.ones_like(a))).all())
+  return int(differ.sum()), ties
+
+
+# gru: bfloat16 at D = 24 (three 16-byte vectors a part: groups of 4 lanes,
+# 64 rows a step) on 150 rows (no multiple of 64) with both grids capped at
+# 2 blocks, so that the forward walks its steps by the grid's stride and
+# the backward's two blocks take runs of 2 and 1 steps, their rows summed by
+# the second launch; float32 at D = 130, no multiple of a vector (a value a
+# lane, 8 of them, a warp a row, 8 rows a step) on 37 rows, 5 blocks of the
+# backward; bfloat16 at xarm's D = 512 (2 warps a row, their sums through
+# shared memory) on 9 rows, the backward in one block, which writes dscale
+# and dbias itself. Each as (dtype, D, rows, fwd_blocks, bwd_blocks).
+GRU_CASES = (
+    (torch.bfloat16, 24, 150, 2, 2),
+    (torch.float32, 130, 37, None, None),
+    (torch.bfloat16, 512, 9, None, 1),
+)
+# onehot: bfloat16 with 32 classes (a warp a group) and unimix 0.01,
+# sampled, on 5 rows of 3 groups (480 values: the second block partly
+# empty); float32 with 8 classes (4 groups a warp) and no mixture, sampled,
+# on 7 rows of 5 groups (280 values: 24 in the second block); bfloat16 with
+# 4 classes and unimix 0.01, the mode, on 3 rows of 4 groups. Each as
+# (dtype, rows, S, C, unimix, sample).
+ONEHOT_CASES = (
+    (torch.bfloat16, 5, 3, 32, 0.01, True),
+    (torch.float32, 7, 5, 8, 0.0, True),
+    (torch.bfloat16, 3, 4, 4, 0.01, False),
+)
+
+
 # Every case by name: the fused chain's (forward and backward, `CASES`),
 # the rollouts' (`ROLLOUT_CASES`), `observe`'s own (`OBSERVE_CASES`),
 # `layer_norm_act`'s and the optimizer's, as (kind, dtype, shape).
@@ -539,6 +651,10 @@ NAMES.update({
         + [('layer_norm_grid', case) for case in LAYER_NORM_GRID_CASES])})
 NAMES.update({f'adam{i}-float32': ('adam', torch.float32, case)
               for i, case in enumerate(ADAM_CASES)})
+NAMES.update({
+    f'{kind}{i}-{str(case[0]).split(".")[-1]}': (kind, case[0], case[1:])
+    for kind, cases in (('gru', GRU_CASES), ('onehot', ONEHOT_CASES))
+    for i, case in enumerate(cases)})
 
 
 def run_case(name):
@@ -567,6 +683,44 @@ def run_case(name):
           f'{", ".join(f"{e:g}" for e in limits[1])}), runs equal and '
           f'counters zero {same}: {"ok" if good else "DISAGREES"}',
           flush=True)
+    return good
+  if kind == 'gru':
+    fwd_err, bwd_errs, same = compare_gru(dtype, *case)
+    # float32: the same arithmetic in another order, with the card's (here
+    # the C library's) exp and tanh. bfloat16: a norm output or a gate may
+    # round to the other side, one unit in the last place (2^-8 of a value
+    # in [1, 2)), and the rounded chain carries it to the new deter; the
+    # backward in float32 after the same roundings, whose row sums a
+    # flipped rounding moves (as layer_norm_act's grid cases).
+    limits = (1e-5, (1e-4, 1e-4, 1e-4, 1e-4)) if dtype == torch.float32 else (
+        2 ** -7, (2 ** -6, 2 ** -7, 1e-2, 1e-2))
+    good = (fwd_err <= limits[0] and same
+            and all(e <= lim for e, lim in zip(bwd_errs, limits[1])))
+    print(f'{name} {dtype} D, rows, fwd_blocks, bwd_blocks {case}: forward '
+          f'error {fwd_err:.3g} (tolerance {limits[0]:g} of max(|y|, 1)), '
+          f'scaled backward errors dx, ddeter, dscale, dbias '
+          f'{", ".join(f"{e:.3g}" for e in bwd_errs)} (tolerances '
+          f'{", ".join(f"{e:g}" for e in limits[1])}), two backward runs '
+          f'equal {same}: {"ok" if good else "DISAGREES"}', flush=True)
+    return good
+  if kind == 'onehot':
+    logit_err, (flips, ties), stoch_err, grad_err = compare_onehot(
+        dtype, *case)
+    # float32: the same arithmetic with the card's (here the C library's)
+    # exp and log. bfloat16: a logit of the mixture may round to the other
+    # side (2^-8 of its size); stoch rounds 1 + p - p to 1 either way, and
+    # the backward's float32 sums after the same roundings agree as
+    # float32 does but where a rounding to bfloat16 falls the other way.
+    limits = (1e-5, 1e-6, 1e-4) if dtype == torch.float32 else (
+        2 ** -7, 2 ** -8, 2e-2)
+    good = (logit_err <= limits[0] and ties and stoch_err <= limits[1]
+            and grad_err <= limits[2])
+    print(f'{name} {dtype} rows, S, C, unimix, sample {case}: logit error '
+          f'{logit_err:.3g} (tolerance {limits[0]:g} of max(|logit|, 1)), '
+          f'{flips} groups choose another class, all ties {ties}, stoch '
+          f'error elsewhere {stoch_err:.3g} (tolerance {limits[1]:g}), '
+          f'scaled gradient error {grad_err:.3g} (tolerance {limits[2]:g}):'
+          f' {"ok" if good else "DISAGREES"}', flush=True)
     return good
   if kind == 'adam':
     rel, same = compare_adam(*case)

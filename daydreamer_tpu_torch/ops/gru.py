@@ -1,0 +1,183 @@
+"""The RSSM's GRU cell after its product, one pass each way: the port's
+counterpart of the loop fusion that XLA makes of the JAX package's
+`RSSM._gru` tail (`daydreamer_tpu/models/nets.py:271-287`) inside the scan
+step.
+
+`gru_cell(x, deter, scale, bias)` takes the `gru_out` product x [..., 3 D]
+(float32 or bfloat16), the previous deter [..., D] in x's dtype and the
+norm's float32 scale and bias [3 D]; it normalizes x's rows with eps 1e-3
+in float32, rounds to x's dtype, splits reset, cand and update, and returns
+`u * c + (1 - u) * deter` with r = sigmoid(reset), c = tanh(r * cand) and
+u = sigmoid(update - 1), rounding after each op as the eager chain does.
+Without a norm (scale None, `norm: none`) the gates read x itself.
+
+- On a CUDA tensor it launches `csrc/gru.cu`: `gru_cell_fwd` (the new deter,
+  and each row's float32 mean and rstd) and, under autograd,
+  `gru_cell_bwd`: the gates' gradients rounded as autograd of the plain
+  version rounds them, then the LayerNorm backward in float32, with dscale
+  and dbias summed over rows in a fixed order (a second launch sums the
+  blocks' rows), so that a graphed call equals an eager one bit for bit.
+  Without a norm, or with D past `MAX_D`, it raises.
+- On a CPU tensor it runs `gru_cell_plain`, the function in PyTorch ops
+  (the RSSM's code before the kernel), and differentiates it by autograd.
+- Inside `build.plain_versions()` (tests and `chip_smoke.py` only) it runs
+  the plain version on a card too.
+"""
+
+import torch
+
+from . import build
+from . import norm
+from ..nn import cost
+
+EPS = norm.EPS
+# The widest deter the kernel takes: 256 lanes a row of 8 values a part.
+MAX_D = 2048
+# Blocks of a launch at most: the forward's walk over rows, and the
+# backward's, each of whose blocks writes a row of partial column sums.
+FWD_BLOCKS = 1056
+BWD_BLOCKS = 132
+
+GRU_CELL_FWD = build.register(build.Kernel(
+    'gru_cell_fwd', 'gru.cu',
+    'daydreamer_tpu/models/nets.py:271 (RSSM._gru after the gru_out '
+    'product: its Norm and gates, one loop fusion of XLA)',
+    {'gru_cell_fwd': build.signature(), 'gru_cell_bwd': build.signature()}))
+GRU_CELL_BWD = build.register(build.Kernel(
+    'gru_cell_bwd', 'gru.cu',
+    'daydreamer_tpu/models/nets.py:271 (the gradient of RSSM._gru after '
+    'its product, fused by XLA)', shares=GRU_CELL_FWD))
+
+
+def gru_cell_plain(x, deter, scale=None, bias=None):
+  """The function in PyTorch ops (`RSSM._gru` after its product)."""
+  if scale is not None:
+    x = norm.layer_norm_act_plain(x, scale, bias)
+  reset, cand, update = torch.chunk(x, 3, -1)
+  reset = torch.sigmoid(reset)
+  cand = torch.tanh(reset * cand)
+  update = torch.sigmoid(update - 1)
+  return update * cand + (1 - update) * deter
+
+
+def _check(name, x, deter, scale, bias):
+  if x.dtype not in (torch.float32, torch.bfloat16):
+    raise TypeError(f'{name} takes float32 or bfloat16, not {x.dtype}.')
+  if scale is None or bias is None:
+    raise ValueError(f'{name}: the kernel applies the LayerNorm of '
+                     '`norm: layer`; it has no version without it.')
+  D = x.shape[-1] // 3
+  rows = x.numel() // x.shape[-1]
+  if x.shape[-1] != 3 * D or tuple(deter.shape) != tuple(x.shape[:-1]) + (D,):
+    raise ValueError(f'{name}: x {tuple(x.shape)} is not [..., 3 D] beside '
+                     f'deter {tuple(deter.shape)}.')
+  if D > MAX_D:
+    raise ValueError(f'{name}: deter {D} is wider than the kernel takes '
+                     f'({MAX_D}).')
+  build.check(name, [('scale', scale), ('bias', bias)], x.device,
+              torch.float32)
+  if tuple(scale.shape) != (3 * D,) or tuple(bias.shape) != (3 * D,):
+    raise ValueError(f'{name}: scale and bias must have shape ({3 * D},).')
+  return rows, D
+
+
+def gru_cell_fwd_cuda(x, deter, scale, bias):
+  """out, mean, rstd from one launch of `gru_cell_fwd`; x on a card."""
+  name = 'gru_cell_fwd'
+  x, deter = norm._aligned(x), norm._aligned(deter.to(x.dtype))
+  rows, D = _check(name, x, deter, scale, bias)
+  build.check(name, [('x', x), ('deter', deter)], x.device, x.dtype)
+  out = torch.empty_like(deter)
+  mean = torch.empty(rows, dtype=torch.float32, device=x.device)
+  rstd = torch.empty(rows, dtype=torch.float32, device=x.device)
+  build.launch(GRU_CELL_FWD, 'gru_cell_fwd', x.dtype,
+               [x, deter, scale, bias, out, mean, rstd],
+               [rows, D, FWD_BLOCKS], [EPS], x.device)
+  return out, mean, rstd
+
+
+def gru_cell_bwd_cuda(x, deter, scale, bias, mean, rstd, dout):
+  """dx, ddeter, dscale, dbias from one call of `gru_cell_bwd` (one launch,
+  and a second that sums the blocks' rows where there are several)."""
+  name = 'gru_cell_bwd'
+  x, deter = norm._aligned(x), norm._aligned(deter.to(x.dtype))
+  dout = norm._aligned(dout.to(x.dtype))
+  rows, D = _check(name, x, deter, scale, bias)
+  build.check(name, [('x', x), ('deter', deter), ('dout', dout)], x.device,
+              x.dtype)
+  build.check(name, [('mean', mean), ('rstd', rstd)], x.device,
+              torch.float32)
+  dx, ddeter = torch.empty_like(x), torch.empty_like(deter)
+  dscale = torch.empty(3 * D, dtype=torch.float32, device=x.device)
+  dbias = torch.empty(3 * D, dtype=torch.float32, device=x.device)
+  # A row of partial sums a block (no more blocks than rows): dscale's
+  # 3 D columns, then dbias's.
+  partial = torch.empty((min(BWD_BLOCKS, rows), 6 * D), dtype=torch.float32,
+                        device=x.device)
+  build.launch(GRU_CELL_BWD, 'gru_cell_bwd', x.dtype,
+               [x, deter, scale, bias, mean, rstd, dout, dx, partial, dscale,
+                dbias, ddeter],
+               [rows, D, BWD_BLOCKS, partial.shape[0]], [EPS], x.device)
+  return dx, ddeter, dscale, dbias
+
+
+def gru_cell_work(rows, D, dtype, backward=False):
+  """(operations, bytes) of one call at these widths: each input read once,
+  each output written once. Forward: x [rows, 3 D], deter, scale and bias
+  in; the new deter, mean and rstd out; about 8 operations a normalized
+  value and 24 an output value (two sigmoids, a tanh, five products and
+  sums). Backward: x, deter, the new deter's gradient, mean, rstd, scale
+  and bias in; dx, ddeter, dscale and dbias out; about 16 operations a
+  normalized value and 40 an output value. The partial sums are the
+  kernel's own scratch, and no product is done (`cost.CostMode` counts
+  products only, so the wrappers count no FLOPs)."""
+  item = cost.itemsize(dtype)
+  params = 4 * 2 * 3 * D
+  if backward:
+    return (rows * (16 * 3 * D + 40 * D),
+            rows * (item * (3 * D + 3 * D + 3 * D) + 8) + 2 * params)
+  return (rows * (8 * 3 * D + 24 * D),
+          rows * (item * (3 * D + 2 * D) + 8) + params)
+
+
+class GRUCell(torch.autograd.Function):
+  """(x, deter, scale, bias) -> the new deter. A CUDA input launches the
+  kernels, a CPU input runs the plain version (its backward by
+  autograd)."""
+
+  @staticmethod
+  def forward(ctx, x, deter, scale, bias):
+    rows, D = x.numel() // x.shape[-1], x.shape[-1] // 3
+    work = lambda: (0, gru_cell_work(rows, D, x.dtype)[1])
+    with cost.kernel('gru_cell_fwd', work):
+      if x.device.type == 'cpu':
+        out, stats = gru_cell_plain(x, deter, scale, bias), ()
+      else:
+        out, *stats = gru_cell_fwd_cuda(x, deter, scale, bias)
+    ctx.save_for_backward(x, deter, scale, bias, *stats)
+    return out
+
+  @staticmethod
+  def backward(ctx, dout):
+    x, deter, scale, bias, *stats = ctx.saved_tensors
+    rows, D = x.numel() // x.shape[-1], x.shape[-1] // 3
+    work = lambda: (0, gru_cell_work(rows, D, x.dtype, backward=True)[1])
+    with cost.kernel('gru_cell_bwd', work):
+      if x.device.type == 'cpu':
+        with torch.enable_grad():
+          inputs = [t.detach().requires_grad_()
+                    for t in (x, deter, scale, bias)]
+          out = gru_cell_plain(*inputs)
+          return torch.autograd.grad(out, inputs, dout)
+      dx, ddeter, dscale, dbias = gru_cell_bwd_cuda(
+          x, deter, scale, bias, *stats, dout)
+    return dx, ddeter, dscale, dbias
+
+
+def gru_cell(x, deter, scale=None, bias=None):
+  """The new deter from the `gru_out` product x, the previous deter and the
+  norm's scale and bias (see the module docstring); differentiable in all
+  four."""
+  if build.plain() or (scale is None and x.device.type == 'cpu'):
+    return gru_cell_plain(x, deter, scale, bias)
+  return GRUCell.apply(x, deter, scale, bias)

@@ -1,0 +1,206 @@
+"""The RSSM's categorical stats head after its product, with its
+straight-through sample, one pass each way: the port's counterpart of the
+loop fusion that XLA makes of what follows the `img_stats` / `obs_stats`
+product in the JAX package's scan step (`RSSM._unimix_logit`, `get_dist`'s
+`OneHotDist` and its `sample` or `mode`: `daydreamer_tpu/models/nets.py:
+289-298`, `daydreamer_tpu/nn/dists.py:39-50`).
+
+`onehot_head(raw, u, unimix)` takes the raw logits [..., S, C] (float32 or
+bfloat16) and returns the state's `logit` (the uniform mixture's log-probs
+rounded to raw's dtype, or raw itself where `unimix` is 0) and its `stoch`
+in raw's dtype: with `u`, uniform float32 draws of raw's shape (`uniform`,
+drawn where the eager chain drew its Gumbel noise), the Gumbel-max sample
+of `OneHotDist(logit)` with its straight-through gradient; with `u` None,
+the mode, which has no gradient.
+
+- On a CUDA tensor it launches `csrc/onehot.cu`: `onehot_head_fwd` and,
+  under autograd, `onehot_head_bwd`, whose gradient of the raw logits runs
+  through the straight-through probabilities, the cast, the log, the
+  mixture and the softmax, rounded as autograd of the plain version rounds
+  it. Classes must be a power of two from 2 to 32 (a group of lanes of a
+  warp); other counts raise.
+- On a CPU tensor it runs `onehot_head_plain`, the function in PyTorch ops
+  (the RSSM's and `OneHotDist`'s code before the kernel), and
+  differentiates it by autograd.
+- Inside `build.plain_versions()` (tests and `chip_smoke.py` only) it runs
+  the plain version on a card too.
+"""
+
+import torch
+
+from . import build
+from ..nn import cost
+from ..nn import dists
+
+ONEHOT_HEAD_FWD = build.register(build.Kernel(
+    'onehot_head_fwd', 'onehot.cu',
+    'daydreamer_tpu/models/nets.py:289 (RSSM._unimix_logit, then '
+    'OneHotDist and its sample, daydreamer_tpu/nn/dists.py:39, one loop '
+    'fusion of XLA)',
+    {'onehot_head_fwd': build.signature(scalars=2),
+     'onehot_head_bwd': build.signature(scalars=2)}))
+ONEHOT_HEAD_BWD = build.register(build.Kernel(
+    'onehot_head_bwd', 'onehot.cu',
+    'daydreamer_tpu/models/nets.py:289 (the gradient of the unimix logit '
+    'and the straight-through sample, fused by XLA)',
+    shares=ONEHOT_HEAD_FWD))
+
+
+def uniform(shape, generator, device):
+  """The uniform draws of a sample: float32, from `generator`, as
+  `dists.gumbel` draws them."""
+  return dists.uniform(shape, generator, device)
+
+
+def unimix_logit(logit, unimix):
+  """The categorical mixed with a uniform floor, as log-probs in logit's
+  dtype (the RSSM's `_unimix_logit`); logit itself where unimix is 0."""
+  if not unimix:
+    return logit
+  probs = torch.softmax(logit.float(), -1)
+  probs = (1 - unimix) * probs + unimix / probs.shape[-1]
+  return torch.log(probs).to(logit.dtype)
+
+
+def onehot_head_plain(raw, u, unimix):
+  """The function in PyTorch ops: (logit, stoch), stoch in raw's dtype."""
+  logit = unimix_logit(raw, unimix)
+  dist = dists.OneHotDist(logit)
+  if u is None:
+    return logit, dist.mode().to(raw.dtype)
+  indices = torch.argmax(dist.logits.detach() + dists.gumbel_noise(u), -1)
+  sample = dists.one_hot(indices, dist.num_classes)
+  probs = dist.probs
+  return logit, (sample + probs - probs.detach()).to(raw.dtype)
+
+
+def _check(name, raw):
+  if raw.dtype not in (torch.float32, torch.bfloat16):
+    raise TypeError(f'{name} takes float32 or bfloat16, not {raw.dtype}.')
+  C = raw.shape[-1]
+  if C < 2 or C > 32 or C & (C - 1):
+    raise ValueError(f'{name}: {C} classes; the kernel takes a power of two '
+                     'from 2 to 32 (a group of lanes of a warp).')
+  return C
+
+
+def _scalars(C, unimix):
+  """keep = 1 - unimix and floor = unimix / C, as the plain version's
+  products take them (rounded to float32 by ctypes)."""
+  return [1 - unimix, unimix / C]
+
+
+def onehot_head_fwd_cuda(raw, u, unimix):
+  """logit, stoch from one launch of `onehot_head_fwd`; raw on a card, u
+  float32 of raw's shape or None (the mode)."""
+  name = 'onehot_head_fwd'
+  C = _check(name, raw)
+  raw = raw.contiguous()
+  build.check(name, [('raw', raw)], raw.device, raw.dtype, align=4)
+  if u is not None:
+    u = u.contiguous()
+    if u.shape != raw.shape:
+      raise ValueError(f'{name}: u {tuple(u.shape)} is not raw\'s shape '
+                       f'{tuple(raw.shape)}.')
+    build.check(name, [('u', u)], raw.device, torch.float32, align=4)
+  logit, stoch = torch.empty_like(raw), torch.empty_like(raw)
+  build.launch(ONEHOT_HEAD_FWD, name, raw.dtype, [raw, u, logit, stoch],
+               [raw.numel(), C, int(bool(unimix)), int(u is not None)],
+               _scalars(C, unimix), raw.device)
+  return logit, stoch
+
+
+def onehot_head_bwd_cuda(raw, logit, dlogit, dstoch, unimix, sample):
+  """The raw logits' gradient from one launch of `onehot_head_bwd`: the
+  forward's raw and logit, the gradients of logit and (with the sample)
+  of stoch."""
+  name = 'onehot_head_bwd'
+  C = _check(name, raw)
+  raw, logit = raw.contiguous(), logit.contiguous()
+  dlogit = dlogit.to(raw.dtype).contiguous()
+  tensors = [('raw', raw), ('logit', logit), ('dlogit', dlogit)]
+  if sample:
+    dstoch = dstoch.to(raw.dtype).contiguous()
+    tensors.append(('dstoch', dstoch))
+  else:
+    dstoch = None
+  build.check(name, tensors, raw.device, raw.dtype, align=4)
+  draw = torch.empty_like(raw)
+  build.launch(ONEHOT_HEAD_BWD, name, raw.dtype,
+               [raw, logit, dlogit, dstoch, draw],
+               [raw.numel(), C, int(bool(unimix)), int(sample)],
+               _scalars(C, unimix), raw.device)
+  return draw
+
+
+def onehot_head_work(rows, S, C, dtype, unimix, sample, backward=False):
+  """(operations, bytes) of one launch: `rows` rows of S groups of C
+  classes, each input read once, each output written once. Forward: raw
+  and (with the sample) u in, logit and stoch out; about 12 operations a
+  value, 8 more with the mixture and 8 with the noise. Backward: logit
+  and stoch's gradient (with the sample), raw (with the mixture) and
+  logit's gradient in, raw's gradient out; about 8 operations a value
+  for either path. No product is done (`cost.CostMode` counts products
+  only, so the wrappers count no FLOPs)."""
+  item, n = cost.itemsize(dtype), rows * S * C
+  unimix, sample = bool(unimix), bool(sample)
+  if backward:
+    reads = 1 + 2 * sample + unimix
+    return (8 * (1 + sample + unimix) * n, item * (reads + 1) * n)
+  return ((12 + 8 * unimix + 8 * sample) * n,
+          (3 * item + 4 * sample) * n)
+
+
+class OneHotHead(torch.autograd.Function):
+  """(raw, u, unimix) -> (logit, stoch). A CUDA input launches the kernels,
+  a CPU input runs the plain version (its backward by autograd)."""
+
+  @staticmethod
+  def forward(ctx, raw, u, unimix):
+    C = raw.shape[-1]
+    rows, S = raw.numel() // (raw.shape[-2] * C), raw.shape[-2]
+    sample = u is not None
+    work = lambda: (0, onehot_head_work(rows, S, C, raw.dtype, unimix,
+                                        sample)[1])
+    with cost.kernel('onehot_head_fwd', work):
+      if raw.device.type == 'cpu':
+        logit, stoch = onehot_head_plain(raw, u, unimix)
+        # Without the mixture the plain logit is raw itself; the Function
+        # returns a tensor of its own, as the kernel does.
+        logit = logit.clone() if logit is raw else logit
+      else:
+        logit, stoch = onehot_head_fwd_cuda(raw, u, unimix)
+    ctx.save_for_backward(raw, logit, u)
+    ctx.unimix, ctx.sample = unimix, sample
+    if not sample:
+      ctx.mark_non_differentiable(stoch)
+    return logit, stoch
+
+  @staticmethod
+  def backward(ctx, dlogit, dstoch):
+    raw, logit, u = ctx.saved_tensors
+    C, S = raw.shape[-1], raw.shape[-2]
+    rows = raw.numel() // (S * C)
+    work = lambda: (0, onehot_head_work(
+        rows, S, C, raw.dtype, ctx.unimix, ctx.sample, backward=True)[1])
+    with cost.kernel('onehot_head_bwd', work):
+      if raw.device.type == 'cpu':
+        with torch.enable_grad():
+          leaf = raw.detach().requires_grad_()
+          outs = onehot_head_plain(leaf, u, ctx.unimix)
+          grads = [(o, g) for o, g in zip(outs, (dlogit, dstoch))
+                   if o.requires_grad]
+          draw, = torch.autograd.grad(
+              [o for o, _ in grads], leaf, [g for _, g in grads])
+      else:
+        draw = onehot_head_bwd_cuda(raw, logit, dlogit, dstoch, ctx.unimix,
+                                    ctx.sample)
+    return draw, None, None
+
+
+def onehot_head(raw, u, unimix):
+  """(logit, stoch) of the raw logits [..., S, C] (see the module
+  docstring); logit and a sampled stoch are differentiable in raw."""
+  if build.plain():
+    return onehot_head_plain(raw, u, unimix)
+  return OneHotHead.apply(raw, u, unimix)

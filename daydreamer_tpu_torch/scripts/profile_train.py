@@ -9,13 +9,16 @@ K)` that creates the state and two warm ones (timed, untraced), then traces
 window ending in a fetch of the last update's model loss. The report ranks
 the CUDA kernels by device time per update with their launches per update,
 sorts them into categories by kernel name (the port's six kernels and the
-four that stand for XLA's fusions, each its own, GEMM,
+eight that stand for XLA's fusions, each its own, GEMM,
 convolution, LayerNorm, casts and copies, elementwise, reductions,
 host-to-device copies, other) and gives the device's busy ms, the wall ms
 and the idle share per update (against the traced wall time, and against
 the untraced dispatches' pace, since the profiler slows the host but not
 the device), and the launches that each of the port's kernel wrappers
-counted in the traced window.
+counted in the traced window. On the card it also counts the RSSM's
+`initial()` calls in one eager update and the device kernels launched
+inside them (`initial_launches`): the loop path's observe rebuilds the
+initial state at every step.
 
 `--graphs True` (the config's default) replays each update as a CUDA graph
 (`torch.graphs`), `False` runs it eagerly. Launches an update come two
@@ -99,6 +102,14 @@ OWN = {
     'sumsq_kernel': 'adam_sumsq',
     'sumsq_total_kernel': 'adam_sumsq',
     'adam_update_kernel': 'adam_update',
+    # The counterparts of XLA's fusions of the RSSM's scan step
+    # (ops/gru.py, ops/onehot.py). The GRU cell's backward is one kernel,
+    # and a second that sums its blocks' rows where there are several.
+    'gru_fwd_kernel': 'gru_cell_fwd',
+    'gru_bwd_kernel': 'gru_cell_bwd',
+    'gru_sum_kernel': 'gru_cell_bwd',
+    'onehot_fwd_kernel': 'onehot_head_fwd',
+    'onehot_bwd_kernel': 'onehot_head_bwd',
 }
 # The other categories: the first pattern that matches the lowercased name.
 CATEGORIES = (
@@ -325,6 +336,46 @@ def bytes_report(agent, replay, state, task, overrides, categories):
                   for name, (calls, _, nbytes) in top]}
 
 
+def initial_launches(agent, replay, state):
+  """Where the RSSM rebuilds its initial state at every step (`obs_step`
+  calls `initial()`; XLA hoists it out of the JAX program's scan): its calls
+  in one eager update (`train_device_cost`'s, which leaves the agent and
+  the ring as they were) and the device kernels launched from inside them,
+  each call in a `torch.profiler` range of its own. The backward of what
+  they compute runs outside the ranges and is not counted. On the card."""
+  import torch
+  from torch.profiler import ProfilerActivity, profile, record_function
+  from daydreamer_tpu_torch.models import nets
+  inner, calls = nets.RSSM.initial, [0]
+
+  def initial(self, *args, **kwargs):
+    calls[0] += 1
+    with record_function('rssm.initial'):
+      return inner(self, *args, **kwargs)
+
+  nets.RSSM.initial = initial
+  try:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      agent.train_device_cost(replay, 1, state)
+      torch.cuda.synchronize()
+  finally:
+    nets.RSSM.initial = inner
+  # A device event carries the id of the host operator that launched it.
+  cuda = torch.autograd.DeviceType.CUDA
+  events = list(prof.profiler.kineto_results.events())
+  ranges = [(e.start_ns(), e.end_ns()) for e in events
+            if e.device_type() != cuda and e.name() == 'rssm.initial']
+  started = {e.correlation_id(): e.start_ns() for e in events
+             if e.device_type() != cuda and e.linked_correlation_id() == 0}
+  inside = sum(
+      1 for e in events
+      if e.device_type() == cuda and not e.is_user_annotation()
+      and any(a <= started.get(e.linked_correlation_id(), -1) <= b
+              for a, b in ranges))
+  return {'calls_per_update': calls[0], 'launches_per_update': inside}
+
+
 def profile_shape(shape, dispatches, K=None, device='cuda', graphs=True):
   """Trace `dispatches` warm dispatches at `shape`, graphed or eager;
   returns the report, with the bytes of an update under `bytes`
@@ -367,6 +418,7 @@ def profile_shape(shape, dispatches, K=None, device='cuda', graphs=True):
   untraced = 1e3 * untraced_s / (2 * K)
   counted = bytes_report(agent, replay, state, task, overrides,
                          categories if on_card else [])
+  initial = initial_launches(agent, replay, state) if on_card else None
   return {
       'shape': shape, 'fused_K': K, 'dispatches': dispatches,
       'graphs': bool(graphs),
@@ -397,6 +449,9 @@ def profile_shape(shape, dispatches, K=None, device='cuda', graphs=True):
       'own_kernels': [r for r in rows if r['category'] in OWN_NAMES],
       'top': rows[:30],
       'bytes': counted,
+      # The RSSM's initial state, rebuilt at each step of the loop path's
+      # observe: its calls and the device kernels they launch an update.
+      'initial': initial,
   }
 
 
@@ -424,6 +479,10 @@ def print_report(report):
     print(f"  {row['ms_per_update']:9.3f} ms/update "
           f"{row['launches_per_update']:7.2f}/update  {row['category']:14s} "
           f"{row['name'][:90]}", flush=True)
+  if report['initial'] is not None:
+    print(f"RSSM.initial: {report['initial']['calls_per_update']} calls an "
+          f"update, {report['initial']['launches_per_update']} device "
+          f"kernels launched inside them (one eager update)", flush=True)
   counted = report['bytes']
   print(f"bytes an update: {counted['bytes_per_update']} (this agent, "
         f"train_device_cost), {counted['twin_bytes_per_update']} (the "

@@ -4,7 +4,9 @@ Both agents start from the same state (the JAX agent's, carried across by
 `load`) and train on the same batch. Sampling is made deterministic on
 both sides for the test only: `OneHotDist.sample` returns the mode (with
 the same straight-through gradient), and the port's fused rollout draws
-zero Gumbel noise, which makes its samples the modes too. The JAX side runs
+zero Gumbel noise, which makes its samples the modes too, as do uniform
+draws of e^-1 for the RSSM step's head (`ops/onehot.py`), whose Gumbel
+noise they make zero. The JAX side runs
 the loop rollout (`imag_impl: scan`); the port runs it both ways. With the
 fused observe chain (`rssm.impl: pallas` on both sides) the JAX package's
 kernels run in interpret mode with `sample=False`, set in the test only,
@@ -17,6 +19,8 @@ gradient whose sign differs between the two sides can move a weight by up
 to 2 lr.
 """
 
+import math
+
 import jax
 import numpy as np
 import pytest
@@ -28,6 +32,7 @@ from daydreamer_tpu import envs as jenvs
 from daydreamer_tpu.nn import dists as jdists
 from daydreamer_tpu_torch.nn import dists as pdists
 from daydreamer_tpu.ops import pallas_rssm_vjp as jvjp
+from daydreamer_tpu_torch.ops import onehot as ponehot
 from daydreamer_tpu_torch.ops import rssm as pops
 from daydreamer_tpu_torch.ops import rssm_vjp as pvjp
 
@@ -78,6 +83,12 @@ def make_batch(env, B, T, seed=0):
   return data
 
 
+def zero_noise(shape, generator, device):
+  """Uniform draws of e^-1: -log(-log(u)) is 0, so a Gumbel-max sample is
+  the mode."""
+  return torch.full(shape, math.exp(-1), device=device)
+
+
 @pytest.fixture
 def mode_sampling(monkeypatch):
   sg = jax.lax.stop_gradient
@@ -91,6 +102,7 @@ def mode_sampling(monkeypatch):
   zeros = lambda shape, generator, device: torch.zeros(shape, device=device)
   monkeypatch.setattr(pops, 'gumbel', zeros)
   monkeypatch.setattr(pvjp, 'gumbel', zeros)
+  monkeypatch.setattr(ponehot, 'uniform', zero_noise)
 
 
 @pytest.fixture(scope='module')

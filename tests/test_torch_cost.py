@@ -31,7 +31,9 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from daydreamer_tpu_torch.nn import cost
 from daydreamer_tpu_torch.ops import build
+from daydreamer_tpu_torch.ops import gru
 from daydreamer_tpu_torch.ops import lambda_returns as lr
+from daydreamer_tpu_torch.ops import onehot
 from daydreamer_tpu_torch.ops import rssm
 from daydreamer_tpu_torch.ops import rssm_vjp
 from daydreamer_tpu_torch.scripts import bench
@@ -174,6 +176,17 @@ def _wrapper_case(name, dtype):
     return (lambda: rssm.imagine_actor(params, actor, stoch0, deter0,
                                        action0, T, noise=(g_s, g_a)),
             rssm.imagine_actor_work(B, T, D, U, S, C, A, 2, 3, dtype))
+  # No product in the last two: each formula counts its bytes alone.
+  if name == 'gru_cell_fwd':
+    x, scale, bias = _tensors((B, 3 * D), (3 * D,), (3 * D,))
+    x = x.to(dtype)
+    return (lambda: gru.gru_cell(x, deter0, scale, bias),
+            (0, gru.gru_cell_work(B, D, dtype)[1]))
+  if name == 'onehot_head_fwd':
+    raw = _tensors((B, S, C))[0].to(dtype)
+    u = noise[0].reshape(B, S, C).sigmoid()
+    return (lambda: onehot.onehot_head(raw, u, 0.01),
+            (0, onehot.onehot_head_work(B, S, C, dtype, 0.01, True)[1]))
   interm, disc, boot = _tensors((T, B), (T, B), (B,))
   return (lambda: lr.gve(interm, disc, boot, 0.95),
           lr.gve_work(T, B))
@@ -181,7 +194,8 @@ def _wrapper_case(name, dtype):
 
 @pytest.mark.parametrize('name,dtype', [
     (name, dtype) for name in ('observe_fwd', 'observe', 'imagine',
-                               'imagine_actor')
+                               'imagine_actor', 'gru_cell_fwd',
+                               'onehot_head_fwd')
     for dtype in (F32, BF16)] + [('gve', F32)],  # gve: float32 only.
     ids=lambda x: str(x).split('.')[-1])
 def test_wrapper_counts_its_formula_alone(name, dtype):
@@ -213,6 +227,77 @@ def test_observe_bwd_counts_its_formula():
   # reductions: none of them may appear, only the epilogue's five LayerNorms
   # (in, GRU, the two prior layers, obs), recomputed once over all rows.
   assert counter.table['aten::mean'][0] == 2 * 5
+
+
+def test_rssm_step_backwards_count_their_formulas():
+  """Under autograd the GRU cell's and the stats head's backward kernels
+  count their formulas once each, and nothing of the plain chains' autograd
+  (sigmoid's, tanh's and the norm's backward, softmax's)."""
+  rng = np.random.default_rng(2)
+  t = lambda *shape: torch.as_tensor(
+      rng.standard_normal(shape).astype(np.float32)).requires_grad_()
+  B, D, S, C = 3, 24, 4, 4
+  x, deter, scale, bias, raw = t(B, 3 * D), t(B, D), t(3 * D), t(3 * D), t(
+      B, S, C)
+  u = torch.as_tensor(rng.uniform(size=(B, S, C)).astype(np.float32))
+  logit, stoch = onehot.onehot_head(raw, u, 0.01)
+  loss = (gru.gru_cell(x, deter, scale, bias).sum() + logit.sum()
+          + (stoch * torch.arange(C)).sum())
+  with cost.CostMode() as counter:
+    loss.backward()
+  table = dict(counter.table)
+  assert table['gru_cell_bwd'] == [1, 0, gru.gru_cell_work(
+      B, D, F32, backward=True)[1]]
+  assert table['onehot_head_bwd'] == [1, 0, onehot.onehot_head_work(
+      B, S, C, F32, 0.01, True, backward=True)[1]]
+  assert not {'aten::sigmoid_backward', 'aten::tanh_backward',
+              'aten::native_layer_norm_backward',
+              'aten::_softmax_backward_data'} & set(table)
+
+
+# The work of the RSSM step's kernels at the sites of PERF.md's table
+# (ops/gru.py, ops/onehot.py): each input read once and each output
+# written once. GRU cell, rows x D: the product's 3 D values and deter in,
+# the new deter out in the compute dtype, scale and bias in float32 and
+# each row's mean and rstd out; backward x, deter and the new deter's
+# gradient in, dx and ddeter out, mean and rstd in, scale and bias in and
+# dscale and dbias out. Stats head, rows x S x C: raw in, u in float32
+# with the sample, logit and stoch out; backward the logit's gradient in,
+# with the sample logit and stoch's gradient in, with the mixture raw in,
+# raw's gradient out.
+@pytest.mark.parametrize('rows,D,dtype,fwd,bwd', [
+    (1024, 512, BF16, (25165824, 5263360), (46137344, 9469952)),
+    (32, 256, BF16, (393216, 88320), (720896, 160000)),
+    (1, 256, F32, (12288, 11272), (22528, 21512)),
+])
+def test_gru_cell_work_is_its_formula(rows, D, dtype, fwd, bwd):
+  item = dtype.itemsize
+  assert gru.gru_cell_work(rows, D, dtype) == fwd == (
+      rows * (8 * 3 * D + 24 * D),
+      rows * (item * (3 * D + D + D) + 4 * 2) + 4 * 2 * 3 * D)
+  assert gru.gru_cell_work(rows, D, dtype, backward=True) == bwd == (
+      rows * (16 * 3 * D + 40 * D),
+      rows * (item * (3 * D + D + D + 3 * D + D) + 4 * 2)
+      + 2 * 4 * 2 * 3 * D)
+
+
+@pytest.mark.parametrize('rows,unimix,sample,dtype,fwd,bwd', [
+    (1024, 0.01, True, BF16, (29360128, 10485760), (25165824, 10485760)),
+    (32, 0.01, False, BF16, (655360, 196608), (524288, 196608)),
+    (1, 0.0, True, F32, (20480, 16384), (16384, 16384)),
+])
+def test_onehot_head_work_is_its_formula(rows, unimix, sample, dtype, fwd,
+                                        bwd):
+  S = C = 32
+  n, item = rows * S * C, dtype.itemsize
+  mix, drawn = bool(unimix), bool(sample)
+  assert onehot.onehot_head_work(rows, S, C, dtype, unimix, sample) == (
+      fwd) == ((12 + 8 * mix + 8 * drawn) * n,
+               item * (1 + 2) * n + 4 * drawn * n)
+  assert onehot.onehot_head_work(
+      rows, S, C, dtype, unimix, sample, backward=True) == bwd == (
+          8 * (1 + drawn + mix) * n,
+          item * (1 + 2 * drawn + mix + 1) * n)
 
 
 # PERF.md's kernel table (bf16 at the xarm shapes, float32 where named, a1's
@@ -439,9 +524,11 @@ def test_profile_counts_bytes_by_category():
       work['bytes'])
   assert sum(r['bytes_per_update'] for r in rows.values()) == (
       counted['bytes_per_update'])
-  # The fused LayerNorm and optimizer kernels count under their own names.
+  # The fused LayerNorm, optimizer and RSSM step kernels count under their
+  # own names.
   assert {'elementwise', 'gemm', 'cast_copy', 'layer_norm_act_fwd',
-          'layer_norm_act_bwd', 'adam_sumsq', 'adam_update'} <= set(rows)
+          'layer_norm_act_bwd', 'adam_sumsq', 'adam_update', 'gru_cell_fwd',
+          'gru_cell_bwd', 'onehot_head_fwd', 'onehot_head_bwd'} <= set(rows)
   assert all(r['gb_per_s'] is None for r in rows.values())
   assert len(counted['top']) == 25
   assert profile_train.category_bytes({

@@ -1,6 +1,7 @@
-"""The seven CUDA sources themselves (the fused observe chain's two,
-`imagine_actor.cu`, `imagine.cu`, `observe.cu`, and the fused update's
-`layer_norm.cu` and `adam.cu`), compiled with g++ against
+"""The nine CUDA sources themselves (the fused observe chain's two,
+`imagine_actor.cu`, `imagine.cu`, `observe.cu`, the fused update's
+`layer_norm.cu` and `adam.cu`, and the RSSM step's `gru.cu` and
+`onehot.cu`), compiled with g++ against
 the stand-in headers (`ops/emulate.py`), agree with the plain versions at
 tiny widths in float32 and bfloat16: one test per case of
 `emulate.NAMES`.
@@ -21,7 +22,10 @@ from daydreamer_tpu_torch.ops import emulate
 
 # Seconds a case may take. With this file run alone on an 8-core machine
 # the longest case took 13 s and the build 7 s; the margin covers a machine
-# crowded by the other workers of the test run.
+# crowded by the other workers of the test run. The six cases of `gru.cu`
+# and `onehot.cu` (`gru0`-`gru2`, `onehot0`-`onehot2`) took 4.8-6.2 s each
+# so, most of it the process's start, and the build of all nine sources
+# 13.4 s.
 BUILD_LIMIT = 600
 CASE_LIMIT = 300
 

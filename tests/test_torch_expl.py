@@ -19,6 +19,7 @@ sum moves the weight by up to about 2e-4 (one weight in 4096 here).
 """
 
 import collections
+import math
 
 import jax
 import numpy as np
@@ -33,6 +34,7 @@ from daydreamer_tpu.nn import dists as jdists
 from daydreamer_tpu_torch import nn as pnn
 from daydreamer_tpu_torch.agents.dreamer import expl as pexpl
 from daydreamer_tpu_torch.nn import dists as pdists
+from daydreamer_tpu_torch.ops import onehot as ponehot
 
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -77,6 +79,9 @@ def mode_sampling(monkeypatch):
       pdists.OneHotDist, 'sample',
       lambda self, generator=None: (
           self.mode() + self.probs - self.probs.detach()))
+  # The RSSM step's head (`ops/onehot.py`) samples with zero Gumbel noise.
+  monkeypatch.setattr(ponehot, 'uniform', lambda shape, generator, device: (
+      torch.full(shape, math.exp(-1), device=device)))
 
 
 def _torch(tree):

@@ -115,6 +115,7 @@ def test_report_matches_jax(env):
     mp.setattr(tta.pdists.OneHotDist, 'sample',
                lambda self, generator=None: (
                    self.mode() + self.probs - self.probs.detach()))
+    mp.setattr(tta.ponehot, 'uniform', tta.zero_noise)
     jagent = JaxAgent(env.obs_space, env.act_space, ddt.Counter(),
                       tta.jax_config())
     want = jagent.report(data)

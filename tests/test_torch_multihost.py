@@ -21,6 +21,7 @@ merge. The port's `multihost_worker --tiny` runs as two processes too.
 """
 
 import json
+import math
 import os
 import pathlib
 import subprocess
@@ -178,13 +179,16 @@ def _rank_main(job, rank):
   from daydreamer_tpu_torch import envs
   from daydreamer_tpu_torch.agents.dreamer import Agent
   from daydreamer_tpu_torch.nn import dists
-  from daydreamer_tpu_torch.ops import rssm, rssm_vjp
+  from daydreamer_tpu_torch.ops import onehot, rssm, rssm_vjp
   from daydreamer_tpu_torch.parallel import mesh as meshlib
   dists.OneHotDist.sample = lambda self, generator=None: (
       self.mode() + self.probs - self.probs.detach())
   dists.Normal.sample = lambda self, generator=None: self._mean
   zeros = lambda shape, generator, device: torch.zeros(shape, device=device)
   rssm.gumbel = rssm_vjp.gumbel = zeros
+  # Uniform draws of e^-1: the RSSM step's head samples with zero noise.
+  onehot.uniform = lambda shape, generator, device: torch.full(
+      shape, math.exp(-1), device=device)
   job = pathlib.Path(job)
   spec = json.loads(job.read_text())
   distributed.initialize(spec['address'], 2, rank, 'gloo')

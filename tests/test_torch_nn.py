@@ -5,6 +5,8 @@ Tolerance 1e-5 (atol and rtol): the same float32 arithmetic, summed in
 another order.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +16,7 @@ from daydreamer_tpu import nn as jnn
 from daydreamer_tpu.models import nets as jnets
 from daydreamer_tpu_torch import nn as pnn
 from daydreamer_tpu_torch.models import nets as pnets
+from daydreamer_tpu_torch.ops import onehot as ponehot
 
 torch.set_num_threads(1)
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -279,8 +282,10 @@ def _rssm_call(m, action, embed, is_first):
 def test_rssm(monkeypatch):
   monkeypatch.setattr(jnn.dists.OneHotDist, 'sample',
                       lambda self, key: self.mode())
-  monkeypatch.setattr(pnn.dists.OneHotDist, 'sample',
-                      lambda self, generator=None: self.mode())
+  # The port's RSSM step samples in its head from uniform draws u: e^-1
+  # everywhere makes the Gumbel noise zero, so it samples the mode.
+  monkeypatch.setattr(ponehot, 'uniform', lambda shape, generator, device: (
+      torch.full(shape, math.exp(-1), device=device)))
   B = 3
   is_first = np.array([1.0, 0.0, 1.0], np.float32)
   jout, pout, _, pmod = carry(

@@ -105,6 +105,22 @@ def test_profile_train_on_cpu(capsys, monkeypatch):
      'adam_sumsq'),
     ('(anonymous namespace)::adam_update_kernel((anonymous namespace)::'
      'Tensors, (anonymous namespace)::Scalars)', 'adam_update'),
+    # The RSSM step's: the GRU cell's backward and its sum over blocks
+    # under one name.
+    ('void (anonymous namespace)::gru_fwd_kernel<__nv_bfloat16, 8, 1>('
+     '__nv_bfloat16 const*, __nv_bfloat16 const*, float const*, float '
+     'const*, __nv_bfloat16*, float*, float*, (anonymous namespace)::Shape, '
+     'float)', 'gru_cell_fwd'),
+    ('void (anonymous namespace)::gru_bwd_kernel<float, 4, 2>(float const*)',
+     'gru_cell_bwd'),
+    ('(anonymous namespace)::gru_sum_kernel(float const*, int, int, float*, '
+     'float*)', 'gru_cell_bwd'),
+    ('void (anonymous namespace)::onehot_fwd_kernel<__nv_bfloat16>('
+     '__nv_bfloat16 const*, float const*, __nv_bfloat16*, __nv_bfloat16*, '
+     '(anonymous namespace)::Head)', 'onehot_head_fwd'),
+    ('void (anonymous namespace)::onehot_bwd_kernel<float>(float const*, '
+     'float const*, float const*, float const*, float*, (anonymous '
+     'namespace)::Head)', 'onehot_head_bwd'),
 ])
 def test_categorize(name, category):
   assert profile_train.categorize(name) == category
