@@ -218,7 +218,8 @@ Phases, each of which must pass:
                uniform draws, in float32 and bfloat16, within the
                tolerances they print: the samples must choose the same
                classes but at ties (counted), a second backward launch
-               must equal the first bit for bit; with the times of kernel
+               must equal the first bit for bit, the GRU backward must be
+               one device kernel a call; with the times of kernel
                and plain version and the bound (no PyTorch call computes
                either: library none).
                Then one xarm update with the kernels and one with the plain
@@ -292,15 +293,19 @@ computes, and for the GRU cell and the stats head). With
 `scores/NAME_dreamer_torch_sN.json`, so that seed 0's file stays.
 
 `--compare NAME=SOURCE` (NAME one of imagine_actor, imagine, observe,
-observe_fwd, observe_bwd, layer_norm; the option may be given several
-times) runs no
+observe_fwd, observe_bwd, layer_norm, gru, onehot; the option may be given
+several times) runs no
 phase and prints no result line: it builds the kernel's source in the tree
 and the other version of it in the file SOURCE (its includes beside it),
 runs both on the xarm inputs of the kernel check, says whether their
 outputs are equal bit for bit, and times them in turns (tree, other, other,
 tree) in bfloat16 and float32 (observe at the xarm and a1 shapes of the proof
 entry point; layer_norm at each site of LAYER_NORM_SITES, forward and
-backward, after each version's registers and spills): how a change to a
+backward, after each version's registers and spills; gru at each site of
+GRU_SITES and, in bfloat16, GRU_LARGE_SITES, onehot at each site of
+HEAD_SITES, forward and backward, after each instantiation's registers and
+spills, with the tree's own variants beside them: the GRU backward's
+cluster, lanes and blocks, the head's classes a lane): how a change to a
 kernel is held against its parent inside one run.
 """
 
@@ -1011,14 +1016,194 @@ def compare_layer_norm(source):
       del x, dy, y, outs
 
 
+def log_registers(kernel, functions):
+  """Each instantiation of the kernels named in `functions` in `kernel`'s
+  build log (ptxas -v) with its registers and spill bytes, logged."""
+  found, function = {}, None
+  for line in kernel.build_log().splitlines():
+    match = _PTXAS_FUNCTION.search(line)
+    if match:
+      function = match[1]
+      continue
+    name = re.search(rf'({"|".join(functions)})I(\w*?)EEv', function or '')
+    if name is None:
+      continue
+    row = found.setdefault(f'{name[1]}<{name[2]}>', [None, None, None])
+    if _PTXAS_SPILLS.search(line):
+      row[1:] = [int(v) for v in _PTXAS_SPILLS.search(line).groups()]
+    if _PTXAS_REGISTERS.search(line):
+      row[0] = int(_PTXAS_REGISTERS.search(line)[1])
+  for name, (regs, stores, loads) in sorted(found.items()):
+    log(f'{kernel.source.name} ({kernel.name}) {name}: {regs} registers, '
+        f'spill stores {stores} bytes, spill loads {loads} bytes')
+  if not found:
+    raise AssertionError(f'the build log of {kernel.source.name} names no '
+                         f'kernel of {functions}')
+
+
+# The GRU backward past a1's and xarm's largest call, bfloat16 (2 048 x
+# 1 024: the default config's rollout, batch 32 x chunk 64).
+GRU_LARGE_SITES = ((2048, 256), (2048, 512), (2048, 1024), (4096, 512))
+
+
+@contextlib.contextmanager
+def _swapped(module, names, kernel, **settings):
+  """Within the block the wrappers of `module` launch `kernel` for each of
+  `names` (attributes of `module`) with the module's other `settings`."""
+  saved = {n: getattr(module, n) for n in (*names, *settings)}
+  for n in names:
+    setattr(module, n, kernel)
+  for n, value in settings.items():
+    setattr(module, n, value)
+  try:
+    yield
+  finally:
+    for n, value in saved.items():
+      setattr(module, n, value)
+
+
+def _turns(label, runs):
+  """Device ms of each (name, fn) in `runs` in turns: tree, other, other,
+  tree for two, logged under `label`."""
+  order = runs + runs[::-1]
+  times = [(name, step_ms(fn)) for name, fn in order]
+  log(f"{label}: device ms " + ", ".join(f"{n} {ms:.5f}" for n, ms in times))
+
+
+def _differ(a, b):
+  """Whether two lists of tensors are equal bit for bit, and their largest
+  difference."""
+  import torch
+  equal = all(torch.equal(x, y) for x, y in zip(a, b))
+  worst = max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+  return equal, worst
+
+
+def compare_gru(source):
+  """`--compare gru=SOURCE`: the tree's gru.cu against another version of
+  it with the same C interface, at each site of GRU_SITES in both types,
+  forward and backward: each instantiation's registers and spills, whether
+  the two give the same bits (else their largest difference), the
+  backward's device kernels a call, and their device times in turns
+  (tree, other, other, tree), the backward with the tree's variants beside
+  them (a cooperative grid where one cluster would do, the rows over 1 024
+  or 16 384 lanes, from 1 024 rows 256 blocks); then, in bfloat16, the
+  backward at GRU_LARGE_SITES. The other version gets BWD_BLOCKS = 132,
+  the blocks at most of the design that gave each block a row of partial
+  sums and summed them in a second launch."""
+  import torch
+  from daydreamer_tpu_torch.ops import build, gru
+  tree = gru.GRU_CELL_FWD
+  other = build.Kernel('gru_other', str(pathlib.Path(source).resolve()),
+                       'another version', tree.signature)
+  build.build_all([tree, other])
+  for kernel in (tree, other):
+    log_registers(kernel, ('gru_fwd_kernel', 'gru_bwd_kernel'))
+  names = ('GRU_CELL_FWD', 'GRU_CELL_BWD')
+
+  def under(kernel, fn, **settings):
+    def call():
+      with _swapped(gru, names, kernel, **settings):
+        return fn()
+    return call
+
+  for dtype in (torch.bfloat16, torch.float32):
+    name = str(dtype).split('.')[-1]
+    for rows, D in GRU_SITES + (GRU_LARGE_SITES if name == 'bfloat16'
+                                else ()):
+      x, deter, scale, bias, dout = _gru_inputs(rows, D, dtype)
+      fwd = lambda: gru.gru_cell_fwd_cuda(x, deter, scale, bias)
+      out, mean, rstd = under(tree, fwd)()
+      bwd = lambda: gru.gru_cell_bwd_cuda(x, deter, scale, bias, mean, rstd,
+                                          dout)
+      tree_bwd, other_bwd = under(tree, bwd), under(other, bwd, BWD_BLOCKS=132)
+      fwd_equal, fwd_worst = _differ(under(tree, fwd)(), under(other, fwd)())
+      bwd_equal, bwd_worst = _differ(tree_bwd(), other_bwd())
+      _, kernels = step_ms(tree_bwd, kernels=True)
+      _, other_kernels = step_ms(other_bwd, kernels=True)
+      label = f'compare gru {name} rows {rows} x D {D}'
+      log(f'{label}: forward equal bit for bit {fwd_equal} (largest '
+          f'difference {fwd_worst:.3g}); backward equal bit for bit '
+          f'{bwd_equal} (largest difference {bwd_worst:.3g}); backward device'
+          f' kernels a call: tree {kernels:g}, other {other_kernels:g}')
+      if (rows, D) in GRU_SITES:
+        _turns(f'{label} forward', [('tree', under(tree, fwd)),
+                                    ('other', under(other, fwd))])
+      runs = [('tree', tree_bwd), ('other', other_bwd),
+              ('no cluster', under(tree, bwd, CLUSTER=1)),
+              ('lanes 1024', under(tree, bwd, BWD_LANES=1024)),
+              ('lanes 16384', under(tree, bwd, BWD_LANES=16384))]
+      if rows >= 1024:
+        runs += [('blocks 256', under(tree, bwd, BWD_BLOCKS=256)),
+                 ('blocks 256 lanes 65536', under(
+                     tree, bwd, BWD_BLOCKS=256, BWD_LANES=65536))]
+      _turns(f'{label} backward', runs)
+      del x, deter, dout
+
+
+def compare_onehot(source):
+  """`--compare onehot=SOURCE`: the tree's onehot.cu against another
+  version of it with the same C interface, at each site of HEAD_SITES in
+  both types, forward and backward (the backward on the tree's forward's
+  logit): each instantiation's registers and spills, whether the two give
+  the same bits (else the largest difference of the logits and the groups
+  whose sample differs), and their device times in turns (tree, other,
+  other, tree), the forward with the tree at 2 and 8 classes a lane
+  beside them."""
+  import torch
+  from daydreamer_tpu_torch.ops import build, onehot
+  tree = onehot.ONEHOT_HEAD_FWD
+  other = build.Kernel('onehot_other', str(pathlib.Path(source).resolve()),
+                       'another version', tree.signature)
+  build.build_all([tree, other])
+  for kernel in (tree, other):
+    log_registers(kernel, ('onehot_fwd_kernel', 'onehot_bwd_kernel'))
+  names = ('ONEHOT_HEAD_FWD', 'ONEHOT_HEAD_BWD')
+
+  def under(kernel, fn, **settings):
+    def call():
+      with _swapped(onehot, names, kernel, **settings):
+        return fn()
+    return call
+
+  unimix = HEAD_UNIMIX
+  for dtype in (torch.bfloat16, torch.float32):
+    name = str(dtype).split('.')[-1]
+    for rows, sample in HEAD_SITES:
+      raw, u, dlogit, dstoch = _head_inputs(rows, sample, dtype)
+      fwd = lambda: onehot.onehot_head_fwd_cuda(raw, u, unimix)
+      logit, stoch = under(tree, fwd)()
+      bwd = lambda: onehot.onehot_head_bwd_cuda(raw, logit, dlogit, dstoch,
+                                                unimix, sample)
+      theirs = under(other, fwd)()
+      fwd_equal, fwd_worst = _differ((logit, stoch), theirs)
+      choices = int((stoch.argmax(-1) != theirs[1].argmax(-1)).sum())
+      bwd_equal, bwd_worst = _differ([under(tree, bwd)()],
+                                     [under(other, bwd)()])
+      label = (f'compare onehot {name} rows {rows} x {HEAD_S} x {HEAD_C} '
+               f'({"sample" if sample else "mode"})')
+      log(f'{label}: forward equal bit for bit {fwd_equal} (largest '
+          f'difference {fwd_worst:.3g}, {choices} of {rows * HEAD_S} groups '
+          f'choose another class); backward equal bit for bit {bwd_equal} '
+          f'(largest difference {bwd_worst:.3g})')
+      _turns(f'{label} forward', [
+          ('tree', under(tree, fwd)), ('other', under(other, fwd)),
+          *[(f'{k} a lane', under(tree, fwd, LANE_CLASSES=k))
+            for k in (2, 8)]])
+      _turns(f'{label} backward', [('tree', under(tree, bwd)),
+                                   ('other', under(other, bwd))])
+
+
 def phase_compare(spec):
   """The tree's build of a CUDA kernel against another version of its
   source (see the module docstring)."""
   import torch
   from daydreamer_tpu_torch.ops import build, rssm, rssm_vjp
   name, _, source = spec.partition('=')
-  if name == 'layer_norm' and source:
-    return compare_layer_norm(source)
+  own = {'layer_norm': compare_layer_norm, 'gru': compare_gru,
+         'onehot': compare_onehot}
+  if name in own and source:
+    return own[name](source)
   modules = {'imagine_actor': rssm, 'imagine': rssm, 'observe': rssm,
              'observe_fwd': rssm_vjp, 'observe_bwd': rssm_vjp}
   if name not in modules or not source:
@@ -1187,16 +1372,18 @@ def layer_norm_registers(kernel=None):
   return rows
 
 
-def device_ms(fn, calls=10, tries=3):
+def device_ms(fn, calls=10, tries=3, kernels=False):
   """Device time of one call of `fn`, ms: the sum over the CUDA kernels
   it launches (torch.profiler, `device_times`), without the host's time
-  between them, as a replay of a CUDA graph runs them. A trace that holds
-  no device time (the profiler now and then loses a trace's kernels) is
-  taken again, `tries` times in all; then it raises."""
+  between them, as a replay of a CUDA graph runs them; with `kernels`,
+  (ms, device kernels a call). A trace that holds no device time (the
+  profiler now and then loses a trace's kernels) is taken again, `tries`
+  times in all; then it raises."""
   for attempt in range(tries):
     times = device_times(fn, calls)
     if times:
-      return sum(ms for ms, _ in times.values())
+      ms = sum(ms for ms, _ in times.values())
+      return (ms, sum(n for _, n in times.values())) if kernels else ms
     log(f'device_ms: trace {attempt + 1} of {tries} held no device time')
   raise AssertionError('the profiler saw no device time')
 
@@ -1324,17 +1511,42 @@ HEAD_S = HEAD_C = 32
 HEAD_UNIMIX = 0.01
 
 
-def step_ms(fn):
+def step_ms(fn, kernels=False):
   """`device_ms` over 100 calls: the RSSM step's kernels take 2-20 us a
   call, and the profiler has lost every kernel of a 10-call window of such
   kernels, three traces running."""
-  return device_ms(fn, calls=100)
+  return device_ms(fn, calls=100, kernels=kernels)
 
 
 def _scaled_max(got, want):
   """The largest |got - want| of each pair over the pair's largest |want|."""
   return [float((g.float() - w.float()).abs().max())
           / max(1e-6, float(w.float().abs().max())) for g, w in zip(got, want)]
+
+
+def _gru_inputs(rows, D, dtype, device='cuda'):
+  """x, deter, scale, bias and the new deter's gradient of a GRU site,
+  from a seed."""
+  import torch
+  gen = torch.Generator(device=device).manual_seed(rows + D)
+  rand = lambda *shape: torch.randn(*shape, generator=gen, device=device)
+  x = (2 * rand(rows, 3 * D) + 0.5).to(dtype)
+  deter = torch.tanh(rand(rows, D)).to(dtype)
+  scale, bias = 1 + 0.2 * rand(3 * D), 0.3 * rand(3 * D)
+  return x, deter, scale, bias, rand(rows, D).to(dtype)
+
+
+def _head_inputs(rows, sample, dtype, device='cuda'):
+  """raw, the uniform draws (None for the mode), and the gradients of
+  logit and stoch of a stats head site, from a seed."""
+  import torch
+  S, C = HEAD_S, HEAD_C
+  gen = torch.Generator(device=device).manual_seed(rows + sample)
+  rand = lambda *shape: torch.randn(*shape, generator=gen, device=device)
+  raw = (2 * rand(rows, S, C)).to(dtype)
+  u = torch.rand(rows, S, C, generator=gen, device=device) if sample else (
+      None)
+  return raw, u, rand(rows, S, C).to(dtype), rand(rows, S, C).to(dtype)
 
 
 def check_gru_cell(sites=GRU_SITES, device='cuda'):
@@ -1351,12 +1563,7 @@ def check_gru_cell(sites=GRU_SITES, device='cuda'):
   for dtype in (torch.float32, torch.bfloat16):
     name = str(dtype).split('.')[-1]
     for rows, D in sites:
-      gen = torch.Generator(device=device).manual_seed(rows + D)
-      rand = lambda *shape: torch.randn(*shape, generator=gen, device=device)
-      x = (2 * rand(rows, 3 * D) + 0.5).to(dtype)
-      deter = torch.tanh(rand(rows, D)).to(dtype)
-      scale, bias = 1 + 0.2 * rand(3 * D), 0.3 * rand(3 * D)
-      dout = rand(rows, D).to(dtype)
+      x, deter, scale, bias, dout = _gru_inputs(rows, D, dtype, device)
       out, mean, rstd = gru.gru_cell_fwd_cuda(x, deter, scale, bias)
       args = (x, deter, scale, bias, mean, rstd, dout)
       got = gru.gru_cell_bwd_cuda(*args)
@@ -1386,7 +1593,11 @@ def check_gru_cell(sites=GRU_SITES, device='cuda'):
       work = [cost.bound(*gru.gru_cell_work(rows, D, dtype, backward=b),
                          dtype) for b in (False, True)]
       ms = step_ms(lambda: gru.gru_cell_fwd_cuda(x, deter, scale, bias))
-      bwd_ms = step_ms(lambda: gru.gru_cell_bwd_cuda(*args))
+      bwd_ms, bwd_kernels = step_ms(lambda: gru.gru_cell_bwd_cuda(*args),
+                                    kernels=True)
+      # The backward is one device kernel a call (a trace that lost a
+      # kernel reads fewer, never more).
+      one = bwd_kernels <= 1
       plain_ms = step_ms(lambda: gru.gru_cell_plain(x, deter, scale, bias))
       again = gru.gru_cell_plain(*leaves)
       plain_bwd_ms = step_ms(lambda: torch.autograd.grad(
@@ -1398,11 +1609,16 @@ def check_gru_cell(sites=GRU_SITES, device='cuda'):
           f'{limits[1]}), two backward launches equal {same}; device ms: '
           f'forward {ms:.4f} (plain {plain_ms:.4f}, library none, bound '
           f'{work[0]["bound_ms"]:.4f} {work[0]["bound_by"]}), backward '
-          f'{bwd_ms:.4f} (plain {plain_bwd_ms:.4f}, library none, bound '
+          f'{bwd_ms:.4f} in {bwd_kernels:g} device kernel(s) a call (plain '
+          f'{plain_bwd_ms:.4f}, library none, bound '
           f'{work[1]["bound_ms"]:.4f} {work[1]["bound_by"]})')
       if not ok:
         raise AssertionError(f'gru_cell disagrees with its plain version in '
                              f'{name} at rows {rows} x D {D}.')
+      if not one:
+        raise AssertionError(f'gru_cell_bwd took {bwd_kernels:g} device '
+                             f'kernels a call at rows {rows} x D {D}, not '
+                             'one.')
       if (rows, D) == max(sites):
         results.setdefault('gru_cell_fwd', {})[name] = dict(
             ms=ms, plain_ms=plain_ms, library_ms=None,
@@ -1457,12 +1673,7 @@ def check_onehot_head(sites=HEAD_SITES, device='cuda'):
   for dtype in (torch.float32, torch.bfloat16):
     name = str(dtype).split('.')[-1]
     for rows, sample in sites:
-      gen = torch.Generator(device=device).manual_seed(rows + sample)
-      rand = lambda *shape: torch.randn(*shape, generator=gen, device=device)
-      raw = (2 * rand(rows, S, C)).to(dtype)
-      u = torch.rand(rows, S, C, generator=gen, device=device) if sample else (
-          None)
-      dlogit, dstoch = rand(rows, S, C).to(dtype), rand(rows, S, C).to(dtype)
+      raw, u, dlogit, dstoch = _head_inputs(rows, sample, dtype, device)
       logit, stoch = onehot.onehot_head_fwd_cuda(raw, u, unimix)
       args = (raw, logit, dlogit, dstoch, unimix, sample)
       draw = onehot.onehot_head_bwd_cuda(*args)

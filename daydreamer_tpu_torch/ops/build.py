@@ -235,6 +235,30 @@ def plain():
   return _PLAIN[0] > 0
 
 
+_COUNTERS = {}
+
+
+def counters(name, device, n):
+  """The `n` int32 counters of the kernel `name` on `device`: zeros, made
+  once and kept, so that their address is the same in every launch and
+  every graph. The kernel leaves them ready for its next launch (a ticket
+  or an arrival count back at zero); launches on one card share them,
+  since the port runs a kernel on one stream at a time. Made outside any
+  capture: a capture that would make them raises."""
+  key = (name, str(device))
+  if key not in _COUNTERS:
+    if (device.type == 'cuda' and torch.cuda.is_available()
+        and torch.cuda.is_current_stream_capturing()):
+      raise RuntimeError(
+          f'{name}: its counters are made at the first eager launch on '
+          f'{device}; a CUDA graph capture cannot make them.')
+    made = torch.zeros(n, dtype=torch.int32, device=device)
+    if device.type == 'cuda':
+      torch.cuda.synchronize(device)
+    _COUNTERS[key] = made
+  return _COUNTERS[key]
+
+
 # A block's dynamic shared memory on sm_90a.
 SHARED_MEMORY_LIMIT = 232448
 

@@ -3,12 +3,13 @@
 // PyTorch version where there is no card and no nvcc (see ops/emulate.py).
 // One fiber (a stack of its own, switched in user space) plays one CUDA
 // thread; the blocks of a launch run one after another, or one cluster
-// after another with the blocks of a cluster alive together, all on the
-// calling OS thread. A fiber runs until it waits at a barrier:
-// __syncthreads() is a barrier over the block's fibers, a warp shuffle an
-// exchange through memory between two barriers of its warp, and the
-// warp-wide operations of ptx.h (ldmatrix, mma) meet at their warp's
-// barrier too. The scheduler walks the fibers forward and backward in
+// after another with the blocks of a cluster alive together (a cooperative
+// launch's grid is one cluster), all on the calling OS thread. A fiber
+// runs until it waits at a barrier or sleeps in a loop that waits for
+// memory (__nanosleep): __syncthreads() is a barrier over the block's
+// fibers, a warp shuffle an exchange through memory between two barriers
+// of its warp, and the warp-wide operations of ptx.h (ldmatrix, mma) meet
+// at their warp's barrier too. The scheduler walks the fibers forward and backward in
 // turns, so a fiber that reads what another writes between the same two
 // barriers sees the write in one order or the other. A barrier that some
 // fibers never reach stops the run (a deadlock on the card). It shows a
@@ -44,7 +45,7 @@
 #define __restrict__
 
 struct uint3 { unsigned x, y, z; };
-inline thread_local uint3 threadIdx, blockIdx, gridDim;
+inline thread_local uint3 threadIdx, blockIdx, blockDim, gridDim;
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 struct uint2 { unsigned x, y; };
@@ -66,7 +67,10 @@ enum {
   cudaErrorInvalidValue = 1,
   cudaErrorNotSupported = 801
 };
-enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum {
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaFuncAttributeNonPortableClusterSizeAllowed = 11
+};
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
@@ -75,9 +79,13 @@ inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
 // cudaLaunchKernelEx and its configuration, as far as the kernels use them:
 // the grid, the block, the dynamic shared memory and a cluster size.
-enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+enum cudaLaunchAttributeID {
+  cudaLaunchAttributeCooperative = 2,
+  cudaLaunchAttributeClusterDimension = 4
+};
 struct cudaLaunchAttributeValue {
   struct { unsigned x, y, z; } clusterDim;
+  int cooperative;
 };
 struct cudaLaunchAttribute {
   cudaLaunchAttributeID id;
@@ -308,6 +316,7 @@ void launch(int cluster, K kernel, int blocks, int threads, size_t bytes,
             cudaStream_t, Args... args) {
   const std::function<void()> body = [&]() { kernel(args...); };
   gridDim = {(unsigned)blocks, 1, 1};
+  blockDim = {(unsigned)threads, 1, 1};
   for (int first = 0; first < blocks; first += cluster) {
     std::vector<std::unique_ptr<Block>> alive;
     std::vector<float*> bases;
@@ -343,14 +352,19 @@ void launch(int cluster, K kernel, int blocks, int threads, size_t bytes,
 }  // namespace emu
 
 // cudaLaunchKernelEx(config, kernel, args...): the launch above, with the
-// cluster size the configuration asks for.
+// cluster size the configuration asks for; a cooperative launch runs all
+// its blocks side by side, as the card holds them all at once.
 template <class... Ps, class... Args>
 cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* config,
                                void (*kernel)(Ps...), Args&&... args) {
   int cluster = 1;
-  for (unsigned i = 0; i < config->numAttrs; ++i)
+  for (unsigned i = 0; i < config->numAttrs; ++i) {
     if (config->attrs[i].id == cudaLaunchAttributeClusterDimension)
       cluster = static_cast<int>(config->attrs[i].val.clusterDim.x);
+    if (config->attrs[i].id == cudaLaunchAttributeCooperative &&
+        config->attrs[i].val.cooperative)
+      cluster = static_cast<int>(config->gridDim.x);
+  }
   emu::launch(cluster, kernel, static_cast<int>(config->gridDim.x),
               static_cast<int>(config->blockDim.x), config->dynamicSmemBytes,
               config->stream, Ps(args)...);
@@ -358,6 +372,12 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* config,
 }
 
 inline void __syncthreads() { emu::barrier->arrive_and_wait(); }
+// A thread that waits for a value in memory lets the others run; the
+// scheduler resumes it on its next pass.
+inline void __nanosleep(unsigned) {
+  emu::current->waits = nullptr;
+  emu_switch(&emu::current->sp, emu::scheduler);
+}
 inline float __shfl_xor_sync(unsigned, float v, int offset) {
   emu::exchange[threadIdx.x] = v;
   emu::warp_barrier->arrive_and_wait();
@@ -372,16 +392,22 @@ inline int __shfl_xor_sync(unsigned mask, int v, int offset) {
   memcpy(&v, &other, 4);
   return v;
 }
-// Blocks run one after another here, so an atomic is a plain
-// read-modify-write, a fence orders nothing that is not already in order,
-// and a load past L1 is a load.
+// The threads of a launch take turns on one OS thread here, so an atomic
+// is a plain read-modify-write, a fence orders nothing that is not
+// already in order, and a load past L1 is a load.
 inline unsigned atomicAdd(unsigned* p, unsigned v) {
   const unsigned old = *p;
   *p = old + v;
   return old;
 }
+inline unsigned atomicExch(unsigned* p, unsigned v) {
+  const unsigned old = *p;
+  *p = v;
+  return old;
+}
 inline void __threadfence() {}
 inline float4 __ldcg(const float4* p) { return *p; }
+inline float __ldcg(const float* p) { return *p; }
 inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }
 // The intrinsics of one IEEE rounding each: g++ contracts nothing here.
 inline float __fadd_rn(float a, float b) { return a + b; }

@@ -24,26 +24,44 @@
 //   dx = rstd * (gs - mean(gs) - xhat * mean(gs * xhat)),
 //   dscale = sum over rows of dn * xhat, dbias = sum over rows of dn.
 //
-// Both are bound by bytes (about 10 bytes a bfloat16 output value forward
-// and 20 backward, against some 50 and 80 operations): the design keeps a
-// row in registers between its passes so that each input is read once.
-// Layout: a group of G lanes takes a row (G a power of two, a warp or up
-// to 8 warps, whose sums meet in shared memory); a lane holds N vectors of
-// VEC values (16 bytes, or 1 value where D is no multiple of that) of each
-// of the three parts at the same columns, so the gates need no exchange,
-// and at most SPREAD values a part, so that the backward's column sums
-// (2 x 3 x SPREAD floats a lane) stay in registers. bfloat16 D = 256: a
-// warp a row, 8 rows a block; D = 512: 2 warps a row. The forward walks
-// rows by a stride of the grid; the backward's blocks each take a run of
-// rows, write their column sums to a row of `partial`, and a second launch
-// (gru_sum_kernel) sums those rows in block order: no float atomic, so the
-// same inputs give the same bits in any launch and in a CUDA graph.
+// Across the card both are bound by bytes (about 10 bytes a bfloat16
+// output value forward and 20 backward) more than by their operations
+// (some 50 and 180 a column of the three parts: the gates' exp, tanh and
+// divides, and a dozen roundings to T); on a few SMs the backward's
+// operations bound it (one cluster of 16 SMs took 1 024 rows in 3x the
+// time of 128 blocks). The design keeps a row in registers between its
+// passes so that each input is read once. Layout: a group of G lanes
+// takes a row (G a power of two, up to 8 warps, whose sums meet in shared
+// memory); a lane holds N vectors of VEC values of each of the three parts
+// at the same columns, so the gates need no exchange, and at most SPREAD
+// values a part. The forward: 16-byte vectors (or 1 value where D is no
+// multiple of that), the narrowest group (bfloat16 D = 256: a warp a row,
+// D = 512: 2 warps), walking rows by a stride of the grid, blocks of 256
+// threads.
+//
+// The backward is one launch of blocks of 256 threads. Its group is the
+// narrowest (at that width the widest vector) whose rows x G reach the
+// caller's count of lanes, so that few rows spread over more lanes: a1's
+// 1 024 rows of 256 take a warp a row and 16-byte vectors, its 32 rows 4
+// warps a row and 4-byte vectors, 1 row 8 warps. Each block takes a run of
+// steps of rows and keeps its lanes' 2 x 3 x V column sums in registers,
+// and a fixed-order tree over its groups sums them. One block writes
+// dscale and dbias itself; up to 16 blocks make one cluster (beside each
+// other on the card), whose ranks each sum a share of the columns over the
+// ranks in rank order through distributed shared memory; more make a
+// cooperative grid (all its blocks on the card at once), whose blocks
+// write their sums to rows of `partial`, meet at a barrier in global
+// memory and each sum a share of the columns over the rows in block order.
+// No second launch and no float atomic: the same inputs give the same bits
+// in any launch and in a CUDA graph.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+
+#include "hopper_ptx.cuh"
 
 namespace {
 
@@ -229,6 +247,70 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// Blocks of a cluster at most, where the card takes a cluster past the 8
+// that are portable.
+constexpr int MAX_CLUSTER = 16;
+
+// The sums of `a` and `b` over a group of G lanes, as group_sum, with one
+// pair of barriers where G spans warps. `red`: 2 x WARPS floats.
+__device__ __forceinline__ void group_sum2(float* a, float* b, int G,
+                                           float* red) {
+  for (int o = (G < 32 ? G : 32) / 2; o > 0; o >>= 1) {
+    *a += __shfl_xor_sync(FULL, *a, o);
+    *b += __shfl_xor_sync(FULL, *b, o);
+  }
+  if (G > 32) {
+    __syncthreads();  // The last call's readers are done with `red`.
+    if ((threadIdx.x & 31) == 0) {
+      red[threadIdx.x >> 5] = *a;
+      red[WARPS + (threadIdx.x >> 5)] = *b;
+    }
+    __syncthreads();
+    const int first = (int)threadIdx.x / G * (G / 32);
+    *a = *b = 0.f;
+    for (int w = 0; w < G / 32; ++w) {
+      *a += red[first + w];
+      *b += red[WARPS + first + w];
+    }
+  }
+}
+
+// Every block of the grid waits here until all have arrived; the grid is
+// on the card at once (a cooperative launch). bar[0] counts the arrivals,
+// bar[1] is the barrier's generation: the last to arrive resets the count
+// and moves the generation on, so the two serve the next launch of any
+// grid. A fence before the arrival and after the release orders the
+// blocks' stores before the barrier against their loads after it.
+__device__ __forceinline__ void grid_sync(unsigned* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned* generation = bar + 1;
+    const unsigned seen = *generation;
+    __threadfence();
+    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
+      atomicExch(bar, 0u);
+      __threadfence();
+      atomicAdd(bar + 1, 1u);
+    } else {
+      while (*generation == seen) __nanosleep(32);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// The column of dscale (half 0) or dbias (half 1) whose sum a lane keeps
+// in its slot e, or -1 past the row.
+template <int VEC, int N>
+__device__ __forceinline__ int sum_column(int e, int lane, const Shape& s,
+                                          int* half) {
+  constexpr int V = N * VEC;
+  *half = e >= 3 * V;
+  const int f = e - *half * 3 * V, p = f / V, i = f % V / VEC, k = f % VEC;
+  const int j = i * s.G + lane;
+  return j < s.nvec ? p * s.D + j * VEC + k : -1;
+}
+
 template <class T, int VEC, int N>
 __global__ void __launch_bounds__(256)
     gru_bwd_kernel(const T* __restrict__ x, const T* __restrict__ deter,
@@ -238,22 +320,28 @@ __global__ void __launch_bounds__(256)
                    const float* __restrict__ rstd, const T* __restrict__ dout,
                    T* __restrict__ dx, T* __restrict__ ddeter,
                    float* __restrict__ partial, float* __restrict__ dscale,
-                   float* __restrict__ dbias, Shape s) {
+                   float* __restrict__ dbias, unsigned* __restrict__ barrier,
+                   Shape s, int cluster) {
   constexpr int V = N * VEC;  // Values of a part a lane keeps.
-  // 2 * WARPS floats for the group sums, then THREADS * 3 V floats: the
-  // lanes' column sums, one half (dscale's, then dbias's) at a time.
+  constexpr int E = 6 * V;    // A lane's column sums: dscale's, dbias's.
+  // 2 x WARPS floats for the group sums, then the tree's E x THREADS / 2
+  // floats, then (in a cluster) the block's sums, slot (e, lane) at
+  // own[e * G + lane].
   extern __shared__ __align__(16) float smem[];
-  float* sums = smem + 2 * WARPS;
+  float* tree = smem + 2 * WARPS;
+  float* own = tree + E * THREADS / 2;
   const int sub = threadIdx.x % s.G, group = threadIdx.x / s.G;
   const int D = s.D, C3 = 3 * s.D;
   const int steps = (s.rows + s.groups - 1) / s.groups;
-  // A run of consecutive steps a block.
+  // A run of consecutive steps a block; the grid's last blocks may have
+  // none.
   const int per = (steps + gridDim.x - 1) / gridDim.x;
-  const int first = blockIdx.x * per;
-  const int last = first + per < steps ? first + per : steps;
-  float acc_s[3 * V], acc_b[3 * V];
+  const int first = min(steps, (int)blockIdx.x * per);
+  const int last = min(steps, first + per);
+  // The lane's column sums of dn * xhat (slots 0 .. 3 V) and dn.
+  float acc[E];
 #pragma unroll
-  for (int e = 0; e < 3 * V; ++e) acc_s[e] = acc_b[e] = 0.f;
+  for (int e = 0; e < E; ++e) acc[e] = 0.f;
 
   for (int st = first; st < last; ++st) {
     const int row = st * s.groups + group;
@@ -312,8 +400,7 @@ __global__ void __launch_bounds__(256)
       }
       *reinterpret_cast<Pack<T, VEC>*>(ddeter + at) = dd;
     }
-    s1 = group_sum(s1, s.G, smem);
-    s2 = group_sum(s2, s.G, smem + WARPS);
+    group_sum2(&s1, &s2, s.G, smem);
     const float m1 = s1 / C3, m2 = s2 / C3;
 #pragma unroll
     for (int i = 0; i < N; ++i) {
@@ -329,8 +416,8 @@ __global__ void __launch_bounds__(256)
           const float xhat = (widen(v[p][i].v[k]) - mu) * rs;
           const float dnv = widen(dn[p][i].v[k]);
           narrow(rs * (dnv * sc[k] - m1 - xhat * m2), &o.v[k]);
-          acc_s[(p * N + i) * VEC + k] += dnv * xhat;
-          acc_b[(p * N + i) * VEC + k] += dnv;
+          acc[(p * N + i) * VEC + k] += dnv * xhat;
+          acc[3 * V + (p * N + i) * VEC + k] += dnv;
         }
         *reinterpret_cast<Pack<T, VEC>*>(dx + (long)row * C3 + p * D +
                                          j * VEC) = o;
@@ -338,46 +425,112 @@ __global__ void __launch_bounds__(256)
     }
   }
 
-  // The block's sums: each column over the block's groups in order, into
-  // dscale and dbias where the grid is one block, else into the block's
-  // row of `partial` (dscale's 3 D columns, then dbias's).
-  const int P = 2 * C3;
+  // The block's sums: a tree over its groups (a power of two), the upper
+  // half of the groups handing its sums to the lower at each level; group
+  // 0 ends with them.
+  for (int h = s.groups / 2; h > 0; h >>= 1) {
+    const int width = h * s.G;
+    __syncthreads();  // The last level's readers are done with `tree`.
+    if (group >= h && group < 2 * h) {
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    __syncthreads();  // The last half's readers are done with `sums`.
-#pragma unroll
-    for (int e = 0; e < 3 * V; ++e)
-      sums[e * THREADS + threadIdx.x] = half ? acc_b[e] : acc_s[e];
+      for (int e = 0; e < E; ++e)
+        tree[e * width + threadIdx.x - width] = acc[e];
+    }
     __syncthreads();
-    for (int c = threadIdx.x; c < C3; c += THREADS) {
-      const int p = c / D, col = c % D;
-      const int j = col / VEC, k = col % VEC;
-      const int i = j / s.G, lane = j % s.G;
-      const int e = (p * N + i) * VEC + k;
-      float sum = 0.f;
-      for (int g = 0; g < s.groups; ++g)
-        sum += sums[e * THREADS + g * s.G + lane];
-      if (gridDim.x == 1)
-        (half ? dbias : dscale)[c] = sum;
-      else
-        partial[(long)blockIdx.x * P + half * C3 + c] = sum;
+    if (group < h) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[e] += tree[e * width + threadIdx.x];
     }
   }
-}
+  if (gridDim.x == 1) {
+    if (group == 0) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        int half;
+        const int c = sum_column<VEC, N>(e, sub, s, &half);
+        if (c >= 0) (half ? dbias : dscale)[c] = acc[e];
+      }
+    }
+    return;
+  }
 
-// dscale and dbias: the blocks' rows of `partial` summed in block order,
-// a thread a column.
-__global__ void __launch_bounds__(256)
-    gru_sum_kernel(const float* __restrict__ partial, int blocks, int C3,
-                   float* __restrict__ dscale, float* __restrict__ dbias) {
-  const int c = blockIdx.x * THREADS + threadIdx.x;
-  if (c >= 2 * C3) return;
-  float sum = 0.f;
-  for (int b = 0; b < blocks; ++b) sum += partial[(long)b * 2 * C3 + c];
-  if (c < C3)
-    dscale[c] = sum;
-  else
-    dbias[c - C3] = sum;
+  if (cluster > 1) {
+    // One cluster: rank r sums its share of the slots over the cluster's
+    // blocks in rank order (distributed shared memory, every rank's value
+    // in flight at once) into dscale and dbias.
+    if (group == 0) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) own[e * s.G + sub] = acc[e];
+    }
+    const int slots = E * s.G, rank = ptx::cluster_rank();
+    const int share = (slots + cluster - 1) / cluster;
+    const int lo = min(slots, rank * share), hi = min(slots, lo + share);
+    ptx::cluster_sync();
+    for (int q = lo + threadIdx.x; q < hi; q += THREADS) {
+      float ranks[MAX_CLUSTER];
+#pragma unroll
+      for (int r = 0; r < MAX_CLUSTER; ++r)
+        if (r < cluster) ranks[r] = ptx::cluster_map(own, r)[q];
+      float sum = 0.f;
+#pragma unroll
+      for (int r = 0; r < MAX_CLUSTER; ++r)
+        if (r < cluster) sum += ranks[r];
+      int half;
+      const int c = sum_column<VEC, N>(q / s.G, q % s.G, s, &half);
+      if (c >= 0) (half ? dbias : dscale)[c] = sum;
+    }
+    // No block leaves before the cluster's reads of its sums are done.
+    ptx::cluster_sync();
+    return;
+  }
+
+  // Several blocks, all on the card at once (a cooperative launch): each
+  // writes its sums to its row of `partial` (dscale's 3 D columns, then
+  // dbias's) and the grid meets at a barrier. Then block b sums its share
+  // of the columns: its threads split the rows into chunks, each summed in
+  // block order with 8 rows in flight, and the chunks' sums are added in
+  // chunk order.
+  const int P = 2 * C3;
+  if (group == 0) {
+    float* mine = partial + (long)blockIdx.x * P;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      int half;
+      const int c = sum_column<VEC, N>(e, sub, s, &half);
+      if (c >= 0) mine[half * C3 + c] = acc[e];
+    }
+  }
+  grid_sync(barrier);
+  const int blocks = gridDim.x, share = (P + blocks - 1) / blocks;
+  const int lo = min(P, (int)blockIdx.x * share), hi = min(P, lo + share);
+  for (int base = lo; base < hi; base += THREADS) {
+    const int cols = min(THREADS, hi - base), chunks = THREADS / cols;
+    const int per = (blocks + chunks - 1) / chunks;
+    const int col = threadIdx.x % cols, chunk = threadIdx.x / cols;
+    if (chunk < chunks) {
+      const float* column = partial + base + col;
+      const int last = min(blocks, (chunk + 1) * per);
+      float sum = 0.f;
+      for (int b = chunk * per; b < last; b += 8) {
+        float rows[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (b + u < last) rows[u] = __ldcg(column + (long)(b + u) * P);
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (b + u < last) sum += rows[u];
+      }
+      tree[chunk * cols + col] = sum;
+    }
+    __syncthreads();
+    if (threadIdx.x < cols) {
+      float sum = 0.f;
+      for (int k = 0; k < chunks; ++k) sum += tree[k * cols + threadIdx.x];
+      const int c = base + threadIdx.x;
+      (c < C3 ? dscale : dbias)[c < C3 ? c : c - C3] = sum;
+    }
+    __syncthreads();
+  }
 }
 
 // The vectors a lane may keep of a part (the kernels' N).
@@ -416,28 +569,103 @@ cudaError_t fwd(void* const* p, Shape s, const int* dims, float eps,
   return cudaGetLastError();
 }
 
-// dims: rows, D, max_blocks, rows of `partial`.
+// The backward's geometry: the narrowest group of lanes a row (and, at
+// that width, the widest vector) whose rows x G reach `lanes`, so that few
+// rows spread over more lanes; else the widest group. Returns N, the
+// vectors a lane keeps of a part (0: none fits).
+template <class T>
+int plan_bwd(int rows, int D, int lanes, Shape* s, int* vec) {
+  int best = 0;
+  for (int G = 1; G <= THREADS; G *= 2) {
+    int found = 0;
+    for (int v = 16 / (int)sizeof(T); v >= 1 && !found; v /= 2) {
+      if (D % v) continue;
+      const int nvec = D / v, need = (nvec + G - 1) / G;
+      // No lane of the group without a vector.
+      if (G > 1 && G / 2 >= nvec) continue;
+      for (const int n : NS)
+        if (!found && n >= need && n * v <= SPREAD) found = n;
+      if (found) {
+        *s = Shape{rows, D, nvec, G, THREADS / G};
+        *vec = v;
+      }
+    }
+    if (found) best = found;
+    if (found && (long)rows * G >= lanes) break;
+  }
+  return best;
+}
+
+// Allows `kernel` the bytes of shared memory past 48 KB and, where
+// `cluster` is past the portable 8, clusters of that size.
+template <class K>
+cudaError_t allow(K kernel, size_t bytes, int cluster) {
+  cudaError_t err = cudaSuccess;
+  if (bytes > 48 * 1024)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && cluster > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+// dims: rows, D, max_blocks, rows of `partial`, blocks a cluster at most,
+// lanes to spread the rows over, counters in `barrier`.
 template <class T, int VEC, int N>
 cudaError_t bwd(void* const* p, Shape s, const int* dims,
                 cudaStream_t stream) {
   auto kernel = gru_bwd_kernel<T, VEC, N>;
-  // At most 24.6 KB: no attribute is needed below 48 KB.
-  const size_t bytes = (2 * WARPS + 3 * N * VEC * THREADS) * sizeof(float);
+  const size_t bytes =
+      (2 * WARPS + 6 * N * VEC * (THREADS / 2 + s.G)) * sizeof(float);
   const long steps = ((long)s.rows + s.groups - 1) / s.groups;
-  // Blocks of equal runs of steps, none empty.
-  int grid = (int)std::min<long>(steps, dims[2]);
-  const long per = (steps + grid - 1) / grid;
-  grid = (int)((steps + per - 1) / per);
-  if (grid > dims[3]) return cudaErrorInvalidValue;
-  float* partial = static_cast<float*>(p[8]);
-  float* dscale = static_cast<float*>(p[9]);
-  float* dbias = static_cast<float*>(p[10]);
-  kernel<<<grid, THREADS, bytes, stream>>>(static_cast<const T*>(p[0]), static_cast<const T*>(p[1]), static_cast<const float*>(p[2]), static_cast<const float*>(p[3]), static_cast<const float*>(p[4]), static_cast<const float*>(p[5]), static_cast<const T*>(p[6]), static_cast<T*>(p[7]), static_cast<T*>(p[11]), partial, dscale, dbias, s);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || grid == 1) return err;
-  const int C3 = 3 * s.D, sum_grid = (2 * C3 + THREADS - 1) / THREADS;
-  gru_sum_kernel<<<sum_grid, THREADS, 0, stream>>>(partial, grid, C3, dscale, dbias);
-  return cudaGetLastError();
+  int blocks = (int)std::min<long>(steps, dims[2]);
+  // Up to the cluster's blocks, one cluster of a power of two blocks (its
+  // last ones may have no step); past it a cooperative grid of no more
+  // blocks than the card holds at once.
+  int cluster = 1;
+  while (cluster < blocks) cluster *= 2;
+  if (cluster > std::min(dims[4], MAX_CLUSTER)) cluster = 1;
+  cudaError_t err = allow(kernel, bytes, cluster);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  if (cluster > 1) {
+    blocks = cluster;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = cluster;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+  } else {
+    int device = 0, sms = 1, per_sm = 1;
+    err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          THREADS, bytes);
+    if (err != cudaSuccess) return err;
+    blocks = std::min(blocks, std::max(1, sms * per_sm));
+    if (blocks > 1 && (blocks > dims[3] || dims[6] < 2))
+      return cudaErrorInvalidValue;
+    attr.id = cudaLaunchAttributeCooperative;
+    attr.val.cooperative = 1;
+  }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(blocks);
+  config.blockDim = dim3(THREADS);
+  config.dynamicSmemBytes = bytes;
+  config.stream = stream;
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  return cudaLaunchKernelEx(
+      &config, kernel, static_cast<const T*>(p[0]),
+      static_cast<const T*>(p[1]), static_cast<const float*>(p[2]),
+      static_cast<const float*>(p[3]), static_cast<const float*>(p[4]),
+      static_cast<const float*>(p[5]), static_cast<const T*>(p[6]),
+      static_cast<T*>(p[7]), static_cast<T*>(p[11]),
+      static_cast<float*>(p[8]), static_cast<float*>(p[9]),
+      static_cast<float*>(p[10]), static_cast<unsigned*>(p[12]), s, cluster);
 }
 
 // One launch (forward or backward) at the plan's VEC and N.
@@ -446,7 +674,8 @@ cudaError_t run(bool backward, void* const* p, const int* dims, float eps,
                 cudaStream_t stream) {
   Shape s;
   int vec;
-  const int n = plan<T>(dims[0], dims[1], &s, &vec);
+  const int n = backward ? plan_bwd<T>(dims[0], dims[1], dims[5], &s, &vec)
+                         : plan<T>(dims[0], dims[1], &s, &vec);
   if (n == 0 || dims[0] <= 0 || dims[2] <= 0) return cudaErrorInvalidValue;
 #define GRU_CASE(V, NN)                                                 \
   if constexpr (V * NN <= SPREAD)                                       \
@@ -456,9 +685,9 @@ cudaError_t run(bool backward, void* const* p, const int* dims, float eps,
 #define GRU_CASES(V) GRU_CASE(V, 1) GRU_CASE(V, 2) GRU_CASE(V, 4) GRU_CASE(V, 8)
   if constexpr (sizeof(T) == 2) {
     GRU_CASES(8)
-  } else {
-    GRU_CASES(4)
   }
+  GRU_CASES(4)
+  GRU_CASES(2)
   GRU_CASES(1)
 #undef GRU_CASES
 #undef GRU_CASE
@@ -477,8 +706,11 @@ extern "C" int gru_cell_fwd(int bf16, void* const* ptrs, const int* dims,
 }
 
 // ptrs: x, deter, scale, bias, mean, rstd, dout [rows][D], dx [rows][3 D],
-// partial [rows of partial][6 D], dscale [3 D], dbias [3 D], ddeter
-// [rows][D]. dims: rows, D, max_blocks, rows of partial.
+// partial [rows of partial][6 D] (a row a block of a cooperative grid),
+// dscale [3 D], dbias [3 D], ddeter [rows][D], barrier (2 unsigned, zero
+// before the first launch). dims: rows, D, max_blocks, rows of partial,
+// blocks a cluster at most (up to 16), lanes to spread the rows over,
+// counters in barrier.
 extern "C" int gru_cell_bwd(int bf16, void* const* ptrs, const int* dims,
                             float eps, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

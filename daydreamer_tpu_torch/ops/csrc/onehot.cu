@@ -27,9 +27,22 @@
 //   g1 = (g / p2) * keep, dx = round_T(p1 * (g1 - sum(g1 * p1))).
 //
 // Bound by bytes: 8-10 bytes a bfloat16 value each way against some 30
-// operations. Design: one lane a class, a group of C lanes (C a power of
-// two up to 32, the group aligned in its warp) a group of the row, so
-// every reduction is C / 2 .. 1 shuffles within the warp and nothing goes
+// operations, if every group quantity is made once.
+// Forward: a lane holds K consecutive classes (the caller's 2 or 8: 8
+// where the values fill the card, 16 bytes of bfloat16 logits and 32 of
+// the draws; 2 where few values leave it idle and a lane's chain of work
+// is the call's latency). A group of C classes spans C / K lanes (4 at
+// C = 32, K = 8, aligned in the warp) or, where C < K, a lane holds K / C
+// whole groups. The group's max, sum and first arg max are taken over the
+// lane's values in registers, in class order, then over the group's lanes
+// in log2(C / K) shuffles; the max, the sum, its log and the winner are
+// made once a lane, while the per-value arithmetic and its rounding stay
+// those of the plain version (expf, logf, the divide, `__f*_rn` where it
+// rounds). Loads and stores are vectors of up to 16 bytes; the grid is
+// bounded and walks the lanes by its stride.
+// Backward: one lane a class, a group of C lanes (C a power of two up to
+// 32, the group aligned in its warp) a group of the row, so every
+// reduction is C / 2 .. 1 shuffles within the warp and nothing goes
 // through shared memory; thread t takes the flat element t, so each warp
 // reads and writes 32 consecutive values. Every lane of a warp runs the
 // shuffles, past the last element too.
@@ -37,6 +50,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -59,9 +74,14 @@ __device__ __forceinline__ float rounded(float x) {
   return widen(t);
 }
 
+template <class T, int VEC>
+struct alignas(sizeof(T) * VEC) Pack {
+  T v[VEC];
+};
+
 struct Head {
   long n;           // Elements: rows x S x C.
-  int C;            // Classes: lanes of a group.
+  int C;            // Classes of a group.
   int unimix;       // Whether the logit is the mixture's log.
   int sample;       // Whether stoch is a sample (else the mode).
   float keep, floor_;  // 1 - unimix and unimix / C, in float32.
@@ -87,19 +107,6 @@ __device__ __forceinline__ bool first(float a, int ia, float b, int ib) {
   return ia < ib;
 }
 
-// The index of the group's first largest value.
-__device__ __forceinline__ int group_argmax(float v, int k, int C) {
-  for (int o = C / 2; o > 0; o >>= 1) {
-    const float w = __shfl_xor_sync(FULL, v, o);
-    const int j = __shfl_xor_sync(FULL, k, o);
-    if (first(w, j, v, k)) {
-      v = w;
-      k = j;
-    }
-  }
-  return k;
-}
-
 // softmax(x) mixed with the uniform floor: (p1, p2).
 __device__ __forceinline__ void mixture(float x, const Head& h, float* p1,
                                         float* p2) {
@@ -114,31 +121,162 @@ __device__ __forceinline__ float log_softmax(float l, int C) {
   return z - logf(group_sum(expf(z), C));
 }
 
-template <class T>
+// The K values of T at p as floats: vectors of up to 16 bytes where all K
+// lie below the end (`left` values from p on), else one at a time with
+// `missing` past it.
+template <int K, class T>
+__device__ __forceinline__ void load_k(const T* __restrict__ p, long left,
+                                       float missing, float (&out)[K]) {
+  constexpr int W = K < 16 / sizeof(T) ? K : 16 / sizeof(T);
+  if (left >= K) {
+#pragma unroll
+    for (int b = 0; b < K / W; ++b) {
+      const Pack<T, W> q = reinterpret_cast<const Pack<T, W>*>(p)[b];
+#pragma unroll
+      for (int w = 0; w < W; ++w) out[b * W + w] = widen(q.v[w]);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) out[k] = k < left ? widen(p[k]) : missing;
+  }
+}
+
+// The K values rounded to T at p, as load_k reads them.
+template <int K, class T>
+__device__ __forceinline__ void store_k(T* __restrict__ p, long left,
+                                        const float (&in)[K]) {
+  constexpr int W = K < 16 / sizeof(T) ? K : 16 / sizeof(T);
+  if (left >= K) {
+#pragma unroll
+    for (int b = 0; b < K / W; ++b) {
+      Pack<T, W> q;
+#pragma unroll
+      for (int w = 0; w < W; ++w) narrow(in[b * W + w], &q.v[w]);
+      reinterpret_cast<Pack<T, W>*>(p)[b] = q;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (k < left) narrow(in[k], &p[k]);
+  }
+}
+
+// Over the G lanes of a group (a power of two, aligned in the warp).
+template <int G>
+__device__ __forceinline__ float lanes_max(float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+template <int G>
+__device__ __forceinline__ float lanes_sum(float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+template <int G>
+__device__ __forceinline__ int lanes_argmax(float v, int k) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) {
+    const float w = __shfl_xor_sync(FULL, v, o);
+    const int j = __shfl_xor_sync(FULL, k, o);
+    if (first(w, j, v, k)) {
+      v = w;
+      k = j;
+    }
+  }
+  return k;
+}
+
+// The group's max over a lane's L values from `in`, then its G lanes.
+template <int L, int G>
+__device__ __forceinline__ float segment_max(const float* in) {
+  float m = in[0];
+#pragma unroll
+  for (int k = 1; k < L; ++k) m = fmaxf(m, in[k]);
+  return lanes_max<G>(m);
+}
+
+template <class T, int C, int K>
 __global__ void __launch_bounds__(256)
     onehot_fwd_kernel(const T* __restrict__ x, const float* __restrict__ u,
                       T* __restrict__ logit, T* __restrict__ stoch, Head h) {
-  const long t = (long)blockIdx.x * THREADS + threadIdx.x;
-  const bool valid = t < h.n;
-  const int k = (int)(threadIdx.x % h.C);
-  float l = valid ? widen(x[t]) : 0.f;
-  if (h.unimix) {
-    float p1, p2;
-    mixture(l, h, &p1, &p2);
-    l = rounded<T>(logf(p2));
-  }
-  const float lp = log_softmax(l, h.C);
-  float v = lp;
-  if (h.sample) v = lp + -logf(-logf(fmaxf(valid ? u[t] : 0.5f, TINY)));
-  const float one = k == group_argmax(v, k, h.C) ? 1.f : 0.f;
-  float st = one;
-  if (h.sample) {
-    const float p = expf(lp);
-    st = __fsub_rn(__fadd_rn(one, p), p);
-  }
-  if (valid) {
-    narrow(l, &logit[t]);
-    narrow(st, &stoch[t]);
+  constexpr int L = C < K ? C : K;  // A lane's classes of one group.
+  constexpr int G = C / L;          // Lanes of a group.
+  const long steps = ((h.n + K - 1) / K + THREADS - 1) / THREADS;
+  // Every thread of the block runs the same steps: the lanes of a group
+  // shuffle together.
+  for (long st = blockIdx.x; st < steps; st += gridDim.x) {
+    const long base = (st * THREADS + threadIdx.x) * K;
+    const long left = h.n - base;
+    // The class of the lane's first value in its group.
+    const int at = (int)(base % C);
+    float l[K], v[K];
+    load_k<K>(x + base, left, 0.f, l);
+    if (h.sample) {
+      load_k<K>(u + base, left, 0.5f, v);
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        v[k] = -logf(-logf(fmaxf(v[k], TINY)));
+    }
+#pragma unroll
+    for (int g = 0; g < K; g += L) {
+      float* lg = l + g;
+      if (h.unimix) {
+        // softmax(x) mixed with the uniform floor, its log rounded to T.
+        const float m = segment_max<L, G>(lg);
+        float e[L], sum = 0.f;
+#pragma unroll
+        for (int k = 0; k < L; ++k) {
+          e[k] = expf(lg[k] - m);
+          sum += e[k];
+        }
+        sum = lanes_sum<G>(sum);
+#pragma unroll
+        for (int k = 0; k < L; ++k) {
+          const float p2 = __fadd_rn(__fmul_rn(e[k] / sum, h.keep), h.floor_);
+          lg[k] = rounded<T>(logf(p2));
+        }
+      }
+      // log_softmax of the logits, and the first arg max of it plus the
+      // noise (the sample) or of it alone (the mode).
+      const float m = segment_max<L, G>(lg);
+      float z[L], sum = 0.f;
+#pragma unroll
+      for (int k = 0; k < L; ++k) {
+        z[k] = lg[k] - m;
+        sum += expf(z[k]);
+      }
+      const float lse = logf(lanes_sum<G>(sum));
+      float best = 0.f;
+      int win = 0;
+#pragma unroll
+      for (int k = 0; k < L; ++k) {
+        const float lp = z[k] - lse;
+        const float val = h.sample ? lp + v[g + k] : lp;
+        if (k == 0 || first(val, at + k, best, win)) {
+          best = val;
+          win = at + k;
+        }
+        z[k] = lp;
+      }
+      win = lanes_argmax<G>(best, win);
+#pragma unroll
+      for (int k = 0; k < L; ++k) {
+        const float one = at + k == win ? 1.f : 0.f;
+        if (h.sample) {
+          const float p = expf(z[k]);
+          v[g + k] = __fsub_rn(__fadd_rn(one, p), p);
+        } else {
+          v[g + k] = one;
+        }
+      }
+    }
+    if (left > 0) {
+      store_k<K>(logit + base, left, l);
+      store_k<K>(stoch + base, left, v);
+    }
   }
 }
 
@@ -165,21 +303,41 @@ __global__ void __launch_bounds__(256)
   if (valid) narrow(g, &dx[t]);
 }
 
-template <class T>
-cudaError_t run(bool backward, void* const* p, Head h, cudaStream_t stream) {
-  const int grid = (int)((h.n + THREADS - 1) / THREADS);
-  if (backward) {
-    auto kernel = onehot_bwd_kernel<T>;
-    kernel<<<grid, THREADS, 0, stream>>>(static_cast<const T*>(p[0]), static_cast<const T*>(p[1]), static_cast<const T*>(p[2]), static_cast<const T*>(p[3]), static_cast<T*>(p[4]), h);
-  } else {
-    auto kernel = onehot_fwd_kernel<T>;
-    kernel<<<grid, THREADS, 0, stream>>>(static_cast<const T*>(p[0]), static_cast<const float*>(p[1]), static_cast<T*>(p[2]), static_cast<T*>(p[3]), h);
+template <class T, int K>
+cudaError_t fwd(void* const* p, const Head& h, int max_blocks,
+                cudaStream_t stream) {
+  const long steps = ((h.n + K - 1) / K + THREADS - 1) / THREADS;
+  const int grid = (int)std::min<long>(steps, max_blocks);
+#define ONEHOT_CASE(CC)                                                  \
+  if (h.C == CC) {                                                       \
+    auto kernel = onehot_fwd_kernel<T, CC, K>;                           \
+    kernel<<<grid, THREADS, 0, stream>>>(static_cast<const T*>(p[0]), static_cast<const float*>(p[1]), static_cast<T*>(p[2]), static_cast<T*>(p[3]), h); \
+    return cudaGetLastError();                                           \
   }
-  return cudaGetLastError();
+  ONEHOT_CASE(2) ONEHOT_CASE(4) ONEHOT_CASE(8) ONEHOT_CASE(16) ONEHOT_CASE(32)
+#undef ONEHOT_CASE
+  return cudaErrorInvalidValue;
 }
 
-// dims: elements, classes, unimix (0 or 1), sample (0 or 1); scalars: keep,
-// floor. Classes a power of two from 2 to 32.
+template <class T>
+cudaError_t run(bool backward, void* const* p, Head h, const int* dims,
+                cudaStream_t stream) {
+  if (backward) {
+    const int grid = (int)((h.n + THREADS - 1) / THREADS);
+    auto kernel = onehot_bwd_kernel<T>;
+    kernel<<<grid, THREADS, 0, stream>>>(static_cast<const T*>(p[0]), static_cast<const T*>(p[1]), static_cast<const T*>(p[2]), static_cast<const T*>(p[3]), static_cast<T*>(p[4]), h);
+    return cudaGetLastError();
+  }
+  switch (dims[5]) {
+    case 2: return fwd<T, 2>(p, h, dims[4], stream);
+    case 8: return fwd<T, 8>(p, h, dims[4], stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// dims: elements, classes, unimix (0 or 1), sample (0 or 1); the forward
+// also its blocks at most and its classes a lane (2 or 8); scalars:
+// keep, floor. Classes a power of two from 2 to 32.
 cudaError_t launch(int bf16, bool backward, void* const* ptrs,
                    const int* dims, float keep, float floor_,
                    cudaStream_t stream) {
@@ -190,16 +348,17 @@ cudaError_t launch(int bf16, bool backward, void* const* ptrs,
   h.sample = dims[3];
   h.keep = keep;
   h.floor_ = floor_;
-  if (h.n <= 0 || h.C < 2 || h.C > 32 || (h.C & (h.C - 1)) || h.n % h.C)
+  if (h.n <= 0 || h.C < 2 || h.C > 32 || (h.C & (h.C - 1)) || h.n % h.C ||
+      (!backward && dims[4] <= 0))
     return cudaErrorInvalidValue;
-  return bf16 ? run<__nv_bfloat16>(backward, ptrs, h, stream)
-              : run<float>(backward, ptrs, h, stream);
+  return bf16 ? run<__nv_bfloat16>(backward, ptrs, h, dims, stream)
+              : run<float>(backward, ptrs, h, dims, stream);
 }
 
 }  // namespace
 
 // ptrs: x, u (float32; unread without the sample), logit, stoch, each of
-// rows x S x C values.
+// rows x S x C values, 16-byte aligned.
 extern "C" int onehot_head_fwd(int bf16, void* const* ptrs, const int* dims,
                                float keep, float floor_, void* stream) {
   return launch(bf16, false, ptrs, dims, keep, floor_,

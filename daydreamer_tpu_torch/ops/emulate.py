@@ -6,7 +6,8 @@ compiles every source of `csrc/` (`observe_fwd.cu`, `observe_bwd.cu`,
 `imagine_actor.cu`, `imagine.cu`, `observe.cu`, `layer_norm.cu`,
 `adam.cu`, `gru.cu`, `onehot.cu`) with g++ against the
 stand-in headers of `csrc/emulate/` (one fiber per CUDA thread, the
-blocks of a cluster side by side, see `emulate.h`; `cp.async`, `ldmatrix`,
+blocks of a cluster or of a cooperative grid side by side, see
+`emulate.h`; `cp.async`, `ldmatrix`,
 `mma.sync` and the cluster's barrier and shared memory as `ptx.h` stands in
 for them), calls them through the real wrappers of `rssm_vjp.py`,
 `rssm.py`, `norm.py`, `adam.py`, `gru.py` and `onehot.py` on CPU tensors
@@ -528,28 +529,35 @@ ADAM_CASES = (
 )
 
 
-def compare_gru(dtype, D, rows, fwd_blocks=None, bwd_blocks=None, seed=0):
+def compare_gru(dtype, D, rows, fwd_blocks=None, cluster=None, blocks=None,
+                lanes=None, seed=0):
   """The emulated `gru_cell_fwd` and `gru_cell_bwd` against the plain
-  version and its autograd (call inside `emulated`); `fwd_blocks` and
-  `bwd_blocks` cap the grids, so that a block takes several steps of rows.
-  The backward runs twice. Returns (the largest error of the new deter
-  relative to max(|deter|, 1), the largest scaled error of dx, ddeter,
-  dscale and dbias, whether the two backward runs gave the same bits)."""
+  version and its autograd (call inside `emulated`); `fwd_blocks` caps the
+  forward's grid, so that a block takes several steps of rows; `cluster`,
+  `blocks` and `lanes` set the backward's cluster, its blocks at most and
+  the lanes it spreads the rows over. The backward runs twice. Returns
+  (the largest error of the new deter relative to max(|deter|, 1), the
+  largest scaled error of dx, ddeter, dscale and dbias, whether the two
+  backward runs gave the same bits and left the counters at zero)."""
   rng = np.random.default_rng(seed)
   t = lambda *shape: torch.as_tensor(
       rng.standard_normal(shape).astype(np.float32))
   x = (2 * t(rows, 3 * D) + 0.5).to(dtype)
   deter = torch.tanh(t(rows, D)).to(dtype)
   scale, bias, dout = 1 + 0.2 * t(3 * D), 0.3 * t(3 * D), t(rows, D).to(dtype)
-  saved = gru.FWD_BLOCKS, gru.BWD_BLOCKS
-  gru.FWD_BLOCKS = fwd_blocks or saved[0]
-  gru.BWD_BLOCKS = bwd_blocks or saved[1]
+  names = ('FWD_BLOCKS', 'CLUSTER', 'BWD_BLOCKS', 'BWD_LANES')
+  saved = [getattr(gru, name) for name in names]
+  for name, value in zip(names, (fwd_blocks, cluster, blocks, lanes)):
+    if value is not None:
+      setattr(gru, name, value)
   try:
     out, mean, rstd = gru.gru_cell_fwd_cuda(x, deter, scale, bias)
     runs = [gru.gru_cell_bwd_cuda(x, deter, scale, bias, mean, rstd, dout)
             for _ in range(2)]
+    zeroed = not bool(gru._barrier(x.device)[0])
   finally:
-    gru.FWD_BLOCKS, gru.BWD_BLOCKS = saved
+    for name, value in zip(names, saved):
+      setattr(gru, name, value)
   leaves = [v.clone().requires_grad_() for v in (x, deter, scale, bias)]
   ref = gru.gru_cell_plain(*leaves)
   want = torch.autograd.grad(ref, leaves, dout)
@@ -558,16 +566,19 @@ def compare_gru(dtype, D, rows, fwd_blocks=None, bwd_blocks=None, seed=0):
   fwd = float(((out.float() - ref.float()).abs()
                / ref.float().abs().clamp_min(1)).max())
   bwd = [_scaled(got, w) for got, w in zip(runs[0], want)]
-  same = all(torch.equal(a, b) for a, b in zip(*runs))
+  same = zeroed and all(torch.equal(a, b) for a, b in zip(*runs))
   return fwd, bwd, same
 
 
-def compare_onehot(dtype, rows, S, C, unimix, sample, seed=0):
+def compare_onehot(dtype, rows, S, C, unimix, sample, fwd_blocks=None,
+                   lane_classes=None, seed=0):
   """The emulated `onehot_head_fwd` and `onehot_head_bwd` against the plain
-  version and its autograd (call inside `emulated`). Returns (the largest
-  error of the logit relative to max(|logit|, 1), the groups whose choice
-  differs and whether each of them is a tie, the largest error of stoch on
-  the other groups, the scaled error of raw's gradient)."""
+  version and its autograd (call inside `emulated`); `fwd_blocks` caps the
+  forward's grid, so that a block walks several steps, `lane_classes` sets
+  the classes a lane of the forward holds. Returns (the
+  largest error of the logit relative to max(|logit|, 1), the groups whose
+  choice differs and whether each of them is a tie, the largest error of
+  stoch on the other groups, the scaled error of raw's gradient)."""
   rng = np.random.default_rng(seed)
   t = lambda *shape: torch.as_tensor(
       rng.standard_normal(shape).astype(np.float32))
@@ -575,7 +586,13 @@ def compare_onehot(dtype, rows, S, C, unimix, sample, seed=0):
   u = torch.as_tensor(rng.uniform(size=(rows, S, C)).astype(np.float32)) if (
       sample) else None
   dlogit, dstoch = t(rows, S, C).to(dtype), t(rows, S, C).to(dtype)
-  logit, stoch = onehot.onehot_head_fwd_cuda(raw, u, unimix)
+  saved = onehot.FWD_BLOCKS, onehot.LANE_CLASSES
+  onehot.FWD_BLOCKS = fwd_blocks or saved[0]
+  onehot.LANE_CLASSES = lane_classes
+  try:
+    logit, stoch = onehot.onehot_head_fwd_cuda(raw, u, unimix)
+  finally:
+    onehot.FWD_BLOCKS, onehot.LANE_CLASSES = saved
   draw = onehot.onehot_head_bwd_cuda(raw, logit, dlogit, dstoch, unimix,
                                      sample)
   leaf = raw.clone().requires_grad_()
@@ -609,30 +626,64 @@ def _choices(stoch, ref, logit, u, rel=1e-5):
   return int(differ.sum()), ties
 
 
-# gru: bfloat16 at D = 24 (three 16-byte vectors a part: groups of 4 lanes,
-# 64 rows a step) on 150 rows (no multiple of 64) with both grids capped at
-# 2 blocks, so that the forward walks its steps by the grid's stride and
-# the backward's two blocks take runs of 2 and 1 steps, their rows summed by
-# the second launch; float32 at D = 130, no multiple of a vector (a value a
-# lane, 8 of them, a warp a row, 8 rows a step) on 37 rows, 5 blocks of the
-# backward; bfloat16 at xarm's D = 512 (2 warps a row, their sums through
-# shared memory) on 9 rows, the backward in one block, which writes dscale
-# and dbias itself. Each as (dtype, D, rows, fwd_blocks, bwd_blocks).
+# gru. The forward: bfloat16 at D = 24 (three 16-byte vectors a part:
+# groups of 4 lanes, 64 rows a step) on 150 rows (no multiple of 64) with
+# its grid capped at 2 blocks, so that it walks its steps by the grid's
+# stride; float32 at D = 130, no multiple of a vector (a value a lane, 8 of
+# them, a warp a row); bfloat16 at xarm's D = 512 (2 warps a row, their
+# sums through shared memory) on 9 rows. The backward (blocks of 256
+# threads) of the same cases: the first with the narrowest group (lanes
+# 1: 16-byte vectors, 4 lanes a row, 64 rows a step, a tree of 6 levels)
+# in a cooperative grid of 3 blocks (past a cluster of 2), their rows of
+# partial sums summed after the grid's barrier; the second with 4-byte
+# vectors (4 a lane, the last of them past the row) and a warp a row, 5
+# steps of 8 rows in one cluster of 2 blocks (runs of 3 and 2 steps); the
+# third spread over the widest group (8 warps a row, 4-byte vectors), a
+# block a row, 9 blocks in a cluster of 16, 7 of them without a step. Then
+# a1's observe step (bfloat16, D = 256, 32 rows: 128 lanes a row, 2 rows a
+# block, one cluster of 16) and its policy step (1 row: one block of 8
+# warps); D = 64 on 300 rows (16 lanes a row, 8-byte vectors) in a
+# cooperative grid of 19 blocks; float32 at D = 512 on 40 rows (128 lanes a
+# row) in one cluster of 4 blocks taking runs of 5 steps; float32 at D =
+# 130 in a cooperative grid of 4 blocks taking runs of 2, 2, 1 and no
+# steps. Each as (dtype, D, rows, fwd_blocks, cluster, blocks, lanes).
 GRU_CASES = (
-    (torch.bfloat16, 24, 150, 2, 2),
-    (torch.float32, 130, 37, None, None),
-    (torch.bfloat16, 512, 9, None, 1),
+    (torch.bfloat16, 24, 150, 2, 2, 3, 1),
+    (torch.float32, 130, 37, None, 2, 2, 1),
+    (torch.bfloat16, 512, 9, None, None, None, None),
+    (torch.bfloat16, 256, 32, None, None, None, None),
+    (torch.bfloat16, 256, 1, None, None, None, None),
+    (torch.bfloat16, 64, 300, None, 4, 20, None),
+    (torch.float32, 512, 40, None, 4, 4, None),
+    (torch.float32, 130, 37, None, 1, 4, 1),
 )
-# onehot: bfloat16 with 32 classes (a warp a group) and unimix 0.01,
-# sampled, on 5 rows of 3 groups (480 values: the second block partly
-# empty); float32 with 8 classes (4 groups a warp) and no mixture, sampled,
-# on 7 rows of 5 groups (280 values: 24 in the second block); bfloat16 with
-# 4 classes and unimix 0.01, the mode, on 3 rows of 4 groups. Each as
-# (dtype, rows, S, C, unimix, sample).
+# onehot. 8 classes a lane of the forward: bfloat16 with 32 classes (4
+# lanes a group) and unimix 0.01, sampled, on 5 rows of 3 groups (480
+# values: 60 lanes, the block partly empty); float32 with 8 classes (a lane
+# a group, two 16-byte loads) and no mixture, sampled, on 7 rows of 5
+# groups; bfloat16 with 4 classes (2 groups a lane) and unimix 0.01, the
+# mode, on 3 rows of 4 groups; float32 with 2 classes and unimix, sampled,
+# on 3 rows of 3 groups (18 values: the last lane holds 2 of its 8, loaded
+# and stored one by one); bfloat16 with 16 classes (2 lanes a group),
+# sampled, on 33 rows of 8 groups (528 lanes) with the grid capped at 2
+# blocks, so that the first walks a third step. By size (2 classes a lane
+# below WIDE_FROM values): a1's `initial()` mode at its observe step,
+# bfloat16, 32 rows of 32 x 32 (16 lanes a group). 2 classes a lane:
+# float32, 32 classes (an 8-byte load), sampled, on 5 rows of 3 groups;
+# bfloat16 with 2 classes (a lane a group), sampled, on 3 rows of 3
+# groups; bfloat16 with 32 classes, sampled, on 7 rows of 3 groups. The backward is the same kernel in every
+# case. Each as (dtype, rows, S, C, unimix, sample, fwd_blocks,
+# lane_classes).
 ONEHOT_CASES = (
-    (torch.bfloat16, 5, 3, 32, 0.01, True),
-    (torch.float32, 7, 5, 8, 0.0, True),
-    (torch.bfloat16, 3, 4, 4, 0.01, False),
+    (torch.bfloat16, 5, 3, 32, 0.01, True, None, 8),
+    (torch.float32, 7, 5, 8, 0.0, True, None, 8),
+    (torch.bfloat16, 3, 4, 4, 0.01, False, None, 8),
+    (torch.float32, 3, 3, 2, 0.01, True, None, 8),
+    (torch.bfloat16, 33, 8, 16, 0.01, True, 2, 8),
+    (torch.bfloat16, 32, 32, 32, 0.01, False, None, None),
+    (torch.float32, 5, 3, 32, 0.01, True, None, 2),
+    (torch.bfloat16, 3, 3, 2, 0.01, True, None, 2),
+    (torch.bfloat16, 7, 3, 32, 0.01, True, None, 2),
 )
 
 
@@ -696,12 +747,14 @@ def run_case(name):
         2 ** -7, (2 ** -6, 2 ** -7, 1e-2, 1e-2))
     good = (fwd_err <= limits[0] and same
             and all(e <= lim for e, lim in zip(bwd_errs, limits[1])))
-    print(f'{name} {dtype} D, rows, fwd_blocks, bwd_blocks {case}: forward '
+    print(f'{name} {dtype} D, rows, fwd_blocks, cluster, blocks, lanes '
+          f'{case}: forward '
           f'error {fwd_err:.3g} (tolerance {limits[0]:g} of max(|y|, 1)), '
           f'scaled backward errors dx, ddeter, dscale, dbias '
           f'{", ".join(f"{e:.3g}" for e in bwd_errs)} (tolerances '
           f'{", ".join(f"{e:g}" for e in limits[1])}), two backward runs '
-          f'equal {same}: {"ok" if good else "DISAGREES"}', flush=True)
+          f'equal and counters zero {same}: '
+          f'{"ok" if good else "DISAGREES"}', flush=True)
     return good
   if kind == 'onehot':
     logit_err, (flips, ties), stoch_err, grad_err = compare_onehot(
@@ -715,7 +768,9 @@ def run_case(name):
         2 ** -7, 2 ** -8, 2e-2)
     good = (logit_err <= limits[0] and ties and stoch_err <= limits[1]
             and grad_err <= limits[2])
-    print(f'{name} {dtype} rows, S, C, unimix, sample {case}: logit error '
+    print(f'{name} {dtype} rows, S, C, unimix, sample, fwd_blocks, '
+          f'lane_classes {case}: '
+          f'logit error '
           f'{logit_err:.3g} (tolerance {limits[0]:g} of max(|logit|, 1)), '
           f'{flips} groups choose another class, all ties {ties}, stoch '
           f'error elsewhere {stoch_err:.3g} (tolerance {limits[1]:g}), '

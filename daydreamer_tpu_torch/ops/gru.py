@@ -14,10 +14,13 @@ Without a norm (scale None, `norm: none`) the gates read x itself.
 - On a CUDA tensor it launches `csrc/gru.cu`: `gru_cell_fwd` (the new deter,
   and each row's float32 mean and rstd) and, under autograd,
   `gru_cell_bwd`: the gates' gradients rounded as autograd of the plain
-  version rounds them, then the LayerNorm backward in float32, with dscale
-  and dbias summed over rows in a fixed order (a second launch sums the
-  blocks' rows), so that a graphed call equals an eager one bit for bit.
-  Without a norm, or with D past `MAX_D`, it raises.
+  version rounds them, then the LayerNorm backward in float32, in one
+  launch, with dscale and dbias summed over rows in a fixed order (a tree
+  in each block, then the blocks of one cluster in rank order through
+  distributed shared memory, or the rows of a cooperative grid's blocks in
+  block order after a barrier, `_barrier`), so that a graphed call equals
+  an eager one bit for bit. Without a norm, or with D past `MAX_D`, it
+  raises.
 - On a CPU tensor it runs `gru_cell_plain`, the function in PyTorch ops
   (the RSSM's code before the kernel), and differentiates it by autograd.
 - Inside `build.plain_versions()` (tests and `chip_smoke.py` only) it runs
@@ -33,16 +36,26 @@ from ..nn import cost
 EPS = norm.EPS
 # The widest deter the kernel takes: 256 lanes a row of 8 values a part.
 MAX_D = 2048
-# Blocks of a launch at most: the forward's walk over rows, and the
-# backward's, each of whose blocks writes a row of partial column sums.
+# Blocks of the forward's launch at most: its walk over rows.
 FWD_BLOCKS = 1056
-BWD_BLOCKS = 132
+# The backward: blocks of 256 threads, a group of lanes a row wide enough
+# that the rows take BWD_LANES lanes where they can (32 rows of 256 take
+# 128 lanes a row, 1 024 rows a warp a row). Up to CLUSTER blocks (16 is
+# past the 8 that are portable) make one cluster; more make a cooperative
+# grid of at most BWD_BLOCKS blocks (and no more than the card holds at
+# once), each writing a row of partial column sums before a barrier
+# (BARRIER counters) after which each sums a share of the columns.
+BWD_BLOCKS = 128
+CLUSTER = 16
+BWD_LANES = 4096
+BARRIER = 2
 
 GRU_CELL_FWD = build.register(build.Kernel(
     'gru_cell_fwd', 'gru.cu',
     'daydreamer_tpu/models/nets.py:271 (RSSM._gru after the gru_out '
     'product: its Norm and gates, one loop fusion of XLA)',
-    {'gru_cell_fwd': build.signature(), 'gru_cell_bwd': build.signature()}))
+    {'gru_cell_fwd': build.signature(), 'gru_cell_bwd': build.signature()},
+    headers=('hopper_ptx.cuh',)))
 GRU_CELL_BWD = build.register(build.Kernel(
     'gru_cell_bwd', 'gru.cu',
     'daydreamer_tpu/models/nets.py:271 (the gradient of RSSM._gru after '
@@ -97,8 +110,7 @@ def gru_cell_fwd_cuda(x, deter, scale, bias):
 
 
 def gru_cell_bwd_cuda(x, deter, scale, bias, mean, rstd, dout):
-  """dx, ddeter, dscale, dbias from one call of `gru_cell_bwd` (one launch,
-  and a second that sums the blocks' rows where there are several)."""
+  """dx, ddeter, dscale, dbias from one launch of `gru_cell_bwd`."""
   name = 'gru_cell_bwd'
   x, deter = norm._aligned(x), norm._aligned(deter.to(x.dtype))
   dout = norm._aligned(dout.to(x.dtype))
@@ -110,15 +122,22 @@ def gru_cell_bwd_cuda(x, deter, scale, bias, mean, rstd, dout):
   dx, ddeter = torch.empty_like(x), torch.empty_like(deter)
   dscale = torch.empty(3 * D, dtype=torch.float32, device=x.device)
   dbias = torch.empty(3 * D, dtype=torch.float32, device=x.device)
-  # A row of partial sums a block (no more blocks than rows): dscale's
-  # 3 D columns, then dbias's.
+  # A row of partial sums a block of a cooperative grid (no more blocks
+  # than rows): dscale's 3 D columns, then dbias's.
   partial = torch.empty((min(BWD_BLOCKS, rows), 6 * D), dtype=torch.float32,
                         device=x.device)
   build.launch(GRU_CELL_BWD, 'gru_cell_bwd', x.dtype,
                [x, deter, scale, bias, mean, rstd, dout, dx, partial, dscale,
-                dbias, ddeter],
-               [rows, D, BWD_BLOCKS, partial.shape[0]], [EPS], x.device)
+                dbias, ddeter, _barrier(x.device)],
+               [rows, D, BWD_BLOCKS, partial.shape[0], CLUSTER, BWD_LANES,
+                BARRIER], [EPS], x.device)
   return dx, ddeter, dscale, dbias
+
+
+def _barrier(device):
+  """The backward's grid barrier on `device` (`build.counters`): a count of
+  arrivals, back at zero after each barrier, and a generation."""
+  return build.counters('gru_cell_bwd', device, BARRIER)
 
 
 def gru_cell_work(rows, D, dtype, backward=False):

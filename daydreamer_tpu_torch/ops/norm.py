@@ -47,7 +47,6 @@ BWD_BLOCKS = 528
 # Counters of a backward launch's tickets: one for each rank of a cluster
 # (of up to 8 blocks).
 TICKETS = 8
-_TICKETS = {}
 
 LAYER_NORM_ACT_FWD = build.register(build.Kernel(
     'layer_norm_act_fwd', 'layer_norm.cu',
@@ -96,24 +95,8 @@ def _check(name, x, scale, bias, act):
 
 
 def _tickets(device):
-  """The backward's counters on `device`: int32 zeros, made once and kept,
-  so that their address is the same in every launch and every graph. The
-  block that draws a counter's last ticket resets it, so they are zero
-  between launches. Launches on one card share them: the port runs the
-  backward on one stream at a time. Made outside any capture: a capture
-  that would make them raises."""
-  key = str(device)
-  if key not in _TICKETS:
-    if (device.type == 'cuda' and torch.cuda.is_available()
-        and torch.cuda.is_current_stream_capturing()):
-      raise RuntimeError(
-          'layer_norm_act_bwd: its counters are made at the first eager '
-          f'launch on {device}; a CUDA graph capture cannot make them.')
-    tickets = torch.zeros(TICKETS, dtype=torch.int32, device=device)
-    if device.type == 'cuda':
-      torch.cuda.synchronize(device)
-    _TICKETS[key] = tickets
-  return _TICKETS[key]
+  """The backward's counters on `device` (`build.counters`)."""
+  return build.counters('layer_norm_act_bwd', device, TICKETS)
 
 
 def layer_norm_act_fwd_cuda(x, scale, bias, act='none'):

@@ -13,12 +13,13 @@ drawn where the eager chain drew its Gumbel noise), the Gumbel-max sample
 of `OneHotDist(logit)` with its straight-through gradient; with `u` None,
 the mode, which has no gradient.
 
-- On a CUDA tensor it launches `csrc/onehot.cu`: `onehot_head_fwd` and,
-  under autograd, `onehot_head_bwd`, whose gradient of the raw logits runs
-  through the straight-through probabilities, the cast, the log, the
-  mixture and the softmax, rounded as autograd of the plain version rounds
-  it. Classes must be a power of two from 2 to 32 (a group of lanes of a
-  warp); other counts raise.
+- On a CUDA tensor it launches `csrc/onehot.cu`: `onehot_head_fwd`
+  (`lane_classes` classes a lane, a grid of at most `FWD_BLOCKS` blocks
+  walking the values) and, under autograd, `onehot_head_bwd`, whose
+  gradient of the raw logits runs through the straight-through
+  probabilities, the cast, the log, the mixture and the softmax, rounded
+  as autograd of the plain version rounds it. Classes must be a power of
+  two from 2 to 32 (a group within a warp); other counts raise.
 - On a CPU tensor it runs `onehot_head_plain`, the function in PyTorch ops
   (the RSSM's and `OneHotDist`'s code before the kernel), and
   differentiates it by autograd.
@@ -29,8 +30,20 @@ the mode, which has no gradient.
 import torch
 
 from . import build
+from . import norm
 from ..nn import cost
 from ..nn import dists
+
+# Blocks of the forward's launch at most: its walk over the values (1 024
+# x 32 x 32 values take 512 blocks of 256 lanes of 8 classes).
+FWD_BLOCKS = 1056
+# Classes a lane of the forward holds: 8 from WIDE_FROM values on, where
+# the card is full and a lane's 16-byte loads and fewer shuffles pay, else
+# 2, where few values leave the card idle and a lane's chain of work is the
+# call's latency (measured at 32 768 and 1 048 576 values). LANE_CLASSES,
+# where set (2 or 8), takes its place.
+WIDE_FROM = 1 << 18
+LANE_CLASSES = None
 
 ONEHOT_HEAD_FWD = build.register(build.Kernel(
     'onehot_head_fwd', 'onehot.cu',
@@ -90,23 +103,31 @@ def _scalars(C, unimix):
   return [1 - unimix, unimix / C]
 
 
+def lane_classes(n):
+  """Classes a lane of the forward holds for n values."""
+  if LANE_CLASSES is not None:
+    return LANE_CLASSES
+  return 8 if n >= WIDE_FROM else 2
+
+
 def onehot_head_fwd_cuda(raw, u, unimix):
   """logit, stoch from one launch of `onehot_head_fwd`; raw on a card, u
   float32 of raw's shape or None (the mode)."""
   name = 'onehot_head_fwd'
   C = _check(name, raw)
-  raw = raw.contiguous()
-  build.check(name, [('raw', raw)], raw.device, raw.dtype, align=4)
+  raw = norm._aligned(raw)
+  build.check(name, [('raw', raw)], raw.device, raw.dtype)
   if u is not None:
-    u = u.contiguous()
+    u = norm._aligned(u)
     if u.shape != raw.shape:
       raise ValueError(f'{name}: u {tuple(u.shape)} is not raw\'s shape '
                        f'{tuple(raw.shape)}.')
-    build.check(name, [('u', u)], raw.device, torch.float32, align=4)
+    build.check(name, [('u', u)], raw.device, torch.float32)
   logit, stoch = torch.empty_like(raw), torch.empty_like(raw)
   build.launch(ONEHOT_HEAD_FWD, name, raw.dtype, [raw, u, logit, stoch],
-               [raw.numel(), C, int(bool(unimix)), int(u is not None)],
-               _scalars(C, unimix), raw.device)
+               [raw.numel(), C, int(bool(unimix)), int(u is not None),
+                FWD_BLOCKS, lane_classes(raw.numel())], _scalars(C, unimix),
+               raw.device)
   return logit, stoch
 
 

@@ -103,8 +103,9 @@ OWN = {
     'sumsq_total_kernel': 'adam_sumsq',
     'adam_update_kernel': 'adam_update',
     # The counterparts of XLA's fusions of the RSSM's scan step
-    # (ops/gru.py, ops/onehot.py). The GRU cell's backward is one kernel,
-    # and a second that sums its blocks' rows where there are several.
+    # (ops/gru.py, ops/onehot.py). The GRU cell's backward is one kernel;
+    # builds before it summed its clusters' rows itself had a second,
+    # `gru_sum_kernel`, kept here so that their traces read the same.
     'gru_fwd_kernel': 'gru_cell_fwd',
     'gru_bwd_kernel': 'gru_cell_bwd',
     'gru_sum_kernel': 'gru_cell_bwd',
