@@ -304,9 +304,9 @@ entry point; layer_norm at each site of LAYER_NORM_SITES, forward and
 backward, after each version's registers and spills; gru at each site of
 GRU_SITES and, in bfloat16, GRU_LARGE_SITES, onehot at each site of
 HEAD_SITES, forward and backward, after each instantiation's registers and
-spills, with the tree's own variants beside them: the GRU backward's
-cluster, lanes and blocks, the head's classes a lane): how a change to a
-kernel is held against its parent inside one run.
+spills, with the tree's own variants beside them: the GRU forward's
+group of lanes a row, the head's classes a lane each way): how a change to
+a kernel is held against its parent inside one run.
 """
 
 import argparse
@@ -1085,12 +1085,11 @@ def compare_gru(source):
   forward and backward: each instantiation's registers and spills, whether
   the two give the same bits (else their largest difference), the
   backward's device kernels a call, and their device times in turns
-  (tree, other, other, tree), the backward with the tree's variants beside
-  them (a cooperative grid where one cluster would do, the rows over 1 024
-  or 16 384 lanes, from 1 024 rows 256 blocks); then, in bfloat16, the
-  backward at GRU_LARGE_SITES. The other version gets BWD_BLOCKS = 132,
-  the blocks at most of the design that gave each block a row of partial
-  sums and summed them in a second launch."""
+  (tree, other, other, tree), the forward with the tree at a group of 32,
+  64, 128 and 256 lanes a row beside them (`FWD_LANES` of rows x G); then,
+  in bfloat16, the backward at GRU_LARGE_SITES. Both backwards read the
+  tree's forward's mean and rstd, so that they take the same inputs where
+  the two forwards sum a row in another order."""
   import torch
   from daydreamer_tpu_torch.ops import build, gru
   tree = gru.GRU_CELL_FWD
@@ -1116,7 +1115,7 @@ def compare_gru(source):
       out, mean, rstd = under(tree, fwd)()
       bwd = lambda: gru.gru_cell_bwd_cuda(x, deter, scale, bias, mean, rstd,
                                           dout)
-      tree_bwd, other_bwd = under(tree, bwd), under(other, bwd, BWD_BLOCKS=132)
+      tree_bwd, other_bwd = under(tree, bwd), under(other, bwd)
       fwd_equal, fwd_worst = _differ(under(tree, fwd)(), under(other, fwd)())
       bwd_equal, bwd_worst = _differ(tree_bwd(), other_bwd())
       _, kernels = step_ms(tree_bwd, kernels=True)
@@ -1127,29 +1126,24 @@ def compare_gru(source):
           f'{bwd_equal} (largest difference {bwd_worst:.3g}); backward device'
           f' kernels a call: tree {kernels:g}, other {other_kernels:g}')
       if (rows, D) in GRU_SITES:
-        _turns(f'{label} forward', [('tree', under(tree, fwd)),
-                                    ('other', under(other, fwd))])
-      runs = [('tree', tree_bwd), ('other', other_bwd),
-              ('no cluster', under(tree, bwd, CLUSTER=1)),
-              ('lanes 1024', under(tree, bwd, BWD_LANES=1024)),
-              ('lanes 16384', under(tree, bwd, BWD_LANES=16384))]
-      if rows >= 1024:
-        runs += [('blocks 256', under(tree, bwd, BWD_BLOCKS=256)),
-                 ('blocks 256 lanes 65536', under(
-                     tree, bwd, BWD_BLOCKS=256, BWD_LANES=65536))]
-      _turns(f'{label} backward', runs)
+        _turns(f'{label} forward', [
+            ('tree', under(tree, fwd)), ('other', under(other, fwd)),
+            *[(f'G {G}', under(tree, fwd, FWD_LANES=rows * G))
+              for G in (32, 64, 128, 256)]])
+      _turns(f'{label} backward', [('tree', tree_bwd), ('other', other_bwd)])
       del x, deter, dout
 
 
 def compare_onehot(source):
   """`--compare onehot=SOURCE`: the tree's onehot.cu against another
   version of it with the same C interface, at each site of HEAD_SITES in
-  both types, forward and backward (the backward on the tree's forward's
-  logit): each instantiation's registers and spills, whether the two give
-  the same bits (else the largest difference of the logits and the groups
-  whose sample differs), and their device times in turns (tree, other,
-  other, tree), the forward with the tree at 2 and 8 classes a lane
-  beside them."""
+  both types, forward and backward (both backwards on the tree's forward's
+  logit, so that they take the same inputs): each instantiation's
+  registers and spills, whether the two give the same bits (else the
+  largest difference of the logits and the groups whose sample differs),
+  and their device times in turns (tree, other, other, tree), the tree at
+  2 and 8 classes a lane forward and at 2, 4 and 8 backward beside
+  them."""
   import torch
   from daydreamer_tpu_torch.ops import build, onehot
   tree = onehot.ONEHOT_HEAD_FWD
@@ -1190,8 +1184,10 @@ def compare_onehot(source):
           ('tree', under(tree, fwd)), ('other', under(other, fwd)),
           *[(f'{k} a lane', under(tree, fwd, LANE_CLASSES=k))
             for k in (2, 8)]])
-      _turns(f'{label} backward', [('tree', under(tree, bwd)),
-                                   ('other', under(other, bwd))])
+      _turns(f'{label} backward', [
+          ('tree', under(tree, bwd)), ('other', under(other, bwd)),
+          *[(f'{k} a lane', under(tree, bwd, BWD_LANE_CLASSES=k))
+            for k in (2, 4, 8)]])
 
 
 def phase_compare(spec):

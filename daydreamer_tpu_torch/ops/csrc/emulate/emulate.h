@@ -436,3 +436,6 @@ struct __nv_bfloat162 { __nv_bfloat16 x, y; };
 inline float2 __bfloat1622float2(__nv_bfloat162 v) {
   return {__bfloat162float(v.x), __bfloat162float(v.y)};
 }
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
+  return {__float2bfloat16(a), __float2bfloat16(b)};
+}

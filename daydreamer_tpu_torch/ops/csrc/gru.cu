@@ -33,19 +33,34 @@
 // passes so that each input is read once. Layout: a group of G lanes
 // takes a row (G a power of two, up to 8 warps, whose sums meet in shared
 // memory); a lane holds N vectors of VEC values of each of the three parts
-// at the same columns, so the gates need no exchange, and at most SPREAD
-// values a part. The forward: 16-byte vectors (or 1 value where D is no
-// multiple of that), the narrowest group (bfloat16 D = 256: a warp a row,
-// D = 512: 2 warps), walking rows by a stride of the grid, blocks of 256
-// threads.
+// at the same columns, so the gates need no exchange.
+//
+// The forward: its group is at least a warp (or the row's vectors, where
+// fewer), and wider where the rows x G fall short of the caller's count of
+// lanes, with the widest vector that leaves no lane of the group without
+// one: a1's 1 024 rows of 256 take a warp a row and 16-byte vectors,
+// xarm's 1 024 rows of 512 two warps, 1 and 32 rows 8 warps and one or two
+// values a vector, so that few rows run few columns a lane. A group that
+// spans warps takes a block of its own (else blocks of 256 threads, each
+// walking rows by the grid's stride). At 1 024 rows bfloat16 ran slower
+// than float32 with half the bytes: by count, its some 12 roundings a
+// column, each a conversion instruction at a quarter of a multiply's rate;
+// so bfloat16 values round in pairs, one conversion instruction for two
+// (the same bits). A lane loads its scale and bias once, before its first
+// row's x, and holds them for every row it takes (the same columns); a
+// row's deter follows the row sums, beside its use. Issued with x, before
+// the sums, deter cost 5 % at 1 024 rows of 512 float32, gained 2-7 % at 1
+// and 32 rows of float32 and nothing in bfloat16; scale and bias after the
+// sums cost 3-19 % at 1 and 32 rows.
 //
 // The backward is one launch of blocks of 256 threads. Its group is the
-// narrowest (at that width the widest vector) whose rows x G reach the
-// caller's count of lanes, so that few rows spread over more lanes: a1's
-// 1 024 rows of 256 take a warp a row and 16-byte vectors, its 32 rows 4
-// warps a row and 4-byte vectors, 1 row 8 warps. Each block takes a run of
-// steps of rows and keeps its lanes' 2 x 3 x V column sums in registers,
-// and a fixed-order tree over its groups sums them. One block writes
+// narrowest (at that width the widest vector, at most SPREAD values a part
+// a lane) whose rows x G reach the caller's count of lanes, so that few
+// rows spread over more lanes: a1's 1 024 rows of 256 take a warp a row
+// and 16-byte vectors, its 32 rows 4 warps a row and 4-byte vectors, 1 row
+// 8 warps. Each block takes a run of steps of rows and keeps its lanes'
+// 2 x 3 x V column sums in registers, and a fixed-order tree over its
+// groups sums them. One block writes
 // dscale and dbias itself; up to 16 blocks make one cluster (beside each
 // other on the card), whose ranks each sum a share of the columns over the
 // ranks in rank order through distributed shared memory; more make a
@@ -152,16 +167,61 @@ __device__ __forceinline__ void load_part(Pack<T, VEC> (&v)[N],
   }
 }
 
-// The gates of one column from the norm's rounded outputs: r, c, u and
-// 1 - u, each rounded to T.
-template <class T>
+// The P values of v (1 or 2) rounded to T, as rounded<T> rounds each:
+// bfloat16 pairs in one conversion instruction (the card issues
+// conversions at a quarter of a multiply's rate, and the forward has some
+// 12 a column).
+template <class T, int P>
+__device__ __forceinline__ void round_all(float (&v)[P]) {
+  if constexpr (sizeof(T) == 2 && P == 2) {
+    const float2 f =
+        __bfloat1622float2(__floats2bfloat162_rn(v[0], v[1]));
+    v[0] = f.x;
+    v[1] = f.y;
+  } else {
+#pragma unroll
+    for (int q = 0; q < P; ++q) v[q] = rounded<T>(v[q]);
+  }
+}
+
+// The P values of v rounded to T, stored at out.
+template <class T, int P>
+__device__ __forceinline__ void narrow_all(const float (&v)[P], T* out) {
+  if constexpr (sizeof(T) == 2 && P == 2) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[0], v[1]);
+    out[0] = h.x;
+    out[1] = h.y;
+  } else {
+#pragma unroll
+    for (int q = 0; q < P; ++q) narrow(v[q], &out[q]);
+  }
+}
+
+// The gates of P columns (1 or 2) from the norm's rounded outputs n[0..2]
+// (reset, cand, update): r, c, u and 1 - u, each rounded to T as
+// gru_cell_plain rounds it (round_all: bfloat16 pairs in one conversion).
+template <class T, int P>
 struct Gates {
-  float r, c, u, om;
-  __device__ __forceinline__ Gates(float nr, float nc, float nu) {
-    r = rounded<T>(sigmoid(nr));
-    c = rounded<T>(tanhf(rounded<T>(r * nc)));
-    u = rounded<T>(sigmoid(rounded<T>(nu - 1.f)));
-    om = rounded<T>(1.f - u);
+  float r[P], c[P], u[P], om[P];
+  __device__ __forceinline__ explicit Gates(const float (&n)[3][P]) {
+#pragma unroll
+    for (int q = 0; q < P; ++q) r[q] = sigmoid(n[0][q]);
+    round_all<T, P>(r);
+#pragma unroll
+    for (int q = 0; q < P; ++q) c[q] = r[q] * n[1][q];
+    round_all<T, P>(c);
+#pragma unroll
+    for (int q = 0; q < P; ++q) c[q] = tanhf(c[q]);
+    round_all<T, P>(c);
+#pragma unroll
+    for (int q = 0; q < P; ++q) u[q] = n[2][q] - 1.f;
+    round_all<T, P>(u);
+#pragma unroll
+    for (int q = 0; q < P; ++q) u[q] = sigmoid(u[q]);
+    round_all<T, P>(u);
+#pragma unroll
+    for (int q = 0; q < P; ++q) om[q] = 1.f - u[q];
+    round_all<T, P>(om);
   }
 };
 
@@ -176,18 +236,31 @@ __global__ void __launch_bounds__(256)
   const int sub = threadIdx.x % s.G, group = threadIdx.x / s.G;
   const int D = s.D, C3 = 3 * s.D;
   const int steps = (s.rows + s.groups - 1) / s.groups;
+  // The lane's scale and bias: the same columns in every row it takes,
+  // loaded once.
+  float sc[3][N][VEC], bi[3][N][VEC];
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int j = i * s.G + sub;
+      if (j < s.nvec) {
+        load_vec<VEC>(scale + p * D + j * VEC, sc[p][i]);
+        load_vec<VEC>(bias + p * D + j * VEC, bi[p][i]);
+      }
+    }
   // Every thread of the block runs the same steps (the lanes of a warp
   // shuffle together, the warps of a wide row meet at barriers).
   for (int st = blockIdx.x; st < steps; st += gridDim.x) {
     const int row = st * s.groups + group;
     const bool valid = row < s.rows;
-    const T* xr = x + (long)row * C3;
     Pack<T, VEC> v[3][N];
-    float sum = 0.f;
     if (valid) {
 #pragma unroll
-      for (int p = 0; p < 3; ++p) load_part<T, VEC, N>(v[p], xr + p * D, s, sub);
+      for (int p = 0; p < 3; ++p)
+        load_part<T, VEC, N>(v[p], x + (long)row * C3 + p * D, s, sub);
     }
+    float sum = 0.f;
 #pragma unroll
     for (int p = 0; p < 3; ++p)
 #pragma unroll
@@ -214,29 +287,38 @@ __global__ void __launch_bounds__(256)
     for (int i = 0; i < N; ++i) {
       const int j = i * s.G + sub;
       if (!valid || j >= s.nvec) continue;
-      const Pack<T, VEC> d =
-          *reinterpret_cast<const Pack<T, VEC>*>(deter + (long)row * D + j * VEC);
+      // deter after the sums, beside its use (see the head of the file).
+      const Pack<T, VEC> d = *reinterpret_cast<const Pack<T, VEC>*>(
+          deter + (long)row * D + j * VEC);
       Pack<T, VEC> o;
-      float sc[3][VEC], bi[3][VEC];
+      // Columns in pairs where the vector has them.
+      constexpr int P = VEC % 2 == 0 ? 2 : 1;
 #pragma unroll
-      for (int p = 0; p < 3; ++p) {
-        load_vec<VEC>(scale + p * D + j * VEC, sc[p]);
-        load_vec<VEC>(bias + p * D + j * VEC, bi[p]);
-      }
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        float n[3];
+      for (int k = 0; k < VEC; k += P) {
+        float n[3][P];
 #pragma unroll
         for (int p = 0; p < 3; ++p) {
-          const float xhat = (widen(v[p][i].v[k]) - mean) * rstd;
-          n[p] = rounded<T>(xhat * sc[p][k] + bi[p][k]);
+#pragma unroll
+          for (int q = 0; q < P; ++q) {
+            const float xhat = (widen(v[p][i].v[k + q]) - mean) * rstd;
+            n[p][q] = xhat * sc[p][i][k + q] + bi[p][i][k + q];
+          }
+          round_all<T, P>(n[p]);
         }
-        const Gates<T> g(n[0], n[1], n[2]);
+        const Gates<T, P> g(n);
         // Each product rounded on its own, then their sum: no fused
         // multiply-add, as the eager chain's separate kernels.
-        const float a = rounded<T>(__fmul_rn(g.u, g.c));
-        const float b = rounded<T>(__fmul_rn(g.om, widen(d.v[k])));
-        narrow(__fadd_rn(a, b), &o.v[k]);
+        float a[P], b[P];
+#pragma unroll
+        for (int q = 0; q < P; ++q) {
+          a[q] = __fmul_rn(g.u[q], g.c[q]);
+          b[q] = __fmul_rn(g.om[q], widen(d.v[k + q]));
+        }
+        round_all<T, P>(a);
+        round_all<T, P>(b);
+#pragma unroll
+        for (int q = 0; q < P; ++q) a[q] = __fadd_rn(a[q], b[q]);
+        narrow_all<T, P>(a, &o.v[k]);
       }
       *reinterpret_cast<Pack<T, VEC>*>(out + (long)row * D + j * VEC) = o;
     }
@@ -372,24 +454,25 @@ __global__ void __launch_bounds__(256)
       }
 #pragma unroll
       for (int k = 0; k < VEC; ++k) {
-        float xhat[3], n[3];
+        float xhat[3], n[3][1];
 #pragma unroll
         for (int p = 0; p < 3; ++p) {
           xhat[p] = (widen(v[p][i].v[k]) - mu) * rs;
-          n[p] = rounded<T>(xhat[p] * sc[p][k] + bi[p][k]);
+          n[p][0] = rounded<T>(xhat[p] * sc[p][k] + bi[p][k]);
         }
-        const Gates<T> gt(n[0], n[1], n[2]);
+        const Gates<T, 1> g1(n);
+        const float r = g1.r[0], c = g1.c[0], u = g1.u[0];
         const float g = widen(go.v[k]);
         const float g_om = rounded<T>(g * widen(d.v[k]));
-        narrow(g * gt.om, &dd.v[k]);
-        const float g_u = rounded<T>(rounded<T>(g * gt.c) - g_om);
-        const float g_c = rounded<T>(g * gt.u);
-        const float g_p = rounded<T>(g_c * (1.f - gt.c * gt.c));
-        const float g_r = rounded<T>(g_p * n[1]);
+        narrow(g * g1.om[0], &dd.v[k]);
+        const float g_u = rounded<T>(rounded<T>(g * c) - g_om);
+        const float g_c = rounded<T>(g * u);
+        const float g_p = rounded<T>(g_c * (1.f - c * c));
+        const float g_r = rounded<T>(g_p * n[1][0]);
         float dnv[3];
-        dnv[0] = rounded<T>(g_r * (1.f - gt.r) * gt.r);
-        dnv[1] = rounded<T>(g_p * gt.r);
-        dnv[2] = rounded<T>(g_u * (1.f - gt.u) * gt.u);
+        dnv[0] = rounded<T>(g_r * (1.f - r) * r);
+        dnv[1] = rounded<T>(g_p * r);
+        dnv[2] = rounded<T>(g_u * (1.f - u) * u);
 #pragma unroll
         for (int p = 0; p < 3; ++p) {
           narrow(dnv[p], &dn[p][i].v[k]);
@@ -536,45 +619,14 @@ __global__ void __launch_bounds__(256)
 // The vectors a lane may keep of a part (the kernels' N).
 constexpr int NS[] = {1, 2, 4, 8};
 
-// The geometry of rows of D values a part of T: vectors, group, groups a
-// block. Returns the vectors a lane keeps of a part (N), 0 where D is
-// wider than THREADS lanes of SPREAD values.
+// The geometry of rows of D values a part of T, vectors of `vec` values:
+// a group of lanes a row, from the narrowest (with the widest vector at
+// that width, no lane of the group without one, at most SPREAD values a
+// part a lane) to the widest, until the group is at least `least` lanes
+// (or the row's vectors, where fewer) and rows x G reach `lanes`. Returns
+// N, the vectors a lane keeps of a part (0: none fits).
 template <class T>
-int plan(int rows, int D, Shape* s, int* vec) {
-  const int wide = 16 / (int)sizeof(T);
-  *vec = D % wide == 0 ? wide : 1;
-  s->rows = rows;
-  s->D = D;
-  s->nvec = D / *vec;
-  int first = 1;
-  while (first < s->nvec && first < 32) first *= 2;
-  for (s->G = first; s->G <= THREADS; s->G *= 2) {
-    s->groups = THREADS / s->G;
-    const int need = (s->nvec + s->G - 1) / s->G;
-    for (const int n : NS)
-      if (n >= need && n * *vec <= SPREAD) return n;
-  }
-  return 0;
-}
-
-// dims: rows, D, max_blocks.
-template <class T, int VEC, int N>
-cudaError_t fwd(void* const* p, Shape s, const int* dims, float eps,
-                cudaStream_t stream) {
-  auto kernel = gru_fwd_kernel<T, VEC, N>;
-  const size_t bytes = WARPS * sizeof(float);
-  const long steps = ((long)s.rows + s.groups - 1) / s.groups;
-  const int grid = (int)std::min<long>(steps, dims[2]);
-  kernel<<<grid, THREADS, bytes, stream>>>(static_cast<const T*>(p[0]), static_cast<const T*>(p[1]), static_cast<const float*>(p[2]), static_cast<const float*>(p[3]), static_cast<T*>(p[4]), static_cast<float*>(p[5]), static_cast<float*>(p[6]), s, eps);
-  return cudaGetLastError();
-}
-
-// The backward's geometry: the narrowest group of lanes a row (and, at
-// that width, the widest vector) whose rows x G reach `lanes`, so that few
-// rows spread over more lanes; else the widest group. Returns N, the
-// vectors a lane keeps of a part (0: none fits).
-template <class T>
-int plan_bwd(int rows, int D, int lanes, Shape* s, int* vec) {
+int plan(int rows, int D, int lanes, int least, Shape* s, int* vec) {
   int best = 0;
   for (int G = 1; G <= THREADS; G *= 2) {
     int found = 0;
@@ -591,9 +643,26 @@ int plan_bwd(int rows, int D, int lanes, Shape* s, int* vec) {
       }
     }
     if (found) best = found;
-    if (found && (long)rows * G >= lanes) break;
+    if (found && G >= std::min(least, s->nvec) && (long)rows * G >= lanes)
+      break;
   }
   return best;
+}
+
+// dims: rows, D, max_blocks, lanes to spread the rows over.
+template <class T, int VEC, int N>
+cudaError_t fwd(void* const* p, Shape s, const int* dims, float eps,
+                cudaStream_t stream) {
+  auto kernel = gru_fwd_kernel<T, VEC, N>;
+  // A group that spans warps takes a block of its own, so that its
+  // barriers hold no other row back.
+  const int threads = s.G > 32 ? s.G : THREADS;
+  s.groups = threads / s.G;
+  const size_t bytes = WARPS * sizeof(float);
+  const long steps = ((long)s.rows + s.groups - 1) / s.groups;
+  const int grid = (int)std::min<long>(steps, dims[2]);
+  kernel<<<grid, threads, bytes, stream>>>(static_cast<const T*>(p[0]), static_cast<const T*>(p[1]), static_cast<const float*>(p[2]), static_cast<const float*>(p[3]), static_cast<T*>(p[4]), static_cast<float*>(p[5]), static_cast<float*>(p[6]), s, eps);
+  return cudaGetLastError();
 }
 
 // Allows `kernel` the bytes of shared memory past 48 KB and, where
@@ -674,14 +743,17 @@ cudaError_t run(bool backward, void* const* p, const int* dims, float eps,
                 cudaStream_t stream) {
   Shape s;
   int vec;
-  const int n = backward ? plan_bwd<T>(dims[0], dims[1], dims[5], &s, &vec)
-                         : plan<T>(dims[0], dims[1], &s, &vec);
+  // The backward: the narrowest group whose rows x G reach its lanes. The
+  // forward: at least a warp a row.
+  const int n = backward ? plan<T>(dims[0], dims[1], dims[5], 1, &s, &vec)
+                         : plan<T>(dims[0], dims[1], dims[3], 32, &s, &vec);
   if (n == 0 || dims[0] <= 0 || dims[2] <= 0) return cudaErrorInvalidValue;
 #define GRU_CASE(V, NN)                                                 \
-  if constexpr (V * NN <= SPREAD)                                       \
-    if (vec == V && n == NN)                                            \
+  if (vec == V && n == NN) {                                            \
+    if constexpr (V * NN <= SPREAD)                                     \
       return backward ? bwd<T, V, NN>(p, s, dims, stream)               \
-                      : fwd<T, V, NN>(p, s, dims, eps, stream);
+                      : fwd<T, V, NN>(p, s, dims, eps, stream);         \
+  }
 #define GRU_CASES(V) GRU_CASE(V, 1) GRU_CASE(V, 2) GRU_CASE(V, 4) GRU_CASE(V, 8)
   if constexpr (sizeof(T) == 2) {
     GRU_CASES(8)
@@ -697,7 +769,8 @@ cudaError_t run(bool backward, void* const* p, const int* dims, float eps,
 }  // namespace
 
 // ptrs: x [rows][3 D], deter [rows][D], scale [3 D], bias [3 D], out
-// [rows][D], mean [rows], rstd [rows]. dims: rows, D, max_blocks.
+// [rows][D], mean [rows], rstd [rows]. dims: rows, D, max_blocks, lanes to
+// spread the rows over.
 extern "C" int gru_cell_fwd(int bf16, void* const* ptrs, const int* dims,
                             float eps, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -28,24 +28,23 @@
 //
 // Bound by bytes: 8-10 bytes a bfloat16 value each way against some 30
 // operations, if every group quantity is made once.
-// Forward: a lane holds K consecutive classes (the caller's 2 or 8: 8
-// where the values fill the card, 16 bytes of bfloat16 logits and 32 of
-// the draws; 2 where few values leave it idle and a lane's chain of work
-// is the call's latency). A group of C classes spans C / K lanes (4 at
-// C = 32, K = 8, aligned in the warp) or, where C < K, a lane holds K / C
-// whole groups. The group's max, sum and first arg max are taken over the
-// lane's values in registers, in class order, then over the group's lanes
-// in log2(C / K) shuffles; the max, the sum, its log and the winner are
-// made once a lane, while the per-value arithmetic and its rounding stay
-// those of the plain version (expf, logf, the divide, `__f*_rn` where it
-// rounds). Loads and stores are vectors of up to 16 bytes; the grid is
-// bounded and walks the lanes by its stride.
-// Backward: one lane a class, a group of C lanes (C a power of two up to
-// 32, the group aligned in its warp) a group of the row, so every
-// reduction is C / 2 .. 1 shuffles within the warp and nothing goes
-// through shared memory; thread t takes the flat element t, so each warp
-// reads and writes 32 consecutive values. Every lane of a warp runs the
-// shuffles, past the last element too.
+// Both kernels share one layout: a lane holds K consecutive classes (the
+// caller's 2, 4 or 8: 8 where the values fill the card, 16 bytes of
+// bfloat16 values a load; 2 where few values leave it idle and a lane's
+// chain of work is the call's latency). A group of C classes spans C / K
+// lanes (4 at C = 32, K = 8, aligned in the warp) or, where C < K, a lane
+// holds K / C whole groups. Each group quantity is taken over the lane's
+// values in registers, in class order, then over the group's lanes in
+// log2(C / K) shuffles, and made once a lane, while the per-value
+// arithmetic and its rounding stay those of the plain version (expf, logf,
+// the divides, `__f*_rn` where it rounds). Loads and stores are vectors of
+// up to 16 bytes; the grid is bounded and walks the lanes by its stride.
+// Forward: the group's max, sum and first arg max (the log of the sum once
+// a lane).
+// Backward: with the sample, the logit's max, the sum of exp and its log,
+// and sum(dstoch * p); with the mixture, raw's max and sum of exp and
+// sum(g1 * p1): at C = 32 and K = 8 twelve shuffles for a lane's eight
+// values, where a lane a class took about thirty for its one.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,17 +86,6 @@ struct Head {
   float keep, floor_;  // 1 - unimix and unimix / C, in float32.
 };
 
-__device__ __forceinline__ float group_max(float v, int C) {
-  for (int o = C / 2; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float group_sum(float v, int C) {
-  for (int o = C / 2; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-
 // Whether (a, ia) comes first in torch.argmax's order: a NaN above any
 // number, then the larger value, then the smaller index.
 __device__ __forceinline__ bool first(float a, int ia, float b, int ib) {
@@ -105,20 +93,6 @@ __device__ __forceinline__ bool first(float a, int ia, float b, int ib) {
   if (na != nb) return na;
   if (!na && a != b) return a > b;
   return ia < ib;
-}
-
-// softmax(x) mixed with the uniform floor: (p1, p2).
-__device__ __forceinline__ void mixture(float x, const Head& h, float* p1,
-                                        float* p2) {
-  const float e = expf(x - group_max(x, h.C));
-  *p1 = e / group_sum(e, h.C);
-  *p2 = __fadd_rn(__fmul_rn(*p1, h.keep), h.floor_);
-}
-
-// log_softmax of the group's logits.
-__device__ __forceinline__ float log_softmax(float l, int C) {
-  const float z = l - group_max(l, C);
-  return z - logf(group_sum(expf(z), C));
 }
 
 // The K values of T at p as floats: vectors of up to 16 bytes where all K
@@ -280,38 +254,95 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <class T>
+template <class T, int C, int K>
 __global__ void __launch_bounds__(256)
     onehot_bwd_kernel(const T* __restrict__ x, const T* __restrict__ logit,
                       const T* __restrict__ dlogit,
                       const T* __restrict__ dstoch, T* __restrict__ dx,
                       Head h) {
-  const long t = (long)blockIdx.x * THREADS + threadIdx.x;
-  const bool valid = t < h.n;
-  float g = valid ? widen(dlogit[t]) : 0.f;
-  if (h.sample) {
-    const float p = expf(log_softmax(valid ? widen(logit[t]) : 0.f, h.C));
-    const float gl = (valid ? widen(dstoch[t]) : 0.f) * p;
-    g = rounded<T>(rounded<T>(gl - p * group_sum(gl, h.C)) + g);
+  constexpr int L = C < K ? C : K;  // A lane's classes of one group.
+  constexpr int G = C / L;          // Lanes of a group.
+  const long steps = ((h.n + K - 1) / K + THREADS - 1) / THREADS;
+  // Every thread of the block runs the same steps: the lanes of a group
+  // shuffle together.
+  for (long st = blockIdx.x; st < steps; st += gridDim.x) {
+    const long base = (st * THREADS + threadIdx.x) * K;
+    const long left = h.n - base;
+    // All of the lane's loads in flight before its first sum.
+    float g[K], l[K], ds[K], r[K];
+    load_k<K>(dlogit + base, left, 0.f, g);
+    if (h.sample) {
+      load_k<K>(logit + base, left, 0.f, l);
+      load_k<K>(dstoch + base, left, 0.f, ds);
+    }
+    if (h.unimix) load_k<K>(x + base, left, 0.f, r);
+#pragma unroll
+    for (int s = 0; s < K; s += L) {
+      if (h.sample) {
+        // The straight-through path: p = exp(log_softmax(logit)), then
+        // log_softmax's backward and the cast.
+        const float m = segment_max<L, G>(l + s);
+        float z[L], sum = 0.f;
+#pragma unroll
+        for (int k = 0; k < L; ++k) {
+          z[k] = l[s + k] - m;
+          sum += expf(z[k]);
+        }
+        const float lse = logf(lanes_sum<G>(sum));
+        float p[L], gl[L], dot = 0.f;
+#pragma unroll
+        for (int k = 0; k < L; ++k) {
+          p[k] = expf(z[k] - lse);
+          gl[k] = ds[s + k] * p[k];
+          dot += gl[k];
+        }
+        dot = lanes_sum<G>(dot);
+#pragma unroll
+        for (int k = 0; k < L; ++k)
+          g[s + k] = rounded<T>(rounded<T>(gl[k] - p[k] * dot) + g[s + k]);
+      }
+      if (h.unimix) {
+        // softmax(x) mixed with the uniform floor (p1, p2), then the log's,
+        // the mixture's and the softmax's backward.
+        const float m = segment_max<L, G>(r + s);
+        float e[L], sum = 0.f;
+#pragma unroll
+        for (int k = 0; k < L; ++k) {
+          e[k] = expf(r[s + k] - m);
+          sum += e[k];
+        }
+        sum = lanes_sum<G>(sum);
+        float g1[L], dot = 0.f;
+#pragma unroll
+        for (int k = 0; k < L; ++k) {
+          e[k] = e[k] / sum;  // p1.
+          const float p2 = __fadd_rn(__fmul_rn(e[k], h.keep), h.floor_);
+          g1[k] = __fmul_rn(g[s + k] / p2, h.keep);
+          dot += g1[k] * e[k];
+        }
+        dot = lanes_sum<G>(dot);
+#pragma unroll
+        for (int k = 0; k < L; ++k) g[s + k] = e[k] * (g1[k] - dot);
+      }
+    }
+    if (left > 0) store_k<K>(dx + base, left, g);
   }
-  if (h.unimix) {
-    float p1, p2;
-    mixture(valid ? widen(x[t]) : 0.f, h, &p1, &p2);
-    const float g1 = __fmul_rn(g / p2, h.keep);
-    g = p1 * (g1 - group_sum(g1 * p1, h.C));
-  }
-  if (valid) narrow(g, &dx[t]);
 }
 
 template <class T, int K>
-cudaError_t fwd(void* const* p, const Head& h, int max_blocks,
-                cudaStream_t stream) {
+cudaError_t run_k(bool backward, void* const* p, const Head& h,
+                  int max_blocks, cudaStream_t stream) {
   const long steps = ((h.n + K - 1) / K + THREADS - 1) / THREADS;
   const int grid = (int)std::min<long>(steps, max_blocks);
 #define ONEHOT_CASE(CC)                                                  \
   if (h.C == CC) {                                                       \
-    auto kernel = onehot_fwd_kernel<T, CC, K>;                           \
-    kernel<<<grid, THREADS, 0, stream>>>(static_cast<const T*>(p[0]), static_cast<const float*>(p[1]), static_cast<T*>(p[2]), static_cast<T*>(p[3]), h); \
+    if (backward) {                                                      \
+      auto kernel = onehot_bwd_kernel<T, CC, K>;                         \
+      kernel<<<grid, THREADS, 0, stream>>>(static_cast<const T*>(p[0]), static_cast<const T*>(p[1]), static_cast<const T*>(p[2]), static_cast<const T*>(p[3]), static_cast<T*>(p[4]), h); \
+    } else {                                                             \
+      auto kernel = onehot_fwd_kernel<T, CC, K>;                         \
+      kernel<<<grid, THREADS, 0, stream>>>(static_cast<const T*>(p[0]), static_cast<const float*>(p[1]), static_cast<T*>(p[2]), static_cast<T*>(p[3]), h); \
+    }                                                                    \
     return cudaGetLastError();                                           \
   }
   ONEHOT_CASE(2) ONEHOT_CASE(4) ONEHOT_CASE(8) ONEHOT_CASE(16) ONEHOT_CASE(32)
@@ -322,22 +353,17 @@ cudaError_t fwd(void* const* p, const Head& h, int max_blocks,
 template <class T>
 cudaError_t run(bool backward, void* const* p, Head h, const int* dims,
                 cudaStream_t stream) {
-  if (backward) {
-    const int grid = (int)((h.n + THREADS - 1) / THREADS);
-    auto kernel = onehot_bwd_kernel<T>;
-    kernel<<<grid, THREADS, 0, stream>>>(static_cast<const T*>(p[0]), static_cast<const T*>(p[1]), static_cast<const T*>(p[2]), static_cast<const T*>(p[3]), static_cast<T*>(p[4]), h);
-    return cudaGetLastError();
-  }
   switch (dims[5]) {
-    case 2: return fwd<T, 2>(p, h, dims[4], stream);
-    case 8: return fwd<T, 8>(p, h, dims[4], stream);
+    case 2: return run_k<T, 2>(backward, p, h, dims[4], stream);
+    case 4: return run_k<T, 4>(backward, p, h, dims[4], stream);
+    case 8: return run_k<T, 8>(backward, p, h, dims[4], stream);
   }
   return cudaErrorInvalidValue;
 }
 
-// dims: elements, classes, unimix (0 or 1), sample (0 or 1); the forward
-// also its blocks at most and its classes a lane (2 or 8); scalars:
-// keep, floor. Classes a power of two from 2 to 32.
+// dims: elements, classes, unimix (0 or 1), sample (0 or 1), blocks at
+// most, classes a lane (2, 4 or 8); scalars: keep, floor. Classes a power
+// of two from 2 to 32.
 cudaError_t launch(int bf16, bool backward, void* const* ptrs,
                    const int* dims, float keep, float floor_,
                    cudaStream_t stream) {
@@ -349,7 +375,7 @@ cudaError_t launch(int bf16, bool backward, void* const* ptrs,
   h.keep = keep;
   h.floor_ = floor_;
   if (h.n <= 0 || h.C < 2 || h.C > 32 || (h.C & (h.C - 1)) || h.n % h.C ||
-      (!backward && dims[4] <= 0))
+      dims[4] <= 0)
     return cudaErrorInvalidValue;
   return bf16 ? run<__nv_bfloat16>(backward, ptrs, h, dims, stream)
               : run<float>(backward, ptrs, h, dims, stream);
@@ -365,7 +391,8 @@ extern "C" int onehot_head_fwd(int bf16, void* const* ptrs, const int* dims,
                 static_cast<cudaStream_t>(stream));
 }
 
-// ptrs: x, logit, dlogit, dstoch (unread without the sample), dx.
+// ptrs: x (unread without the mixture), logit and dstoch (unread without
+// the sample), dlogit, dx, as the forward's.
 extern "C" int onehot_head_bwd(int bf16, void* const* ptrs, const int* dims,
                                float keep, float floor_, void* stream) {
   return launch(bf16, true, ptrs, dims, keep, floor_,

@@ -530,12 +530,13 @@ ADAM_CASES = (
 
 
 def compare_gru(dtype, D, rows, fwd_blocks=None, cluster=None, blocks=None,
-                lanes=None, seed=0):
+                lanes=None, fwd_lanes=None, seed=0):
   """The emulated `gru_cell_fwd` and `gru_cell_bwd` against the plain
   version and its autograd (call inside `emulated`); `fwd_blocks` caps the
-  forward's grid, so that a block takes several steps of rows; `cluster`,
-  `blocks` and `lanes` set the backward's cluster, its blocks at most and
-  the lanes it spreads the rows over. The backward runs twice. Returns
+  forward's grid, so that a block takes several steps of rows, and
+  `fwd_lanes` sets the lanes it spreads the rows over; `cluster`, `blocks`
+  and `lanes` set the backward's cluster, its blocks at most and the lanes
+  it spreads the rows over. The backward runs twice. Returns
   (the largest error of the new deter relative to max(|deter|, 1), the
   largest scaled error of dx, ddeter, dscale and dbias, whether the two
   backward runs gave the same bits and left the counters at zero)."""
@@ -545,9 +546,10 @@ def compare_gru(dtype, D, rows, fwd_blocks=None, cluster=None, blocks=None,
   x = (2 * t(rows, 3 * D) + 0.5).to(dtype)
   deter = torch.tanh(t(rows, D)).to(dtype)
   scale, bias, dout = 1 + 0.2 * t(3 * D), 0.3 * t(3 * D), t(rows, D).to(dtype)
-  names = ('FWD_BLOCKS', 'CLUSTER', 'BWD_BLOCKS', 'BWD_LANES')
+  names = ('FWD_BLOCKS', 'CLUSTER', 'BWD_BLOCKS', 'BWD_LANES', 'FWD_LANES')
   saved = [getattr(gru, name) for name in names]
-  for name, value in zip(names, (fwd_blocks, cluster, blocks, lanes)):
+  for name, value in zip(names, (fwd_blocks, cluster, blocks, lanes,
+                                 fwd_lanes)):
     if value is not None:
       setattr(gru, name, value)
   try:
@@ -570,12 +572,13 @@ def compare_gru(dtype, D, rows, fwd_blocks=None, cluster=None, blocks=None,
   return fwd, bwd, same
 
 
-def compare_onehot(dtype, rows, S, C, unimix, sample, fwd_blocks=None,
-                   lane_classes=None, seed=0):
+def compare_onehot(dtype, rows, S, C, unimix, sample, blocks=None,
+                   lane_classes=None, bwd_lane_classes=None, seed=0):
   """The emulated `onehot_head_fwd` and `onehot_head_bwd` against the plain
-  version and its autograd (call inside `emulated`); `fwd_blocks` caps the
-  forward's grid, so that a block walks several steps, `lane_classes` sets
-  the classes a lane of the forward holds. Returns (the
+  version and its autograd (call inside `emulated`); `blocks` caps both
+  grids, so that a block walks several steps, `lane_classes` sets the
+  classes a lane holds, in the backward `bwd_lane_classes` where given.
+  Returns (the
   largest error of the logit relative to max(|logit|, 1), the groups whose
   choice differs and whether each of them is a tie, the largest error of
   stoch on the other groups, the scaled error of raw's gradient)."""
@@ -586,15 +589,18 @@ def compare_onehot(dtype, rows, S, C, unimix, sample, fwd_blocks=None,
   u = torch.as_tensor(rng.uniform(size=(rows, S, C)).astype(np.float32)) if (
       sample) else None
   dlogit, dstoch = t(rows, S, C).to(dtype), t(rows, S, C).to(dtype)
-  saved = onehot.FWD_BLOCKS, onehot.LANE_CLASSES
-  onehot.FWD_BLOCKS = fwd_blocks or saved[0]
-  onehot.LANE_CLASSES = lane_classes
+  names = ('BLOCKS', 'LANE_CLASSES', 'BWD_LANE_CLASSES')
+  saved = [getattr(onehot, name) for name in names]
+  for name, value in zip(names, (blocks or saved[0], lane_classes,
+                                 bwd_lane_classes or lane_classes)):
+    setattr(onehot, name, value)
   try:
     logit, stoch = onehot.onehot_head_fwd_cuda(raw, u, unimix)
+    draw = onehot.onehot_head_bwd_cuda(raw, logit, dlogit, dstoch, unimix,
+                                       sample)
   finally:
-    onehot.FWD_BLOCKS, onehot.LANE_CLASSES = saved
-  draw = onehot.onehot_head_bwd_cuda(raw, logit, dlogit, dstoch, unimix,
-                                     sample)
+    for name, value in zip(names, saved):
+      setattr(onehot, name, value)
   leaf = raw.clone().requires_grad_()
   ref_logit, ref_stoch = onehot.onehot_head_plain(leaf, u, unimix)
   outs = [(ref_logit, dlogit)] + ([(ref_stoch, dstoch)] if sample else [])
@@ -626,54 +632,90 @@ def _choices(stoch, ref, logit, u, rel=1e-5):
   return int(differ.sum()), ties
 
 
-# gru. The forward: bfloat16 at D = 24 (three 16-byte vectors a part:
-# groups of 4 lanes, 64 rows a step) on 150 rows (no multiple of 64) with
-# its grid capped at 2 blocks, so that it walks its steps by the grid's
-# stride; float32 at D = 130, no multiple of a vector (a value a lane, 8 of
-# them, a warp a row); bfloat16 at xarm's D = 512 (2 warps a row, their
-# sums through shared memory) on 9 rows. The backward (blocks of 256
-# threads) of the same cases: the first with the narrowest group (lanes
-# 1: 16-byte vectors, 4 lanes a row, 64 rows a step, a tree of 6 levels)
-# in a cooperative grid of 3 blocks (past a cluster of 2), their rows of
-# partial sums summed after the grid's barrier; the second with 4-byte
-# vectors (4 a lane, the last of them past the row) and a warp a row, 5
-# steps of 8 rows in one cluster of 2 blocks (runs of 3 and 2 steps); the
-# third spread over the widest group (8 warps a row, 4-byte vectors), a
-# block a row, 9 blocks in a cluster of 16, 7 of them without a step. Then
-# a1's observe step (bfloat16, D = 256, 32 rows: 128 lanes a row, 2 rows a
-# block, one cluster of 16) and its policy step (1 row: one block of 8
-# warps); D = 64 on 300 rows (16 lanes a row, 8-byte vectors) in a
-# cooperative grid of 19 blocks; float32 at D = 512 on 40 rows (128 lanes a
-# row) in one cluster of 4 blocks taking runs of 5 steps; float32 at D =
-# 130 in a cooperative grid of 4 blocks taking runs of 2, 2, 1 and no
-# steps. Each as (dtype, D, rows, fwd_blocks, cluster, blocks, lanes).
+# gru. The forward (a group of at least a warp a row, or of the row's
+# vectors where fewer, wider where the rows take fewer than FWD_LANES
+# lanes; blocks of 256 threads, or of the group where it spans warps):
+# bfloat16 at D = 24 with FWD_LANES 1 (three 16-byte vectors a part: groups
+# of 4 lanes, 64 rows a step) on 150 rows (no multiple of 64) with its grid
+# capped at 2 blocks, so that it walks its steps by the grid's stride;
+# float32 at D = 130, no multiple of a 16-byte vector
+# (130 single values: 8 warps a row, 126 lanes without a value); bfloat16
+# at xarm's D = 512 on 9 rows (8 warps a row, 4-byte vectors). The backward
+# (blocks of 256 threads) of the same cases: the first with the narrowest
+# group (lanes 1: 16-byte vectors, 4 lanes a row, 64 rows a step, a tree of
+# 6 levels) in a cooperative grid of 3 blocks (past a cluster of 2), their
+# rows of partial sums summed after the grid's barrier; the second with
+# 4-byte vectors (4 a lane, the last of them past the row) and a warp a
+# row, 5 steps of 8 rows in one cluster of 2 blocks (runs of 3 and 2
+# steps); the third spread over the widest group (8 warps a row, 4-byte
+# vectors), a block a row, 9 blocks in a cluster of 16, 7 of them without
+# a step. Then a1's observe step (bfloat16, D = 256, 32 rows: 8 warps a row
+# and single values forward, 128 lanes a row and 4-byte vectors backward,
+# one cluster of 16) and its policy step (1 row: one block of 8 warps both
+# ways); D = 64 on 300 rows (a warp a row and 4-byte vectors forward, 16
+# lanes and 8-byte vectors backward) in a cooperative grid of 19 blocks;
+# float32 at D = 512 on 40 rows (8 warps a row forward, 128 lanes backward)
+# in one cluster of 4 blocks taking runs of 5 steps; float32 at D = 130 in a
+# cooperative grid of 4 blocks taking runs of 2, 2, 1 and no steps. Then
+# the forward's own: bfloat16 D = 512 at 2 warps a row (FWD_LANES 1: a
+# 16-byte vector a part a lane, a block of 64 threads a row) on 40 rows in
+# one block, which walks 40 steps holding its scale and bias; float32 D =
+# 512 at 2 warps a row (2 vectors of 4 a part) on 20 rows in 2 blocks of
+# 10 steps; bfloat16 D = 256 a warp a row on 100 rows in one block, 13
+# steps of 8 rows; the wide groups of few rows: float32 at 32
+# x 256 (8 warps, single values), bfloat16 at 32 x 512 (8 warps, 4-byte
+# vectors), float32 at 1 x 512 (8 warps, 8-byte vectors); last, bfloat16
+# at D = 45, no vector at all (single values, 2 warps a row, wider groups
+# leaving lanes without one). Each as (dtype, D, rows, fwd_blocks,
+# cluster, blocks, lanes, fwd_lanes).
 GRU_CASES = (
-    (torch.bfloat16, 24, 150, 2, 2, 3, 1),
-    (torch.float32, 130, 37, None, 2, 2, 1),
-    (torch.bfloat16, 512, 9, None, None, None, None),
-    (torch.bfloat16, 256, 32, None, None, None, None),
-    (torch.bfloat16, 256, 1, None, None, None, None),
-    (torch.bfloat16, 64, 300, None, 4, 20, None),
-    (torch.float32, 512, 40, None, 4, 4, None),
-    (torch.float32, 130, 37, None, 1, 4, 1),
+    (torch.bfloat16, 24, 150, 2, 2, 3, 1, 1),
+    (torch.float32, 130, 37, None, 2, 2, 1, None),
+    (torch.bfloat16, 512, 9, None, None, None, None, None),
+    (torch.bfloat16, 256, 32, None, None, None, None, None),
+    (torch.bfloat16, 256, 1, None, None, None, None, None),
+    (torch.bfloat16, 64, 300, None, 4, 20, None, None),
+    (torch.float32, 512, 40, None, 4, 4, None, None),
+    (torch.float32, 130, 37, None, 1, 4, 1, None),
+    (torch.bfloat16, 512, 40, 1, None, None, None, 1),
+    (torch.float32, 512, 20, 2, None, None, None, 1),
+    (torch.bfloat16, 256, 100, 1, None, None, None, 1),
+    (torch.float32, 256, 32, None, None, None, None, None),
+    (torch.bfloat16, 512, 32, None, None, None, None, None),
+    (torch.float32, 512, 1, None, None, None, None, None),
+    (torch.bfloat16, 45, 7, None, None, None, None, None),
 )
-# onehot. 8 classes a lane of the forward: bfloat16 with 32 classes (4
-# lanes a group) and unimix 0.01, sampled, on 5 rows of 3 groups (480
-# values: 60 lanes, the block partly empty); float32 with 8 classes (a lane
-# a group, two 16-byte loads) and no mixture, sampled, on 7 rows of 5
-# groups; bfloat16 with 4 classes (2 groups a lane) and unimix 0.01, the
-# mode, on 3 rows of 4 groups; float32 with 2 classes and unimix, sampled,
-# on 3 rows of 3 groups (18 values: the last lane holds 2 of its 8, loaded
-# and stored one by one); bfloat16 with 16 classes (2 lanes a group),
-# sampled, on 33 rows of 8 groups (528 lanes) with the grid capped at 2
-# blocks, so that the first walks a third step. By size (2 classes a lane
-# below WIDE_FROM values): a1's `initial()` mode at its observe step,
-# bfloat16, 32 rows of 32 x 32 (16 lanes a group). 2 classes a lane:
-# float32, 32 classes (an 8-byte load), sampled, on 5 rows of 3 groups;
-# bfloat16 with 2 classes (a lane a group), sampled, on 3 rows of 3
-# groups; bfloat16 with 32 classes, sampled, on 7 rows of 3 groups. The backward is the same kernel in every
-# case. Each as (dtype, rows, S, C, unimix, sample, fwd_blocks,
-# lane_classes).
+# onehot: both kernels hold the same classes a lane unless the case names
+# the backward's. 8 classes a lane: bfloat16 with 32 classes (4 lanes a
+# group) and unimix 0.01, sampled, on 5 rows of 3 groups (480 values: 60
+# lanes, the block partly empty); float32 with 8 classes (a lane a group,
+# two 16-byte loads) and no mixture, sampled, on 7 rows of 5 groups;
+# bfloat16 with 4 classes (2 groups a lane) and unimix 0.01, the mode, on 3
+# rows of 4 groups; float32 with 2 classes and unimix, sampled, on 3 rows
+# of 3 groups (18 values: the last lane holds 2 of its 8, loaded and stored
+# one by one); bfloat16 with 16 classes (2 lanes a group), sampled, on 33
+# rows of 8 groups (528 lanes) with the grids capped at 2 blocks, so that
+# the first walks a third step. By size (2 classes a lane below WIDE_FROM
+# values): a1's `initial()` mode at its observe step, bfloat16, 32 rows of
+# 32 x 32 (16 lanes a group). 2 classes a lane: float32, 32 classes (an
+# 8-byte load), sampled, on 5 rows of 3 groups; bfloat16 with 2 classes (a
+# lane a group), sampled, on 3 rows of 3 groups; bfloat16 with 32 classes,
+# sampled, on 7 rows of 3 groups; float32 with 4 classes, the mode without
+# the mixture (the backward hands the logit's gradient on); bfloat16 with 8
+# classes and unimix, the mode, on 17 rows of 5 groups (340 lanes) in one
+# block, which walks 2 steps. Then float32 with 4 classes at 8 a lane,
+# sampled, on 3 rows of 5 groups (60 values: the last lane holds one group
+# of its two); float32 with 32 classes and no mixture, sampled, the forward
+# at 8 a lane and the backward at 2; 4 classes a lane: bfloat16 with 2
+# classes, sampled (18 values: the last lane holds 2 of its 4), and with 32
+# classes (8 lanes a group), sampled, on 9 rows of 4 groups (288 lanes) in
+# one block; float32 with 8 classes at 8 a lane, sampled, on 40 rows of 8
+# groups (320 lanes) in one block. Last, float32 as the card runs it from
+# WIDE_FROM values (the forward at 8 a lane, the backward at 4, a 16-byte
+# load): 32 classes (8 lanes a group), sampled, on 9 rows of 4 groups (288
+# lanes) in one block, and 2 classes, sampled, on 3 rows of 3 groups (18
+# values: the last lane holds 2 of its 4). Each as (dtype, rows, S, C, unimix,
+# sample, blocks, lane_classes[, bwd_lane_classes]).
 ONEHOT_CASES = (
     (torch.bfloat16, 5, 3, 32, 0.01, True, None, 8),
     (torch.float32, 7, 5, 8, 0.0, True, None, 8),
@@ -684,6 +726,15 @@ ONEHOT_CASES = (
     (torch.float32, 5, 3, 32, 0.01, True, None, 2),
     (torch.bfloat16, 3, 3, 2, 0.01, True, None, 2),
     (torch.bfloat16, 7, 3, 32, 0.01, True, None, 2),
+    (torch.float32, 5, 3, 4, 0.0, False, None, 2),
+    (torch.bfloat16, 17, 5, 8, 0.01, False, 1, 2),
+    (torch.float32, 3, 5, 4, 0.01, True, None, 8),
+    (torch.float32, 5, 3, 32, 0.0, True, None, 8, 2),
+    (torch.bfloat16, 3, 3, 2, 0.01, True, None, 4),
+    (torch.bfloat16, 9, 4, 32, 0.01, True, 1, 4),
+    (torch.float32, 40, 8, 8, 0.01, True, 1, 8),
+    (torch.float32, 9, 4, 32, 0.01, True, 1, 8, 4),
+    (torch.float32, 3, 3, 2, 0.01, True, None, 8, 4),
 )
 
 
@@ -747,8 +798,8 @@ def run_case(name):
         2 ** -7, (2 ** -6, 2 ** -7, 1e-2, 1e-2))
     good = (fwd_err <= limits[0] and same
             and all(e <= lim for e, lim in zip(bwd_errs, limits[1])))
-    print(f'{name} {dtype} D, rows, fwd_blocks, cluster, blocks, lanes '
-          f'{case}: forward '
+    print(f'{name} {dtype} D, rows, fwd_blocks, cluster, blocks, lanes, '
+          f'fwd_lanes {case}: forward '
           f'error {fwd_err:.3g} (tolerance {limits[0]:g} of max(|y|, 1)), '
           f'scaled backward errors dx, ddeter, dscale, dbias '
           f'{", ".join(f"{e:.3g}" for e in bwd_errs)} (tolerances '
@@ -768,8 +819,8 @@ def run_case(name):
         2 ** -7, 2 ** -8, 2e-2)
     good = (logit_err <= limits[0] and ties and stoch_err <= limits[1]
             and grad_err <= limits[2])
-    print(f'{name} {dtype} rows, S, C, unimix, sample, fwd_blocks, '
-          f'lane_classes {case}: '
+    print(f'{name} {dtype} rows, S, C, unimix, sample, blocks, '
+          f'lane_classes[, bwd_lane_classes] {case}: '
           f'logit error '
           f'{logit_err:.3g} (tolerance {limits[0]:g} of max(|logit|, 1)), '
           f'{flips} groups choose another class, all ties {ties}, stoch '

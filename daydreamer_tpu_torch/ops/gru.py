@@ -12,7 +12,8 @@ u = sigmoid(update - 1), rounding after each op as the eager chain does.
 Without a norm (scale None, `norm: none`) the gates read x itself.
 
 - On a CUDA tensor it launches `csrc/gru.cu`: `gru_cell_fwd` (the new deter,
-  and each row's float32 mean and rstd) and, under autograd,
+  and each row's float32 mean and rstd; few rows spread over wider groups
+  of lanes, `FWD_LANES`) and, under autograd,
   `gru_cell_bwd`: the gates' gradients rounded as autograd of the plain
   version rounds them, then the LayerNorm backward in float32, in one
   launch, with dscale and dbias summed over rows in a fixed order (a tree
@@ -36,8 +37,12 @@ from ..nn import cost
 EPS = norm.EPS
 # The widest deter the kernel takes: 256 lanes a row of 8 values a part.
 MAX_D = 2048
-# Blocks of the forward's launch at most: its walk over rows.
+# The forward: at most FWD_BLOCKS blocks walking the rows; a group of at
+# least a warp a row, wider where the rows take fewer than FWD_LANES lanes
+# (1 and 32 rows take 8 warps a row, 1 024 rows of 256 a warp, of 512 two
+# warps).
 FWD_BLOCKS = 1056
+FWD_LANES = 8192
 # The backward: blocks of 256 threads, a group of lanes a row wide enough
 # that the rows take BWD_LANES lanes where they can (32 rows of 256 take
 # 128 lanes a row, 1 024 rows a warp a row). Up to CLUSTER blocks (16 is
@@ -105,7 +110,7 @@ def gru_cell_fwd_cuda(x, deter, scale, bias):
   rstd = torch.empty(rows, dtype=torch.float32, device=x.device)
   build.launch(GRU_CELL_FWD, 'gru_cell_fwd', x.dtype,
                [x, deter, scale, bias, out, mean, rstd],
-               [rows, D, FWD_BLOCKS], [EPS], x.device)
+               [rows, D, FWD_BLOCKS, FWD_LANES], [EPS], x.device)
   return out, mean, rstd
 
 

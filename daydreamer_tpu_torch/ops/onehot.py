@@ -13,13 +13,14 @@ drawn where the eager chain drew its Gumbel noise), the Gumbel-max sample
 of `OneHotDist(logit)` with its straight-through gradient; with `u` None,
 the mode, which has no gradient.
 
-- On a CUDA tensor it launches `csrc/onehot.cu`: `onehot_head_fwd`
-  (`lane_classes` classes a lane, a grid of at most `FWD_BLOCKS` blocks
-  walking the values) and, under autograd, `onehot_head_bwd`, whose
-  gradient of the raw logits runs through the straight-through
-  probabilities, the cast, the log, the mixture and the softmax, rounded
-  as autograd of the plain version rounds it. Classes must be a power of
-  two from 2 to 32 (a group within a warp); other counts raise.
+- On a CUDA tensor it launches `csrc/onehot.cu`: `onehot_head_fwd` and,
+  under autograd, `onehot_head_bwd`, whose gradient of the raw logits runs
+  through the straight-through probabilities, the cast, the log, the
+  mixture and the softmax, rounded as autograd of the plain version rounds
+  it. Each holds several classes a lane (`lane_classes`,
+  `bwd_lane_classes`), on a grid of at most `BLOCKS` blocks walking the
+  values. Classes must be a power of two from 2 to 32 (a group within a
+  warp); other counts raise.
 - On a CPU tensor it runs `onehot_head_plain`, the function in PyTorch ops
   (the RSSM's and `OneHotDist`'s code before the kernel), and
   differentiates it by autograd.
@@ -34,16 +35,19 @@ from . import norm
 from ..nn import cost
 from ..nn import dists
 
-# Blocks of the forward's launch at most: its walk over the values (1 024
-# x 32 x 32 values take 512 blocks of 256 lanes of 8 classes).
-FWD_BLOCKS = 1056
-# Classes a lane of the forward holds: 8 from WIDE_FROM values on, where
-# the card is full and a lane's 16-byte loads and fewer shuffles pay, else
-# 2, where few values leave the card idle and a lane's chain of work is the
-# call's latency (measured at 32 768 and 1 048 576 values). LANE_CLASSES,
-# where set (2 or 8), takes its place.
+# Blocks of a launch at most, forward and backward: its walk over the
+# values (1 024 x 32 x 32 values take 512 blocks of 256 lanes of 8
+# classes).
+BLOCKS = 1056
+# Classes a lane holds from WIDE_FROM values on, where the card is full and
+# a lane's 16-byte loads and fewer shuffles pay: 8 forward, and backward
+# a 16-byte load of the type (8 bfloat16, 4 float32 values); else 2, where
+# few values leave the card idle and a lane's chain of work is the call's
+# latency (measured at 32 768 and 1 048 576 values). LANE_CLASSES and
+# BWD_LANE_CLASSES, where set (2, 4 or 8), take the forward's and the
+# backward's place.
 WIDE_FROM = 1 << 18
-LANE_CLASSES = None
+LANE_CLASSES = BWD_LANE_CLASSES = None
 
 ONEHOT_HEAD_FWD = build.register(build.Kernel(
     'onehot_head_fwd', 'onehot.cu',
@@ -110,6 +114,13 @@ def lane_classes(n):
   return 8 if n >= WIDE_FROM else 2
 
 
+def bwd_lane_classes(n, dtype):
+  """Classes a lane of the backward holds for n values of dtype."""
+  if BWD_LANE_CLASSES is not None:
+    return BWD_LANE_CLASSES
+  return 16 // cost.itemsize(dtype) if n >= WIDE_FROM else 2
+
+
 def onehot_head_fwd_cuda(raw, u, unimix):
   """logit, stoch from one launch of `onehot_head_fwd`; raw on a card, u
   float32 of raw's shape or None (the mode)."""
@@ -126,7 +137,7 @@ def onehot_head_fwd_cuda(raw, u, unimix):
   logit, stoch = torch.empty_like(raw), torch.empty_like(raw)
   build.launch(ONEHOT_HEAD_FWD, name, raw.dtype, [raw, u, logit, stoch],
                [raw.numel(), C, int(bool(unimix)), int(u is not None),
-                FWD_BLOCKS, lane_classes(raw.numel())], _scalars(C, unimix),
+                BLOCKS, lane_classes(raw.numel())], _scalars(C, unimix),
                raw.device)
   return logit, stoch
 
@@ -137,19 +148,20 @@ def onehot_head_bwd_cuda(raw, logit, dlogit, dstoch, unimix, sample):
   of stoch."""
   name = 'onehot_head_bwd'
   C = _check(name, raw)
-  raw, logit = raw.contiguous(), logit.contiguous()
-  dlogit = dlogit.to(raw.dtype).contiguous()
+  raw, logit = norm._aligned(raw), norm._aligned(logit)
+  dlogit = norm._aligned(dlogit.to(raw.dtype))
   tensors = [('raw', raw), ('logit', logit), ('dlogit', dlogit)]
   if sample:
-    dstoch = dstoch.to(raw.dtype).contiguous()
+    dstoch = norm._aligned(dstoch.to(raw.dtype))
     tensors.append(('dstoch', dstoch))
   else:
     dstoch = None
-  build.check(name, tensors, raw.device, raw.dtype, align=4)
+  build.check(name, tensors, raw.device, raw.dtype)
   draw = torch.empty_like(raw)
   build.launch(ONEHOT_HEAD_BWD, name, raw.dtype,
                [raw, logit, dlogit, dstoch, draw],
-               [raw.numel(), C, int(bool(unimix)), int(sample)],
+               [raw.numel(), C, int(bool(unimix)), int(sample), BLOCKS,
+                bwd_lane_classes(raw.numel(), raw.dtype)],
                _scalars(C, unimix), raw.device)
   return draw
 
@@ -161,8 +173,12 @@ def onehot_head_work(rows, S, C, dtype, unimix, sample, backward=False):
   value, 8 more with the mixture and 8 with the noise. Backward: logit
   and stoch's gradient (with the sample), raw (with the mixture) and
   logit's gradient in, raw's gradient out; about 8 operations a value
-  for either path. No product is done (`cost.CostMode` counts products
-  only, so the wrappers count no FLOPs)."""
+  for either path, as the plain version's arithmetic counts them, where
+  the kernel issues, by count, some 30 instructions a value for the sample
+  and 40 for the mixture (full-precision exp and divides, the roundings),
+  and its group sums about 2 more a value at 8 classes a lane (about 60
+  when a lane held one class). No product is done (`cost.CostMode` counts
+  products only, so the wrappers count no FLOPs)."""
   item, n = cost.itemsize(dtype), rows * S * C
   unimix, sample = bool(unimix), bool(sample)
   if backward:

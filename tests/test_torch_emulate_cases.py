@@ -22,11 +22,11 @@ from daydreamer_tpu_torch.ops import emulate
 
 # Seconds a case may take. With this file run alone on an 8-core machine
 # the longest case took 13 s and the build 7 s; the margin covers a machine
-# crowded by the other workers of the test run. The seventeen cases of
-# `gru.cu` and `onehot.cu` (`gru0`-`gru7`, `onehot0`-`onehot8`; the
-# largest, the backward's cooperative grid of 19 blocks, 4 864 fibers side
-# by side) took 4.9-5.2 s each so, most of it the process's start, and the
-# build of all nine sources 13.4 s.
+# crowded by the other workers of the test run. The thirty-three cases of
+# `gru.cu` and `onehot.cu` (`gru0`-`gru14`, `onehot0`-`onehot17`; the
+# largest, the GRU backward's cooperative grid of 19 blocks, 4 864 fibers
+# side by side) took 3.0-4.7 s each so, most of it the process's start,
+# and the build of all nine sources about 20 s beside three other workers.
 BUILD_LIMIT = 600
 CASE_LIMIT = 300
 
