@@ -188,7 +188,13 @@ Phases, each of which must pass:
                passes `--torch.graphs False`: its ranks share the card
                over gloo, which a graph cannot capture. Every update
                launches the four kernels of phase 15 as well: each must be
-               counted in both arms, as often in each.
+               counted in both arms, as often in each. Then two a1 updates
+               the same way (uniform ring) at widths past those kernels'
+               first layouts (GRAPHS_WIDTHS): `--rssm.classes 48
+               --rssm.norm none`, and `--rssm.deter 4096 --rssm.classes 64
+               --reward_head.units 4100`; the eager arm must hand the
+               kernels those widths (no norm, D 4 096, 48 or 64 classes,
+               rows of 4 100) and neither arm may call a plain version.
  15. fused   - the kernels that stand for XLA's fusions on the update
                (ops/norm.py, ops/adam.py; run after the kernel phase,
                `--phases device,build,fused` alone). layer_norm_act's
@@ -205,7 +211,10 @@ Phases, each of which must pass:
                times of kernel, plain version, F.layer_norm alone where it
                is the same function (float32, no activation) and the
                bound; first each instantiation's registers and spills from
-               the build log (the extra phase `layer_norm`, not run by
+               the build log; then rows past the layout that holds a row in
+               registers (the streaming kernels): bfloat16 1 024 x 4 100
+               and 1 024 x 16 392, float32 1 024 x 12 292, each with the
+               ELU and without (the extra phase `layer_norm`, not run by
                default, runs this part alone).
                Then the RSSM step's kernels (ops/gru.py, ops/onehot.py;
                the extra phase `rssm_step` runs this part alone): gru_cell
@@ -221,7 +230,13 @@ Phases, each of which must pass:
                must equal the first bit for bit, the GRU backward must be
                one device kernel a call; with the times of kernel
                and plain version and the bound (no PyTorch call computes
-               either: library none).
+               either: library none). Then the same checks at widths past
+               their first layouts: the GRU cell without a norm (32 and
+               1 024 rows of 256) and past D = 2 048 (1 x 2 049, 32 and
+               1 024 rows of 4 096), the head at 3, 48, 64 and 256 classes
+               (32 and 1 024 rows, sampled and the mode). Each kernel's
+               trace must hold one device kernel a call, or it is taken
+               again.
                Then one xarm update with the kernels and one with the plain
                versions (`build.plain_versions()`) from one state and one
                generator state (eager, after two updates), in bfloat16 and
@@ -1005,8 +1020,8 @@ def compare_layer_norm(source):
                                                  dy, act)
       outs = [run(k, fwd) + run(k, bwd) for k in (tree, other)]
       equal = all(torch.equal(a, b) for a, b in zip(*outs))
-      times = [(label, run(k, lambda: device_ms(fwd)),
-                run(k, lambda: device_ms(bwd)))
+      times = [(label, run(k, lambda: device_ms(fwd, expect=1)),
+                run(k, lambda: device_ms(bwd, expect=1)))
                for label, k in (('tree', tree), ('other', other),
                                 ('other', other), ('tree', tree))]
       log(f'compare layer_norm {str(dtype).split(".")[-1]} rows {rows} x C '
@@ -1066,7 +1081,7 @@ def _turns(label, runs):
   """Device ms of each (name, fn) in `runs` in turns: tree, other, other,
   tree for two, logged under `label`."""
   order = runs + runs[::-1]
-  times = [(name, step_ms(fn)) for name, fn in order]
+  times = [(name, step_ms(fn, expect=1)) for name, fn in order]
   log(f"{label}: device ms " + ", ".join(f"{n} {ms:.5f}" for n, ms in times))
 
 
@@ -1368,20 +1383,47 @@ def layer_norm_registers(kernel=None):
   return rows
 
 
-def device_ms(fn, calls=10, tries=3, kernels=False):
+def device_ms(fn, calls=10, tries=3, kernels=False, expect=None):
   """Device time of one call of `fn`, ms: the sum over the CUDA kernels
   it launches (torch.profiler, `device_times`), without the host's time
   between them, as a replay of a CUDA graph runs them; with `kernels`,
-  (ms, device kernels a call). A trace that holds no device time (the
-  profiler now and then loses a trace's kernels) is taken again, `tries`
-  times in all; then it raises."""
+  (ms, device kernels a call). The profiler now and then loses some or
+  all of a trace's kernels (at a few microseconds a launch, often one of
+  a window of 100). A trace that holds no device time is taken again,
+  `tries` times in all, and then it raises. Where `expect` gives the
+  device kernels a call, the time is that of the launches the trace
+  holds, times `expect`, and a trace that lost more than one launch of the
+  window is taken again too; if every one of the `tries` did, the one
+  that held the most launches is used (logged), and one that held more
+  than the window's launches raises."""
+  best = None
   for attempt in range(tries):
     times = device_times(fn, calls)
-    if times:
-      ms = sum(ms for ms, _ in times.values())
-      return (ms, sum(n for _, n in times.values())) if kernels else ms
-    log(f'device_ms: trace {attempt + 1} of {tries} held no device time')
-  raise AssertionError('the profiler saw no device time')
+    count = sum(n for _, n in times.values())
+    if times and expect is not None and round((count - expect) * calls) > 1:
+      raise AssertionError(f'device_ms: {count:g} device kernels a call, '
+                           f'not {expect:g}')
+    if times and (expect is None or round((expect - count) * calls) <= 1):
+      best = times
+      break
+    held = (f'{count:g} device kernels a call, not {expect:g}' if times
+            else 'no device time')
+    log(f'device_ms: trace {attempt + 1} of {tries} held {held}')
+    if times and (best is None or count > sum(
+        n for _, n in best.values())):
+      best = times
+  else:
+    if best is None:
+      raise AssertionError(f'the profiler saw no device time in {tries} '
+                           'traces')
+    log(f'device_ms: timed from the trace of '
+        f'{sum(n for _, n in best.values()):g} device kernels a call, the '
+        'most of the tries')
+  ms = sum(ms for ms, _ in best.values())
+  count = sum(n for _, n in best.values())
+  if expect is not None:
+    ms *= expect / count
+  return (ms, count) if kernels else ms
 
 
 def _layer_norm_inputs(rows, C, dtype, seed=0, device='cuda'):
@@ -1392,7 +1434,8 @@ def _layer_norm_inputs(rows, C, dtype, seed=0, device='cuda'):
   return x, 1 + 0.2 * rand(C), 0.3 * rand(C), rand(rows, C).to(dtype)
 
 
-def check_layer_norm(sites=LAYER_NORM_SITES, device='cuda'):
+def check_layer_norm(sites=LAYER_NORM_SITES, device='cuda',
+                     dtypes=('float32', 'bfloat16')):
   """layer_norm_act's two kernels against the plain version (the layer's
   F.layer_norm on the upcast input, its two casts and the F.elu) and its
   autograd at each site of LAYER_NORM_SITES, in float32 and bfloat16, with
@@ -1401,14 +1444,15 @@ def check_layer_norm(sites=LAYER_NORM_SITES, device='cuda'):
   same function, F.layer_norm itself in float32 without an activation,
   and is None elsewhere: no call fuses the norm with the ELU, nor in
   bfloat16 with its casts (F.layer_norm takes scale and bias in x's dtype
-  there). Returns the rows of the largest site, the encoder's first
-  stage."""
+  there). Each kernel's trace must hold one device kernel a call
+  (`device_ms`'s `expect`). `dtypes` names the types to check. Returns the
+  rows of the largest site, the encoder's first stage."""
   import torch
   import torch.nn.functional as F
   from daydreamer_tpu_torch.nn import cost
   from daydreamer_tpu_torch.ops import norm
   results = {}
-  for dtype in (torch.float32, torch.bfloat16):
+  for dtype in [getattr(torch, name) for name in dtypes]:
     name = str(dtype).split('.')[-1]
     for rows, C, act in sites:
       x, scale, bias, dy = _layer_norm_inputs(rows, C, dtype, device=device)
@@ -1445,7 +1489,8 @@ def check_layer_norm(sites=LAYER_NORM_SITES, device='cuda'):
       fwd_call = lambda: norm.layer_norm_act_fwd_cuda(x, scale, bias, act)
       bwd_call = lambda: norm.layer_norm_act_bwd_cuda(
           x, scale, bias, mean, rstd, dy, act)
-      ms, bwd_ms = device_ms(fwd_call), device_ms(bwd_call)
+      ms, bwd_ms = device_ms(fwd_call, expect=1), device_ms(bwd_call,
+                                                              expect=1)
       call_ms, bwd_call_ms = cuda_time(fwd_call), cuda_time(bwd_call)
       plain_ms = device_ms(lambda: norm.layer_norm_act_plain(
           x, scale, bias, act))
@@ -1507,11 +1552,11 @@ HEAD_S = HEAD_C = 32
 HEAD_UNIMIX = 0.01
 
 
-def step_ms(fn, kernels=False):
+def step_ms(fn, kernels=False, expect=None):
   """`device_ms` over 100 calls: the RSSM step's kernels take 2-20 us a
   call, and the profiler has lost every kernel of a 10-call window of such
   kernels, three traces running."""
-  return device_ms(fn, calls=100, kernels=kernels)
+  return device_ms(fn, calls=100, kernels=kernels, expect=expect)
 
 
 def _scaled_max(got, want):
@@ -1532,12 +1577,13 @@ def _gru_inputs(rows, D, dtype, device='cuda'):
   return x, deter, scale, bias, rand(rows, D).to(dtype)
 
 
-def _head_inputs(rows, sample, dtype, device='cuda'):
+def _head_inputs(rows, sample, dtype, device='cuda', C=HEAD_C):
   """raw, the uniform draws (None for the mode), and the gradients of
-  logit and stoch of a stats head site, from a seed."""
+  logit and stoch of a stats head site of C classes, from a seed."""
   import torch
-  S, C = HEAD_S, HEAD_C
-  gen = torch.Generator(device=device).manual_seed(rows + sample)
+  S = HEAD_S
+  gen = torch.Generator(device=device).manual_seed(
+      rows + sample + (C != HEAD_C) * C)
   rand = lambda *shape: torch.randn(*shape, generator=gen, device=device)
   raw = (2 * rand(rows, S, C)).to(dtype)
   u = torch.rand(rows, S, C, generator=gen, device=device) if sample else (
@@ -1545,12 +1591,14 @@ def _head_inputs(rows, sample, dtype, device='cuda'):
   return raw, u, rand(rows, S, C).to(dtype), rand(rows, S, C).to(dtype)
 
 
-def check_gru_cell(sites=GRU_SITES, device='cuda'):
+def check_gru_cell(sites=GRU_SITES, device='cuda', normed=True):
   """gru_cell's two kernels against the plain version (the RSSM's norm of
-  the product and its gates, `gru.gru_cell_plain`) and its autograd at each
+  the product and its gates, `gru.gru_cell_plain`; without `normed`, the
+  gates on the product itself, `norm: none`) and its autograd at each
   site of GRU_SITES, in float32 and bfloat16, with the times of both and
-  the bound. No PyTorch call computes the cell: `torch.nn.GRUCell` applies
-  the reset inside its product and has no update bias of -1 nor a norm, so
+  the bound; each kernel's trace must hold one device kernel a call. No
+  PyTorch call computes the cell: `torch.nn.GRUCell` applies the reset
+  inside its product and has no update bias of -1 nor a norm, so
   `library_ms` is None. Returns the rows of the largest site."""
   import torch
   from daydreamer_tpu_torch.nn import cost
@@ -1560,14 +1608,18 @@ def check_gru_cell(sites=GRU_SITES, device='cuda'):
     name = str(dtype).split('.')[-1]
     for rows, D in sites:
       x, deter, scale, bias, dout = _gru_inputs(rows, D, dtype, device)
+      if not normed:
+        scale = bias = None
       out, mean, rstd = gru.gru_cell_fwd_cuda(x, deter, scale, bias)
       args = (x, deter, scale, bias, mean, rstd, dout)
       got = gru.gru_cell_bwd_cuda(*args)
       # A second launch on the same inputs: the same bits (the blocks' sums
       # in a fixed order).
-      same = all(torch.equal(a, b)
+      same = all(a is None or torch.equal(a, b)
                  for a, b in zip(got, gru.gru_cell_bwd_cuda(*args)))
-      leaves = [v.clone().requires_grad_() for v in (x, deter, scale, bias)]
+      got = [g for g in got if g is not None]
+      leaves = [v.clone().requires_grad_() for v in (x, deter, scale, bias)
+                if v is not None]
       ref = gru.gru_cell_plain(*leaves)
       want = torch.autograd.grad(ref, leaves, dout, retain_graph=True)
       ref = ref.detach()
@@ -1586,22 +1638,27 @@ def check_gru_cell(sites=GRU_SITES, device='cuda'):
       ok = (fwd <= limits[0] and same
             and all(e <= lim for e, lim in zip(scaled, limits[1]))
             and all(bool(torch.isfinite(g).all()) for g in got))
-      work = [cost.bound(*gru.gru_cell_work(rows, D, dtype, backward=b),
-                         dtype) for b in (False, True)]
-      ms = step_ms(lambda: gru.gru_cell_fwd_cuda(x, deter, scale, bias))
+      work = [cost.bound(*gru.gru_cell_work(rows, D, dtype, backward=b,
+                                            normed=normed), dtype)
+              for b in (False, True)]
+      ms = step_ms(lambda: gru.gru_cell_fwd_cuda(x, deter, scale, bias),
+                   expect=1)
       bwd_ms, bwd_kernels = step_ms(lambda: gru.gru_cell_bwd_cuda(*args),
-                                    kernels=True)
+                                    kernels=True, expect=1)
+      # The backward is one device kernel a call.
       # The backward is one device kernel a call (a trace that lost a
-      # kernel reads fewer, never more).
-      one = bwd_kernels <= 1
+      # kernel reads fewer, never more; `device_ms` allows one launch over
+      # its window).
+      one = bwd_kernels <= 1.01
       plain_ms = step_ms(lambda: gru.gru_cell_plain(x, deter, scale, bias))
       again = gru.gru_cell_plain(*leaves)
       plain_bwd_ms = step_ms(lambda: torch.autograd.grad(
           again, leaves, dout, retain_graph=True))
-      log(f'gru_cell {name} rows {rows} x D {D}: forward error {fwd:.3g} '
+      log(f'gru_cell {name} rows {rows} x D {D}'
+          f'{"" if normed else " (norm none)"}: forward error {fwd:.3g} '
           f'(tolerance {limits[0]:g} of max(|y|, 1)), backward scaled errors'
-          f' dx {scaled[0]:.3g}, ddeter {scaled[1]:.3g}, dscale '
-          f'{scaled[2]:.3g}, dbias {scaled[3]:.3g} (tolerances '
+          f' dx, ddeter[, dscale, dbias] '
+          f'{", ".join(f"{e:.3g}" for e in scaled)} (tolerances '
           f'{limits[1]}), two backward launches equal {same}; device ms: '
           f'forward {ms:.4f} (plain {plain_ms:.4f}, library none, bound '
           f'{work[0]["bound_ms"]:.4f} {work[0]["bound_by"]}), backward '
@@ -1651,25 +1708,26 @@ def _head_ties(stoch, ref_stoch, logit, ref_logit, u):
   return int(differ.sum()), bool(ties.all())
 
 
-def check_onehot_head(sites=HEAD_SITES, device='cuda'):
+def check_onehot_head(sites=HEAD_SITES, device='cuda', C=HEAD_C):
   """onehot_head's two kernels against the plain version (the unimix
   logit, `OneHotDist` and its straight-through Gumbel-max sample or its
   mode, `onehot.onehot_head_plain`) and its autograd at each site of
-  HEAD_SITES, in float32 and bfloat16, on the same uniform draws: the
-  samples must choose the same classes but at ties (counted), with the
-  times of both and the bound. No PyTorch call computes the head (none
-  mixes in a uniform floor, nor samples with the straight-through
+  HEAD_SITES (S = 32 groups of C classes), in float32 and bfloat16, on the
+  same uniform draws: the samples must choose the same classes but at ties
+  (counted), with the times of both and the bound; each kernel's trace
+  must hold one device kernel a call. No PyTorch call computes the head
+  (none mixes in a uniform floor, nor samples with the straight-through
   estimator), so `library_ms` is None. Returns the rows of the rollout's
   site."""
   import torch
   from daydreamer_tpu_torch.nn import cost
   from daydreamer_tpu_torch.ops import onehot
   results = {}
-  S, C, unimix = HEAD_S, HEAD_C, HEAD_UNIMIX
+  S, unimix = HEAD_S, HEAD_UNIMIX
   for dtype in (torch.float32, torch.bfloat16):
     name = str(dtype).split('.')[-1]
     for rows, sample in sites:
-      raw, u, dlogit, dstoch = _head_inputs(rows, sample, dtype, device)
+      raw, u, dlogit, dstoch = _head_inputs(rows, sample, dtype, device, C)
       logit, stoch = onehot.onehot_head_fwd_cuda(raw, u, unimix)
       args = (raw, logit, dlogit, dstoch, unimix, sample)
       draw = onehot.onehot_head_bwd_cuda(*args)
@@ -1701,8 +1759,9 @@ def check_onehot_head(sites=HEAD_SITES, device='cuda'):
       work = [cost.bound(*onehot.onehot_head_work(
           rows, S, C, dtype, unimix, sample, backward=b), dtype)
               for b in (False, True)]
-      ms = step_ms(lambda: onehot.onehot_head_fwd_cuda(raw, u, unimix))
-      bwd_ms = step_ms(lambda: onehot.onehot_head_bwd_cuda(*args))
+      ms = step_ms(lambda: onehot.onehot_head_fwd_cuda(raw, u, unimix),
+                   expect=1)
+      bwd_ms = step_ms(lambda: onehot.onehot_head_bwd_cuda(*args), expect=1)
       plain_ms = step_ms(lambda: onehot.onehot_head_plain(raw, u, unimix))
       again = onehot.onehot_head_plain(leaf, u, unimix)[:len(outs)]
       plain_bwd_ms = step_ms(lambda: torch.autograd.grad(
@@ -1733,6 +1792,40 @@ def check_onehot_head(sites=HEAD_SITES, device='cuda'):
             max_abs_err=float((draw.float() - want.float()).abs().max()))
       del raw, logit, stoch, draw, want, leaf, again
   return results
+
+
+# Widths past the kernels' first layouts, each of which the JAX package
+# trains (`norm: none`, a deter past 2 048, class counts that are no power
+# of two from 2 to 32, `norm: layer` rows past the plan): (rows, C, act)
+# of layer_norm_act by type; (rows, D) of the GRU cell without a norm and
+# past MAX_D; the head's class counts at 32 and 1 024 rows, sampled and
+# the mode.
+WIDE_LAYER_NORM_SITES = {
+    'bfloat16': ((1024, 4100, 'elu'), (1024, 4100, 'none'),
+                 (1024, 16392, 'elu'), (1024, 16392, 'none')),
+    'float32': ((1024, 12292, 'elu'), (1024, 12292, 'none')),
+}
+GRU_BARE_SITES = ((32, 256), (1024, 256))
+GRU_WIDE_SITES = ((1, 2049), (32, 4096), (1024, 4096))
+HEAD_CLASSES = (3, 48, 64, 256)
+HEAD_CLASS_SITES = ((32, True), (32, False), (1024, True), (1024, False))
+
+
+def check_layer_norm_widths(device='cuda'):
+  """check_layer_norm at WIDE_LAYER_NORM_SITES: rows too wide for a
+  block's lanes to hold, which the streaming kernels take."""
+  for dtype, sites in WIDE_LAYER_NORM_SITES.items():
+    check_layer_norm(sites, device, dtypes=(dtype,))
+
+
+def check_rssm_step_widths(device='cuda'):
+  """check_gru_cell without a norm at GRU_BARE_SITES and with one past
+  MAX_D at GRU_WIDE_SITES, and check_onehot_head at each of HEAD_CLASSES
+  (its general path) at HEAD_CLASS_SITES."""
+  check_gru_cell(GRU_BARE_SITES, device, normed=False)
+  check_gru_cell(GRU_WIDE_SITES, device)
+  for C in HEAD_CLASSES:
+    check_onehot_head(HEAD_CLASS_SITES, device, C)
 
 
 @contextlib.contextmanager
@@ -2090,8 +2183,10 @@ def phase_fused(seeds=1):
   torch.backends.cudnn.allow_tf32 = False
   layer_norm_registers()
   results = check_layer_norm()
+  check_layer_norm_widths()
   results.update(check_gru_cell())
   results.update(check_onehot_head())
+  check_rssm_step_widths()
   compare_updates('xarm', 'float32', seeds)
   calls = compare_updates('xarm', 'bfloat16', seeds)
   results.update(check_adam(calls))
@@ -2241,9 +2336,11 @@ def main(argv=None):
     if 'layer_norm' in phases:
       layer_norm_registers()
       kernel.update(check_layer_norm())
+      check_layer_norm_widths()
     if 'rssm_step' in phases:
       kernel.update(check_gru_cell())
       kernel.update(check_onehot_head())
+      check_rssm_step_widths()
   if 'graphs' in phases:
     phase_graphs()
   launches, parallel = {}, {}
@@ -2554,9 +2651,10 @@ GRAPHS_POLICY_STEPS = 8  # Batch-1 policy steps a mode and arm.
 GRAPHS_REPORTS = 4  # Report calls an arm, at the config's batch.
 
 
-def _graphs_config(name, graphs, replay_kind='fixed'):
+def _graphs_config(name, graphs, replay_kind='fixed', overrides=None):
   """The `name` config block as its file has it (xarm with the fused
-  rollout too), on its dummy task, with `torch.graphs` set."""
+  rollout too), on its dummy task, with `torch.graphs` set and then
+  `overrides`."""
   import daydreamer_tpu_torch as ddp
   from daydreamer_tpu_torch.agents.dreamer import Agent
   config = ddp.Config(Agent.configs['defaults']).update(Agent.configs[name])
@@ -2566,7 +2664,57 @@ def _graphs_config(name, graphs, replay_kind='fixed'):
       'torch.fused_metrics': 'all'})
   if name == 'xarm':
     config = config.update({'imag_impl': 'pallas'})
-  return config
+  return config.update(overrides or {})
+
+
+@contextlib.contextmanager
+def _path_probe():
+  """Within the block every kernel launch is recorded as (C function,
+  dims) and every call of a fusion's plain version is counted: yields
+  (launches, plain calls by name)."""
+  import collections
+  from daydreamer_tpu_torch.ops import build, gru, norm, onehot
+  launches, plain = [], collections.Counter()
+  launch = build.launch
+
+  def recorded(kernel, fn, dtype, ptrs, dims, scalars, device):
+    launches.append((fn, tuple(dims)))
+    return launch(kernel, fn, dtype, ptrs, dims, scalars, device)
+
+  def counted(module, name):
+    inner = getattr(module, name)
+    def call(*args, **kwargs):
+      plain[name] += 1
+      return inner(*args, **kwargs)
+    return call
+
+  saved = [(build, 'launch', launch)] + [
+      (m, n, getattr(m, n)) for m, n in (
+          (gru, 'gru_cell_plain'), (onehot, 'onehot_head_plain'),
+          (norm, 'layer_norm_act_plain'))]
+  for module, name, _ in saved[1:]:
+    setattr(module, name, counted(module, name))
+  build.launch = recorded
+  try:
+    yield launches, plain
+  finally:
+    for module, name, value in saved:
+      setattr(module, name, value)
+
+
+# Two a1 updates at widths past the fusion kernels' first layouts, graphed
+# and eager (phase 14): (label, overrides, and the launches that show the
+# new paths ran as (C function, index into its dims, value)).
+GRAPHS_WIDTHS = (
+    ('a1_classes48_norm_none', {'rssm.classes': 48, 'rssm.norm': 'none'},
+     (('gru_cell_fwd', 4, 0), ('gru_cell_bwd', 7, 0),
+      ('onehot_head_fwd', 1, 48), ('onehot_head_bwd', 1, 48))),
+    ('a1_deter4096_classes64_reward4100',
+     {'rssm.deter': 4096, 'rssm.classes': 64, 'reward_head.units': 4100},
+     (('gru_cell_fwd', 1, 4096), ('gru_cell_bwd', 1, 4096),
+      ('onehot_head_fwd', 1, 64), ('onehot_head_bwd', 1, 64),
+      ('layer_norm_act_fwd', 1, 4100), ('layer_norm_act_bwd', 1, 4100))),
+)
 
 
 def _random_steps(env, rows, seed):
@@ -2629,20 +2777,26 @@ def _differences(a, b, path=''):
            int((~same).sum()))]
 
 
-def _graphs_learner(name, replay_kind):
-  """One eager and one graphed agent of the `name` block from one state and
-  one generator state, each GRAPHS_K updates a dispatch for two dispatches
-  from the same ring (the prioritized ring's priorities reset between the
-  arms). Returns the row of the comparison."""
+def _graphs_learner(name, replay_kind, overrides=None, paths=()):
+  """One eager and one graphed agent of the `name` block (with
+  `overrides`) from one state and one generator state, each GRAPHS_K
+  updates a dispatch for two dispatches from the same ring (the
+  prioritized ring's priorities reset between the arms). Where `paths`
+  are given (see GRAPHS_WIDTHS), the eager arm must have launched them and
+  no arm may call a fusion's plain version. Returns the row of the
+  comparison."""
   import torch
   from daydreamer_tpu_torch import envs, nn
   from daydreamer_tpu_torch.agents.dreamer import Agent
   import daydreamer_tpu_torch as ddp
   label = f'graphs ({name}, {replay_kind} ring)'
+  if overrides:
+    label = label[:-1] + ', ' + ' '.join(
+        f'--{k} {v}' for k, v in overrides.items()) + ')'
   env = envs.load_env(f'{name}_dummy', amount=1, parallel='none')
   try:
     agents = {flag: Agent(env.obs_space, env.act_space, ddp.Counter(),
-                          _graphs_config(name, flag, replay_kind))
+                          _graphs_config(name, flag, replay_kind, overrides))
               for flag in (False, True)}
     for agent in agents.values():
       agent._create()
@@ -2659,14 +2813,21 @@ def _graphs_learner(name, replay_kind):
       reset_launches()
       mets, state = [], None
       times = []
-      for _ in range(2):
-        torch.cuda.synchronize()
-        begin = time.perf_counter()
-        _, state, m = agent.train_device(ring, GRAPHS_K, state)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - begin)
-        mets.append(m)
+      with _path_probe() as (calls, plain):
+        for _ in range(2):
+          torch.cuda.synchronize()
+          begin = time.perf_counter()
+          _, state, m = agent.train_device(ring, GRAPHS_K, state)
+          torch.cuda.synchronize()
+          times.append(time.perf_counter() - begin)
+          mets.append(m)
       launches = read_launches(label, ())
+      missing = [path for path in paths if not any(
+          fn == path[0] and dims[path[1]] == path[2] for fn, dims in calls)]
+      if paths and (plain or (missing and not flag)):
+        raise AssertionError(
+            f'{label}: graphs {flag}: plain versions called {dict(plain)}; '
+            f'paths never launched {missing}')
       snaps[flag] = _snapshot(agent, ring, mets, state)
       rates[flag] = (GRAPHS_K / times[1], times[0], launches)
     stats = graphed.graphs.stats()['train_device']
@@ -2893,6 +3054,8 @@ def phase_graphs():
   for name in ('xarm', 'a1'):
     for replay_kind in ('fixed', 'prio'):
       rows[f'{name}_{replay_kind}'] = _graphs_learner(name, replay_kind)
+  for key, overrides, paths in GRAPHS_WIDTHS:
+    rows[key] = _graphs_learner('a1', 'fixed', overrides, paths)
   # One eager and one graphed xarm agent from one state for the policy and
   # the report.
   env = envs.load_env('xarm_dummy', amount=1, parallel='none')

@@ -69,6 +69,19 @@
 // memory and each sum a share of the columns over the rows in block order.
 // No second launch and no float atomic: the same inputs give the same bits
 // in any launch and in a CUDA graph.
+//
+// Two paths take what that layout does not. Without a norm (`norm: none`)
+// the gates read x itself: one elementwise kernel each way, a thread a
+// vector of columns, with no row or column sums (gru_bare_*_kernel). A deter
+// past MAX_D = 2 048 (3 D values, more than 256 lanes of SPREAD values
+// hold) takes a block a row that streams the row from memory: the forward
+// in three passes (the mean, the mean of squared deviations, the gates),
+// the backward in two (the gradient at the norm's output, a value of T,
+// parked in dx with the row's sums; then dx over it down a chunk of rows,
+// their column sums in registers),
+// its blocks' column sums in rows of `partial` summed in block order by a
+// cooperative grid as above (gru_wide_*_kernel). Both were written to be
+// right first: a simple kernel whose times PERF.md keeps.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -224,6 +237,37 @@ struct Gates {
     round_all<T, P>(om);
   }
 };
+
+// The new deter of one column from its three gate inputs n (the norm's
+// rounded outputs, or x itself without a norm) and the previous deter, as
+// gru_fwd_kernel computes it in pairs.
+template <class T>
+__device__ __forceinline__ float cell(const float (&n)[3][1], float d) {
+  const Gates<T, 1> g(n);
+  return __fadd_rn(rounded<T>(__fmul_rn(g.u[0], g.c[0])),
+                   rounded<T>(__fmul_rn(g.om[0], d)));
+}
+
+// The gradients of one column, following autograd of the eager chain in T
+// (see the head of the file): from the gate inputs n, the new deter's
+// gradient g and the previous deter d, the gradients at n (each rounded to
+// T) and at d (to be rounded by the caller).
+template <class T>
+__device__ __forceinline__ void cell_grad(const float (&n)[3][1], float g,
+                                          float d, float (&dn)[3],
+                                          float* dd) {
+  const Gates<T, 1> g1(n);
+  const float r = g1.r[0], c = g1.c[0], u = g1.u[0];
+  const float g_om = rounded<T>(g * d);
+  *dd = g * g1.om[0];
+  const float g_u = rounded<T>(rounded<T>(g * c) - g_om);
+  const float g_c = rounded<T>(g * u);
+  const float g_p = rounded<T>(g_c * (1.f - c * c));
+  const float g_r = rounded<T>(g_p * n[1][0]);
+  dn[0] = rounded<T>(g_r * (1.f - r) * r);
+  dn[1] = rounded<T>(g_p * r);
+  dn[2] = rounded<T>(g_u * (1.f - u) * u);
+}
 
 template <class T, int VEC, int N>
 __global__ void __launch_bounds__(256)
@@ -393,6 +437,48 @@ __device__ __forceinline__ int sum_column(int e, int lane, const Shape& s,
   return j < s.nvec ? p * s.D + j * VEC + k : -1;
 }
 
+// After the grid's barrier: dscale and dbias from the grid's rows of
+// `partial` (dscale's C3 columns, then dbias's; a row a block). Block b
+// sums its share of the columns: its threads split the rows into chunks,
+// each summed in block order with 8 rows in flight, and the chunks' sums
+// are added in chunk order. `tree`: THREADS floats of shared memory.
+__device__ __forceinline__ void sum_partial(const float* partial, int C3,
+                                            float* __restrict__ dscale,
+                                            float* __restrict__ dbias,
+                                            float* tree) {
+  const int P = 2 * C3;
+  const int blocks = gridDim.x, share = (P + blocks - 1) / blocks;
+  const int lo = min(P, (int)blockIdx.x * share), hi = min(P, lo + share);
+  for (int base = lo; base < hi; base += THREADS) {
+    const int cols = min(THREADS, hi - base), chunks = THREADS / cols;
+    const int per = (blocks + chunks - 1) / chunks;
+    const int col = threadIdx.x % cols, chunk = threadIdx.x / cols;
+    if (chunk < chunks) {
+      const float* column = partial + base + col;
+      const int last = min(blocks, (chunk + 1) * per);
+      float sum = 0.f;
+      for (int b = chunk * per; b < last; b += 8) {
+        float rows[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (b + u < last) rows[u] = __ldcg(column + (long)(b + u) * P);
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (b + u < last) sum += rows[u];
+      }
+      tree[chunk * cols + col] = sum;
+    }
+    __syncthreads();
+    if (threadIdx.x < cols) {
+      float sum = 0.f;
+      for (int k = 0; k < chunks; ++k) sum += tree[k * cols + threadIdx.x];
+      const int c = base + threadIdx.x;
+      (c < C3 ? dscale : dbias)[c < C3 ? c : c - C3] = sum;
+    }
+    __syncthreads();
+  }
+}
+
 template <class T, int VEC, int N>
 __global__ void __launch_bounds__(256)
     gru_bwd_kernel(const T* __restrict__ x, const T* __restrict__ deter,
@@ -460,19 +546,9 @@ __global__ void __launch_bounds__(256)
           xhat[p] = (widen(v[p][i].v[k]) - mu) * rs;
           n[p][0] = rounded<T>(xhat[p] * sc[p][k] + bi[p][k]);
         }
-        const Gates<T, 1> g1(n);
-        const float r = g1.r[0], c = g1.c[0], u = g1.u[0];
-        const float g = widen(go.v[k]);
-        const float g_om = rounded<T>(g * widen(d.v[k]));
-        narrow(g * g1.om[0], &dd.v[k]);
-        const float g_u = rounded<T>(rounded<T>(g * c) - g_om);
-        const float g_c = rounded<T>(g * u);
-        const float g_p = rounded<T>(g_c * (1.f - c * c));
-        const float g_r = rounded<T>(g_p * n[1][0]);
-        float dnv[3];
-        dnv[0] = rounded<T>(g_r * (1.f - r) * r);
-        dnv[1] = rounded<T>(g_p * r);
-        dnv[2] = rounded<T>(g_u * (1.f - u) * u);
+        float dnv[3], ddv;
+        cell_grad<T>(n, widen(go.v[k]), widen(d.v[k]), dnv, &ddv);
+        narrow(ddv, &dd.v[k]);
 #pragma unroll
         for (int p = 0; p < 3; ++p) {
           narrow(dnv[p], &dn[p][i].v[k]);
@@ -569,10 +645,7 @@ __global__ void __launch_bounds__(256)
 
   // Several blocks, all on the card at once (a cooperative launch): each
   // writes its sums to its row of `partial` (dscale's 3 D columns, then
-  // dbias's) and the grid meets at a barrier. Then block b sums its share
-  // of the columns: its threads split the rows into chunks, each summed in
-  // block order with 8 rows in flight, and the chunks' sums are added in
-  // chunk order.
+  // dbias's) and the grid meets at a barrier.
   const int P = 2 * C3;
   if (group == 0) {
     float* mine = partial + (long)blockIdx.x * P;
@@ -584,36 +657,276 @@ __global__ void __launch_bounds__(256)
     }
   }
   grid_sync(barrier);
-  const int blocks = gridDim.x, share = (P + blocks - 1) / blocks;
-  const int lo = min(P, (int)blockIdx.x * share), hi = min(P, lo + share);
-  for (int base = lo; base < hi; base += THREADS) {
-    const int cols = min(THREADS, hi - base), chunks = THREADS / cols;
-    const int per = (blocks + chunks - 1) / chunks;
-    const int col = threadIdx.x % cols, chunk = threadIdx.x / cols;
-    if (chunk < chunks) {
-      const float* column = partial + base + col;
-      const int last = min(blocks, (chunk + 1) * per);
-      float sum = 0.f;
-      for (int b = chunk * per; b < last; b += 8) {
-        float rows[8];
+  sum_partial(partial, C3, dscale, dbias, tree);
+}
+
+// The two paths past the register layout above: without a norm, and rows
+// too wide for a group of lanes to hold (see the head of the file).
+
+// Without a norm (`norm: none`) the cell is elementwise: a thread takes a
+// vector of VEC columns of a row (those of its three parts and of deter),
+// the grid walking the rows' vectors by its stride. The forward writes the
+// new deter; the backward dx (the gradients at x, which are the gates'
+// inputs) and ddeter (in `out`). No row sums, no column sums: one pass
+// each way.
+template <class T, int VEC, bool BACKWARD>
+__device__ __forceinline__ void bare_cell(const T* __restrict__ x,
+                                          const T* __restrict__ deter,
+                                          const T* __restrict__ dout,
+                                          T* __restrict__ out,
+                                          T* __restrict__ dx, int rows,
+                                          int D) {
+  const int nvec = D / VEC;
+  const long total = (long)rows * nvec;
+  for (long e = (long)blockIdx.x * THREADS + threadIdx.x; e < total;
+       e += (long)gridDim.x * THREADS) {
+    const long row = e / nvec;
+    const int col = (int)(e % nvec) * VEC;
+    const long at = row * D + col;
+    Pack<T, VEC> v[3];
 #pragma unroll
-        for (int u = 0; u < 8; ++u)
-          if (b + u < last) rows[u] = __ldcg(column + (long)(b + u) * P);
+    for (int p = 0; p < 3; ++p)
+      v[p] = *reinterpret_cast<const Pack<T, VEC>*>(x + row * 3 * D + p * D +
+                                                     col);
+    const Pack<T, VEC> d = *reinterpret_cast<const Pack<T, VEC>*>(deter + at);
+    if constexpr (!BACKWARD) {
+      Pack<T, VEC> o;
 #pragma unroll
-        for (int u = 0; u < 8; ++u)
-          if (b + u < last) sum += rows[u];
+      for (int k = 0; k < VEC; ++k) {
+        const float n[3][1] = {{widen(v[0].v[k])}, {widen(v[1].v[k])},
+                               {widen(v[2].v[k])}};
+        narrow(cell<T>(n, widen(d.v[k])), &o.v[k]);
       }
-      tree[chunk * cols + col] = sum;
+      *reinterpret_cast<Pack<T, VEC>*>(out + at) = o;
+      continue;
     }
-    __syncthreads();
-    if (threadIdx.x < cols) {
-      float sum = 0.f;
-      for (int k = 0; k < chunks; ++k) sum += tree[k * cols + threadIdx.x];
-      const int c = base + threadIdx.x;
-      (c < C3 ? dscale : dbias)[c < C3 ? c : c - C3] = sum;
+    const Pack<T, VEC> go = *reinterpret_cast<const Pack<T, VEC>*>(dout + at);
+    Pack<T, VEC> dd, dn[3];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      const float n[3][1] = {{widen(v[0].v[k])}, {widen(v[1].v[k])},
+                             {widen(v[2].v[k])}};
+      float dnv[3], ddv;
+      cell_grad<T>(n, widen(go.v[k]), widen(d.v[k]), dnv, &ddv);
+      narrow(ddv, &dd.v[k]);
+#pragma unroll
+      for (int p = 0; p < 3; ++p) narrow(dnv[p], &dn[p].v[k]);
     }
-    __syncthreads();
+    *reinterpret_cast<Pack<T, VEC>*>(out + at) = dd;  // ddeter.
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+      *reinterpret_cast<Pack<T, VEC>*>(dx + row * 3 * D + p * D + col) =
+          dn[p];
   }
+}
+
+template <class T, int VEC>
+__global__ void __launch_bounds__(256)
+    gru_bare_fwd_kernel(const T* __restrict__ x, const T* __restrict__ deter,
+                        T* __restrict__ out, int rows, int D) {
+  bare_cell<T, VEC, false>(x, deter, nullptr, out, nullptr, rows, D);
+}
+
+template <class T, int VEC>
+__global__ void __launch_bounds__(256)
+    gru_bare_bwd_kernel(const T* __restrict__ x, const T* __restrict__ deter,
+                        const T* __restrict__ dout, T* __restrict__ ddeter,
+                        T* __restrict__ dx, int rows, int D) {
+  bare_cell<T, VEC, true>(x, deter, dout, ddeter, dx, rows, D);
+}
+
+// Rows of a deter past MAX_D (3 D values more than a group of lanes holds
+// in registers): a block takes a row at a time and streams it, re-reading
+// it from L2 for each pass. The forward's passes: the mean, the mean of
+// squared deviations (as the JAX Norm takes the variance, not E[x^2] -
+// mean^2), then the gates, each thread a vector of VEC columns of the
+// three parts at a time.
+template <class T, int VEC>
+__global__ void __launch_bounds__(256)
+    gru_wide_fwd_kernel(const T* __restrict__ x, const T* __restrict__ deter,
+                        const float* __restrict__ scale,
+                        const float* __restrict__ bias, T* __restrict__ out,
+                        float* __restrict__ mean_out,
+                        float* __restrict__ rstd_out, int rows, int D,
+                        float eps) {
+  extern __shared__ __align__(16) float smem[];  // WARPS floats: group_sum.
+  const int C3 = 3 * D, nvec = C3 / VEC, dvec = D / VEC;
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    const T* xr = x + (long)row * C3;
+    float sum = 0.f;
+    for (int j = threadIdx.x; j < nvec; j += THREADS) {
+      const Pack<T, VEC> v = reinterpret_cast<const Pack<T, VEC>*>(xr)[j];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) sum += widen(v.v[k]);
+    }
+    const float mean = group_sum(sum, THREADS, smem) / C3;
+    float sq = 0.f;
+    for (int j = threadIdx.x; j < nvec; j += THREADS) {
+      const Pack<T, VEC> v = reinterpret_cast<const Pack<T, VEC>*>(xr)[j];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        const float e = widen(v.v[k]) - mean;
+        sq += e * e;
+      }
+    }
+    const float rstd = rsqrtf(group_sum(sq, THREADS, smem) / C3 + eps);
+    for (int j = threadIdx.x; j < dvec; j += THREADS) {
+      Pack<T, VEC> v[3];
+      float sc[3][VEC], bi[3][VEC];
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        v[p] = reinterpret_cast<const Pack<T, VEC>*>(xr + p * D)[j];
+        load_vec<VEC>(scale + p * D + j * VEC, sc[p]);
+        load_vec<VEC>(bias + p * D + j * VEC, bi[p]);
+      }
+      const Pack<T, VEC> d =
+          reinterpret_cast<const Pack<T, VEC>*>(deter + (long)row * D)[j];
+      Pack<T, VEC> o;
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        float n[3][1];
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+          n[p][0] = rounded<T>((widen(v[p].v[k]) - mean) * rstd * sc[p][k] +
+                               bi[p][k]);
+        narrow(cell<T>(n, widen(d.v[k])), &o.v[k]);
+      }
+      reinterpret_cast<Pack<T, VEC>*>(out + (long)row * D)[j] = o;
+    }
+    if (threadIdx.x == 0) {
+      mean_out[row] = mean;
+      rstd_out[row] = rstd;
+    }
+  }
+}
+
+// Rows of the wide backward whose column sums a thread keeps in registers
+// between two stores of them.
+constexpr int CHUNK = 8;
+
+// The backward of those rows: a block takes a run of consecutive rows, in
+// chunks of up to CHUNK rows. First a pass over each row of the chunk
+// recomputes the norm's output and the gates and writes ddeter, the
+// gradient at the norm's output (a value of T) into dx, and the row's two
+// sums; then, a thread's vectors of columns at a time, a pass down the
+// chunk's rows reads it back (the same thread, the same columns), writes
+// dx over it and keeps dn * xhat and dn in registers, added once a chunk
+// to the block's column sums: its row of `partial` (dscale's 3 D columns,
+// then dbias's; each column kept by one thread), or dscale and dbias
+// themselves where the grid is one block. Several blocks make a
+// cooperative grid that meets at the barrier and sums the blocks' rows in
+// block order (sum_partial), as gru_bwd_kernel's grid does.
+template <class T, int VEC>
+__global__ void __launch_bounds__(256)
+    gru_wide_bwd_kernel(const T* __restrict__ x, const T* __restrict__ deter,
+                        const float* __restrict__ scale,
+                        const float* __restrict__ bias,
+                        const float* __restrict__ mean,
+                        const float* __restrict__ rstd,
+                        const T* __restrict__ dout, T* __restrict__ dx,
+                        T* __restrict__ ddeter, float* __restrict__ partial,
+                        float* __restrict__ dscale, float* __restrict__ dbias,
+                        unsigned* __restrict__ barrier, int rows, int D) {
+  // 2 x WARPS floats for group_sum2, then THREADS floats: a chunk's rows'
+  // mean, rstd and two sums, then sum_partial's tree.
+  extern __shared__ __align__(16) float smem[];
+  float4* stats = reinterpret_cast<float4*>(smem + 2 * WARPS);
+  const int C3 = 3 * D, dvec = D / VEC;
+  const int per = (rows + gridDim.x - 1) / gridDim.x;
+  const int first = min(rows, (int)blockIdx.x * per);
+  const int last = min(rows, first + per);
+  float* sums_s = gridDim.x == 1 ? dscale : partial + (long)blockIdx.x * 2 * C3;
+  float* sums_b = gridDim.x == 1 ? dbias : sums_s + C3;
+  for (int c0 = first; c0 < last; c0 += CHUNK) {
+    const int n = min(CHUNK, last - c0);
+    for (int row = c0; row < c0 + n; ++row) {
+      const T* xr = x + (long)row * C3;
+      T* dxr = dx + (long)row * C3;
+      const float mu = mean[row], rs = rstd[row];
+      float s1 = 0.f, s2 = 0.f;
+      for (int j = threadIdx.x; j < dvec; j += THREADS) {
+        Pack<T, VEC> v[3], dn[3];
+        float sc[3][VEC], bi[3][VEC];
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+          v[p] = reinterpret_cast<const Pack<T, VEC>*>(xr + p * D)[j];
+          load_vec<VEC>(scale + p * D + j * VEC, sc[p]);
+          load_vec<VEC>(bias + p * D + j * VEC, bi[p]);
+        }
+        const long at = (long)row * D + j * VEC;
+        const Pack<T, VEC> d =
+            *reinterpret_cast<const Pack<T, VEC>*>(deter + at);
+        const Pack<T, VEC> go =
+            *reinterpret_cast<const Pack<T, VEC>*>(dout + at);
+        Pack<T, VEC> dd;
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          float xhat[3], nv[3][1];
+#pragma unroll
+          for (int p = 0; p < 3; ++p) {
+            xhat[p] = (widen(v[p].v[k]) - mu) * rs;
+            nv[p][0] = rounded<T>(xhat[p] * sc[p][k] + bi[p][k]);
+          }
+          float dnv[3], ddv;
+          cell_grad<T>(nv, widen(go.v[k]), widen(d.v[k]), dnv, &ddv);
+          narrow(ddv, &dd.v[k]);
+#pragma unroll
+          for (int p = 0; p < 3; ++p) {
+            narrow(dnv[p], &dn[p].v[k]);
+            const float gs = dnv[p] * sc[p][k];
+            s1 += gs;
+            s2 += gs * xhat[p];
+          }
+        }
+        *reinterpret_cast<Pack<T, VEC>*>(ddeter + at) = dd;
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+          reinterpret_cast<Pack<T, VEC>*>(dxr + p * D)[j] = dn[p];
+      }
+      // Its barriers also keep the last chunk's readers of `stats` ahead
+      // of this write.
+      group_sum2(&s1, &s2, THREADS, smem);
+      if (threadIdx.x == 0)
+        stats[row - c0] = make_float4(mu, rs, s1 / C3, s2 / C3);
+    }
+    __syncthreads();
+    for (int j = threadIdx.x; j < dvec; j += THREADS) {
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        float sc[VEC], sum_s[VEC], sum_b[VEC];
+        load_vec<VEC>(scale + p * D + j * VEC, sc);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) sum_s[k] = sum_b[k] = 0.f;
+        for (int r = 0; r < n; ++r) {
+          const float4 st = stats[r];
+          const T* xr = x + (long)(c0 + r) * C3 + p * D;
+          T* dxr = dx + (long)(c0 + r) * C3 + p * D;
+          const Pack<T, VEC> v = reinterpret_cast<const Pack<T, VEC>*>(xr)[j];
+          const Pack<T, VEC> dn =
+              reinterpret_cast<const Pack<T, VEC>*>(dxr)[j];
+          Pack<T, VEC> o;
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) {
+            const float xhat = (widen(v.v[k]) - st.x) * st.y;
+            const float dnv = widen(dn.v[k]);
+            narrow(st.y * (dnv * sc[k] - st.z - xhat * st.w), &o.v[k]);
+            sum_s[k] += dnv * xhat;
+            sum_b[k] += dnv;
+          }
+          reinterpret_cast<Pack<T, VEC>*>(dxr)[j] = o;
+        }
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          const int c = p * D + j * VEC + k;
+          sums_s[c] = (c0 == first ? 0.f : sums_s[c]) + sum_s[k];
+          sums_b[c] = (c0 == first ? 0.f : sums_b[c]) + sum_b[k];
+        }
+      }
+    }
+  }
+  if (gridDim.x == 1) return;
+  grid_sync(barrier);
+  sum_partial(partial, C3, dscale, dbias, smem + 2 * WARPS);
 }
 
 // The vectors a lane may keep of a part (the kernels' N).
@@ -665,6 +978,22 @@ cudaError_t fwd(void* const* p, Shape s, const int* dims, float eps,
   return cudaGetLastError();
 }
 
+// Blocks of `kernel` the card holds at once, THREADS threads and `bytes`
+// of shared memory each.
+template <class K>
+cudaError_t resident(K kernel, size_t bytes, int* blocks) {
+  int device = 0, sms = 1, per_sm = 1;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        THREADS, bytes);
+  *blocks = std::max(1, sms * per_sm);
+  return err;
+}
+
 // Allows `kernel` the bytes of shared memory past 48 KB and, where
 // `cluster` is past the portable 8, clusters of that size.
 template <class K>
@@ -705,16 +1034,10 @@ cudaError_t bwd(void* const* p, Shape s, const int* dims,
     attr.val.clusterDim.y = 1;
     attr.val.clusterDim.z = 1;
   } else {
-    int device = 0, sms = 1, per_sm = 1;
-    err = cudaGetDevice(&device);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                   device);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                          THREADS, bytes);
+    int fits = 1;
+    err = resident(kernel, bytes, &fits);
     if (err != cudaSuccess) return err;
-    blocks = std::min(blocks, std::max(1, sms * per_sm));
+    blocks = std::min(blocks, fits);
     if (blocks > 1 && (blocks > dims[3] || dims[6] < 2))
       return cudaErrorInvalidValue;
     attr.id = cudaLaunchAttributeCooperative;
@@ -737,17 +1060,107 @@ cudaError_t bwd(void* const* p, Shape s, const int* dims,
       static_cast<float*>(p[10]), static_cast<unsigned*>(p[12]), s, cluster);
 }
 
-// One launch (forward or backward) at the plan's VEC and N.
+// The widest vector of T (up to 16 bytes) that D is a multiple of.
+template <class T>
+int widest(int D) {
+  int vec = 16 / (int)sizeof(T);
+  while (D % vec) vec /= 2;
+  return vec;
+}
+
+// Without a norm. dims: rows, D, max_blocks.
+template <class T, int VEC>
+cudaError_t bare(bool backward, void* const* p, const int* dims,
+                 cudaStream_t stream) {
+  const long vectors = (long)dims[0] * (dims[1] / VEC);
+  const int grid =
+      (int)std::min<long>((vectors + THREADS - 1) / THREADS, dims[2]);
+  const T* x = static_cast<const T*>(p[0]);
+  const T* deter = static_cast<const T*>(p[1]);
+  if (backward) {
+    auto kernel = gru_bare_bwd_kernel<T, VEC>;
+    kernel<<<grid, THREADS, 0, stream>>>(x, deter, static_cast<const T*>(p[6]), static_cast<T*>(p[11]), static_cast<T*>(p[7]), dims[0], dims[1]);
+  } else {
+    auto kernel = gru_bare_fwd_kernel<T, VEC>;
+    kernel<<<grid, THREADS, 0, stream>>>(x, deter, static_cast<T*>(p[4]), dims[0], dims[1]);
+  }
+  return cudaGetLastError();
+}
+
+// Rows past MAX_D. Forward dims: rows, D, max_blocks; backward: rows, D,
+// max_blocks, rows of `partial`, and at [6] the counters in `barrier`.
+template <class T, int VEC>
+cudaError_t wide(bool backward, void* const* p, const int* dims, float eps,
+                 cudaStream_t stream) {
+  const int rows = dims[0], D = dims[1];
+  if (!backward) {
+    auto kernel = gru_wide_fwd_kernel<T, VEC>;
+    const int grid = std::min(rows, dims[2]);
+    kernel<<<grid, THREADS, WARPS * sizeof(float), stream>>>(static_cast<const T*>(p[0]), static_cast<const T*>(p[1]), static_cast<const float*>(p[2]), static_cast<const float*>(p[3]), static_cast<T*>(p[4]), static_cast<float*>(p[5]), static_cast<float*>(p[6]), rows, D, eps);
+    return cudaGetLastError();
+  }
+  auto kernel = gru_wide_bwd_kernel<T, VEC>;
+  const size_t bytes = (2 * WARPS + THREADS) * sizeof(float);
+  int fits = 1;
+  cudaError_t err = resident(kernel, bytes, &fits);
+  if (err != cudaSuccess) return err;
+  // A cooperative grid (all its blocks on the card at once), every block
+  // with a run of rows: no row of `partial` is left unwritten.
+  int blocks = std::min(rows, std::min(dims[2], fits));
+  const int per = (rows + blocks - 1) / blocks;
+  blocks = (rows + per - 1) / per;
+  if (blocks > 1 && (blocks > dims[3] || dims[6] < 2))
+    return cudaErrorInvalidValue;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(blocks);
+  config.blockDim = dim3(THREADS);
+  config.dynamicSmemBytes = bytes;
+  config.stream = stream;
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  return cudaLaunchKernelEx(
+      &config, kernel, static_cast<const T*>(p[0]),
+      static_cast<const T*>(p[1]), static_cast<const float*>(p[2]),
+      static_cast<const float*>(p[3]), static_cast<const float*>(p[4]),
+      static_cast<const float*>(p[5]), static_cast<const T*>(p[6]),
+      static_cast<T*>(p[7]), static_cast<T*>(p[11]),
+      static_cast<float*>(p[8]), static_cast<float*>(p[9]),
+      static_cast<float*>(p[10]), static_cast<unsigned*>(p[12]), rows, D);
+}
+
+// One launch (forward or backward): without a norm the elementwise kernel;
+// else at the plan's VEC and N, or where no group of lanes holds the row
+// (D past MAX_D), the wide rows' kernels.
 template <class T>
 cudaError_t run(bool backward, void* const* p, const int* dims, float eps,
                 cudaStream_t stream) {
+  if (dims[0] <= 0 || dims[1] <= 0 || dims[2] <= 0)
+    return cudaErrorInvalidValue;
+  const bool norm = dims[backward ? 7 : 4];
+#define GRU_OTHER(V)                                                    \
+  if (widest<T>(dims[1]) == V)                                          \
+    return norm ? wide<T, V>(backward, p, dims, eps, stream)            \
+                : bare<T, V>(backward, p, dims, stream);
   Shape s;
   int vec;
   // The backward: the narrowest group whose rows x G reach its lanes. The
   // forward: at least a warp a row.
-  const int n = backward ? plan<T>(dims[0], dims[1], dims[5], 1, &s, &vec)
-                         : plan<T>(dims[0], dims[1], dims[3], 32, &s, &vec);
-  if (n == 0 || dims[0] <= 0 || dims[2] <= 0) return cudaErrorInvalidValue;
+  const int n = !norm ? 0
+                : backward ? plan<T>(dims[0], dims[1], dims[5], 1, &s, &vec)
+                           : plan<T>(dims[0], dims[1], dims[3], 32, &s, &vec);
+  if (n == 0) {
+    if constexpr (sizeof(T) == 2) {
+      GRU_OTHER(8)
+    }
+    GRU_OTHER(4)
+    GRU_OTHER(2)
+    GRU_OTHER(1)
+    return cudaErrorInvalidValue;
+  }
+#undef GRU_OTHER
 #define GRU_CASE(V, NN)                                                 \
   if (vec == V && n == NN) {                                            \
     if constexpr (V * NN <= SPREAD)                                     \
@@ -770,7 +1183,8 @@ cudaError_t run(bool backward, void* const* p, const int* dims, float eps,
 
 // ptrs: x [rows][3 D], deter [rows][D], scale [3 D], bias [3 D], out
 // [rows][D], mean [rows], rstd [rows]. dims: rows, D, max_blocks, lanes to
-// spread the rows over.
+// spread the rows over, norm (0: `norm: none`, scale, bias, mean and rstd
+// unused).
 extern "C" int gru_cell_fwd(int bf16, void* const* ptrs, const int* dims,
                             float eps, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -783,7 +1197,8 @@ extern "C" int gru_cell_fwd(int bf16, void* const* ptrs, const int* dims,
 // dscale [3 D], dbias [3 D], ddeter [rows][D], barrier (2 unsigned, zero
 // before the first launch). dims: rows, D, max_blocks, rows of partial,
 // blocks a cluster at most (up to 16), lanes to spread the rows over,
-// counters in barrier.
+// counters in barrier, norm (0: `norm: none`; then only x, deter, dout,
+// dx and ddeter are used).
 extern "C" int gru_cell_bwd(int bf16, void* const* ptrs, const int* dims,
                             float eps, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -79,7 +79,10 @@
 // 16); C = 512, 8 (N = 4); C = 1 536, 2 (G = 128, N = 3). Past 256 lanes
 // of SPREAD values a lane keeps up to 64 bfloat16 or 48 float32 values
 // (rows of up to 16 384 and 12 288, 4 096 where C is no multiple of a
-// vector).
+// vector). Wider rows take the streaming kernels (ln_stream_*_kernel): a
+// block a row, re-read from L2 for each pass (three forward, two
+// backward), the backward's column sums in rows of `partial` summed
+// through the same clusters and tickets. Written to be right first.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -611,6 +614,223 @@ __global__ void __launch_bounds__(256, (Lane<T, VEC, N>::BWD_MIN_BLOCKS))
            reinterpret_cast<float4*>(sums));
 }
 
+// Rows past `plan`'s (more values than 256 lanes keep in registers): a
+// block takes a row at a time and streams it, re-reading it from L2 for
+// each pass, VEC values of T a thread at a time. The forward's passes: the
+// mean, the mean of squared deviations, then y.
+template <class T, int VEC>
+__global__ void __launch_bounds__(256)
+    ln_stream_fwd_kernel(const T* __restrict__ x,
+                         const float* __restrict__ scale,
+                         const float* __restrict__ bias, T* __restrict__ y,
+                         float* __restrict__ mean_out,
+                         float* __restrict__ rstd_out, Shape s, float eps) {
+  extern __shared__ __align__(16) float smem[];  // WARPS floats: group_sum.
+  for (long row = blockIdx.x; row < s.rows; row += gridDim.x) {
+    const Pack<T, VEC>* xr = reinterpret_cast<const Pack<T, VEC>*>(x + row * s.C);
+    float sum = 0.f;
+    for (int j = threadIdx.x; j < s.nvec; j += THREADS) {
+      const Pack<T, VEC> v = xr[j];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) sum += widen(v.v[k]);
+    }
+    const float mean = group_sum(sum, THREADS, smem) / s.C;
+    float sq = 0.f;
+    for (int j = threadIdx.x; j < s.nvec; j += THREADS) {
+      const Pack<T, VEC> v = xr[j];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        const float e = widen(v.v[k]) - mean;
+        sq += e * e;
+      }
+    }
+    const float rstd = rsqrtf(group_sum(sq, THREADS, smem) / s.C + eps);
+    for (int j = threadIdx.x; j < s.nvec; j += THREADS) {
+      const Pack<T, VEC> v = xr[j];
+      float scv[VEC], biv[VEC];
+      load_vec<VEC>(scale + j * VEC, scv);
+      load_vec<VEC>(bias + j * VEC, biv);
+      Pack<T, VEC> out;
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        const float xhat = (widen(v.v[k]) - mean) * rstd;
+        float n = rounded<T>(xhat * scv[k] + biv[k]);
+        if (s.act) n = n > 0.f ? n : expm1f(n);
+        narrow(n, &out.v[k]);
+      }
+      reinterpret_cast<Pack<T, VEC>*>(y + row * s.C)[j] = out;
+    }
+    if (threadIdx.x == 0) {
+      mean_out[row] = mean;
+      rstd_out[row] = rstd;
+    }
+  }
+}
+
+// Rows of the streaming backward whose column sums a thread keeps in
+// registers between two stores of them.
+constexpr int CHUNK = 8;
+
+// The backward of those rows: a block takes a run of consecutive rows, in
+// chunks of up to CHUNK rows. First a pass over each row of the chunk
+// makes the gradient at the norm's output (dy, or the ELU's, a value of T
+// parked in dx) and the row's two sums; then, a thread's vectors of
+// columns at a time, a pass down the chunk's rows writes dx and keeps
+// dn * xhat and dn in registers, added once a chunk to the block's column
+// sums: its row of `partial` in memory (dscale's Cp columns, then dbias's;
+// each column kept by one thread). Then as ln_bwd_kernel: rank r of a
+// cluster sums its share r of the columns over the cluster's blocks in
+// rank order, into dscale and dbias for a grid of one cluster, else over
+// the share of the cluster's first block's row; and the block of rank r
+// that draws the last ticket of counter r sums its share of the clusters'
+// rows in cluster order into dscale and dbias, and resets the counter. The
+// same inputs give the same bits in any launch.
+template <class T, int VEC>
+__global__ void __launch_bounds__(256)
+    ln_stream_bwd_kernel(const T* __restrict__ x,
+                         const float* __restrict__ scale,
+                         const float* __restrict__ bias,
+                         const float* __restrict__ mean,
+                         const float* __restrict__ rstd,
+                         const T* __restrict__ dy, T* __restrict__ dx,
+                         float* __restrict__ partial,
+                         float* __restrict__ dscale, float* __restrict__ dbias,
+                         unsigned* __restrict__ tickets, Shape s,
+                         int cluster) {
+  // 2 * WARPS floats for group_sum2, the ticket's flag; from HEAD THREADS
+  // float4: a chunk's rows' mean, rstd and two sums, then sum_rows'
+  // scratch.
+  extern __shared__ __align__(16) float smem[];
+  float4* stats = reinterpret_cast<float4*>(smem + HEAD);
+  const int Cp = (s.C + 3) & ~3, P = 2 * Cp;
+  const Walk w = walk<true>(s.rows);
+  float* own = partial + (long)blockIdx.x * P;
+  // A block without rows adds nothing to its cluster's sums; the columns
+  // past C (up to Cp) are zero.
+  for (int c = w.first < w.last ? s.C + threadIdx.x : threadIdx.x; c < Cp;
+       c += THREADS)
+    own[c] = own[Cp + c] = 0.f;
+  // The gradient at the norm's rounded output: dy, or the ELU's from the
+  // recomputed pre-activation, parked in dx.
+  const T* dn_src = s.act ? dx : dy;
+  for (int c0 = w.first; c0 < w.last; c0 += CHUNK) {
+    const int n = min(CHUNK, w.last - c0);
+    for (int row = c0; row < c0 + n; ++row) {
+      const long at = (long)row * s.C;
+      const float mu = mean[row], rs = rstd[row];
+      float s1 = 0.f, s2 = 0.f;
+      for (int j = threadIdx.x; j < s.nvec; j += THREADS) {
+        const Pack<T, VEC> v =
+            reinterpret_cast<const Pack<T, VEC>*>(x + at)[j];
+        Pack<T, VEC> g = reinterpret_cast<const Pack<T, VEC>*>(dy + at)[j];
+        float scv[VEC], biv[VEC];
+        load_vec<VEC>(scale + j * VEC, scv);
+        if (s.act) load_vec<VEC>(bias + j * VEC, biv);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          const float xhat = (widen(v.v[k]) - mu) * rs;
+          float dn = widen(g.v[k]);
+          if (s.act) {
+            const float pre = rounded<T>(xhat * scv[k] + biv[k]);
+            if (!(pre > 0.f)) {
+              dn = rounded<T>(dn * expf(pre));
+              narrow(dn, &g.v[k]);
+            }
+          }
+          const float gs = dn * scv[k];
+          s1 += gs;
+          s2 += gs * xhat;
+        }
+        if (s.act) reinterpret_cast<Pack<T, VEC>*>(dx + at)[j] = g;
+      }
+      // Its barriers also keep the last chunk's readers of `stats` ahead
+      // of this write.
+      group_sum2(&s1, &s2, THREADS, smem);
+      if (threadIdx.x == 0)
+        stats[row - c0] = make_float4(mu, rs, s1 / s.C, s2 / s.C);
+    }
+    __syncthreads();
+    for (int j = threadIdx.x; j < s.nvec; j += THREADS) {
+      float scv[VEC], sum_s[VEC], sum_b[VEC];
+      load_vec<VEC>(scale + j * VEC, scv);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) sum_s[k] = sum_b[k] = 0.f;
+      for (int r = 0; r < n; ++r) {
+        const long at = (long)(c0 + r) * s.C;
+        const float4 st = stats[r];
+        const Pack<T, VEC> v =
+            reinterpret_cast<const Pack<T, VEC>*>(x + at)[j];
+        const Pack<T, VEC> g =
+            reinterpret_cast<const Pack<T, VEC>*>(dn_src + at)[j];
+        Pack<T, VEC> out;
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          const float xhat = (widen(v.v[k]) - st.x) * st.y;
+          const float dn = widen(g.v[k]);
+          narrow(st.y * (dn * scv[k] - st.z - xhat * st.w), &out.v[k]);
+          sum_s[k] += dn * xhat;
+          sum_b[k] += dn;
+        }
+        reinterpret_cast<Pack<T, VEC>*>(dx + at)[j] = out;
+      }
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        const int c = j * VEC + k;
+        own[c] = (c0 == w.first ? 0.f : own[c]) + sum_s[k];
+        own[Cp + c] = (c0 == w.first ? 0.f : own[Cp + c]) + sum_b[k];
+      }
+    }
+  }
+
+  // The cluster's sums: rank r sums its share [lo, hi) of the row's
+  // 16-byte slots over the cluster's blocks' rows in rank order (each
+  // rank's writes seen after the cluster's barrier, read past L1).
+  const int rank = ptx::cluster_rank(), clusters = gridDim.x / cluster;
+  const int mine = blockIdx.x / cluster, per = (P / 4 + cluster - 1) / cluster;
+  const int lo = min(P / 4, rank * per), hi = min(P / 4, lo + per);
+  float* first = partial + (long)mine * cluster * P;
+  ptx::cluster_sync();
+  for (int slot = lo + threadIdx.x; slot < hi; slot += THREADS) {
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r = 0; r < cluster; ++r) {
+      const float4 v =
+          __ldcg(reinterpret_cast<const float4*>(first + (long)r * P) + slot);
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    if (clusters == 1) {
+      const float vals[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = slot * 4 + e, half = col >= Cp, c = col - half * Cp;
+        if (c < s.C) (half ? dbias : dscale)[c] = vals[e];
+      }
+    } else {
+      reinterpret_cast<float4*>(first)[slot] = sum;
+    }
+  }
+  if (clusters == 1) return;
+
+  // Rank r's ticket (counter r), as in ln_bwd_kernel: every thread fences
+  // its stores of the cluster's row, then one takes the ticket.
+  float* flag = smem + 2 * WARPS;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    flag[0] = atomicAdd(tickets + rank, 1u) == (unsigned)(clusters - 1)
+                  ? 1.f
+                  : 0.f;
+    __threadfence();
+  }
+  __syncthreads();
+  if (flag[0] == 0.f) return;
+  if (threadIdx.x == 0) tickets[rank] = 0;
+  sum_rows(partial, clusters, cluster * P, lo, hi, s.C, Cp, dscale, dbias,
+           reinterpret_cast<float4*>(smem + HEAD));
+}
+
 // The vectors a lane may keep (the kernels' N), and the values a lane
 // keeps at most in T.
 constexpr int NS[] = {1, 2, 3, 4, 6, 8, 12, 16};
@@ -739,14 +959,91 @@ cudaError_t bwd(void* const* p, Shape s, const int* dims,
       static_cast<float*>(p[9]), static_cast<unsigned*>(p[10]), s, cluster);
 }
 
-// One launch (forward or backward) at the plan's VEC and N.
+// Rows past the plan. dims: rows, C, act, max_blocks (and in the
+// backward rows of `partial`, counters in `tickets`).
+template <class T, int VEC>
+cudaError_t stream_fwd(void* const* p, Shape s, const int* dims, float eps,
+                       cudaStream_t stream) {
+  auto kernel = ln_stream_fwd_kernel<T, VEC>;
+  const size_t bytes = HEAD * sizeof(float);
+  cudaError_t err;
+  const int fits = resident(kernel, bytes, &err);
+  if (err != cudaSuccess) return err;
+  const int grid = std::min(s.rows, std::min(dims[3], fits));
+  kernel<<<grid, THREADS, bytes, stream>>>(static_cast<const T*>(p[0]), static_cast<const float*>(p[1]), static_cast<const float*>(p[2]), static_cast<T*>(p[3]), static_cast<float*>(p[4]), static_cast<float*>(p[5]), s, eps);
+  return cudaGetLastError();
+}
+
+template <class T, int VEC>
+cudaError_t stream_bwd(void* const* p, Shape s, const int* dims,
+                       cudaStream_t stream) {
+  auto kernel = ln_stream_bwd_kernel<T, VEC>;
+  const size_t bytes = (HEAD + 4 * THREADS) * sizeof(float);
+  cudaError_t err = allow(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  // A row of `partial` a block, CHUNK rows a block where there are as
+  // many: no more blocks than rows of `partial`, a whole number of
+  // clusters of up to CLUSTER blocks (rounded down).
+  int blocks = std::min((s.rows + CHUNK - 1) / CHUNK,
+                        std::min(dims[3], dims[4]));
+  const int cluster = std::min(CLUSTER, blocks);
+  blocks = blocks / cluster * cluster;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(blocks);
+  config.blockDim = dim3(THREADS);
+  config.dynamicSmemBytes = bytes;
+  config.stream = stream;
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  int held = 0;
+  err = cudaOccupancyMaxActiveClusters(&held, kernel, &config);
+  if (err != cudaSuccess) return err;
+  if (held > 0 && blocks > held * cluster) {
+    blocks = held * cluster;
+    config.gridDim = dim3(blocks);
+  }
+  if (dims[5] < cluster) return cudaErrorInvalidValue;
+  return cudaLaunchKernelEx(
+      &config, kernel, static_cast<const T*>(p[0]),
+      static_cast<const float*>(p[1]), static_cast<const float*>(p[2]),
+      static_cast<const float*>(p[3]), static_cast<const float*>(p[4]),
+      static_cast<const T*>(p[5]), static_cast<T*>(p[6]),
+      static_cast<float*>(p[7]), static_cast<float*>(p[8]),
+      static_cast<float*>(p[9]), static_cast<unsigned*>(p[10]), s, cluster);
+}
+
+// One launch (forward or backward) at the plan's VEC and N, or where the
+// plan holds no row of C values (0), the streaming kernels at the widest
+// vector of up to 16 bytes that C is a multiple of.
 template <class T>
 cudaError_t run(bool backward, void* const* p, const int* dims, float eps,
                 cudaStream_t stream) {
   Shape s;
   int vec;
+  if (dims[0] <= 0 || dims[1] <= 0 || dims[3] <= 0)
+    return cudaErrorInvalidValue;
   const int n = plan<T>(dims[0], dims[1], dims[2], &s, &vec);
-  if (n == 0 || dims[0] <= 0 || dims[3] <= 0) return cudaErrorInvalidValue;
+  if (n == 0) {
+    for (vec = 16 / (int)sizeof(T); s.C % vec;) vec /= 2;
+    s.nvec = s.C / vec;
+#define LN_STREAM(V)                                                    \
+  if (vec == V)                                                         \
+    return backward ? stream_bwd<T, V>(p, s, dims, stream)              \
+                    : stream_fwd<T, V>(p, s, dims, eps, stream);
+    if constexpr (sizeof(T) == 2) {
+      LN_STREAM(8)
+    }
+    LN_STREAM(4)
+    LN_STREAM(2)
+    LN_STREAM(1)
+#undef LN_STREAM
+    return cudaErrorInvalidValue;
+  }
 #define LN_CASE(V, NN)                                                  \
   if constexpr (V * NN <= max_values<T>())                              \
     if (vec == V && n == NN)                                            \

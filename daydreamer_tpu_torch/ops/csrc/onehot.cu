@@ -45,6 +45,9 @@
 // and sum(dstoch * p); with the mixture, raw's max and sum of exp and
 // sum(g1 * p1): at C = 32 and K = 8 twelve shuffles for a lane's eight
 // values, where a lane a class took about thirty for its one.
+// Classes that are no power of two from 2 to 32 take a general path
+// (onehot_any_*_kernel): a group of up to a warp's lanes a group of
+// classes, walking them in passes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -329,6 +332,182 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// Any other count of classes (1, 3, 48, 64, ...): a group of G lanes
+// takes a group of C classes, G = C rounded up to a power of two and at
+// most a warp, a lane its classes sub, sub + G, ... in class order. Each
+// group quantity is a pass over the lane's classes, then over the group's
+// lanes in log2(G) shuffles, and the passes re-read the group (from L1),
+// so that any C runs; the per-value arithmetic and its rounding are the
+// kernels' above. Forward passes: with the mixture raw's max and sum of
+// exp; the logit (written, and read back by the same lane), its max; its
+// sum of exp; the first arg max; stoch. Written to be right first.
+
+template <class T, int G>
+__global__ void __launch_bounds__(256)
+    onehot_any_fwd_kernel(const T* __restrict__ x, const float* __restrict__ u,
+                          T* __restrict__ logit, T* __restrict__ stoch,
+                          Head h) {
+  const int C = h.C, sub = threadIdx.x % G, per = THREADS / G;
+  const long groups = h.n / C;
+  const long steps = (groups + per - 1) / per;
+  // Every thread of the block runs the same steps: the lanes of a group
+  // shuffle together.
+  for (long st = blockIdx.x; st < steps; st += gridDim.x) {
+    const long grp = st * per + threadIdx.x / G;
+    // A lane past the last group takes no class, and adds nothing.
+    const int end = grp < groups ? C : 0;
+    const long base = grp * C;
+    float m1 = 0.f, s1 = 1.f;
+    if (h.unimix) {
+      m1 = -INFINITY;
+      for (int c = sub; c < end; c += G) m1 = fmaxf(m1, widen(x[base + c]));
+      m1 = lanes_max<G>(m1);
+      s1 = 0.f;
+      for (int c = sub; c < end; c += G) s1 += expf(widen(x[base + c]) - m1);
+      s1 = lanes_sum<G>(s1);
+    }
+    // The logit: softmax(x) mixed with the uniform floor, its log rounded
+    // to T; or x itself.
+    float m2 = -INFINITY;
+    for (int c = sub; c < end; c += G) {
+      float l = widen(x[base + c]);
+      if (h.unimix) {
+        const float p2 =
+            __fadd_rn(__fmul_rn(expf(l - m1) / s1, h.keep), h.floor_);
+        l = rounded<T>(logf(p2));
+      }
+      narrow(l, &logit[base + c]);
+      m2 = fmaxf(m2, l);
+    }
+    m2 = lanes_max<G>(m2);
+    float s2 = 0.f;
+    for (int c = sub; c < end; c += G) s2 += expf(widen(logit[base + c]) - m2);
+    const float lse = logf(lanes_sum<G>(s2));
+    // The first arg max of log_softmax(logit), plus the noise for the
+    // sample.
+    float best = -INFINITY;
+    int win = 0x7fffffff;
+    for (int c = sub; c < end; c += G) {
+      float val = (widen(logit[base + c]) - m2) - lse;
+      if (h.sample) val += -logf(-logf(fmaxf(u[base + c], TINY)));
+      if (first(val, c, best, win)) {
+        best = val;
+        win = c;
+      }
+    }
+    win = lanes_argmax<G>(best, win);
+    for (int c = sub; c < end; c += G) {
+      const float one = c == win ? 1.f : 0.f;
+      float out = one;
+      if (h.sample) {
+        const float p = expf((widen(logit[base + c]) - m2) - lse);
+        out = __fsub_rn(__fadd_rn(one, p), p);
+      }
+      narrow(out, &stoch[base + c]);
+    }
+  }
+}
+
+// The backward's passes: with the sample the logit's max, its sum of exp
+// and sum(dstoch * p); with the mixture raw's max, its sum of exp and
+// sum(g1 * p1); then dx. The gradient g at the logit is recomputed where
+// a pass needs it.
+template <class T, int G>
+__global__ void __launch_bounds__(256)
+    onehot_any_bwd_kernel(const T* __restrict__ x, const T* __restrict__ logit,
+                          const T* __restrict__ dlogit,
+                          const T* __restrict__ dstoch, T* __restrict__ dx,
+                          Head h) {
+  const int C = h.C, sub = threadIdx.x % G, per = THREADS / G;
+  const long groups = h.n / C;
+  const long steps = (groups + per - 1) / per;
+  for (long st = blockIdx.x; st < steps; st += gridDim.x) {
+    const long grp = st * per + threadIdx.x / G;
+    const int end = grp < groups ? C : 0;
+    const long base = grp * C;
+    float ml = 0.f, lse = 0.f, dot = 0.f;
+    if (h.sample) {
+      ml = -INFINITY;
+      for (int c = sub; c < end; c += G)
+        ml = fmaxf(ml, widen(logit[base + c]));
+      ml = lanes_max<G>(ml);
+      float sum = 0.f;
+      for (int c = sub; c < end; c += G)
+        sum += expf(widen(logit[base + c]) - ml);
+      lse = logf(lanes_sum<G>(sum));
+      for (int c = sub; c < end; c += G)
+        dot += widen(dstoch[base + c]) *
+               expf((widen(logit[base + c]) - ml) - lse);
+      dot = lanes_sum<G>(dot);
+    }
+    // The gradient at the logit: the straight-through path's (exp, then
+    // log_softmax's backward and the cast) added to dlogit.
+    auto grad = [&](int c) {
+      float g = widen(dlogit[base + c]);
+      if (h.sample) {
+        const float p = expf((widen(logit[base + c]) - ml) - lse);
+        const float gl = widen(dstoch[base + c]) * p;
+        g = rounded<T>(rounded<T>(gl - p * dot) + g);
+      }
+      return g;
+    };
+    if (!h.unimix) {
+      for (int c = sub; c < end; c += G) narrow(grad(c), &dx[base + c]);
+      continue;
+    }
+    // softmax(x) mixed with the uniform floor (p1, p2), then the log's,
+    // the mixture's and the softmax's backward.
+    float mr = -INFINITY;
+    for (int c = sub; c < end; c += G) mr = fmaxf(mr, widen(x[base + c]));
+    mr = lanes_max<G>(mr);
+    float sr = 0.f;
+    for (int c = sub; c < end; c += G) sr += expf(widen(x[base + c]) - mr);
+    sr = lanes_sum<G>(sr);
+    auto g1 = [&](int c, float p1) {
+      const float p2 = __fadd_rn(__fmul_rn(p1, h.keep), h.floor_);
+      return __fmul_rn(grad(c) / p2, h.keep);
+    };
+    float dot2 = 0.f;
+    for (int c = sub; c < end; c += G) {
+      const float p1 = expf(widen(x[base + c]) - mr) / sr;
+      dot2 += g1(c, p1) * p1;
+    }
+    dot2 = lanes_sum<G>(dot2);
+    for (int c = sub; c < end; c += G) {
+      const float p1 = expf(widen(x[base + c]) - mr) / sr;
+      narrow(p1 * (g1(c, p1) - dot2), &dx[base + c]);
+    }
+  }
+}
+
+// Any count of classes but the powers of two from 2 to 32: a group of G
+// lanes a group.
+template <class T, int G>
+cudaError_t run_any_g(bool backward, void* const* p, const Head& h,
+                      int max_blocks, cudaStream_t stream) {
+  const long groups = h.n / h.C, per = THREADS / G;
+  const int grid = (int)std::min<long>((groups + per - 1) / per, max_blocks);
+  if (backward) {
+    auto kernel = onehot_any_bwd_kernel<T, G>;
+    kernel<<<grid, THREADS, 0, stream>>>(static_cast<const T*>(p[0]), static_cast<const T*>(p[1]), static_cast<const T*>(p[2]), static_cast<const T*>(p[3]), static_cast<T*>(p[4]), h);
+  } else {
+    auto kernel = onehot_any_fwd_kernel<T, G>;
+    kernel<<<grid, THREADS, 0, stream>>>(static_cast<const T*>(p[0]), static_cast<const float*>(p[1]), static_cast<T*>(p[2]), static_cast<T*>(p[3]), h);
+  }
+  return cudaGetLastError();
+}
+
+template <class T>
+cudaError_t run_any(bool backward, void* const* p, const Head& h,
+                    int max_blocks, cudaStream_t stream) {
+  if (h.C <= 1) return run_any_g<T, 1>(backward, p, h, max_blocks, stream);
+  if (h.C <= 2) return run_any_g<T, 2>(backward, p, h, max_blocks, stream);
+  if (h.C <= 4) return run_any_g<T, 4>(backward, p, h, max_blocks, stream);
+  if (h.C <= 8) return run_any_g<T, 8>(backward, p, h, max_blocks, stream);
+  if (h.C <= 16) return run_any_g<T, 16>(backward, p, h, max_blocks, stream);
+  return run_any_g<T, 32>(backward, p, h, max_blocks, stream);
+}
+
 template <class T, int K>
 cudaError_t run_k(bool backward, void* const* p, const Head& h,
                   int max_blocks, cudaStream_t stream) {
@@ -353,6 +532,8 @@ cudaError_t run_k(bool backward, void* const* p, const Head& h,
 template <class T>
 cudaError_t run(bool backward, void* const* p, Head h, const int* dims,
                 cudaStream_t stream) {
+  if (h.C > 32 || (h.C & (h.C - 1)) || h.C < 2)
+    return run_any<T>(backward, p, h, dims[4], stream);
   switch (dims[5]) {
     case 2: return run_k<T, 2>(backward, p, h, dims[4], stream);
     case 4: return run_k<T, 4>(backward, p, h, dims[4], stream);
@@ -362,8 +543,8 @@ cudaError_t run(bool backward, void* const* p, Head h, const int* dims,
 }
 
 // dims: elements, classes, unimix (0 or 1), sample (0 or 1), blocks at
-// most, classes a lane (2, 4 or 8); scalars: keep, floor. Classes a power
-// of two from 2 to 32.
+// most, classes a lane (2, 4 or 8, for classes a power of two from 2 to
+// 32); scalars: keep, floor.
 cudaError_t launch(int bf16, bool backward, void* const* ptrs,
                    const int* dims, float keep, float floor_,
                    cudaStream_t stream) {
@@ -374,8 +555,7 @@ cudaError_t launch(int bf16, bool backward, void* const* ptrs,
   h.sample = dims[3];
   h.keep = keep;
   h.floor_ = floor_;
-  if (h.n <= 0 || h.C < 2 || h.C > 32 || (h.C & (h.C - 1)) || h.n % h.C ||
-      dims[4] <= 0)
+  if (h.n <= 0 || h.C < 1 || h.n % h.C || dims[4] <= 0)
     return cudaErrorInvalidValue;
   return bf16 ? run<__nv_bfloat16>(backward, ptrs, h, dims, stream)
               : run<float>(backward, ptrs, h, dims, stream);

@@ -13,7 +13,8 @@ for them), calls them through the real wrappers of `rssm_vjp.py`,
 `rssm.py`, `norm.py`, `adam.py`, `gru.py` and `onehot.py` on CPU tensors
 at tiny widths, and holds each against its plain
 version in float32 and bfloat16, one case after another (`--case` picks
-cases by name, `--list` names them). The libraries go to `--out` (made if
+cases by name and builds and loads only the sources they run, `SOURCES`;
+`--list` names them). The libraries go to `--out` (made if
 missing; without it, a temporary directory), named by the contents of the
 source, its headers and the stand-ins, so that a library already there is
 loaded and not built again; `--build-only` builds them and stops. It checks a
@@ -131,15 +132,34 @@ def compile_selftest(outdir):
   return lib
 
 
+# The sources each kind of case runs (a kernel that shares another's source
+# by that one).
+SOURCES = {
+    'chain': (rssm_vjp.OBSERVE_FWD, rssm_vjp.OBSERVE_BWD),
+    'rollout': (rssm.IMAGINE_ACTOR, rssm.IMAGINE, rssm.OBSERVE),
+    'observe': (rssm.OBSERVE,),
+    'layer_norm': (norm.LAYER_NORM_ACT_FWD,),
+    'layer_norm_grid': (norm.LAYER_NORM_ACT_FWD,),
+    'adam': (adam.ADAM_SUMSQ,),
+    'gru': (gru.GRU_CELL_FWD,),
+    'onehot': (onehot.ONEHOT_HEAD_FWD,),
+}
+
+
+def sources(names):
+  """The kernels whose sources the cases `names` run, each once."""
+  return tuple(dict.fromkeys(k for name in names
+                             for k in SOURCES[NAMES[name][0]]))
+
+
 @contextlib.contextmanager
-def emulated(outdir):
+def emulated(outdir, kernels=None):
   """Within the block, the CUDA wrappers of `rssm_vjp.py`, `rssm.py`,
   `norm.py`, `adam.py`, `gru.py` and `onehot.py` take CPU tensors and run
-  the emulated kernels (every other check stays). The sources compile side
-  by side."""
-  kernels = (rssm_vjp.OBSERVE_FWD, rssm_vjp.OBSERVE_BWD, rssm.IMAGINE_ACTOR,
-             rssm.IMAGINE, rssm.OBSERVE, norm.LAYER_NORM_ACT_FWD,
-             adam.ADAM_SUMSQ, gru.GRU_CELL_FWD, onehot.ONEHOT_HEAD_FWD)
+  the emulated kernels (every other check stays): those of `kernels`, by
+  default every source. The sources compile side by side."""
+  if kernels is None:
+    kernels = tuple(dict.fromkeys(k for ks in SOURCES.values() for k in ks))
   pathlib.Path(outdir).mkdir(parents=True, exist_ok=True)
   with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
     compiled = list(pool.map(lambda k: compile_kernel(k, outdir), kernels))
@@ -501,9 +521,19 @@ LAYER_NORM_CASES = (
 # (the last block empty); 1100 rows in 35 blocks, 5 clusters (the last with 3
 # blocks of rows); float32 at 768 on 200 rows (two warps a row) in 50
 # blocks, 7 clusters; 700 rows of 128 in 44 blocks twice, equal bit for
-# bit, the counters back at zero. Last, a1's observe step: 32 rows at 256
-# with the ELU and at 768 without. Each as (dtype, C, rows, act, blocks[,
-# fwd_blocks[, twice]]).
+# bit, the counters back at zero. Then a1's observe step: 32 rows at 256
+# with the ELU and at 768 without. Last, the streaming path (rows past the
+# plan, a block a row): C = 4 100 on 5 rows, bfloat16 (8-byte vectors)
+# with the ELU and float32 (16-byte vectors) without (5 blocks, one
+# cluster); bfloat16 on
+# 37 rows with the forward capped at 3 blocks (the backward takes a block
+# for each chunk of 8 rows: one cluster of 5, runs of 8 rows); 16 392
+# bfloat16 (16-byte vectors) on 3 rows; 12 292 float32 (16-byte vectors)
+# on 2 rows; 4 097 bfloat16 (single values) on 150 rows in 17 blocks
+# (two clusters of 8, runs of 10 rows in chunks of 8 and 2, the last block
+# none; their rows summed by the last tickets) twice, equal bit for bit,
+# the counters back at zero. Each as (dtype, C, rows, act,
+# blocks[, fwd_blocks[, twice]]).
 LAYER_NORM_GRID_CASES = (
     (torch.bfloat16, 64, 600, 'elu', None, 2),
     (torch.float32, 512, 40, 'none', None, 1),
@@ -516,6 +546,12 @@ LAYER_NORM_GRID_CASES = (
     (torch.bfloat16, 128, 700, 'elu', None, None, True),
     (torch.bfloat16, 256, 32, 'elu', None),
     (torch.bfloat16, 768, 32, 'none', None),
+    (torch.bfloat16, 4100, 5, 'elu', None),
+    (torch.float32, 4100, 5, 'none', None),
+    (torch.bfloat16, 4100, 37, 'elu', 11, 3),
+    (torch.bfloat16, 16392, 3, 'none', None),
+    (torch.float32, 12292, 2, 'elu', None),
+    (torch.bfloat16, 4097, 150, 'elu', 17, None, True),
 )
 # adam: three tensors of odd sizes, the second decayed, one of them over a
 # block's chunk; with a constant lr and with a warmup's tensor lr. Then 200
@@ -530,22 +566,25 @@ ADAM_CASES = (
 
 
 def compare_gru(dtype, D, rows, fwd_blocks=None, cluster=None, blocks=None,
-                lanes=None, fwd_lanes=None, seed=0):
+                lanes=None, fwd_lanes=None, normed=True, seed=0):
   """The emulated `gru_cell_fwd` and `gru_cell_bwd` against the plain
   version and its autograd (call inside `emulated`); `fwd_blocks` caps the
   forward's grid, so that a block takes several steps of rows, and
   `fwd_lanes` sets the lanes it spreads the rows over; `cluster`, `blocks`
   and `lanes` set the backward's cluster, its blocks at most and the lanes
-  it spreads the rows over. The backward runs twice. Returns
-  (the largest error of the new deter relative to max(|deter|, 1), the
-  largest scaled error of dx, ddeter, dscale and dbias, whether the two
-  backward runs gave the same bits and left the counters at zero)."""
+  it spreads the rows over; without `normed` the cell has no norm (scale
+  and bias None). The backward runs twice. Returns (the largest error of
+  the new deter relative to max(|deter|, 1), the largest scaled error of
+  dx, ddeter, dscale and dbias (the first two without a norm), whether the
+  two backward runs gave the same bits and left the counters at zero)."""
   rng = np.random.default_rng(seed)
   t = lambda *shape: torch.as_tensor(
       rng.standard_normal(shape).astype(np.float32))
   x = (2 * t(rows, 3 * D) + 0.5).to(dtype)
   deter = torch.tanh(t(rows, D)).to(dtype)
   scale, bias, dout = 1 + 0.2 * t(3 * D), 0.3 * t(3 * D), t(rows, D).to(dtype)
+  if not normed:
+    scale = bias = None
   names = ('FWD_BLOCKS', 'CLUSTER', 'BWD_BLOCKS', 'BWD_LANES', 'FWD_LANES')
   saved = [getattr(gru, name) for name in names]
   for name, value in zip(names, (fwd_blocks, cluster, blocks, lanes,
@@ -560,7 +599,8 @@ def compare_gru(dtype, D, rows, fwd_blocks=None, cluster=None, blocks=None,
   finally:
     for name, value in zip(names, saved):
       setattr(gru, name, value)
-  leaves = [v.clone().requires_grad_() for v in (x, deter, scale, bias)]
+  leaves = [v.clone().requires_grad_() for v in (x, deter, scale, bias)
+            if v is not None]
   ref = gru.gru_cell_plain(*leaves)
   want = torch.autograd.grad(ref, leaves, dout)
   ref = ref.detach()
@@ -568,7 +608,8 @@ def compare_gru(dtype, D, rows, fwd_blocks=None, cluster=None, blocks=None,
   fwd = float(((out.float() - ref.float()).abs()
                / ref.float().abs().clamp_min(1)).max())
   bwd = [_scaled(got, w) for got, w in zip(runs[0], want)]
-  same = zeroed and all(torch.equal(a, b) for a, b in zip(*runs))
+  same = zeroed and all(a is None or torch.equal(a, b)
+                        for a, b in zip(*runs))
   return fwd, bwd, same
 
 
@@ -666,8 +707,20 @@ def _choices(stoch, ref, logit, u, rel=1e-5):
 # x 256 (8 warps, single values), bfloat16 at 32 x 512 (8 warps, 4-byte
 # vectors), float32 at 1 x 512 (8 warps, 8-byte vectors); last, bfloat16
 # at D = 45, no vector at all (single values, 2 warps a row, wider groups
-# leaving lanes without one). Each as (dtype, D, rows, fwd_blocks,
-# cluster, blocks, lanes, fwd_lanes).
+# leaving lanes without one). Then the two paths past that layout. Without
+# a norm (elementwise, a thread a vector): bfloat16 at D = 24 on 37 rows
+# (16-byte vectors) and float32 at D = 130 (8-byte vectors) on 5 rows, each
+# with the forward's grid capped at one block, which walks the rows'
+# vectors; and D = 45 (single values) in bfloat16 and float32. The wide rows (D past
+# MAX_D, a block a row streamed in passes): D = 2 049 (single values) on 5
+# rows in both types, the backward a cooperative grid of 5 blocks; on 7
+# rows with the forward's grid capped at 2 blocks and the backward's at 3
+# (runs of 3, 3 and 1 rows, each block's column sums over its rows before
+# the grid's); on 1 row (one block, the sums written directly);
+# bfloat16 at D = 2 056 (16-byte vectors) on 3 rows; and float32 at D =
+# 2 049 on 20 rows in 2 blocks (runs of 10 rows in chunks of 8 and 2).
+# Each as (dtype, D, rows, fwd_blocks, cluster, blocks, lanes, fwd_lanes[,
+# normed]).
 GRU_CASES = (
     (torch.bfloat16, 24, 150, 2, 2, 3, 1, 1),
     (torch.float32, 130, 37, None, 2, 2, 1, None),
@@ -684,6 +737,17 @@ GRU_CASES = (
     (torch.bfloat16, 512, 32, None, None, None, None, None),
     (torch.float32, 512, 1, None, None, None, None, None),
     (torch.bfloat16, 45, 7, None, None, None, None, None),
+    (torch.bfloat16, 24, 37, 1, None, None, None, None, False),
+    (torch.float32, 130, 5, 1, None, None, None, None, False),
+    (torch.bfloat16, 45, 7, None, None, None, None, None, False),
+    (torch.float32, 45, 7, None, None, None, None, None, False),
+    (torch.bfloat16, 2049, 5, None, None, None, None, None),
+    (torch.float32, 2049, 5, None, None, None, None, None),
+    (torch.bfloat16, 2049, 7, 2, None, 3, None, None),
+    (torch.float32, 2049, 7, 2, None, 3, None, None),
+    (torch.bfloat16, 2049, 1, None, None, None, None, None),
+    (torch.bfloat16, 2056, 3, None, None, None, None, None),
+    (torch.float32, 2049, 20, None, None, 2, None, None),
 )
 # onehot: both kernels hold the same classes a lane unless the case names
 # the backward's. 8 classes a lane: bfloat16 with 32 classes (4 lanes a
@@ -710,11 +774,18 @@ GRU_CASES = (
 # classes, sampled (18 values: the last lane holds 2 of its 4), and with 32
 # classes (8 lanes a group), sampled, on 9 rows of 4 groups (288 lanes) in
 # one block; float32 with 8 classes at 8 a lane, sampled, on 40 rows of 8
-# groups (320 lanes) in one block. Last, float32 as the card runs it from
+# groups (320 lanes) in one block. Then float32 as the card runs it from
 # WIDE_FROM values (the forward at 8 a lane, the backward at 4, a 16-byte
 # load): 32 classes (8 lanes a group), sampled, on 9 rows of 4 groups (288
 # lanes) in one block, and 2 classes, sampled, on 3 rows of 3 groups (18
-# values: the last lane holds 2 of its 4). Each as (dtype, rows, S, C, unimix,
+# values: the last lane holds 2 of its 4). Last, the general path (any
+# class count but the powers of two from 2 to 32; classes a lane play no
+# part): 3 classes (groups of 4 lanes, 8 a warp) with unimix, sampled and
+# the mode, in both types on 7 rows of 5 groups; 48 (a warp a group, 16
+# lanes with two classes) and 64 (two each) with unimix, sampled, and 64
+# the mode without it, in both types; 1 class with unimix, sampled; 100
+# classes on 33 rows of 8 groups, sampled, with the grid capped at 2
+# blocks, which walk their steps. Each as (dtype, rows, S, C, unimix,
 # sample, blocks, lane_classes[, bwd_lane_classes]).
 ONEHOT_CASES = (
     (torch.bfloat16, 5, 3, 32, 0.01, True, None, 8),
@@ -735,6 +806,18 @@ ONEHOT_CASES = (
     (torch.float32, 40, 8, 8, 0.01, True, 1, 8),
     (torch.float32, 9, 4, 32, 0.01, True, 1, 8, 4),
     (torch.float32, 3, 3, 2, 0.01, True, None, 8, 4),
+    (torch.bfloat16, 7, 5, 3, 0.01, True, None, None),
+    (torch.float32, 7, 5, 3, 0.01, True, None, None),
+    (torch.bfloat16, 7, 5, 3, 0.01, False, None, None),
+    (torch.float32, 7, 5, 3, 0.01, False, None, None),
+    (torch.bfloat16, 5, 3, 48, 0.01, True, None, None),
+    (torch.float32, 5, 3, 48, 0.01, True, None, None),
+    (torch.bfloat16, 5, 3, 64, 0.01, True, None, None),
+    (torch.float32, 5, 3, 64, 0.01, True, None, None),
+    (torch.bfloat16, 5, 3, 64, 0.0, False, None, None),
+    (torch.float32, 5, 3, 64, 0.0, False, None, None),
+    (torch.float32, 4, 3, 1, 0.01, True, None, None),
+    (torch.bfloat16, 33, 8, 100, 0.01, True, 2, None),
 )
 
 
@@ -799,7 +882,7 @@ def run_case(name):
     good = (fwd_err <= limits[0] and same
             and all(e <= lim for e, lim in zip(bwd_errs, limits[1])))
     print(f'{name} {dtype} D, rows, fwd_blocks, cluster, blocks, lanes, '
-          f'fwd_lanes {case}: forward '
+          f'fwd_lanes[, normed] {case}: forward '
           f'error {fwd_err:.3g} (tolerance {limits[0]:g} of max(|y|, 1)), '
           f'scaled backward errors dx, ddeter, dscale, dbias '
           f'{", ".join(f"{e:.3g}" for e in bwd_errs)} (tolerances '
@@ -871,7 +954,8 @@ def main(argv=None):
   parser.add_argument('--list', action='store_true',
                       help='Print the cases\' names and stop.')
   parser.add_argument('--build-only', action='store_true',
-                      help='Build the libraries and stop.')
+                      help='Build the libraries (those of the --case '
+                      'cases, where given) and stop.')
   args = parser.parse_args(argv)
   if args.list:
     print('\n'.join(NAMES))
@@ -880,7 +964,8 @@ def main(argv=None):
   with contextlib.ExitStack() as stack:
     outdir = args.out or stack.enter_context(tempfile.TemporaryDirectory())
     try:
-      stack.enter_context(emulated(outdir))
+      stack.enter_context(emulated(
+          outdir, sources(args.case) if args.case else None))
     except Unavailable as e:
       print(f'emulate: cannot run here: {e}', file=sys.stderr)
       return CANNOT_RUN

@@ -20,8 +20,10 @@ Without a norm (scale None, `norm: none`) the gates read x itself.
   in each block, then the blocks of one cluster in rank order through
   distributed shared memory, or the rows of a cooperative grid's blocks in
   block order after a barrier, `_barrier`), so that a graphed call equals
-  an eager one bit for bit. Without a norm, or with D past `MAX_D`, it
-  raises.
+  an eager one bit for bit. Without a norm (scale and bias None) both are
+  one elementwise pass; with D past `MAX_D` a block takes a row and
+  streams it (the backward's column sums in `partial`, summed in block
+  order by a cooperative grid). Every norm setting and D >= 1 runs.
 - On a CPU tensor it runs `gru_cell_plain`, the function in PyTorch ops
   (the RSSM's code before the kernel), and differentiates it by autograd.
 - Inside `build.plain_versions()` (tests and `chip_smoke.py` only) it runs
@@ -35,7 +37,8 @@ from . import norm
 from ..nn import cost
 
 EPS = norm.EPS
-# The widest deter the kernel takes: 256 lanes a row of 8 values a part.
+# The widest deter whose row a group of lanes holds in registers (256 lanes
+# of 8 values a part); wider rows take the streaming kernels.
 MAX_D = 2048
 # The forward: at most FWD_BLOCKS blocks walking the rows; a group of at
 # least a warp a row, wider where the rows take fewer than FWD_LANES lanes
@@ -81,61 +84,68 @@ def gru_cell_plain(x, deter, scale=None, bias=None):
 def _check(name, x, deter, scale, bias):
   if x.dtype not in (torch.float32, torch.bfloat16):
     raise TypeError(f'{name} takes float32 or bfloat16, not {x.dtype}.')
-  if scale is None or bias is None:
-    raise ValueError(f'{name}: the kernel applies the LayerNorm of '
-                     '`norm: layer`; it has no version without it.')
   D = x.shape[-1] // 3
   rows = x.numel() // x.shape[-1]
   if x.shape[-1] != 3 * D or tuple(deter.shape) != tuple(x.shape[:-1]) + (D,):
     raise ValueError(f'{name}: x {tuple(x.shape)} is not [..., 3 D] beside '
                      f'deter {tuple(deter.shape)}.')
-  if D > MAX_D:
-    raise ValueError(f'{name}: deter {D} is wider than the kernel takes '
-                     f'({MAX_D}).')
-  build.check(name, [('scale', scale), ('bias', bias)], x.device,
-              torch.float32)
-  if tuple(scale.shape) != (3 * D,) or tuple(bias.shape) != (3 * D,):
-    raise ValueError(f'{name}: scale and bias must have shape ({3 * D},).')
+  if (scale is None) != (bias is None):
+    raise ValueError(f'{name}: scale and bias are both given or both None.')
+  if scale is not None:
+    build.check(name, [('scale', scale), ('bias', bias)], x.device,
+                torch.float32)
+    if tuple(scale.shape) != (3 * D,) or tuple(bias.shape) != (3 * D,):
+      raise ValueError(f'{name}: scale and bias must have shape ({3 * D},).')
   return rows, D
 
 
 def gru_cell_fwd_cuda(x, deter, scale, bias):
-  """out, mean, rstd from one launch of `gru_cell_fwd`; x on a card."""
+  """out, mean, rstd from one launch of `gru_cell_fwd`; x on a card. mean
+  and rstd are None without a norm."""
   name = 'gru_cell_fwd'
   x, deter = norm._aligned(x), norm._aligned(deter.to(x.dtype))
   rows, D = _check(name, x, deter, scale, bias)
   build.check(name, [('x', x), ('deter', deter)], x.device, x.dtype)
   out = torch.empty_like(deter)
-  mean = torch.empty(rows, dtype=torch.float32, device=x.device)
-  rstd = torch.empty(rows, dtype=torch.float32, device=x.device)
+  mean = rstd = None
+  if scale is not None:
+    mean = torch.empty(rows, dtype=torch.float32, device=x.device)
+    rstd = torch.empty(rows, dtype=torch.float32, device=x.device)
   build.launch(GRU_CELL_FWD, 'gru_cell_fwd', x.dtype,
                [x, deter, scale, bias, out, mean, rstd],
-               [rows, D, FWD_BLOCKS, FWD_LANES], [EPS], x.device)
+               [rows, D, FWD_BLOCKS, FWD_LANES, int(scale is not None)],
+               [EPS], x.device)
   return out, mean, rstd
 
 
 def gru_cell_bwd_cuda(x, deter, scale, bias, mean, rstd, dout):
-  """dx, ddeter, dscale, dbias from one launch of `gru_cell_bwd`."""
+  """dx, ddeter, dscale, dbias from one launch of `gru_cell_bwd` (dscale
+  and dbias None without a norm)."""
   name = 'gru_cell_bwd'
   x, deter = norm._aligned(x), norm._aligned(deter.to(x.dtype))
   dout = norm._aligned(dout.to(x.dtype))
   rows, D = _check(name, x, deter, scale, bias)
   build.check(name, [('x', x), ('deter', deter), ('dout', dout)], x.device,
               x.dtype)
-  build.check(name, [('mean', mean), ('rstd', rstd)], x.device,
-              torch.float32)
   dx, ddeter = torch.empty_like(x), torch.empty_like(deter)
-  dscale = torch.empty(3 * D, dtype=torch.float32, device=x.device)
-  dbias = torch.empty(3 * D, dtype=torch.float32, device=x.device)
-  # A row of partial sums a block of a cooperative grid (no more blocks
-  # than rows): dscale's 3 D columns, then dbias's.
-  partial = torch.empty((min(BWD_BLOCKS, rows), 6 * D), dtype=torch.float32,
-                        device=x.device)
+  dscale = dbias = partial = barrier = None
+  partial_rows = 0
+  if scale is not None:
+    build.check(name, [('mean', mean), ('rstd', rstd)], x.device,
+                torch.float32)
+    dscale = torch.empty(3 * D, dtype=torch.float32, device=x.device)
+    dbias = torch.empty(3 * D, dtype=torch.float32, device=x.device)
+    # A row of partial sums a block of a cooperative grid (no more blocks
+    # than rows): dscale's 3 D columns, then dbias's.
+    partial_rows = min(BWD_BLOCKS, rows)
+    partial = torch.empty((partial_rows, 6 * D), dtype=torch.float32,
+                          device=x.device)
+    barrier = _barrier(x.device)
   build.launch(GRU_CELL_BWD, 'gru_cell_bwd', x.dtype,
                [x, deter, scale, bias, mean, rstd, dout, dx, partial, dscale,
-                dbias, ddeter, _barrier(x.device)],
-               [rows, D, BWD_BLOCKS, partial.shape[0], CLUSTER, BWD_LANES,
-                BARRIER], [EPS], x.device)
+                dbias, ddeter, barrier],
+               [rows, D, BWD_BLOCKS, partial_rows, CLUSTER, BWD_LANES,
+                BARRIER, int(scale is not None)], [EPS], x.device)
   return dx, ddeter, dscale, dbias
 
 
@@ -145,34 +155,38 @@ def _barrier(device):
   return build.counters('gru_cell_bwd', device, BARRIER)
 
 
-def gru_cell_work(rows, D, dtype, backward=False):
+def gru_cell_work(rows, D, dtype, backward=False, normed=True):
   """(operations, bytes) of one call at these widths: each input read once,
   each output written once. Forward: x [rows, 3 D], deter, scale and bias
   in; the new deter, mean and rstd out; about 8 operations a normalized
   value and 24 an output value (two sigmoids, a tanh, five products and
   sums). Backward: x, deter, the new deter's gradient, mean, rstd, scale
   and bias in; dx, ddeter, dscale and dbias out; about 16 operations a
-  normalized value and 40 an output value. The partial sums are the
-  kernel's own scratch, and no product is done (`cost.CostMode` counts
-  products only, so the wrappers count no FLOPs)."""
+  normalized value and 40 an output value. Without a norm (`normed` False)
+  there is no scale, bias, mean, rstd, dscale or dbias, and no operation
+  of the norm. The partial sums are the kernel's own scratch, and no
+  product is done (`cost.CostMode` counts products only, so the wrappers
+  count no FLOPs)."""
   item = cost.itemsize(dtype)
-  params = 4 * 2 * 3 * D
+  params = 4 * 2 * 3 * D * normed
+  stats = 8 * normed
   if backward:
-    return (rows * (16 * 3 * D + 40 * D),
-            rows * (item * (3 * D + 3 * D + 3 * D) + 8) + 2 * params)
-  return (rows * (8 * 3 * D + 24 * D),
-          rows * (item * (3 * D + 2 * D) + 8) + params)
+    return (rows * (16 * 3 * D * normed + 40 * D),
+            rows * (item * (3 * D + 3 * D + 3 * D) + stats) + 2 * params)
+  return (rows * (8 * 3 * D * normed + 24 * D),
+          rows * (item * (3 * D + 2 * D) + stats) + params)
 
 
 class GRUCell(torch.autograd.Function):
-  """(x, deter, scale, bias) -> the new deter. A CUDA input launches the
-  kernels, a CPU input runs the plain version (its backward by
-  autograd)."""
+  """(x, deter, scale, bias) -> the new deter; scale and bias may be None
+  (`norm: none`). A CUDA input launches the kernels, a CPU input runs the
+  plain version (its backward by autograd)."""
 
   @staticmethod
   def forward(ctx, x, deter, scale, bias):
     rows, D = x.numel() // x.shape[-1], x.shape[-1] // 3
-    work = lambda: (0, gru_cell_work(rows, D, x.dtype)[1])
+    has_norm = scale is not None
+    work = lambda: (0, gru_cell_work(rows, D, x.dtype, normed=has_norm)[1])
     with cost.kernel('gru_cell_fwd', work):
       if x.device.type == 'cpu':
         out, stats = gru_cell_plain(x, deter, scale, bias), ()
@@ -185,14 +199,18 @@ class GRUCell(torch.autograd.Function):
   def backward(ctx, dout):
     x, deter, scale, bias, *stats = ctx.saved_tensors
     rows, D = x.numel() // x.shape[-1], x.shape[-1] // 3
-    work = lambda: (0, gru_cell_work(rows, D, x.dtype, backward=True)[1])
+    has_norm = scale is not None
+    work = lambda: (0, gru_cell_work(rows, D, x.dtype, backward=True,
+                                     normed=has_norm)[1])
     with cost.kernel('gru_cell_bwd', work):
       if x.device.type == 'cpu':
         with torch.enable_grad():
-          inputs = [t.detach().requires_grad_()
+          inputs = [t if t is None else t.detach().requires_grad_()
                     for t in (x, deter, scale, bias)]
           out = gru_cell_plain(*inputs)
-          return torch.autograd.grad(out, inputs, dout)
+          grads = iter(torch.autograd.grad(
+              out, [t for t in inputs if t is not None], dout))
+          return tuple(t if t is None else next(grads) for t in inputs)
       dx, ddeter, dscale, dbias = gru_cell_bwd_cuda(
           x, deter, scale, bias, *stats, dout)
     return dx, ddeter, dscale, dbias
@@ -200,8 +218,8 @@ class GRUCell(torch.autograd.Function):
 
 def gru_cell(x, deter, scale=None, bias=None):
   """The new deter from the `gru_out` product x, the previous deter and the
-  norm's scale and bias (see the module docstring); differentiable in all
-  four."""
-  if build.plain() or (scale is None and x.device.type == 'cpu'):
+  norm's scale and bias, None for `norm: none` (see the module docstring);
+  differentiable in all four."""
+  if build.plain():
     return gru_cell_plain(x, deter, scale, bias)
   return GRUCell.apply(x, deter, scale, bias)

@@ -21,7 +21,12 @@ with its callable, is applied after the norm by that callable.
   backward is one launch: its blocks' sums meet in clusters of up to 8
   blocks (distributed shared memory), the clusters' in the blocks that
   draw the last tickets of the counters (`_tickets`: one array a card,
-  zeroed once, outside any capture, and reset by the kernel itself).
+  zeroed once, outside any capture, and reset by the kernel itself). A row
+  wider than a block's lanes hold in registers (past 16 384 bfloat16 or
+  12 288 float32 values, 4 096 where C is no multiple of a 16-byte vector)
+  takes the streaming path: a block a row, re-read from memory for each
+  pass, its column sums in rows of `partial` summed through the same
+  clusters and tickets. Every C >= 1 runs.
 - On a CPU tensor it runs `layer_norm_act_plain`, the same function in
   PyTorch ops (the layer's code before the kernel), and differentiates it
   by autograd.
@@ -88,9 +93,6 @@ def _check(name, x, scale, bias, act):
               torch.float32)
   if tuple(scale.shape) != (C,) or tuple(bias.shape) != (C,):
     raise ValueError(f'{name}: scale and bias must have shape ({C},).')
-  # A row wider than csrc/layer_norm.cu's `plan` takes (past 16 384
-  # bfloat16 or 12 288 float32 values, 4 096 where C is no multiple of a
-  # 16-byte vector) is refused by the launch.
   return rows, C
 
 

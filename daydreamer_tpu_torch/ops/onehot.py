@@ -17,10 +17,11 @@ the mode, which has no gradient.
   under autograd, `onehot_head_bwd`, whose gradient of the raw logits runs
   through the straight-through probabilities, the cast, the log, the
   mixture and the softmax, rounded as autograd of the plain version rounds
-  it. Each holds several classes a lane (`lane_classes`,
-  `bwd_lane_classes`), on a grid of at most `BLOCKS` blocks walking the
-  values. Classes must be a power of two from 2 to 32 (a group within a
-  warp); other counts raise.
+  it. For classes a power of two from 2 to 32 each holds several classes a
+  lane (`lane_classes`, `bwd_lane_classes`), on a grid of at most `BLOCKS`
+  blocks walking the values; any other count of classes C >= 1 takes a
+  general path, a group of up to a warp's lanes a group that walks its
+  classes in passes.
 - On a CPU tensor it runs `onehot_head_plain`, the function in PyTorch ops
   (the RSSM's and `OneHotDist`'s code before the kernel), and
   differentiates it by autograd.
@@ -94,11 +95,7 @@ def onehot_head_plain(raw, u, unimix):
 def _check(name, raw):
   if raw.dtype not in (torch.float32, torch.bfloat16):
     raise TypeError(f'{name} takes float32 or bfloat16, not {raw.dtype}.')
-  C = raw.shape[-1]
-  if C < 2 or C > 32 or C & (C - 1):
-    raise ValueError(f'{name}: {C} classes; the kernel takes a power of two '
-                     'from 2 to 32 (a group of lanes of a warp).')
-  return C
+  return raw.shape[-1]
 
 
 def _scalars(C, unimix):

@@ -111,6 +111,17 @@ OWN = {
     'gru_sum_kernel': 'gru_cell_bwd',
     'onehot_fwd_kernel': 'onehot_head_fwd',
     'onehot_bwd_kernel': 'onehot_head_bwd',
+    # Their paths past the first layouts: the GRU cell without a norm and
+    # past D = 2 048, the head at other class counts, and rows of the norm
+    # that the streaming kernels take.
+    'gru_bare_fwd_kernel': 'gru_cell_fwd',
+    'gru_bare_bwd_kernel': 'gru_cell_bwd',
+    'gru_wide_fwd_kernel': 'gru_cell_fwd',
+    'gru_wide_bwd_kernel': 'gru_cell_bwd',
+    'onehot_any_fwd_kernel': 'onehot_head_fwd',
+    'onehot_any_bwd_kernel': 'onehot_head_bwd',
+    'ln_stream_fwd_kernel': 'layer_norm_act_fwd',
+    'ln_stream_bwd_kernel': 'layer_norm_act_bwd',
 }
 # The other categories: the first pattern that matches the lowercased name.
 CATEGORIES = (

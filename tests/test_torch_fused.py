@@ -3,8 +3,8 @@
 `ops/adam.py` (the optimizer's global norm and step), as the layers and the
 optimizer use them, against the JAX package, from numpy inputs made from a
 seed. On the CPU the wrappers run their plain versions; the CUDA sources
-themselves are held to those in `tests/test_torch_emulate_cases.py` and on
-the card by `chip_smoke.py`.
+themselves are held to those in `tests/test_torch_emulate_update.py` and
+on the card by `chip_smoke.py`.
 
 Tolerances: float32, 1e-5 (atol and rtol), the same arithmetic summed in
 another order. bfloat16: outputs within 2^-7 relative and absolute (one

@@ -3,7 +3,8 @@ GRU cell after its product) and `ops/onehot.py` (the categorical stats head
 with its straight-through sample), whose wrappers run their plain versions
 here, against the JAX package, from numpy inputs made from a seed, in
 float32. The CUDA sources themselves are held to the plain versions in
-`tests/test_torch_emulate_cases.py` and on the card by `chip_smoke.py`.
+`tests/test_torch_emulate_gru.py` and `tests/test_torch_emulate_onehot.py`
+and on the card by `chip_smoke.py`.
 
 - `gru_cell` and its gradients in the product, deter, scale and bias
   against `jax.vjp` of the JAX `RSSM._gru` whose `gru_out` kernel is
@@ -17,7 +18,9 @@ float32. The CUDA sources themselves are held to the plain versions in
   that estimator at the same one-hot.
 - A JAX RSSM's `obs_step` and `img_step` over 3 steps, its weights carried
   into the port by `from_jax_state`, both sides drawing the same noise:
-  every state, and the gradients of a loss over them in every weight.
+  every state, and the gradients of a loss over them in every weight; and
+  the same at `norm: none`, deter 2 049 and classes 3, 48 and 64 (the
+  gradients' atol there scaled by each tensor's largest magnitude).
 
 Tolerance 1e-5 (atol and rtol), as the RSSM's parity tests in
 `tests/test_torch_nn.py`: the same float32 arithmetic, summed in another
@@ -193,13 +196,42 @@ def test_rssm_steps_against_jax(monkeypatch):
   with its weights (perturbed, so that unit scales and zero biases matter)
   carried by `from_jax_state`, on the same inputs and noise: every state,
   and the gradients of a weighted sum of them in every weight."""
+  _check_steps(monkeypatch, RSSM_KW)
+
+
+# Widths past the kernels' first layouts, each of which the JAX package
+# trains: no norm (the GRU cell without one), a deter past the 2 048 that a
+# group of lanes holds (3 x 2 049 values a row, no multiple of a vector),
+# and class counts that are no power of two from 2 to 32.
+WIDTHS = {
+    'norm none': dict(norm='none'),
+    'deter 2049': dict(deter=2049),
+    'classes 3': dict(classes=3),
+    'classes 48': dict(classes=48),
+    'classes 64': dict(classes=64),
+}
+
+
+@pytest.mark.parametrize('width', list(WIDTHS))
+def test_rssm_steps_widths_against_jax(monkeypatch, width):
+  """`test_rssm_steps_against_jax` at each of WIDTHS (on the CPU the
+  wrappers run their plain versions, to which the emulated cases hold the
+  kernels' new paths). The states within 1e-5 as there; a weight's
+  gradient within rtol 1e-5 and an atol of 1e-5 of the tensor's largest
+  magnitude (at least 1e-5): its sums, of up to 6 147 terms at deter
+  2 049, run in another order, and a gradient entry near zero beside
+  entries of 20 misses a fixed atol of 1e-5 by its rounding."""
+  _check_steps(monkeypatch, {**RSSM_KW, **WIDTHS[width]}, scaled=True)
+
+
+def _check_steps(monkeypatch, kw, scaled=False):
   rng = np.random.default_rng(3)
   actions = _normal(rng, STEPS, B, A)
   embeds = _normal(rng, STEPS, B, E)
   firsts = np.zeros((STEPS, B), np.float32)
   firsts[0] = 1.0
   firsts[2, 1] = 1.0
-  S, C = RSSM_KW['stoch'], RSSM_KW['classes']
+  S, C = kw['stoch'], kw['classes']
   # Two draws a step of obs_step (prior, posterior), one of img_step.
   draws = [rng.uniform(size=(B, S, C)).astype(np.float32)
            for _ in range(3 * STEPS)]
@@ -207,14 +239,14 @@ def test_rssm_steps_against_jax(monkeypatch):
   monkeypatch.setattr(jax.random, 'categorical', noise.categorical)
   monkeypatch.setattr(onehot, 'uniform', noise.uniform)
 
-  jmod = jnets.RSSM('rssm', **RSSM_KW)
+  jmod = jnets.RSSM('rssm', **kw)
   jfn = jnn.pure(lambda *a: _steps(jmod, *a))
   inputs = (actions, embeds, firsts)
   noise.taken = 0
   _, state = jfn({}, 0, *inputs, create=True)
   state = {k: np.asarray(v) + 0.1 * _normal(rng, *v.shape)
            for k, v in state.items()}
-  pmod = pnets.RSSM('rssm', **RSSM_KW)
+  pmod = pnets.RSSM('rssm', **kw)
   tinputs = [torch.as_tensor(v) for v in inputs]
   noise.taken = 0
   with pnn.scope(create=True):
@@ -245,5 +277,7 @@ def test_rssm_steps_against_jax(monkeypatch):
   grads = pnn.to_jax_state(
       {k: v.grad for k, v in pnn.state(pmod).items()}, pnn.kinds(pmod))
   for key, value in jgrads.items():
-    np.testing.assert_allclose(grads[key], np.asarray(value), **TOL,
-                               err_msg=key)
+    value = np.asarray(value)
+    tol = dict(rtol=1e-5, atol=1e-5 * max(1.0, float(np.abs(value).max()))
+               ) if scaled else TOL
+    np.testing.assert_allclose(grads[key], value, **tol, err_msg=key)

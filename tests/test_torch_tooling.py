@@ -121,6 +121,24 @@ def test_profile_train_on_cpu(capsys, monkeypatch):
     ('void (anonymous namespace)::onehot_bwd_kernel<float>(float const*, '
      'float const*, float const*, float const*, float*, (anonymous '
      'namespace)::Head)', 'onehot_head_bwd'),
+    # Their paths past the first layouts, each under its wrapper's name.
+    ('void (anonymous namespace)::gru_bare_fwd_kernel<float, 2>(float '
+     'const*, float const*, float*, int, int)', 'gru_cell_fwd'),
+    ('void (anonymous namespace)::gru_bare_bwd_kernel<__nv_bfloat16, 8>('
+     '__nv_bfloat16 const*)', 'gru_cell_bwd'),
+    ('void (anonymous namespace)::gru_wide_fwd_kernel<__nv_bfloat16, 8>('
+     '__nv_bfloat16 const*)', 'gru_cell_fwd'),
+    ('void (anonymous namespace)::gru_wide_bwd_kernel<float, 1>(float '
+     'const*)', 'gru_cell_bwd'),
+    ('void (anonymous namespace)::onehot_any_fwd_kernel<float>(float '
+     'const*, float const*, float*, float*, (anonymous namespace)::Head, '
+     'int)', 'onehot_head_fwd'),
+    ('void (anonymous namespace)::onehot_any_bwd_kernel<__nv_bfloat16>('
+     '__nv_bfloat16 const*)', 'onehot_head_bwd'),
+    ('void (anonymous namespace)::ln_stream_fwd_kernel<__nv_bfloat16, 4>('
+     '__nv_bfloat16 const*)', 'layer_norm_act_fwd'),
+    ('void (anonymous namespace)::ln_stream_bwd_kernel<float, 4>(float '
+     'const*)', 'layer_norm_act_bwd'),
 ])
 def test_categorize(name, category):
   assert profile_train.categorize(name) == category

@@ -1,0 +1,90 @@
+"""The port at widths past its fusion kernels' first layouts, each of which
+the JAX package trains: `norm: none` (the GRU cell without a norm), class
+counts that are no power of two from 2 to 32, a deter past 2 048 and
+`norm: layer` rows past the layout that keeps a row in registers.
+
+- One whole `Agent.train` step at `--rssm.classes 48 --rssm.norm none`
+  against the JAX agent, on the JAX agent's state carried by `load`, with
+  sampling set to the modes on both sides as `tests/test_torch_agent.py`
+  sets it, at its tolerances: losses rtol 1e-4 (atol 1e-5), the state
+  after the update atol 3e-4.
+- No wrapper refuses these widths: each op's `_check` takes them (the
+  launches themselves are held to the plain versions by the emulated
+  cases, `tests/test_torch_emulate_gru.py`, `_onehot.py`, `_update.py`).
+- `gru_cell` without a norm goes through `GRUCell`, the kernels' Function,
+  and equals the plain version and its gradients exactly on the CPU.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from daydreamer_tpu_torch.ops import build, gru, norm, onehot
+from test_torch_agent import _jax_run, env, mode_sampling, port_agent  # noqa: F401
+
+torch.set_num_threads(1)
+
+WIDTHS = {'rssm.classes': 48, 'rssm.norm': 'none'}
+
+
+def test_train_step_matches_jax_classes_48_norm_none(env, mode_sampling):
+  before, after, data, jmets = _jax_run(env, **WIDTHS)
+  agent = port_agent(env, **WIDTHS)
+  rssm = agent.agent.wm.rssm
+  assert (rssm._classes, rssm._kw['norm']) == (48, 'none')
+  agent.load(before)
+  calls = []
+  apply = gru.GRUCell.apply
+  with pytest.MonkeyPatch.context() as mp:
+    mp.setattr(gru.GRUCell, 'apply',
+               lambda *a: calls.append(a[2]) or apply(*a))
+    _, _, pmets = agent.train(data)
+    pmets = dict(pmets)
+  # The GRU cell ran through the kernels' Function, without a norm.
+  assert calls and all(scale is None for scale in calls)
+  assert set(pmets) == set(jmets)
+  for key in sorted(jmets):
+    np.testing.assert_allclose(pmets[key], jmets[key], rtol=1e-4,
+                               atol=1e-5, err_msg=key)
+  state = agent.save()
+  assert set(state) == set(after)
+  for key, value in after.items():
+    np.testing.assert_allclose(
+        state[key], np.asarray(value), atol=3e-4, rtol=0, err_msg=key)
+
+
+def test_wrappers_take_every_width(monkeypatch):
+  """Each op's `_check` at the widths it refused before: only the dtype
+  checks remain (the tensors' device and layout are `build.check`'s, set
+  aside here on the CPU)."""
+  monkeypatch.setattr(build, 'check', lambda *args, **kwargs: None)
+  t = lambda *shape: torch.zeros(shape)
+  for D in (10, 2048, 2049, 4096):
+    assert gru._check('gru_cell_fwd', t(2, 3 * D), t(2, D), t(3 * D),
+                      t(3 * D)) == (2, D)
+    assert gru._check('gru_cell_bwd', t(2, 3 * D), t(2, D), None,
+                      None) == (2, D)
+  for C in (1, 3, 48, 64, 100, 256):
+    assert onehot._check('onehot_head_fwd', t(2, 4, C)) == C
+  for C in (4100, 16392, 12292, 5000):
+    assert norm._check('layer_norm_act_fwd', t(2, C), t(C), t(C),
+                       'elu') == (2, C)
+  with pytest.raises(TypeError):
+    onehot._check('onehot_head_fwd', t(2, 4, 3).half())
+
+
+def test_gru_cell_without_norm_goes_through_gru_cell_function():
+  rng = np.random.default_rng(0)
+  x = torch.as_tensor(rng.standard_normal((3, 30)).astype(np.float32))
+  deter = torch.as_tensor(rng.standard_normal((3, 10)).astype(np.float32))
+  dout = torch.as_tensor(rng.standard_normal((3, 10)).astype(np.float32))
+  leaves = [v.clone().requires_grad_() for v in (x, deter)]
+  out = gru.gru_cell(*leaves)
+  assert type(out.grad_fn).__name__ == 'GRUCellBackward'
+  out.backward(dout)
+  plain = [v.clone().requires_grad_() for v in (x, deter)]
+  ref = gru.gru_cell_plain(*plain)
+  ref.backward(dout)
+  assert torch.equal(out, ref)
+  for got, want in zip(leaves, plain):
+    assert torch.equal(got.grad, want.grad)
