@@ -27,6 +27,9 @@ def main(argv=None):
   for name in parsed.configs:
     config = config.update(Agent.configs[name])
   config = embodied.Flags(config).parse(other)
+  if config.torch.threads:
+    import torch
+    torch.set_num_threads(config.torch.threads)
   args = embodied.Config(
       logdir=config.logdir,
       **config.train,

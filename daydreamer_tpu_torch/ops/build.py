@@ -11,7 +11,10 @@ dims, float..., void* stream)` and returns `cudaGetLastError()`; `check`
 holds the tensors to what a kernel reads and `launch` makes the call.
 
 Two kernels may share one source and its library (`shares`): each keeps
-its own launch count.
+its own launch count. A kernel's source may have `parts`, further sources
+that nvcc compiles beside it, one process each, into objects linked into
+its library: a source with many instantiations builds in the time of its
+longest part.
 
 A launch is counted on its kernel (`count`). While a CUDA graph is being
 captured on the calling thread's stream nothing launches: the call is
@@ -35,8 +38,9 @@ import torch
 HERE = pathlib.Path(__file__).resolve().parent
 CSRC = HERE / 'csrc'
 BUILD = HERE / '_build'
-FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-         '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+ARCH = ['-gencode', 'arch=compute_90a,code=sm_90a']
+FLAGS = [*ARCH, '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
+         '-Xptxas', '-v']
 
 
 def nvcc():
@@ -57,9 +61,10 @@ class Kernel:
   route = 'cuda'
 
   def __init__(self, name, source, replaces, signature=None, headers=(),
-               shares=None):
+               shares=None, parts=()):
     self.name = name
     self.source = CSRC / source
+    self.parts = [CSRC / part for part in parts]
     self.headers = [CSRC / header for header in headers]
     self.replaces = replaces
     self.signature = signature  # {C function: (restype, argtypes)}
@@ -71,9 +76,9 @@ class Kernel:
       self.headers, self.signature = shares.headers, shares.signature
 
   def digest(self):
-    """A hash of the source and of the headers it includes."""
+    """A hash of the source, its parts and the headers they include."""
     digest = hashlib.sha256(self.source.read_bytes())
-    for header in self.headers:
+    for header in self.parts + self.headers:
       digest.update(header.read_bytes())
     return digest.hexdigest()[:12]
 
@@ -91,9 +96,12 @@ class Kernel:
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = self.library.with_suffix(f'.{os.getpid()}.tmp')
     log = open(self.library.with_suffix('.log'), 'w')
-    proc = subprocess.Popen(
-        [nvcc(), *FLAGS, '-o', str(tmp), str(self.source)],
-        stdout=log, stderr=subprocess.STDOUT)
+    if self.parts:
+      proc = _Parts(self.source, self.parts, tmp, log)
+    else:
+      proc = subprocess.Popen(
+          [nvcc(), *FLAGS, '-o', str(tmp), str(self.source)],
+          stdout=log, stderr=subprocess.STDOUT)
     proc.tmp, proc.log = tmp, log
     return proc
 
@@ -124,6 +132,36 @@ class Kernel:
   def build_log(self):
     log = self.library.with_suffix('.log')
     return log.read_text() if log.exists() else ''
+
+
+class _Parts:
+  """The nvcc processes of a source and its parts, one object each, and
+  their link into the library once all are done: `poll` and `wait` as a
+  process has them."""
+
+  def __init__(self, source, parts, tmp, log):
+    self.objects = [tmp.with_suffix(f'.{i}.o') for i in range(len(parts) + 1)]
+    flags = [f for f in FLAGS if f != '-shared']
+    self.procs = [
+        subprocess.Popen([nvcc(), *flags, '-c', '-o', str(obj), str(src)],
+                         stdout=log, stderr=subprocess.STDOUT)
+        for obj, src in zip(self.objects, [source, *parts])]
+    self.tmp, self.log = tmp, log
+
+  def poll(self):
+    codes = [proc.poll() for proc in self.procs]
+    return None if None in codes else max(codes, key=abs)
+
+  def wait(self):
+    code = max((proc.wait() for proc in self.procs), key=abs)
+    if code == 0:
+      code = subprocess.run(
+          [nvcc(), *ARCH, '-shared', '-o', str(self.tmp),
+           *map(str, self.objects)],
+          stdout=self.log, stderr=subprocess.STDOUT).returncode
+    for obj in self.objects:
+      obj.unlink(missing_ok=True)
+    return code
 
 
 class TritonKernel:

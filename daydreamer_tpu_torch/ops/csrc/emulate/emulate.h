@@ -132,14 +132,14 @@ cudaError_t cudaOccupancyMaxActiveClusters(int* count, F,
 // Saves the callee-saved registers and the stack pointer of the running
 // context at *save and resumes the context saved at `load` (x86-64 System
 // V). A new fiber's first switch returns into emu_start, which calls r12
-// with rbx as its argument.
+// with rbx as its argument. Both are local to each translation unit, so
+// that a kernel built from several sources links.
 extern "C" __attribute__((visibility("hidden"))) void emu_switch(void** save,
                                                                  void* load);
 extern "C" __attribute__((visibility("hidden"))) void emu_start();
 asm(R"(
   .text
-  .hidden emu_switch
-  .globl emu_switch
+  .local emu_switch
   .type emu_switch, @function
 emu_switch:
   pushq %rbp
@@ -158,8 +158,7 @@ emu_switch:
   popq %rbp
   ret
   .size emu_switch, .-emu_switch
-  .hidden emu_start
-  .globl emu_start
+  .local emu_start
   .type emu_start, @function
 emu_start:
   movq %rbx, %rdi

@@ -41,6 +41,13 @@
 // rounded to T exactly where the JAX cell rounds (after each product,
 // LayerNorm and ELU), so the kernel differs from its plain PyTorch version
 // only in the order of the sums.
+//
+// Every width the JAX kernel takes, as imagine_actor.cu: the prior MLP may
+// have no layer; past MAXL layers, or where the products' float sums
+// outgrow shared memory (deter past about 1 900 at a1's other widths), the
+// wide instantiation of either kernel runs, its parameters holding MANY
+// layers' addresses and the sums (and the ring kernel's schedule) in the
+// block's copy of the workspace that the wrapper hands over.
 
 #include "imagine_mma.cuh"
 
@@ -48,6 +55,7 @@ namespace {
 
 using namespace imm;
 
+template <int L>
 struct Params {
   const void *stoch0, *deter0, *actions;  // actions [H,B,A].
   const float* g_s;                       // Gumbel noise [H,B,SC], or null.
@@ -56,7 +64,8 @@ struct Params {
   const void *w_in_s, *w_in_a, *ln_in_s, *ln_in_b;
   const void *w_gru_d, *w_gru_x, *ln_gru_s, *ln_gru_b;
   const void *w_st, *b_st;
-  const void *w_out[MAXL], *ln_out_s[MAXL], *ln_out_b[MAXL];
+  const void *w_out[L], *ln_out_s[L], *ln_out_b[L];
+  float* ws;  // The wide path's workspace, or null.
   int H, B, A, D, U, S, C, n_out;
   float unimix;
 };
@@ -64,14 +73,28 @@ struct Params {
 // Shared memory of the ring kernel, in this order: Y [G][R] float (every
 // product's sum), the sampled classes [S][R] int, then in bf16 the product
 // inputs stoch0 [SC][R], deter [D][R], action [Ap][R] and two hidden vectors
-// [U][R], the schedule, and the ring's stages.
-size_t fixed_bytes(const Params& p) {
+// [U][R], the schedule, and the ring's stages. The wide path keeps Y and
+// the schedule in its workspace (workspace_floats).
+constexpr int WIDE_P = products(MANY);
+
+template <int L>
+size_t fixed_bytes(const Params<L>& p, bool wide) {
   const size_t item = sizeof(bf16);
   const int SC = p.S * p.C;
   const int G = 3 * p.D > SC ? 3 * p.D : SC;
   const int Ap = (p.A + 3) / 4 * 4;
-  return (size_t)R * (4 * (G + p.S) + item * (SC + p.D + Ap + 2 * p.U)) +
-         sizeof(Schedule);
+  return (size_t)R * (4 * ((wide ? 0 : G) + p.S) +
+                      item * (SC + p.D + Ap + 2 * p.U)) +
+         (wide ? 0 : sizeof(Schedule<products(L)>));
+}
+
+// The floats of a block's copy of the wide path's workspace: Y, then the
+// ring kernel's schedule (the wrapper sizes it alike for both kernels).
+template <int L>
+__host__ __device__ size_t workspace_floats(const Params<L>& p) {
+  const int SC = p.S * p.C;
+  const int G = 3 * p.D > SC ? 3 * p.D : SC;
+  return (size_t)R * G + sizeof(Schedule<WIDE_P>) / sizeof(float);
 }
 
 // Y[n][r] = X0 @ W0 (+ X1 @ W1) (+ extra) (+ bias) for product q of the
@@ -79,7 +102,8 @@ size_t fixed_bytes(const Params& p) {
 // the action is then added by FMA), else by FMA. The buffers come as
 // arguments, not through a closure: the compiler must go on knowing that
 // they point into shared memory.
-__device__ __forceinline__ void dense(Ring& ring, const Product& q,
+template <int P>
+__device__ __forceinline__ void dense(Ring<P>& ring, const Product& q,
                                       const bf16* X0, const bf16* X1,
                                       const Src<bf16>& extra,
                                       const void* bias_, bool round, int C,
@@ -102,20 +126,27 @@ __device__ __forceinline__ void dense(Ring& ring, const Product& q,
                   nullptr);
 }
 
-__global__ void __launch_bounds__(NT) imagine_kernel(Params p, int stages) {
+// WIDE: the wide path (MANY layers, Y and the schedule in the workspace).
+template <bool WIDE>
+__global__ void __launch_bounds__(NT) imagine_kernel(
+    Params<WIDE ? MANY : MAXL> p, int stages) {
   extern __shared__ __align__(16) float smem[];
+  constexpr int P = products(WIDE ? MANY : MAXL);
   const int D = p.D, U = p.U, A = p.A, S = p.S, C = p.C, SC = S * C;
   const int B = p.B;
   const int G = max(3 * D, SC);
   const int Ap = (A + 3) / 4 * 4;
-  float* s_g = smem;
-  int* s_idx = reinterpret_cast<int*>(s_g + G * R);  // [S][R] classes.
+  float* ws = WIDE ? p.ws + blockIdx.x * workspace_floats(p) : nullptr;
+  float* s_g = WIDE ? ws : smem;
+  // [S][R] classes.
+  int* s_idx = reinterpret_cast<int*>(WIDE ? smem : s_g + G * R);
   bf16* x_stoch = reinterpret_cast<bf16*>(s_idx + S * R);
   bf16* x_deter = x_stoch + SC * R;
   bf16* x_act = x_deter + D * R;
   bf16* x_ha = x_act + Ap * R;
   bf16* x_hb = x_ha + U * R;
-  Schedule* sched = reinterpret_cast<Schedule*>(x_hb + U * R);
+  Schedule<P>* sched = reinterpret_cast<Schedule<P>*>(
+      WIDE ? ws + G * R : reinterpret_cast<float*>(x_hb + U * R));
   const int row0 = blockIdx.x * R;
   const int tid = threadIdx.x;
   auto W = [](const void* w) { return static_cast<const bf16*>(w); };
@@ -140,12 +171,14 @@ __global__ void __launch_bounds__(NT) imagine_kernel(Params p, int stages) {
     set(J_GRU, p.w_gru_d, D, p.w_gru_x, U, 3 * D, false);
     for (int l = 0; l < p.n_out; ++l)
       set(J_OUT + l, p.w_out[l], l == 0 ? D : U, nullptr, 0, U, false);
-    set(J_ST, p.w_st, U, nullptr, 0, SC, false);
+    set(J_ST, p.w_st, p.n_out ? U : D, nullptr, 0, SC, false);
     sched->count = J_ST + 1;
   }
   __syncthreads();
-  Ring ring;
-  ring.base = reinterpret_cast<bf16*>(sched + 1);
+  Ring<P> ring;
+  ring.base = reinterpret_cast<bf16*>(
+      WIDE ? reinterpret_cast<float*>(x_hb + U * R)
+           : reinterpret_cast<float*>(sched + 1));
   ring.sched = sched;
   ring.stages = stages;
   ring.steps = p.H;
@@ -262,8 +295,9 @@ __global__ void __launch_bounds__(NT) imagine_kernel(Params p, int stages) {
 // products' inputs in the element type) took 21.5 ms where this takes 12.4
 // (NVIDIA H100 80GB HBM3, 700 W, proof shape), with 80 registers and
 // spills in place of 64.
-template <typename T>
-__global__ void __launch_bounds__(NT) imagine_fma_kernel(Params p) {
+template <typename T, bool WIDE>
+__global__ void __launch_bounds__(NT) imagine_fma_kernel(
+    Params<WIDE ? MANY : MAXL> p) {
   extern __shared__ __align__(16) float smem[];
   const int D = p.D, U = p.U, A = p.A, S = p.S, C = p.C, SC = S * C;
   const int B = p.B;
@@ -272,8 +306,8 @@ __global__ void __launch_bounds__(NT) imagine_fma_kernel(Params p) {
   float* s_stoch = smem;
   float* s_deter = s_stoch + SC * R;
   float* s_act = s_deter + D * R;
-  float* s_g = s_act + Ap * R;
-  float* s_ha = s_g + G * R;
+  float* s_g = WIDE ? p.ws + blockIdx.x * workspace_floats(p) : s_act + Ap * R;
+  float* s_ha = WIDE ? s_act + Ap * R : s_g + G * R;
   float* s_hb = s_ha + U * R;
   int* s_idx = reinterpret_cast<int*>(s_hb + U * R);  // [S][R] classes.
   const img::In none = {nullptr, nullptr, 0, nullptr};
@@ -384,24 +418,26 @@ __global__ void __launch_bounds__(NT) imagine_fma_kernel(Params p) {
 // A block's dynamic shared memory on sm_90a.
 constexpr size_t SHARED_LIMIT = 232448;
 
-int launch_fma(const Params& p, cudaStream_t stream) {
+template <bool WIDE>
+int launch_fma(const Params<WIDE ? MANY : MAXL>& p, cudaStream_t stream) {
   const int SC = p.S * p.C;
   const int G = 3 * p.D > SC ? 3 * p.D : SC;
   const int Ap = (p.A + 3) / 4 * 4;
-  const size_t floats =
-      (size_t)R * (SC + p.D + Ap + G + 2 * p.U + p.S);  // + s_idx.
+  const size_t floats = (size_t)R * (SC + p.D + Ap + (WIDE ? 0 : G) +
+                                     2 * p.U + p.S);  // + s_idx.
   const size_t bytes = floats * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      imagine_fma_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      imagine_fma_kernel<float, WIDE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (p.B + R - 1) / R;
-  imagine_fma_kernel<float><<<blocks, NT, bytes, stream>>>(p);
+  imagine_fma_kernel<float, WIDE><<<blocks, NT, bytes, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-int launch_ring(const Params& p, cudaStream_t stream) {
-  size_t bytes = fixed_bytes(p);
+template <bool WIDE>
+int launch_ring(const Params<WIDE ? MANY : MAXL>& p, cudaStream_t stream) {
+  size_t bytes = fixed_bytes(p, WIDE);
   // As many stages as fit, at most MAXSTAGES; under two the products go by
   // FMA too.
   int stages = 0;
@@ -411,25 +447,20 @@ int launch_ring(const Params& p, cudaStream_t stream) {
   }
   bytes += (size_t)stages * TILE * sizeof(bf16);
   cudaError_t err = cudaFuncSetAttribute(
-      imagine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      imagine_kernel<WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (p.B + R - 1) / R;
-  imagine_kernel<<<blocks, NT, bytes, stream>>>(p, stages);
+  imagine_kernel<WIDE><<<blocks, NT, bytes, stream>>>(p, stages);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// ptrs: stoch0, deter0, actions, g_s (or null), deter_out, logit_out,
-//   stoch_out, w_in_s, w_in_a, ln_in_s, ln_in_b, w_gru_d, w_gru_x, ln_gru_s,
-//   ln_gru_b, w_st, b_st, then w_out[n_out], ln_out_s[n_out],
-//   ln_out_b[n_out].
-// dims: H, B, A, D, U, S, C, n_out.
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int imagine(int bf16, void* const* ptrs, const int* dims,
-                       float unimix, void* stream) {
-  Params p = {};
+// Reads the pointers and dims into the parameters of the path that holds
+// L layers and launches it.
+template <int L>
+int read_and_launch(int bf16, void* const* ptrs, const int* dims,
+                    float unimix, cudaStream_t stream) {
+  Params<L> p = {};
   int i = 0;
   p.stoch0 = ptrs[i++];
   p.deter0 = ptrs[i++];
@@ -456,11 +487,32 @@ extern "C" int imagine(int bf16, void* const* ptrs, const int* dims,
   p.S = dims[5];
   p.C = dims[6];
   p.n_out = dims[7];
-  if (p.n_out < 1 || p.n_out > MAXL) return (int)cudaErrorInvalidValue;
   for (int l = 0; l < p.n_out; ++l) p.w_out[l] = ptrs[i++];
   for (int l = 0; l < p.n_out; ++l) p.ln_out_s[l] = ptrs[i++];
   for (int l = 0; l < p.n_out; ++l) p.ln_out_b[l] = ptrs[i++];
+  p.ws = static_cast<float*>(ptrs[i++]);
   p.unimix = unimix;
+  constexpr bool WIDE = L == MANY;
+  return bf16 ? launch_ring<WIDE>(p, stream) : launch_fma<WIDE>(p, stream);
+}
+
+}  // namespace
+
+// ptrs: stoch0, deter0, actions, g_s (or null), deter_out, logit_out,
+//   stoch_out, w_in_s, w_in_a, ln_in_s, ln_in_b, w_gru_d, w_gru_x, ln_gru_s,
+//   ln_gru_b, w_st, b_st, then w_out[n_out], ln_out_s[n_out],
+//   ln_out_b[n_out], then the workspace (float32, workspace_floats a
+//   block) for the wide path, or null for the shipped one.
+// dims: H, B, A, D, U, S, C, n_out (0 to MAXL on the shipped path, to MANY
+//   on the wide one).
+// Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int imagine(int bf16, void* const* ptrs, const int* dims,
+                       float unimix, void* stream) {
+  const int n_out = dims[7];
+  const bool wide = ptrs[17 + 3 * n_out] != nullptr;
+  if (n_out < 0 || n_out > (wide ? MANY : MAXL))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_ring(p, s) : launch_fma(p, s);
+  return wide ? read_and_launch<MANY>(bf16, ptrs, dims, unimix, s)
+              : read_and_launch<MAXL>(bf16, ptrs, dims, unimix, s);
 }

@@ -44,6 +44,16 @@
 // nothing as bf16 operands and the kernel differs from its plain PyTorch
 // version only in the order of the sums. An in-kernel Philox generator is
 // later work.
+//
+// Every width the JAX kernel takes. The prior MLP may have no layer (the
+// head then reads the deter). The shipped path (up to MAXL prior and actor
+// layers, every vector in shared memory) is the instantiation it always
+// was. Past MAXL layers, or where the products' float sums Y [3D][R]
+// outgrow shared memory (deter past about 1 836 at a1's other widths), the
+// wrapper hands over a workspace and the wide instantiation runs: its
+// parameters hold MANY layers' addresses, and Y and the schedule lie in
+// the block's copy of the workspace (global memory, in L2 at these
+// sizes), so the ring of weight tiles keeps what shared memory is left.
 
 #include <type_traits>
 
@@ -53,6 +63,7 @@ namespace {
 
 using namespace imm;
 
+template <int L>
 struct Params {
   const void *stoch0, *deter0, *action0;
   const float *g_s, *g_a;  // Gumbel noise [H,B,SC], [H,B,A]; null: argmax.
@@ -62,22 +73,38 @@ struct Params {
   const void *a_w_d, *a_w_s, *a_w_out, *a_b_out;
   void *deter_out, *stoch_out, *action_out;
   float *logit_out;
-  const void *w_out[MAXL], *ln_out_s[MAXL], *ln_out_b[MAXL];
-  const void *a_ln_s[MAXL], *a_ln_b[MAXL], *a_w_h[MAXL];
+  const void *w_out[L], *ln_out_s[L], *ln_out_b[L];
+  const void *a_ln_s[L], *a_ln_b[L], *a_w_h[L];
+  float* ws;  // The wide path's workspace, or null.
   int B, H, D, U, S, C, A, n_out, n_act;
   float unimix, act_unimix;
 };
 
+// The wide path's layers and schedule.
+constexpr int WIDE_P = products(MANY);
+
 // Shared memory, in this order: Y [G][R] float (every product's sum), the
 // action logits [Ap][R] float, the sampled classes [S][R] int, then in T
 // the product inputs stoch0 [SC][R], deter [D][R], action [Ap][R] and two
-// hidden vectors [U][R], the schedule, and the ring's stages.
-size_t fixed_bytes(const Params& p, size_t item) {
+// hidden vectors [U][R], the schedule, and the ring's stages. The wide
+// path keeps Y and the schedule in its workspace (workspace_floats).
+template <int L>
+size_t fixed_bytes(const Params<L>& p, size_t item, bool wide) {
   const int SC = p.S * p.C;
   const int G = 3 * p.D > SC ? 3 * p.D : SC;
   const int Ap = (p.A + 3) / 4 * 4;
-  return (size_t)R * (4 * (G + Ap + p.S) + item * (SC + p.D + Ap + 2 * p.U)) +
-         sizeof(Schedule);
+  return (size_t)R * (4 * ((wide ? 0 : G) + Ap + p.S) +
+                      item * (SC + p.D + Ap + 2 * p.U)) +
+         (wide ? 0 : sizeof(Schedule<products(L)>));
+}
+
+// The floats of a block's copy of the wide path's workspace: Y, then the
+// schedule.
+template <int L>
+__host__ __device__ size_t workspace_floats(const Params<L>& p) {
+  const int SC = p.S * p.C;
+  const int G = 3 * p.D > SC ? 3 * p.D : SC;
+  return (size_t)R * G + sizeof(Schedule<WIDE_P>) / sizeof(float);
 }
 
 // Y[n][r] = X0 @ W0 (+ X1 @ W1) (+ extra) (+ bias) for product q of the
@@ -85,8 +112,8 @@ size_t fixed_bytes(const Params& p, size_t item) {
 // product with the action is then added by FMA), else by FMA. The buffers
 // come as arguments, not through a closure: the compiler must go on
 // knowing that they point into shared memory.
-template <typename T>
-__device__ __forceinline__ void dense(Ring& ring, const Product& q,
+template <typename T, int P>
+__device__ __forceinline__ void dense(Ring<P>& ring, const Product& q,
                                       const T* X0, const T* X1,
                                       const Src<T>& extra, const void* bias_,
                                       bool round, int C, float* Y) {
@@ -107,24 +134,28 @@ __device__ __forceinline__ void dense(Ring& ring, const Product& q,
   dense_fma<T>(first, X1 ? second : extra, C, q.N, bias, round, Y, nullptr);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT) imagine_actor_kernel(Params p,
-                                                           int stages) {
+// WIDE: the wide path (MANY layers, Y and the schedule in the workspace).
+template <typename T, bool WIDE>
+__global__ void __launch_bounds__(NT) imagine_actor_kernel(
+    Params<WIDE ? MANY : MAXL> p, int stages) {
   extern __shared__ __align__(16) float smem[];
   constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  constexpr int P = products(WIDE ? MANY : MAXL);
   const int D = p.D, U = p.U, A = p.A, S = p.S, C = p.C, SC = S * C;
   const int B = p.B;
   const int G = max(3 * D, SC);
   const int Ap = (A + 3) / 4 * 4;
-  float* s_g = smem;
-  float* s_alog = s_g + G * R;
+  float* ws = WIDE ? p.ws + blockIdx.x * workspace_floats(p) : nullptr;
+  float* s_g = WIDE ? ws : smem;
+  float* s_alog = WIDE ? smem : s_g + G * R;
   int* s_idx = reinterpret_cast<int*>(s_alog + Ap * R);  // [S][R] classes.
   T* x_stoch = reinterpret_cast<T*>(s_idx + S * R);
   T* x_deter = x_stoch + SC * R;
   T* x_act = x_deter + D * R;
   T* x_ha = x_act + Ap * R;
   T* x_hb = x_ha + U * R;
-  Schedule* sched = reinterpret_cast<Schedule*>(x_hb + U * R);
+  Schedule<P>* sched = reinterpret_cast<Schedule<P>*>(
+      WIDE ? ws + G * R : reinterpret_cast<float*>(x_hb + U * R));
   const int row0 = blockIdx.x * R;
   const int tid = threadIdx.x;
   auto W = [](const void* w) { return static_cast<const T*>(w); };
@@ -150,15 +181,17 @@ __global__ void __launch_bounds__(NT) imagine_actor_kernel(Params p,
     set(J_GRU, p.w_gru_d, D, p.w_gru_x, U, 3 * D, false);
     for (int l = 0; l < p.n_out; ++l)
       set(J_OUT + l, p.w_out[l], l == 0 ? D : U, nullptr, 0, U, false);
-    set(J_ST, p.w_st, U, nullptr, 0, SC, false);
+    set(J_ST, p.w_st, p.n_out ? U : D, nullptr, 0, SC, false);
     set(J_AD, p.a_w_d, D, nullptr, 0, U, false);
     for (int l = 0; l + 1 < p.n_act; ++l)
       set(J_AH + l, p.a_w_h[l], U, nullptr, 0, U, false);
     sched->count = J_AH + p.n_act - 1;
   }
   __syncthreads();
-  Ring ring;
-  ring.base = reinterpret_cast<bf16*>(sched + 1);
+  Ring<P> ring;
+  ring.base = reinterpret_cast<bf16*>(
+      WIDE ? reinterpret_cast<float*>(x_hb + U * R)
+           : reinterpret_cast<float*>(sched + 1));
   ring.sched = sched;
   ring.stages = stages;
   ring.steps = p.H;
@@ -188,16 +221,16 @@ __global__ void __launch_bounds__(NT) imagine_actor_kernel(Params p,
     // stoch is the kernel's own one-hot sample; stoch0 may be any value.
     const Src<T> act = {x_act, nullptr, A, W(p.w_in_a)};
     if (t == 0) {
-      dense<T>(ring, sched->prod[J_IN], x_stoch, nullptr, act, nullptr, true,
-             C, s_g);
+      dense<T, P>(ring, sched->prod[J_IN], x_stoch, nullptr, act, nullptr, true,
+                  C, s_g);
     } else {
       const Src<T> onehot = {nullptr, s_idx, SC, W(p.w_in_s)};
       dense_fma<T>(onehot, act, C, U, nullptr, true, s_g, nullptr);
     }
     ln_act_to<T>(s_g, U, W(p.ln_in_s), W(p.ln_in_b), true, x_ha, nullptr);
     // GRU gates: [deter, x] @ W_gru, LN; update bias -1.
-    dense<T>(ring, sched->prod[J_GRU], x_deter, x_ha, none, nullptr, true,
-             C, s_g);
+    dense<T, P>(ring, sched->prod[J_GRU], x_deter, x_ha, none, nullptr, true, C,
+                s_g);
     ln_act_to<T>(s_g, 3 * D, W(p.ln_gru_s), W(p.ln_gru_b), false, nullptr,
                  s_g);
     for (int i = tid; i < D * R; i += NT) {
@@ -219,14 +252,14 @@ __global__ void __launch_bounds__(NT) imagine_actor_kernel(Params p,
     const T* h = x_deter;
     for (int l = 0; l < p.n_out; ++l) {
       T* out = (l % 2 == 0) ? x_ha : x_hb;
-      dense<T>(ring, sched->prod[J_OUT + l], h, nullptr, none, nullptr, true,
-             C, s_g);
+      dense<T, P>(ring, sched->prod[J_OUT + l], h, nullptr, none, nullptr, true,
+                  C, s_g);
       ln_act_to<T>(s_g, U, W(p.ln_out_s[l]), W(p.ln_out_b[l]), true, out,
                    nullptr);
       h = out;
     }
-    dense<T>(ring, sched->prod[J_ST], h, nullptr, none, p.b_st, false,
-             C, s_g);
+    dense<T, P>(ring, sched->prod[J_ST], h, nullptr, none, p.b_st, false, C,
+                s_g);
     for (int i = tid; i < R * SC; i += NT) {
       const int r = i / SC, j = i % SC, row = row0 + r;
       if (row < B)
@@ -267,14 +300,14 @@ __global__ void __launch_bounds__(NT) imagine_actor_kernel(Params p,
     __syncthreads();
     // Actor MLP over [deter, stoch], then the action logits.
     const Src<T> sampled = {nullptr, s_idx, SC, W(p.a_w_s)};
-    dense<T>(ring, sched->prod[J_AD], x_deter, nullptr, sampled, nullptr, true,
-             C, s_g);
+    dense<T, P>(ring, sched->prod[J_AD], x_deter, nullptr, sampled, nullptr,
+                true, C, s_g);
     ln_act_to<T>(s_g, U, W(p.a_ln_s[0]), W(p.a_ln_b[0]), true, x_ha, nullptr);
     h = x_ha;
     for (int l = 1; l < p.n_act; ++l) {
       T* out = (l % 2 == 1) ? x_hb : x_ha;
-      dense<T>(ring, sched->prod[J_AH + l - 1], h, nullptr, none, nullptr, true,
-             C, s_g);
+      dense<T, P>(ring, sched->prod[J_AH + l - 1], h, nullptr, none, nullptr,
+                  true, C, s_g);
       ln_act_to<T>(s_g, U, W(p.a_ln_s[l]), W(p.a_ln_b[l]), true, out,
                    nullptr);
       h = out;
@@ -322,9 +355,9 @@ __global__ void __launch_bounds__(NT) imagine_actor_kernel(Params p,
 // A block's dynamic shared memory on sm_90a.
 constexpr size_t SHARED_LIMIT = 232448;
 
-template <typename T>
-int launch(const Params& p, cudaStream_t stream) {
-  size_t bytes = fixed_bytes(p, sizeof(T));
+template <typename T, bool WIDE>
+int launch(const Params<WIDE ? MANY : MAXL>& p, cudaStream_t stream) {
+  size_t bytes = fixed_bytes(p, sizeof(T), WIDE);
   // As many stages as fit, at most MAXSTAGES; under two the bfloat16
   // products go by FMA too.
   int stages = 0;
@@ -334,26 +367,20 @@ int launch(const Params& p, cudaStream_t stream) {
   }
   bytes += (size_t)stages * TILE * sizeof(bf16);
   cudaError_t err = cudaFuncSetAttribute(
-      imagine_actor_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      imagine_actor_kernel<T, WIDE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (p.B + R - 1) / R;
-  imagine_actor_kernel<T><<<blocks, NT, bytes, stream>>>(p, stages);
+  imagine_actor_kernel<T, WIDE><<<blocks, NT, bytes, stream>>>(p, stages);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// ptrs: stoch0, deter0, action0, g_s, g_a, w_in_s, w_in_a, ln_in_s,
-//   ln_in_b, w_gru_d, w_gru_x, ln_gru_s, ln_gru_b, w_st, b_st, a_w_d, a_w_s,
-//   a_w_out, a_b_out, deter_out, logit_out, stoch_out, action_out, then
-//   (w_out, ln_out_s, ln_out_b) per prior layer, (a_ln_s, a_ln_b) per actor
-//   layer, a_w_h per hidden actor layer.
-// dims: B, H, D, U, S, C, A, n_out, n_act.
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int imagine_actor(int bf16, void* const* ptrs, const int* dims,
-                             float unimix, float act_unimix, void* stream) {
-  Params p = {};
+// Reads the pointers and dims into the parameters of the path that holds
+// L layers and launches it.
+template <int L>
+int read_and_launch(int bf16, void* const* ptrs, const int* dims,
+                    float unimix, float act_unimix, cudaStream_t stream) {
+  Params<L> p = {};
   int i = 0;
   p.stoch0 = ptrs[i++];
   p.deter0 = ptrs[i++];
@@ -387,8 +414,6 @@ extern "C" int imagine_actor(int bf16, void* const* ptrs, const int* dims,
   p.A = dims[6];
   p.n_out = dims[7];
   p.n_act = dims[8];
-  if (p.n_out < 1 || p.n_out > MAXL || p.n_act < 1 || p.n_act > MAXL)
-    return (int)cudaErrorInvalidValue;
   for (int l = 0; l < p.n_out; ++l) {
     p.w_out[l] = ptrs[i++];
     p.ln_out_s[l] = ptrs[i++];
@@ -399,8 +424,35 @@ extern "C" int imagine_actor(int bf16, void* const* ptrs, const int* dims,
     p.a_ln_b[l] = ptrs[i++];
   }
   for (int l = 0; l + 1 < p.n_act; ++l) p.a_w_h[l] = ptrs[i++];
+  p.ws = static_cast<float*>(ptrs[i++]);
   p.unimix = unimix;
   p.act_unimix = act_unimix;
+  constexpr bool WIDE = L == MANY;
+  return bf16 ? launch<__nv_bfloat16, WIDE>(p, stream)
+              : launch<float, WIDE>(p, stream);
+}
+
+}  // namespace
+
+// ptrs: stoch0, deter0, action0, g_s, g_a, w_in_s, w_in_a, ln_in_s,
+//   ln_in_b, w_gru_d, w_gru_x, ln_gru_s, ln_gru_b, w_st, b_st, a_w_d, a_w_s,
+//   a_w_out, a_b_out, deter_out, logit_out, stoch_out, action_out, then
+//   (w_out, ln_out_s, ln_out_b) per prior layer, (a_ln_s, a_ln_b) per actor
+//   layer, a_w_h per hidden actor layer, then the workspace (float32,
+//   workspace_floats a block) for the wide path, or null for the shipped
+//   one.
+// dims: B, H, D, U, S, C, A, n_out (0 to MAXL on the shipped path, to MANY
+//   on the wide one), n_act (1 to MAXL, or to MANY).
+// Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int imagine_actor(int bf16, void* const* ptrs, const int* dims,
+                             float unimix, float act_unimix, void* stream) {
+  const int n_out = dims[7], n_act = dims[8];
+  const bool wide = ptrs[22 + 3 * n_out + 3 * n_act] != nullptr;
+  const int most = wide ? MANY : MAXL;
+  if (n_out < 0 || n_out > most || n_act < 1 || n_act > most)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(p, s) : launch<float>(p, s);
+  return wide ? read_and_launch<MANY>(bf16, ptrs, dims, unimix, act_unimix, s)
+              : read_and_launch<MAXL>(bf16, ptrs, dims, unimix, act_unimix,
+                                      s);
 }

@@ -32,7 +32,8 @@ namespace img {
 
 constexpr int R = 8;      // Rows per block.
 constexpr int NT = 256;   // Threads per block: one warp per row for LN.
-constexpr int MAXL = 8;   // Most prior / actor layers.
+constexpr int MAXL = 8;   // Most prior / actor layers of the shipped path.
+constexpr int MANY = 128; // Most prior / actor layers of the wide path.
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {

@@ -46,7 +46,9 @@ constexpr int PASS = 512;         // Columns per tile: 8 warps x 4 x 16.
 constexpr int PITCH = PASS + 8;   // Elements between a tile's rows.
 constexpr int TILE = KT * PITCH;  // Elements per stage (33 280 bytes).
 constexpr int MAXSTAGES = 4;
-constexpr int MAXP = 2 * MAXL + 4;  // Most products in a step's schedule.
+
+// Most products in a step's schedule for L prior and L actor layers.
+__host__ __device__ constexpr int products(int L) { return 2 * L + 4; }
 
 static_assert(NT == 256 && R == 8, "8 warps, and 8 rows for the mma's N");
 
@@ -60,24 +62,29 @@ struct Product {
   short mma;         // On the tensor cores, so the ring streams it.
   short first_only;  // Part of step 0 only.
 };
+template <int P>
 struct Schedule {
-  Product prod[MAXP];
+  Product prod[P];
   int count;
   int pad[3];
 };
-static_assert(sizeof(Product) == 32 && sizeof(Schedule) % 16 == 0, "layout");
+static_assert(sizeof(Product) == 32 && sizeof(Schedule<1>) % 16 == 0,
+              "layout");
 
-// The ring's state: the same in every thread of the block.
+// The ring's state: the same in every thread of the block. P: the
+// schedule's room.
+template <int P>
 struct Ring {
   bf16* base;
-  const Schedule* sched;
+  const Schedule<P>* sched;
   int stages, steps;
   int head, tail;           // Slots of the next tile to use, to fill.
   int j, pass, seg, kt, t;  // The next tile to ask for.
 };
 
 // Moves the ring's request cursor to a product that step t streams.
-__device__ __forceinline__ void settle(Ring& r) {
+template <int P>
+__device__ __forceinline__ void settle(Ring<P>& r) {
   while (r.t < r.steps) {
     if (r.j == r.sched->count) {
       r.j = 0;
@@ -92,7 +99,8 @@ __device__ __forceinline__ void settle(Ring& r) {
 
 // Asks for the next tile (nothing once all steps are asked for) and closes
 // the commit group: one group for each call, so that groups count tiles.
-__device__ __forceinline__ void request(Ring& r) {
+template <int P>
+__device__ __forceinline__ void request(Ring<P>& r) {
   if (r.t < r.steps) {
     const Product& p = r.sched->prod[r.j];
     const int N = p.N, K = p.K[r.seg];
@@ -121,7 +129,8 @@ __device__ __forceinline__ void request(Ring& r) {
 }
 
 // Starts the ring: stages - 1 tiles on their way.
-__device__ __forceinline__ void start(Ring& r) {
+template <int P>
+__device__ __forceinline__ void start(Ring<P>& r) {
   r.head = r.tail = r.j = r.pass = r.seg = r.kt = r.t = 0;
   settle(r);
   for (int i = 0; i + 1 < r.stages; ++i) request(r);
@@ -129,7 +138,8 @@ __device__ __forceinline__ void start(Ring& r) {
 
 // The next tile, arrived for every thread. Every thread has left the tile
 // before it by now, so that one's slot takes the next request.
-__device__ __forceinline__ const bf16* acquire(Ring& r) {
+template <int P>
+__device__ __forceinline__ const bf16* acquire(Ring<P>& r) {
   if (r.stages == 2) ptx::cp_async_wait<0>();
   else if (r.stages == 3) ptx::cp_async_wait<1>();
   else ptx::cp_async_wait<2>();
@@ -143,7 +153,8 @@ __device__ __forceinline__ const bf16* acquire(Ring& r) {
 // Y[n][r] = X0 @ W0 (+ X1 @ W1) (+ bias), rounded to bf16 when `round`, on
 // the tensor cores from the ring's tiles; p must be the product the ring
 // streams next. Ends with a barrier.
-__device__ void dense_mma(Ring& ring, const Product& p, const bf16* X0,
+template <int P>
+__device__ void dense_mma(Ring<P>& ring, const Product& p, const bf16* X0,
                           const bf16* X1, const bf16* bias, bool round,
                           float* Y) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;

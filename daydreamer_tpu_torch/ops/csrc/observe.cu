@@ -52,6 +52,13 @@
 //      clusters of 4 and of 8 fit.
 // The chain streams the input, GRU, w_obs_d and w_post weights a step, 4.7
 // MB at xarm in place of 5.2, split four ways.
+//
+// Every width the JAX kernel takes. The products read V weights at a time, a
+// template argument the wrapper picks from the widths (observe_common.cuh:
+// 16-byte loads at the shipped widths, single values where a row is no multiple
+// of 16 bytes). Where the chain's vectors outgrow shared memory (deter past
+// about 3 500 at U = 512, S * C = 1 024) the wrapper hands over a workspace and
+// the chain's wide instantiation keeps them there (observe_cluster.cuh).
 
 #include "observe_cluster.cuh"
 
@@ -69,6 +76,7 @@ struct Params {
   const void *w_gru_d, *w_gru_x, *ln_gru_s, *ln_gru_b;
   const void *w_obs_d, *w_obs_e, *ln_obs_s, *ln_obs_b, *w_post, *b_post;
   float* eproj;  // Scratch: [T][B][U], float32.
+  float* ws;     // The chain's workspace, or null (shared memory).
   int T, B, A, E, D, U, S, C;
   float unimix;
 };
@@ -95,19 +103,19 @@ constexpr int KC = 512;          // Rows of K of embeds staged at a time.
 
 static_assert(KC % KSW == 0, "wide layout");
 
-template <typename T>
-__host__ __device__ constexpr int pass_w() { return CGW * Tile<T>::V; }
+// Columns of a pass: CGW groups of V.
+template <int V>
+__host__ __device__ constexpr int pass_w() { return CGW * V; }
 
 // acc[c][r] += X[k - k0][r] * W[k][n + c] over the k of [k0, k1) in slice
 // ks. X: [k1 - k0][RW] float in shared memory; W: [K][N] in T.
-template <typename T>
+template <typename T, int V>
 __device__ __forceinline__ void rows_accumulate(
-    float (&acc)[Tile<T>::V][RW], const float* X, int k0, int k1, int ks,
+    float (&acc)[V][RW], const float* X, int k0, int k1, int ks,
     const T* W, int N, int n) {
-  constexpr int V = Tile<T>::V;
 #pragma unroll 8
   for (int k = k0 + ks; k < k1; k += KSW) {
-    const Vec<V> w = load_v(W + (size_t)k * N + n);
+    const Vec<V> w = load_v<V>(W + (size_t)k * N + n);
     const float4 xa = *reinterpret_cast<const float4*>(X + (k - k0) * RW);
     const float4 xb = *reinterpret_cast<const float4*>(X + (k - k0) * RW + 4);
     const float x[RW] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
@@ -121,11 +129,11 @@ __device__ __forceinline__ void rows_accumulate(
 // The pass's partial sums into scratch [KSW][RW][pass], then each output
 // adds its KSW partials in order into Y[r * ldy + n] for the first `rows`
 // rows. Ends with a barrier.
-template <typename T>
+template <int V>
 __device__ __forceinline__ void rows_reduce(
-    const float (&acc)[Tile<T>::V][RW], float* scratch, int base, int N,
+    const float (&acc)[V][RW], float* scratch, int base, int N,
     float* Y, int ldy, int rows) {
-  constexpr int V = Tile<T>::V, PASS_W = pass_w<T>();
+  constexpr int PASS_W = pass_w<V>();
   const int cg = threadIdx.x % CGW, ks = threadIdx.x / CGW;
 #pragma unroll
   for (int c = 0; c < V; ++c)
@@ -145,16 +153,16 @@ __device__ __forceinline__ void rows_reduce(
   __syncthreads();
 }
 
-template <typename T>
+template <int V>
 size_t embed_bytes() {
-  return sizeof(float) * ((size_t)KC * RW + (size_t)KSW * RW * pass_w<T>());
+  return sizeof(float) * ((size_t)KC * RW + (size_t)KSW * RW * pass_w<V>());
 }
 
 // e_proj[m][n] = embeds[m] @ w_obs_e for RW rows m of the T * B.
-template <typename T>
+template <typename T, int V>
 __global__ void __launch_bounds__(NTW) embed_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int V = Tile<T>::V, PASS_W = pass_w<T>();
+  constexpr int PASS_W = pass_w<V>();
   float* s_x = smem;                  // [KC][RW]
   float* scratch = s_x + KC * RW;     // [KSW][RW][PASS_W]
   const int M = p.T * p.B, E = p.E, U = p.U, row0 = blockIdx.x * RW;
@@ -173,9 +181,10 @@ __global__ void __launch_bounds__(NTW) embed_kernel(Params p) {
       }
       __syncthreads();
       if (base + n_of < U)
-        rows_accumulate<T>(acc, s_x, k0, k0 + width, ks, w, U, base + n_of);
+        rows_accumulate<T, V>(acc, s_x, k0, k0 + width, ks, w, U,
+                              base + n_of);
     }
-    rows_reduce<T>(acc, scratch, base, U, p.eproj + (size_t)row0 * U, U,
+    rows_reduce<V>(acc, scratch, base, U, p.eproj + (size_t)row0 * U, U,
                    M - row0);
   }
 }
@@ -220,19 +229,26 @@ __device__ void ln_rounded(float* Z, int N, const T* scale, const T* bias,
   __syncthreads();
 }
 
-size_t chain_bytes(const Params& p) {
-  const int SC = p.S * p.C;
-  const size_t floats = (size_t)R * (2 * SC + 5 * p.D + p.A + 2 * p.U + 1 +
-                                     NW + p.S) + SCRATCH;
-  return floats * sizeof(float);
+// The floats of a block's vectors: in shared memory, or with WS a block's
+// copy in the workspace.
+__host__ __device__ size_t vector_floats(const Params& p) {
+  return (size_t)R * (2 * p.S * p.C + 5 * p.D + p.A + 2 * p.U);
 }
 
-template <typename T>
+template <bool WS>
+size_t chain_bytes(const Params& p) {
+  const size_t floats = (size_t)R * (1 + NW + p.S) + SCRATCH;
+  return (floats + (WS ? 0 : vector_floats(p))) * sizeof(float);
+}
+
+template <typename T, int V, bool WS>
 __global__ void __launch_bounds__(NT) chain_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
   const int D = p.D, U = p.U, A = p.A, S = p.S, C = p.C;
   const int SC = S * C, B = p.B;
-  float* s_stoch = smem;                 // stoch0, masked (step 0 only).
+  const size_t stride = WS ? vector_floats(p) : 0;
+  // stoch0, masked (step 0 only).
+  float* s_stoch = WS ? p.ws + blockIdx.x * stride : smem;
   float* s_deter = s_stoch + SC * R;     // The deter carry, rounded to T.
   float* s_dm = s_deter + D * R;         // The masked deter of this step.
   float* s_g = s_dm + D * R;             // GRU gates [3D][R].
@@ -240,7 +256,7 @@ __global__ void __launch_bounds__(NT) chain_kernel(Params p) {
   float* s_h = s_a + A * R;              // Input layer.
   float* s_z = s_h + U * R;              // e_proj[t], then the head's layer.
   float* s_post = s_z + U * R;           // Posterior logits, float32.
-  float* s_keep = s_post + SC * R;
+  float* s_keep = WS ? smem : s_post + SC * R;
   float* s_red = s_keep + R;
   float* s_scratch = s_red + NW * R;
   int* s_idx = reinterpret_cast<int*>(s_scratch + SCRATCH);
@@ -272,13 +288,13 @@ __global__ void __launch_bounds__(NT) chain_kernel(Params p) {
     const In<T> stoch = t == 0
         ? In<T>{s_stoch, nullptr, nullptr, SC, W(p.w_in_s)}
         : In<T>{nullptr, s_idx, s_keep, SC, W(p.w_in_s)};
-    cdense<T>(s_h, U, stoch, {s_a, nullptr, nullptr, A, W(p.w_in_a)}, C,
-              nullptr, nullptr, s_scratch, rank);
+    cdense<T, V, WS>(s_h, U, stoch, {s_a, nullptr, nullptr, A, W(p.w_in_a)}, C,
+                     nullptr, nullptr, s_scratch, rank, stride);
     ln_rounded<T>(s_h, U, W(p.ln_in_s), W(p.ln_in_b), true, s_red);
     // GRU gates: [deter, x] @ W_gru, LN; update bias -1.
-    cdense<T>(s_g, 3 * D, {s_dm, nullptr, nullptr, D, W(p.w_gru_d)},
-              {s_h, nullptr, nullptr, U, W(p.w_gru_x)}, C, nullptr, nullptr,
-              s_scratch, rank);
+    cdense<T, V, WS>(s_g, 3 * D, {s_dm, nullptr, nullptr, D, W(p.w_gru_d)},
+                     {s_h, nullptr, nullptr, U, W(p.w_gru_x)}, C, nullptr,
+                     nullptr, s_scratch, rank, stride);
     ln_rounded<T>(s_g, 3 * D, W(p.ln_gru_s), W(p.ln_gru_b), false, s_red);
     for (int i = tid; i < D * R; i += NT) {
       const int d = i / R, r = i % R;
@@ -292,11 +308,11 @@ __global__ void __launch_bounds__(NT) chain_kernel(Params p) {
       store_rows(static_cast<T*>(p.deter_out) + tb * D, s_deter, D, row0, B);
     // Posterior head: the rounded deter @ w_obs_d + e_proj, LN, ELU,
     // logits.
-    cdense<T>(s_z, U, {s_deter, nullptr, nullptr, D, W(p.w_obs_d)}, none, C,
-              nullptr, s_z, s_scratch, rank);
+    cdense<T, V, WS>(s_z, U, {s_deter, nullptr, nullptr, D, W(p.w_obs_d)}, none,
+                     C, nullptr, s_z, s_scratch, rank, stride);
     ln_rounded<T>(s_z, U, W(p.ln_obs_s), W(p.ln_obs_b), true, s_red);
-    cdense<T>(s_post, SC, {s_z, nullptr, nullptr, U, W(p.w_post)}, none, C,
-              W(p.b_post), nullptr, s_scratch, rank);
+    cdense<T, V, WS>(s_post, SC, {s_z, nullptr, nullptr, U, W(p.w_post)}, none,
+                     C, W(p.b_post), nullptr, s_scratch, rank, stride);
     if (my_turn(turn, rank))
       store_rows(p.logit_out + tb * SC, s_post, SC, row0, B);
     // Sample, a warp a group: the first maximum of log((1-u) softmax(z) +
@@ -366,42 +382,53 @@ cudaLaunchConfig_t chain_config(const Params& p, size_t bytes,
   return config;
 }
 
-template <typename T>
-int launch(const Params& p, cudaStream_t stream) {
-  const int tiles = (p.T * p.B + RW - 1) / RW;
-  if (tiles == 0) return (int)cudaSuccess;
-  size_t bytes = embed_bytes<T>();
+template <typename T, int V, bool WS>
+int launch_chain(const Params& p, cudaStream_t stream) {
+  const size_t bytes = chain_bytes<WS>(p);
   cudaError_t err = cudaFuncSetAttribute(
-      embed_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      chain_kernel<T, V, WS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  embed_kernel<T><<<tiles, NTW, bytes, stream>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  bytes = chain_bytes(p);
-  err = cudaFuncSetAttribute(chain_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t config = chain_config(p, bytes, stream, CL, &attr);
-  err = cudaLaunchKernelEx(&config, chain_kernel<T>, p);
+  return (int)cudaLaunchKernelEx(&config, chain_kernel<T, V, WS>, p);
+}
+
+template <typename T, int V>
+int launch(const Params& p, cudaStream_t stream) {
+  const int tiles = (p.T * p.B + RW - 1) / RW;
+  if (tiles == 0) return (int)cudaSuccess;
+  const size_t bytes = embed_bytes<V>();
+  cudaError_t err = cudaFuncSetAttribute(
+      embed_kernel<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  embed_kernel<T, V><<<tiles, NTW, bytes, stream>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return p.ws ? launch_chain<T, V, true>(p, stream)
+              : launch_chain<T, V, false>(p, stream);
+}
+
+// launch<T, V> for the V that `values` names.
+template <typename T>
+int dispatch(const Params& p, int values, cudaStream_t stream) {
+  return with_values<T>(values, [&](auto v) {
+    return launch<T, decltype(v)::value>(p, stream);
+  });
 }
 
 template <typename T>
 int clusters(const Params& p, int* fit) {
-  const size_t bytes = chain_bytes(p);
+  const size_t bytes = chain_bytes<false>(p);
+  auto kernel = chain_kernel<T, VMAX<T>, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      chain_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   const int sizes[2] = {CL, 8};
   for (int i = 0; i < 2 && err == cudaSuccess; ++i) {
     cudaLaunchAttribute attr;
     const cudaLaunchConfig_t config =
         chain_config(p, bytes, nullptr, sizes[i], &attr);
-    err = cudaOccupancyMaxActiveClusters(&fit[i], chain_kernel<T>, &config);
+    err = cudaOccupancyMaxActiveClusters(&fit[i], kernel, &config);
   }
   return (int)err;
 }
@@ -424,9 +451,12 @@ Params read_dims(const int* dims) {
 // ptrs: stoch0, deter0, actions, embeds, first, noise (or null), deter_out,
 //   logit_out, stoch_out, w_in_s, w_in_a, ln_in_s, ln_in_b, w_gru_d, w_gru_x,
 //   ln_gru_s, ln_gru_b, w_obs_d, w_obs_e, ln_obs_s, ln_obs_b, w_post, b_post,
-//   then the scratch eproj [T][B][U] (float32, last, so that the parent
-//   kernel, which reads as far as b_post, takes the same list).
-// dims: T, B, A, E, D, U, S, C.
+//   then the scratch eproj [T][B][U] (float32) and the chain's workspace
+//   (float32, a block's vectors a block of the chain's grid) or null (last,
+//   so that the parent kernel, which reads as far as b_post, takes the same
+//   list).
+// dims: T, B, A, E, D, U, S, C, values (the V of every load, see
+//   observe_common.cuh).
 // Returns cudaGetLastError() after the last launch (0 on success).
 extern "C" int observe(int bf16, void* const* ptrs, const int* dims,
                        float unimix, void* stream) {
@@ -456,9 +486,11 @@ extern "C" int observe(int bf16, void* const* ptrs, const int* dims,
   p.w_post = ptrs[i++];
   p.b_post = ptrs[i++];
   p.eproj = static_cast<float*>(ptrs[i++]);
+  p.ws = static_cast<float*>(ptrs[i++]);
   p.unimix = unimix;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(p, s) : launch<float>(p, s);
+  return bf16 ? dispatch<__nv_bfloat16>(p, dims[8], s)
+              : dispatch<float>(p, dims[8], s);
 }
 
 // fit[0], fit[1]: how many clusters of CL and of 8 blocks of the chain fit

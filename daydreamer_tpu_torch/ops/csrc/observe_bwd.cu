@@ -48,6 +48,21 @@
 // W that the wrapper makes, so it is the same coalesced product as every
 // other. From step 1 on the incoming stoch is the forward's one-hot, read
 // back as its classes, and its product is a gather.
+//
+// Every width the JAX kernel takes. The products read V weights at a time, a
+// template argument the wrapper picks from the widths (observe_common.cuh:
+// 16-byte loads at the shipped widths, single values where a row is no multiple
+// of 16 bytes). The prior head takes any number of layers: with none it reads
+// d_t, and its gradient goes to dd_t through w_st^T alone. The shipped path (1
+// to MAXL layers, the step's vectors in shared memory) is the instantiation it
+// always was. With no layer or past MAXL, or where the vectors outgrow shared
+// memory (deter past about 2 300 at xarm's other widths), the wrapper hands
+// over a workspace and the wide instantiation runs: parameters that hold MANY
+// layers' addresses, and the vectors in the block's copy of the workspace
+// (observe_cluster.cuh). Its instantiations are compiled beside this file's, by
+// a second nvcc: observe_bwd_wide.cu includes this file with OBSERVE_BWD_WIDE
+// defined, and the two objects are linked into one library (ops/build.py,
+// `parts`).
 
 #include "observe_cluster.cuh"
 
@@ -55,6 +70,7 @@ namespace {
 
 using namespace obc;
 
+template <int L>
 struct Params {
   const void *stoch0, *deter0, *actions, *eproj;
   const float* first;
@@ -65,12 +81,13 @@ struct Params {
   float *dz1, *dn1, *dzg, *dng, *dz2, *dn2, *dpl_total, *ds0, *dd0;
   const void *w_in_s, *w_in_a, *ln_in_s, *ln_in_b;
   const void *w_gru_d, *w_gru_x, *ln_gru_s, *ln_gru_b;
-  const void *w_out[MAXL], *ln_out_s[MAXL], *ln_out_b[MAXL];
+  const void *w_out[L], *ln_out_s[L], *ln_out_b[L];
   const void *w_obs_d, *ln_obs_s, *ln_obs_b;
   // Transposed copies, [N][K] row-major.
   const void *t_in_s, *t_gru_d, *t_gru_x, *t_st, *t_obs_d, *t_post;
-  const void* t_out[MAXL];
-  float *dq[MAXL], *dm[MAXL];
+  const void* t_out[L];
+  float *dq[L], *dm[L];
+  float* ws;  // The workspace (wide path), or null.
   int T, B, A, D, U, S, C, n_out;
   float unimix;
 };
@@ -90,13 +107,23 @@ __device__ __forceinline__ bool my_turn(int& turn, int rank) {
   return turn++ % CL == rank;
 }
 
-template <typename T>
+// The floats of a block's vectors: in shared memory, or in the wide path a
+// block's copy in the workspace.
+template <int L>
+__host__ __device__ size_t vector_floats(const Params<L>& p) {
+  return (size_t)R * (2 * p.S * p.C + 11 * p.D + p.A + (6 + p.n_out) * p.U);
+}
+
+// WIDE: the wide path (MANY layers, the vectors in the workspace).
+template <typename T, int V, bool WIDE>
 __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT)
-    observe_bwd_kernel(Params p) {
+    observe_bwd_kernel(Params<WIDE ? MANY : MAXL> p) {
   extern __shared__ __align__(16) float smem[];
   const int D = p.D, U = p.U, A = p.A, S = p.S, C = p.C, B = p.B;
   const int SC = S * C, n_out = p.n_out;
-  float* b_big = smem;                  // stoch0; dpl_total; dprl.
+  const size_t stride = WIDE ? vector_floats(p) : 0;
+  // stoch0; dpl_total; dprl.
+  float* b_big = WIDE ? p.ws + blockIdx.x * stride : smem;
   float* b_dm = b_big + SC * R;         // Masked deter input.
   float* b_a = b_dm + D * R;
   float* b_xh1 = b_a + A * R;
@@ -113,8 +140,8 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT)
   float* b_ddm = b_dng + 3 * D * R;
   float* c_ds = b_ddm + D * R;          // The carries.
   float* c_dd = c_ds + SC * R;
-  float* s_inv = c_dd + D * R;          // 1/std: in, gru, obs, prior i.
-  float* s_keep = s_inv + (3 + MAXL) * R;
+  float* s_inv = WIDE ? smem : c_dd + D * R;  // 1/std: in, gru, obs, prior i.
+  float* s_keep = s_inv + (3 + (WIDE ? n_out : MAXL)) * R;
   float* s_red = s_keep + R;
   float* s_scratch = s_red + 2 * NW * R;
   int* s_idx = reinterpret_cast<int*>(s_scratch + SCRATCH);
@@ -173,13 +200,13 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT)
     const In<T> stoch = t == 0
         ? In<T>{b_big, nullptr, nullptr, SC, W(p.w_in_s)}
         : In<T>{nullptr, s_idx, s_keep, SC, W(p.w_in_s)};
-    cdense<T>(b_xh1, U, stoch, {b_a, nullptr, nullptr, A, W(p.w_in_a)}, C,
-             nullptr, nullptr, s_scratch, rank);
+    cdense<T, V, WIDE>(b_xh1, U, stoch, {b_a, nullptr, nullptr, A, W(p.w_in_a)},
+                       C, nullptr, nullptr, s_scratch, rank, stride);
     ln_forward<T>(b_xh1, U, W(p.ln_in_s), W(p.ln_in_b), b_xh1, inv1, true, b_x1,
               s_red);
-    cdense<T>(b_xhg, 3 * D, {b_dm, nullptr, nullptr, D, W(p.w_gru_d)},
-             {b_x1, nullptr, nullptr, U, W(p.w_gru_x)}, C, nullptr, nullptr,
-             s_scratch, rank);
+    cdense<T, V, WIDE>(b_xhg, 3 * D, {b_dm, nullptr, nullptr, D, W(p.w_gru_d)},
+                       {b_x1, nullptr, nullptr, U, W(p.w_gru_x)}, C, nullptr,
+                       nullptr, s_scratch, rank, stride);
     ln_forward<T>(b_xhg, 3 * D, W(p.ln_gru_s), W(p.ln_gru_b), b_xhg, invg, false,
               nullptr, s_red);
     {
@@ -205,8 +232,8 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT)
       for (int l = 0; l < n_out; ++l) {
         float* xh = b_xhq + (size_t)l * U * R;
         float* act = l + 1 == n_out ? nullptr : (l % 2 == 0 ? b_p0 : b_p1);
-        cdense<T>(xh, U, {h, nullptr, nullptr, width, W(p.w_out[l])}, none, C,
-                 nullptr, nullptr, s_scratch, rank);
+        cdense<T, V, WIDE>(xh, U, {h, nullptr, nullptr, width, W(p.w_out[l])},
+                           none, C, nullptr, nullptr, s_scratch, rank, stride);
         ln_forward<T>(xh, U, W(p.ln_out_s[l]), W(p.ln_out_b[l]), xh, invq + l * R,
                   true, act, s_red);
         h = act;
@@ -214,8 +241,8 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT)
       }
     }
     // z2 = d_t @ w_obs_d + e_proj (loaded into b_xh2 above).
-    cdense<T>(b_xh2, U, {b_dt, nullptr, nullptr, D, W(p.w_obs_d)}, none, C,
-             nullptr, b_xh2, s_scratch, rank);
+    cdense<T, V, WIDE>(b_xh2, U, {b_dt, nullptr, nullptr, D, W(p.w_obs_d)},
+                       none, C, nullptr, b_xh2, s_scratch, rank, stride);
     ln_forward<T>(b_xh2, U, W(p.ln_obs_s), W(p.ln_obs_b), b_xh2, inv2, false,
               nullptr, s_red);
 
@@ -259,8 +286,8 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT)
     __syncthreads();
 
     // ---- Posterior head --------------------------------------------------
-    cdense<T>(b_t1, U, {b_big, nullptr, nullptr, SC, W(p.t_post)}, none, C,
-             nullptr, nullptr, s_scratch, rank);
+    cdense<T, V, WIDE>(b_t1, U, {b_big, nullptr, nullptr, SC, W(p.t_post)},
+                       none, C, nullptr, nullptr, s_scratch, rank, stride);
     elu_bwd<T>(b_t1, U, b_xh2, W(p.ln_obs_s), W(p.ln_obs_b));
     if (my_turn(turn, rank))
       store_rows(p.dn2 + tb * U, b_t1, U, row0, B);
@@ -269,17 +296,22 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT)
       store_rows(p.dz2 + tb * U, b_t1, U, row0, B);
     // dd_t = dd_out + carry (in b_ddt since the step's start) + dz2 @
     // w_obs_d^T.
-    cdense<T>(b_ddt, D, {b_t1, nullptr, nullptr, U, W(p.t_obs_d)}, none, C,
-             nullptr, b_ddt, s_scratch, rank);
+    cdense<T, V, WIDE>(b_ddt, D, {b_t1, nullptr, nullptr, U, W(p.t_obs_d)},
+                       none, C, nullptr, b_ddt, s_scratch, rank, stride);
 
     // ---- Prior head ------------------------------------------------------
     load_rows(b_big, p.dprl + tb * SC, SC, row0, B, nullptr);
     __syncthreads();
-    {
+    if (WIDE && n_out == 0) {
+      // No layer (the wide path's): the head reads d_t, and dprl @ w_st^T
+      // adds to dd_t.
+      cdense<T, V, WIDE>(b_ddt, D, {b_big, nullptr, nullptr, SC, W(p.t_st)},
+                         none, C, nullptr, b_ddt, s_scratch, rank, stride);
+    } else {
       float* cur = b_p0;
       float* other = b_p1;
-      cdense<T>(cur, U, {b_big, nullptr, nullptr, SC, W(p.t_st)}, none, C,
-               nullptr, nullptr, s_scratch, rank);
+      cdense<T, V, WIDE>(cur, U, {b_big, nullptr, nullptr, SC, W(p.t_st)}, none,
+                         C, nullptr, nullptr, s_scratch, rank, stride);
       for (int l = n_out - 1; l >= 0; --l) {
         const float* xh = b_xhq + (size_t)l * U * R;
         elu_bwd<T>(cur, U, xh, W(p.ln_out_s[l]), W(p.ln_out_b[l]));
@@ -289,14 +321,16 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT)
         if (my_turn(turn, rank))
           store_rows(p.dq[l] + tb * U, cur, U, row0, B);
         if (l > 0) {
-          cdense<T>(other, U, {cur, nullptr, nullptr, U, W(p.t_out[l])}, none,
-                   C, nullptr, nullptr, s_scratch, rank);
+          cdense<T, V, WIDE>(other, U,
+                             {cur, nullptr, nullptr, U, W(p.t_out[l])}, none, C,
+                             nullptr, nullptr, s_scratch, rank, stride);
           float* swap = cur;
           cur = other;
           other = swap;
         } else {
-          cdense<T>(b_ddt, D, {cur, nullptr, nullptr, U, W(p.t_out[0])}, none,
-                   C, nullptr, b_ddt, s_scratch, rank);
+          cdense<T, V, WIDE>(b_ddt, D,
+                             {cur, nullptr, nullptr, U, W(p.t_out[0])}, none, C,
+                             nullptr, b_ddt, s_scratch, rank, stride);
         }
       }
     }
@@ -331,10 +365,10 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT)
     ln_backward<T>(b_dng, 3 * D, b_xhg, invg, W(p.ln_gru_s), s_red);
     if (my_turn(turn, rank))
       store_rows(p.dzg + tb * 3 * D, b_dng, 3 * D, row0, B);
-    cdense<T>(b_t1, U, {b_dng, nullptr, nullptr, 3 * D, W(p.t_gru_x)}, none, C,
-             nullptr, nullptr, s_scratch, rank);
-    cdense<T>(b_ddm, D, {b_dng, nullptr, nullptr, 3 * D, W(p.t_gru_d)}, none,
-             C, nullptr, b_ddm, s_scratch, rank);
+    cdense<T, V, WIDE>(b_t1, U, {b_dng, nullptr, nullptr, 3 * D, W(p.t_gru_x)},
+                       none, C, nullptr, nullptr, s_scratch, rank, stride);
+    cdense<T, V, WIDE>(b_ddm, D, {b_dng, nullptr, nullptr, 3 * D, W(p.t_gru_d)},
+                       none, C, nullptr, b_ddm, s_scratch, rank, stride);
 
     // ---- Input layer -------------------------------------------------------
     elu_bwd<T>(b_t1, U, b_xh1, W(p.ln_in_s), W(p.ln_in_b));
@@ -343,8 +377,8 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT)
     ln_backward<T>(b_t1, U, b_xh1, inv1, W(p.ln_in_s), s_red);
     if (my_turn(turn, rank))
       store_rows(p.dz1 + tb * U, b_t1, U, row0, B);
-    cdense<T>(c_ds, SC, {b_t1, nullptr, nullptr, U, W(p.t_in_s)}, none, C,
-             nullptr, nullptr, s_scratch, rank);
+    cdense<T, V, WIDE>(c_ds, SC, {b_t1, nullptr, nullptr, U, W(p.t_in_s)}, none,
+                       C, nullptr, nullptr, s_scratch, rank, stride);
     for (int i = tid; i < SC * R; i += NT) c_ds[i] *= s_keep[i % R];
     for (int i = tid; i < D * R; i += NT) c_dd[i] = b_ddm[i] * s_keep[i % R];
     __syncthreads();
@@ -355,40 +389,31 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT)
     store_rows(p.dd0, c_dd, D, row0, B);
 }
 
-size_t smem_bytes(const Params& p) {
-  const int SC = p.S * p.C;
-  const size_t floats =
-      (size_t)R * (2 * SC + 11 * p.D + p.A + (6 + p.n_out) * p.U +
-                   (3 + MAXL) + 1 + 2 * NW + SCRATCH / R + p.S);
-  return floats * sizeof(float);
+template <bool WIDE, int L>
+size_t smem_bytes(const Params<L>& p) {
+  const size_t floats = (size_t)R * ((3 + (WIDE ? p.n_out : MAXL)) + 1 +
+                                     2 * NW + SCRATCH / R + p.S);
+  return (floats + (WIDE ? 0 : vector_floats(p))) * sizeof(float);
 }
 
-template <typename T>
-int launch(const Params& p, cudaStream_t stream) {
-  const size_t bytes = smem_bytes(p);
+template <typename T, int V, bool WIDE>
+int launch(const Params<WIDE ? MANY : MAXL>& p, cudaStream_t stream) {
+  const size_t bytes = smem_bytes<WIDE>(p);
   cudaError_t err = cudaFuncSetAttribute(
-      observe_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      observe_bwd_kernel<T, V, WIDE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (p.B + R - 1) / R * CL;  // A cluster a pair of rows.
-  observe_bwd_kernel<T><<<blocks, NT, bytes, stream>>>(p);
+  observe_bwd_kernel<T, V, WIDE><<<blocks, NT, bytes, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// ptrs: stoch0, deter0, actions, eproj, first, deters, post_logits, stochs,
-//   dd_out, dpl, dprl, ds_out, dz1, dn1, dzg, dng, dz2, dn2, dpl_total, ds0,
-//   dd0, w_in_s, w_in_a, ln_in_s, ln_in_b, w_gru_d, w_gru_x, ln_gru_s,
-//   ln_gru_b, w_out[n_out], ln_out_s[n_out], ln_out_b[n_out], w_obs_d,
-//   ln_obs_s, ln_obs_b, then the transposed copies of w_in_s, w_gru_d,
-//   w_gru_x, w_st, w_obs_d, w_post and w_out[n_out], then dq[n_out],
-//   dm[n_out].
-// dims: T, B, A, D, U, S, C, n_out.
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int observe_bwd(int bf16, void* const* ptrs, const int* dims,
-                           float unimix, void* stream) {
-  Params p = {};
+// Reads the pointers and dims into the parameters of a path that holds L
+// layers and launches it.
+template <int L>
+int read_and_launch(int bf16, void* const* ptrs, const int* dims,
+                    float unimix, cudaStream_t stream) {
+  Params<L> p = {};
   int i = 0;
   auto in_f = [&]() { return static_cast<const float*>(ptrs[i++]); };
   auto out_f = [&]() { return static_cast<float*>(ptrs[i++]); };
@@ -421,7 +446,6 @@ extern "C" int observe_bwd(int bf16, void* const* ptrs, const int* dims,
   p.S = dims[5];
   p.C = dims[6];
   p.n_out = dims[7];
-  if (p.n_out < 1 || p.n_out > MAXL) return (int)cudaErrorInvalidValue;
   p.w_in_s = ptrs[i++];
   p.w_in_a = ptrs[i++];
   p.ln_in_s = ptrs[i++];
@@ -445,7 +469,54 @@ extern "C" int observe_bwd(int bf16, void* const* ptrs, const int* dims,
   for (int l = 0; l < p.n_out; ++l) p.t_out[l] = ptrs[i++];
   for (int l = 0; l < p.n_out; ++l) p.dq[l] = static_cast<float*>(ptrs[i++]);
   for (int l = 0; l < p.n_out; ++l) p.dm[l] = static_cast<float*>(ptrs[i++]);
+  p.ws = static_cast<float*>(ptrs[i++]);
   p.unimix = unimix;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(p, s) : launch<float>(p, s);
+  constexpr bool WIDE = L == MANY;
+  if (bf16)
+    return with_values<__nv_bfloat16>(dims[8], [&](auto v) {
+      return launch<__nv_bfloat16, decltype(v)::value, WIDE>(p, stream);
+    });
+  return with_values<float>(dims[8], [&](auto v) {
+    return launch<float, decltype(v)::value, WIDE>(p, stream);
+  });
 }
+
+}  // namespace
+
+#ifdef OBSERVE_BWD_WIDE
+// The wide path, for observe_bwd below (same pointers and dims).
+extern "C" int observe_bwd_wide(int bf16, void* const* ptrs, const int* dims,
+                                float unimix, void* stream) {
+  return read_and_launch<MANY>(bf16, ptrs, dims, unimix,
+                               static_cast<cudaStream_t>(stream));
+}
+#else
+extern "C" int observe_bwd_wide(int bf16, void* const* ptrs, const int* dims,
+                                float unimix, void* stream);
+
+// ptrs: stoch0, deter0, actions, eproj, first, deters, post_logits, stochs,
+//   dd_out, dpl, dprl, ds_out, dz1, dn1, dzg, dng, dz2, dn2, dpl_total, ds0,
+//   dd0, w_in_s, w_in_a, ln_in_s, ln_in_b, w_gru_d, w_gru_x, ln_gru_s,
+//   ln_gru_b, w_out[n_out], ln_out_s[n_out], ln_out_b[n_out], w_obs_d,
+//   ln_obs_s, ln_obs_b, then the transposed copies of w_in_s, w_gru_d,
+//   w_gru_x, w_st, w_obs_d, w_post and w_out[n_out], then dq[n_out],
+//   dm[n_out], then the workspace (float32, a block's vectors a block of the
+//   grid) for the wide path, or null for the shipped one.
+// dims: T, B, A, D, U, S, C, n_out (1 to MAXL on the shipped path, 0 to
+//   MANY on the wide one), values (the V of every load, see
+//   observe_common.cuh).
+// Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int observe_bwd(int bf16, void* const* ptrs, const int* dims,
+                           float unimix, void* stream) {
+  const int n_out = dims[7];
+  // The workspace's pointer: after the 21 inputs and outputs, 8 + 3 n_out
+  // cell weights, the 3 of the posterior head, 6 + n_out transposed copies
+  // and 2 n_out adjoints.
+  const bool wide = ptrs[38 + 6 * n_out] != nullptr;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_out < (wide ? 0 : 1) || n_out > (wide ? MANY : MAXL))
+    return (int)cudaErrorInvalidValue;
+  return wide ? observe_bwd_wide(bf16, ptrs, dims, unimix, stream)
+              : read_and_launch<MAXL>(bf16, ptrs, dims, unimix, s);
+}
+#endif

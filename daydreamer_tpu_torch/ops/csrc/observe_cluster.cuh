@@ -30,6 +30,18 @@
 // may still be between the barrier before and this one. So between those
 // two barriers a rank's own code must not touch Y, except that it may read
 // its own columns of it (the addend). observe_bwd.cu orders its step so.
+//
+// The workspace. Where a step's vectors outgrow shared memory (deter past
+// about 2 300 in observe_bwd.cu at xarm's other widths, or many prior
+// layers), a kernel's wide instantiation (WS) keeps them in global memory
+// instead: each block a copy of its own, `stride` floats after the copy
+// of the block before, which the wrapper allocates and which stays in L2
+// at these sizes. cdense() then writes each sum into the four ranks'
+// copies there; the cluster's barrier orders those writes before the
+// reads as it orders the shared memory's (release and acquire at the
+// cluster's scope). Everything else reads and writes its own copy as it
+// did its shared memory. The scratch of the products, the row sums and
+// the classes stay in shared memory.
 
 #pragma once
 
@@ -49,11 +61,10 @@ static_assert(NT / CGMAX * CGMAX * 8 * R <= SCRATCH, "scratch holds a go");
 
 // obs::accumulate with `slices` interleaved slices of K, of which this
 // thread takes slice ks.
-template <typename T>
-__device__ __forceinline__ void accumulate(float (&acc)[Tile<T>::V][R],
+template <typename T, int V>
+__device__ __forceinline__ void accumulate(float (&acc)[V][R],
                                            const In<T>& in, int C, int N,
                                            int n, int ks, int slices) {
-  constexpr int V = Tile<T>::V;
   if (in.idx) {
     float g[V][R];
 #pragma unroll
@@ -65,7 +76,7 @@ __device__ __forceinline__ void accumulate(float (&acc)[Tile<T>::V][R],
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const int k = s * C + in.idx[s * R + r];
-        const Vec<V> w = load_v(in.W + (size_t)k * N + n);
+        const Vec<V> w = load_v<V>(in.W + (size_t)k * N + n);
 #pragma unroll
         for (int c = 0; c < V; ++c) g[c][r] += w.v[c];
       }
@@ -79,7 +90,7 @@ __device__ __forceinline__ void accumulate(float (&acc)[Tile<T>::V][R],
   } else {
 #pragma unroll UNROLL
     for (int k = ks; k < in.K; k += slices) {
-      const Vec<V> w = load_v(in.W + (size_t)k * N + n);
+      const Vec<V> w = load_v<V>(in.W + (size_t)k * N + n);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const float x = in.X[k * R + r];
@@ -173,15 +184,15 @@ __device__ void ln_backward(float* G, int N, const float* xhat,
 }
 
 // Y[n][r] = a.X @ a.W (+ b.X @ b.W) (+ bias[n]) (+ addend[n][r]) in every
-// rank of the cluster, this rank computing its share of the columns. N is
-// a multiple of 8. Y must be none of the inputs; addend may be Y. scratch
-// holds SCRATCH floats. Every thread of every rank must call it; it ends
-// with the cluster's barrier.
-template <typename T>
-__device__ void cdense(float* Y, int N, const In<T>& a, const In<T>& b, int C,
-                       const T* bias, const float* addend, float* scratch,
-                       int rank) {
-  constexpr int V = Tile<T>::V;
+// rank of the cluster, this rank computing its share of the columns, V at
+// a time. N is a multiple of V. Y must be none of the inputs; addend may be
+// Y. scratch holds SCRATCH floats. With WS, Y lies in the workspace, the
+// ranks' copies `stride` floats apart. Every thread of every rank must
+// call it; it ends with the cluster's barrier.
+template <typename T, int V, bool WS>
+__device__ __forceinline__ void cdense_body(
+    float* Y, int N, const In<T>& a, const In<T>& b, int C, const T* bias,
+    const float* addend, float* scratch, int rank, size_t stride) {
   const int groups = N / V;
   const int g_end = (rank + 1) * groups / CL;
   for (int g0 = rank * groups / CL; g0 < g_end; g0 += CGMAX) {
@@ -196,8 +207,8 @@ __device__ void cdense(float* Y, int N, const In<T>& a, const In<T>& b, int C,
       for (int c = 0; c < V; ++c)
 #pragma unroll
         for (int r = 0; r < R; ++r) acc[c][r] = 0.f;
-      accumulate<T>(acc, a, C, N, n, ks, slices);
-      if (b.W) accumulate<T>(acc, b, C, N, n, ks, slices);
+      accumulate<T, V>(acc, a, C, N, n, ks, slices);
+      if (b.W) accumulate<T, V>(acc, b, C, N, n, ks, slices);
       float* s = scratch + (size_t)ks * outputs + cg * V * R;
 #pragma unroll
       for (int c = 0; c < V; ++c)
@@ -225,12 +236,49 @@ __device__ void cdense(float* Y, int N, const In<T>& a, const In<T>& b, int C,
       for (int m = 1; m < LANES; m <<= 1)
         v += __shfl_xor_sync(0xffffffffu, v, m);
       if (o < outputs)
-        for (int q = part; q < CL; q += LANES)
-          *ptx::cluster_map(Y + at, q) = v;
+        for (int q = part; q < CL; q += LANES) {
+          if constexpr (WS)
+            Y[at + (q - rank) * (ptrdiff_t)stride] = v;
+          else
+            *ptx::cluster_map(Y + at, q) = v;
+        }
     }
     __syncthreads();
   }
   ptx::cluster_sync();
+}
+
+
+// cdense_body as a function of its own, for Y in shared memory: the
+// product of the shipped paths, its parameters as they always were.
+template <typename T, int V>
+__device__ void cdense_shared(float* Y, int N, const In<T>& a,
+                              const In<T>& b, int C, const T* bias,
+                              const float* addend, float* scratch,
+                              int rank) {
+  cdense_body<T, V, false>(Y, N, a, b, C, bias, addend, scratch, rank, 0);
+}
+
+// The same for Y in the workspace (the wide paths).
+template <typename T, int V>
+__device__ void cdense_ws(float* Y, int N, const In<T>& a, const In<T>& b,
+                          int C, const T* bias, const float* addend,
+                          float* scratch, int rank, size_t stride) {
+  cdense_body<T, V, true>(Y, N, a, b, C, bias, addend, scratch, rank,
+                          stride);
+}
+
+// The product of a kernel whose vectors lie in its workspace with WS, else
+// in shared memory (stride is then unused).
+template <typename T, int V = VMAX<T>, bool WS = false>
+__device__ __forceinline__ void cdense(float* Y, int N, const In<T>& a,
+                                       const In<T>& b, int C, const T* bias,
+                                       const float* addend, float* scratch,
+                                       int rank, size_t stride = 0) {
+  if constexpr (WS)
+    cdense_ws<T, V>(Y, N, a, b, C, bias, addend, scratch, rank, stride);
+  else
+    cdense_shared<T, V>(Y, N, a, b, C, bias, addend, scratch, rank);
 }
 
 }  // namespace obc

@@ -1,5 +1,6 @@
-// Device functions shared by the two kernels of the fused observe chain
-// (observe_fwd.cu, observe_bwd.cu).
+// Device functions shared by the three kernels of the observe chain
+// (observe_fwd.cu, observe_bwd.cu, observe.cu), whose products
+// observe_cluster.cuh splits across a thread block cluster.
 //
 // Layout. A block owns R rows of the batch for the whole chunk. Every
 // vector of a step lives in shared memory as float, transposed: element n
@@ -7,20 +8,16 @@
 // row i % R, and, as the block size is a multiple of R, a thread always
 // meets the same row. Weights are [K][N] row-major in global memory in the
 // element type T (float or bf16) and are widened to float at the read;
-// every product accumulates in float and nothing is rounded between
-// layers (the reference computes the chain in float32 and rounds only its
-// carries).
+// every product accumulates in float.
 //
-// dense(): Y = X1 @ W1 (+ X2 @ W2) (+ bias) (+ addend). A step waits for
-// its weights to arrive from L2, not for its FMAs, so the product is laid
-// out for loads: a pass covers 512 output columns, a thread owns the V
-// adjacent columns that one 16-byte load brings (4 of float, 8 of bf16,
-// coalesced along the weight row) and one of KS interleaved slices of the
-// K axis (8 for float, 16 for bf16), each thread with UNROLL rows in
-// flight. The slices' partial sums meet in shared memory and are added in
-// a fixed order, one output element per thread, so a result does not
-// change from run to run. An input that is a one-hot per group of C
-// classes is given by its classes and becomes a sum of S weight rows.
+// The loads. A thread reads V adjacent weights of a row at once: 16 bytes
+// (4 of float, 8 of bf16) where every product's N is a multiple of that,
+// as at the shipped widths, else single values (a bf16 row of 20 values,
+// or an odd width). The kernels take V as a template argument, which the
+// wrapper picks from the widths (`load_values` in ops/rssm.py). Loads of
+// 8 and 4 bytes would serve some widths better, but each V is another
+// instantiation of every kernel of the chain, and the build of
+// observe_bwd.cu, the longest, grew by about 10 s for each.
 
 #pragma once
 
@@ -29,23 +26,22 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace obs {
 
 constexpr int R = 2;             // Rows per block.
 constexpr int NT = 1024;         // Threads per block.
 constexpr int NW = NT / 32;      // Warps per block.
 constexpr int PASS = 512;        // Columns per pass of dense().
-constexpr int MAXL = 8;          // Most prior layers.
+constexpr int MAXL = 8;          // Most prior layers of the shipped path.
+constexpr int MANY = 128;        // Most prior layers of the wide path.
 constexpr int UNROLL = 16;       // Weight rows in flight per thread.
 
-// How dense() splits a pass among the threads for weights of type T.
-template <typename T>
-struct Tile {
-  static constexpr int V = 16 / sizeof(T);  // Adjacent columns per thread.
-  static constexpr int CG = PASS / V;       // Column groups per pass.
-  static constexpr int KS = NT / CG;        // Slices of the K axis.
-};
-// Floats of dense()'s scratch, sized for the narrowest type (bf16).
+// The values of a 16-byte load of T: the widest V.
+template <typename T> constexpr int VMAX = 16 / sizeof(T);
+// Floats of a product's scratch, sized for the widest loads of the
+// narrowest type (bf16, V = 8); narrower loads take fewer slices of K.
 constexpr int SCRATCH = (NT / (PASS / 8)) * PASS * R;
 
 static_assert(R >= 1 && R <= 32 && (R & (R - 1)) == 0, "R: a power of two");
@@ -68,24 +64,65 @@ template <typename T> __device__ __forceinline__ float rnd(float x) {
   return to_f(from_f<T>(x));
 }
 
-// The V adjacent weights of one 16-byte load; p is aligned to 16 bytes.
+// The V adjacent weights at p, widened to float, in one load of V *
+// sizeof(T) bytes; p is aligned to that.
 template <int V> struct Vec { float v[V]; };
-__device__ __forceinline__ Vec<4> load_v(const float* p) {
-  const float4 w = *reinterpret_cast<const float4*>(p);
-  return {{w.x, w.y, w.z, w.w}};
-}
-__device__ __forceinline__ Vec<8> load_v(const __nv_bfloat16* p) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const unsigned words[4] = {raw.x, raw.y, raw.z, raw.w};
-  Vec<8> out;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&words[i]));
-    out.v[2 * i] = f.x;
-    out.v[2 * i + 1] = f.y;
+template <int V>
+__device__ __forceinline__ Vec<V> load_v(const float* p) {
+  static_assert(V == 1 || V == 2 || V == 4, "a load of 4 to 16 bytes");
+  Vec<V> out;
+  if constexpr (V == 4) {
+    const float4 w = *reinterpret_cast<const float4*>(p);
+    out = {{w.x, w.y, w.z, w.w}};
+  } else if constexpr (V == 2) {
+    const float2 w = *reinterpret_cast<const float2*>(p);
+    out.v[0] = w.x;
+    out.v[1] = w.y;
+  } else {
+    out.v[0] = *p;
   }
   return out;
+}
+template <int V>
+__device__ __forceinline__ Vec<V> load_v(const __nv_bfloat16* p) {
+  static_assert(V == 1 || V == 2 || V == 4 || V == 8,
+                "a load of 2 to 16 bytes");
+  Vec<V> out;
+  if constexpr (V == 1) {
+    out.v[0] = __bfloat162float(*p);
+  } else {
+    unsigned words[V / 2];
+    if constexpr (V == 8) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(p);
+      words[0] = raw.x;
+      words[1] = raw.y;
+      words[2] = raw.z;
+      words[3] = raw.w;
+    } else if constexpr (V == 4) {
+      const uint2 raw = *reinterpret_cast<const uint2*>(p);
+      words[0] = raw.x;
+      words[1] = raw.y;
+    } else {
+      words[0] = *reinterpret_cast<const unsigned*>(p);
+    }
+#pragma unroll
+    for (int i = 0; i < V / 2; ++i) {
+      const float2 f = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&words[i]));
+      out.v[2 * i] = f.x;
+      out.v[2 * i + 1] = f.y;
+    }
+  }
+  return out;
+}
+
+// f(std::integral_constant<int, V>()) for the V of T that `values` names
+// (the wrapper's pick, see above): VMAX or 1; an error for any other.
+template <typename T, class F>
+__host__ int with_values(int values, F f) {
+  if (values == VMAX<T>) return f(std::integral_constant<int, VMAX<T>>());
+  if (values == 1) return f(std::integral_constant<int, 1>());
+  return (int)cudaErrorInvalidValue;
 }
 
 __device__ __forceinline__ float sigmoid(float x) {
@@ -98,7 +135,8 @@ __device__ __forceinline__ float elu_grad(float n) {
   return n > 0.f ? 1.f : expf(n);
 }
 
-// One input of a product. X: [K][R] in shared memory. idx: the classes
+// One input of a product. X: [K][R] in shared memory (or in the block's
+// workspace, see observe_cluster.cuh). idx: the classes
 // [S][R] of a one-hot X with S = K / C groups (then X is not read), scale:
 // a factor [R] on that gathered sum (the is_first mask), or null.
 template <typename T>
@@ -109,154 +147,6 @@ struct In {
   int K;
   const T* W;  // Null: no input.
 };
-
-template <typename T>
-__device__ __forceinline__ void accumulate(float (&acc)[Tile<T>::V][R],
-                                           const In<T>& in, int C, int N,
-                                           int n, int ks) {
-  constexpr int V = Tile<T>::V, KS = Tile<T>::KS;
-  if (in.idx) {
-    float g[V][R];
-#pragma unroll
-    for (int c = 0; c < V; ++c)
-#pragma unroll
-      for (int r = 0; r < R; ++r) g[c][r] = 0.f;
-    const int S = in.K / C;
-    for (int s = ks; s < S; s += KS) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int k = s * C + in.idx[s * R + r];
-        const Vec<V> w = load_v(in.W + (size_t)k * N + n);
-#pragma unroll
-        for (int c = 0; c < V; ++c) g[c][r] += w.v[c];
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float sc = in.scale ? in.scale[r] : 1.f;
-#pragma unroll
-      for (int c = 0; c < V; ++c) acc[c][r] = fmaf(sc, g[c][r], acc[c][r]);
-    }
-  } else {
-#pragma unroll UNROLL
-    for (int k = ks; k < in.K; k += KS) {
-      const Vec<V> w = load_v(in.W + (size_t)k * N + n);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float x = in.X[k * R + r];
-#pragma unroll
-        for (int c = 0; c < V; ++c) acc[c][r] = fmaf(x, w.v[c], acc[c][r]);
-      }
-    }
-  }
-}
-
-// Y[n][r] = a.X @ a.W (+ b.X @ b.W) (+ bias[n]) (+ addend[n][r]). N is a
-// multiple of 8. Y must be none of the inputs; addend may be Y. scratch
-// holds SCRATCH floats. Ends with a barrier.
-template <typename T>
-__device__ void dense(float* Y, int N, const In<T>& a, const In<T>& b, int C,
-                      const T* bias, const float* addend, float* scratch) {
-  constexpr int V = Tile<T>::V, CG = Tile<T>::CG, KS = Tile<T>::KS;
-  const int cg = threadIdx.x % CG, ks = threadIdx.x / CG;
-  for (int base = 0; base < N; base += PASS) {
-    const int n = base + V * cg;
-    if (n < N) {
-      float acc[V][R];
-#pragma unroll
-      for (int c = 0; c < V; ++c)
-#pragma unroll
-        for (int r = 0; r < R; ++r) acc[c][r] = 0.f;
-      accumulate<T>(acc, a, C, N, n, ks);
-      if (b.W) accumulate<T>(acc, b, C, N, n, ks);
-      float* s = scratch + ((size_t)ks * PASS + V * cg) * R;
-#pragma unroll
-      for (int c = 0; c < V; ++c)
-#pragma unroll
-        for (int r = 0; r < R; ++r) s[c * R + r] = acc[c][r];
-    }
-    __syncthreads();
-    // One output element per thread: the slices' partials in order.
-    for (int e = threadIdx.x; e < PASS * R; e += NT) {
-      const int col = base + e / R;
-      if (col < N) {
-        float v = 0.f;
-#pragma unroll
-        for (int j = 0; j < KS; ++j) v += scratch[(size_t)j * PASS * R + e];
-        if (bias) v += to_f(bias[col]);
-        if (addend) v += addend[col * R + e % R];
-        Y[col * R + e % R] = v;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// Sum over the block of the threads' partials v, separately for each row:
-// a thread's partial belongs to row threadIdx.x % R. red: NW * R floats.
-__device__ __forceinline__ float row_sum(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o >= R; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  __syncthreads();  // An earlier call's readers are done with red.
-  if (lane < R) red[warp * R + lane] = v;
-  __syncthreads();
-  float total = 0.f;
-  for (int w = 0; w < NW; ++w) total += red[w * R + threadIdx.x % R];
-  return total;
-}
-
-// LayerNorm (eps 1e-3) over Z [N][R]. Writes xhat to `xhat` and the rows'
-// 1/std to `inv` [R] where given, and to `act` where given the output
-// xhat * scale + bias, through ELU when `use_elu`. xhat and act may be Z.
-// Ends with a barrier.
-template <typename T>
-__device__ void ln_fwd(const float* Z, int N, const T* scale, const T* bias,
-                       float* xhat, float* inv, bool use_elu, float* act,
-                       float* red) {
-  const int tid = threadIdx.x, total = N * R;
-  float s = 0.f;
-  for (int i = tid; i < total; i += NT) s += Z[i];
-  const float mean = row_sum(s, red) / N;
-  float v = 0.f;
-  for (int i = tid; i < total; i += NT) {
-    const float d = Z[i] - mean;
-    v += d * d;
-  }
-  const float iv = rsqrtf(row_sum(v, red) / N + 1e-3f);
-  for (int i = tid; i < total; i += NT) {
-    const float xh = (Z[i] - mean) * iv;
-    if (act) {
-      const float n = xh * to_f(scale[i / R]) + to_f(bias[i / R]);
-      act[i] = use_elu ? elu(n) : n;
-    }
-    if (xhat) xhat[i] = xh;
-  }
-  if (inv && tid < R) inv[tid] = iv;
-  __syncthreads();
-}
-
-// In place over G [N][R]: the gradient dn at a LayerNorm's output becomes
-// the gradient dz at its input. Ends with a barrier.
-template <typename T>
-__device__ void ln_bwd(float* G, int N, const float* xhat, const float* inv,
-                       const T* scale, float* red) {
-  const int tid = threadIdx.x, total = N * R;
-  float s1 = 0.f, s2 = 0.f;
-  for (int i = tid; i < total; i += NT) {
-    const float dx = G[i] * to_f(scale[i / R]);
-    s1 += dx;
-    s2 += dx * xhat[i];
-  }
-  const float m1 = row_sum(s1, red) / N;
-  const float m2 = row_sum(s2, red) / N;
-  const float iv = inv[tid % R];
-  for (int i = tid; i < total; i += NT) {
-    const float dx = G[i] * to_f(scale[i / R]);
-    G[i] = iv * (dx - m1 - xhat[i] * m2);
-  }
-  __syncthreads();
-}
 
 // Rows row0 .. row0 + R - 1 of src [B][width] (global, row-major) into dst
 // [width][R], times scale[r] where given; rows past B read as zero. No

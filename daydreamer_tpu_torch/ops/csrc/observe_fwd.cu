@@ -52,6 +52,17 @@
 // 1.74 ms in place of 5.13 (same card and shape), 1.46 of it the chain.
 // Clusters of 8 would halve each rank's columns, but only 15 fit the card
 // at once where the xarm batch needs 16 (observe_fwd_clusters; 30 of 4).
+//
+// Every width the JAX kernel takes. The products read V weights at a time, a
+// template argument the wrapper picks from the widths (observe_common.cuh:
+// 16-byte loads at the shipped widths, single values where a row is no multiple
+// of 16 bytes). The prior head takes any number of layers, 0 included (the head
+// then reads d_t): up to MAXL the layers' addresses lie in the launch's
+// parameters as they always did, past it in a second instantiation of
+// prior_kernel whose parameters hold MANY. Where the chain's vectors outgrow
+// shared memory (deter past about 2 300 at xarm's other widths) the wrapper
+// hands over a workspace and the chain's wide instantiation keeps them there
+// (observe_cluster.cuh).
 
 #include "observe_cluster.cuh"
 
@@ -67,12 +78,19 @@ struct Params {
   void* stoch_out;
   const void *w_in_s, *w_in_a, *ln_in_s, *ln_in_b;
   const void *w_gru_d, *w_gru_x, *ln_gru_s, *ln_gru_b;
-  const void *w_out[MAXL], *ln_out_s[MAXL], *ln_out_b[MAXL];
   const void *w_st, *b_st, *w_obs_d, *w_obs_e, *ln_obs_s, *ln_obs_b;
   const void *w_post, *b_post;
   float *eproj, *dt;  // Scratch: [T][B][U], [T][B][D], float32.
+  float* ws;          // The chain's workspace, or null (shared memory).
   int T, B, A, E, D, U, S, C, n_out;
   float unimix;
+};
+
+// The prior layers' addresses, up to L of them: prior_kernel's second
+// parameter.
+template <int L>
+struct Layers {
+  const void *w_out[L], *ln_out_s[L], *ln_out_b[L];
 };
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -97,19 +115,19 @@ constexpr int KC = 512;          // Rows of K of embeds staged at a time.
 
 static_assert(NTW == 32 * RW && KC % KSW == 0, "wide layout");
 
-template <typename T>
-__host__ __device__ constexpr int pass_w() { return CGW * Tile<T>::V; }
+// Columns of a pass: CGW groups of V.
+template <int V>
+__host__ __device__ constexpr int pass_w() { return CGW * V; }
 
 // acc[c][r] += X[k - k0][r] * W[k][n + c] over the k of [k0, k1) in slice
 // ks. X: [k1 - k0][RW] float in shared memory; W: [K][N] in T.
-template <typename T>
+template <typename T, int V>
 __device__ __forceinline__ void rows_accumulate(
-    float (&acc)[Tile<T>::V][RW], const float* X, int k0, int k1, int ks,
+    float (&acc)[V][RW], const float* X, int k0, int k1, int ks,
     const T* W, int N, int n) {
-  constexpr int V = Tile<T>::V;
 #pragma unroll 8
   for (int k = k0 + ks; k < k1; k += KSW) {
-    const Vec<V> w = load_v(W + (size_t)k * N + n);
+    const Vec<V> w = load_v<V>(W + (size_t)k * N + n);
     const float4 xa = *reinterpret_cast<const float4*>(X + (k - k0) * RW);
     const float4 xb = *reinterpret_cast<const float4*>(X + (k - k0) * RW + 4);
     const float x[RW] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
@@ -123,11 +141,11 @@ __device__ __forceinline__ void rows_accumulate(
 // The pass's partial sums into scratch [KSW][RW][pass], then each output
 // adds its KSW partials in order (+ bias[n]) into Y[r * ldy + n] for the
 // first `rows` rows. Ends with a barrier.
-template <typename T>
+template <typename T, int V>
 __device__ __forceinline__ void rows_reduce(
-    const float (&acc)[Tile<T>::V][RW], float* scratch, int base, int N,
+    const float (&acc)[V][RW], float* scratch, int base, int N,
     const T* bias, float* Y, int ldy, int rows) {
-  constexpr int V = Tile<T>::V, PASS_W = pass_w<T>();
+  constexpr int PASS_W = pass_w<V>();
   const int cg = threadIdx.x % CGW, ks = threadIdx.x / CGW;
 #pragma unroll
   for (int c = 0; c < V; ++c)
@@ -150,30 +168,30 @@ __device__ __forceinline__ void rows_reduce(
 
 // Y[r][n] = X @ W (+ bias) for X [K][RW] in shared memory. Ends with a
 // barrier.
-template <typename T>
+template <typename T, int V>
 __device__ void rows_dense(const float* X, int K, const T* W, int N,
                            const T* bias, float* scratch, float* Y, int ldy,
                            int rows) {
-  constexpr int V = Tile<T>::V, PASS_W = pass_w<T>();
+  constexpr int PASS_W = pass_w<V>();
   const int n_of = (threadIdx.x % CGW) * V, ks = threadIdx.x / CGW;
   for (int base = 0; base < N; base += PASS_W) {
     float acc[V][RW] = {};
     if (base + n_of < N)
-      rows_accumulate<T>(acc, X, 0, K, ks, W, N, base + n_of);
-    rows_reduce<T>(acc, scratch, base, N, bias, Y, ldy, rows);
+      rows_accumulate<T, V>(acc, X, 0, K, ks, W, N, base + n_of);
+    rows_reduce<T, V>(acc, scratch, base, N, bias, Y, ldy, rows);
   }
 }
 
-template <typename T>
+template <int V>
 size_t embed_bytes() {
-  return sizeof(float) * ((size_t)KC * RW + (size_t)KSW * RW * pass_w<T>());
+  return sizeof(float) * ((size_t)KC * RW + (size_t)KSW * RW * pass_w<V>());
 }
 
 // e_proj[m][n] = embeds[m] @ w_obs_e for RW rows m of the T * B.
-template <typename T>
+template <typename T, int V>
 __global__ void __launch_bounds__(NTW) embed_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int V = Tile<T>::V, PASS_W = pass_w<T>();
+  constexpr int PASS_W = pass_w<V>();
   float* s_x = smem;                  // [KC][RW]
   float* scratch = s_x + KC * RW;     // [KSW][RW][PASS_W]
   const int M = p.T * p.B, E = p.E, U = p.U, row0 = blockIdx.x * RW;
@@ -192,24 +210,27 @@ __global__ void __launch_bounds__(NTW) embed_kernel(Params p) {
       }
       __syncthreads();
       if (base + n_of < U)
-        rows_accumulate<T>(acc, s_x, k0, k0 + width, ks, w, U, base + n_of);
+        rows_accumulate<T, V>(acc, s_x, k0, k0 + width, ks, w, U,
+                              base + n_of);
     }
-    rows_reduce<T>(acc, scratch, base, U, nullptr,
+    rows_reduce<T, V>(acc, scratch, base, U, nullptr,
                    p.eproj + (size_t)row0 * U, U, M - row0);
   }
 }
 
-template <typename T>
+template <int V>
 size_t prior_bytes(const Params& p) {
   const int K = p.D > p.U ? p.D : p.U;
   return sizeof(float) * ((size_t)K * RW + (size_t)RW * p.U +
-                          (size_t)KSW * RW * pass_w<T>());
+                          (size_t)KSW * RW * pass_w<V>());
 }
 
 // The prior head over RW rows of the chain's float32 d_t: n_out layers of
-// Linear + LN (eps 1e-3) + ELU, then @ w_st + b_st into the prior logits.
-template <typename T>
-__global__ void __launch_bounds__(NTW) prior_kernel(Params p) {
+// Linear + LN (eps 1e-3) + ELU, then @ w_st + b_st into the prior logits
+// (with no layer, d_t @ w_st + b_st).
+template <typename T, int V, int L>
+__global__ void __launch_bounds__(NTW) prior_kernel(Params p,
+                                                    Layers<L> layers) {
   extern __shared__ __align__(16) float smem[];
   const int D = p.D, U = p.U, SC = p.S * p.C, M = p.T * p.B;
   float* s_x = smem;                  // Layer input [K][RW].
@@ -225,7 +246,8 @@ __global__ void __launch_bounds__(NTW) prior_kernel(Params p) {
   int width = D;
   const int r = tid / 32, lane = tid % 32;
   for (int l = 0; l < p.n_out; ++l) {
-    rows_dense<T>(s_x, width, W(p.w_out[l]), U, nullptr, scratch, s_y, U, RW);
+    rows_dense<T, V>(s_x, width, W(layers.w_out[l]), U, nullptr, scratch,
+                     s_y, U, RW);
     // LayerNorm and ELU of row r, by warp r, into the next layer's input.
     const float* y = s_y + r * U;
     float s = 0.f;
@@ -234,15 +256,15 @@ __global__ void __launch_bounds__(NTW) prior_kernel(Params p) {
     float v = 0.f;
     for (int n = lane; n < U; n += 32) v += (y[n] - mean) * (y[n] - mean);
     const float inv = rsqrtf(warp_sum(v) / U + 1e-3f);
-    const T* scale = W(p.ln_out_s[l]);
-    const T* bias = W(p.ln_out_b[l]);
+    const T* scale = W(layers.ln_out_s[l]);
+    const T* bias = W(layers.ln_out_b[l]);
     for (int n = lane; n < U; n += 32)
       s_x[n * RW + r] =
           elu((y[n] - mean) * inv * to_f(scale[n]) + to_f(bias[n]));
     __syncthreads();
     width = U;
   }
-  rows_dense<T>(s_x, width, W(p.w_st), SC, W(p.b_st), scratch,
+  rows_dense<T, V>(s_x, width, W(p.w_st), SC, W(p.b_st), scratch,
                 p.prior_out + (size_t)row0 * SC, SC, M - row0);
 }
 
@@ -253,19 +275,26 @@ __device__ __forceinline__ bool my_turn(int& turn, int rank) {
   return turn++ % CL == rank;
 }
 
-size_t chain_bytes(const Params& p) {
-  const int SC = p.S * p.C;
-  const size_t floats = (size_t)R * (2 * SC + 6 * p.D + p.A + 3 * p.U + 1 +
-                                     NW + p.S) + SCRATCH;
-  return floats * sizeof(float);
+// The floats of a block's vectors: in shared memory, or with WS a block's
+// copy in the workspace.
+__host__ __device__ size_t vector_floats(const Params& p) {
+  return (size_t)R * (2 * p.S * p.C + 6 * p.D + p.A + 3 * p.U);
 }
 
-template <typename T>
+template <bool WS>
+size_t chain_bytes(const Params& p) {
+  const size_t floats = (size_t)R * (1 + NW + p.S) + SCRATCH;
+  return (floats + (WS ? 0 : vector_floats(p))) * sizeof(float);
+}
+
+template <typename T, int V, bool WS>
 __global__ void __launch_bounds__(NT) chain_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
   const int D = p.D, U = p.U, A = p.A, S = p.S, C = p.C;
   const int SC = S * C, B = p.B;
-  float* s_stoch = smem;                 // stoch0, masked (step 0 only).
+  const size_t stride = WS ? vector_floats(p) : 0;
+  // stoch0, masked (step 0 only).
+  float* s_stoch = WS ? p.ws + blockIdx.x * stride : smem;
   float* s_deter = s_stoch + SC * R;     // The deter carry, rounded to T.
   float* s_dm = s_deter + D * R;         // The masked deter of this step.
   float* s_dt = s_dm + D * R;            // This step's deter, float32.
@@ -275,7 +304,7 @@ __global__ void __launch_bounds__(NT) chain_kernel(Params p) {
   float* s_z2 = s_h + U * R;             // e_proj[t], then z2.
   float* s_x2 = s_z2 + U * R;            // Posterior hidden layer.
   float* s_post = s_x2 + U * R;
-  float* s_keep = s_post + SC * R;
+  float* s_keep = WS ? smem : s_post + SC * R;
   float* s_red = s_keep + R;
   float* s_scratch = s_red + NW * R;
   int* s_idx = reinterpret_cast<int*>(s_scratch + SCRATCH);
@@ -306,14 +335,14 @@ __global__ void __launch_bounds__(NT) chain_kernel(Params p) {
     const In<T> stoch = t == 0
         ? In<T>{s_stoch, nullptr, nullptr, SC, W(p.w_in_s)}
         : In<T>{nullptr, s_idx, s_keep, SC, W(p.w_in_s)};
-    cdense<T>(s_h, U, stoch, {s_a, nullptr, nullptr, A, W(p.w_in_a)}, C,
-              nullptr, nullptr, s_scratch, rank);
+    cdense<T, V, WS>(s_h, U, stoch, {s_a, nullptr, nullptr, A, W(p.w_in_a)}, C,
+                     nullptr, nullptr, s_scratch, rank, stride);
     ln_forward<T>(s_h, U, W(p.ln_in_s), W(p.ln_in_b), nullptr, nullptr, true,
                   s_h, s_red);
     // GRU gates: [deter, x] @ W_gru, LN; update bias -1.
-    cdense<T>(s_g, 3 * D, {s_dm, nullptr, nullptr, D, W(p.w_gru_d)},
-              {s_h, nullptr, nullptr, U, W(p.w_gru_x)}, C, nullptr, nullptr,
-              s_scratch, rank);
+    cdense<T, V, WS>(s_g, 3 * D, {s_dm, nullptr, nullptr, D, W(p.w_gru_d)},
+                     {s_h, nullptr, nullptr, U, W(p.w_gru_x)}, C, nullptr,
+                     nullptr, s_scratch, rank, stride);
     ln_forward<T>(s_g, 3 * D, W(p.ln_gru_s), W(p.ln_gru_b), nullptr, nullptr,
                   false, s_g, s_red);
     for (int i = tid; i < D * R; i += NT) {
@@ -330,12 +359,12 @@ __global__ void __launch_bounds__(NT) chain_kernel(Params p) {
       store_rows(static_cast<T*>(p.deter_out) + tb * D, s_dt, D, row0, B);
     if (my_turn(turn, rank)) store_rows(p.dt + tb * D, s_dt, D, row0, B);
     // Posterior head: d_t @ w_obs_d + e_proj, LN, ELU, logits.
-    cdense<T>(s_z2, U, {s_dt, nullptr, nullptr, D, W(p.w_obs_d)}, none, C,
-              nullptr, s_z2, s_scratch, rank);
+    cdense<T, V, WS>(s_z2, U, {s_dt, nullptr, nullptr, D, W(p.w_obs_d)}, none,
+                     C, nullptr, s_z2, s_scratch, rank, stride);
     ln_forward<T>(s_z2, U, W(p.ln_obs_s), W(p.ln_obs_b), nullptr, nullptr,
                   true, s_x2, s_red);
-    cdense<T>(s_post, SC, {s_x2, nullptr, nullptr, U, W(p.w_post)}, none, C,
-              W(p.b_post), nullptr, s_scratch, rank);
+    cdense<T, V, WS>(s_post, SC, {s_x2, nullptr, nullptr, U, W(p.w_post)}, none,
+                     C, W(p.b_post), nullptr, s_scratch, rank, stride);
     if (my_turn(turn, rank))
       store_rows(p.post_out + tb * SC, s_post, SC, row0, B);
     // Sample, a warp a group: the first maximum of log((1-u) softmax(z) +
@@ -403,49 +432,79 @@ cudaLaunchConfig_t chain_config(const Params& p, size_t bytes,
   return config;
 }
 
-template <typename T>
-int launch(const Params& p, cudaStream_t stream) {
-  const int tiles = (p.T * p.B + RW - 1) / RW;
-  if (tiles == 0) return (int)cudaSuccess;
-  size_t bytes = embed_bytes<T>();
+template <typename T, int V, bool WS>
+int launch_chain(const Params& p, cudaStream_t stream) {
+  const size_t bytes = chain_bytes<WS>(p);
   cudaError_t err = cudaFuncSetAttribute(
-      embed_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      chain_kernel<T, V, WS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  embed_kernel<T><<<tiles, NTW, bytes, stream>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  bytes = chain_bytes(p);
-  err = cudaFuncSetAttribute(chain_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t config = chain_config(p, bytes, stream, CL, &attr);
-  err = cudaLaunchKernelEx(&config, chain_kernel<T>, p);
-  if (err != cudaSuccess) return (int)err;
+  return (int)cudaLaunchKernelEx(&config, chain_kernel<T, V, WS>, p);
+}
 
-  bytes = prior_bytes<T>(p);
-  err = cudaFuncSetAttribute(
-      prior_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+template <typename T, int V, int L>
+int launch_prior(const Params& p, const Layers<L>& layers, int tiles,
+                 cudaStream_t stream) {
+  const size_t bytes = prior_bytes<V>(p);
+  const cudaError_t err = cudaFuncSetAttribute(
+      prior_kernel<T, V, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  prior_kernel<T><<<tiles, NTW, bytes, stream>>>(p);
+  prior_kernel<T, V, L><<<tiles, NTW, bytes, stream>>>(p, layers);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int V>
+int launch(const Params& p, void* const* layers, cudaStream_t stream) {
+  const int tiles = (p.T * p.B + RW - 1) / RW;
+  if (tiles == 0) return (int)cudaSuccess;
+  size_t bytes = embed_bytes<V>();
+  cudaError_t err = cudaFuncSetAttribute(
+      embed_kernel<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  embed_kernel<T, V><<<tiles, NTW, bytes, stream>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int chain = p.ws ? launch_chain<T, V, true>(p, stream)
+                         : launch_chain<T, V, false>(p, stream);
+  if (chain != cudaSuccess) return chain;
+  // layers: w_out[n_out], ln_out_s[n_out], ln_out_b[n_out].
+  auto prior = [&](auto held) {
+    Layers<decltype(held)::value> l = {};
+    for (int i = 0; i < p.n_out; ++i) {
+      l.w_out[i] = layers[i];
+      l.ln_out_s[i] = layers[p.n_out + i];
+      l.ln_out_b[i] = layers[2 * p.n_out + i];
+    }
+    return launch_prior<T, V, decltype(held)::value>(p, l, tiles, stream);
+  };
+  return p.n_out <= MAXL ? prior(std::integral_constant<int, MAXL>())
+                         : prior(std::integral_constant<int, MANY>());
+}
+
+// launch<T, V> for the V that `values` names.
+template <typename T>
+int dispatch(const Params& p, void* const* layers, int values,
+             cudaStream_t stream) {
+  return with_values<T>(values, [&](auto v) {
+    return launch<T, decltype(v)::value>(p, layers, stream);
+  });
 }
 
 template <typename T>
 int clusters(const Params& p, int* fit) {
-  const size_t bytes = chain_bytes(p);
+  const size_t bytes = chain_bytes<false>(p);
+  auto kernel = chain_kernel<T, VMAX<T>, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      chain_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   const int sizes[2] = {CL, 8};
   for (int i = 0; i < 2 && err == cudaSuccess; ++i) {
     cudaLaunchAttribute attr;
     const cudaLaunchConfig_t config =
         chain_config(p, bytes, nullptr, sizes[i], &attr);
-    err = cudaOccupancyMaxActiveClusters(&fit[i], chain_kernel<T>, &config);
+    err = cudaOccupancyMaxActiveClusters(&fit[i], kernel, &config);
   }
   return (int)err;
 }
@@ -471,14 +530,16 @@ Params read_dims(const int* dims) {
 //   w_gru_d, w_gru_x, ln_gru_s, ln_gru_b, w_out[n_out], ln_out_s[n_out],
 //   ln_out_b[n_out], w_st, b_st, w_obs_d, w_obs_e, ln_obs_s, ln_obs_b,
 //   w_post, b_post, then the scratch eproj [T][B][U] and dt [T][B][D]
-//   (float32, last, so that the parent kernel, which reads as far as
-//   b_post, takes the same list).
-// dims: T, B, A, E, D, U, S, C, n_out.
+//   (float32), and the chain's workspace (float32, a block's vectors a
+//   block of the chain's grid) or null (last, so that the parent kernel,
+//   which reads as far as b_post, takes the same list).
+// dims: T, B, A, E, D, U, S, C, n_out (0 to MANY), values (the V of every
+//   load, see observe_common.cuh).
 // Returns cudaGetLastError() after the last launch (0 on success).
 extern "C" int observe_fwd(int bf16, void* const* ptrs, const int* dims,
                            float unimix, void* stream) {
   Params p = read_dims(dims);
-  if (p.n_out < 1 || p.n_out > MAXL) return (int)cudaErrorInvalidValue;
+  if (p.n_out < 0 || p.n_out > MANY) return (int)cudaErrorInvalidValue;
   int i = 0;
   p.stoch0 = ptrs[i++];
   p.deter0 = ptrs[i++];
@@ -498,9 +559,8 @@ extern "C" int observe_fwd(int bf16, void* const* ptrs, const int* dims,
   p.w_gru_x = ptrs[i++];
   p.ln_gru_s = ptrs[i++];
   p.ln_gru_b = ptrs[i++];
-  for (int l = 0; l < p.n_out; ++l) p.w_out[l] = ptrs[i++];
-  for (int l = 0; l < p.n_out; ++l) p.ln_out_s[l] = ptrs[i++];
-  for (int l = 0; l < p.n_out; ++l) p.ln_out_b[l] = ptrs[i++];
+  void* const* layers = ptrs + i;
+  i += 3 * p.n_out;
   p.w_st = ptrs[i++];
   p.b_st = ptrs[i++];
   p.w_obs_d = ptrs[i++];
@@ -511,9 +571,11 @@ extern "C" int observe_fwd(int bf16, void* const* ptrs, const int* dims,
   p.b_post = ptrs[i++];
   p.eproj = static_cast<float*>(ptrs[i++]);
   p.dt = static_cast<float*>(ptrs[i++]);
+  p.ws = static_cast<float*>(ptrs[i++]);
   p.unimix = unimix;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(p, s) : launch<float>(p, s);
+  return bf16 ? dispatch<__nv_bfloat16>(p, layers, dims[9], s)
+              : dispatch<float>(p, layers, dims[9], s);
 }
 
 // fit[0], fit[1]: how many clusters of CL and of 8 blocks of the chain fit

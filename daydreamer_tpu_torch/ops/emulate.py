@@ -52,7 +52,7 @@ from . import rssm_vjp
 SHIM = build.CSRC / 'emulate'
 CANNOT_RUN = 75
 _SHARED = re.compile(r'extern __shared__ __align__\(16\) float (\w+)\[\];')
-_LAUNCH = re.compile(r'(\w+)(<\w+>)?<<<(.*?)>>>\((.*?)\);')
+_LAUNCH = re.compile(r'(\w+)(<[\w, ]+>)?<<<(.*?)>>>\((.*?)\);')
 # A kernel's definition: its cluster size, where it has one, and its name.
 _KERNEL = re.compile(r'__global__\s+void\s+'
                      r'(?:__cluster_dims__\((\w+)[^)]*\)\s+)?'
@@ -89,28 +89,38 @@ def _shim_digest():
 
 
 def compile_kernel(kernel, outdir):
-  """g++ the kernel's source, with its launches and its shared memory
-  handed to the stand-in, into a shared library in `outdir`, unless one
-  for the same source, headers and stand-ins is there; returns the loaded
-  library."""
+  """g++ the kernel's source and its parts, with their launches and their
+  shared memory handed to the stand-in, into a shared library in
+  `outdir`, unless one for the same sources, headers and stand-ins is
+  there; returns the loaded library. The rewritten sources keep their
+  names in a directory of their own, searched first, so that a part that
+  includes the source includes the rewritten one."""
   outdir = pathlib.Path(outdir)
   library = outdir / f'lib{kernel.name}_{kernel.digest()}_{_shim_digest()}.so'
   if not library.exists():
-    text = kernel.source.read_text()
-    text = _SHARED.sub(r'float* \1 = emu::smem;', text)
+    texts = {path.name: _SHARED.sub(r'float* \1 = emu::smem;',
+                                    path.read_text())
+             for path in [kernel.source, *kernel.parts]}
     # Each launch takes its kernel's cluster size, whose blocks run side by
     # side (a launch through cudaLaunchKernelEx names its own).
-    clusters = {name: size or '1' for size, name in _KERNEL.findall(text)}
-    text, launches = _LAUNCH.subn(
+    clusters = {name: size or '1' for text in texts.values()
+                for size, name in _KERNEL.findall(text)}
+    texts = {name: _LAUNCH.subn(
         lambda m: f'emu::launch({clusters.get(m[1], "1")}, '
                   f'{m[1]}{m[2] or ""}, {m[3]}, {m[4]});', text)
-    if not launches:
+             for name, text in texts.items()}
+    if not texts[kernel.source.name][1]:
       raise ValueError(f'{kernel.source.name}: no launch found to hand to '
                        'the emulation.')
-    source = library.with_suffix(f'.{os.getpid()}.cpp')
-    source.write_text(text)
+    rewritten = library.with_suffix(f'.{os.getpid()}.src')
+    rewritten.mkdir(exist_ok=True)
+    sources = []
+    for name, (text, _) in texts.items():
+      source = rewritten / name
+      source.write_text(text)
+      sources.append(str(source))
     tmp = library.with_suffix(f'.{os.getpid()}.tmp')
-    _gxx(['-o', str(tmp), str(source)])
+    _gxx([f'-I{rewritten}', '-x', 'c++', '-o', str(tmp), *sources])
     os.replace(tmp, library)
   lib = ctypes.CDLL(str(library))
   for fn, (restype, argtypes) in kernel.signature.items():
@@ -207,7 +217,8 @@ def make_inputs(dtype, D=32, U=32, S=4, C=8, A=5, E=16, B=3, T=3, n_out=2,
       w_out=[w(D if i == 0 else U, U) for i in range(n_out)],
       ln_out_scale=[scale(U) for _ in range(n_out)],
       ln_out_bias=[bias(U) for _ in range(n_out)],
-      w_st=w(U, SC), b_st=bias(SC), w_obs_d=w(D, U), w_obs_e=w(E, U),
+      w_st=w(rssm.head_in(D, U, n_out), SC), b_st=bias(SC),
+      w_obs_d=w(D, U), w_obs_e=w(E, U),
       ln_obs_scale=scale(U), ln_obs_bias=bias(U), w_post=w(U, SC),
       b_post=bias(SC))
   onehot = np.eye(C)[rng.integers(0, C, (B, S))].reshape(B, SC)
@@ -222,14 +233,28 @@ def make_inputs(dtype, D=32, U=32, S=4, C=8, A=5, E=16, B=3, T=3, n_out=2,
   return params, data, torch.as_tensor(first), noise, cts
 
 
-def compare(dtype, sample=True, unimix=0.01, **shape):
+@contextlib.contextmanager
+def shared_limit(limit):
+  """Within the block the wrappers take the card's shared memory a block
+  to be `limit` bytes (None: as it is), so that widths this small take the
+  paths of widths past it."""
+  saved = build.SHARED_MEMORY_LIMIT
+  build.SHARED_MEMORY_LIMIT = limit or saved
+  try:
+    yield
+  finally:
+    build.SHARED_MEMORY_LIMIT = saved
+
+
+def compare(dtype, sample=True, unimix=0.01, shared=None, **shape):
   """Both emulated kernels against their plain versions on one set of
-  inputs (call inside `emulated`). Returns (stochs equal, the largest
-  forward error, the largest backward error scaled by each tensor's
-  maximum)."""
+  inputs (call inside `emulated`), the card's shared memory taken to be
+  `shared` bytes where given. Returns (stochs equal, the largest forward
+  error, the largest backward error scaled by each tensor's maximum)."""
   params, data, first, noise, cts = make_inputs(dtype, **shape)
   kw = dict(noise=noise, unimix=unimix, sample=sample)
-  out = rssm_vjp.observe_fwd_cuda(params, *data, first, **kw)
+  with shared_limit(shared):
+    out = rssm_vjp.observe_fwd_cuda(params, *data, first, **kw)
   ref = rssm_vjp.observe_fwd_plain(params, *data, first, **kw)
   equal = bool((out[3] == ref[3]).all())
   fwd_err = max(_error(a, b) for a, b in zip(out[:3], ref[:3]))
@@ -237,7 +262,8 @@ def compare(dtype, sample=True, unimix=0.01, **shape):
   e_proj = (embeds.float() @ params['w_obs_e'].float()).to(dtype)
   args = (params, stoch0, deter0, actions, e_proj, first, ref[0], ref[1],
           ref[3], cts)
-  got = rssm_vjp.observe_bwd_cuda(*args, unimix=unimix)
+  with shared_limit(shared):
+    got = rssm_vjp.observe_bwd_cuda(*args, unimix=unimix)
   want = rssm_vjp.observe_bwd_plain(*args, unimix=unimix)
   bwd_err = 0.0
   for g, w in zip(got, want):
@@ -265,10 +291,13 @@ def _forward_errors(out, ref):
   return bool((onehot == onehot_ref).all()), err
 
 
-def compare_rollouts(dtype, sample=True, unimix=0.01, n_act=3, **shape):
+def compare_rollouts(dtype, sample=True, unimix=0.01, n_act=3, shared=None,
+                     **shape):
   """The emulated `imagine_actor`, `imagine` and `observe` kernels against
-  their plain versions on one set of inputs (call inside `emulated`).
-  Returns (every one-hot equal, the largest error of deters and logits)."""
+  their plain versions on one set of inputs (call inside `emulated`), the
+  card's shared memory taken to be `shared` bytes for the two rollouts
+  where given. Returns (every one-hot equal, the largest error of deters
+  and logits)."""
   params, data, first, noise, _ = make_inputs(dtype, **shape)
   stoch0, deter0, actions, embeds = data
   T, B, A = actions.shape
@@ -287,25 +316,28 @@ def compare_rollouts(dtype, sample=True, unimix=0.01, n_act=3, **shape):
   kw = dict(noise=(noise, g_a) if sample else None, unimix=unimix,
             act_unimix=0.1 if unimix else 0.0)
   args = (params, actor, stoch0, deter0, action0, T)
-  out = rssm.imagine_actor_cuda(*args, **kw)
+  with shared_limit(shared):
+    out = rssm.imagine_actor_cuda(*args, **kw)
   ref = rssm.imagine_actor_plain(*args, **kw)
   results.append(_forward_errors(out[:3], ref[:3]))
   results.append((bool((out[3] == ref[3]).all()), 0.0))
   kw = dict(noise=noise if sample else None, unimix=unimix)
   args = (params, stoch0, deter0, actions)
-  results.append(_forward_errors(
-      rssm.imagine_cuda(*args, **kw), rssm.imagine_plain(*args, **kw)))
+  with shared_limit(shared):
+    out = rssm.imagine_cuda(*args, **kw)
+  results.append(_forward_errors(out, rssm.imagine_plain(*args, **kw)))
   args = (params, stoch0, deter0, actions, embeds, first)
   results.append(_forward_errors(
       rssm.observe_cuda(*args, **kw), rssm.observe_plain(*args, **kw)))
   return all(r[0] for r in results), max(r[1] for r in results)
 
 
-def compare_observe(dtype, unimix=0.01, restart=None, **shape):
+def compare_observe(dtype, unimix=0.01, restart=None, shared=None, **shape):
   """The emulated `observe` kernel against its plain version, sampled and
   unsampled, on one set of inputs (call inside `emulated`); with `restart`
-  every row starts anew at that step as well. Returns (every one-hot
-  equal, the largest error of deters and logits)."""
+  every row starts anew at that step as well; the card's shared memory
+  taken to be `shared` bytes where given. Returns (every one-hot equal,
+  the largest error of deters and logits)."""
   params, data, first, noise, _ = make_inputs(dtype, **shape)
   if restart is not None:
     first[restart] = True
@@ -313,8 +345,9 @@ def compare_observe(dtype, unimix=0.01, restart=None, **shape):
   for sampled in (noise, None):
     kw = dict(noise=sampled, unimix=unimix)
     args = (params, *data, first)
-    results.append(_forward_errors(
-        rssm.observe_cuda(*args, **kw), rssm.observe_plain(*args, **kw)))
+    with shared_limit(shared):
+      out = rssm.observe_cuda(*args, **kw)
+    results.append(_forward_errors(out, rssm.observe_plain(*args, **kw)))
   return all(r[0] for r in results), max(r[1] for r in results)
 
 
@@ -333,8 +366,19 @@ def compare_observe(dtype, unimix=0.01, restart=None, **shape):
 # a warp's lanes, so that a lane of the sample takes two classes, and an
 # E = 7 with T x B = 2 x 7 rows; last, float32 at the a1 config's widths
 # (D = U = 256, S * C = 1024, E = 512) with its 12 continuous actions, on
-# two rows of two steps. Every case has a first step inside the chunk
-# (`make_inputs`).
+# two rows of two steps. Then the widths past the shipped ones, each
+# through every kernel of the chain on two rows (one cluster) of two
+# steps: bfloat16 at the audit's D = 20,
+# U = 12, S x C = 3 x 4 (single values) with no prior layer (the head
+# reads d_t); bfloat16 at S x C = 3 x 2 with 9 prior layers (the wide
+# path: MANY layers' addresses, the vectors in the workspace); float32 at
+# D = 9, U = 13 with 2 layers; bfloat16 at D = 9, U = 13, S x C = 3 x 4
+# with one; float32 at D = 6, U = 10, S x C = 3 x 2 with no layer; and the
+# default widths in both types with the card's shared memory taken to be
+# 68 000 bytes, under what both chains keep there (the forward's chain
+# about 68 600, the backward about 71 700) and over what the prior head
+# and the wide paths need: both kernels on their workspaces. Every case
+# has a first step inside the chunk (`make_inputs`).
 CASES = (
     (torch.float32, {}),
     (torch.float32, dict(sample=False, unimix=0.0, B=2, T=2, n_out=1)),
@@ -349,6 +393,16 @@ CASES = (
                           n_out=3)),
     (torch.float32, dict(D=16, U=24, S=2, C=40, A=3, E=7, B=7, T=2)),
     (torch.float32, dict(D=256, U=256, S=32, C=32, A=12, E=512, B=2, T=2)),
+    (torch.bfloat16, dict(D=20, U=12, S=3, C=4, A=3, E=10, B=2, T=2,
+                          n_out=0)),
+    (torch.bfloat16, dict(D=20, U=12, S=3, C=2, A=3, E=10, B=2, T=2,
+                          n_out=9)),
+    (torch.float32, dict(D=9, U=13, S=3, C=2, A=2, E=7, B=2, T=2)),
+    (torch.bfloat16, dict(D=9, U=13, S=3, C=4, A=2, E=7, B=2, T=2,
+                          n_out=1)),
+    (torch.float32, dict(D=6, U=10, S=3, C=2, A=2, E=5, B=2, T=2, n_out=0)),
+    (torch.bfloat16, dict(shared=68000, B=2, T=2)),
+    (torch.float32, dict(shared=68000, n_out=3, B=2, T=2)),
 )
 
 
@@ -363,7 +417,16 @@ CASES = (
 # at the widths of two passes, where a product is several tiles of 16
 # columns a warp and 6 to 18 slices of K, more than the ring's stages, the
 # last of them half a tile; and at the widths that are no multiple of 16,
-# where every product falls to the FMAs on its bfloat16 inputs.
+# where every product falls to the FMAs on its bfloat16 inputs. Then the
+# widths past the shipped ones: bfloat16 at the audit's D = 20, U = 12,
+# S x C = 3 x 4 with no prior layer and a two-layer actor (observe on
+# single values); float32 at D = 9, U = 13, S x C = 3 x 2 with 9 prior and
+# 9 actor layers (the rollouts' wide paths); and the default widths in
+# both types on two steps with the card's shared memory taken
+# to be 5 000 bytes for the rollouts (the shipped paths need 6 288 in
+# bfloat16 and 8 464 in float32, the wide ones 2 560 and 4 736): their
+# products' sums and the schedule in the workspace, bfloat16's products on
+# the tensor cores from a ring of 4 stages.
 ROLLOUT_CASES = (
     (torch.float32, {}),
     (torch.float32, dict(sample=False, unimix=0.0, B=2, T=2, n_out=1,
@@ -375,6 +438,12 @@ ROLLOUT_CASES = (
     (torch.bfloat16, dict(D=176, U=64, S=36, C=16, A=6, E=24, B=2, T=2)),
     (torch.bfloat16, dict(D=24, U=40, S=4, C=4, A=12, E=10, B=10, T=3,
                           n_out=3)),
+    (torch.bfloat16, dict(D=20, U=12, S=3, C=4, A=3, E=10, B=3, T=2,
+                          n_out=0, n_act=2)),
+    (torch.float32, dict(D=9, U=13, S=3, C=2, A=3, E=7, B=3, T=2, n_out=9,
+                         n_act=9)),
+    (torch.bfloat16, dict(shared=5000, T=2)),
+    (torch.float32, dict(shared=5000, n_out=0, T=2)),
 )
 
 
@@ -387,6 +456,10 @@ ROLLOUT_CASES = (
 # more than a warp's lanes, so that a lane of the sample takes two classes
 # and the first maximum is met across lanes; and bfloat16 with every row
 # starting anew at step 2 of 5, besides the first steps of `make_inputs`.
+# Then bfloat16 at S x C = 3 x 2 (single values), and the default widths in
+# float32 with the card's shared memory taken to be 67 000 bytes, under
+# the chain's 68 176 and over its wide path's 65 832: its vectors in the
+# workspace.
 OBSERVE_CASES = (
     (torch.bfloat16, dict(D=8, U=16, S=2, C=4, A=2, E=5, B=4, T=4)),
     (torch.float32, dict(D=24, U=40, S=4, C=4, A=3, E=10, B=5, T=3)),
@@ -394,6 +467,8 @@ OBSERVE_CASES = (
     (torch.float32, dict(D=16, U=24, S=2, C=40, A=3, E=7, B=7, T=2)),
     (torch.bfloat16, dict(D=16, U=24, S=4, C=8, A=4, E=9, B=3, T=5,
                           restart=2)),
+    (torch.bfloat16, dict(D=20, U=12, S=3, C=2, A=3, E=10, B=2, T=2)),
+    (torch.float32, dict(B=2, T=2, shared=67000)),
 )
 
 

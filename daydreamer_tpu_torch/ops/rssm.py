@@ -171,6 +171,29 @@ def _check_dtype(name, dtype):
     raise TypeError(f'{name} takes float32 or bfloat16, not {dtype}.')
 
 
+# The layer counts the kernels' parameters hold: MAXL on the shipped path,
+# MANY on the wide one (`csrc/imagine_common.cuh`, `observe_common.cuh`).
+MAXL, MANY = 8, 128
+# The layout of the observe kernels' chains (`csrc/observe_common.cuh`,
+# `observe_cluster.cuh`): R rows a cluster of CL blocks, NW warps a block,
+# the products' scratch in floats.
+R, CL, NW, SCRATCH = 2, 4, 32, 16384
+
+
+def head_in(D, U, n_out):
+  """The width of the prior head's input: the last layer's, or with no
+  layer the deter's."""
+  return U if n_out else D
+
+
+def load_values(dtype, *widths):
+  """The weights the observe kernels read at a time (`csrc/
+  observe_common.cuh`): a 16-byte load where every width is a multiple of
+  it, else single values."""
+  values = 16 // torch.empty((), dtype=dtype).element_size()
+  return values if all(w % values == 0 for w in widths) else 1
+
+
 def _check_shared(name, nbytes):
   if nbytes > build.SHARED_MEMORY_LIMIT:
     raise ValueError(
@@ -178,16 +201,47 @@ def _check_shared(name, nbytes):
         f'block; the card gives {build.SHARED_MEMORY_LIMIT}.')
 
 
-def _actor_bytes(D, U, S, C, A, itemsize, actor=True):
+def _actor_bytes(D, U, S, C, A, itemsize, actor=True, wide=False):
   """The least shared memory `csrc/imagine_actor.cu` (or, without the
   actor, `csrc/imagine.cu`) takes, 8 rows a block: every product's float
   sum, the action logits (the actor's only), the sampled classes, the
   product inputs in the compute type and the schedule (float32
   `imagine.cu` keeps no schedule and needs its 656 bytes less). The ring
-  of weight tiles takes what is left, or nothing."""
+  of weight tiles takes what is left, or nothing. The wide path keeps the
+  sums and the schedule in its workspace (`_rollout_workspace`)."""
   padded = (A + 3) // 4 * 4
-  floats = max(3 * D, S * C) + (padded if actor else 0) + S
-  return 8 * (4 * floats + itemsize * (S * C + D + padded + 2 * U)) + 656
+  floats = (0 if wide else max(3 * D, S * C)) + (padded if actor else 0) + S
+  return (8 * (4 * floats + itemsize * (S * C + D + padded + 2 * U))
+          + (0 if wide else 656))
+
+
+def cluster_workspace(name, shipped, wide, floats, B, device, force=False):
+  """None where the shipped path of an observe kernel's chain, `shipped`
+  bytes of shared memory a block, fits the card (and `force` is off), else
+  the wide path's workspace: `floats` float32 for each block of the
+  clusters that take B rows, its `wide` bytes of shared memory checked."""
+  if shipped <= build.SHARED_MEMORY_LIMIT and not force:
+    return None
+  _check_shared(name, wide)
+  return torch.empty(-(-B // R) * CL * floats, dtype=f32, device=device)
+
+
+def _rollout_workspace(name, B, D, U, S, C, A, dtype, device, layers, actor):
+  """None where the shipped path of `imagine_actor.cu` (`actor`) or
+  `imagine.cu` takes these widths: at most MAXL prior (and actor) layers,
+  its shared memory within the card's. Else the wide path's workspace, a
+  block's copy for each 8 rows: the products' float sums [G][8] and the
+  schedule of MANY layers (8 336 bytes)."""
+  if max(layers) > MANY:
+    raise ValueError(f'{name}: takes at most {MANY} layers an MLP, the '
+                     'addresses that the parameters of its wide path hold.')
+  item = torch.empty((), dtype=dtype).element_size()
+  if max(layers) <= MAXL and _actor_bytes(
+      D, U, S, C, A, item, actor) <= build.SHARED_MEMORY_LIMIT:
+    return None
+  _check_shared(name, _actor_bytes(D, U, S, C, A, item, actor, wide=True))
+  return torch.empty(-(-B // 8) * (8 * max(3 * D, S * C) + 8336 // 4),
+                     dtype=f32, device=device)
 
 
 _CELL = ('w_in_s', 'w_in_a', 'ln_in_scale', 'ln_in_bias', 'w_gru_d',
@@ -212,8 +266,8 @@ def _prior_layers(name, params, D, U):
   """The prior MLP as (kernels, scales, biases), shapes checked."""
   layers = (params['w_out'], params['ln_out_scale'], params['ln_out_bias'])
   n_out = len(layers[0])
-  if not 1 <= n_out <= 8 or any(len(x) != n_out for x in layers):
-    raise ValueError(f'{name}: takes 1 to 8 prior layers.')
+  if any(len(x) != n_out for x in layers):
+    raise ValueError(f'{name}: inconsistent prior layers.')
   for i, (w, scale, bias) in enumerate(zip(*layers)):
     _check_shapes(name, {'w_out': w, 'ln_out_scale': scale,
                          'ln_out_bias': bias},
@@ -236,7 +290,7 @@ def cell_numel(A, D, U, n_out=None):
   layers without their head."""
   products = A * U + 3 * D * D + 3 * U * D
   vectors = 2 * U + 6 * D
-  if n_out:
+  if n_out:  # None or 0: no layer.
     products += D * U + (n_out - 1) * U * U
     vectors += 2 * U * n_out
   return products, vectors
@@ -259,7 +313,8 @@ def imagine_actor_work(B, H, D, U, S, C, A, n_out, n_act, dtype):
   rollout's own one-hot sample; stoch0 @ w_in_s at step 0 is a product."""
   item, SC = cost.itemsize(dtype), S * C
   cell, cell_vectors = cell_numel(A, D, U, n_out)
-  products = cell + U * SC + D * U + (n_act - 1) * U * U + U * A
+  products = (cell + head_in(D, U, n_out) * SC + D * U
+              + (n_act - 1) * U * U + U * A)
   flops = B * (2.0 * H * products + 2.0 * SC * U + (2 * H - 1) * S * U)
   weights = products + 2 * SC * U                      # w_in_s, actor w_s.
   vectors = cell_vectors + SC + 2 * U * n_act + A
@@ -275,7 +330,8 @@ def rollout_work(T, B, A, D, U, S, C, n_out, dtype, E=None):
   no prior head, so none of `w_out*`, `w_st`, `b_st` counts for it."""
   item, SC = cost.itemsize(dtype), S * C
   products, vectors = cell_numel(A, D, U, n_out if E is None else None)
-  products += U * SC                                   # w_st or w_post.
+  # w_st, or w_post.
+  products += (head_in(D, U, n_out) if E is None else U) * SC
   vectors += SC
   data = B * SC + B * D + T * B * A                    # stoch0, deter0, acts.
   if E is not None:
@@ -307,7 +363,8 @@ def imagine_actor_cuda(params, actor, stoch0, deter0, action0, horizon,
   n_out, n_act = len(params['w_out']), len(actor['ln_scale'])
   if S * C != SC or len(actor['w_h']) != n_act - 1:
     raise ValueError(f'{name}: inconsistent shapes.')
-  _check_shared(name, _actor_bytes(D, U, S, C, A, stoch0.element_size()))
+  workspace = _rollout_workspace(name, B, D, U, S, C, A, dtype, device,
+                                 (n_out, n_act), actor=True)
   weights = [
       params['w_in_s'], params['w_in_a'], params['ln_in_scale'],
       params['ln_in_bias'], params['w_gru_d'], params['w_gru_x'],
@@ -335,7 +392,7 @@ def imagine_actor_cuda(params, actor, stoch0, deter0, action0, horizon,
   stochs = torch.empty((horizon, B, SC), dtype=dtype, device=device)
   actions = torch.empty((horizon, B, A), dtype=dtype, device=device)
   ptrs = [inputs[0], inputs[1], inputs[2], g_s, g_a, *weights,
-          deters, logits, stochs, actions, *layers]
+          deters, logits, stochs, actions, *layers, workspace]
   build.launch(IMAGINE_ACTOR, 'imagine_actor', dtype, ptrs,
                [B, horizon, D, U, S, C, A, n_out, n_act],
                [unimix, act_unimix], device)
@@ -412,13 +469,15 @@ def imagine_cuda(params, stoch0, deter0, actions, noise=None, unimix=0.01):
   SC, U = params['w_in_s'].shape
   D = params['w_gru_d'].shape[0]
   S, C = params['stoch_n'], params['classes']
+  n_out = len(params['w_out'])
   _check_shapes(name, params, dict(
-      _cell_shapes(A, D, U, SC), w_st=(U, SC), b_st=(SC,)))
+      _cell_shapes(A, D, U, SC), w_st=(head_in(D, U, n_out), SC),
+      b_st=(SC,)))
   _check_shapes(name, {'stoch0': stoch0, 'deter0': deter0},
                 {'stoch0': (B, S * C), 'deter0': (B, D)})
   layers = _prior_layers(name, params, D, U)
-  _check_shared(name, _actor_bytes(D, U, S, C, A, stoch0.element_size(),
-                                   actor=False))
+  workspace = _rollout_workspace(name, B, D, U, S, C, A, dtype, device,
+                                 (n_out,), actor=False)
   weights = [*(params[k] for k in _CELL), params['w_st'], params['b_st'],
              *layers[0], *layers[1], *layers[2]]
   inputs = [stoch0, deter0, actions]
@@ -433,9 +492,9 @@ def imagine_cuda(params, stoch0, deter0, actions, noise=None, unimix=0.01):
   deters = torch.empty((H, B, D), dtype=dtype, device=device)
   logits = torch.empty((H, B, SC), dtype=f32, device=device)
   stochs = torch.empty((H, B, SC), dtype=dtype, device=device)
-  ptrs = [*inputs, noise, deters, logits, stochs, *weights]
+  ptrs = [*inputs, noise, deters, logits, stochs, *weights, workspace]
   build.launch(IMAGINE, 'imagine', dtype, ptrs,
-               [H, B, A, D, U, S, C, len(layers[0])], [unimix], device)
+               [H, B, A, D, U, S, C, n_out], [unimix], device)
   return deters, logits, stochs
 
 
@@ -511,15 +570,14 @@ def observe_cuda(params, stoch0, deter0, actions, embeds, is_first,
              'is_first': is_first},
       {'stoch0': (B, S * C), 'deter0': (B, D), 'embeds': (T, B, E),
        'is_first': (T, B)})
-  if D % 8 or U % 8 or SC % 8:
-    raise ValueError(f'{name}: the kernel reads 16 bytes of a weight row at '
-                     'a time, and its chain splits every product into groups '
-                     'of 8 columns; deter, units and stoch*classes must be '
-                     'multiples of 8.')
-  # `chain_bytes` of csrc/observe.cu: 2 rows a block, 32 warps, and the
-  # product's scratch of 16384 floats (its prologue takes 80 KB at most).
-  _check_shared(name, 4 * (2 * (2 * SC + 5 * D + A + 2 * U + 1 + 32 + S)
-                           + 16384))
+  # `chain_bytes` of csrc/observe.cu: the keep mask, the warps' row sums,
+  # the classes and the product's scratch (its prologue takes 80 KB at
+  # most), and the vectors (`vector_floats`), in shared memory or in a
+  # workspace.
+  floats = R * (2 * SC + 5 * D + A + 2 * U)
+  fixed = R * (1 + NW + S) + SCRATCH
+  workspace = cluster_workspace(name, 4 * (floats + fixed), 4 * fixed,
+                                floats, B, device)
   weights = [*(params[k] for k in _CELL), params['w_obs_d'],
              params['w_obs_e'], params['ln_obs_scale'],
              params['ln_obs_bias'], params['w_post'], params['b_post']]
@@ -540,8 +598,10 @@ def observe_cuda(params, stoch0, deter0, actions, embeds, is_first,
   # The prologue's embeds @ w_obs_e, float32, last: the kernel's parent
   # reads the list in order as far as the weights.
   e_proj = torch.empty((T, B, U), dtype=f32, device=device)
-  ptrs = [*inputs, first, noise, deters, logits, stochs, *weights, e_proj]
-  build.launch(OBSERVE, 'observe', dtype, ptrs, [T, B, A, E, D, U, S, C],
+  ptrs = [*inputs, first, noise, deters, logits, stochs, *weights, e_proj,
+          workspace]
+  build.launch(OBSERVE, 'observe', dtype, ptrs,
+               [T, B, A, E, D, U, S, C, load_values(dtype, D, U, SC)],
                [unimix], device)
   return deters, logits, stochs
 
@@ -627,7 +687,8 @@ def make_params(seed, deter, units, stoch, classes, action_dim, embed_dim,
                 for i in range(prior_layers)],
       'ln_out_scale': [ones(units) for _ in range(prior_layers)],
       'ln_out_bias': [zeros(units) for _ in range(prior_layers)],
-      'w_st': uni(units, SC), 'b_st': zeros(SC),
+      'w_st': uni(head_in(deter, units, prior_layers), SC),
+      'b_st': zeros(SC),
       'w_obs_d': uni(deter, units), 'w_obs_e': uni(embed_dim, units),
       'ln_obs_scale': ones(units), 'ln_obs_bias': zeros(units),
       'w_post': uni(units, SC), 'b_post': zeros(SC),

@@ -41,7 +41,8 @@ import ctypes
 import torch
 
 from . import build
-from .rssm import cell_numel, widths
+from .rssm import (MANY, MAXL, NW, R, SCRATCH, cell_numel,
+                   cluster_workspace, head_in, load_values, widths)
 from ..nn import cost
 from ..nn.dists import gumbel
 
@@ -64,7 +65,8 @@ OBSERVE_FWD = build.register(build.Kernel(
 OBSERVE_BWD = build.register(build.Kernel(
     'observe_bwd', 'observe_bwd.cu',
     'daydreamer_tpu/ops/pallas_rssm_vjp.py:280 (_obs_bwd_kernel)',
-    {'observe_bwd': build.signature()}, headers=_CLUSTER_HEADERS))
+    {'observe_bwd': build.signature()}, headers=_CLUSTER_HEADERS,
+    parts=('observe_bwd_wide.cu',)))
 
 # The order of the weights everywhere in this module (and of the gradients
 # `ObserveFused.backward` returns): eight cell entries, the prior layers'
@@ -417,7 +419,7 @@ def _shapes(name, params, stoch0, deter0, actions, width_e):
       'w_in_a': (A, U), 'ln_in_scale': (U,), 'ln_in_bias': (U,),
       'w_gru_d': (D, 3 * D), 'w_gru_x': (U, 3 * D),
       'ln_gru_scale': (3 * D,), 'ln_gru_bias': (3 * D,),
-      'w_st': (U, SC), 'b_st': (SC,), 'w_obs_d': (D, U),
+      'w_st': (head_in(D, U, n_out), SC), 'b_st': (SC,), 'w_obs_d': (D, U),
       'w_obs_e': (width_e, U), 'ln_obs_scale': (U,), 'ln_obs_bias': (U,),
       'w_post': (U, SC), 'b_post': (SC,)}
   for key, shape in expect.items():
@@ -430,12 +432,11 @@ def _shapes(name, params, stoch0, deter0, actions, width_e):
         or tuple(params['ln_out_bias'][i].shape) != (U,)):
       raise ValueError(f'{name}: prior layer {i} has the wrong shape.')
   if (S * C != SC or tuple(stoch0.shape) != (B, SC)
-      or tuple(deter0.shape) != (B, D) or not 1 <= n_out <= 8):
+      or tuple(deter0.shape) != (B, D)):
     raise ValueError(f'{name}: inconsistent shapes.')
-  if D % 8 or U % 8 or SC % 8:
-    raise ValueError(f'{name}: the kernel reads 16 bytes of a weight row at '
-                     'a time; deter, units and stoch*classes must be '
-                     'multiples of 8.')
+  if n_out > MANY:
+    raise ValueError(f'{name}: takes at most {MANY} prior layers, the '
+                     'addresses that the parameters of its wide path hold.')
   return T, B, A, D, U, S, C, SC, n_out
 
 
@@ -466,6 +467,19 @@ def observe_fwd_cuda(params, stoch0, deter0, actions, embeds, is_first,
   else:
     noise = None
     build.check(name, [('is_first', first)], device, f32)
+  values = load_values(dtype, D, U, SC)
+  # The prior head's launch: a block's rows of its input and sums, and the
+  # scratch of a pass (`prior_bytes`).
+  prior_bytes = 4 * (8 * max(D, U) + 8 * U + 32 * 64 * values)
+  if prior_bytes > build.SHARED_MEMORY_LIMIT:
+    raise ValueError(f'{name}: the prior head needs {prior_bytes} bytes of '
+                     f'shared memory a block; the card gives '
+                     f'{build.SHARED_MEMORY_LIMIT}.')
+  # The chain's vectors (`vector_floats`), in shared memory or a workspace.
+  floats = R * (2 * SC + 6 * D + A + 3 * U)
+  fixed = R * (1 + NW + S) + SCRATCH
+  ws = cluster_workspace(name, 4 * (floats + fixed), 4 * fixed, floats, B,
+                         device)
   deters = torch.empty((T, B, D), dtype=dtype, device=device)
   post = torch.empty((T, B, SC), dtype=f32, device=device)
   prior = torch.empty((T, B, SC), dtype=f32, device=device)
@@ -476,9 +490,9 @@ def observe_fwd_cuda(params, stoch0, deter0, actions, embeds, is_first,
   e_proj = torch.empty((T, B, U), dtype=f32, device=device)
   d_t = torch.empty((T, B, D), dtype=f32, device=device)
   ptrs = [stoch0, deter0, actions, embeds, first, noise,
-          deters, post, prior, stochs, *flat, e_proj, d_t]
+          deters, post, prior, stochs, *flat, e_proj, d_t, ws]
   build.launch(OBSERVE_FWD, 'observe_fwd', dtype, ptrs,
-               [T, B, A, E, D, U, S, C, n_out], [unimix], device)
+               [T, B, A, E, D, U, S, C, n_out, values], [unimix], device)
   return deters, post, prior, stochs
 
 
@@ -536,11 +550,18 @@ def observe_bwd_cuda(params, stoch0, deter0, actions, e_proj, is_first,
   dpl_total, ds0, dd0 = empty(T, B, SC), empty(B, SC), empty(B, D)
   cell = flat[:8 + 3 * n_out]
   heads = [params['w_obs_d'], params['ln_obs_scale'], params['ln_obs_bias']]
+  # The step's vectors (`vector_floats`), in shared memory for 1 to MAXL
+  # prior layers where they fit, else in the wide path's workspace.
+  floats = R * (2 * SC + 11 * D + A + (6 + n_out) * U)
+  fixed = lambda n_inv: R * (3 + n_inv + 1 + 2 * NW + S) + SCRATCH
+  ws = cluster_workspace(name, 4 * (floats + fixed(MAXL)), 4 * fixed(n_out),
+                         floats, B, device, force=not 1 <= n_out <= MAXL)
   ptrs = [stoch0, deter0, actions, e_proj, first, deters, post_logits,
           stochs, *cts, dz1, dn1, dzg, dng, dz2, dn2, dpl_total, ds0, dd0,
-          *cell, *heads, *transposed, *dqs, *dms]
+          *cell, *heads, *transposed, *dqs, *dms, ws]
   build.launch(OBSERVE_BWD, 'observe_bwd', dtype, ptrs,
-               [T, B, A, D, U, S, C, n_out], [unimix], device)
+               [T, B, A, D, U, S, C, n_out, load_values(dtype, D, U, SC)],
+               [unimix], device)
   return dz1, dn1, dzg, dng, dz2, dn2, dqs, dms, dpl_total, ds0, dd0
 
 
@@ -557,7 +578,8 @@ def observe_fwd_work(T, B, A, E, D, U, S, C, n_out, dtype):
   """(flops, bytes) of one call of `csrc/observe_fwd.cu`."""
   item, SC = cost.itemsize(dtype), S * C
   cell, cell_vectors = cell_numel(A, D, U, n_out)
-  products = cell + U * SC + D * U + E * U + U * SC  # w_st, obs, w_post.
+  products = (cell + head_in(D, U, n_out) * SC      # w_st,
+              + D * U + E * U + U * SC)             # obs, w_post.
   flops = 2.0 * T * B * products + B * (2.0 * SC * U + (T - 1) * S * U)
   weights = products + SC * U + cell_vectors + 2 * U + 2 * SC
   data = B * SC + B * D + T * B * (A + E)  # stoch0, deter0, actions, embeds.
@@ -572,11 +594,12 @@ def observe_bwd_work(T, B, A, D, U, S, C, n_out, dtype):
   cell and z2's deter half, then every transposed product."""
   item, SC = cost.itemsize(dtype), S * C
   cell, cell_vectors = cell_numel(A, D, U, n_out)
+  head = head_in(D, U, n_out) * SC                          # w_st.
   recomputed = cell + D * U
-  transposed = cell - A * U + 2 * U * SC + D * U + SC * U
+  transposed = cell - A * U + U * SC + head + D * U + SC * U
   flops = (2.0 * T * B * (recomputed + transposed)
            + B * (2.0 * SC * U + (T - 1) * S * U))
-  weights = cell + SC * U + U * SC + D * U + U * SC + cell_vectors + 2 * U
+  weights = cell + SC * U + head + D * U + U * SC + cell_vectors + 2 * U
   nbytes = item * (weights + B * SC + B * D + T * B * A)
   nbytes += 4 * T * B                                      # is_first.
   nbytes += T * B * (item * (U + D + SC) + 4 * SC)  # e_proj, saved forward.

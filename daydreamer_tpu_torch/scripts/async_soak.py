@@ -19,16 +19,24 @@ Writes ASYNC_SOAK_TORCH.json with pass/fail gates:
 
 `--learner-device` is the learner's `torch.device` (the card by default;
 `cpu` smoke-tests the pair off the card); the actor always asks for the
-CPU. `--actor-task` is the actor's task (`a1_dummy` where MuJoCo is
+CPU and one operator thread (`--torch.threads 1`): its batch-1 policy
+shares the host with the learner, and with a thread a core one of its
+threads waits on a core that the learner holds. `--actor-task` is the actor's task (`a1_dummy` where MuJoCo is
 missing). Any other argument goes to both processes after the pinned ones
 (for example `--rssm.impl pallas`, the fused observe chain for the
 learner) and is recorded in the output as `extra_args`. The output's
 `learner_launches` is what the learner printed at its end: each kernel
 wrapper's launches and the updates it made (None if it printed nothing).
 
+`--until-events` ends the soak once the learner's metrics show both
+events that the replay and training gates read (the replay grew past its
+first reading, a train loss was logged), with `--minutes` as the time
+limit: on a crowded machine the actor may take longer than a fixed wall to
+finish the episode that grows the learner's replay.
+
 Usage: python -m daydreamer_tpu_torch.scripts.async_soak [--minutes 10] \\
     [--out ASYNC_SOAK_TORCH.json] [--learner-device cuda|cpu] \\
-    [--actor-task a1_sim] [--small] [OVERRIDES...]
+    [--actor-task a1_sim] [--small] [--until-events] [OVERRIDES...]
 """
 
 import argparse
@@ -96,6 +104,16 @@ def sync_every_of(extra, default=20):
   return value
 
 
+def events(rows):
+  """(the replay grew past its first reading, the learner logged a train
+  loss) in the learner's metrics rows: what the gates replay_grew and
+  learner_trained read."""
+  steps = [r['replay/replay_steps'] for r in rows
+           if 'replay/replay_steps' in r]
+  grew = len(steps) >= 2 and steps[-1] > steps[0]
+  return grew, any('train/model_loss_mean' in r for r in rows)
+
+
 def main(argv=None):
   parser = argparse.ArgumentParser()
   parser.add_argument('--minutes', type=float, default=10.0)
@@ -108,6 +126,9 @@ def main(argv=None):
                       help="the actor's task; 'a1_dummy' needs no MuJoCo")
   parser.add_argument('--small', action='store_true',
                       help='shrink nets for wiring smoke tests')
+  parser.add_argument('--until-events', action='store_true',
+                      help='end once the replay grew and the learner '
+                           'trained, --minutes at most')
   args, extra = parser.parse_known_args(argv)
   if extra:
     print('async_soak EXTRA ARGS:', extra, flush=True)
@@ -141,7 +162,8 @@ def main(argv=None):
       logdir / 'learner.log')
   actor, alog = launch(
       common + ['--task', args.actor_task, '--run', 'acting',
-                '--torch.device', 'cpu', '--env.parallel', 'none'] + extra,
+                '--torch.device', 'cpu', '--torch.threads', '1',
+                '--env.parallel', 'none'] + extra,
       logdir / 'actor.log')
   print(f'learner pid={learner.pid} actor pid={actor.pid} port={port} '
         f'logdir={logdir}', flush=True)
@@ -152,7 +174,11 @@ def main(argv=None):
     if learner.poll() is not None or actor.poll() is not None:
       print('A process exited early!', learner.poll(), actor.poll())
       break
-    time.sleep(min(10, max(0, deadline - time.time())))
+    if args.until_events and all(events(read_metrics(
+        logdir / 'metrics.jsonl'))):
+      break
+    time.sleep(min(2 if args.until_events else 10,
+                   max(0, deadline - time.time())))
   soak_s = time.time() - start
 
   # Graceful shutdown: actor first (stops pushing), then learner.
@@ -185,6 +211,7 @@ def main(argv=None):
   scores = pick('episode/score')
   replay_steps = pick('replay/replay_steps')
   train_loss = [r for r in rows if 'train/model_loss_mean' in r]
+  grew, trained = events(rows)
 
   summary = {
       'soak_minutes': round(soak_s / 60, 2),
@@ -219,9 +246,8 @@ def main(argv=None):
       # steady half of the run.
       'steady_sync_age_le_2x_sync_every': (
           bool(steady_ages) and max(steady_ages) <= 2 * sync_every),
-      'replay_grew': (len(replay_steps) >= 2
-                      and replay_steps[-1] > replay_steps[0]),
-      'learner_trained': len(train_loss) > 0,
+      'replay_grew': grew,
+      'learner_trained': trained,
       'clean_shutdown': shutdown_s < 90 and all(
           c is not None for c in exits.values()),
   }

@@ -124,3 +124,42 @@ def test_imagine_actor_cuda_wrapper_refuses_cpu_tensors(setup):
     ops.imagine_actor_cuda(
         _torch(params), _torch(actor), torch.as_tensor(stoch0),
         torch.as_tensor(deter0), torch.as_tensor(action0), H)
+
+
+# Widths past the kernel's first layouts, each of which the JAX package's
+# kernel takes: the audit's deter 20, units 12, 3 x 4 latents; no prior
+# layer (the head reads the deter, D 24 against U 16); 9 prior layers; 9
+# actor layers. As (D, U, S, C, prior layers, actor layers).
+WIDTHS = {'d20_u12_3x4': (20, 12, 3, 4, 2, 4), 'prior0': (24, 16, 4, 8, 0, 2),
+          'prior9': (16, 16, 4, 4, 9, 2), 'actor9': (16, 16, 4, 4, 1, 9)}
+
+
+@pytest.mark.parametrize('widths', sorted(WIDTHS))
+def test_imagine_actor_plain_matches_jax_at_widths(widths):
+  """The plain rollout against the interpret kernel at each width of
+  WIDTHS, argmax latents and actions, at the tolerances above."""
+  D_, U_, S_, C_, n_out, n_act = WIDTHS[widths]
+  B_, H_ = 4, 3
+  rng = np.random.default_rng(1)
+  params = pr.make_params(jax.random.PRNGKey(1), D_, U_, S_, C_, A, 32,
+                          prior_layers=n_out)
+  if not n_out:
+    params['w_st'] = jnp.asarray(
+        rng.uniform(-0.3, 0.3, (D_, S_ * C_)), jnp.float32)
+  actor = pr.make_actor_params(jax.random.PRNGKey(8), D_, U_, S_, C_, A,
+                               layers=n_act)
+  actor['ln_bias'] = [jnp.asarray(0.1 * rng.standard_normal(b.shape),
+                                  jnp.float32) for b in actor['ln_bias']]
+  stoch0 = np.eye(C_, dtype=np.float32)[rng.integers(0, C_, (B_, S_))]
+  stoch0 = stoch0.reshape(B_, S_ * C_)
+  deter0 = (0.1 * rng.standard_normal((B_, D_))).astype(np.float32)
+  action0 = np.eye(A, dtype=np.float32)[rng.integers(0, A, B_)]
+  ref = pr.imagine_actor_pallas(
+      params, actor, jnp.asarray(stoch0), jnp.asarray(deter0),
+      jnp.asarray(action0), H_, 0, unimix=0.01, act_unimix=0.1,
+      sample=False, interpret=True)
+  out = ops.imagine_actor(
+      _torch(params), _torch(actor), torch.as_tensor(stoch0),
+      torch.as_tensor(deter0), torch.as_tensor(action0), H_,
+      unimix=0.01, act_unimix=0.1, sample=False)
+  _compare(ref, out)

@@ -44,11 +44,11 @@ def _jax(tree, dtype=None):
   return value if dtype is None else value.astype(dtype)
 
 
-def make_setup(dtype=torch.float32):
+def make_setup(dtype=torch.float32, D=D, U=U, S=S, C=C, prior_layers=2):
   """Weights with non-trivial norm scales and biases, so that a wrong
   wiring shows, and one sequence whose `is_first` has first steps inside."""
   rng = np.random.default_rng(0)
-  params = ops.make_params(0, D, U, S, C, A, E, prior_layers=2)
+  params = ops.make_params(0, D, U, S, C, A, E, prior_layers=prior_layers)
   t = lambda x: torch.as_tensor(np.asarray(x, np.float32))
   for key, value in params.items():
     if key.startswith('ln_') and key.endswith('_scale'):
@@ -122,6 +122,34 @@ def test_observe_matches_pallas_kernel(setup, unimix):
   out = ops.observe(params, stoch0, deter0, actions, embeds, is_first,
                     unimix=unimix, sample=False)
   _compare(ref, out)
+
+
+# Widths past the kernels' first layouts, each of which the JAX package's
+# kernels take: the audit's deter 20, units 12, 3 x 4 latents; no prior
+# layer (the head reads the deter, D 24 against U 16); 9 prior layers. As
+# (D, U, S, C, prior layers).
+WIDTHS = {'d20_u12_3x4': (20, 12, 3, 4, 2), 'prior0': (24, 16, 4, 8, 0),
+          'prior9': (16, 16, 4, 4, 9)}
+
+
+@pytest.mark.parametrize('widths', sorted(WIDTHS))
+def test_imagine_and_observe_match_pallas_kernels_at_widths(widths):
+  """`imagine` and `observe` (plain, on the CPU) against the Pallas
+  kernels in interpret mode at each width of WIDTHS, the modes (the
+  kernels' in-core generator has no CPU rule)."""
+  params, stoch0, deter0, actions, embeds, is_first = make_setup(
+      torch.float32, *WIDTHS[widths])
+  ref = pr.imagine_pallas(
+      _jax(params), _jax(stoch0), _jax(deter0), _jax(actions), 0,
+      unimix=0.01, sample=False, interpret=True)
+  _compare(ref, ops.imagine(params, stoch0, deter0, actions, unimix=0.01,
+                            sample=False))
+  ref = pr.observe_pallas(
+      _jax(params), _jax(stoch0), _jax(deter0), _jax(actions),
+      _jax(embeds), jnp.asarray(is_first.numpy()), 0, unimix=0.01,
+      sample=False, interpret=True)
+  _compare(ref, ops.observe(params, stoch0, deter0, actions, embeds,
+                            is_first, unimix=0.01, sample=False))
 
 
 @pytest.mark.parametrize('seed', [3, 5])
@@ -229,36 +257,50 @@ def test_cuda_routes_refuse_cpu_tensors(setup):
     lr.gve_triton(torch.ones(3, 4), torch.ones(3, 4), torch.ones(4), 0.95)
 
 
-def test_wrappers_refuse_shapes_the_kernels_cannot_take(setup):
+def test_wrappers_refuse_shapes_the_kernels_cannot_take(setup, monkeypatch):
+  """The wrappers refuse a wrong dtype and inconsistent shapes, and take
+  every width the JAX package's kernels take: deters whose vectors outgrow
+  shared memory (through a workspace), widths that are no multiple of 8
+  (narrower loads). The launches are recorded here, on the CPU."""
+  from daydreamer_tpu_torch.ops import build
   params, stoch0, deter0, actions, embeds, is_first = setup
-  wide = ops.make_params(0, 2048, 2048, 32, 32, A, E)
-  with pytest.raises(ValueError, match='shared memory'):
-    ops.imagine_cuda(wide, torch.zeros(B, 1024), torch.zeros(B, 2048),
-                     actions)
   with pytest.raises(ValueError, match='has shape'):
     ops.observe_cuda(params, stoch0, deter0, actions[..., :5], embeds,
                      is_first)
   with pytest.raises(TypeError):
     ops.imagine_cuda(params, stoch0.double(), deter0, actions)
-  # observe's chain splits every product into groups of 8 columns, and one
-  # block of a cluster holds every vector of its pair of rows.
-  for d, u, s, c in ((12, U, S, C), (D, 20, S, C), (D, U, 3, 5)):
+  calls = []
+  monkeypatch.setattr(build, 'check', lambda *args, **kwargs: None)
+  monkeypatch.setattr(build, 'launch', lambda *args: calls.append(args))
+  # imagine's products' sums at D 2 048 outgrow shared memory.
+  wide = ops.make_params(0, 2048, 2048, 32, 32, A, E)
+  ops.imagine_cuda(wide, torch.zeros(B, 1024), torch.zeros(B, 2048),
+                   actions)
+  workspace = calls[-1][3][-1]
+  assert workspace is not None and workspace.dtype == torch.float32
+  # observe at widths that are no multiple of 8 reads fewer values a load:
+  # 4 float32 values where each width is a multiple of 4, else 1.
+  for d, u, s, c, values in ((12, U, S, C, 4), (D, 20, S, C, 4),
+                             (D, U, 3, 5, 1)):
     narrow = ops.make_params(0, d, u, s, c, A, E)
-    with pytest.raises(ValueError, match='multiples of 8'):
-      ops.observe_cuda(narrow, torch.zeros(B, s * c), torch.zeros(B, d),
-                       actions, embeds, is_first)
-  wide = ops.make_params(0, 4096, 512, 32, 32, A, E)
-  with pytest.raises(ValueError, match='shared memory'):
-    ops.observe_cuda(wide, torch.zeros(B, 1024), torch.zeros(B, 4096),
+    ops.observe_cuda(narrow, torch.zeros(B, s * c), torch.zeros(B, d),
                      actions, embeds, is_first)
+    dims, ptrs = calls[-1][4], calls[-1][3]
+    assert dims == [H, B, A, E, d, u, s, c, values] and ptrs[-1] is None
+  # observe's chain at D 4 096 keeps its vectors in a workspace.
+  wide = ops.make_params(0, 4096, 512, 32, 32, A, E)
+  ops.observe_cuda(wide, torch.zeros(B, 1024), torch.zeros(B, 4096),
+                   actions, embeds, is_first)
+  assert calls[-1][3][-1] is not None
 
 
 def test_observe_pointers_keep_the_parent_order(setup, monkeypatch):
   """`observe_cuda` hands the kernel the pointers in the order of the
   kernel's parent design, which reads them one after another, and adds its
-  float32 scratch (the prologue's embed product) at the end only: so a
-  parent's source still runs under the tree's wrapper (`chip_smoke.py
-  --compare`)."""
+  float32 scratch (the prologue's embed product) and the workspace's
+  pointer at the end only (and a dim past the parent's, the values a
+  load): so a parent's source still runs under the tree's wrapper
+  (`chip_smoke.py --compare`)."""
   from daydreamer_tpu_torch.ops import build
   params, stoch0, deter0, actions, embeds, is_first = setup
   noise = torch.as_tensor(np.random.default_rng(1).gumbel(
@@ -270,21 +312,22 @@ def test_observe_pointers_keep_the_parent_order(setup, monkeypatch):
                           noise=noise, unimix=0.01)
   (kernel, fn, dtype, ptrs, dims, scalars, _), = calls
   assert (kernel, fn, dtype) == (ops.OBSERVE, 'observe', torch.float32)
-  assert dims == [H, B, A, E, D, U, S, C] and scalars == [0.01]
+  assert dims == [H, B, A, E, D, U, S, C, 4] and scalars == [0.01]
   weights = [params[k] for k in (
       'w_in_s', 'w_in_a', 'ln_in_scale', 'ln_in_bias', 'w_gru_d', 'w_gru_x',
       'ln_gru_scale', 'ln_gru_bias', 'w_obs_d', 'w_obs_e', 'ln_obs_scale',
       'ln_obs_bias', 'w_post', 'b_post')]
   parent = [stoch0, deter0, actions, embeds, None, None, *outs, *weights]
-  assert len(parent) == 23 and len(ptrs) == len(parent) + 1
+  assert len(parent) == 23 and len(ptrs) == len(parent) + 2
   for i, (got, want) in enumerate(zip(ptrs, parent)):
     if want is not None:
       assert got is want, i
   first, noise_ptr = ptrs[4:6]
   assert torch.equal(first, is_first.float())
   assert torch.equal(noise_ptr, noise)
-  e_proj = ptrs[-1]
+  e_proj, workspace = ptrs[len(parent):]
   assert e_proj.dtype == torch.float32 and e_proj.shape == (H, B, U)
+  assert workspace is None  # The vectors fit shared memory.
 
 
 # ---------------------------------------------------------------------------

@@ -100,8 +100,12 @@ def test_async_soak_pair_on_cpu(tmp_path, monkeypatch):
              ROOT / 'runs' / 'async_soak_torch', ROOT / 'scores')
   before = snapshot(*watched)
   out = tmp_path / 'soak.json'
+  # The soak ends once the learner's replay grew and it trained, within
+  # 4 minutes: the actor's first episode past the fill may take longer
+  # than a fixed wall on a crowded machine.
   result = async_soak.main([
-      '--small', '--learner-device', 'cpu', '--minutes', '0.75',
+      '--small', '--learner-device', 'cpu', '--minutes', '4',
+      '--until-events',
       '--logdir', str(tmp_path / 'logdir'), '--out', str(out),
       '--train.train_fill', '50', '--train.sync_every', '5',
       '--train.train_fused', '2'])

@@ -48,11 +48,17 @@ def _torch(tree):
   return torch.as_tensor(np.array(tree))
 
 
-@pytest.fixture(scope='module')
-def setup():
+def make_setup(D=D, U=U, S=S, C=C, prior_layers=2):
+  """Weights from the JAX package's `make_params` and one chunk, from a
+  seed. With no prior layer the head reads the deter: its kernel is made
+  [D, S*C]."""
+  SC = S * C
   rng = np.random.default_rng(3)
   params = pr.make_params(jax.random.PRNGKey(3), D, U, S, C, A, E,
-                          prior_layers=2)
+                          prior_layers=prior_layers)
+  if not prior_layers:
+    params['w_st'] = jnp.asarray(
+        rng.uniform(-0.3, 0.3, (D, SC)), jnp.float32)
   # Non-trivial norm parameters and biases, so a wrong wiring shows.
   for key, value in list(params.items()):
     if isinstance(value, list):
@@ -78,7 +84,12 @@ def setup():
   return params, (stoch0, deter0, actions, embeds), is_first, gumbel, mix
 
 
-def _jax_fused(params, data, is_first, gumbel, sample):
+@pytest.fixture(scope='module')
+def setup():
+  return make_setup()
+
+
+def _jax_fused(params, data, is_first, gumbel, sample, C=C):
   flat, _ = prv._flatten_params(params)
   cfg = (UNIMIX, sample, True, C)
   noise = jnp.asarray(gumbel) if sample else jnp.zeros_like(gumbel)
@@ -142,7 +153,7 @@ def _port_grads(fn, setup, sample):
   return dict(zip(names, (g.numpy() for g in grads)))
 
 
-def _jax_grads(setup, sample):
+def _jax_grads(setup, sample, C=C):
   params, data, is_first, gumbel, mix = setup
   flat, _ = prv._flatten_params(params)
   cfg = (UNIMIX, sample, True, C)
@@ -184,6 +195,42 @@ def test_gradients_match_jax(setup, sample):
   """(a) vs (c) jax.grad of the JAX package's fused path (interpret)."""
   fused = _port_grads(ops.observe_fused, setup, sample)
   _assert_close_by_scale(fused, _jax_grads(setup, sample), 'fused vs jax')
+
+
+# Widths past the kernels' first layouts, each of which the JAX package's
+# fused chain takes: the audit's deter 20, units 12, 3 x 4 latents; no
+# prior layer (the head reads the deter, D 24 against U 16); 9 prior
+# layers. As (D, U, S, C, prior layers).
+WIDTHS = {'d20_u12_3x4': (20, 12, 3, 4, 2), 'prior0': (24, 16, 4, 8, 0),
+          'prior9': (16, 16, 4, 4, 9)}
+
+
+@pytest.fixture(scope='module', params=sorted(WIDTHS))
+def widths(request):
+  return WIDTHS[request.param], make_setup(*WIDTHS[request.param])
+
+
+def test_forward_and_gradients_match_jax_at_widths(widths):
+  """The plain forward (sampled) and the fused chain's gradients, through
+  the adjoint chain and the epilogue, against the JAX package's fused path
+  (interpret) at each width of WIDTHS, to the tolerances above."""
+  (_, _, S_, C_, n_out), setup = widths
+  params, data, is_first, gumbel, _ = setup
+  assert len(params['w_out']) == n_out
+  ref = _jax_fused(params, data, is_first, gumbel, True, C_)
+  out = ops.observe_fwd_plain(
+      _torch(params), *_torch(data), torch.as_tensor(is_first),
+      noise=torch.as_tensor(gumbel), unimix=UNIMIX, sample=True)
+  for name, r, o in zip(NAMES, ref, out):
+    r, o = np.asarray(r), o.numpy()
+    if name == 'stochs':
+      assert (r == o).all()
+      assert (o.reshape(T, B, S_, C_).sum(-1) == 1).all()
+    else:
+      np.testing.assert_allclose(o, r, rtol=2e-4, atol=2e-4, err_msg=name)
+  fused = _port_grads(ops.observe_fused, setup, True)
+  assert all(np.abs(g).max() > 0 for g in fused.values())
+  _assert_close_by_scale(fused, _jax_grads(setup, True, C_), 'fused vs jax')
 
 
 def test_adjoints_match_autograd_taps(setup):
@@ -318,8 +365,9 @@ def test_observe_fwd_pointers_keep_the_parent_order(setup, monkeypatch):
   """`observe_fwd_cuda` hands the kernel the pointers in the order of the
   kernel's parent design, which reads them one after another, and adds its
   two float32 scratch tensors (the embed product, the chain's float32
-  deter) at the end only: so a parent's source still runs under the tree's
-  wrapper (`chip_smoke.py --compare`)."""
+  deter) and the workspace's pointer at the end only (and a dim past the
+  parent's, the values a load): so a parent's source still runs under the
+  tree's wrapper (`chip_smoke.py --compare`)."""
   from daydreamer_tpu_torch.ops import build
   params, data, is_first, gumbel, _ = setup
   params, data = _torch(params), _torch(data)
@@ -330,19 +378,20 @@ def test_observe_fwd_pointers_keep_the_parent_order(setup, monkeypatch):
                               noise=torch.as_tensor(gumbel), unimix=UNIMIX)
   (kernel, fn, dtype, ptrs, dims, scalars, _), = calls
   assert (kernel, fn, dtype) == (ops.OBSERVE_FWD, 'observe_fwd', torch.float32)
-  assert dims == [T, B, A, E, D, U, S, C, 2] and scalars == [UNIMIX]
+  assert dims == [T, B, A, E, D, U, S, C, 2, 4] and scalars == [UNIMIX]
   flat, _ = ops.flatten_params(params)
   parent = [*data, None, None, *outs, *flat]
-  assert len(ptrs) == len(parent) + 2
+  assert len(ptrs) == len(parent) + 3
   for i, (got, want) in enumerate(zip(ptrs, parent)):
     if want is not None:
       assert got is want, i
   first, noise = ptrs[4:6]
   assert torch.equal(first, torch.as_tensor(is_first).float())
   assert torch.equal(noise, torch.as_tensor(gumbel))
-  e_proj, d_t = ptrs[len(parent):]
+  e_proj, d_t, workspace = ptrs[len(parent):]
   assert e_proj.dtype == d_t.dtype == torch.float32
   assert e_proj.shape == (T, B, U) and d_t.shape == (T, B, D)
+  assert workspace is None  # The chain's vectors fit shared memory.
 
 
 # ---------------------------------------------------------------------------

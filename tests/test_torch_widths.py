@@ -7,7 +7,10 @@ counts that are no power of two from 2 to 32, a deter past 2 048 and
   against the JAX agent, on the JAX agent's state carried by `load`, with
   sampling set to the modes on both sides as `tests/test_torch_agent.py`
   sets it, at its tolerances: losses rtol 1e-4 (atol 1e-5), the state
-  after the update atol 3e-4.
+  after the update atol 3e-4. Likewise one at `--rssm.impl pallas
+  --rssm.deter 20 --rssm.prior_layers 9`, widths past the RSSM kernels'
+  first layouts, through the fused observe chain and (the port's
+  `--imag_impl pallas`) the fused rollout.
 - No wrapper refuses these widths: each op's `_check` takes them (the
   launches themselves are held to the plain versions by the emulated
   cases, `tests/test_torch_emulate_gru.py`, `_onehot.py`, `_update.py`).
@@ -20,6 +23,8 @@ import pytest
 import torch
 
 from daydreamer_tpu_torch.ops import build, gru, norm, onehot
+from daydreamer_tpu_torch.ops import rssm as pops
+from daydreamer_tpu_torch.ops import rssm_vjp as pvjp
 from test_torch_agent import _jax_run, env, mode_sampling, port_agent  # noqa: F401
 
 torch.set_num_threads(1)
@@ -42,6 +47,39 @@ def test_train_step_matches_jax_classes_48_norm_none(env, mode_sampling):
     pmets = dict(pmets)
   # The GRU cell ran through the kernels' Function, without a norm.
   assert calls and all(scale is None for scale in calls)
+  assert set(pmets) == set(jmets)
+  for key in sorted(jmets):
+    np.testing.assert_allclose(pmets[key], jmets[key], rtol=1e-4,
+                               atol=1e-5, err_msg=key)
+  state = agent.save()
+  assert set(state) == set(after)
+  for key, value in after.items():
+    np.testing.assert_allclose(
+        state[key], np.asarray(value), atol=3e-4, rtol=0, err_msg=key)
+
+
+CHAIN_WIDTHS = {'rssm.impl': 'pallas', 'rssm.deter': 20,
+                'rssm.prior_layers': 9}
+
+
+def test_train_step_matches_jax_pallas_deter20_prior9(env, mode_sampling):
+  before, after, data, jmets = _jax_run(env, **CHAIN_WIDTHS)
+  agent = port_agent(env, imag_impl='pallas', **CHAIN_WIDTHS)
+  rssm = agent.agent.wm.rssm
+  assert (rssm._deter, rssm._prior_layers) == (20, 9)
+  agent.load(before)
+  calls = {(pvjp, 'observe_fwd_plain'): 0, (pvjp, 'observe_bwd_plain'): 0,
+           (pops, 'imagine_actor_plain'): 0}
+  with pytest.MonkeyPatch.context() as mp:
+    for module, name in calls:
+      def counted(*a, _key=(module, name), _fn=getattr(module, name), **k):
+        calls[_key] += 1
+        return _fn(*a, **k)
+      mp.setattr(module, name, counted)
+    _, _, pmets = agent.train(data)
+    pmets = dict(pmets)
+  # The fused chain and rollout ran (their plain versions, on the CPU).
+  assert all(calls.values()), calls
   assert set(pmets) == set(jmets)
   for key in sorted(jmets):
     np.testing.assert_allclose(pmets[key], jmets[key], rtol=1e-4,
