@@ -117,8 +117,8 @@ Phases, each of which must pass:
                within 1e-4 of the largest magnitude, and so must that
                agent's values.
  11. tooling - the port's two instruments, as subprocesses:
-               `scripts/profile_train.py --shape xarm --dispatches 2` (80
-               updates from the device ring, 32 traced), whose trace must
+               `scripts/profile_train.py --shape xarm --dispatches 1` (64
+               updates from the device ring, 16 traced), whose trace must
                show observe_fwd's three device functions and observe_bwd's
                one launched once an update and a device busy time under
                the wall time; its wrappers' launches go on the kernels line
@@ -130,7 +130,7 @@ Phases, each of which must pass:
                host mirror; the card's whole policy call at a1 must take
                under 50 ms.
  12. soak    - the paper's deployment: the port's `scripts/async_soak.py`
-               as a subprocess for 2 minutes, `run=learning` on the card
+               as a subprocess for 1.5 minutes, `run=learning` on the card
                (`--configs a1 --rssm.impl pallas` on a1_dummy, so the
                learner trains through observe_fwd and observe_bwd) and
                `run=acting` on the CPU (a1_dummy: the card's machine has no
@@ -147,7 +147,7 @@ Phases, each of which must pass:
  13. bench   - the port's `scripts/bench.py` in this process at its three
                shapes (test, a1, xarm; from a device ring of 4096 steps),
                each eagerly and graphed (`torch.graphs` False and True,
-               `bench.compare_graphs`), with short budgets: 6 s of
+               `bench.compare_graphs`), with short budgets: 3 s of
                windows an arm, one dispatch a window of 32 updates at
                test and 16 at a1 and xarm, each arm's batch-1 policy on
                the card at the test shape, then two windows of the
@@ -224,10 +224,13 @@ Phases, each of which must pass:
                is the same function (float32, no activation) and the
                bound; first each instantiation's registers and spills from
                the build log; then rows past the layout that holds a row in
-               registers (the streaming kernels): bfloat16 1 024 x 4 100
-               and 1 024 x 16 392, float32 1 024 x 12 292, each with the
-               ELU and without (the extra phase `layer_norm`, not run by
-               default, runs this part alone).
+               registers (the streaming forward; the backward timed on
+               the kernel the wrapper picks and held untimed on the other
+               of its two, the clusters' and the streaming one, each by
+               name in the trace): bfloat16 1 024 x 4 100 and 1 024 x
+               16 392, float32 1 024 x 12 292, each with the ELU and
+               without (the extra phase `layer_norm`, not run by default,
+               runs this part alone).
                Then the RSSM step's kernels (ops/gru.py, ops/onehot.py;
                the extra phase `rssm_step` runs this part alone): gru_cell
                forward and backward against the plain version (the norm of
@@ -245,10 +248,11 @@ Phases, each of which must pass:
                either: library none). Then the same checks at widths past
                their first layouts: the GRU cell without a norm (32 and
                1 024 rows of 256) and past D = 2 048 (1 x 2 049, 32 and
-               1 024 rows of 4 096), the head at 3, 48, 64 and 256 classes
-               (32 and 1 024 rows, sampled and the mode). Each kernel's
-               trace must hold one device kernel a call, or it is taken
-               again.
+               1 024 rows of 4 096; the backward timed on the clusters'
+               kernel and held untimed on the streaming one, each by name
+               in the trace), the head at 3, 48, 64 and 256 classes (32
+               and 1 024 rows, sampled and the mode). Each kernel's trace
+               must hold one device kernel a call, or it is taken again.
                Then one xarm update with the kernels and one with the plain
                versions (`build.plain_versions()`) from one state and one
                generator state (eager, after two updates), in bfloat16 and
@@ -278,12 +282,17 @@ against their plain versions.
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}. Without a card, or outside the repository,
 the script exits non-zero and prints no result. `--phases` runs a subset;
-the extra phase `parallel_cards` (not run by default; it needs two cards
-or more) runs one rank of the worker on each card over NCCL at the
-parallel phase's settings, graphed and eagerly (on a machine of four
-cards), so that the collectives captured in the graphs reduce over real
-ranks: the ranks of each arm, and the two arms, must agree exactly in the
-loss, the state's checksum and the report's; its ranks' launches go under
+the extra phase `wide_paths` (not run by default) times both backwards
+of rows past the plan, the clusters' and the streaming one, at a sweep of
+widths and row counts of layer_norm_act and the GRU cell, and writes the
+times to wide_paths.json in its run directory under runs/ (each time is
+also logged); the extra phase `parallel_cards` (not run by default; it
+needs two cards or more) runs one rank of the worker on each card over
+NCCL at the parallel phase's settings, graphed and eagerly (on a machine
+of four cards), so that the collectives captured in the graphs reduce
+over real ranks: the ranks of each arm, and the two arms, must agree
+exactly in the loss, the state's checksum and the report's; its ranks'
+launches go under
 `launches_parallel` as `cards_*`; the extra phase `profile` (not run by default) prints where an update's
 device time goes, its launches and the device's idle share, at xarm (with
 the fused rollout) and at a1 (the loop path), and
@@ -327,9 +336,11 @@ and the other version of it in the file SOURCE (its includes beside it),
 runs both on the xarm inputs of the kernel check, says whether their
 outputs are equal bit for bit, and times them in turns (tree, other, other,
 tree) in bfloat16 and float32 (observe at the xarm and a1 shapes of the proof
-entry point; layer_norm at each site of LAYER_NORM_SITES, forward and
-backward, after each version's registers and spills; gru at each site of
-GRU_SITES and, in bfloat16, GRU_LARGE_SITES, onehot at each site of
+entry point; layer_norm at each site of LAYER_NORM_SITES and
+WIDE_LAYER_NORM_SITES, forward and backward, after each version's
+registers and spills, autograd of F.layer_norm beside the float32 sites
+without an activation; gru at each site of GRU_SITES, in bfloat16
+GRU_LARGE_SITES, and GRU_WIDE_SITES, onehot at each site of
 HEAD_SITES, forward and backward, after each instantiation's registers and
 spills, with the tree's own variants beside them: the GRU forward's
 group of lanes a row, the head's classes a lane each way): how a change to
@@ -1017,10 +1028,16 @@ def check_proof_kernels():
 def compare_layer_norm(source):
   """`--compare layer_norm=SOURCE`: the tree's layer_norm.cu against
   another version of it with the same C interface, at each site of
-  LAYER_NORM_SITES in both types: whether the two give the same bits
-  (forward and backward), and their device times in turns (tree, other,
-  other, tree)."""
+  LAYER_NORM_SITES and WIDE_LAYER_NORM_SITES in its type (both types for
+  the first): whether the two give the same bits (forward and backward;
+  else their largest difference), and their device times in turns (tree,
+  other, other, tree), with autograd of F.layer_norm beside them where it
+  is the same function (float32, no activation). The other version gets
+  `partial` as the wrappers sized it before they counted a launch's rows
+  (a row a block of up to BWD_BLOCKS), which an older source may write."""
   import torch
+  import torch.nn.functional as F
+  from daydreamer_tpu_torch.nn import cost
   from daydreamer_tpu_torch.ops import build, norm
   tree = norm.LAYER_NORM_ACT_FWD
   other = build.Kernel('layer_norm_other', str(pathlib.Path(source).resolve()),
@@ -1028,33 +1045,47 @@ def compare_layer_norm(source):
   build.build_all([tree, other])
   for kernel in (tree, other):
     layer_norm_registers(kernel)
+  names = ('LAYER_NORM_ACT_FWD', 'LAYER_NORM_ACT_BWD')
 
   def run(kernel, fn):
-    norm.LAYER_NORM_ACT_FWD = norm.LAYER_NORM_ACT_BWD = kernel
-    try:
+    settings = {} if kernel is tree else {
+        '_partial_rows': lambda rows, *_: min(norm.BWD_BLOCKS, rows)}
+    with _swapped(norm, names, kernel, **settings):
       return fn()
-    finally:
-      norm.LAYER_NORM_ACT_FWD, norm.LAYER_NORM_ACT_BWD = saved
 
-  saved = norm.LAYER_NORM_ACT_FWD, norm.LAYER_NORM_ACT_BWD
-  for dtype in (torch.bfloat16, torch.float32):
-    for rows, C, act in LAYER_NORM_SITES:
-      x, scale, bias, dy = _layer_norm_inputs(rows, C, dtype)
-      fwd = lambda: norm.layer_norm_act_fwd_cuda(x, scale, bias, act)
-      y, mean, rstd = fwd()
-      bwd = lambda: norm.layer_norm_act_bwd_cuda(x, scale, bias, mean, rstd,
-                                                 dy, act)
-      outs = [run(k, fwd) + run(k, bwd) for k in (tree, other)]
-      equal = all(torch.equal(a, b) for a, b in zip(*outs))
-      times = [(label, run(k, lambda: device_ms(fwd, expect=1)),
-                run(k, lambda: device_ms(bwd, expect=1)))
-               for label, k in (('tree', tree), ('other', other),
-                                ('other', other), ('tree', tree))]
-      log(f'compare layer_norm {str(dtype).split(".")[-1]} rows {rows} x C '
-          f'{C} ({act}): outputs equal bit for bit: {equal}; device ms '
-          'forward / backward: ' + ', '.join(
-              f'{label} {f:.4f} / {b:.4f}' for label, f, b in times))
-      del x, dy, y, outs
+  sites = [(torch.bfloat16, site) for site in LAYER_NORM_SITES] + [
+      (torch.float32, site) for site in LAYER_NORM_SITES] + [
+          (getattr(torch, name), site)
+          for name, wide in WIDE_LAYER_NORM_SITES.items() for site in wide]
+  for dtype, (rows, C, act) in sites:
+    x, scale, bias, dy = _layer_norm_inputs(rows, C, dtype)
+    fwd = lambda: norm.layer_norm_act_fwd_cuda(x, scale, bias, act)
+    y, mean, rstd = fwd()
+    bwd = lambda: norm.layer_norm_act_bwd_cuda(x, scale, bias, mean, rstd,
+                                               dy, act)
+    outs = [run(k, fwd) + run(k, bwd) for k in (tree, other)]
+    equal, worst = _differ(*outs)
+    times = [(label, run(k, lambda: device_ms(fwd, expect=1)),
+              run(k, lambda: device_ms(bwd, expect=1)))
+             for label, k in (('tree', tree), ('other', other),
+                              ('other', other), ('tree', tree))]
+    bound = cost.bound(*norm.layer_norm_act_work(
+        rows, C, dtype, act, backward=True), dtype)
+    library = ''
+    if dtype == torch.float32 and act == 'none':
+      leaves = [v.clone().requires_grad_() for v in (x, scale, bias)]
+      lib = F.layer_norm(leaves[0], (C,), leaves[1], leaves[2], eps=norm.EPS)
+      ms = device_ms(lambda: torch.autograd.grad(lib, leaves, dy,
+                                                 retain_graph=True))
+      library = f'; autograd of F.layer_norm backward {ms:.4f}'
+      del lib, leaves
+    log(f'compare layer_norm {str(dtype).split(".")[-1]} rows {rows} x C '
+        f'{C} ({act}): outputs equal bit for bit: {equal} (largest '
+        f'difference {worst:.3g}); device ms forward / backward: '
+        + ', '.join(f'{label} {f:.4f} / {b:.4f}' for label, f, b in times)
+        + f'; backward bound {bound["bound_ms"]:.4f} {bound["bound_by"]}'
+        + library)
+    del x, dy, y, outs
 
 
 def log_registers(kernel, functions):
@@ -1128,20 +1159,28 @@ def compare_gru(source):
   backward's device kernels a call, and their device times in turns
   (tree, other, other, tree), the forward with the tree at a group of 32,
   64, 128 and 256 lanes a row beside them (`FWD_LANES` of rows x G); then,
-  in bfloat16, the backward at GRU_LARGE_SITES. Both backwards read the
-  tree's forward's mean and rstd, so that they take the same inputs where
-  the two forwards sum a row in another order."""
+  in bfloat16, the backward at GRU_LARGE_SITES, and in both types at
+  GRU_WIDE_SITES (deters past MAX_D), with its bound. Both backwards read
+  the tree's forward's mean and rstd, so that they take the same inputs
+  where the two forwards sum a row in another order. The other version
+  gets `partial` as the wrappers sized it before they counted a launch's
+  rows (a row a block of up to BWD_BLOCKS), which an older source may
+  write."""
   import torch
+  from daydreamer_tpu_torch.nn import cost
   from daydreamer_tpu_torch.ops import build, gru
   tree = gru.GRU_CELL_FWD
   other = build.Kernel('gru_other', str(pathlib.Path(source).resolve()),
                        'another version', tree.signature)
   build.build_all([tree, other])
   for kernel in (tree, other):
-    log_registers(kernel, ('gru_fwd_kernel', 'gru_bwd_kernel'))
+    log_registers(kernel, ('gru_fwd_kernel', 'gru_bwd_kernel',
+                           'gru_cluster_bwd_kernel'))
   names = ('GRU_CELL_FWD', 'GRU_CELL_BWD')
 
   def under(kernel, fn, **settings):
+    if kernel is not tree:
+      settings['_partial_rows'] = lambda rows, plan: min(gru.BWD_BLOCKS, rows)
     def call():
       with _swapped(gru, names, kernel, **settings):
         return fn()
@@ -1150,7 +1189,7 @@ def compare_gru(source):
   for dtype in (torch.bfloat16, torch.float32):
     name = str(dtype).split('.')[-1]
     for rows, D in GRU_SITES + (GRU_LARGE_SITES if name == 'bfloat16'
-                                else ()):
+                                else ()) + GRU_WIDE_SITES:
       x, deter, scale, bias, dout = _gru_inputs(rows, D, dtype)
       fwd = lambda: gru.gru_cell_fwd_cuda(x, deter, scale, bias)
       out, mean, rstd = under(tree, fwd)()
@@ -1171,7 +1210,11 @@ def compare_gru(source):
             ('tree', under(tree, fwd)), ('other', under(other, fwd)),
             *[(f'G {G}', under(tree, fwd, FWD_LANES=rows * G))
               for G in (32, 64, 128, 256)]])
-      _turns(f'{label} backward', [('tree', tree_bwd), ('other', other_bwd)])
+      bound = cost.bound(*gru.gru_cell_work(rows, D, dtype, backward=True),
+                         dtype)
+      _turns(f'{label} backward (bound {bound["bound_ms"]:.4f} '
+             f'{bound["bound_by"]})', [('tree', tree_bwd),
+                                       ('other', other_bwd)])
       del x, deter, dout
 
 
@@ -1570,7 +1613,8 @@ def _layer_norm_inputs(rows, C, dtype, seed=0, device='cuda'):
 
 
 def check_layer_norm(sites=LAYER_NORM_SITES, device='cuda',
-                     dtypes=('float32', 'bfloat16')):
+                     dtypes=('float32', 'bfloat16'), backward_kernel=None,
+                     timed=True):
   """layer_norm_act's two kernels against the plain version (the layer's
   F.layer_norm on the upcast input, its two casts and the F.elu) and its
   autograd at each site of LAYER_NORM_SITES, in float32 and bfloat16, with
@@ -1580,8 +1624,10 @@ def check_layer_norm(sites=LAYER_NORM_SITES, device='cuda',
   and is None elsewhere: no call fuses the norm with the ELU, nor in
   bfloat16 with its casts (F.layer_norm takes scale and bias in x's dtype
   there). Each kernel's trace must hold one device kernel a call
-  (`device_ms`'s `expect`). `dtypes` names the types to check. Returns the
-  rows of the largest site, the encoder's first stage."""
+  (`device_ms`'s `expect`), and where `backward_kernel` names one, the
+  backward's must be that kernel. `dtypes` names the types to check;
+  without `timed` nothing is timed. Returns the rows of the largest site,
+  the encoder's first stage."""
   import torch
   import torch.nn.functional as F
   from daydreamer_tpu_torch.nn import cost
@@ -1597,6 +1643,9 @@ def check_layer_norm(sites=LAYER_NORM_SITES, device='cuda',
       # blocks in a fixed order, the counters reset by the first).
       same = all(torch.equal(a, b) for a, b in zip(got, (
           norm.layer_norm_act_bwd_cuda(x, scale, bias, mean, rstd, dy, act))))
+      if backward_kernel is not None:
+        _expect_kernel(backward_kernel, lambda: norm.layer_norm_act_bwd_cuda(
+            x, scale, bias, mean, rstd, dy, act))
       leaves = [v.clone().requires_grad_() for v in (x, scale, bias)]
       ref = norm.layer_norm_act_plain(*leaves, act)
       want = torch.autograd.grad(ref, leaves, dy, retain_graph=True)
@@ -1617,47 +1666,50 @@ def check_layer_norm(sites=LAYER_NORM_SITES, device='cuda',
       ok = (fwd <= limits[0] and same
             and all(e <= lim for e, lim in zip(scaled, limits[1]))
             and all(bool(torch.isfinite(g).all()) for g in got))
-      work = [cost.bound(*norm.layer_norm_act_work(
-          rows, C, dtype, act, backward=b), dtype) for b in (False, True)]
-      # Device times (`device_ms`); the call's time with the host's
-      # (`cuda_time`) beside the kernel's.
-      fwd_call = lambda: norm.layer_norm_act_fwd_cuda(x, scale, bias, act)
-      bwd_call = lambda: norm.layer_norm_act_bwd_cuda(
-          x, scale, bias, mean, rstd, dy, act)
-      ms, bwd_ms = device_ms(fwd_call, expect=1), device_ms(bwd_call,
-                                                              expect=1)
-      call_ms, bwd_call_ms = cuda_time(fwd_call), cuda_time(bwd_call)
-      plain_ms = device_ms(lambda: norm.layer_norm_act_plain(
-          x, scale, bias, act))
-      again = norm.layer_norm_act_plain(*leaves, act)
-      plain_bwd_ms = device_ms(lambda: torch.autograd.grad(
-          again, leaves, dy, retain_graph=True))
-      library_ms = library_bwd_ms = None
-      if dtype == torch.float32 and act == 'none':
-        library_ms = device_ms(lambda: F.layer_norm(
-            x, (C,), scale, bias, eps=norm.EPS))
-        lib = F.layer_norm(leaves[0], (C,), leaves[1], leaves[2],
-                           eps=norm.EPS)
-        library_bwd_ms = device_ms(lambda: torch.autograd.grad(
-            lib, leaves, dy, retain_graph=True))
-        del lib
-      library = lambda ms: 'none' if ms is None else f'{ms:.4f}'
+      timings, again = '', None
+      if timed:
+        work = [cost.bound(*norm.layer_norm_act_work(
+            rows, C, dtype, act, backward=b), dtype) for b in (False, True)]
+        # Device times (`device_ms`); the call's time with the host's
+        # (`cuda_time`) beside the kernel's.
+        fwd_call = lambda: norm.layer_norm_act_fwd_cuda(x, scale, bias, act)
+        bwd_call = lambda: norm.layer_norm_act_bwd_cuda(
+            x, scale, bias, mean, rstd, dy, act)
+        ms, bwd_ms = device_ms(fwd_call, expect=1), device_ms(bwd_call,
+                                                                expect=1)
+        call_ms, bwd_call_ms = cuda_time(fwd_call), cuda_time(bwd_call)
+        plain_ms = device_ms(lambda: norm.layer_norm_act_plain(
+            x, scale, bias, act))
+        again = norm.layer_norm_act_plain(*leaves, act)
+        plain_bwd_ms = device_ms(lambda: torch.autograd.grad(
+            again, leaves, dy, retain_graph=True))
+        library_ms = library_bwd_ms = None
+        if dtype == torch.float32 and act == 'none':
+          library_ms = device_ms(lambda: F.layer_norm(
+              x, (C,), scale, bias, eps=norm.EPS))
+          lib = F.layer_norm(leaves[0], (C,), leaves[1], leaves[2],
+                             eps=norm.EPS)
+          library_bwd_ms = device_ms(lambda: torch.autograd.grad(
+              lib, leaves, dy, retain_graph=True))
+          del lib
+        library = lambda ms: 'none' if ms is None else f'{ms:.4f}'
+        timings = (
+            f'; device ms: forward {ms:.4f} (a call with the host '
+            f'{call_ms:.4f}; plain {plain_ms:.4f}, library '
+            f'{library(library_ms)}, bound {work[0]["bound_ms"]:.4f} '
+            f'{work[0]["bound_by"]}), backward {bwd_ms:.4f} (a call '
+            f'{bwd_call_ms:.4f}; plain {plain_bwd_ms:.4f}, library '
+            f'{library(library_bwd_ms)}, bound {work[1]["bound_ms"]:.4f} '
+            f'{work[1]["bound_by"]})')
       log(f'layer_norm_act {name} rows {rows} x C {C} ({act}): forward '
           f'error {fwd:.3g} (tolerance {limits[0]:g} of max(|y|, 1)), '
           f'backward scaled errors dx {scaled[0]:.3g}, dscale '
           f'{scaled[1]:.3g}, dbias {scaled[2]:.3g} (tolerances '
-          f'{limits[1]}), two backward launches equal {same}; device ms: '
-          f'forward {ms:.4f} (a call with the '
-          f'host {call_ms:.4f}; plain {plain_ms:.4f}, library '
-          f'{library(library_ms)}, bound {work[0]["bound_ms"]:.4f} '
-          f'{work[0]["bound_by"]}), backward {bwd_ms:.4f} (a call '
-          f'{bwd_call_ms:.4f}; plain {plain_bwd_ms:.4f}, library '
-          f'{library(library_bwd_ms)}, bound {work[1]["bound_ms"]:.4f} '
-          f'{work[1]["bound_by"]})')
+          f'{limits[1]}), two backward launches equal {same}' + timings)
       if not ok:
         raise AssertionError(f'layer_norm_act disagrees with its plain '
                              f'version in {name} at rows {rows} x C {C}.')
-      if (rows, C) == sites[0][:2]:
+      if timed and (rows, C) == sites[0][:2]:
         results.setdefault('layer_norm_act_fwd', {})[name] = dict(
             ms=ms, plain_ms=plain_ms, library_ms=library_ms,
             bound_ms=work[0]['bound_ms'], bound_by=work[0]['bound_by'],
@@ -1726,7 +1778,8 @@ def _head_inputs(rows, sample, dtype, device='cuda', C=HEAD_C):
   return raw, u, rand(rows, S, C).to(dtype), rand(rows, S, C).to(dtype)
 
 
-def check_gru_cell(sites=GRU_SITES, device='cuda', normed=True):
+def check_gru_cell(sites=GRU_SITES, device='cuda', normed=True,
+                   backward_kernel=None, timed=True):
   """gru_cell's two kernels against the plain version (the RSSM's norm of
   the product and its gates, `gru.gru_cell_plain`; without `normed`, the
   gates on the product itself, `norm: none`) and its autograd at each
@@ -1734,7 +1787,9 @@ def check_gru_cell(sites=GRU_SITES, device='cuda', normed=True):
   the bound; each kernel's trace must hold one device kernel a call. No
   PyTorch call computes the cell: `torch.nn.GRUCell` applies the reset
   inside its product and has no update bias of -1 nor a norm, so
-  `library_ms` is None. Returns the rows of the largest site."""
+  `library_ms` is None. Where `backward_kernel` names a kernel, the
+  backward's trace must hold it; without `timed` nothing is timed.
+  Returns the rows of the largest site."""
   import torch
   from daydreamer_tpu_torch.nn import cost
   from daydreamer_tpu_torch.ops import gru
@@ -1752,6 +1807,8 @@ def check_gru_cell(sites=GRU_SITES, device='cuda', normed=True):
       # in a fixed order).
       same = all(a is None or torch.equal(a, b)
                  for a, b in zip(got, gru.gru_cell_bwd_cuda(*args)))
+      if backward_kernel is not None:
+        _expect_kernel(backward_kernel, lambda: gru.gru_cell_bwd_cuda(*args))
       got = [g for g in got if g is not None]
       leaves = [v.clone().requires_grad_() for v in (x, deter, scale, bias)
                 if v is not None]
@@ -1773,33 +1830,36 @@ def check_gru_cell(sites=GRU_SITES, device='cuda', normed=True):
       ok = (fwd <= limits[0] and same
             and all(e <= lim for e, lim in zip(scaled, limits[1]))
             and all(bool(torch.isfinite(g).all()) for g in got))
-      work = [cost.bound(*gru.gru_cell_work(rows, D, dtype, backward=b,
-                                            normed=normed), dtype)
-              for b in (False, True)]
-      ms = step_ms(lambda: gru.gru_cell_fwd_cuda(x, deter, scale, bias),
-                   expect=1)
-      bwd_ms, bwd_kernels = step_ms(lambda: gru.gru_cell_bwd_cuda(*args),
-                                    kernels=True, expect=1)
-      # The backward is one device kernel a call.
-      # The backward is one device kernel a call (a trace that lost a
-      # kernel reads fewer, never more; `device_ms` allows one launch over
-      # its window).
-      one = bwd_kernels <= 1.01
-      plain_ms = step_ms(lambda: gru.gru_cell_plain(x, deter, scale, bias))
-      again = gru.gru_cell_plain(*leaves)
-      plain_bwd_ms = step_ms(lambda: torch.autograd.grad(
-          again, leaves, dout, retain_graph=True))
+      timings, one, again = '', True, None
+      if timed:
+        work = [cost.bound(*gru.gru_cell_work(rows, D, dtype, backward=b,
+                                              normed=normed), dtype)
+                for b in (False, True)]
+        ms = step_ms(lambda: gru.gru_cell_fwd_cuda(x, deter, scale, bias),
+                     expect=1)
+        bwd_ms, bwd_kernels = step_ms(lambda: gru.gru_cell_bwd_cuda(*args),
+                                      kernels=True, expect=1)
+        # The backward is one device kernel a call (a trace that lost a
+        # kernel reads fewer, never more; `device_ms` allows one launch
+        # over its window).
+        one = bwd_kernels <= 1.01
+        plain_ms = step_ms(lambda: gru.gru_cell_plain(x, deter, scale,
+                                                      bias))
+        again = gru.gru_cell_plain(*leaves)
+        plain_bwd_ms = step_ms(lambda: torch.autograd.grad(
+            again, leaves, dout, retain_graph=True))
+        timings = (
+            f'; device ms: forward {ms:.4f} (plain {plain_ms:.4f}, library '
+            f'none, bound {work[0]["bound_ms"]:.4f} {work[0]["bound_by"]}), '
+            f'backward {bwd_ms:.4f} in {bwd_kernels:g} device kernel(s) a '
+            f'call (plain {plain_bwd_ms:.4f}, library none, bound '
+            f'{work[1]["bound_ms"]:.4f} {work[1]["bound_by"]})')
       log(f'gru_cell {name} rows {rows} x D {D}'
           f'{"" if normed else " (norm none)"}: forward error {fwd:.3g} '
           f'(tolerance {limits[0]:g} of max(|y|, 1)), backward scaled errors'
           f' dx, ddeter[, dscale, dbias] '
           f'{", ".join(f"{e:.3g}" for e in scaled)} (tolerances '
-          f'{limits[1]}), two backward launches equal {same}; device ms: '
-          f'forward {ms:.4f} (plain {plain_ms:.4f}, library none, bound '
-          f'{work[0]["bound_ms"]:.4f} {work[0]["bound_by"]}), backward '
-          f'{bwd_ms:.4f} in {bwd_kernels:g} device kernel(s) a call (plain '
-          f'{plain_bwd_ms:.4f}, library none, bound '
-          f'{work[1]["bound_ms"]:.4f} {work[1]["bound_by"]})')
+          f'{limits[1]}), two backward launches equal {same}' + timings)
       if not ok:
         raise AssertionError(f'gru_cell disagrees with its plain version in '
                              f'{name} at rows {rows} x D {D}.')
@@ -1807,7 +1867,7 @@ def check_gru_cell(sites=GRU_SITES, device='cuda', normed=True):
         raise AssertionError(f'gru_cell_bwd took {bwd_kernels:g} device '
                              f'kernels a call at rows {rows} x D {D}, not '
                              'one.')
-      if (rows, D) == max(sites):
+      if timed and (rows, D) == max(sites):
         results.setdefault('gru_cell_fwd', {})[name] = dict(
             ms=ms, plain_ms=plain_ms, library_ms=None,
             bound_ms=work[0]['bound_ms'], bound_by=work[0]['bound_by'],
@@ -1946,21 +2006,141 @@ HEAD_CLASSES = (3, 48, 64, 256)
 HEAD_CLASS_SITES = ((32, True), (32, False), (1024, True), (1024, False))
 
 
+# The two backwards of rows past the plan, by the name of their device
+# kernel, and the wrappers' settings that send every wide site to each:
+# the cluster backward (LayerNorm: no row too narrow for it; the GRU's
+# takes every deter past MAX_D that fits) and PR 21's streaming backward
+# (no lane may keep a byte of a row, so no cluster plan fits). Each site
+# is held, and timed, on the kernel the wrapper picks (`cluster_plan`),
+# and held once more, untimed, on the other.
+LAYER_NORM_WIDE_PATHS = (('ln_cluster_bwd_kernel', {'CLUSTER_LEAST': 0}),
+                         ('ln_stream_bwd_kernel', {'CLUSTER_BYTES': 0}))
+GRU_WIDE_PATHS = (('gru_cluster_bwd_kernel', {}),
+                  ('gru_wide_bwd_kernel', {'CLUSTER_BYTES': 0}))
+
+
+def _expect_kernel(name, fn, tries=5):
+  """Raises unless the device kernels of a call of `fn` (torch.profiler
+  over 20 calls, taken again where it saw none) include one whose name
+  holds `name`; logs it."""
+  for _ in range(tries):
+    names = list(device_times(fn, calls=20))
+    if names:
+      break
+  if not any(name in key for key in names):
+    raise AssertionError(f'{name} did not run: the trace held {names}.')
+  log(f'  backward kernel: {name}')
+
+
 def check_layer_norm_widths(device='cuda'):
   """check_layer_norm at WIDE_LAYER_NORM_SITES: rows too wide for a
-  block's lanes to hold, which the streaming kernels take."""
-  for dtype, sites in WIDE_LAYER_NORM_SITES.items():
-    check_layer_norm(sites, device, dtypes=(dtype,))
+  block's lanes to hold (the streaming forward), each with its backward on
+  the kernel the wrapper picks and, untimed, on the other
+  (LAYER_NORM_WIDE_PATHS)."""
+  import torch
+  from daydreamer_tpu_torch.ops import norm
+  for name, sites in WIDE_LAYER_NORM_SITES.items():
+    for site in sites:
+      rows, C, _ = site
+      picked = norm.cluster_plan(rows, C, getattr(torch, name)) is None
+      for i, (kernel, settings) in enumerate(LAYER_NORM_WIDE_PATHS):
+        timed = i == picked
+        how = "the wrapper's pick" if timed else settings
+        log(f'layer_norm_act past the plan, the backward on {kernel} '
+            f'({how}):')
+        with _swapped(norm, (), None, **({} if timed else settings)):
+          check_layer_norm((site,), device, dtypes=(name,),
+                           backward_kernel=kernel, timed=timed)
 
 
 def check_rssm_step_widths(device='cuda'):
   """check_gru_cell without a norm at GRU_BARE_SITES and with one past
-  MAX_D at GRU_WIDE_SITES, and check_onehot_head at each of HEAD_CLASSES
+  MAX_D at GRU_WIDE_SITES, on both backwards of such rows
+  (GRU_WIDE_PATHS), and check_onehot_head at each of HEAD_CLASSES
   (its general path) at HEAD_CLASS_SITES."""
+  from daydreamer_tpu_torch.ops import gru
   check_gru_cell(GRU_BARE_SITES, device, normed=False)
-  check_gru_cell(GRU_WIDE_SITES, device)
+  for i, (kernel, settings) in enumerate(GRU_WIDE_PATHS):
+    how = settings if i else "the wrapper's pick"
+    log(f'gru_cell past MAX_D, the backward on {kernel} ({how}):')
+    with _swapped(gru, (), None, **settings):
+      check_gru_cell(GRU_WIDE_SITES, device, backward_kernel=kernel,
+                     timed=i == 0)
   for C in HEAD_CLASSES:
     check_onehot_head(HEAD_CLASS_SITES, device, C)
+
+
+# The sweep of `--phases device,build,wide_paths` (not run by default):
+# rows, and the widths of layer_norm_act by type and the GRU's deters,
+# past the plan, at which both backwards of such rows are timed.
+WIDE_PATH_ROWS = (1, 32, 1024, 16384)
+WIDE_PATH_LAYER_NORM = {
+    'bfloat16': (4097, 4100, 6148, 8196, 12292, 16385, 16392, 24580),
+    'float32': (4097, 4098, 6146, 8194, 12290, 12292, 16388),
+}
+WIDE_PATH_GRU = (2049, 2056, 3076, 4096, 6144)
+
+
+def _path_ms(kernel, fn, tries=5):
+  """Device ms of a call of `fn` (torch.profiler over 20 calls), which
+  must launch one device kernel whose name holds `kernel`."""
+  for _ in range(tries):
+    times = device_times(fn, calls=20)
+    if times:
+      break
+  if not any(kernel in key for key in times):
+    raise AssertionError(f'{kernel} did not run: the trace held '
+                         f'{list(times)}.')
+  return sum(ms for ms, _ in times.values())
+
+
+def phase_wide_paths():
+  """Both backwards of rows past the plan timed in turns (cluster, stream,
+  stream, cluster) at every site of the sweep above, each with the ELU and
+  without for layer_norm_act, to show where each is the faster (the
+  wrappers' CLUSTER_LEAST). Writes the times to wide_paths.json in a run
+  directory of its own."""
+  import torch
+  from daydreamer_tpu_torch.ops import gru, norm
+  rows_of = []
+
+  def turns(module, paths, fn, **site):
+    times = {}
+    for kernel, settings in (paths[0], paths[1], paths[1], paths[0]):
+      with _swapped(module, (), None, **settings):
+        times.setdefault(kernel, []).append(_path_ms(kernel, fn))
+    faster = min(times, key=lambda k: sum(times[k]))
+    log(f'wide_paths {site}: backward device ms '
+        + ', '.join(f'{k} {v[0]:.4f} / {v[1]:.4f}' for k, v in times.items())
+        + f'; faster {faster}')
+    rows_of.append(dict(site, ms=times, faster=faster))
+
+  for name, widths in WIDE_PATH_LAYER_NORM.items():
+    dtype = getattr(torch, name)
+    for C in widths:
+      for rows in WIDE_PATH_ROWS:
+        x, scale, bias, dy = _layer_norm_inputs(rows, C, dtype)
+        for act in ('elu', 'none'):
+          _, mean, rstd = norm.layer_norm_act_fwd_cuda(x, scale, bias, act)
+          turns(norm, LAYER_NORM_WIDE_PATHS,
+                lambda: norm.layer_norm_act_bwd_cuda(
+                    x, scale, bias, mean, rstd, dy, act),
+                kind='layer_norm', dtype=name, rows=rows, width=C, act=act)
+        del x, dy
+  for name in ('bfloat16', 'float32'):
+    dtype = getattr(torch, name)
+    for D in WIDE_PATH_GRU:
+      for rows in WIDE_PATH_ROWS:
+        x, deter, scale, bias, dout = _gru_inputs(rows, D, dtype)
+        _, mean, rstd = gru.gru_cell_fwd_cuda(x, deter, scale, bias)
+        turns(gru, GRU_WIDE_PATHS,
+              lambda: gru.gru_cell_bwd_cuda(x, deter, scale, bias, mean,
+                                            rstd, dout),
+              kind='gru', dtype=name, rows=rows, width=D)
+        del x, deter, dout
+  out = new_logdir('wide_paths') / 'wide_paths.json'
+  out.write_text(json.dumps(rows_of, indent=1))
+  log(f'wide_paths: the times in {out}')
 
 
 @contextlib.contextmanager
@@ -2471,13 +2651,18 @@ def main(argv=None):
   # Imported to register their kernels.
   del gru, lambda_returns, onehot, rssm, rssm_vjp
   device_name = phase_device()
+  # Where the run's seconds go: each phase's start, from the run's.
+  mark = lambda name: log(f'chip_smoke: {name} from '
+                          f'{time.perf_counter() - begin:.1f} s')
   if args.compare:
     for spec in args.compare:
       phase_compare(spec)
     return 0
   if 'build' in phases:
     phase_build()
+  mark('kernel')
   kernel = phase_kernel() if 'kernel' in phases else {}
+  mark('fused')
   if 'fused' in phases:
     kernel.update(phase_fused(args.fused_seeds))
   else:
@@ -2489,8 +2674,11 @@ def main(argv=None):
       kernel.update(check_gru_cell())
       kernel.update(check_onehot_head())
       check_rssm_step_widths()
+  if 'wide_paths' in phases:
+    phase_wide_paths()
   if 'rssm_widths' in phases and 'kernel' not in phases:
     check_rssm_widths(observe_shape('xarm', XARM_OBSERVE))
+  mark('graphs')
   if 'graphs' in phases:
     phase_graphs()
   elif 'graphs_widths' in phases:
@@ -2498,6 +2686,7 @@ def main(argv=None):
       _graphs_learner(name, 'fixed', overrides, paths)
   launches, parallel = {}, {}
   slice_run = None
+  mark('slice')
   if 'slice' in phases:
     counts, slice_run = phase_slice('slice', SLICE_ARGS,
                                     TRAIN_KERNELS + FUSION_KERNELS + STEP_FWD)
@@ -2507,25 +2696,34 @@ def main(argv=None):
     counts, _ = phase_slice('slice (rssm.impl scan)', SCAN_SLICE_ARGS, (
         'imagine_actor',) + STEP_KERNELS)
     launches.update({k: counts[k] for k in STEP_KERNELS})
+  mark('proof')
   if 'proof' in phases:
     launches.update(phase_proof())
+  mark('learner')
   if 'learner' in phases:
     phase_learner('learner (uniform ring)', 'fixed')
     phase_learner('learner (prioritized ring)', 'prio')
+  mark('a1')
   a1 = phase_a1() if 'a1' in phases else {}
+  mark('explore')
   if 'explore' in phases:
     phase_explore(slice_run)
+  mark('parallel')
   if 'parallel' in phases:
     parallel = phase_parallel()
   if 'parallel_cards' in phases:
     parallel.update(phase_parallel_cards())
+  mark('imitation')
   if 'imitation' in phases:
     phase_imitation(args.seed)
   if 'imitation_sim' in phases:
     phase_imitation_sim()
+  mark('tooling')
   profiled, profiled_a1 = phase_tooling() if 'tooling' in phases else ({},
                                                                        {})
+  mark('soak')
   soak = phase_soak() if 'soak' in phases else {}
+  mark('bench')
   benched = phase_bench(device_name) if 'bench' in phases else {}
   if 'impl_bench' in phases:
     phase_impl_bench()
@@ -3826,13 +4024,13 @@ PROFILED_OBSERVE = ('embed_kernel', 'chain_kernel', 'prior_kernel',
 
 
 def profile_tool(shape, rundir):
-  """`scripts/profile_train.py --shape SHAPE --dispatches 2` as a
+  """`scripts/profile_train.py --shape SHAPE --dispatches 1` as a
   subprocess, checked as `phase_tooling` says; returns its wrappers'
   launches."""
   from daydreamer_tpu_torch.nn import cost
   label = f'profile_train ({shape})'
   report = run_tool(label, 'daydreamer_tpu_torch.scripts.profile_train',
-                    ['--shape', shape, '--dispatches', '2',
+                    ['--shape', shape, '--dispatches', '1',
                      '--out', str(rundir / f'profile_{shape}.json')], rundir)
   updates, launches = report['updates_traced'], report['wrapper_launches']
   traced = {}
@@ -3899,8 +4097,8 @@ def profile_tool(shape, rundir):
 
 def phase_tooling():
   """The port's two instruments as a user runs them. First
-  `scripts/profile_train.py --shape xarm --dispatches 2` (K = 16:
-  one dispatch that creates the state, two warm, two traced, so 80
+  `scripts/profile_train.py --shape xarm --dispatches 1` (K = 16:
+  one dispatch that creates the state, two warm, one traced, so 64
   updates; then the bytes of an update by category): its wrappers must
   count observe_fwd and observe_bwd once a traced update and `observe`
   never, its trace must show observe_fwd's three device functions and
@@ -3935,9 +4133,10 @@ def phase_tooling():
   return profiled['xarm'], profiled['a1']
 
 
-# Two minutes of the deployment pair; the learner on the card with the fused
-# observe chain, the actor on a1_dummy (no MuJoCo on the card's machine).
-SOAK_ARGS = ['--minutes', '2', '--learner-device', 'cuda', '--actor-task',
+# A minute and a half of the deployment pair; the learner on the card with
+# the fused observe chain, the actor on a1_dummy (no MuJoCo on the card's
+# machine).
+SOAK_ARGS = ['--minutes', '1.5', '--learner-device', 'cuda', '--actor-task',
              'a1_dummy', '--rssm.impl', 'pallas']
 
 
@@ -3988,7 +4187,7 @@ def phase_soak():
   return {k: v for k, v in launches.items() if k != 'updates'}
 
 
-BENCH_BUDGET = 6.0  # Seconds of windows an arm in the bench phase.
+BENCH_BUDGET = 3.0  # Seconds of windows an arm in the bench phase.
 # Its updates a dispatch: the bench's K at xarm, fewer at test (256) and a1
 # (64), whose eager dispatches take 20-40 s each on the card.
 BENCH_K = {'test': 32, 'a1': 16, 'xarm': 16}

@@ -74,14 +74,28 @@
 // the gates read x itself: one elementwise kernel each way, a thread a
 // vector of columns, with no row or column sums (gru_bare_*_kernel). A deter
 // past MAX_D = 2 048 (3 D values, more than 256 lanes of SPREAD values
-// hold) takes a block a row that streams the row from memory: the forward
-// in three passes (the mean, the mean of squared deviations, the gates),
-// the backward in two (the gradient at the norm's output, a value of T,
-// parked in dx with the row's sums; then dx over it down a chunk of rows,
-// their column sums in registers),
-// its blocks' column sums in rows of `partial` summed in block order by a
-// cooperative grid as above (gru_wide_*_kernel). Both were written to be
-// right first: a simple kernel whose times PERF.md keeps.
+// hold) takes, forward, a block a row that streams the row from memory in
+// three passes (the mean, the mean of squared deviations, the gates;
+// gru_wide_fwd_kernel, written to be right first), and backward a cluster
+// of 8 blocks, 16 where 8 hold too little (gru_cluster_bwd_kernel, with
+// row_cluster.cuh): the cluster takes a run of rows and each lane of the
+// cluster the same columns of the three parts, of deter, dout and ddeter
+// in every row, so that a row is read from memory once and kept in
+// registers (at most 16 bytes of a part a lane: deters of up to 32 768
+// bfloat16 or 16 384 float32 values at 16 blocks of 256 threads); the
+// rows' sums meet through distributed shared memory, a batch of rows a
+// cluster barrier with the next batch's loads in flight, and the columns'
+// sums in one row of `partial` a cluster, summed in a fixed order by the
+// blocks that draw the last tickets (two levels where clusters take
+// several rows; no cooperative grid, no barrier in global memory). What
+// bounded the streaming backward before it (a block a row on 128 blocks,
+// each row read twice with its gradient parked in dx, a block barrier a
+// row, a row of `partial` a block) and what bounds this one are in
+// PERF.md. Deters wider than the cluster backward takes (or where the
+// caller gives no cluster) take that streaming backward
+// (gru_wide_bwd_kernel): two passes over memory, its blocks' column sums
+// in rows of `partial` summed in block order by a cooperative grid as
+// above.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,6 +104,7 @@
 #include <algorithm>
 
 #include "hopper_ptx.cuh"
+#include "row_cluster.cuh"
 
 namespace {
 
@@ -267,6 +282,47 @@ __device__ __forceinline__ void cell_grad(const float (&n)[3][1], float g,
   dn[0] = rounded<T>(g_r * (1.f - r) * r);
   dn[1] = rounded<T>(g_p * r);
   dn[2] = rounded<T>(g_u * (1.f - u) * u);
+}
+
+// cell_grad of P columns (1 or 2) at once, the same roundings in the same
+// order (row_cluster::round_pair: bfloat16 pairs in one conversion
+// instruction).
+template <class T, int P>
+__device__ __forceinline__ void cell_grad_pair(const float (&n)[3][P],
+                                               const float (&g)[P],
+                                               const float (&d)[P],
+                                               float (&dn)[3][P],
+                                               float (&dd)[P]) {
+  const Gates<T, P> ga(n);
+  float g_om[P], g_u[P], g_c[P], g_p[P], g_r[P];
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    g_om[q] = g[q] * d[q];
+    dd[q] = g[q] * ga.om[q];
+    g_u[q] = g[q] * ga.c[q];
+    g_c[q] = g[q] * ga.u[q];
+  }
+  row_cluster::round_pair<T, P>(g_om);
+  row_cluster::round_pair<T, P>(g_u);
+  row_cluster::round_pair<T, P>(g_c);
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    g_u[q] -= g_om[q];
+    g_p[q] = g_c[q] * (1.f - ga.c[q] * ga.c[q]);
+  }
+  row_cluster::round_pair<T, P>(g_u);
+  row_cluster::round_pair<T, P>(g_p);
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    g_r[q] = g_p[q] * n[1][q];
+    dn[1][q] = g_p[q] * ga.r[q];
+    dn[2][q] = g_u[q] * (1.f - ga.u[q]) * ga.u[q];
+  }
+  row_cluster::round_pair<T, P>(g_r);
+#pragma unroll
+  for (int q = 0; q < P; ++q) dn[0][q] = g_r[q] * (1.f - ga.r[q]) * ga.r[q];
+#pragma unroll
+  for (int p = 0; p < 3; ++p) row_cluster::round_pair<T, P>(dn[p]);
 }
 
 template <class T, int VEC, int N>
@@ -929,6 +985,217 @@ __global__ void __launch_bounds__(256)
   sum_partial(partial, C3, dscale, dbias, smem + 2 * WARPS);
 }
 
+// The backward of those rows, redesigned: a cluster of `ranks` blocks takes
+// a run of `per` consecutive rows, and lane rank * blockDim.x + threadIdx.x
+// of the cluster owns the same NV vectors of VEC columns of each of the
+// three parts, of deter, dout and ddeter in every row (vectors lane, lane +
+// lanes, ...; see row_cluster.cuh), so the gates need no exchange. Each
+// row's x, deter and dout are read from memory once and kept in registers
+// (the gradient at the norm's output, dn, rounded to T, beside x) for both
+// halves of the backward. A batch of B rows pays one cluster barrier for
+// its row sums (row_totals), with the next batch's loads issued before it.
+// The lane's scale and bias sit in its own slots of shared memory, and its
+// columns' sums of dn * xhat and dn in registers over all of the cluster's
+// rows, flushed once (flush_sums: the clusters' rows of `partial` summed
+// through the tickets), so no cooperative grid is needed.
+template <class T, int VEC, int NV>
+struct CellRow {
+  Pack<T, VEC> x[3][NV], d[NV], go[NV];
+  float mu, rs;
+};
+
+template <class T, int VEC, int NV>
+__device__ __forceinline__ void load_cell_row(
+    CellRow<T, VEC, NV>* r, const T* __restrict__ x,
+    const T* __restrict__ deter, const T* __restrict__ dout,
+    const float* __restrict__ mean, const float* __restrict__ rstd, int row,
+    int last, int D, int nvec, int lane, int lanes) {
+  if (row >= last) return;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int j = i * lanes + lane;
+    if (j >= nvec) continue;
+    const long at = (long)row * D + j * VEC;
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+      r->x[p][i] = *reinterpret_cast<const Pack<T, VEC>*>(
+          x + (long)row * 3 * D + p * D + j * VEC);
+    r->d[i] = *reinterpret_cast<const Pack<T, VEC>*>(deter + at);
+    r->go[i] = *reinterpret_cast<const Pack<T, VEC>*>(dout + at);
+  }
+  r->mu = mean[row];
+  r->rs = rstd[row];
+}
+
+template <class T, int VEC, int NV>
+__global__ void __launch_bounds__(256)
+    gru_cluster_bwd_kernel(const T* __restrict__ x,
+                           const T* __restrict__ deter,
+                           const float* __restrict__ scale,
+                           const float* __restrict__ bias,
+                           const float* __restrict__ mean,
+                           const float* __restrict__ rstd,
+                           const T* __restrict__ dout, T* __restrict__ dx,
+                           T* __restrict__ ddeter,
+                           float* __restrict__ partial,
+                           float* __restrict__ dscale,
+                           float* __restrict__ dbias,
+                           unsigned* __restrict__ tickets, int rows, int D,
+                           int ranks, int per) {
+  // x's three parts, deter and dout.
+  constexpr int B = row_cluster::rows_at(5 * NV * VEC * (int)sizeof(T));
+  constexpr int HEAD_B = row_cluster::head_floats<B>();
+  constexpr int V = NV * VEC;  // Values of a part a lane keeps.
+  // Columns rounded to T at once: bfloat16 in pairs.
+  constexpr int P = sizeof(T) == 2 && VEC % 2 == 0 ? 2 : 1;
+  // The row sums' and the ticket's floats, then the lane's scale and bias
+  // at [3][V][blockDim.x] each.
+  extern __shared__ __align__(16) float smem[];
+  const int threads = blockDim.x, C3 = 3 * D, nvec = D / VEC;
+  float* sc = smem + HEAD_B;
+  float* bi = sc + 3 * V * threads;
+  const int rank = ptx::cluster_rank(), mine = blockIdx.x / ranks;
+  const int lanes = ranks * threads, lane = rank * threads + threadIdx.x;
+  const int first = mine * per, last = min(rows, first + per);
+  auto param = [&](int p, int i, int k) {
+    return ((p * NV + i) * VEC + k) * threads + threadIdx.x;
+  };
+  // Only this thread reads its slots: no barrier.
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int j = i * lanes + lane;
+      if (j >= nvec) continue;
+      float v[VEC], w[VEC];
+      load_vec<VEC>(scale + p * D + j * VEC, v);
+      load_vec<VEC>(bias + p * D + j * VEC, w);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        sc[param(p, i, k)] = v[k];
+        bi[param(p, i, k)] = w[k];
+      }
+    }
+  // The lane's column sums: dscale's and dbias's of each part.
+  float acc[2][3 * NV][VEC];
+#pragma unroll
+  for (int e = 0; e < 3 * NV; ++e)
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) acc[0][e][k] = acc[1][e][k] = 0.f;
+
+  CellRow<T, VEC, NV> cur[B], next[B];
+  Pack<T, VEC> dn[B][3][NV];
+#pragma unroll
+  for (int b = 0; b < B; ++b)
+    load_cell_row(&cur[b], x, deter, dout, mean, rstd, first + b, last, D,
+                  nvec, lane, lanes);
+  int buf = 0;
+  for (int r0 = first; r0 < last; r0 += B, buf ^= 1) {
+    // The next batch in flight before this one's sums.
+#pragma unroll
+    for (int b = 0; b < B; ++b)
+      load_cell_row(&next[b], x, deter, dout, mean, rstd, r0 + B + b, last,
+                    D, nvec, lane, lanes);
+    float s1[B], s2[B];
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      s1[b] = s2[b] = 0.f;
+      const int row = r0 + b;
+      if (row >= last) continue;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int j = i * lanes + lane;
+        if (j >= nvec) continue;
+        Pack<T, VEC> dd;
+#pragma unroll
+        for (int k = 0; k < VEC; k += P) {
+          float xhat[3][P], n[3][P], g[P], d[P], dnv[3][P], ddv[P];
+#pragma unroll
+          for (int p = 0; p < 3; ++p) {
+#pragma unroll
+            for (int q = 0; q < P; ++q) {
+              xhat[p][q] =
+                  (widen(cur[b].x[p][i].v[k + q]) - cur[b].mu) * cur[b].rs;
+              n[p][q] = xhat[p][q] * sc[param(p, i, k + q)] +
+                        bi[param(p, i, k + q)];
+            }
+            row_cluster::round_pair<T, P>(n[p]);
+          }
+#pragma unroll
+          for (int q = 0; q < P; ++q) {
+            g[q] = widen(cur[b].go[i].v[k + q]);
+            d[q] = widen(cur[b].d[i].v[k + q]);
+          }
+          cell_grad_pair<T, P>(n, g, d, dnv, ddv);
+          row_cluster::store_pair<T, P>(ddv, &dd.v[k]);
+#pragma unroll
+          for (int p = 0; p < 3; ++p)
+            row_cluster::store_pair<T, P>(dnv[p], &dn[b][p][i].v[k]);
+#pragma unroll
+          for (int q = 0; q < P; ++q)
+#pragma unroll
+            for (int p = 0; p < 3; ++p) {
+              const float gs = dnv[p][q] * sc[param(p, i, k + q)];
+              s1[b] += gs;
+              s2[b] += gs * xhat[p][q];
+            }
+        }
+        *reinterpret_cast<Pack<T, VEC>*>(ddeter + (long)row * D + j * VEC) =
+            dd;
+      }
+    }
+    row_cluster::row_totals<B>(s1, s2, smem, buf, ranks);
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const int row = r0 + b;
+      if (row >= last) continue;
+      const float m1 = s1[b] / C3, m2 = s2[b] / C3;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int j = i * lanes + lane;
+        if (j >= nvec) continue;
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+          Pack<T, VEC> o;
+#pragma unroll
+          for (int k = 0; k < VEC; k += P) {
+            float v[P];
+#pragma unroll
+            for (int q = 0; q < P; ++q) {
+              const float xhat =
+                  (widen(cur[b].x[p][i].v[k + q]) - cur[b].mu) * cur[b].rs;
+              const float dnv = widen(dn[b][p][i].v[k + q]);
+              v[q] = cur[b].rs * (dnv * sc[param(p, i, k + q)] - m1 -
+                                  xhat * m2);
+              acc[0][p * NV + i][k + q] += dnv * xhat;
+              acc[1][p * NV + i][k + q] += dnv;
+            }
+            row_cluster::store_pair<T, P>(v, &o.v[k]);
+          }
+          *reinterpret_cast<Pack<T, VEC>*>(dx + (long)row * C3 + p * D +
+                                           j * VEC) = o;
+        }
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < B; ++b) cur[b] = next[b];
+  }
+  // No block leaves before every rank's reads of its row sums are done.
+  ptx::cluster_sync();
+  int col[3 * NV];
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int j = i * lanes + lane;
+      col[p * NV + i] = j < nvec ? p * D + j * VEC : -1;
+    }
+  row_cluster::flush_sums<3 * NV, VEC>(acc, col, C3, partial, 2L * C3,
+                                       gridDim.x / ranks, per > 1, mine,
+                                       tickets, rank, dscale, dbias,
+                                       smem + HEAD_B - 1);
+}
+
 // The vectors a lane may keep of a part (the kernels' N).
 constexpr int NS[] = {1, 2, 4, 8};
 
@@ -1131,9 +1398,100 @@ cudaError_t wide(bool backward, void* const* p, const int* dims, float eps,
       static_cast<float*>(p[10]), static_cast<unsigned*>(p[12]), rows, D);
 }
 
+// The cluster backward. dims as `run` reads them: [8] blocks a cluster,
+// [9] threads a block, [10] the vector's values, [11] clusters at most,
+// [12] counters in `tickets` (p[13]); `partial` (dims[3] rows) and the
+// counters must hold the clusters' and their groups' (row_cluster.cuh).
+template <class T, int VEC, int NV>
+cudaError_t cluster_bwd(void* const* p, const int* dims,
+                        cudaStream_t stream) {
+  auto kernel = gru_cluster_bwd_kernel<T, VEC, NV>;
+  constexpr int B = row_cluster::rows_at(5 * NV * VEC * (int)sizeof(T));
+  const int rows = dims[0], D = dims[1], ranks = dims[8], threads = dims[9];
+  if (ranks > row_cluster::MAX_RANKS || threads > THREADS ||
+      threads % 32)
+    return cudaErrorInvalidValue;
+  const size_t bytes =
+      (row_cluster::head_floats<B>() + 6 * NV * VEC * threads) *
+      sizeof(float);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t config;
+  int clusters = std::min(dims[11], rows);
+  cudaError_t err = row_cluster::configure(kernel, ranks, threads, bytes,
+                                           stream, &attr, &config, &clusters);
+  if (err != cudaSuccess) return err;
+  // A run of `per` rows a cluster, every cluster with one.
+  const int per = (rows + clusters - 1) / clusters;
+  clusters = (rows + per - 1) / per;
+  config.gridDim = dim3(ranks * clusters);
+  // The clusters' rows of `partial`, then the groups' (where clusters take
+  // several rows each and meet in groups); a counter a rank, and a counter a
+  // rank for each group.
+  int groups = 0;
+  if (clusters > 1 && per > 1) row_cluster::group_size(clusters, &groups);
+  if (clusters + (groups > 1 ? groups : 0) > dims[3] ||
+      row_cluster::MAX_RANKS * (1 + groups) > dims[12])
+    return cudaErrorInvalidValue;
+  return cudaLaunchKernelEx(
+      &config, kernel, static_cast<const T*>(p[0]),
+      static_cast<const T*>(p[1]), static_cast<const float*>(p[2]),
+      static_cast<const float*>(p[3]), static_cast<const float*>(p[4]),
+      static_cast<const float*>(p[5]), static_cast<const T*>(p[6]),
+      static_cast<T*>(p[7]), static_cast<T*>(p[11]),
+      static_cast<float*>(p[8]), static_cast<float*>(p[9]),
+      static_cast<float*>(p[10]), static_cast<unsigned*>(p[13]), rows, D,
+      ranks, per);
+}
+
+// The cluster backward at the vector dims[10] (up to 4 values) and the
+// vectors a lane keeps of a part (the fewest of 1, 2, 4, 8 that hold the
+// row, at most 16 bytes of each part a lane).
+template <class T>
+cudaError_t run_cluster(void* const* p, const int* dims,
+                        cudaStream_t stream) {
+  const int vec = dims[10], lanes = dims[8] * dims[9];
+  if (vec <= 0 || dims[1] % vec || vec * (int)sizeof(T) > 16 || lanes <= 0)
+    return cudaErrorInvalidValue;
+  const int nvec = dims[1] / vec;
+  int nv = 1;
+  while ((long)nv * lanes < nvec) nv *= 2;
+#define GRU_CLUSTER(V, NN)                                              \
+  if constexpr (V * NN * sizeof(T) <= 16)                               \
+    if (vec == V && nv == NN) return cluster_bwd<T, V, NN>(p, dims, stream);
+#define GRU_CLUSTERS(V)                                                 \
+  GRU_CLUSTER(V, 1) GRU_CLUSTER(V, 2) GRU_CLUSTER(V, 4) GRU_CLUSTER(V, 8)
+  GRU_CLUSTERS(4)
+  GRU_CLUSTERS(2)
+  GRU_CLUSTERS(1)
+#undef GRU_CLUSTERS
+#undef GRU_CLUSTER
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// The cluster backward (gru_cell_bwd's pointers and dims). Its
+// instantiations are compiled beside this file's, by an nvcc of their own
+// (gru_cluster.cu includes this file with GRU_CLUSTER_PART defined), and
+// the two objects are linked into one library (ops/build.py, `parts`).
+#ifdef GRU_CLUSTER_PART
+extern "C" int gru_cluster_bwd(int bf16, void* const* ptrs, const int* dims,
+                               void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? run_cluster<__nv_bfloat16>(ptrs, dims, st)
+              : run_cluster<float>(ptrs, dims, st);
+}
+#else
+extern "C" int gru_cluster_bwd(int bf16, void* const* ptrs, const int* dims,
+                               void* stream);
+#endif
+
+namespace {
+
 // One launch (forward or backward): without a norm the elementwise kernel;
 // else at the plan's VEC and N, or where no group of lanes holds the row
-// (D past MAX_D), the wide rows' kernels.
+// (D past MAX_D), the backward's cluster kernel where the caller gives it a
+// cluster (dims[8] > 0), else the wide rows' kernels.
 template <class T>
 cudaError_t run(bool backward, void* const* p, const int* dims, float eps,
                 cudaStream_t stream) {
@@ -1151,6 +1509,9 @@ cudaError_t run(bool backward, void* const* p, const int* dims, float eps,
   const int n = !norm ? 0
                 : backward ? plan<T>(dims[0], dims[1], dims[5], 1, &s, &vec)
                            : plan<T>(dims[0], dims[1], dims[3], 32, &s, &vec);
+  if (n == 0 && norm && backward && dims[8] > 0)
+    return static_cast<cudaError_t>(
+        gru_cluster_bwd(sizeof(T) == 2, p, dims, stream));
   if (n == 0) {
     if constexpr (sizeof(T) == 2) {
       GRU_OTHER(8)
@@ -1181,6 +1542,7 @@ cudaError_t run(bool backward, void* const* p, const int* dims, float eps,
 
 }  // namespace
 
+#ifndef GRU_CLUSTER_PART
 // ptrs: x [rows][3 D], deter [rows][D], scale [3 D], bias [3 D], out
 // [rows][D], mean [rows], rstd [rows]. dims: rows, D, max_blocks, lanes to
 // spread the rows over, norm (0: `norm: none`, scale, bias, mean and rstd
@@ -1193,15 +1555,19 @@ extern "C" int gru_cell_fwd(int bf16, void* const* ptrs, const int* dims,
 }
 
 // ptrs: x, deter, scale, bias, mean, rstd, dout [rows][D], dx [rows][3 D],
-// partial [rows of partial][6 D] (a row a block of a cooperative grid),
-// dscale [3 D], dbias [3 D], ddeter [rows][D], barrier (2 unsigned, zero
-// before the first launch). dims: rows, D, max_blocks, rows of partial,
-// blocks a cluster at most (up to 16), lanes to spread the rows over,
-// counters in barrier, norm (0: `norm: none`; then only x, deter, dout,
-// dx and ddeter are used).
+// partial [rows of partial][6 D] (a row a block of a cooperative grid, or
+// a cluster of the cluster kernel), dscale [3 D], dbias [3 D], ddeter
+// [rows][D], barrier (2 unsigned, zero before the first launch), tickets
+// (unsigned, zero between launches). dims: rows, D, max_blocks, rows of
+// partial, blocks a cluster at most (up to 16), lanes to spread the rows
+// over, counters in barrier, norm, and for rows past MAX_D the cluster
+// kernel's blocks a cluster (0: the wide kernels), threads a block, vector,
+// clusters at most and counters in tickets (norm 0: `norm: none`; then
+// only x, deter, dout, dx and ddeter are used).
 extern "C" int gru_cell_bwd(int bf16, void* const* ptrs, const int* dims,
                             float eps, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16 ? run<__nv_bfloat16>(true, ptrs, dims, eps, st)
               : run<float>(true, ptrs, dims, eps, st);
 }
+#endif  // GRU_CLUSTER_PART

@@ -79,10 +79,23 @@
 // 16); C = 512, 8 (N = 4); C = 1 536, 2 (G = 128, N = 3). Past 256 lanes
 // of SPREAD values a lane keeps up to 64 bfloat16 or 48 float32 values
 // (rows of up to 16 384 and 12 288, 4 096 where C is no multiple of a
-// vector). Wider rows take the streaming kernels (ln_stream_*_kernel): a
-// block a row, re-read from L2 for each pass (three forward, two
-// backward), the backward's column sums in rows of `partial` summed
-// through the same clusters and tickets. Written to be right first.
+// vector). Wider rows take the streaming forward (ln_stream_fwd_kernel: a
+// block a row, re-read from L2 for each of its three passes, written to be
+// right first) and the cluster backward (ln_cluster_bwd_kernel, with
+// row_cluster.cuh): a cluster of 8 blocks (16 where 8 hold too little)
+// takes a run of rows and each lane of the cluster the same columns of
+// every row, so that a row is read from memory once and kept in registers
+// (at most 32 bytes of x a lane: rows of up to 65 536 bfloat16 or 32 768
+// float32 values at 16 blocks of 256 threads); the rows' sums meet
+// through distributed shared memory, a batch of rows a cluster barrier
+// with the next batch's loads in flight, and the columns' sums in one row
+// of `partial` a cluster, summed through tickets (two levels where
+// clusters take several rows). What bounded the streaming backward before
+// it (a block a row on 128 blocks, each row read twice with its gradient
+// parked in dx, a block barrier a row, a row of `partial` a block) and
+// what bounds this one are in PERF.md. Rows wider than the cluster
+// backward takes (or where the caller gives no cluster) take the
+// streaming backward (ln_stream_bwd_kernel), two passes over memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,6 +104,7 @@
 #include <algorithm>
 
 #include "hopper_ptx.cuh"
+#include "row_cluster.cuh"
 
 namespace {
 
@@ -831,6 +845,191 @@ __global__ void __launch_bounds__(256)
            reinterpret_cast<float4*>(smem + HEAD));
 }
 
+// The backward of rows past the plan, redesigned: a cluster of `ranks`
+// blocks takes a run of `per` consecutive rows, and lane rank * blockDim.x
+// + threadIdx.x of the cluster owns the same NV vectors of VEC columns of
+// every row (vectors lane, lane + lanes, ...; see row_cluster.cuh). Each
+// row's x and dy are read from memory once and kept in registers for both
+// halves of the backward; the gradient at the norm's output (the ELU's,
+// rounded to T) replaces dy there. A batch of B rows pays one cluster
+// barrier for its row sums (row_totals), with the next batch's loads
+// issued before it. The lane's scale and bias sit in its own slots of
+// shared memory, and its columns' sums of dn * xhat and dn in registers
+// over all of the cluster's rows, flushed once (flush_sums: the clusters'
+// rows of `partial` summed through the tickets).
+template <class T, int VEC, int NV>
+struct ClusterRow {
+  Pack<T, VEC> x[NV], g[NV];
+  float mu, rs;
+};
+
+template <class T, int VEC, int NV>
+__device__ __forceinline__ void load_cluster_row(
+    ClusterRow<T, VEC, NV>* r, const T* __restrict__ x,
+    const T* __restrict__ dy, const float* __restrict__ mean,
+    const float* __restrict__ rstd, int row, int last, const Shape& s,
+    int lane, int lanes) {
+  if (row >= last) return;
+  const long at = (long)row * s.C;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int j = i * lanes + lane;
+    if (j < s.nvec) {
+      r->x[i] = *reinterpret_cast<const Pack<T, VEC>*>(x + at + j * VEC);
+      r->g[i] = *reinterpret_cast<const Pack<T, VEC>*>(dy + at + j * VEC);
+    }
+  }
+  r->mu = mean[row];
+  r->rs = rstd[row];
+}
+
+template <class T, int VEC, int NV>
+__global__ void __launch_bounds__(256)
+    ln_cluster_bwd_kernel(const T* __restrict__ x,
+                          const float* __restrict__ scale,
+                          const float* __restrict__ bias,
+                          const float* __restrict__ mean,
+                          const float* __restrict__ rstd,
+                          const T* __restrict__ dy, T* __restrict__ dx,
+                          float* __restrict__ partial,
+                          float* __restrict__ dscale,
+                          float* __restrict__ dbias,
+                          unsigned* __restrict__ tickets, Shape s, int ranks,
+                          int per) {
+  constexpr int B =
+      row_cluster::rows_at(2 * NV * VEC * (int)sizeof(T));  // x and dy.
+  constexpr int HEAD_B = row_cluster::head_floats<B>();
+  // Values rounded to T at once: bfloat16 in pairs.
+  constexpr int P = sizeof(T) == 2 && VEC % 2 == 0 ? 2 : 1;
+  // The row sums' and the ticket's floats, then the lane's scale and bias
+  // at [NV * VEC][blockDim.x] each.
+  extern __shared__ __align__(16) float smem[];
+  const int threads = blockDim.x;
+  float* sc = smem + HEAD_B;
+  float* bi = sc + NV * VEC * threads;
+  const int rank = ptx::cluster_rank(), mine = blockIdx.x / ranks;
+  const int lanes = ranks * threads, lane = rank * threads + threadIdx.x;
+  const int first = mine * per, last = min(s.rows, first + per);
+  // Only this thread reads its slots: no barrier.
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int j = i * lanes + lane;
+    if (j < s.nvec) {
+      float v[VEC], w[VEC];
+      load_vec<VEC>(scale + j * VEC, v);
+      load_vec<VEC>(bias + j * VEC, w);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        sc[(i * VEC + k) * threads + threadIdx.x] = v[k];
+        bi[(i * VEC + k) * threads + threadIdx.x] = w[k];
+      }
+    }
+  }
+  float acc[2][NV][VEC];
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) acc[0][i][k] = acc[1][i][k] = 0.f;
+
+  ClusterRow<T, VEC, NV> cur[B], next[B];
+#pragma unroll
+  for (int b = 0; b < B; ++b)
+    load_cluster_row(&cur[b], x, dy, mean, rstd, first + b, last, s, lane,
+                     lanes);
+  int buf = 0;
+  for (int r0 = first; r0 < last; r0 += B, buf ^= 1) {
+    // The next batch in flight before this one's sums.
+#pragma unroll
+    for (int b = 0; b < B; ++b)
+      load_cluster_row(&next[b], x, dy, mean, rstd, r0 + B + b, last, s,
+                       lane, lanes);
+    float s1[B], s2[B];
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      s1[b] = s2[b] = 0.f;
+      if (r0 + b >= last) continue;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        if (i * lanes + lane >= s.nvec) continue;
+#pragma unroll
+        for (int k = 0; k < VEC; k += P) {
+          float scv[P], xhat[P], dn[P];
+#pragma unroll
+          for (int q = 0; q < P; ++q) {
+            scv[q] = sc[(i * VEC + k + q) * threads + threadIdx.x];
+            xhat[q] = (widen(cur[b].x[i].v[k + q]) - cur[b].mu) * cur[b].rs;
+            dn[q] = widen(cur[b].g[i].v[k + q]);
+          }
+          if (s.act) {
+            // The ELU's gradient where n <= 0, dy where n > 0 (exact in T:
+            // its rounding changes nothing), rounded to T in its place.
+            float n[P];
+#pragma unroll
+            for (int q = 0; q < P; ++q)
+              n[q] = xhat[q] * scv[q] +
+                     bi[(i * VEC + k + q) * threads + threadIdx.x];
+            row_cluster::round_pair<T, P>(n);
+#pragma unroll
+            for (int q = 0; q < P; ++q)
+              if (!(n[q] > 0.f)) dn[q] *= expf(n[q]);
+            row_cluster::keep_pair<T, P>(dn, &cur[b].g[i].v[k]);
+          }
+#pragma unroll
+          for (int q = 0; q < P; ++q) {
+            const float gs = dn[q] * scv[q];
+            s1[b] += gs;
+            s2[b] += gs * xhat[q];
+          }
+        }
+      }
+    }
+    row_cluster::row_totals<B>(s1, s2, smem, buf, ranks);
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const int row = r0 + b;
+      if (row >= last) continue;
+      const float m1 = s1[b] / s.C, m2 = s2[b] / s.C;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int j = i * lanes + lane;
+        if (j >= s.nvec) continue;
+        Pack<T, VEC> out;
+#pragma unroll
+        for (int k = 0; k < VEC; k += P) {
+          float o[P];
+#pragma unroll
+          for (int q = 0; q < P; ++q) {
+            const float scv = sc[(i * VEC + k + q) * threads + threadIdx.x];
+            const float xhat =
+                (widen(cur[b].x[i].v[k + q]) - cur[b].mu) * cur[b].rs;
+            const float dn = widen(cur[b].g[i].v[k + q]);
+            o[q] = cur[b].rs * (dn * scv - m1 - xhat * m2);
+            acc[0][i][k + q] += dn * xhat;
+            acc[1][i][k + q] += dn;
+          }
+          row_cluster::store_pair<T, P>(o, &out.v[k]);
+        }
+        *reinterpret_cast<Pack<T, VEC>*>(dx + (long)row * s.C + j * VEC) = out;
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < B; ++b) cur[b] = next[b];
+  }
+  // No block leaves before every rank's reads of its row sums are done.
+  ptx::cluster_sync();
+  int col[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int j = i * lanes + lane;
+    col[i] = j < s.nvec ? j * VEC : -1;
+  }
+  const int Cp = (s.C + 3) & ~3;
+  row_cluster::flush_sums<NV, VEC>(acc, col, Cp, partial, 2L * Cp,
+                                   gridDim.x / ranks, per > 1, mine,
+                                   tickets, rank, dscale, dbias,
+                                   smem + HEAD_B - 1);
+}
+
 // The vectors a lane may keep (the kernels' N), and the values a lane
 // keeps at most in T.
 constexpr int NS[] = {1, 2, 3, 4, 6, 8, 12, 16};
@@ -1017,9 +1216,108 @@ cudaError_t stream_bwd(void* const* p, Shape s, const int* dims,
       static_cast<float*>(p[9]), static_cast<unsigned*>(p[10]), s, cluster);
 }
 
+// The cluster backward. dims as `run` reads them: [6] blocks a cluster,
+// [7] threads a block, [8] the vector's values, [9] clusters at most;
+// `partial` (dims[4] rows) and the counters (dims[5]) must hold the
+// clusters' and their groups' (row_cluster.cuh).
+template <class T, int VEC, int NV>
+cudaError_t cluster_bwd(void* const* p, Shape s, const int* dims,
+                        cudaStream_t stream) {
+  auto kernel = ln_cluster_bwd_kernel<T, VEC, NV>;
+  constexpr int B = row_cluster::rows_at(2 * NV * VEC * (int)sizeof(T));
+  const int ranks = dims[6], threads = dims[7];
+  if (ranks > row_cluster::MAX_RANKS || threads > THREADS ||
+      threads % 32)
+    return cudaErrorInvalidValue;
+  const size_t bytes =
+      (row_cluster::head_floats<B>() + 2 * NV * VEC * threads) *
+      sizeof(float);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t config;
+  int clusters = std::min(dims[9], s.rows);
+  cudaError_t err = row_cluster::configure(kernel, ranks, threads, bytes,
+                                           stream, &attr, &config, &clusters);
+  if (err != cudaSuccess) return err;
+  // A run of `per` rows a cluster, every cluster with one.
+  const int per = (s.rows + clusters - 1) / clusters;
+  clusters = (s.rows + per - 1) / per;
+  config.gridDim = dim3(ranks * clusters);
+  // The clusters' rows of `partial`, then the groups' (where clusters take
+  // several rows each and meet in groups); a counter a rank, and a counter a
+  // rank for each group.
+  int groups = 0;
+  if (clusters > 1 && per > 1) row_cluster::group_size(clusters, &groups);
+  if (clusters + (groups > 1 ? groups : 0) > dims[4] ||
+      row_cluster::MAX_RANKS * (1 + groups) > dims[5])
+    return cudaErrorInvalidValue;
+  return cudaLaunchKernelEx(
+      &config, kernel, static_cast<const T*>(p[0]),
+      static_cast<const float*>(p[1]), static_cast<const float*>(p[2]),
+      static_cast<const float*>(p[3]), static_cast<const float*>(p[4]),
+      static_cast<const T*>(p[5]), static_cast<T*>(p[6]),
+      static_cast<float*>(p[7]), static_cast<float*>(p[8]),
+      static_cast<float*>(p[9]), static_cast<unsigned*>(p[10]), s, ranks,
+      per);
+}
+
+// The cluster backward at the vector dims[8] and the vectors a lane keeps
+// (the fewest of 1, 2, 4, 8, 16 that hold the row, at most 32 bytes of x a
+// lane).
+template <class T>
+cudaError_t run_cluster(void* const* p, Shape s, const int* dims,
+                        cudaStream_t stream) {
+  const int vec = dims[8], lanes = dims[6] * dims[7];
+  if (vec <= 0 || s.C % vec || vec * (int)sizeof(T) > 16 || lanes <= 0)
+    return cudaErrorInvalidValue;
+  s.nvec = s.C / vec;
+  int nv = 1;
+  while ((long)nv * lanes < s.nvec) nv *= 2;
+#define LN_CLUSTER(V, NN)                                               \
+  if constexpr (V * NN * sizeof(T) <= 32 && V * sizeof(T) <= 16)        \
+    if (vec == V && nv == NN) return cluster_bwd<T, V, NN>(p, s, dims, stream);
+#define LN_CLUSTERS(V)                                                  \
+  LN_CLUSTER(V, 1) LN_CLUSTER(V, 2) LN_CLUSTER(V, 4) LN_CLUSTER(V, 8)   \
+  LN_CLUSTER(V, 16)
+  LN_CLUSTERS(8)
+  LN_CLUSTERS(4)
+  LN_CLUSTERS(2)
+  LN_CLUSTERS(1)
+#undef LN_CLUSTERS
+#undef LN_CLUSTER
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// The cluster backward (layer_norm_act_bwd's pointers and dims). Its
+// instantiations are compiled beside this file's, by an nvcc of their own
+// (layer_norm_cluster.cu includes this file with LAYER_NORM_CLUSTER_PART
+// defined), and the two objects are linked into one library
+// (ops/build.py, `parts`).
+#ifdef LAYER_NORM_CLUSTER_PART
+extern "C" int layer_norm_cluster_bwd(int bf16, void* const* ptrs,
+                                      const int* dims, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Shape s;
+  int vec;
+  if (bf16) {
+    plan<__nv_bfloat16>(dims[0], dims[1], dims[2], &s, &vec);
+    return run_cluster<__nv_bfloat16>(ptrs, s, dims, st);
+  }
+  plan<float>(dims[0], dims[1], dims[2], &s, &vec);
+  return run_cluster<float>(ptrs, s, dims, st);
+}
+#else
+extern "C" int layer_norm_cluster_bwd(int bf16, void* const* ptrs,
+                                      const int* dims, void* stream);
+#endif
+
+namespace {
+
 // One launch (forward or backward) at the plan's VEC and N, or where the
-// plan holds no row of C values (0), the streaming kernels at the widest
-// vector of up to 16 bytes that C is a multiple of.
+// plan holds no row of C values (0), the backward's cluster kernel where
+// the caller gives it a cluster (dims[6] > 0), else the streaming kernels
+// at the widest vector of up to 16 bytes that C is a multiple of.
 template <class T>
 cudaError_t run(bool backward, void* const* p, const int* dims, float eps,
                 cudaStream_t stream) {
@@ -1028,6 +1326,9 @@ cudaError_t run(bool backward, void* const* p, const int* dims, float eps,
   if (dims[0] <= 0 || dims[1] <= 0 || dims[3] <= 0)
     return cudaErrorInvalidValue;
   const int n = plan<T>(dims[0], dims[1], dims[2], &s, &vec);
+  if (n == 0 && backward && dims[6] > 0)
+    return static_cast<cudaError_t>(
+        layer_norm_cluster_bwd(sizeof(T) == 2, p, dims, stream));
   if (n == 0) {
     for (vec = 16 / (int)sizeof(T); s.C % vec;) vec /= 2;
     s.nvec = s.C / vec;
@@ -1065,6 +1366,7 @@ cudaError_t run(bool backward, void* const* p, const int* dims, float eps,
 
 }  // namespace
 
+#ifndef LAYER_NORM_CLUSTER_PART
 // ptrs: x, scale, bias, y, mean, rstd. dims: rows, C, act (0 none, 1
 // elu), max_blocks.
 extern "C" int layer_norm_act_fwd(int bf16, void* const* ptrs,
@@ -1074,12 +1376,16 @@ extern "C" int layer_norm_act_fwd(int bf16, void* const* ptrs,
               : run<float>(false, ptrs, dims, eps, st);
 }
 
-// ptrs: x, scale, bias, mean, rstd, dy, dx, partial [rows][2 Cp] (Cp: C
-// rounded up to 4), dscale, dbias, tickets (unsigned, zero between
-// launches). dims: rows, C, act, max_blocks, rows of partial, tickets.
+// ptrs: x, scale, bias, mean, rstd, dy, dx, partial [a row a cluster][2
+// Cp] (Cp: C rounded up to 4), dscale, dbias, tickets (unsigned, zero
+// between launches). dims: rows, C, act, max_blocks, rows of partial,
+// tickets, and for rows past the plan the cluster kernel's blocks a
+// cluster (0: the streaming kernel), threads a block, vector and clusters
+// at most.
 extern "C" int layer_norm_act_bwd(int bf16, void* const* ptrs,
                                   const int* dims, float eps, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16 ? run<__nv_bfloat16>(true, ptrs, dims, eps, st)
               : run<float>(true, ptrs, dims, eps, st);
 }
+#endif  // LAYER_NORM_CLUSTER_PART

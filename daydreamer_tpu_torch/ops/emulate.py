@@ -478,30 +478,43 @@ def _scaled(got, want):
   return _error(got, want) / max(1e-6, float(want.float().abs().max()))
 
 
+@contextlib.contextmanager
+def settings(module, values):
+  """Within the block the module's constants named in `values` (a dict, or
+  None) take those values."""
+  saved = {name: getattr(module, name) for name in values or {}}
+  for name, value in (values or {}).items():
+    setattr(module, name, value)
+  try:
+    yield
+  finally:
+    for name, value in saved.items():
+      setattr(module, name, value)
+
+
 def compare_layer_norm(dtype, C, rows, act, blocks=None, fwd_blocks=None,
-                       twice=False, seed=0):
+                       twice=False, cluster=None, seed=0):
   """The emulated `layer_norm_act_fwd` and `layer_norm_act_bwd` against
   the plain version and its autograd (call inside `emulated`); `blocks`
   and `fwd_blocks` cap the backward's and the forward's grid, so that a
   block takes several steps of rows; with `twice` the backward runs a
-  second time on the same inputs. Returns (the largest error of y relative
-  to max(|y|, 1), the largest scaled error of dx, dscale and dbias over the
-  runs for each of the three, whether every run gave the same bits and
-  left the counters at zero)."""
+  second time on the same inputs; `cluster` sets the cluster backward's
+  constants of `norm` (CLUSTER_RANKS, CLUSTER_THREADS, CLUSTER_BLOCKS,
+  CLUSTER_BYTES). Returns (the largest error of y relative to max(|y|,
+  1), the largest scaled error of dx, dscale and dbias over the runs for
+  each of the three, whether every run gave the same bits and left the
+  counters at zero)."""
   rng = np.random.default_rng(seed)
   t = lambda *shape: torch.as_tensor(
       rng.standard_normal(shape).astype(np.float32))
   x = (3 * t(rows, C) + 1).to(dtype)
   scale, bias, dy = 1 + 0.2 * t(C), 0.3 * t(C), t(rows, C).to(dtype)
-  saved = norm.FWD_BLOCKS, norm.BWD_BLOCKS
-  norm.FWD_BLOCKS, norm.BWD_BLOCKS = fwd_blocks or saved[0], blocks or saved[1]
-  try:
+  caps = {'FWD_BLOCKS': fwd_blocks, 'BWD_BLOCKS': blocks, **(cluster or {})}
+  with settings(norm, {k: v for k, v in caps.items() if v is not None}):
     y, mean, rstd = norm.layer_norm_act_fwd_cuda(x, scale, bias, act)
     runs = [norm.layer_norm_act_bwd_cuda(x, scale, bias, mean, rstd, dy, act)
             for _ in range(2 if twice else 1)]
     zeroed = not bool(norm._tickets(x.device).any())
-  finally:
-    norm.FWD_BLOCKS, norm.BWD_BLOCKS = saved
   leaves = [v.clone().requires_grad_() for v in (x, scale, bias)]
   ref = norm.layer_norm_act_plain(*leaves, act)
   want = torch.autograd.grad(ref, leaves, dy)
@@ -559,6 +572,11 @@ def compare_adam(sizes, decayed, warmup, seed=0):
   return rel, same
 
 
+# The settings of a case that send rows past the plan to PR 21's
+# streaming backward (no lane may keep a byte of a row, so no cluster plan
+# fits); the cases' few rows take the cluster backward without them.
+STREAMED = {'CLUSTER_BYTES': 0}
+
 # layer_norm_act: C = 64 and C = 130 in both dtypes, with the ELU and
 # without, on 37 rows (no multiple of a block's 32, 16 or 8 rows): bfloat16
 # at 64 takes 16-byte vectors and groups of 8 lanes, float32 at 64 groups
@@ -607,8 +625,36 @@ LAYER_NORM_CASES = (
 # on 2 rows; 4 097 bfloat16 (single values) on 150 rows in 17 blocks
 # (two clusters of 8, runs of 10 rows in chunks of 8 and 2, the last block
 # none; their rows summed by the last tickets) twice, equal bit for bit,
-# the counters back at zero. Each as (dtype, C, rows, act,
-# blocks[, fwd_blocks[, twice]]).
+# the counters back at zero. Since the cluster backward took the
+# backward of those rows, the same cases run it at its own geometry
+# (clusters of 8 blocks, `norm.lane_plan`: 4 100 bfloat16 in 8-byte
+# vectors, one a lane, blocks of 160 threads, 4 rows a barrier; 4 097 in
+# single values, 4 a lane, 256 threads, 66 clusters on 150 rows, 4 rows a
+# barrier; 16 392 bfloat16 and 12 292 float32 in 16-byte vectors, 2 a lane
+# for the first lanes, a row a barrier), and the streaming backward takes
+# C = 4 100 on 37 rows once more with CLUSTER_BYTES lowered to 2 (a block
+# for each chunk of 8 rows: one cluster of 5). Then the cluster backward at
+# smaller clusters: bfloat16 at 4 100 with the ELU on 10 rows in 3
+# clusters of 2 (runs of 4, 4 and 2 rows; 8-byte vectors, 4 a lane, 1 025
+# of them over 512 lanes; a row a barrier), their rows summed through the
+# tickets; float32 at 4 098 without it on 7 rows in 3 clusters of 4 (8-byte
+# vectors, 2 049 over 1 024 lanes) twice, equal bit for bit, the counters
+# back at zero; bfloat16 at 4 097 with the ELU (single values, 16 a lane)
+# on 6 rows in 2 clusters of 4 blocks of 128 threads; float32 at 12 292
+# with the ELU (16-byte vectors, 2 a lane) on 3 rows in one cluster of 8,
+# which writes dscale and dbias itself. Where a cluster takes more than
+# one row its clusters' rows meet in two levels of tickets (groups of
+# about sqrt(clusters) clusters): 4 097 on 150 rows (66 clusters in 8
+# groups), 4 100 on 10 rows (3 clusters in 2 groups); else in one. Last,
+# the streaming backward once more (STREAMED) at the first five widths
+# above that the cluster backward took: bfloat16 at 4 100 with the ELU and
+# float32 without on 5 rows, 16 392 bfloat16 on 3 rows, 12 292 float32 on
+# 2 rows, and 4 097 bfloat16 (single values) on 150 rows in 17 blocks
+# twice, equal bit for bit, the counters back at zero; and bfloat16 at
+# 4 100 on 37 rows sent there by the wrapper's own rule (rows of fewer
+# than CLUSTER_LEAST bytes, NARROW_ROWS lowered to 37). Each as
+# (dtype, C, rows, act, blocks[, fwd_blocks[, twice[, cluster]]]),
+# `cluster` the settings of `compare_layer_norm`.
 LAYER_NORM_GRID_CASES = (
     (torch.bfloat16, 64, 600, 'elu', None, 2),
     (torch.float32, 512, 40, 'none', None, 1),
@@ -627,6 +673,21 @@ LAYER_NORM_GRID_CASES = (
     (torch.bfloat16, 16392, 3, 'none', None),
     (torch.float32, 12292, 2, 'elu', None),
     (torch.bfloat16, 4097, 150, 'elu', 17, None, True),
+    (torch.bfloat16, 4100, 37, 'elu', 11, 3, False, {'CLUSTER_BYTES': 2}),
+    (torch.bfloat16, 4100, 10, 'elu', None, None, False,
+     {'CLUSTER_RANKS': 2, 'CLUSTER_BLOCKS': 6}),
+    (torch.float32, 4098, 7, 'none', None, None, True,
+     {'CLUSTER_RANKS': 4, 'CLUSTER_BLOCKS': 12}),
+    (torch.bfloat16, 4097, 6, 'elu', None, None, False,
+     {'CLUSTER_RANKS': 4, 'CLUSTER_THREADS': 128, 'CLUSTER_BLOCKS': 8}),
+    (torch.float32, 12292, 3, 'elu', None, None, False,
+     {'CLUSTER_RANKS': 8, 'CLUSTER_BLOCKS': 8}),
+    (torch.bfloat16, 4100, 5, 'elu', None, None, False, STREAMED),
+    (torch.float32, 4100, 5, 'none', None, None, False, STREAMED),
+    (torch.bfloat16, 16392, 3, 'none', None, None, False, STREAMED),
+    (torch.float32, 12292, 2, 'elu', None, None, False, STREAMED),
+    (torch.bfloat16, 4097, 150, 'elu', 17, None, True, STREAMED),
+    (torch.bfloat16, 4100, 37, 'elu', 11, 3, False, {'NARROW_ROWS': 37}),
 )
 # adam: three tensors of odd sizes, the second decayed, one of them over a
 # block's chunk; with a constant lr and with a warmup's tensor lr. Then 200
@@ -641,14 +702,17 @@ ADAM_CASES = (
 
 
 def compare_gru(dtype, D, rows, fwd_blocks=None, cluster=None, blocks=None,
-                lanes=None, fwd_lanes=None, normed=True, seed=0):
+                lanes=None, fwd_lanes=None, normed=True, wide=None, seed=0):
   """The emulated `gru_cell_fwd` and `gru_cell_bwd` against the plain
   version and its autograd (call inside `emulated`); `fwd_blocks` caps the
   forward's grid, so that a block takes several steps of rows, and
   `fwd_lanes` sets the lanes it spreads the rows over; `cluster`, `blocks`
   and `lanes` set the backward's cluster, its blocks at most and the lanes
   it spreads the rows over; without `normed` the cell has no norm (scale
-  and bias None). The backward runs twice. Returns (the largest error of
+  and bias None); `wide` sets the cluster backward's constants past
+  MAX_D (gru's CLUSTER_BYTES; norm's CLUSTER_RANKS, CLUSTER_THREADS and
+  CLUSTER_BLOCKS, which gru reads). The backward runs twice. Returns (the
+  largest error of
   the new deter relative to max(|deter|, 1), the largest scaled error of
   dx, ddeter, dscale and dbias (the first two without a norm), whether the
   two backward runs gave the same bits and left the counters at zero)."""
@@ -660,20 +724,19 @@ def compare_gru(dtype, D, rows, fwd_blocks=None, cluster=None, blocks=None,
   scale, bias, dout = 1 + 0.2 * t(3 * D), 0.3 * t(3 * D), t(rows, D).to(dtype)
   if not normed:
     scale = bias = None
-  names = ('FWD_BLOCKS', 'CLUSTER', 'BWD_BLOCKS', 'BWD_LANES', 'FWD_LANES')
-  saved = [getattr(gru, name) for name in names]
-  for name, value in zip(names, (fwd_blocks, cluster, blocks, lanes,
-                                 fwd_lanes)):
-    if value is not None:
-      setattr(gru, name, value)
-  try:
+  caps = dict(zip(('FWD_BLOCKS', 'CLUSTER', 'BWD_BLOCKS', 'BWD_LANES',
+                    'FWD_LANES'),
+                   (fwd_blocks, cluster, blocks, lanes, fwd_lanes)))
+  caps = {k: v for k, v in caps.items() if v is not None}
+  # The cluster geometry that gru.py reads from norm.
+  shared = {k: v for k, v in (wide or {}).items() if not hasattr(gru, k)}
+  caps.update({k: v for k, v in (wide or {}).items() if k not in shared})
+  with settings(gru, caps), settings(norm, shared):
     out, mean, rstd = gru.gru_cell_fwd_cuda(x, deter, scale, bias)
     runs = [gru.gru_cell_bwd_cuda(x, deter, scale, bias, mean, rstd, dout)
             for _ in range(2)]
-    zeroed = not bool(gru._barrier(x.device)[0])
-  finally:
-    for name, value in zip(names, saved):
-      setattr(gru, name, value)
+    zeroed = not (bool(gru._barrier(x.device)[0])
+                  or bool(gru._tickets(x.device).any()))
   leaves = [v.clone().requires_grad_() for v in (x, deter, scale, bias)
             if v is not None]
   ref = gru.gru_cell_plain(*leaves)
@@ -794,8 +857,29 @@ def _choices(stoch, ref, logit, u, rel=1e-5):
 # the grid's); on 1 row (one block, the sums written directly);
 # bfloat16 at D = 2 056 (16-byte vectors) on 3 rows; and float32 at D =
 # 2 049 on 20 rows in 2 blocks (runs of 10 rows in chunks of 8 and 2).
-# Each as (dtype, D, rows, fwd_blocks, cluster, blocks, lanes, fwd_lanes[,
-# normed]).
+# Since the cluster backward took the backward past MAX_D, the same cases
+# run it at its own geometry (clusters of 8 blocks, `norm.lane_plan`:
+# D = 2 049 in single values, 2 a lane for the first lanes, 256 threads, 2
+# rows a barrier in bfloat16 and a row in float32; D = 2 056 on 3 rows in
+# 4-byte vectors over 160 threads; 5, 7, 1, 3 and 20 clusters), and the
+# streaming backward takes D = 2 049 on 7 rows once
+# more with CLUSTER_BYTES lowered to 1 (a cooperative grid of 3 blocks).
+# Then the cluster backward at smaller clusters: bfloat16 at D = 2 056 on
+# 7 rows in 3 clusters of 4 blocks of 128 threads (runs of 3, 3 and 1 rows;
+# 8-byte vectors, 2 a lane, 514 of them over 512 lanes; a row a barrier);
+# float32 at D = 2 049 (single values, 4 a lane) on 6 rows in 2 clusters
+# of 4; bfloat16 at 2 049 (8 a lane) on 5 rows in one cluster of 2, which
+# writes dscale and dbias itself; float32 at D = 4 100 (16-byte vectors,
+# blocks of 160 threads) on 9 rows in 3 clusters of 8, which meet in two
+# levels of tickets (2 groups; the 20 clusters of a row each above meet in
+# one). Last, the streaming backward once more (STREAMED) where the
+# cluster backward took the cases above: float32 at D = 2 049 on 7 rows (a
+# cooperative grid of 3 blocks), bfloat16 on 1 row (one block, the sums
+# written directly), bfloat16 at D = 2 056 (16-byte vectors) on 3 rows,
+# float32 at D = 2 049 on 20 rows in 2 blocks (runs of 10 rows in chunks
+# of 8 and 2). Each as (dtype, D, rows,
+# fwd_blocks, cluster, blocks, lanes, fwd_lanes[, normed[, wide]]), `wide`
+# the settings of `compare_gru`.
 GRU_CASES = (
     (torch.bfloat16, 24, 150, 2, 2, 3, 1, 1),
     (torch.float32, 130, 37, None, 2, 2, 1, None),
@@ -823,6 +907,20 @@ GRU_CASES = (
     (torch.bfloat16, 2049, 1, None, None, None, None, None),
     (torch.bfloat16, 2056, 3, None, None, None, None, None),
     (torch.float32, 2049, 20, None, None, 2, None, None),
+    (torch.bfloat16, 2049, 7, 2, None, 3, None, None, True,
+     {'CLUSTER_BYTES': 1}),
+    (torch.bfloat16, 2056, 7, None, None, None, None, None, True,
+     {'CLUSTER_RANKS': 4, 'CLUSTER_THREADS': 128, 'CLUSTER_BLOCKS': 12}),
+    (torch.float32, 2049, 6, None, None, None, None, None, True,
+     {'CLUSTER_RANKS': 4, 'CLUSTER_BLOCKS': 8}),
+    (torch.bfloat16, 2049, 5, None, None, None, None, None, True,
+     {'CLUSTER_RANKS': 2, 'CLUSTER_BLOCKS': 2}),
+    (torch.float32, 4100, 9, None, None, None, None, None, True,
+     {'CLUSTER_RANKS': 8, 'CLUSTER_BLOCKS': 32}),
+    (torch.float32, 2049, 7, 2, None, 3, None, None, True, STREAMED),
+    (torch.bfloat16, 2049, 1, None, None, None, None, None, True, STREAMED),
+    (torch.bfloat16, 2056, 3, None, None, None, None, None, True, STREAMED),
+    (torch.float32, 2049, 20, None, None, 2, None, None, True, STREAMED),
 )
 # onehot: both kernels hold the same classes a lane unless the case names
 # the backward's. 8 classes a lane: bfloat16 with 32 classes (4 lanes a
@@ -936,7 +1034,8 @@ def run_case(name):
         2 ** -7, (2 ** -7 if kind == 'layer_norm_grid' else 1e-3, 1e-3, 1e-3))
     good = (fwd_err <= limits[0] and same
             and all(e <= lim for e, lim in zip(bwd_errs, limits[1])))
-    print(f'{name} {dtype} C, rows, act, blocks, fwd_blocks, twice {case}: '
+    print(f'{name} {dtype} C, rows, act, blocks, fwd_blocks, twice, cluster '
+          f'{case}: '
           f'forward error {fwd_err:.3g} (tolerance {limits[0]:g} of '
           f'max(|y|, 1)), scaled backward errors dx, dscale, dbias '
           f'{", ".join(f"{e:.3g}" for e in bwd_errs)} (tolerances '
@@ -957,7 +1056,7 @@ def run_case(name):
     good = (fwd_err <= limits[0] and same
             and all(e <= lim for e, lim in zip(bwd_errs, limits[1])))
     print(f'{name} {dtype} D, rows, fwd_blocks, cluster, blocks, lanes, '
-          f'fwd_lanes[, normed] {case}: forward '
+          f'fwd_lanes[, normed, wide] {case}: forward '
           f'error {fwd_err:.3g} (tolerance {limits[0]:g} of max(|y|, 1)), '
           f'scaled backward errors dx, ddeter, dscale, dbias '
           f'{", ".join(f"{e:.3g}" for e in bwd_errs)} (tolerances '

@@ -21,9 +21,17 @@ Without a norm (scale None, `norm: none`) the gates read x itself.
   distributed shared memory, or the rows of a cooperative grid's blocks in
   block order after a barrier, `_barrier`), so that a graphed call equals
   an eager one bit for bit. Without a norm (scale and bias None) both are
-  one elementwise pass; with D past `MAX_D` a block takes a row and
-  streams it (the backward's column sums in `partial`, summed in block
-  order by a cooperative grid). Every norm setting and D >= 1 runs.
+  one elementwise pass; with D past `MAX_D` the forward takes a block a
+  row and streams it, and the backward takes clusters (`cluster_plan`): a
+  cluster of norm.CLUSTER_RANKS blocks takes a run of rows, each rank the
+  same share of every row's columns of the three parts, of deter and dout,
+  so that each row is read once and kept in registers; the rows' sums meet
+  through distributed shared memory, the columns' sums in a row of
+  `partial` a cluster, summed in a fixed order by the blocks that draw the
+  last tickets (`_tickets`; in two levels where clusters take several
+  rows). Deters too wide for that (more than CLUSTER_BYTES of a part a
+  lane) take a block a row streamed in passes, its column sums summed in
+  block order by a cooperative grid. Every norm setting and D >= 1 runs.
 - On a CPU tensor it runs `gru_cell_plain`, the function in PyTorch ops
   (the RSSM's code before the kernel), and differentiates it by autograd.
 - Inside `build.plain_versions()` (tests and `chip_smoke.py` only) it runs
@@ -38,7 +46,8 @@ from ..nn import cost
 
 EPS = norm.EPS
 # The widest deter whose row a group of lanes holds in registers (256 lanes
-# of 8 values a part); wider rows take the streaming kernels.
+# of 8 values a part); wider rows take the streaming forward and the
+# cluster backward (below).
 MAX_D = 2048
 # The forward: at most FWD_BLOCKS blocks walking the rows; a group of at
 # least a warp a row, wider where the rows take fewer than FWD_LANES lanes
@@ -52,18 +61,27 @@ FWD_LANES = 8192
 # past the 8 that are portable) make one cluster; more make a cooperative
 # grid of at most BWD_BLOCKS blocks (and no more than the card holds at
 # once), each writing a row of partial column sums before a barrier
-# (BARRIER counters) after which each sums a share of the columns.
+# (BARRIER counters) after which each sums a share of the columns; so does
+# the streaming backward of deters too wide for the cluster backward.
 BWD_BLOCKS = 128
 CLUSTER = 16
 BWD_LANES = 4096
 BARRIER = 2
+# The backward past MAX_D: `norm.lane_plan` at the LayerNorm backward's
+# cluster geometry (norm.CLUSTER_RANKS, CLUSTER_THREADS, CLUSTER_BLOCKS,
+# SPREAD_BLOCKS) with vectors of up to CLUSTER_VALUES values, a lane
+# keeping at most CLUSTER_BYTES of each part of a row; ticket counters as
+# `norm.TICKETS`.
+CLUSTER_BYTES = 16
+CLUSTER_VALUES = 4
+TICKETS = norm.TICKETS
 
 GRU_CELL_FWD = build.register(build.Kernel(
     'gru_cell_fwd', 'gru.cu',
     'daydreamer_tpu/models/nets.py:271 (RSSM._gru after the gru_out '
     'product: its Norm and gates, one loop fusion of XLA)',
     {'gru_cell_fwd': build.signature(), 'gru_cell_bwd': build.signature()},
-    headers=('hopper_ptx.cuh',)))
+    headers=('hopper_ptx.cuh', 'row_cluster.cuh'), parts=('gru_cluster.cu',)))
 GRU_CELL_BWD = build.register(build.Kernel(
     'gru_cell_bwd', 'gru.cu',
     'daydreamer_tpu/models/nets.py:271 (the gradient of RSSM._gru after '
@@ -99,6 +117,20 @@ def _check(name, x, deter, scale, bias):
   return rows, D
 
 
+def cluster_plan(rows, D, dtype):
+  """`norm.lane_plan` of the cluster backward for rows of a deter of D
+  values of `dtype` past MAX_D (else None): vectors of up to
+  CLUSTER_VALUES values (the cell's gradient holds many values a column in
+  registers), at most CLUSTER_BYTES of a part a lane."""
+  item = torch.tensor([], dtype=dtype).element_size()
+  if D <= MAX_D:
+    return None
+  return norm.lane_plan(rows, D, item, min(16 // item, CLUSTER_VALUES),
+                        CLUSTER_BYTES, norm.CLUSTER_RANKS,
+                        norm.CLUSTER_THREADS, norm.CLUSTER_BLOCKS,
+                        norm.SPREAD_BLOCKS)
+
+
 def gru_cell_fwd_cuda(x, deter, scale, bias):
   """out, mean, rstd from one launch of `gru_cell_fwd`; x on a card. mean
   and rstd are None without a norm."""
@@ -128,25 +160,44 @@ def gru_cell_bwd_cuda(x, deter, scale, bias, mean, rstd, dout):
   build.check(name, [('x', x), ('deter', deter), ('dout', dout)], x.device,
               x.dtype)
   dx, ddeter = torch.empty_like(x), torch.empty_like(deter)
-  dscale = dbias = partial = barrier = None
+  dscale = dbias = partial = barrier = tickets = plan = None
   partial_rows = 0
   if scale is not None:
     build.check(name, [('mean', mean), ('rstd', rstd)], x.device,
                 torch.float32)
     dscale = torch.empty(3 * D, dtype=torch.float32, device=x.device)
     dbias = torch.empty(3 * D, dtype=torch.float32, device=x.device)
-    # A row of partial sums a block of a cooperative grid (no more blocks
-    # than rows): dscale's 3 D columns, then dbias's.
-    partial_rows = min(BWD_BLOCKS, rows)
+    plan = cluster_plan(rows, D, x.dtype)
+    # A row of partial sums a cluster of the cluster backward, else a
+    # block of a cooperative grid (no more blocks than rows): dscale's 3 D
+    # columns, then dbias's.
+    partial_rows = _partial_rows(rows, plan)
     partial = torch.empty((partial_rows, 6 * D), dtype=torch.float32,
                           device=x.device)
-    barrier = _barrier(x.device)
+    barrier, tickets = _barrier(x.device), _tickets(x.device)
   build.launch(GRU_CELL_BWD, 'gru_cell_bwd', x.dtype,
                [x, deter, scale, bias, mean, rstd, dout, dx, partial, dscale,
-                dbias, ddeter, barrier],
+                dbias, ddeter, barrier, tickets],
                [rows, D, BWD_BLOCKS, partial_rows, CLUSTER, BWD_LANES,
-                BARRIER, int(scale is not None)], [EPS], x.device)
+                BARRIER, int(scale is not None), *(plan or (0, 0, 0, 0)),
+                TICKETS], [EPS], x.device)
   return dx, ddeter, dscale, dbias
+
+
+def _partial_rows(rows, plan):
+  """The rows of `partial` a backward launch writes at most: a row a
+  cluster of the cluster backward's `plan` and a row for each group of its
+  clusters, else a row a block of a cooperative grid."""
+  if plan is not None:
+    return plan[3] + norm._groups(plan[3])
+  return min(BWD_BLOCKS, rows)
+
+
+def _tickets(device):
+  """The cluster backward's counters on `device` (`build.counters`): a
+  rank's, and a rank's in each group of clusters, each back at zero after
+  each launch."""
+  return build.counters('gru_cell_bwd_tickets', device, TICKETS)
 
 
 def _barrier(device):

@@ -24,15 +24,24 @@ with its callable, is applied after the norm by that callable.
   zeroed once, outside any capture, and reset by the kernel itself). A row
   wider than a block's lanes hold in registers (past 16 384 bfloat16 or
   12 288 float32 values, 4 096 where C is no multiple of a 16-byte vector)
-  takes the streaming path: a block a row, re-read from memory for each
-  pass, its column sums in rows of `partial` summed through the same
-  clusters and tickets. Every C >= 1 runs.
+  takes the streaming forward (a block a row, re-read from memory for each
+  pass) and the cluster backward (`cluster_plan`): a cluster of
+  CLUSTER_RANKS blocks takes a run of rows, each rank a share of every
+  row's columns, so that each row is read once and kept in registers; the
+  rows' sums meet through distributed shared memory, the columns' sums in
+  a row of `partial` a cluster, summed through the tickets (in two levels
+  where clusters take several rows). Rows too wide for that (more than
+  CLUSTER_BYTES of x a lane) take the streaming backward, and so do
+  launches of at least NARROW_ROWS rows of fewer than CLUSTER_LEAST bytes,
+  where it measured the faster. Every C >= 1 runs.
 - On a CPU tensor it runs `layer_norm_act_plain`, the same function in
   PyTorch ops (the layer's code before the kernel), and differentiates it
   by autograd.
 - Inside `build.plain_versions()` (tests and `chip_smoke.py` only) it runs
   the plain version on a card too.
 """
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -50,15 +59,38 @@ ACTS = {'none': lambda x: x, 'elu': F.elu}
 FWD_BLOCKS = 1056
 BWD_BLOCKS = 528
 # Counters of a backward launch's tickets: one for each rank of a cluster
-# (of up to 8 blocks).
-TICKETS = 8
+# (of up to 8 blocks), and in the cluster backward one for each of up to 16
+# ranks and each rank of up to 23 groups of clusters (`_groups`).
+TICKETS = 16 * 24
+# The backward of rows past the plan: clusters of CLUSTER_RANKS blocks (16,
+# past the 8 that are portable, where 8 would keep more than CLUSTER_BYTES
+# of a row's x a lane) of up to CLUSTER_THREADS threads, at most
+# CLUSTER_BLOCKS blocks (and no more clusters than the card holds at
+# once); fewer rows than SPREAD_BLOCKS / CLUSTER_RANKS take narrower
+# vectors over more lanes. Wider rows take the streaming backward, which
+# launches a block for each STREAM_ROWS rows (up to BWD_BLOCKS and the rows
+# of `partial`); so do launches of at least NARROW_ROWS rows of fewer than
+# CLUSTER_LEAST bytes, where the streaming backward measured the faster
+# (bfloat16 rows of 8-16 KB at 1 024 rows and more; the cluster backward
+# at 1 and 32 rows of any width, and from 24 KB at 1 024 rows: PERF.md,
+# PR 23).
+CLUSTER_RANKS = 8
+CLUSTER_THREADS = 256
+CLUSTER_BLOCKS = 528
+CLUSTER_BYTES = 32
+CLUSTER_LEAST = 16384
+NARROW_ROWS = 1024
+SPREAD_BLOCKS = 264
+STREAM_ROWS = 8
 
 LAYER_NORM_ACT_FWD = build.register(build.Kernel(
     'layer_norm_act_fwd', 'layer_norm.cu',
     'daydreamer_tpu/nn/layers.py:140 (Norm.__call__ and the activation '
     'after it, one loop fusion of XLA)',
     {'layer_norm_act_fwd': build.signature(),
-     'layer_norm_act_bwd': build.signature()}, headers=('hopper_ptx.cuh',)))
+     'layer_norm_act_bwd': build.signature()},
+    headers=('hopper_ptx.cuh', 'row_cluster.cuh'),
+    parts=('layer_norm_cluster.cu',)))
 LAYER_NORM_ACT_BWD = build.register(build.Kernel(
     'layer_norm_act_bwd', 'layer_norm.cu',
     'daydreamer_tpu/nn/layers.py:140 (the gradient of Norm and its '
@@ -96,6 +128,73 @@ def _check(name, x, scale, bias, act):
   return rows, C
 
 
+def lane_plan(rows, width, item, widest, most_bytes, ranks, threads,
+              blocks, spread):
+  """(blocks a cluster, threads a block, vector, clusters at most) of a
+  cluster backward for rows of `width` values of `item` bytes, or None
+  where a lane would keep more than `most_bytes` of a row (of a part):
+  the widest vector of up to `widest` values that `width` is a multiple
+  of; threads a multiple of 32 up to `threads`, as few as hold the row's
+  vectors; `ranks` blocks a cluster, 16 where that many keep too much; a
+  lane's vectors the fewest (a power of two) that hold the row. Fewer rows
+  than `spread` / ranks take narrower vectors while more threads can hold
+  them, so that few rows reach more lanes. The measurements behind the
+  defaults are in PERF.md."""
+  vec = widest
+  while width % vec:
+    vec //= 2
+
+  def geometry(vec, ranks):
+    nvec = width // vec
+    t = min(threads, -(-nvec // (ranks * 32)) * 32)
+    nv = 1
+    while nv * ranks * t < nvec:
+      nv *= 2
+    return t, nv
+
+  t, nv = geometry(vec, ranks)
+  if nv * vec * item > most_bytes and ranks < 16:
+    ranks = 16
+    t, nv = geometry(vec, ranks)
+  if nv * vec * item > most_bytes:
+    return None
+  while rows * ranks < spread and vec > 1 and 2 * t <= threads:
+    vec //= 2
+    t, nv = geometry(vec, ranks)
+  return ranks, t, vec, min(rows, max(1, blocks // ranks))
+
+
+def cluster_plan(rows, C, dtype):
+  """`lane_plan` of the cluster backward for rows of C values of `dtype`
+  (the kernel takes it only for rows too wide for a block's lanes): vectors
+  of up to 16 bytes, at most CLUSTER_BYTES of x a lane; None for at
+  least NARROW_ROWS rows of fewer than CLUSTER_LEAST bytes."""
+  item = torch.tensor([], dtype=dtype).element_size()
+  if rows >= NARROW_ROWS and C * item < CLUSTER_LEAST:
+    return None
+  return lane_plan(rows, C, item, 16 // item, CLUSTER_BYTES, CLUSTER_RANKS,
+                   CLUSTER_THREADS, CLUSTER_BLOCKS, SPREAD_BLOCKS)
+
+
+def _groups(clusters):
+  """The most groups the cluster backward's clusters meet in: about
+  sqrt(clusters) clusters a group (`row_cluster::group_size`)."""
+  size = math.isqrt(clusters - 1) + 1 if clusters > 1 else 1
+  return -(-clusters // size) if clusters > 1 else 0
+
+
+def _partial_rows(rows, plan):
+  """The rows of `partial` a backward launch may write: a row for each
+  block of the streaming backward (a block for each STREAM_ROWS rows, up to
+  BWD_BLOCKS), which also covers the clusters of 8 blocks of rows a
+  block's lanes hold; and with the cluster backward's `plan`, at least a
+  row a cluster and a row for each group of its clusters."""
+  rows_of = min(BWD_BLOCKS, -(-rows // STREAM_ROWS))
+  if plan is not None:
+    rows_of = max(rows_of, plan[3] + _groups(plan[3]))
+  return rows_of
+
+
 def _tickets(device):
   """The backward's counters on `device` (`build.counters`)."""
   return build.counters('layer_norm_act_bwd', device, TICKETS)
@@ -129,16 +228,18 @@ def layer_norm_act_bwd_cuda(x, scale, bias, mean, rstd, dy, act='none'):
   dx = torch.empty_like(x)
   dscale = torch.empty(C, dtype=torch.float32, device=x.device)
   dbias = torch.empty(C, dtype=torch.float32, device=x.device)
-  # A row of partial sums a cluster (no more clusters than rows): dscale's
-  # C columns, then dbias's, each rounded up to 4 floats.
-  partial = torch.empty((min(BWD_BLOCKS, rows), 2 * (-(-C // 4) * 4)),
+  plan = cluster_plan(rows, C, x.dtype)
+  # A row of partial sums a block or cluster: dscale's C columns, then
+  # dbias's, each rounded up to 4 floats.
+  partial = torch.empty((_partial_rows(rows, plan),
+                         2 * (-(-C // 4) * 4)),
                         dtype=torch.float32, device=x.device)
   tickets = _tickets(x.device)
   build.launch(LAYER_NORM_ACT_BWD, 'layer_norm_act_bwd', x.dtype,
                [x, scale, bias, mean, rstd, dy, dx, partial, dscale, dbias,
                 tickets],
                [rows, C, int(act == 'elu'), BWD_BLOCKS, partial.shape[0],
-                TICKETS], [EPS], x.device)
+                TICKETS, *(plan or (0, 0, 0, 0))], [EPS], x.device)
   return dx, dscale, dbias
 
 

@@ -20,6 +20,12 @@ counted in the traced window. On the card it also counts the RSSM's
 inside them (`initial_launches`): the loop path's observe rebuilds the
 initial state at every step.
 
+`--set KEY=VALUE` (repeats) overrides a config key after the shape's own
+overrides, the value read as a Python literal where it is one, else as a
+string: `--shape a1 --set rssm.deter=4096 --set rssm.classes=64 --set
+reward_head.units=4100` profiles the a1 update at the widths past the
+kernels' first layouts that `chip_smoke.py`'s graphs phase trains.
+
 `--graphs True` (the config's default) replays each update as a CUDA graph
 (`torch.graphs`), `False` runs it eagerly. Launches an update come two
 ways: `launches_per_update` counts the kernels, copies and sets that the
@@ -45,12 +51,13 @@ describe the same program.
 Usage:
   python -m daydreamer_tpu_torch.scripts.profile_train --shape xarm \\
       [--dispatches 8] [--graphs True|False] [--out FILE] \\
-      [--device cuda|cpu]
+      [--device cuda|cpu] [--set KEY=VALUE ...]
 
 The last line printed is the report as JSON.
 """
 
 import argparse
+import ast
 import collections
 import json
 import pathlib
@@ -122,6 +129,9 @@ OWN = {
     'onehot_any_bwd_kernel': 'onehot_head_bwd',
     'ln_stream_fwd_kernel': 'layer_norm_act_fwd',
     'ln_stream_bwd_kernel': 'layer_norm_act_bwd',
+    # The backwards of those wide rows on clusters.
+    'gru_cluster_bwd_kernel': 'gru_cell_bwd',
+    'ln_cluster_bwd_kernel': 'layer_norm_act_bwd',
 }
 # The other categories: the first pattern that matches the lowercased name.
 CATEGORIES = (
@@ -388,17 +398,35 @@ def initial_launches(agent, replay, state):
   return {'calls_per_update': calls[0], 'launches_per_update': inside}
 
 
-def profile_shape(shape, dispatches, K=None, device='cuda', graphs=True):
+def parse_sets(pairs):
+  """{key: value} of `--set KEY=VALUE` pairs: each value a Python literal
+  where it reads as one (4096, 0.5, True), else the string."""
+  sets = {}
+  for pair in pairs:
+    key, sep, value = pair.partition('=')
+    if not sep or not key:
+      raise ValueError(f'--set takes KEY=VALUE, not {pair!r}.')
+    try:
+      sets[key] = ast.literal_eval(value)
+    except (ValueError, SyntaxError):
+      sets[key] = value
+  return sets
+
+
+def profile_shape(shape, dispatches, K=None, device='cuda', graphs=True,
+                  sets=None):
   """Trace `dispatches` warm dispatches at `shape`, graphed or eager;
   returns the report, with the bytes of an update under `bytes`
   (`bytes_report`). `K` replaces the shape's fused updates (the
-  tests pass a small one)."""
+  tests pass a small one); `sets` overrides config keys after the shape's
+  own."""
   import torch
   from torch.profiler import ProfilerActivity, profile
   from daydreamer_tpu_torch.ops import build, lambda_returns
   del lambda_returns  # Imported to register its kernel's count.
   device = resolve_device(device)
   task, overrides, shape_k = SHAPES[shape]
+  overrides = {**overrides, **(sets or {})}
   K = shape_k if K is None else K
   agent, data = build_agent(
       task, {**overrides, 'torch.graphs': bool(graphs)}, device)
@@ -432,7 +460,8 @@ def profile_shape(shape, dispatches, K=None, device='cuda', graphs=True):
                          categories if on_card else [])
   initial = initial_launches(agent, replay, state) if on_card else None
   return {
-      'shape': shape, 'fused_K': K, 'dispatches': dispatches,
+      'shape': shape, 'sets': sets or {}, 'fused_K': K,
+      'dispatches': dispatches,
       'graphs': bool(graphs),
       'capture_s': graph.get('capture_s'),
       'pool_bytes': graph.get('pool_bytes'),
@@ -470,7 +499,8 @@ def profile_shape(shape, dispatches, K=None, device='cuda', graphs=True):
 def print_report(report):
   unit = 'device' if report['device_busy_ms_per_update'] is not None else (
       'cpu self')
-  print(f"{report['shape']} (K = {report['fused_K']}, graphs "
+  print(f"{report['shape']} {report['sets']} (K = {report['fused_K']}, "
+        f"graphs "
         f"{report['graphs']}, "
         f"{report['updates_traced']} updates traced) on {report['device']} "
         f"({report['card']}): wall {report['wall_ms_per_update']:.3f} ms per "
@@ -518,9 +548,12 @@ def main(argv=None):
   parser.add_argument('--graphs', default='True', choices=['True', 'False'])
   parser.add_argument('--out', default='')
   parser.add_argument('--device', default='cuda', choices=['cuda', 'cpu'])
+  parser.add_argument('--set', action='append', default=[],
+                      metavar='KEY=VALUE')
   args = parser.parse_args(argv)
   report = profile_shape(args.shape, args.dispatches, device=args.device,
-                         graphs=args.graphs == 'True')
+                         graphs=args.graphs == 'True',
+                         sets=parse_sets(args.set))
   print_report(report)
   if args.out:
     pathlib.Path(args.out).write_text(json.dumps(report, indent=1) + '\n')

@@ -58,6 +58,17 @@ def test_profile_train_on_cpu(capsys, monkeypatch):
   assert json.loads(last) == json.loads(json.dumps(report))
 
 
+def test_profile_train_sets():
+  """`--set KEY=VALUE` reads each value as a Python literal where it is
+  one, else as a string, and refuses a pair without `=`."""
+  assert profile_train.parse_sets([
+      'rssm.deter=4096', 'rssm.norm=none', 'torch.graphs=False',
+      'x.lr=1e-4']) == {'rssm.deter': 4096, 'rssm.norm': 'none',
+                        'torch.graphs': False, 'x.lr': 1e-4}
+  with pytest.raises(ValueError, match='KEY=VALUE'):
+    profile_train.parse_sets(['rssm.deter'])
+
+
 @pytest.mark.parametrize('name,category', [
     ('void (anonymous namespace)::prior_kernel<__nv_bfloat16>('
      '(anonymous namespace)::Params)', 'observe_fwd'),
@@ -138,6 +149,10 @@ def test_profile_train_on_cpu(capsys, monkeypatch):
     ('void (anonymous namespace)::ln_stream_fwd_kernel<__nv_bfloat16, 4>('
      '__nv_bfloat16 const*)', 'layer_norm_act_fwd'),
     ('void (anonymous namespace)::ln_stream_bwd_kernel<float, 4>(float '
+     'const*)', 'layer_norm_act_bwd'),
+    ('void (anonymous namespace)::gru_cluster_bwd_kernel<__nv_bfloat16, 1, '
+     '1>(__nv_bfloat16 const*)', 'gru_cell_bwd'),
+    ('void (anonymous namespace)::ln_cluster_bwd_kernel<float, 2, 2>(float '
      'const*)', 'layer_norm_act_bwd'),
 ])
 def test_categorize(name, category):

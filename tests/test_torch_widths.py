@@ -16,6 +16,10 @@ counts that are no power of two from 2 to 32, a deter past 2 048 and
   cases, `tests/test_torch_emulate_gru.py`, `_onehot.py`, `_update.py`).
 - `gru_cell` without a norm goes through `GRUCell`, the kernels' Function,
   and equals the plain version and its gradients exactly on the CPU.
+- The LayerNorm backward of rows past the plan picks its kernel by the
+  rows and their width (`norm.cluster_plan`: the cluster backward, or the
+  streaming one for many narrow rows and for rows too wide for a
+  cluster), and sizes `partial` for the launch it picks.
 """
 
 import numpy as np
@@ -126,3 +130,30 @@ def test_gru_cell_without_norm_goes_through_gru_cell_function():
   assert torch.equal(out, ref)
   for got, want in zip(leaves, plain):
     assert torch.equal(got.grad, want.grad)
+
+
+@pytest.mark.parametrize('rows,C,dtype,clustered', [
+    (1024, 4100, torch.bfloat16, False),
+    (16384, 6148, torch.bfloat16, False),
+    (32, 4100, torch.bfloat16, True),
+    (1, 4097, torch.bfloat16, True),
+    (1024, 16392, torch.bfloat16, True),
+    (1024, 4097, torch.float32, True),
+    (1024, 12292, torch.float32, True),
+    (1024, 70000, torch.bfloat16, False),
+])
+def test_layer_norm_backward_path(rows, C, dtype, clustered):
+  plan = norm.cluster_plan(rows, C, dtype)
+  assert (plan is not None) == clustered
+  partial = norm._partial_rows(rows, plan)
+  # At least the streaming backward's blocks and the clusters of 8 blocks
+  # of rows a block's lanes hold; with a plan, its clusters' and groups'.
+  assert partial >= min(norm.BWD_BLOCKS, -(-rows // norm.STREAM_ROWS))
+  assert partial >= -(-min(rows, norm.BWD_BLOCKS) // 8)
+  if plan is not None:
+    ranks, threads, vec, clusters = plan
+    assert partial >= clusters + norm._groups(clusters)
+    item = torch.tensor([], dtype=dtype).element_size()
+    # The cluster's lanes hold the row, at most CLUSTER_BYTES of it a lane.
+    assert C % vec == 0 and threads % 32 == 0
+    assert ranks * threads * (norm.CLUSTER_BYTES // item) >= C
