@@ -219,15 +219,16 @@ Phases, each of which must pass:
                update (32 x 256 and 32 x 768, a step of observe; 1 024 x
                256 and 1 024 x 512, a step of the rollout), in float32 and
                bfloat16, within the tolerances it prints, a second
-               backward launch equal to the first bit for bit, with the
+               launch each way equal to the first bit for bit, with the
                times of kernel, plain version, F.layer_norm alone where it
                is the same function (float32, no activation) and the
                bound; first each instantiation's registers and spills from
                the build log; then rows past the layout that holds a row in
-               registers (the streaming forward; the backward timed on
-               the kernel the wrapper picks and held untimed on the other
-               of its two, the clusters' and the streaming one, each by
-               name in the trace): bfloat16 1 024 x 4 100 and 1 024 x
+               registers (timed on the kernels the wrapper picks each
+               way and held untimed on the other two: the staged or the
+               streaming forward, the clusters' or the streaming
+               backward, each by name in the trace): bfloat16 1 024 x
+               4 100 and 1 024 x
                16 392, float32 1 024 x 12 292, each with the ELU and
                without (the extra phase `layer_norm`, not run by default,
                runs this part alone).
@@ -251,7 +252,8 @@ Phases, each of which must pass:
                1 024 rows of 4 096; the backward timed on the clusters'
                kernel and held untimed on the streaming one, each by name
                in the trace), the head at 3, 48, 64 and 256 classes (32
-               and 1 024 rows, sampled and the mode). Each kernel's trace
+               and 1 024 rows, sampled and the mode; the backward on the
+               group kernel, by name in the trace). Each kernel's trace
                must hold one device kernel a call, or it is taken again.
                Then one xarm update with the kernels and one with the plain
                versions (`build.plain_versions()`) from one state and one
@@ -284,7 +286,11 @@ The line before the last lists the kernels as JSON; the last line is
 the script exits non-zero and prints no result. `--phases` runs a subset;
 the extra phase `wide_paths` (not run by default) times both backwards
 of rows past the plan, the clusters' and the streaming one, at a sweep of
-widths and row counts of layer_norm_act and the GRU cell, and writes the
+widths and row counts of layer_norm_act and the GRU cell, and the
+forwards of LayerNorm rows past the plan (staged as the wrapper plans it,
+staged at other block sizes and buffers, streaming) at the same widths
+and rows
+(`--wide-paths forward` or `backward` sweeps one way only), and writes the
 times to wide_paths.json in its run directory under runs/ (each time is
 also logged); the extra phase `parallel_cards` (not run by default; it
 needs two cards or more) runs one rank of the worker on each card over
@@ -339,11 +345,13 @@ tree) in bfloat16 and float32 (observe at the xarm and a1 shapes of the proof
 entry point; layer_norm at each site of LAYER_NORM_SITES and
 WIDE_LAYER_NORM_SITES, forward and backward, after each version's
 registers and spills, autograd of F.layer_norm beside the float32 sites
-without an activation; gru at each site of GRU_SITES, in bfloat16
+without an activation and F.layer_norm's forward beside the bfloat16
+ones; gru at each site of GRU_SITES, in bfloat16
 GRU_LARGE_SITES, and GRU_WIDE_SITES, onehot at each site of
 HEAD_SITES, forward and backward, after each instantiation's registers and
 spills, with the tree's own variants beside them: the GRU forward's
-group of lanes a row, the head's classes a lane each way): how a change to
+group of lanes a row, the head's classes a lane each way; then the head
+at HEAD_CLASSES, the backward's times): how a change to
 a kernel is held against its parent inside one run.
 """
 
@@ -1034,14 +1042,23 @@ def compare_layer_norm(source):
   other, other, tree), with autograd of F.layer_norm beside them where it
   is the same function (float32, no activation). The other version gets
   `partial` as the wrappers sized it before they counted a launch's rows
-  (a row a block of up to BWD_BLOCKS), which an older source may write."""
+  (a row a block of up to BWD_BLOCKS), which an older source may write,
+  and the tree's parts that lie beside SOURCE (`layer_norm_cluster.cu`,
+  `layer_norm_staged.cu`). Beside the bfloat16 sites without an activation
+  F.layer_norm's forward on the bfloat16 row with the float32 scale and
+  bias, where the installed PyTorch takes them, else with them cast to
+  bfloat16 (logged which)."""
   import torch
   import torch.nn.functional as F
   from daydreamer_tpu_torch.nn import cost
   from daydreamer_tpu_torch.ops import build, norm
   tree = norm.LAYER_NORM_ACT_FWD
-  other = build.Kernel('layer_norm_other', str(pathlib.Path(source).resolve()),
-                       'another version', tree.signature)
+  source = pathlib.Path(source).resolve()
+  other = build.Kernel('layer_norm_other', str(source), 'another version',
+                       tree.signature, parts=[
+                           str(source.parent / part.name)
+                           for part in tree.parts
+                           if (source.parent / part.name).exists()])
   build.build_all([tree, other])
   for kernel in (tree, other):
     layer_norm_registers(kernel)
@@ -1079,6 +1096,15 @@ def compare_layer_norm(source):
                                                  retain_graph=True))
       library = f'; autograd of F.layer_norm backward {ms:.4f}'
       del lib, leaves
+    if dtype == torch.bfloat16 and act == 'none':
+      try:
+        F.layer_norm(x, (C,), scale, bias, eps=norm.EPS)
+        params, how = (scale, bias), 'float32 scale and bias'
+      except RuntimeError:
+        params = (scale.to(dtype), bias.to(dtype))
+        how = 'scale and bias cast to bfloat16'
+      ms = device_ms(lambda: F.layer_norm(x, (C,), *params, eps=norm.EPS))
+      library = f'; F.layer_norm forward ({how}) {ms:.4f}'
     log(f'compare layer_norm {str(dtype).split(".")[-1]} rows {rows} x C '
         f'{C} ({act}): outputs equal bit for bit: {equal} (largest '
         f'difference {worst:.3g}); device ms forward / backward: '
@@ -1227,15 +1253,20 @@ def compare_onehot(source):
   largest difference of the logits and the groups whose sample differs),
   and their device times in turns (tree, other, other, tree), the tree at
   2 and 8 classes a lane forward and at 2, 4 and 8 backward beside
-  them."""
+  them; then at each of HEAD_CLASSES (the general path) on 1 024 rows,
+  sampled and the mode, both types, the bits of both ways and the
+  backward's times in turns."""
   import torch
+  from daydreamer_tpu_torch.nn import cost
   from daydreamer_tpu_torch.ops import build, onehot
   tree = onehot.ONEHOT_HEAD_FWD
   other = build.Kernel('onehot_other', str(pathlib.Path(source).resolve()),
                        'another version', tree.signature)
   build.build_all([tree, other])
   for kernel in (tree, other):
-    log_registers(kernel, ('onehot_fwd_kernel', 'onehot_bwd_kernel'))
+    log_registers(kernel, ('onehot_fwd_kernel', 'onehot_bwd_kernel',
+                           'onehot_any_fwd_kernel', 'onehot_any_bwd_kernel',
+                           'onehot_group_bwd_kernel'))
   names = ('ONEHOT_HEAD_FWD', 'ONEHOT_HEAD_BWD')
 
   def under(kernel, fn, **settings):
@@ -1272,6 +1303,27 @@ def compare_onehot(source):
           ('tree', under(tree, bwd)), ('other', under(other, bwd)),
           *[(f'{k} a lane', under(tree, bwd, BWD_LANE_CLASSES=k))
             for k in (2, 4, 8)]])
+    for C in HEAD_CLASSES:
+      for rows, sample in HEAD_CLASS_SITES[2:]:
+        raw, u, dlogit, dstoch = _head_inputs(rows, sample, dtype, C=C)
+        fwd = lambda: onehot.onehot_head_fwd_cuda(raw, u, unimix)
+        logit, stoch = under(tree, fwd)()
+        fwd_equal, fwd_worst = _differ((logit, stoch), under(other, fwd)())
+        bwd = lambda: onehot.onehot_head_bwd_cuda(raw, logit, dlogit, dstoch,
+                                                  unimix, sample)
+        bwd_equal, bwd_worst = _differ([under(tree, bwd)()],
+                                       [under(other, bwd)()])
+        bound = cost.bound(*onehot.onehot_head_work(
+            rows, HEAD_S, C, dtype, unimix, sample, backward=True), dtype)
+        label = (f'compare onehot {name} rows {rows} x {HEAD_S} x {C} '
+                 f'({"sample" if sample else "mode"})')
+        log(f'{label}: forward equal bit for bit {fwd_equal} (largest '
+            f'difference {fwd_worst:.3g}); backward equal bit for bit '
+            f'{bwd_equal} (largest difference {bwd_worst:.3g})')
+        _turns(f'{label} backward (bound {bound["bound_ms"]:.4f} '
+               f'{bound["bound_by"]})',
+               [('tree', under(tree, bwd)), ('other', under(other, bwd))])
+        del raw, u, dlogit, dstoch, logit, stoch
 
 
 def phase_compare(spec):
@@ -1522,16 +1574,17 @@ _PTXAS_FUNCTION = re.compile(r"(?:Compiling entry function|Function "
 _PTXAS_SPILLS = re.compile(r'(\d+) bytes spill stores, (\d+) bytes spill '
                            r'loads')
 _PTXAS_REGISTERS = re.compile(r'Used (\d+) registers')
-# A layer_norm.cu kernel's mangled name: kernel, T, VEC and N.
+# A layer_norm.cu kernel's mangled name: kernel, T, VEC and N where the
+# kernel has one.
 _LN_MANGLED = re.compile(r'(ln_\w+?_kernel)I(13__nv_bfloat16|f)Li(\d+)E'
-                         r'Li(\d+)E')
+                         r'(?:Li(\d+)E)?')
 
 
 def layer_norm_registers(kernel=None):
   """Each instantiation of layer_norm.cu's kernels with its registers and
   spill bytes, from ptxas -v in the build log (of `kernel`, by default the
   tree's layer_norm.cu): rows of (kernel, type, VEC, N, registers, spill
-  stores, spill loads), logged."""
+  stores, spill loads), logged; N is 0 where the kernel has none."""
   from daydreamer_tpu_torch.ops import norm
   kernel = kernel or norm.LAYER_NORM_ACT_FWD
   found, function = {}, None
@@ -1543,7 +1596,9 @@ def layer_norm_registers(kernel=None):
     name = _LN_MANGLED.search(function or '')
     if name is None:
       continue
-    row = found.setdefault(name.groups(), [None, None, None])
+    kernel_name, dtype, vec, n = name.groups()
+    row = found.setdefault((kernel_name, dtype, vec, n or '0'),
+                           [None, None, None])
     if _PTXAS_SPILLS.search(line):
       row[1:] = [int(v) for v in _PTXAS_SPILLS.search(line).groups()]
     if _PTXAS_REGISTERS.search(line):
@@ -1614,7 +1669,7 @@ def _layer_norm_inputs(rows, C, dtype, seed=0, device='cuda'):
 
 def check_layer_norm(sites=LAYER_NORM_SITES, device='cuda',
                      dtypes=('float32', 'bfloat16'), backward_kernel=None,
-                     timed=True):
+                     timed=True, forward_kernel=None):
   """layer_norm_act's two kernels against the plain version (the layer's
   F.layer_norm on the upcast input, its two casts and the F.elu) and its
   autograd at each site of LAYER_NORM_SITES, in float32 and bfloat16, with
@@ -1624,8 +1679,9 @@ def check_layer_norm(sites=LAYER_NORM_SITES, device='cuda',
   and is None elsewhere: no call fuses the norm with the ELU, nor in
   bfloat16 with its casts (F.layer_norm takes scale and bias in x's dtype
   there). Each kernel's trace must hold one device kernel a call
-  (`device_ms`'s `expect`), and where `backward_kernel` names one, the
-  backward's must be that kernel. `dtypes` names the types to check;
+  (`device_ms`'s `expect`), and where `backward_kernel` (`forward_kernel`)
+  names one, the backward's (forward's) must be that kernel. `dtypes`
+  names the types to check;
   without `timed` nothing is timed. Returns the rows of the largest site,
   the encoder's first stage."""
   import torch
@@ -1643,6 +1699,12 @@ def check_layer_norm(sites=LAYER_NORM_SITES, device='cuda',
       # blocks in a fixed order, the counters reset by the first).
       same = all(torch.equal(a, b) for a, b in zip(got, (
           norm.layer_norm_act_bwd_cuda(x, scale, bias, mean, rstd, dy, act))))
+      # A second forward launch: the same bits.
+      same &= all(torch.equal(a, b) for a, b in zip(
+          (y, mean, rstd), norm.layer_norm_act_fwd_cuda(x, scale, bias, act)))
+      if forward_kernel is not None:
+        _expect_kernel(forward_kernel, lambda: norm.layer_norm_act_fwd_cuda(
+            x, scale, bias, act), 'forward')
       if backward_kernel is not None:
         _expect_kernel(backward_kernel, lambda: norm.layer_norm_act_bwd_cuda(
             x, scale, bias, mean, rstd, dy, act))
@@ -1705,7 +1767,7 @@ def check_layer_norm(sites=LAYER_NORM_SITES, device='cuda',
           f'error {fwd:.3g} (tolerance {limits[0]:g} of max(|y|, 1)), '
           f'backward scaled errors dx {scaled[0]:.3g}, dscale '
           f'{scaled[1]:.3g}, dbias {scaled[2]:.3g} (tolerances '
-          f'{limits[1]}), two backward launches equal {same}' + timings)
+          f'{limits[1]}), two launches each way equal {same}' + timings)
       if not ok:
         raise AssertionError(f'layer_norm_act disagrees with its plain '
                              f'version in {name} at rows {rows} x C {C}.')
@@ -1859,7 +1921,7 @@ def check_gru_cell(sites=GRU_SITES, device='cuda', normed=True,
           f'(tolerance {limits[0]:g} of max(|y|, 1)), backward scaled errors'
           f' dx, ddeter[, dscale, dbias] '
           f'{", ".join(f"{e:.3g}" for e in scaled)} (tolerances '
-          f'{limits[1]}), two backward launches equal {same}' + timings)
+          f'{limits[1]}), two launches each way equal {same}' + timings)
       if not ok:
         raise AssertionError(f'gru_cell disagrees with its plain version in '
                              f'{name} at rows {rows} x D {D}.')
@@ -1903,7 +1965,8 @@ def _head_ties(stoch, ref_stoch, logit, ref_logit, u):
   return int(differ.sum()), bool(ties.all())
 
 
-def check_onehot_head(sites=HEAD_SITES, device='cuda', C=HEAD_C):
+def check_onehot_head(sites=HEAD_SITES, device='cuda', C=HEAD_C,
+                      backward_kernel=None):
   """onehot_head's two kernels against the plain version (the unimix
   logit, `OneHotDist` and its straight-through Gumbel-max sample or its
   mode, `onehot.onehot_head_plain`) and its autograd at each site of
@@ -1912,8 +1975,9 @@ def check_onehot_head(sites=HEAD_SITES, device='cuda', C=HEAD_C):
   (counted), with the times of both and the bound; each kernel's trace
   must hold one device kernel a call. No PyTorch call computes the head
   (none mixes in a uniform floor, nor samples with the straight-through
-  estimator), so `library_ms` is None. Returns the rows of the rollout's
-  site."""
+  estimator), so `library_ms` is None. Where `backward_kernel` names one,
+  the backward's device kernel must be that kernel. Returns the rows of
+  the rollout's site."""
   import torch
   from daydreamer_tpu_torch.nn import cost
   from daydreamer_tpu_torch.ops import onehot
@@ -1927,6 +1991,9 @@ def check_onehot_head(sites=HEAD_SITES, device='cuda', C=HEAD_C):
       args = (raw, logit, dlogit, dstoch, unimix, sample)
       draw = onehot.onehot_head_bwd_cuda(*args)
       same = torch.equal(draw, onehot.onehot_head_bwd_cuda(*args))
+      if backward_kernel is not None:
+        _expect_kernel(backward_kernel,
+                       lambda: onehot.onehot_head_bwd_cuda(*args))
       leaf = raw.clone().requires_grad_()
       ref_logit, ref_stoch = onehot.onehot_head_plain(leaf, u, unimix)
       outs = [ref_logit, ref_stoch] if sample else [ref_logit]
@@ -2019,38 +2086,62 @@ GRU_WIDE_PATHS = (('gru_cluster_bwd_kernel', {}),
                   ('gru_wide_bwd_kernel', {'CLUSTER_BYTES': 0}))
 
 
-def _expect_kernel(name, fn, tries=5):
+def _staged(rows, C, dtype, act):
+  """`norm.stage_plan` sending every row whose buffers fit to the staged
+  forward."""
+  from daydreamer_tpu_torch.ops import norm
+  return norm.stage_buffers(C, dtype)
+
+
+# The forwards of rows past the plan with the settings of `norm` that
+# force each, the staged one first; and the head backward's kernel at
+# every site of HEAD_CLASSES.
+LAYER_NORM_WIDE_FORWARDS = (('ln_staged_fwd_kernel', {'stage_plan': _staged}),
+                            ('ln_stream_fwd_kernel',
+                             {'stage_plan': lambda *_: 0}))
+HEAD_CLASS_BACKWARD = 'onehot_group_bwd_kernel'
+
+
+def _expect_kernel(name, fn, way='backward', tries=5):
   """Raises unless the device kernels of a call of `fn` (torch.profiler
   over 20 calls, taken again where it saw none) include one whose name
-  holds `name`; logs it."""
+  holds `name`; logs it as the kernel of `way`."""
   for _ in range(tries):
     names = list(device_times(fn, calls=20))
     if names:
       break
   if not any(name in key for key in names):
     raise AssertionError(f'{name} did not run: the trace held {names}.')
-  log(f'  backward kernel: {name}')
+  log(f'  {way} kernel: {name}')
 
 
 def check_layer_norm_widths(device='cuda'):
   """check_layer_norm at WIDE_LAYER_NORM_SITES: rows too wide for a
-  block's lanes to hold (the streaming forward), each with its backward on
-  the kernel the wrapper picks and, untimed, on the other
-  (LAYER_NORM_WIDE_PATHS)."""
+  block's lanes to hold, once timed on the kernels the wrapper picks each
+  way and once, untimed, on the other two (the other of
+  LAYER_NORM_WIDE_FORWARDS and of LAYER_NORM_WIDE_PATHS), each kernel by
+  name in the trace."""
   import torch
   from daydreamer_tpu_torch.ops import norm
   for name, sites in WIDE_LAYER_NORM_SITES.items():
+    dtype = getattr(torch, name)
     for site in sites:
-      rows, C, _ = site
-      picked = norm.cluster_plan(rows, C, getattr(torch, name)) is None
+      rows, C, act = site
+      picked = norm.cluster_plan(rows, C, dtype) is None
+      forward = int(norm.stage_plan(rows, C, dtype, act) == 0)
       for i, (kernel, settings) in enumerate(LAYER_NORM_WIDE_PATHS):
         timed = i == picked
-        how = "the wrapper's pick" if timed else settings
-        log(f'layer_norm_act past the plan, the backward on {kernel} '
-            f'({how}):')
-        with _swapped(norm, (), None, **({} if timed else settings)):
+        fwd_kernel, fwd_settings = LAYER_NORM_WIDE_FORWARDS[
+            forward if timed else 1 - forward]
+        how = ("the wrapper's picks" if timed
+               else {**settings, **fwd_settings})
+        log(f'layer_norm_act past the plan, the forward on {fwd_kernel}, '
+            f'the backward on {kernel} ({how}):')
+        with _swapped(norm, (), None,
+                      **({} if timed else {**settings, **fwd_settings})):
           check_layer_norm((site,), device, dtypes=(name,),
-                           backward_kernel=kernel, timed=timed)
+                           backward_kernel=kernel, timed=timed,
+                           forward_kernel=fwd_kernel)
 
 
 def check_rssm_step_widths(device='cuda'):
@@ -2067,18 +2158,37 @@ def check_rssm_step_widths(device='cuda'):
       check_gru_cell(GRU_WIDE_SITES, device, backward_kernel=kernel,
                      timed=i == 0)
   for C in HEAD_CLASSES:
-    check_onehot_head(HEAD_CLASS_SITES, device, C)
+    check_onehot_head(HEAD_CLASS_SITES, device, C, HEAD_CLASS_BACKWARD)
 
 
 # The sweep of `--phases device,build,wide_paths` (not run by default):
 # rows, and the widths of layer_norm_act by type and the GRU's deters,
-# past the plan, at which both backwards of such rows are timed.
+# past the plan, at which both backwards of such rows, and the forwards of
+# LayerNorm rows (LAYER_NORM_FORWARD_PATHS), are timed.
 WIDE_PATH_ROWS = (1, 32, 1024, 16384)
 WIDE_PATH_LAYER_NORM = {
     'bfloat16': (4097, 4100, 6148, 8196, 12292, 16385, 16392, 24580),
     'float32': (4097, 4098, 6146, 8194, 12290, 12292, 16388),
 }
 WIDE_PATH_GRU = (2049, 2056, 3076, 4096, 6144)
+# The forwards of LayerNorm rows past the plan, by label: their device
+# kernel and the settings of `norm` they run under: the staged forward at
+# every site, its blocks as the kernel picks them; staged in blocks of 256
+# threads with 2 and with 3 buffers and of 128 threads with 2, as many
+# blocks as fit; and the streaming forward (`stage_plan` giving no
+# buffers). The wrapper's `stage_plan` is picked from their times.
+LAYER_NORM_FORWARD_PATHS = (
+    ('staged', 'ln_staged_fwd_kernel', {'stage_plan': _staged}),
+    ('staged_256x2', 'ln_staged_fwd_kernel',
+     {'stage_plan': _staged, 'STAGE_THREADS': 256, 'STAGE_BLOCKS': 1 << 16,
+      'STAGES': 2}),
+    ('staged_256x3', 'ln_staged_fwd_kernel',
+     {'stage_plan': _staged, 'STAGE_THREADS': 256, 'STAGE_BLOCKS': 1 << 16,
+      'STAGES': 3}),
+    ('staged_128x2', 'ln_staged_fwd_kernel',
+     {'stage_plan': _staged, 'STAGE_THREADS': 128, 'STAGE_BLOCKS': 1 << 16,
+      'STAGES': 2}),
+    ('stream', 'ln_stream_fwd_kernel', {'stage_plan': lambda *_: 0}))
 
 
 def _path_ms(kernel, fn, tries=5):
@@ -2094,15 +2204,53 @@ def _path_ms(kernel, fn, tries=5):
   return sum(ms for ms, _ in times.values())
 
 
-def phase_wide_paths():
+def phase_wide_paths(ways=('forward', 'backward')):
   """Both backwards of rows past the plan timed in turns (cluster, stream,
   stream, cluster) at every site of the sweep above, each with the ELU and
   without for layer_norm_act, to show where each is the faster (the
-  wrappers' CLUSTER_LEAST). Writes the times to wide_paths.json in a run
-  directory of its own."""
+  wrappers' CLUSTER_LEAST); and the forwards of LayerNorm rows past the
+  plan (LAYER_NORM_FORWARD_PATHS) in turns (each in order, then in the
+  reverse order) at the same sites, each held to the staged forward's
+  output. `ways` picks the forward and the backward. Writes the times to
+  wide_paths.json in a run directory of its own."""
   import torch
   from daydreamer_tpu_torch.ops import gru, norm
   rows_of = []
+  if 'forward' in ways:
+    for name, widths in WIDE_PATH_LAYER_NORM.items():
+      dtype = getattr(torch, name)
+      for C in widths:
+        for rows in WIDE_PATH_ROWS:
+          x, scale, bias, _ = _layer_norm_inputs(rows, C, dtype)
+          for act in ('elu', 'none'):
+            fwd = lambda: norm.layer_norm_act_fwd_cuda(x, scale, bias, act)
+            times, outs = {}, {}
+            for label, kernel, settings in (LAYER_NORM_FORWARD_PATHS
+                                            + LAYER_NORM_FORWARD_PATHS[::-1]):
+              with _swapped(norm, (), None, **settings):
+                times.setdefault(label, []).append(_path_ms(kernel, fwd))
+                outs.setdefault(label, fwd())
+            # They sum a row in other orders: y within a unit in the last
+            # place of bfloat16, float32's forward tolerance.
+            ref = outs['staged']
+            worst = max(float(((a.float() - b.float()).abs()
+                               / b.float().abs().clamp_min(1)).max())
+                        for out in outs.values() for a, b in zip(out, ref))
+            if not worst <= (2 ** -7 if name == 'bfloat16' else 1e-5):
+              raise AssertionError(f'the forwards of rows {rows} x {C} '
+                                   f'({name}, {act}) disagree: {worst:.3g}')
+            faster = min(times, key=lambda k: sum(times[k]))
+            site = dict(kind='layer_norm_fwd', dtype=name, rows=rows,
+                        width=C, act=act)
+            log(f'wide_paths {site}: forward device ms '
+                + ', '.join(f'{k} {v[0]:.4f} / {v[1]:.4f}'
+                            for k, v in times.items())
+                + f'; faster {faster}; largest difference from staged '
+                f'{worst:.3g} of max(|value|, 1)')
+            rows_of.append(dict(site, ms=times, faster=faster,
+                                difference=worst))
+            del outs, ref
+          del x
 
   def turns(module, paths, fn, **site):
     times = {}
@@ -2115,29 +2263,30 @@ def phase_wide_paths():
         + f'; faster {faster}')
     rows_of.append(dict(site, ms=times, faster=faster))
 
-  for name, widths in WIDE_PATH_LAYER_NORM.items():
-    dtype = getattr(torch, name)
-    for C in widths:
-      for rows in WIDE_PATH_ROWS:
-        x, scale, bias, dy = _layer_norm_inputs(rows, C, dtype)
-        for act in ('elu', 'none'):
-          _, mean, rstd = norm.layer_norm_act_fwd_cuda(x, scale, bias, act)
-          turns(norm, LAYER_NORM_WIDE_PATHS,
-                lambda: norm.layer_norm_act_bwd_cuda(
-                    x, scale, bias, mean, rstd, dy, act),
-                kind='layer_norm', dtype=name, rows=rows, width=C, act=act)
-        del x, dy
-  for name in ('bfloat16', 'float32'):
-    dtype = getattr(torch, name)
-    for D in WIDE_PATH_GRU:
-      for rows in WIDE_PATH_ROWS:
-        x, deter, scale, bias, dout = _gru_inputs(rows, D, dtype)
-        _, mean, rstd = gru.gru_cell_fwd_cuda(x, deter, scale, bias)
-        turns(gru, GRU_WIDE_PATHS,
-              lambda: gru.gru_cell_bwd_cuda(x, deter, scale, bias, mean,
-                                            rstd, dout),
-              kind='gru', dtype=name, rows=rows, width=D)
-        del x, deter, dout
+  if 'backward' in ways:
+    for name, widths in WIDE_PATH_LAYER_NORM.items():
+      dtype = getattr(torch, name)
+      for C in widths:
+        for rows in WIDE_PATH_ROWS:
+          x, scale, bias, dy = _layer_norm_inputs(rows, C, dtype)
+          for act in ('elu', 'none'):
+            _, mean, rstd = norm.layer_norm_act_fwd_cuda(x, scale, bias, act)
+            turns(norm, LAYER_NORM_WIDE_PATHS,
+                  lambda: norm.layer_norm_act_bwd_cuda(
+                      x, scale, bias, mean, rstd, dy, act),
+                  kind='layer_norm', dtype=name, rows=rows, width=C, act=act)
+          del x, dy
+    for name in ('bfloat16', 'float32'):
+      dtype = getattr(torch, name)
+      for D in WIDE_PATH_GRU:
+        for rows in WIDE_PATH_ROWS:
+          x, deter, scale, bias, dout = _gru_inputs(rows, D, dtype)
+          _, mean, rstd = gru.gru_cell_fwd_cuda(x, deter, scale, bias)
+          turns(gru, GRU_WIDE_PATHS,
+                lambda: gru.gru_cell_bwd_cuda(x, deter, scale, bias, mean,
+                                              rstd, dout),
+                kind='gru', dtype=name, rows=rows, width=D)
+          del x, deter, dout
   out = new_logdir('wide_paths') / 'wide_paths.json'
   out.write_text(json.dumps(rows_of, indent=1))
   log(f'wide_paths: the times in {out}')
@@ -2629,6 +2778,8 @@ def main(argv=None):
               'explore,parallel,imitation,tooling,soak,bench')
   parser.add_argument('--compare', action='append', default=[],
                       metavar='NAME=SOURCE')
+  parser.add_argument('--wide-paths', default='forward,backward',
+                      help='The ways the wide_paths phase sweeps.')
   parser.add_argument('--seed', type=int, default=0)
   parser.add_argument('--fused-seeds', type=int, default=1)
   parser.add_argument('--curve-config', default='xarm', choices=CURVES)
@@ -2675,7 +2826,7 @@ def main(argv=None):
       kernel.update(check_onehot_head())
       check_rssm_step_widths()
   if 'wide_paths' in phases:
-    phase_wide_paths()
+    phase_wide_paths(args.wide_paths.split(','))
   if 'rssm_widths' in phases and 'kernel' not in phases:
     check_rssm_widths(observe_shape('xarm', XARM_OBSERVE))
   mark('graphs')

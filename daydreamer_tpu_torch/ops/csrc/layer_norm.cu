@@ -79,10 +79,12 @@
 // 16); C = 512, 8 (N = 4); C = 1 536, 2 (G = 128, N = 3). Past 256 lanes
 // of SPREAD values a lane keeps up to 64 bfloat16 or 48 float32 values
 // (rows of up to 16 384 and 12 288, 4 096 where C is no multiple of a
-// vector). Wider rows take the streaming forward (ln_stream_fwd_kernel: a
-// block a row, re-read from L2 for each of its three passes, written to be
-// right first) and the cluster backward (ln_cluster_bwd_kernel, with
-// row_cluster.cuh): a cluster of 8 blocks (16 where 8 hold too little)
+// vector). Wider rows take, as the caller picks, the staged forward
+// (ln_staged_fwd_kernel: a block a row at a time, copied into shared
+// memory once with the next rows' copies in flight) or the streaming one
+// (ln_stream_fwd_kernel, which re-reads a row from L1 or L2 for each of
+// its three passes), and the cluster backward (ln_cluster_bwd_kernel,
+// with row_cluster.cuh): a cluster of 8 blocks (16 where 8 hold too little)
 // takes a run of rows and each lane of the cluster the same columns of
 // every row, so that a row is read from memory once and kept in registers
 // (at most 32 bytes of x a lane: rows of up to 65 536 bfloat16 or 32 768
@@ -681,6 +683,171 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// The forward of rows past the plan, redesigned: a block of blockDim.x
+// threads takes rows b, b + grid, ... and copies each from memory once
+// into one of `stages` buffers of shared memory (cp.async, 16 bytes a
+// copy, past L1), so that the copies of its next stages - 1 rows are in
+// flight while it reduces a row; a row's copy is issued as soon as the
+// row before it in that buffer is done. The mean pass, the variance pass
+// and the output pass read the row there, scale and bias from L1, and the
+// output is written from registers. A row lies in its buffer at its
+// address modulo 16 bytes: its first and last 16-byte chunks may hold
+// bytes of the rows beside it (rows of C values that are no multiple of a
+// 16-byte vector start off 16 bytes), so every chunk is a whole 16-byte
+// copy but one past the tensor's last byte, which thread 0 loads value by
+// value into registers and stores before that row's barrier. A row's two
+// sums take shuffles, then the warps' sums through shared memory in warp
+// order, each to every thread (one barrier each, two arrays in turn); one
+// more barrier a row shows the row's copy and hands the buffer of the row
+// before it back. Sums in a fixed order, so that every launch gives the
+// same bits.
+constexpr int STAGE_RED = 64;  // Floats: two arrays of a slot a warp.
+constexpr int STAGES_MOST = 4;
+
+// Bytes of a buffer of a row of C values of `item` bytes.
+__host__ __device__ constexpr long stage_bytes(int C, int item) {
+  return ((long)C * item + 15) / 16 * 16 + 16;
+}
+
+// The sum of `s` over the block (every thread calls it; each gets the same
+// bits): the warp's by shuffles, then the warps' from `red` in order.
+__device__ __forceinline__ float block_total(float s, float* red) {
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = s;
+  __syncthreads();
+  float t = 0.f;
+  const int warps = (int)(blockDim.x >> 5);
+  for (int w = 0; w < warps; ++w) t += red[w];
+  return t;
+}
+
+// What thread 0 holds of a chunk past the tensor's last byte: its values,
+// where they go, and how many.
+template <class T>
+struct Tail {
+  T v[16 / sizeof(T)];
+  char* to;
+  int n;
+};
+
+// Issues the copies of `row` of x (`total` bytes) into `buf`: the 16-byte
+// chunks from the one that holds its first byte, and where the last
+// passes the tensor's end, its values into thread 0's `tail`.
+template <class T>
+__device__ __forceinline__ void stage_row(const T* __restrict__ x, long row,
+                                          int C, long total, char* buf,
+                                          Tail<T>* tail) {
+  const char* base = reinterpret_cast<const char*>(x);
+  const long start = row * C * (long)sizeof(T);
+  const long end = start + (long)C * sizeof(T), first = start & ~15L;
+  const long whole =
+      ((end + 15) & ~15L) < (total & ~15L) ? (end + 15) & ~15L : total & ~15L;
+  for (long at = first + 16L * threadIdx.x; at < whole;
+       at += 16L * blockDim.x)
+    ptx::cp_async16(buf + (at - first), base + at);
+  if (threadIdx.x == 0 && whole < end) {
+    tail->to = buf + (whole - first);
+    tail->n = (int)((end - whole) / (long)sizeof(T));
+    const T* src = reinterpret_cast<const T*>(base + whole);
+#pragma unroll
+    for (int k = 0; k < 16 / (int)sizeof(T); ++k)
+      if (k < tail->n) tail->v[k] = src[k];
+  }
+}
+
+// Until the copies of the oldest of `stages` - 1 rows in flight are done.
+__device__ __forceinline__ void wait_oldest(int stages) {
+  if (stages == 2) ptx::cp_async_wait<0>();
+  else if (stages == 3) ptx::cp_async_wait<1>();
+  else ptx::cp_async_wait<2>();
+}
+
+template <class T, int VEC>
+__global__ void __launch_bounds__(1024)
+    ln_staged_fwd_kernel(const T* __restrict__ x,
+                         const float* __restrict__ scale,
+                         const float* __restrict__ bias, T* __restrict__ y,
+                         float* __restrict__ mean_out,
+                         float* __restrict__ rstd_out, Shape s, float eps,
+                         int stages) {
+  // STAGE_RED floats for the sums, then the buffers.
+  extern __shared__ __align__(16) float smem[];
+  char* bufs = reinterpret_cast<char*>(smem + STAGE_RED);
+  const long bytes = stage_bytes(s.C, sizeof(T));
+  const long total = (long)s.rows * s.C * (long)sizeof(T);
+  Tail<T> tail;
+  tail.to = nullptr;
+  tail.n = 0;
+  // The block's k-th row goes to buffer k modulo `stages`; a group of
+  // copies a row, an empty one past the last.
+  for (int k = 0; k + 1 < stages; ++k) {
+    const long row = blockIdx.x + (long)k * gridDim.x;
+    if (row < s.rows) stage_row(x, row, s.C, total, bufs + k * bytes, &tail);
+    ptx::cp_async_commit();
+  }
+  int slot = 0;
+  for (long row = blockIdx.x; row < s.rows; row += gridDim.x) {
+    if (tail.to != nullptr) {
+#pragma unroll
+      for (int k = 0; k < 16 / (int)sizeof(T); ++k)
+        if (k < tail.n) reinterpret_cast<T*>(tail.to)[k] = tail.v[k];
+      tail.to = nullptr;
+    }
+    wait_oldest(stages);
+    // The row's copy seen by every thread; the row before it read by
+    // every thread, so that its buffer takes the row stages - 1 ahead.
+    __syncthreads();
+    const long ahead = row + (long)(stages - 1) * gridDim.x;
+    if (ahead < s.rows)
+      stage_row(x, ahead, s.C, total,
+                bufs + (slot == 0 ? stages - 1 : slot - 1) * bytes, &tail);
+    ptx::cp_async_commit();
+    const Pack<T, VEC>* xs = reinterpret_cast<const Pack<T, VEC>*>(
+        bufs + slot * bytes + (row * s.C * (long)sizeof(T)) % 16);
+    slot = slot + 1 == stages ? 0 : slot + 1;
+    float sum = 0.f;
+#pragma unroll 4
+    for (int j = threadIdx.x; j < s.nvec; j += blockDim.x) {
+      const Pack<T, VEC> v = xs[j];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) sum += widen(v.v[k]);
+    }
+    const float mean = block_total(sum, smem) / s.C;
+    float sq = 0.f;
+#pragma unroll 4
+    for (int j = threadIdx.x; j < s.nvec; j += blockDim.x) {
+      const Pack<T, VEC> v = xs[j];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        const float e = widen(v.v[k]) - mean;
+        sq += e * e;
+      }
+    }
+    const float rstd = rsqrtf(block_total(sq, smem + 32) / s.C + eps);
+    Pack<T, VEC>* out = reinterpret_cast<Pack<T, VEC>*>(y + row * s.C);
+#pragma unroll 2
+    for (int j = threadIdx.x; j < s.nvec; j += blockDim.x) {
+      const Pack<T, VEC> v = xs[j];
+      float scv[VEC], biv[VEC];
+      load_vec<VEC>(scale + j * VEC, scv);
+      load_vec<VEC>(bias + j * VEC, biv);
+      Pack<T, VEC> o;
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        const float xhat = (widen(v.v[k]) - mean) * rstd;
+        float n = rounded<T>(xhat * scv[k] + biv[k]);
+        if (s.act) n = n > 0.f ? n : expm1f(n);
+        narrow(n, &o.v[k]);
+      }
+      out[j] = o;
+    }
+    if (threadIdx.x == 0) {
+      mean_out[row] = mean;
+      rstd_out[row] = rstd;
+    }
+  }
+}
+
 // Rows of the streaming backward whose column sums a thread keeps in
 // registers between two stores of them.
 constexpr int CHUNK = 8;
@@ -1173,6 +1340,57 @@ cudaError_t stream_fwd(void* const* p, Shape s, const int* dims, float eps,
   return cudaGetLastError();
 }
 
+// The staged forward. dims as `stream_fwd` reads them, and [4] the
+// buffers a block (2 to STAGES_MOST), [5] threads a block (0: 1 024 where
+// the card's SMs outnumber the rows, else 512), [6] the most blocks. A
+// launch whose shared memory the card refuses returns the error.
+template <class T, int VEC>
+cudaError_t staged_fwd(void* const* p, Shape s, const int* dims, float eps,
+                       cudaStream_t stream) {
+  auto kernel = ln_staged_fwd_kernel<T, VEC>;
+  const int stages = dims[4];
+  if (stages < 2 || stages > STAGES_MOST) return cudaErrorInvalidValue;
+  const size_t bytes =
+      STAGE_RED * sizeof(float) + stages * stage_bytes(s.C, sizeof(T));
+  int device = 0, sms = 1, per_sm = 0;
+  cudaError_t err = allow(kernel, bytes);
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  const int threads = dims[5] > 0 ? dims[5] : s.rows <= sms ? 1024 : 512;
+  if (threads < 32 || threads > 1024 || threads % 32)
+    return cudaErrorInvalidValue;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, bytes);
+  if (err != cudaSuccess) return err;
+  const int grid =
+      std::min(s.rows, std::min(dims[6], std::max(1, sms * per_sm)));
+  kernel<<<grid, threads, bytes, stream>>>(static_cast<const T*>(p[0]), static_cast<const float*>(p[1]), static_cast<const float*>(p[2]), static_cast<T*>(p[3]), static_cast<float*>(p[4]), static_cast<float*>(p[5]), s, eps, stages);
+  return cudaGetLastError();
+}
+
+// The staged forward at the widest vector of up to 16 bytes that C is a
+// multiple of.
+template <class T>
+cudaError_t run_staged(void* const* p, Shape s, const int* dims, float eps,
+                       cudaStream_t stream) {
+  int vec = 16 / (int)sizeof(T);
+  while (s.C % vec) vec /= 2;
+  s.nvec = s.C / vec;
+#define LN_STAGED(V) \
+  if (vec == V) return staged_fwd<T, V>(p, s, dims, eps, stream);
+  if constexpr (sizeof(T) == 2) {
+    LN_STAGED(8)
+  }
+  LN_STAGED(4)
+  LN_STAGED(2)
+  LN_STAGED(1)
+#undef LN_STAGED
+  return cudaErrorInvalidValue;
+}
+
 template <class T, int VEC>
 cudaError_t stream_bwd(void* const* p, Shape s, const int* dims,
                        cudaStream_t stream) {
@@ -1312,12 +1530,35 @@ extern "C" int layer_norm_cluster_bwd(int bf16, void* const* ptrs,
                                       const int* dims, void* stream);
 #endif
 
+// The staged forward (layer_norm_act_fwd's pointers and dims), compiled
+// beside this file as the cluster backward is (layer_norm_staged.cu).
+#ifdef LAYER_NORM_STAGED_PART
+extern "C" int layer_norm_staged_fwd(int bf16, void* const* ptrs,
+                                     const int* dims, float eps,
+                                     void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Shape s;
+  int vec;
+  if (bf16) {
+    plan<__nv_bfloat16>(dims[0], dims[1], dims[2], &s, &vec);
+    return run_staged<__nv_bfloat16>(ptrs, s, dims, eps, st);
+  }
+  plan<float>(dims[0], dims[1], dims[2], &s, &vec);
+  return run_staged<float>(ptrs, s, dims, eps, st);
+}
+#else
+extern "C" int layer_norm_staged_fwd(int bf16, void* const* ptrs,
+                                     const int* dims, float eps,
+                                     void* stream);
+#endif
+
 namespace {
 
 // One launch (forward or backward) at the plan's VEC and N, or where the
-// plan holds no row of C values (0), the backward's cluster kernel where
-// the caller gives it a cluster (dims[6] > 0), else the streaming kernels
-// at the widest vector of up to 16 bytes that C is a multiple of.
+// plan holds no row of C values (0), the staged forward where the caller
+// asks for it (dims[4] > 0), the backward's cluster kernel where the
+// caller gives it a cluster (dims[6] > 0), else the streaming kernels at
+// the widest vector of up to 16 bytes that C is a multiple of.
 template <class T>
 cudaError_t run(bool backward, void* const* p, const int* dims, float eps,
                 cudaStream_t stream) {
@@ -1329,6 +1570,9 @@ cudaError_t run(bool backward, void* const* p, const int* dims, float eps,
   if (n == 0 && backward && dims[6] > 0)
     return static_cast<cudaError_t>(
         layer_norm_cluster_bwd(sizeof(T) == 2, p, dims, stream));
+  if (n == 0 && !backward && dims[4] > 0)
+    return static_cast<cudaError_t>(
+        layer_norm_staged_fwd(sizeof(T) == 2, p, dims, eps, stream));
   if (n == 0) {
     for (vec = 16 / (int)sizeof(T); s.C % vec;) vec /= 2;
     s.nvec = s.C / vec;
@@ -1366,9 +1610,11 @@ cudaError_t run(bool backward, void* const* p, const int* dims, float eps,
 
 }  // namespace
 
-#ifndef LAYER_NORM_CLUSTER_PART
+#if !defined(LAYER_NORM_CLUSTER_PART) && !defined(LAYER_NORM_STAGED_PART)
 // ptrs: x, scale, bias, y, mean, rstd. dims: rows, C, act (0 none, 1
-// elu), max_blocks.
+// elu), max_blocks, and for rows past the plan the staged forward's
+// buffers a block (0: the streaming kernel), threads a block (0: by the
+// rows) and most blocks.
 extern "C" int layer_norm_act_fwd(int bf16, void* const* ptrs,
                                   const int* dims, float eps, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1388,4 +1634,4 @@ extern "C" int layer_norm_act_bwd(int bf16, void* const* ptrs,
   return bf16 ? run<__nv_bfloat16>(true, ptrs, dims, eps, st)
               : run<float>(true, ptrs, dims, eps, st);
 }
-#endif  // LAYER_NORM_CLUSTER_PART
+#endif  // the parts

@@ -45,13 +45,17 @@
 // and sum(dstoch * p); with the mixture, raw's max and sum of exp and
 // sum(g1 * p1): at C = 32 and K = 8 twelve shuffles for a lane's eight
 // values, where a lane a class took about thirty for its one.
-// Classes that are no power of two from 2 to 32 take a general path
-// (onehot_any_*_kernel): a group of up to a warp's lanes a group of
-// classes, walking them in passes.
+// Classes that are no power of two from 2 to 32 take a general path: the
+// forward onehot_any_fwd_kernel (a group of up to a warp's lanes a group
+// of classes, walking them in passes), the backward
+// onehot_group_bwd_kernel (a lane L consecutive classes in registers, a
+// group of lanes a group, read once), or past 8 classes a lane on a warp
+// onehot_any_bwd_kernel (the passes).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <algorithm>
 
@@ -480,6 +484,216 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// The general backward, redesigned: a lane holds L consecutive classes
+// of a group (the caller's 1, 2, 4 or 8: the widest vector of up to 16
+// bytes that C is a multiple of, doubled until a warp's lanes hold the
+// group), a group G lanes (C / L rounded up to a power of two, at most a
+// warp), so that every value of x, logit, dlogit and dstoch is read from
+// memory once, in vectors of K values (the widest of up to L values and 16
+// bytes that C is a multiple of, so that each group's vectors are
+// aligned), and dx written once. Each exp is made once a value and kept;
+// each group quantity (the logit's max, sum of exp and its log,
+// sum(dstoch * p); raw's max, sum of exp and sum(g1 * p1)) over the lane's
+// classes in class order, then over the group's lanes by log2(G) xor
+// shuffles, so that every lane of the group gets the same bits in any
+// launch. The per-value arithmetic and its rounding are the kernels'
+// above. A lane past the group's classes, or of a group past the last,
+// adds nothing and writes nothing.
+
+// A lane's L values of T as loaded, packed in 32-bit words (two bfloat16
+// a word), widened where they are used, so that its four inputs stay
+// in registers at half the room in bfloat16.
+template <class T, int L>
+struct Packed {
+  uint32_t w[(L * (int)sizeof(T) + 3) / 4];
+  __device__ __forceinline__ float at(int k) const {
+    uint32_t bits;
+    if constexpr (sizeof(T) == 2)
+      bits = k & 1 ? w[k / 2] & 0xffff0000u : w[k / 2] << 16;
+    else
+      bits = w[k];
+    float v;
+    memcpy(&v, &bits, 4);
+    return v;
+  }
+};
+
+// The lane's `count` values (a multiple of W, at most L) from p, W at a
+// time; 0 past them.
+template <int W, int L, class T>
+__device__ __forceinline__ void load_by(const T* __restrict__ p, int count,
+                                        Packed<T, L>& out) {
+#pragma unroll
+  for (int b = 0; b < L / W; ++b) {
+    Pack<T, W> q;
+    if (b * W < count)
+      q = reinterpret_cast<const Pack<T, W>*>(p)[b];
+    else
+      memset(&q, 0, sizeof(q));
+    memcpy(reinterpret_cast<char*>(out.w) + b * sizeof(q), &q, sizeof(q));
+  }
+}
+
+// The lane's `count` values rounded to T at p, as load_by reads them.
+template <int W, int L, class T>
+__device__ __forceinline__ void store_by(T* __restrict__ p, int count,
+                                         const float (&in)[L]) {
+#pragma unroll
+  for (int b = 0; b < L / W; ++b) {
+    if (b * W < count) {
+      Pack<T, W> q;
+#pragma unroll
+      for (int w = 0; w < W; ++w) narrow(in[b * W + w], &q.v[w]);
+      reinterpret_cast<Pack<T, W>*>(p)[b] = q;
+    }
+  }
+}
+
+// load_by and store_by at the vector of K values (1, 2, 4 or 8, at most L
+// and 16 bytes).
+template <int L, class T>
+__device__ __forceinline__ void load_classes(const T* __restrict__ p,
+                                             int count, int K,
+                                             Packed<T, L>& out) {
+  if constexpr (L >= 8 && sizeof(T) == 2)
+    if (K == 8) return load_by<8>(p, count, out);
+  if constexpr (L >= 4)
+    if (K == 4) return load_by<4>(p, count, out);
+  if constexpr (L >= 2)
+    if (K == 2) return load_by<2>(p, count, out);
+  load_by<1>(p, count, out);
+}
+template <int L, class T>
+__device__ __forceinline__ void store_classes(T* __restrict__ p, int count,
+                                              int K, const float (&in)[L]) {
+  if constexpr (L >= 8 && sizeof(T) == 2)
+    if (K == 8) return store_by<8>(p, count, in);
+  if constexpr (L >= 4)
+    if (K == 4) return store_by<4>(p, count, in);
+  if constexpr (L >= 2)
+    if (K == 2) return store_by<2>(p, count, in);
+  store_by<1>(p, count, in);
+}
+
+// Over the G lanes of a group (G a power of two of at most 32, the group
+// aligned in its warp; every lane of the warp calls them).
+__device__ __forceinline__ float group_max(float v, int G) {
+  for (int o = G / 2; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+__device__ __forceinline__ float group_sum(float v, int G) {
+  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+
+template <class T, int L>
+__global__ void __launch_bounds__(256)
+    onehot_group_bwd_kernel(const T* __restrict__ x,
+                            const T* __restrict__ logit,
+                            const T* __restrict__ dlogit,
+                            const T* __restrict__ dstoch,
+                            T* __restrict__ dx, Head h, int G, int K) {
+  const int C = h.C, sub = threadIdx.x % G, per = THREADS / G;
+  const long groups = h.n / C;
+  const long steps = (groups + per - 1) / per;
+  const int lo = sub * L;
+  // Every thread of the block runs the same steps: the lanes of a group
+  // shuffle together.
+  for (long st = blockIdx.x; st < steps; st += gridDim.x) {
+    const long grp = st * per + threadIdx.x / G;
+    const int count = grp < groups ? max(0, min(L, C - lo)) : 0;
+    const long at = grp * C + lo;
+    // All of the lane's loads in flight before its first sum.
+    Packed<T, L> gr, lr, dr, xr;
+    load_classes<L>(dlogit + at, count, K, gr);
+    if (h.sample) {
+      load_classes<L>(logit + at, count, K, lr);
+      load_classes<L>(dstoch + at, count, K, dr);
+    }
+    if (h.unimix) load_classes<L>(x + at, count, K, xr);
+    float g[L];
+#pragma unroll
+    for (int k = 0; k < L; ++k) g[k] = gr.at(k);
+    if (h.sample) {
+      // The straight-through path: p = exp(log_softmax(logit)), then
+      // log_softmax's backward and the cast.
+      float m = -INFINITY;
+#pragma unroll
+      for (int k = 0; k < L; ++k)
+        if (k < count) m = fmaxf(m, lr.at(k));
+      m = group_max(m, G);
+      float sum = 0.f;
+#pragma unroll
+      for (int k = 0; k < L; ++k)
+        if (k < count) sum += expf(lr.at(k) - m);
+      const float lse = logf(group_sum(sum, G));
+      float p[L], dot = 0.f;
+#pragma unroll
+      for (int k = 0; k < L; ++k) {
+        p[k] = expf((lr.at(k) - m) - lse);
+        if (k < count) dot += dr.at(k) * p[k];
+      }
+      dot = group_sum(dot, G);
+#pragma unroll
+      for (int k = 0; k < L; ++k) {
+        const float gl = dr.at(k) * p[k];
+        g[k] = rounded<T>(rounded<T>(gl - p[k] * dot) + g[k]);
+      }
+    }
+    if (h.unimix) {
+      // softmax(x) mixed with the uniform floor (p1, p2), then the log's,
+      // the mixture's and the softmax's backward.
+      float m = -INFINITY;
+#pragma unroll
+      for (int k = 0; k < L; ++k)
+        if (k < count) m = fmaxf(m, xr.at(k));
+      m = group_max(m, G);
+      float e[L], sum = 0.f;
+#pragma unroll
+      for (int k = 0; k < L; ++k) {
+        e[k] = expf(xr.at(k) - m);
+        if (k < count) sum += e[k];
+      }
+      sum = group_sum(sum, G);
+      float dot = 0.f;
+#pragma unroll
+      for (int k = 0; k < L; ++k) {
+        e[k] = e[k] / sum;  // p1.
+        const float p2 = __fadd_rn(__fmul_rn(e[k], h.keep), h.floor_);
+        g[k] = __fmul_rn(g[k] / p2, h.keep);  // g1.
+        if (k < count) dot += g[k] * e[k];
+      }
+      dot = group_sum(dot, G);
+#pragma unroll
+      for (int k = 0; k < L; ++k) g[k] = e[k] * (g[k] - dot);
+    }
+    if (count > 0) store_classes<L>(dx + at, count, K, g);
+  }
+}
+
+// The general backward at the caller's classes a lane L (1, 2, 4 or 8).
+template <class T>
+cudaError_t run_group(void* const* p, const Head& h, int L, int max_blocks,
+                      cudaStream_t stream) {
+  int G = 1;
+  while (G * L < h.C) G *= 2;
+  int K = 16 / (int)sizeof(T) < L ? 16 / (int)sizeof(T) : L;
+  while (h.C % K) K /= 2;
+  if (G > 32 || (L & (L - 1)) || L > 8) return cudaErrorInvalidValue;
+  const long groups = h.n / h.C, per = THREADS / G;
+  const int grid = (int)std::min<long>((groups + per - 1) / per, max_blocks);
+#define ONEHOT_GROUP(LL)                                                 \
+  if (L == LL) {                                                         \
+    auto kernel = onehot_group_bwd_kernel<T, LL>;                        \
+    kernel<<<grid, THREADS, 0, stream>>>(static_cast<const T*>(p[0]), static_cast<const T*>(p[1]), static_cast<const T*>(p[2]), static_cast<const T*>(p[3]), static_cast<T*>(p[4]), h, G, K); \
+    return cudaGetLastError();                                           \
+  }
+  ONEHOT_GROUP(1) ONEHOT_GROUP(2) ONEHOT_GROUP(4) ONEHOT_GROUP(8)
+#undef ONEHOT_GROUP
+  return cudaErrorInvalidValue;
+}
+
 // Any count of classes but the powers of two from 2 to 32: a group of G
 // lanes a group.
 template <class T, int G>
@@ -532,8 +746,11 @@ cudaError_t run_k(bool backward, void* const* p, const Head& h,
 template <class T>
 cudaError_t run(bool backward, void* const* p, Head h, const int* dims,
                 cudaStream_t stream) {
-  if (h.C > 32 || (h.C & (h.C - 1)) || h.C < 2)
+  if (h.C > 32 || (h.C & (h.C - 1)) || h.C < 2) {
+    if (backward && dims[5] > 0)
+      return run_group<T>(p, h, dims[5], dims[4], stream);
     return run_any<T>(backward, p, h, dims[4], stream);
+  }
   switch (dims[5]) {
     case 2: return run_k<T, 2>(backward, p, h, dims[4], stream);
     case 4: return run_k<T, 4>(backward, p, h, dims[4], stream);
@@ -544,7 +761,8 @@ cudaError_t run(bool backward, void* const* p, Head h, const int* dims,
 
 // dims: elements, classes, unimix (0 or 1), sample (0 or 1), blocks at
 // most, classes a lane (2, 4 or 8, for classes a power of two from 2 to
-// 32); scalars: keep, floor.
+// 32; for other counts, in the backward, 1, 2, 4 or 8 for the group
+// kernel, 0 for the passes); scalars: keep, floor.
 cudaError_t launch(int bf16, bool backward, void* const* ptrs,
                    const int* dims, float keep, float floor_,
                    cudaStream_t stream) {

@@ -493,14 +493,16 @@ def settings(module, values):
 
 
 def compare_layer_norm(dtype, C, rows, act, blocks=None, fwd_blocks=None,
-                       twice=False, cluster=None, seed=0):
+                       twice=False, cluster=None, shared=None, seed=0):
   """The emulated `layer_norm_act_fwd` and `layer_norm_act_bwd` against
   the plain version and its autograd (call inside `emulated`); `blocks`
-  and `fwd_blocks` cap the backward's and the forward's grid, so that a
-  block takes several steps of rows; with `twice` the backward runs a
-  second time on the same inputs; `cluster` sets the cluster backward's
-  constants of `norm` (CLUSTER_RANKS, CLUSTER_THREADS, CLUSTER_BLOCKS,
-  CLUSTER_BYTES). Returns (the largest error of y relative to max(|y|,
+  and `fwd_blocks` cap the backward's and the forward's grids, so that a
+  block takes several steps of rows; the forward runs twice on the same
+  inputs, and with `twice` the backward too; `cluster` sets constants of
+  `norm` (the cluster backward's CLUSTER_RANKS, CLUSTER_THREADS,
+  CLUSTER_BLOCKS, CLUSTER_BYTES; the staged forward's STAGES,
+  STAGE_THREADS, STAGE_LEAST); the card's shared memory is taken to be `shared`
+  bytes where given. Returns (the largest error of y relative to max(|y|,
   1), the largest scaled error of dx, dscale and dbias over the runs for
   each of the three, whether every run gave the same bits and left the
   counters at zero)."""
@@ -509,9 +511,12 @@ def compare_layer_norm(dtype, C, rows, act, blocks=None, fwd_blocks=None,
       rng.standard_normal(shape).astype(np.float32))
   x = (3 * t(rows, C) + 1).to(dtype)
   scale, bias, dy = 1 + 0.2 * t(C), 0.3 * t(C), t(rows, C).to(dtype)
-  caps = {'FWD_BLOCKS': fwd_blocks, 'BWD_BLOCKS': blocks, **(cluster or {})}
-  with settings(norm, {k: v for k, v in caps.items() if v is not None}):
+  caps = {'FWD_BLOCKS': fwd_blocks, 'STAGE_BLOCKS': fwd_blocks,
+          'BWD_BLOCKS': blocks, **(cluster or {})}
+  with settings(norm, {k: v for k, v in caps.items() if v is not None}), (
+      shared_limit(shared)):
     y, mean, rstd = norm.layer_norm_act_fwd_cuda(x, scale, bias, act)
+    again = norm.layer_norm_act_fwd_cuda(x, scale, bias, act)
     runs = [norm.layer_norm_act_bwd_cuda(x, scale, bias, mean, rstd, dy, act)
             for _ in range(2 if twice else 1)]
     zeroed = not bool(norm._tickets(x.device).any())
@@ -522,7 +527,9 @@ def compare_layer_norm(dtype, C, rows, act, blocks=None, fwd_blocks=None,
   fwd = float(((y.float() - ref.float()).abs()
                / ref.float().abs().clamp_min(1)).max())
   same = zeroed and all(torch.equal(a, b) for run in runs[1:]
-                        for a, b in zip(runs[0], run))
+                        for a, b in zip(runs[0], run)) and all(
+                            torch.equal(a, b)
+                            for a, b in zip((y, mean, rstd), again))
   return fwd, [max(_scaled(got[i], want[i]) for got in runs)
                for i in range(3)], same
 
@@ -576,7 +583,6 @@ def compare_adam(sizes, decayed, warmup, seed=0):
 # streaming backward (no lane may keep a byte of a row, so no cluster plan
 # fits); the cases' few rows take the cluster backward without them.
 STREAMED = {'CLUSTER_BYTES': 0}
-
 # layer_norm_act: C = 64 and C = 130 in both dtypes, with the ELU and
 # without, on 37 rows (no multiple of a block's 32, 16 or 8 rows): bfloat16
 # at 64 takes 16-byte vectors and groups of 8 lanes, float32 at 64 groups
@@ -652,9 +658,31 @@ LAYER_NORM_CASES = (
 # 2 rows, and 4 097 bfloat16 (single values) on 150 rows in 17 blocks
 # twice, equal bit for bit, the counters back at zero; and bfloat16 at
 # 4 100 on 37 rows sent there by the wrapper's own rule (rows of fewer
-# than CLUSTER_LEAST bytes, NARROW_ROWS lowered to 37). Each as
-# (dtype, C, rows, act, blocks[, fwd_blocks[, twice[, cluster]]]),
-# `cluster` the settings of `compare_layer_norm`.
+# than CLUSTER_LEAST bytes, NARROW_ROWS lowered to 37). Since the staged
+# forward took some of the forward of rows past the plan
+# (`norm.stage_plan`: rows of at least STAGE_LEAST bytes, at most
+# STAGE_FEW rows with the ELU; 4 buffers a block at 4 100 and 4 097
+# bfloat16, 3 at 16 392, 2 at 12 292 float32), the cases above with the
+# ELU on few rows run it; its own cases, sent there by the rule or with
+# STAGE_LEAST lowered to 0: bfloat16 at 4 100 (8-byte vectors; every
+# second row starts 8 bytes off 16, the last row's last chunk past the
+# tensor's end read value by value) with the ELU on 9 rows in 2 blocks
+# (runs of 5 and 4 rows, the buffers taken in turn), with 4 buffers and
+# with 2; 4 097 bfloat16 (single values, rows 2 bytes apart modulo 16, the
+# tensor's end 14 bytes past a chunk) without it on 7 rows in 3 blocks of
+# 3 buffers, and with it on 150 rows in 7 blocks (512 threads, the
+# kernel's pick past 132 rows; runs of 21 and 22 rows); 16 392 bfloat16
+# (16-byte rows) on 3 rows in one block; float32 at 12 292 (49 KB rows,
+# by the rule at any count) without the ELU on 130 rows in 5 blocks;
+# float32 at 4 098 (8-byte vectors) with it on 5 rows in 2 blocks of
+# 1 024 threads twice, equal bit for bit; bfloat16 at 4 100 on 6 rows in
+# blocks of 64 threads (33 vectors of 8 bytes a thread, most of a row's
+# chunks a thread); and the rule for rows whose two buffers do not fit:
+# bfloat16 at 4 100 with the ELU on 5 rows with the card's shared memory
+# taken to be 16 000 bytes (the streaming forward) and 20 000 (two buffers
+# in all of it). Each as (dtype, C, rows, act, blocks[, fwd_blocks[,
+# twice[, cluster[, shared]]]]), `cluster` the settings of
+# `compare_layer_norm`, `shared` its bytes.
 LAYER_NORM_GRID_CASES = (
     (torch.bfloat16, 64, 600, 'elu', None, 2),
     (torch.float32, 512, 40, 'none', None, 1),
@@ -688,6 +716,18 @@ LAYER_NORM_GRID_CASES = (
     (torch.float32, 12292, 2, 'elu', None, None, False, STREAMED),
     (torch.bfloat16, 4097, 150, 'elu', 17, None, True, STREAMED),
     (torch.bfloat16, 4100, 37, 'elu', 11, 3, False, {'NARROW_ROWS': 37}),
+    (torch.bfloat16, 4100, 9, 'elu', None, 2),
+    (torch.bfloat16, 4100, 9, 'elu', None, 2, False, {'STAGES': 2}),
+    (torch.bfloat16, 4097, 7, 'none', None, 3, False,
+     {'STAGES': 3, 'STAGE_LEAST': 0}),
+    (torch.bfloat16, 4097, 150, 'elu', None, 7, False, {'STAGE_LEAST': 0}),
+    (torch.bfloat16, 16392, 3, 'none', None, 1, False, {'STAGE_LEAST': 0}),
+    (torch.float32, 12292, 130, 'none', None, 5),
+    (torch.float32, 4098, 5, 'elu', None, 2, True, {'STAGE_THREADS': 1024}),
+    (torch.bfloat16, 4100, 6, 'none', None, 2, False,
+     {'STAGE_THREADS': 64, 'STAGE_LEAST': 0}),
+    (torch.bfloat16, 4100, 5, 'elu', None, None, False, None, 16000),
+    (torch.bfloat16, 4100, 5, 'elu', None, None, False, None, 20000),
 )
 # adam: three tensors of odd sizes, the second decayed, one of them over a
 # block's chunk; with a constant lr and with a warmup's tensor lr. Then 200
@@ -756,11 +796,12 @@ def compare_onehot(dtype, rows, S, C, unimix, sample, blocks=None,
   """The emulated `onehot_head_fwd` and `onehot_head_bwd` against the plain
   version and its autograd (call inside `emulated`); `blocks` caps both
   grids, so that a block walks several steps, `lane_classes` sets the
-  classes a lane holds, in the backward `bwd_lane_classes` where given.
-  Returns (the
-  largest error of the logit relative to max(|logit|, 1), the groups whose
-  choice differs and whether each of them is a tie, the largest error of
-  stoch on the other groups, the scaled error of raw's gradient)."""
+  classes a lane holds, in the backward `bwd_lane_classes` where given;
+  the backward runs twice on the same inputs. Returns (the largest error
+  of the logit relative to max(|logit|, 1), the groups whose choice
+  differs and whether each of them is a tie, the largest error of stoch on
+  the other groups, the scaled error of raw's gradient, whether the two
+  backward runs gave the same bits)."""
   rng = np.random.default_rng(seed)
   t = lambda *shape: torch.as_tensor(
       rng.standard_normal(shape).astype(np.float32))
@@ -775,8 +816,9 @@ def compare_onehot(dtype, rows, S, C, unimix, sample, blocks=None,
     setattr(onehot, name, value)
   try:
     logit, stoch = onehot.onehot_head_fwd_cuda(raw, u, unimix)
-    draw = onehot.onehot_head_bwd_cuda(raw, logit, dlogit, dstoch, unimix,
-                                       sample)
+    draw, again = [onehot.onehot_head_bwd_cuda(raw, logit, dlogit, dstoch,
+                                              unimix, sample)
+                   for _ in range(2)]
   finally:
     for name, value in zip(names, saved):
       setattr(onehot, name, value)
@@ -790,7 +832,8 @@ def compare_onehot(dtype, rows, S, C, unimix, sample, blocks=None,
   flips, ties = _choices(stoch, ref_stoch.detach(), ref_logit.detach(), u)
   keep = (stoch.argmax(-1) == ref_stoch.detach().argmax(-1))[..., None]
   stoch_err = _error(stoch * keep, ref_stoch.detach() * keep)
-  return logit_err, (flips, ties), stoch_err, _scaled(draw, want)
+  return (logit_err, (flips, ties), stoch_err, _scaled(draw, want),
+          torch.equal(draw, again))
 
 
 def _choices(stoch, ref, logit, u, rel=1e-5):
@@ -958,8 +1001,22 @@ GRU_CASES = (
 # lanes with two classes) and 64 (two each) with unimix, sampled, and 64
 # the mode without it, in both types; 1 class with unimix, sampled; 100
 # classes on 33 rows of 8 groups, sampled, with the grid capped at 2
-# blocks, which walk their steps. Each as (dtype, rows, S, C, unimix,
-# sample, blocks, lane_classes[, bwd_lane_classes]).
+# blocks, which walk their steps. Since the backward's group kernel took
+# the general path (`onehot.group_lane_classes`: the cases above at 1, 3,
+# 48, 64 and 100 classes, 1 to 8 classes a lane, groups of 1 to 32 lanes,
+# some of them without a class), more of it: 1 class in bfloat16, the
+# mode without the mixture and sampled with it; 3 classes sampled without
+# the mixture in both types (a lane a class, 4 lanes a group, one empty);
+# 48 bfloat16 the mode with the mixture and float32 sampled without (4
+# classes a lane, 12 of 16 lanes); 100 float32 the mode with the mixture
+# (4 a lane, 25 of 32 lanes) and bfloat16 sampled without it; 200
+# bfloat16 (8 a lane, 25 of 32 lanes) and 256 float32 (two 16-byte
+# vectors a lane) sampled with the mixture; 255 bfloat16 (single values,
+# 8 a lane, the last lane 7) sampled with it, on a grid capped at 1
+# block; and past 8 classes a lane on a warp, the passes: 300
+# classes, sampled with the mixture in bfloat16 and the mode in float32.
+# Each as (dtype, rows, S, C, unimix, sample, blocks,
+# lane_classes[, bwd_lane_classes]).
 ONEHOT_CASES = (
     (torch.bfloat16, 5, 3, 32, 0.01, True, None, 8),
     (torch.float32, 7, 5, 8, 0.0, True, None, 8),
@@ -991,6 +1048,19 @@ ONEHOT_CASES = (
     (torch.float32, 5, 3, 64, 0.0, False, None, None),
     (torch.float32, 4, 3, 1, 0.01, True, None, None),
     (torch.bfloat16, 33, 8, 100, 0.01, True, 2, None),
+    (torch.bfloat16, 4, 3, 1, 0.0, False, None, None),
+    (torch.bfloat16, 4, 3, 1, 0.01, True, None, None),
+    (torch.bfloat16, 7, 5, 3, 0.0, True, None, None),
+    (torch.float32, 7, 5, 3, 0.0, True, None, None),
+    (torch.bfloat16, 5, 3, 48, 0.01, False, None, None),
+    (torch.float32, 5, 3, 48, 0.0, True, None, None),
+    (torch.float32, 5, 3, 100, 0.01, False, None, None),
+    (torch.bfloat16, 5, 3, 100, 0.0, True, None, None),
+    (torch.bfloat16, 3, 3, 200, 0.01, True, None, None),
+    (torch.float32, 3, 3, 256, 0.01, True, None, None),
+    (torch.bfloat16, 9, 4, 255, 0.01, True, 1, None),
+    (torch.bfloat16, 3, 3, 300, 0.01, True, None, None),
+    (torch.float32, 3, 3, 300, 0.01, False, None, None),
 )
 
 
@@ -1065,7 +1135,7 @@ def run_case(name):
           f'{"ok" if good else "DISAGREES"}', flush=True)
     return good
   if kind == 'onehot':
-    logit_err, (flips, ties), stoch_err, grad_err = compare_onehot(
+    logit_err, (flips, ties), stoch_err, grad_err, same = compare_onehot(
         dtype, *case)
     # float32: the same arithmetic with the card's (here the C library's)
     # exp and log. bfloat16: a logit of the mixture may round to the other
@@ -1075,15 +1145,16 @@ def run_case(name):
     limits = (1e-5, 1e-6, 1e-4) if dtype == torch.float32 else (
         2 ** -7, 2 ** -8, 2e-2)
     good = (logit_err <= limits[0] and ties and stoch_err <= limits[1]
-            and grad_err <= limits[2])
+            and grad_err <= limits[2] and same)
     print(f'{name} {dtype} rows, S, C, unimix, sample, blocks, '
           f'lane_classes[, bwd_lane_classes] {case}: '
           f'logit error '
           f'{logit_err:.3g} (tolerance {limits[0]:g} of max(|logit|, 1)), '
           f'{flips} groups choose another class, all ties {ties}, stoch '
           f'error elsewhere {stoch_err:.3g} (tolerance {limits[1]:g}), '
-          f'scaled gradient error {grad_err:.3g} (tolerance {limits[2]:g}):'
-          f' {"ok" if good else "DISAGREES"}', flush=True)
+          f'scaled gradient error {grad_err:.3g} (tolerance {limits[2]:g}),'
+          f' two backward runs equal {same}: '
+          f'{"ok" if good else "DISAGREES"}', flush=True)
     return good
   if kind == 'adam':
     rel, same = compare_adam(*case)

@@ -24,8 +24,11 @@ with its callable, is applied after the norm by that callable.
   zeroed once, outside any capture, and reset by the kernel itself). A row
   wider than a block's lanes hold in registers (past 16 384 bfloat16 or
   12 288 float32 values, 4 096 where C is no multiple of a 16-byte vector)
-  takes the streaming forward (a block a row, re-read from memory for each
-  pass) and the cluster backward (`cluster_plan`): a cluster of
+  takes the staged forward where it measured the faster (`stage_plan`:
+  rows of at least STAGE_LEAST bytes, few rows with the ELU; a block a row
+  at a time, copied into shared memory once, the next rows' copies in
+  flight), else the streaming forward (a block a row re-read from L1 or L2
+  for each pass) and the cluster backward (`cluster_plan`): a cluster of
   CLUSTER_RANKS blocks takes a run of rows, each rank a share of every
   row's columns, so that each row is read once and kept in registers; the
   rows' sums meet through distributed shared memory, the columns' sums in
@@ -83,6 +86,20 @@ NARROW_ROWS = 1024
 SPREAD_BLOCKS = 264
 STREAM_ROWS = 8
 
+# The staged forward of rows past the plan (`stage_plan`): up to STAGES
+# buffers a block, STAGE_THREADS threads a block (0: the kernel picks by
+# the rows), at most STAGE_BLOCKS blocks; it takes rows of at least
+# STAGE_LEAST bytes, and launches of at most STAGE_FEW rows with the ELU,
+# where it measured the faster (PERF.md, `chip_smoke.py`'s wide_paths
+# sweep); other rows take the streaming forward. STAGE_RED: the floats
+# ahead of the buffers.
+STAGES = 4
+STAGE_THREADS = 0
+STAGE_BLOCKS = 264
+STAGE_LEAST = 40 * 1024
+STAGE_FEW = 128
+STAGE_RED = 64
+
 LAYER_NORM_ACT_FWD = build.register(build.Kernel(
     'layer_norm_act_fwd', 'layer_norm.cu',
     'daydreamer_tpu/nn/layers.py:140 (Norm.__call__ and the activation '
@@ -90,7 +107,7 @@ LAYER_NORM_ACT_FWD = build.register(build.Kernel(
     {'layer_norm_act_fwd': build.signature(),
      'layer_norm_act_bwd': build.signature()},
     headers=('hopper_ptx.cuh', 'row_cluster.cuh'),
-    parts=('layer_norm_cluster.cu',)))
+    parts=('layer_norm_cluster.cu', 'layer_norm_staged.cu')))
 LAYER_NORM_ACT_BWD = build.register(build.Kernel(
     'layer_norm_act_bwd', 'layer_norm.cu',
     'daydreamer_tpu/nn/layers.py:140 (the gradient of Norm and its '
@@ -176,6 +193,33 @@ def cluster_plan(rows, C, dtype):
                    CLUSTER_THREADS, CLUSTER_BLOCKS, SPREAD_BLOCKS)
 
 
+def stage_buffers(C, dtype):
+  """The buffers a block of the staged forward takes for rows of C values
+  of `dtype`: up to STAGES, as many as fit in half of
+  `build.SHARED_MEMORY_LIMIT` bytes (two blocks an SM), else 2 where two
+  fit in all of it, else 0 (none fit). A buffer holds the row's 16-byte
+  chunks, one more where it starts off 16 bytes."""
+  item = torch.tensor([], dtype=dtype).element_size()
+  buffer = -(-C * item // 16) * 16 + 16
+  room = build.SHARED_MEMORY_LIMIT - 4 * STAGE_RED
+  stages = min(STAGES, (room // 2) // buffer)
+  if stages >= 2:
+    return stages
+  return 2 if 2 * buffer <= room else 0
+
+
+def stage_plan(rows, C, dtype, act):
+  """How the forward takes rows of C values of `dtype` (the kernel reads it
+  only for rows too wide for a block's lanes): `stage_buffers`' buffers,
+  the staged forward, for rows of at least STAGE_LEAST bytes and for
+  launches of at most STAGE_FEW rows with the ELU; else 0, the streaming
+  forward, which also takes rows whose two buffers do not fit."""
+  item = torch.tensor([], dtype=dtype).element_size()
+  if C * item >= STAGE_LEAST or (rows <= STAGE_FEW and act == 'elu'):
+    return stage_buffers(C, dtype)
+  return 0
+
+
 def _groups(clusters):
   """The most groups the cluster backward's clusters meet in: about
   sqrt(clusters) clusters a group (`row_cluster::group_size`)."""
@@ -212,7 +256,10 @@ def layer_norm_act_fwd_cuda(x, scale, bias, act='none'):
   rstd = torch.empty(rows, dtype=torch.float32, device=x.device)
   build.launch(LAYER_NORM_ACT_FWD, 'layer_norm_act_fwd', x.dtype,
                [x, scale, bias, y, mean, rstd],
-               [rows, C, int(act == 'elu'), FWD_BLOCKS], [EPS], x.device)
+               [rows, C, int(act == 'elu'), FWD_BLOCKS,
+                stage_plan(rows, C, x.dtype, act), STAGE_THREADS,
+                STAGE_BLOCKS],
+               [EPS], x.device)
   return y, mean, rstd
 
 

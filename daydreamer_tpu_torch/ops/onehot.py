@@ -20,8 +20,10 @@ the mode, which has no gradient.
   it. For classes a power of two from 2 to 32 each holds several classes a
   lane (`lane_classes`, `bwd_lane_classes`), on a grid of at most `BLOCKS`
   blocks walking the values; any other count of classes C >= 1 takes a
-  general path, a group of up to a warp's lanes a group that walks its
-  classes in passes.
+  general path: forward, a group of up to a warp's lanes a group that
+  walks its classes in passes; backward, a lane's consecutive classes in
+  registers and a group of up to a warp's lanes a group, read once
+  (`group_lane_classes`), or past GROUP_MOST classes a lane the passes.
 - On a CPU tensor it runs `onehot_head_plain`, the function in PyTorch ops
   (the RSSM's and `OneHotDist`'s code before the kernel), and
   differentiates it by autograd.
@@ -49,6 +51,9 @@ BLOCKS = 1056
 # backward's place.
 WIDE_FROM = 1 << 18
 LANE_CLASSES = BWD_LANE_CLASSES = None
+# Classes a lane of the general backward holds at most (`group_lane_classes`):
+# groups of more than a warp's lanes of GROUP_MOST classes take the passes.
+GROUP_MOST = 8
 
 ONEHOT_HEAD_FWD = build.register(build.Kernel(
     'onehot_head_fwd', 'onehot.cu',
@@ -118,6 +123,23 @@ def bwd_lane_classes(n, dtype):
   return 16 // cost.itemsize(dtype) if n >= WIDE_FROM else 2
 
 
+def group_lane_classes(C, dtype):
+  """Classes a lane of the general backward holds for groups of C classes
+  of dtype (any count but the powers of two from 2 to 32): the widest
+  vector of up to 16 bytes that C is a multiple of, doubled until a warp's
+  lanes hold the group; 0, the passes, past GROUP_MOST."""
+  lane = 16 // cost.itemsize(dtype)
+  while C % lane:
+    lane //= 2
+  while -(-C // lane) > 32:
+    lane *= 2
+  return lane if lane <= GROUP_MOST else 0
+
+
+def _power_of_two_classes(C):
+  return 2 <= C <= 32 and C & (C - 1) == 0
+
+
 def onehot_head_fwd_cuda(raw, u, unimix):
   """logit, stoch from one launch of `onehot_head_fwd`; raw on a card, u
   float32 of raw's shape or None (the mode)."""
@@ -155,10 +177,12 @@ def onehot_head_bwd_cuda(raw, logit, dlogit, dstoch, unimix, sample):
     dstoch = None
   build.check(name, tensors, raw.device, raw.dtype)
   draw = torch.empty_like(raw)
+  lanes = (bwd_lane_classes(raw.numel(), raw.dtype)
+           if _power_of_two_classes(C) else group_lane_classes(C, raw.dtype))
   build.launch(ONEHOT_HEAD_BWD, name, raw.dtype,
                [raw, logit, dlogit, dstoch, draw],
                [raw.numel(), C, int(bool(unimix)), int(sample), BLOCKS,
-                bwd_lane_classes(raw.numel(), raw.dtype)],
+                lanes],
                _scalars(C, unimix), raw.device)
   return draw
 

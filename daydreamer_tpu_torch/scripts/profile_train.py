@@ -129,9 +129,13 @@ OWN = {
     'onehot_any_bwd_kernel': 'onehot_head_bwd',
     'ln_stream_fwd_kernel': 'layer_norm_act_fwd',
     'ln_stream_bwd_kernel': 'layer_norm_act_bwd',
-    # The backwards of those wide rows on clusters.
+    # The backwards of those wide rows on clusters, their LayerNorm's
+    # forward staged in shared memory, and the head's backward at other
+    # class counts with a lane's classes in registers.
     'gru_cluster_bwd_kernel': 'gru_cell_bwd',
     'ln_cluster_bwd_kernel': 'layer_norm_act_bwd',
+    'ln_staged_fwd_kernel': 'layer_norm_act_fwd',
+    'onehot_group_bwd_kernel': 'onehot_head_bwd',
 }
 # The other categories: the first pattern that matches the lowercased name.
 CATEGORIES = (

@@ -154,6 +154,11 @@ def test_profile_train_sets():
      '1>(__nv_bfloat16 const*)', 'gru_cell_bwd'),
     ('void (anonymous namespace)::ln_cluster_bwd_kernel<float, 2, 2>(float '
      'const*)', 'layer_norm_act_bwd'),
+    # The staged forward of those rows and the head's group backward.
+    ('void (anonymous namespace)::ln_staged_fwd_kernel<__nv_bfloat16, 4>('
+     '__nv_bfloat16 const*)', 'layer_norm_act_fwd'),
+    ('void (anonymous namespace)::onehot_group_bwd_kernel<float, 8>(float '
+     'const*)', 'onehot_head_bwd'),
 ])
 def test_categorize(name, category):
   assert profile_train.categorize(name) == category

@@ -157,3 +157,68 @@ def test_layer_norm_backward_path(rows, C, dtype, clustered):
     # The cluster's lanes hold the row, at most CLUSTER_BYTES of it a lane.
     assert C % vec == 0 and threads % 32 == 0
     assert ranks * threads * (norm.CLUSTER_BYTES // item) >= C
+
+
+@pytest.mark.parametrize('rows,C,dtype,act,limit,stages', [
+    (1024, 12292, torch.float32, 'none', None, 2),
+    (16384, 24580, torch.bfloat16, 'elu', None, 2),
+    (1024, 16392, torch.bfloat16, 'elu', None, 0),
+    (1024, 4100, torch.bfloat16, 'none', None, 0),
+    (16384, 4100, torch.bfloat16, 'elu', None, 0),
+    (1, 16392, torch.bfloat16, 'elu', None, 3),
+    (32, 4100, torch.bfloat16, 'elu', None, 4),
+    (128, 4097, torch.float32, 'elu', None, 4),
+    (129, 4097, torch.float32, 'elu', None, 0),
+    (32, 4100, torch.bfloat16, 'none', None, 0),
+    (1024, 30000, torch.bfloat16, 'none', None, 2),
+    (1024, 70000, torch.bfloat16, 'none', None, 0),
+    (5, 4100, torch.bfloat16, 'elu', 16000, 0),
+    (5, 4100, torch.bfloat16, 'elu', 20000, 2),
+    (5, 4100, torch.bfloat16, 'elu', 40000, 2),
+])
+def test_layer_norm_forward_path(monkeypatch, rows, C, dtype, act, limit,
+                                 stages):
+  """The forward of rows past the plan (`norm.stage_plan`): the staged
+  kernel for rows of at least STAGE_LEAST bytes and for at most STAGE_FEW
+  rows with the ELU, with up to STAGES buffers a block, as many as half the
+  card's shared memory holds (two blocks an SM), two where only all of it
+  holds them; the streaming kernel elsewhere and where it does not hold
+  two."""
+  if limit is not None:
+    monkeypatch.setattr(build, 'SHARED_MEMORY_LIMIT', limit)
+  assert norm.stage_plan(rows, C, dtype, act) == stages
+  item = torch.tensor([], dtype=dtype).element_size()
+  buffer = -(-C * item // 16) * 16 + 16
+  used = 4 * norm.STAGE_RED + 2 * buffer
+  fits = used <= build.SHARED_MEMORY_LIMIT
+  if stages:
+    assert norm.stage_buffers(C, dtype) == stages
+  assert (norm.stage_buffers(C, dtype) > 0) == fits
+  routed = C * item >= norm.STAGE_LEAST or (rows <= norm.STAGE_FEW
+                                            and act == 'elu')
+  assert (stages > 0) == (routed and fits)
+  assert stages <= norm.STAGES
+  if stages > 2:
+    used += (stages - 2) * buffer
+    assert 2 * used <= build.SHARED_MEMORY_LIMIT
+
+
+@pytest.mark.parametrize('C,dtype,lane', [
+    (1, torch.bfloat16, 1), (3, torch.float32, 1), (48, torch.bfloat16, 8),
+    (48, torch.float32, 4), (64, torch.bfloat16, 8), (100, torch.bfloat16, 4),
+    (200, torch.bfloat16, 8), (255, torch.bfloat16, 8),
+    (256, torch.float32, 8), (300, torch.bfloat16, 0),
+    (257, torch.float32, 0), (1000, torch.bfloat16, 0),
+])
+def test_onehot_backward_path(C, dtype, lane):
+  """The head backward at a class count that is no power of two from 2 to
+  32 (`onehot.group_lane_classes`): a lane the widest vector that C is a
+  multiple of, doubled until a warp's lanes hold the group, the group
+  kernel up to GROUP_MOST classes a lane, the passes past it (0)."""
+  assert onehot.group_lane_classes(C, dtype) == lane
+  if lane:
+    # A warp's lanes hold the group, and half as many classes a lane
+    # would not, unless a lane holds no more than its vector.
+    item = torch.tensor([], dtype=dtype).element_size()
+    assert -(-C // lane) <= 32 and lane <= onehot.GROUP_MOST
+    assert (lane * item <= 16 and C % lane == 0) or -(-C // (lane // 2)) > 32
