@@ -242,18 +242,20 @@ Phases, each of which must pass:
                rows with the sample and on 32 with the mode, on the same
                uniform draws, in float32 and bfloat16, within the
                tolerances they print: the samples must choose the same
-               classes but at ties (counted), a second backward launch
+               classes but at ties (counted), a second launch each way
                must equal the first bit for bit, the GRU backward must be
                one device kernel a call; with the times of kernel
                and plain version and the bound (no PyTorch call computes
                either: library none). Then the same checks at widths past
                their first layouts: the GRU cell without a norm (32 and
                1 024 rows of 256) and past D = 2 048 (1 x 2 049, 32 and
-               1 024 rows of 4 096; the backward timed on the clusters'
-               kernel and held untimed on the streaming one, each by name
-               in the trace), the head at 3, 48, 64 and 256 classes (32
-               and 1 024 rows, sampled and the mode; the backward on the
-               group kernel, by name in the trace). Each kernel's trace
+               1 024 rows of 4 096; timed on the kernels the wrapper picks
+               each way, the block forward (the streaming one for float32's
+               1 024 rows) and the clusters' backward, and held untimed on
+               the streaming ones, each by name in the trace),
+               the head at 3, 48, 64 and 256 classes (32 and 1 024 rows,
+               sampled and the mode; both ways on the group kernels, by
+               name in the trace). Each kernel's trace
                must hold one device kernel a call, or it is taken again.
                Then one xarm update with the kernels and one with the plain
                versions (`build.plain_versions()`) from one state and one
@@ -286,11 +288,13 @@ The line before the last lists the kernels as JSON; the last line is
 the script exits non-zero and prints no result. `--phases` runs a subset;
 the extra phase `wide_paths` (not run by default) times both backwards
 of rows past the plan, the clusters' and the streaming one, at a sweep of
-widths and row counts of layer_norm_act and the GRU cell, and the
+widths and row counts of layer_norm_act and the GRU cell, the
 forwards of LayerNorm rows past the plan (staged as the wrapper plans it,
 staged at other block sizes and buffers, streaming) at the same widths
-and rows
-(`--wide-paths forward` or `backward` sweeps one way only), and writes the
+and rows, and the GRU cell's forwards past D = 2 048 (a block a row and
+streaming)
+(`--wide-paths forward`, `backward` or `gru_forward` sweeps those only),
+and writes the
 times to wide_paths.json in its run directory under runs/ (each time is
 also logged); the extra phase `parallel_cards` (not run by default; it
 needs two cards or more) runs one rank of the worker on each card over
@@ -350,8 +354,10 @@ ones; gru at each site of GRU_SITES, in bfloat16
 GRU_LARGE_SITES, and GRU_WIDE_SITES, onehot at each site of
 HEAD_SITES, forward and backward, after each instantiation's registers and
 spills, with the tree's own variants beside them: the GRU forward's
-group of lanes a row, the head's classes a lane each way; then the head
-at HEAD_CLASSES, the backward's times): how a change to
+group of lanes a row, the head's classes a lane each way; the GRU's
+forward at GRU_WIDE_SITES beside its bound; then the head at
+HEAD_CLASSES, the times of both ways beside their bounds): how a change
+to
 a kernel is held against its parent inside one run.
 """
 
@@ -1186,27 +1192,32 @@ def compare_gru(source):
   (tree, other, other, tree), the forward with the tree at a group of 32,
   64, 128 and 256 lanes a row beside them (`FWD_LANES` of rows x G); then,
   in bfloat16, the backward at GRU_LARGE_SITES, and in both types at
-  GRU_WIDE_SITES (deters past MAX_D), with its bound. Both backwards read
+  GRU_WIDE_SITES (deters past MAX_D), with its bound, and there the
+  forward too, with its bound, the tree's block forward on its 1 024
+  threads' instantiation (FWD_BOUND 0) beside them. Both backwards read
   the tree's forward's mean and rstd, so that they take the same inputs
   where the two forwards sum a row in another order. The other version
-  gets `partial` as the wrappers sized it before they counted a launch's
-  rows (a row a block of up to BWD_BLOCKS), which an older source may
-  write."""
+  is built with the tree's parts that lie beside SOURCE (`gru_cluster.cu`,
+  `gru_block_fwd.cu`) and gets the tree's wrappers' dims and `partial`,
+  which the parent's source reads as it did."""
   import torch
   from daydreamer_tpu_torch.nn import cost
   from daydreamer_tpu_torch.ops import build, gru
   tree = gru.GRU_CELL_FWD
-  other = build.Kernel('gru_other', str(pathlib.Path(source).resolve()),
-                       'another version', tree.signature)
+  source = pathlib.Path(source).resolve()
+  other = build.Kernel('gru_other', str(source), 'another version',
+                       tree.signature, parts=[
+                           str(source.parent / part.name)
+                           for part in tree.parts
+                           if (source.parent / part.name).exists()])
   build.build_all([tree, other])
   for kernel in (tree, other):
     log_registers(kernel, ('gru_fwd_kernel', 'gru_bwd_kernel',
-                           'gru_cluster_bwd_kernel'))
+                           'gru_cluster_bwd_kernel', 'gru_block_fwd_kernel',
+                           'gru_wide_fwd_kernel'))
   names = ('GRU_CELL_FWD', 'GRU_CELL_BWD')
 
   def under(kernel, fn, **settings):
-    if kernel is not tree:
-      settings['_partial_rows'] = lambda rows, plan: min(gru.BWD_BLOCKS, rows)
     def call():
       with _swapped(gru, names, kernel, **settings):
         return fn()
@@ -1236,6 +1247,12 @@ def compare_gru(source):
             ('tree', under(tree, fwd)), ('other', under(other, fwd)),
             *[(f'G {G}', under(tree, fwd, FWD_LANES=rows * G))
               for G in (32, 64, 128, 256)]])
+      if (rows, D) in GRU_WIDE_SITES:
+        bound = cost.bound(*gru.gru_cell_work(rows, D, dtype), dtype)
+        _turns(f'{label} forward (bound {bound["bound_ms"]:.4f} '
+               f'{bound["bound_by"]}; tree {gru.fwd_plan(rows, D, dtype)})',
+               [('tree', under(tree, fwd)), ('other', under(other, fwd)),
+                ('tree at the 1 024 bound', under(tree, fwd, FWD_BOUND=0))])
       bound = cost.bound(*gru.gru_cell_work(rows, D, dtype, backward=True),
                          dtype)
       _turns(f'{label} backward (bound {bound["bound_ms"]:.4f} '
@@ -1253,9 +1270,10 @@ def compare_onehot(source):
   largest difference of the logits and the groups whose sample differs),
   and their device times in turns (tree, other, other, tree), the tree at
   2 and 8 classes a lane forward and at 2, 4 and 8 backward beside
-  them; then at each of HEAD_CLASSES (the general path) on 1 024 rows,
-  sampled and the mode, both types, the bits of both ways and the
-  backward's times in turns."""
+  them; then at each of HEAD_CLASSES (the general path) on 32 and 1 024
+  rows, sampled and the mode, both types, the bits of both ways and the
+  times of both ways in turns, each beside its bound, the forward with
+  the tree at its other rule of classes a lane beside them."""
   import torch
   from daydreamer_tpu_torch.nn import cost
   from daydreamer_tpu_torch.ops import build, onehot
@@ -1266,6 +1284,7 @@ def compare_onehot(source):
   for kernel in (tree, other):
     log_registers(kernel, ('onehot_fwd_kernel', 'onehot_bwd_kernel',
                            'onehot_any_fwd_kernel', 'onehot_any_bwd_kernel',
+                           'onehot_group_fwd_kernel',
                            'onehot_group_bwd_kernel'))
   names = ('ONEHOT_HEAD_FWD', 'ONEHOT_HEAD_BWD')
 
@@ -1304,7 +1323,7 @@ def compare_onehot(source):
           *[(f'{k} a lane', under(tree, bwd, BWD_LANE_CLASSES=k))
             for k in (2, 4, 8)]])
     for C in HEAD_CLASSES:
-      for rows, sample in HEAD_CLASS_SITES[2:]:
+      for rows, sample in HEAD_CLASS_SITES:
         raw, u, dlogit, dstoch = _head_inputs(rows, sample, dtype, C=C)
         fwd = lambda: onehot.onehot_head_fwd_cuda(raw, u, unimix)
         logit, stoch = under(tree, fwd)()
@@ -1313,13 +1332,24 @@ def compare_onehot(source):
                                                   unimix, sample)
         bwd_equal, bwd_worst = _differ([under(tree, bwd)()],
                                        [under(other, bwd)()])
-        bound = cost.bound(*onehot.onehot_head_work(
-            rows, HEAD_S, C, dtype, unimix, sample, backward=True), dtype)
+        fwd_bound, bound = [cost.bound(*onehot.onehot_head_work(
+            rows, HEAD_S, C, dtype, unimix, sample, backward=b), dtype)
+                            for b in (False, True)]
         label = (f'compare onehot {name} rows {rows} x {HEAD_S} x {C} '
                  f'({"sample" if sample else "mode"})')
         log(f'{label}: forward equal bit for bit {fwd_equal} (largest '
             f'difference {fwd_worst:.3g}); backward equal bit for bit '
             f'{bwd_equal} (largest difference {bwd_worst:.3g})')
+        # The tree at the other rule of its classes a lane
+        # (`onehot.fwd_lane_classes`: few values' or many values').
+        few = onehot.fwd_lane_classes(C, dtype, rows * HEAD_S * C) != (
+            onehot.fwd_lane_classes(C, dtype, 1 << 62))
+        _turns(f'{label} forward (bound {fwd_bound["bound_ms"]:.4f} '
+               f'{fwd_bound["bound_by"]})',
+               [('tree', under(tree, fwd)), ('other', under(other, fwd)),
+                (f'{"many" if few else "few"} values\' classes a lane',
+                 under(tree, fwd,
+                       GROUP_WIDE_LANES=0 if few else 1 << 62))])
         _turns(f'{label} backward (bound {bound["bound_ms"]:.4f} '
                f'{bound["bound_by"]})',
                [('tree', under(tree, bwd)), ('other', under(other, bwd))])
@@ -1841,7 +1871,7 @@ def _head_inputs(rows, sample, dtype, device='cuda', C=HEAD_C):
 
 
 def check_gru_cell(sites=GRU_SITES, device='cuda', normed=True,
-                   backward_kernel=None, timed=True):
+                   backward_kernel=None, timed=True, forward_kernel=None):
   """gru_cell's two kernels against the plain version (the RSSM's norm of
   the product and its gates, `gru.gru_cell_plain`; without `normed`, the
   gates on the product itself, `norm: none`) and its autograd at each
@@ -1849,9 +1879,10 @@ def check_gru_cell(sites=GRU_SITES, device='cuda', normed=True,
   the bound; each kernel's trace must hold one device kernel a call. No
   PyTorch call computes the cell: `torch.nn.GRUCell` applies the reset
   inside its product and has no update bias of -1 nor a norm, so
-  `library_ms` is None. Where `backward_kernel` names a kernel, the
-  backward's trace must hold it; without `timed` nothing is timed.
-  Returns the rows of the largest site."""
+  `library_ms` is None. Where `backward_kernel` (`forward_kernel`) gives
+  a kernel (a name, or a function of rows, D and dtype that returns it),
+  the backward's (forward's) trace must hold it; without `timed` nothing
+  is timed. Returns the rows of the largest site."""
   import torch
   from daydreamer_tpu_torch.nn import cost
   from daydreamer_tpu_torch.ops import gru
@@ -1869,8 +1900,18 @@ def check_gru_cell(sites=GRU_SITES, device='cuda', normed=True,
       # in a fixed order).
       same = all(a is None or torch.equal(a, b)
                  for a, b in zip(got, gru.gru_cell_bwd_cuda(*args)))
+      # A second forward launch: the same bits.
+      same &= all(a is None or torch.equal(a, b) for a, b in zip(
+          (out, mean, rstd), gru.gru_cell_fwd_cuda(x, deter, scale, bias)))
+      if forward_kernel is not None:
+        _expect_kernel(
+            forward_kernel(rows, D, dtype) if callable(forward_kernel)
+            else forward_kernel,
+            lambda: gru.gru_cell_fwd_cuda(x, deter, scale, bias), 'forward')
       if backward_kernel is not None:
-        _expect_kernel(backward_kernel, lambda: gru.gru_cell_bwd_cuda(*args))
+        _expect_kernel(
+            backward_kernel(rows, D, dtype) if callable(backward_kernel)
+            else backward_kernel, lambda: gru.gru_cell_bwd_cuda(*args))
       got = [g for g in got if g is not None]
       leaves = [v.clone().requires_grad_() for v in (x, deter, scale, bias)
                 if v is not None]
@@ -1966,7 +2007,7 @@ def _head_ties(stoch, ref_stoch, logit, ref_logit, u):
 
 
 def check_onehot_head(sites=HEAD_SITES, device='cuda', C=HEAD_C,
-                      backward_kernel=None):
+                      backward_kernel=None, forward_kernel=None, timed=True):
   """onehot_head's two kernels against the plain version (the unimix
   logit, `OneHotDist` and its straight-through Gumbel-max sample or its
   mode, `onehot.onehot_head_plain`) and its autograd at each site of
@@ -1975,9 +2016,10 @@ def check_onehot_head(sites=HEAD_SITES, device='cuda', C=HEAD_C,
   (counted), with the times of both and the bound; each kernel's trace
   must hold one device kernel a call. No PyTorch call computes the head
   (none mixes in a uniform floor, nor samples with the straight-through
-  estimator), so `library_ms` is None. Where `backward_kernel` names one,
-  the backward's device kernel must be that kernel. Returns the rows of
-  the rollout's site."""
+  estimator), so `library_ms` is None. Where `backward_kernel`
+  (`forward_kernel`) names one, the backward's (forward's) device kernel
+  must be that kernel; without `timed` nothing is timed. Returns the rows
+  of the rollout's site."""
   import torch
   from daydreamer_tpu_torch.nn import cost
   from daydreamer_tpu_torch.ops import onehot
@@ -1991,6 +2033,13 @@ def check_onehot_head(sites=HEAD_SITES, device='cuda', C=HEAD_C,
       args = (raw, logit, dlogit, dstoch, unimix, sample)
       draw = onehot.onehot_head_bwd_cuda(*args)
       same = torch.equal(draw, onehot.onehot_head_bwd_cuda(*args))
+      # A second forward launch: the same bits.
+      same &= all(torch.equal(a, b) for a, b in zip(
+          (logit, stoch), onehot.onehot_head_fwd_cuda(raw, u, unimix)))
+      if forward_kernel is not None:
+        _expect_kernel(forward_kernel,
+                       lambda: onehot.onehot_head_fwd_cuda(raw, u, unimix),
+                       'forward')
       if backward_kernel is not None:
         _expect_kernel(backward_kernel,
                        lambda: onehot.onehot_head_bwd_cuda(*args))
@@ -2018,31 +2067,35 @@ def check_onehot_head(sites=HEAD_SITES, device='cuda', C=HEAD_C,
       ok = (fwd <= limits[0] and ties and stoch_err <= limits[1]
             and grad_err <= limits[2] and same
             and bool(torch.isfinite(draw).all()))
-      work = [cost.bound(*onehot.onehot_head_work(
-          rows, S, C, dtype, unimix, sample, backward=b), dtype)
-              for b in (False, True)]
-      ms = step_ms(lambda: onehot.onehot_head_fwd_cuda(raw, u, unimix),
-                   expect=1)
-      bwd_ms = step_ms(lambda: onehot.onehot_head_bwd_cuda(*args), expect=1)
-      plain_ms = step_ms(lambda: onehot.onehot_head_plain(raw, u, unimix))
-      again = onehot.onehot_head_plain(leaf, u, unimix)[:len(outs)]
-      plain_bwd_ms = step_ms(lambda: torch.autograd.grad(
-          again, leaf, grads, retain_graph=True))
+      timings, again = '', None
+      if timed:
+        work = [cost.bound(*onehot.onehot_head_work(
+            rows, S, C, dtype, unimix, sample, backward=b), dtype)
+                for b in (False, True)]
+        ms = step_ms(lambda: onehot.onehot_head_fwd_cuda(raw, u, unimix),
+                     expect=1)
+        bwd_ms = step_ms(lambda: onehot.onehot_head_bwd_cuda(*args),
+                         expect=1)
+        plain_ms = step_ms(lambda: onehot.onehot_head_plain(raw, u, unimix))
+        again = onehot.onehot_head_plain(leaf, u, unimix)[:len(outs)]
+        plain_bwd_ms = step_ms(lambda: torch.autograd.grad(
+            again, leaf, grads, retain_graph=True))
+        timings = (
+            f'; device ms: forward {ms:.4f} (plain {plain_ms:.4f}, library '
+            f'none, bound {work[0]["bound_ms"]:.4f} {work[0]["bound_by"]}), '
+            f'backward {bwd_ms:.4f} (plain {plain_bwd_ms:.4f}, library none, '
+            f'bound {work[1]["bound_ms"]:.4f} {work[1]["bound_by"]})')
       log(f'onehot_head {name} rows {rows} x {S} x {C} '
           f'({"sample" if sample else "mode"}, unimix {unimix}): logit '
           f'error {fwd:.3g} (tolerance {limits[0]:g} of max(|logit|, 1)), '
           f'{flips} of {rows * S} groups choose another class, all ties '
           f'{ties}, stoch error elsewhere {stoch_err:.3g} (tolerance '
           f'{limits[1]:g}), scaled gradient error {grad_err:.3g} (tolerance '
-          f'{limits[2]:g}), two backward launches equal {same}; device ms: '
-          f'forward {ms:.4f} (plain {plain_ms:.4f}, library none, bound '
-          f'{work[0]["bound_ms"]:.4f} {work[0]["bound_by"]}), backward '
-          f'{bwd_ms:.4f} (plain {plain_bwd_ms:.4f}, library none, bound '
-          f'{work[1]["bound_ms"]:.4f} {work[1]["bound_by"]})')
+          f'{limits[2]:g}), two launches each way equal {same}' + timings)
       if not ok:
         raise AssertionError(f'onehot_head disagrees with its plain version '
                              f'in {name} at rows {rows} (sample {sample}).')
-      if (rows, sample) == max(sites):
+      if timed and (rows, sample) == max(sites):
         results.setdefault('onehot_head_fwd', {})[name] = dict(
             ms=ms, plain_ms=plain_ms, library_ms=None,
             bound_ms=work[0]['bound_ms'], bound_by=work[0]['bound_by'],
@@ -2084,6 +2137,34 @@ LAYER_NORM_WIDE_PATHS = (('ln_cluster_bwd_kernel', {'CLUSTER_LEAST': 0}),
                          ('ln_stream_bwd_kernel', {'CLUSTER_BYTES': 0}))
 GRU_WIDE_PATHS = (('gru_cluster_bwd_kernel', {}),
                   ('gru_wide_bwd_kernel', {'CLUSTER_BYTES': 0}))
+# The GRU forwards of deters past MAX_D, by the sweep's label: their device
+# kernel and the settings of `gru` that send such rows there: the block
+# forward at any count of rows (FWD_MANY_VALUES 0; the streaming kernel
+# where no block holds a row), the streaming kernel (FWD_BYTES 0: no
+# thread may keep a byte of a part).
+GRU_WIDE_FORWARDS = (
+    ('block', 'gru_block_fwd_kernel', {'FWD_MANY_VALUES': 0}),
+    ('stream', 'gru_wide_fwd_kernel', {'FWD_BYTES': 0}))
+# The sweep's GRU forwards: those above, and the block forward with every
+# block on the instantiation built for 1 024 threads (64 registers a
+# thread; FWD_BOUND 0).
+GRU_FORWARD_PATHS = GRU_WIDE_FORWARDS + (
+    ('block_1024', 'gru_block_fwd_kernel',
+     {'FWD_MANY_VALUES': 0, 'FWD_BOUND': 0}),)
+
+
+def _gru_forward_kernel(rows, D, dtype):
+  """The device kernel of the GRU forward the wrapper picks for rows of a
+  deter of D past MAX_D under the settings in force."""
+  from daydreamer_tpu_torch.ops import gru
+  return GRU_WIDE_FORWARDS[int(gru.fwd_plan(rows, D, dtype) is None)][1]
+
+
+def _gru_backward_kernel(rows, D, dtype):
+  """The device kernel of the GRU backward the wrapper picks for rows of a
+  deter of D past MAX_D under the settings in force."""
+  from daydreamer_tpu_torch.ops import gru
+  return GRU_WIDE_PATHS[int(gru.cluster_plan(rows, D, dtype) is None)][0]
 
 
 def _staged(rows, C, dtype, act):
@@ -2095,11 +2176,17 @@ def _staged(rows, C, dtype, act):
 
 # The forwards of rows past the plan with the settings of `norm` that
 # force each, the staged one first; and the head backward's kernel at
-# every site of HEAD_CLASSES.
+# every site of HEAD_CLASSES, each way.
 LAYER_NORM_WIDE_FORWARDS = (('ln_staged_fwd_kernel', {'stage_plan': _staged}),
                             ('ln_stream_fwd_kernel',
                              {'stage_plan': lambda *_: 0}))
+HEAD_CLASS_FORWARD = 'onehot_group_fwd_kernel'
 HEAD_CLASS_BACKWARD = 'onehot_group_bwd_kernel'
+# The head's general path in passes (a group's lanes walking its classes),
+# each way, and the setting of `onehot` that sends every class count there
+# (no classes a lane allowed).
+HEAD_CLASS_PASSES = ('onehot_any_fwd_kernel', 'onehot_any_bwd_kernel',
+                     {'GROUP_MOST': 0})
 
 
 def _expect_kernel(name, fn, way='backward', tries=5):
@@ -2146,19 +2233,32 @@ def check_layer_norm_widths(device='cuda'):
 
 def check_rssm_step_widths(device='cuda'):
   """check_gru_cell without a norm at GRU_BARE_SITES and with one past
-  MAX_D at GRU_WIDE_SITES, on both backwards of such rows
-  (GRU_WIDE_PATHS), and check_onehot_head at each of HEAD_CLASSES
-  (its general path) at HEAD_CLASS_SITES."""
-  from daydreamer_tpu_torch.ops import gru
+  MAX_D at GRU_WIDE_SITES, timed on the kernels the wrapper picks each way
+  and held once more, untimed, on the streaming forward and backward
+  (GRU_WIDE_FORWARDS, GRU_WIDE_PATHS), each by name in the trace; and
+  check_onehot_head at each of HEAD_CLASSES (its general path) at
+  HEAD_CLASS_SITES, each way on its group kernel, and held once more,
+  untimed, on the passes (HEAD_CLASS_PASSES), which the wrapper keeps
+  for groups past GROUP_MOST classes a lane on a warp."""
+  from daydreamer_tpu_torch.ops import gru, onehot
   check_gru_cell(GRU_BARE_SITES, device, normed=False)
-  for i, (kernel, settings) in enumerate(GRU_WIDE_PATHS):
-    how = settings if i else "the wrapper's pick"
-    log(f'gru_cell past MAX_D, the backward on {kernel} ({how}):')
+  for i, settings in enumerate((
+      {}, {**GRU_WIDE_FORWARDS[1][2], **GRU_WIDE_PATHS[1][1]})):
+    how = settings if i else "the wrapper's picks"
+    log(f'gru_cell past MAX_D ({how}):')
     with _swapped(gru, (), None, **settings):
-      check_gru_cell(GRU_WIDE_SITES, device, backward_kernel=kernel,
-                     timed=i == 0)
+      check_gru_cell(GRU_WIDE_SITES, device,
+                     backward_kernel=_gru_backward_kernel, timed=i == 0,
+                     forward_kernel=_gru_forward_kernel)
   for C in HEAD_CLASSES:
-    check_onehot_head(HEAD_CLASS_SITES, device, C, HEAD_CLASS_BACKWARD)
+    check_onehot_head(HEAD_CLASS_SITES, device, C, HEAD_CLASS_BACKWARD,
+                      HEAD_CLASS_FORWARD)
+  forward, backward, settings = HEAD_CLASS_PASSES
+  log(f'onehot_head on the passes ({settings}):')
+  with _swapped(onehot, (), None, **settings):
+    for C in HEAD_CLASSES:
+      check_onehot_head(HEAD_CLASS_SITES, device, C, backward, forward,
+                        timed=False)
 
 
 # The sweep of `--phases device,build,wide_paths` (not run by default):
@@ -2204,15 +2304,19 @@ def _path_ms(kernel, fn, tries=5):
   return sum(ms for ms, _ in times.values())
 
 
-def phase_wide_paths(ways=('forward', 'backward')):
+def phase_wide_paths(ways=('forward', 'backward', 'gru_forward')):
   """Both backwards of rows past the plan timed in turns (cluster, stream,
   stream, cluster) at every site of the sweep above, each with the ELU and
   without for layer_norm_act, to show where each is the faster (the
   wrappers' CLUSTER_LEAST); and the forwards of LayerNorm rows past the
   plan (LAYER_NORM_FORWARD_PATHS) in turns (each in order, then in the
   reverse order) at the same sites, each held to the staged forward's
-  output. `ways` picks the forward and the backward. Writes the times to
-  wide_paths.json in a run directory of its own."""
+  output; and the GRU cell's forwards past MAX_D (GRU_FORWARD_PATHS) in
+  the same turns at WIDE_PATH_GRU x WIDE_PATH_ROWS, each held to the
+  streaming forward's output (their times set `fwd_plan`).
+  `ways` picks the LayerNorm forwards, the backwards and the GRU
+  forwards. Writes the times to wide_paths.json in a run directory of its
+  own."""
   import torch
   from daydreamer_tpu_torch.ops import gru, norm
   rows_of = []
@@ -2263,6 +2367,43 @@ def phase_wide_paths(ways=('forward', 'backward')):
         + f'; faster {faster}')
     rows_of.append(dict(site, ms=times, faster=faster))
 
+  if 'gru_forward' in ways:
+    for name in ('bfloat16', 'float32'):
+      dtype = getattr(torch, name)
+      for D in WIDE_PATH_GRU:
+        for rows in WIDE_PATH_ROWS:
+          x, deter, scale, bias, _ = _gru_inputs(rows, D, dtype)
+          fwd = lambda: gru.gru_cell_fwd_cuda(x, deter, scale, bias)
+          times, outs, plans = {}, {}, {}
+          for label, _, settings in (GRU_FORWARD_PATHS
+                                     + GRU_FORWARD_PATHS[::-1]):
+            with _swapped(gru, (), None, **settings):
+              kernel = _gru_forward_kernel(rows, D, dtype)
+              times.setdefault(label, []).append(_path_ms(kernel, fwd))
+              outs.setdefault(label, fwd())
+              plans[label] = (kernel, gru.fwd_plan(rows, D, dtype),
+                              gru.FWD_BOUND)
+          picked = _gru_forward_kernel(rows, D, dtype)
+          # They sum a row in other orders: the new deter within a unit in
+          # the last place of bfloat16, float32's forward tolerance.
+          ref = outs['stream']
+          worst = max(float(((a.float() - b.float()).abs()
+                             / b.float().abs().clamp_min(1)).max())
+                      for out in outs.values() for a, b in zip(out, ref))
+          if not worst <= (2 ** -7 if name == 'bfloat16' else 1e-5):
+            raise AssertionError(f'the GRU forwards of rows {rows} x {D} '
+                                 f'({name}) disagree: {worst:.3g}')
+          faster = min(times, key=lambda k: sum(times[k]))
+          site = dict(kind='gru_fwd', dtype=name, rows=rows, width=D)
+          log(f'wide_paths {site}: forward device ms '
+              + ', '.join(f'{k} {v[0]:.4f} / {v[1]:.4f}'
+                          for k, v in times.items())
+              + f'; faster {faster}; the wrapper picks {picked}; plans '
+              f'{plans}; largest difference from stream {worst:.3g} of '
+              'max(|value|, 1)')
+          rows_of.append(dict(site, ms=times, faster=faster, plans=plans,
+                              picked=picked, difference=worst))
+          del x, deter, outs, ref
   if 'backward' in ways:
     for name, widths in WIDE_PATH_LAYER_NORM.items():
       dtype = getattr(torch, name)
@@ -2778,7 +2919,7 @@ def main(argv=None):
               'explore,parallel,imitation,tooling,soak,bench')
   parser.add_argument('--compare', action='append', default=[],
                       metavar='NAME=SOURCE')
-  parser.add_argument('--wide-paths', default='forward,backward',
+  parser.add_argument('--wide-paths', default='forward,backward,gru_forward',
                       help='The ways the wide_paths phase sweeps.')
   parser.add_argument('--seed', type=int, default=0)
   parser.add_argument('--fused-seeds', type=int, default=1)

@@ -74,9 +74,12 @@
 // the gates read x itself: one elementwise kernel each way, a thread a
 // vector of columns, with no row or column sums (gru_bare_*_kernel). A deter
 // past MAX_D = 2 048 (3 D values, more than 256 lanes of SPREAD values
-// hold) takes, forward, a block a row that streams the row from memory in
-// three passes (the mean, the mean of squared deviations, the gates;
-// gru_wide_fwd_kernel, written to be right first), and backward a cluster
+// hold) takes, forward, a block of up to 1 024 threads a row at a time
+// over a run of rows, each row read once and kept in registers, scale and
+// bias held in shared memory for every row (gru_block_fwd_kernel, below;
+// for many rows where a thread would keep few values of a row, and where
+// no block holds one, gru_wide_fwd_kernel: a block a row that streams the
+// row from memory in three passes), and backward a cluster
 // of 8 blocks, 16 where 8 hold too little (gru_cluster_bwd_kernel, with
 // row_cluster.cuh): the cluster takes a run of rows and each lane of the
 // cluster the same columns of the three parts, of deter, dout and ddeter
@@ -1196,6 +1199,214 @@ __global__ void __launch_bounds__(256)
                                        smem + HEAD_B - 1);
 }
 
+// The forward of those rows (gru_block_fwd_kernel): a block of up to
+// 1 024 threads holds a row, thread t the same NV vectors of VEC columns
+// (t, t + blockDim.x, ...) of the three parts and of deter in every row it
+// takes, at most 16 bytes of a part (FwdRow), so that each row is read from
+// memory once and kept in registers for its mean, its variance and its
+// gates. A grid of no more blocks than the card holds at once walks runs of
+// rows: a thread loads its scale and bias once, into its own slots of
+// shared memory (no barrier), for all of its block's rows, and the next
+// row's loads are in flight while the current one is reduced. The rows'
+// sums meet over the block's warps in shared memory (block_total, two
+// barriers a sum: the mean, then the squared deviations from it, as the
+// JAX Norm's two passes), in a fixed order, so that every launch gives the
+// same bits. The per-column arithmetic and its rounding are
+// gru_fwd_kernel's (the norm's output rounded to T, Gates, the two
+// products rounded on their own before their sum), bfloat16 columns in
+// pairs. ops/gru.py, `fwd_plan`, picks the threads and the vector: the
+// most threads for few rows, the fewest for many.
+template <class T, int VEC, int NV>
+struct FwdRow {
+  Pack<T, VEC> x[3][NV], d[NV];
+};
+
+// The thread's vectors of row `row` (none past `last`).
+template <class T, int VEC, int NV>
+__device__ __forceinline__ void load_fwd_row(FwdRow<T, VEC, NV>* r,
+                                             const T* __restrict__ x,
+                                             const T* __restrict__ deter,
+                                             int row, int last, int D,
+                                             int nvec) {
+  if (row >= last) return;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int j = i * blockDim.x + threadIdx.x;
+    if (j >= nvec) continue;
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+      r->x[p][i] = *reinterpret_cast<const Pack<T, VEC>*>(
+          x + (long)row * 3 * D + p * D + j * VEC);
+    r->d[i] = *reinterpret_cast<const Pack<T, VEC>*>(deter + (long)row * D +
+                                                     j * VEC);
+  }
+}
+
+// The slot of the thread's scale or bias of part p, vector i, value k in
+// its [3][V][blockDim.x] floats.
+template <int VEC, int NV>
+__device__ __forceinline__ int fwd_slot(int p, int i, int k) {
+  return ((p * NV + i) * VEC + k) * blockDim.x + threadIdx.x;
+}
+
+// The thread's scale and bias into its slots at sc and bi: only this
+// thread reads them, so no barrier.
+template <int VEC, int NV>
+__device__ __forceinline__ void fwd_params(const float* __restrict__ scale,
+                                           const float* __restrict__ bias,
+                                           float* sc, float* bi, int D,
+                                           int nvec) {
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int j = i * blockDim.x + threadIdx.x;
+      if (j >= nvec) continue;
+      float v[VEC], w[VEC];
+      load_vec<VEC>(scale + p * D + j * VEC, v);
+      load_vec<VEC>(bias + p * D + j * VEC, w);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        sc[fwd_slot<VEC, NV>(p, i, k)] = v[k];
+        bi[fwd_slot<VEC, NV>(p, i, k)] = w[k];
+      }
+    }
+}
+
+// The thread's share of the sum of a row (squares false) or of its squared
+// deviations from `mean`.
+template <class T, int VEC, int NV>
+__device__ __forceinline__ float fwd_sum(const FwdRow<T, VEC, NV>& r,
+                                         bool squares, float mean,
+                                         int nvec) {
+  float s = 0.f;
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      if (i * (int)blockDim.x + (int)threadIdx.x < nvec) {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          const float e = widen(r.x[p][i].v[k]) - (squares ? mean : 0.f);
+          s += squares ? e * e : e;
+        }
+      }
+  return s;
+}
+
+// The new deter of the thread's columns of one row from the row's mean and
+// rstd and the thread's scale and bias at sc and bi, stored in out_row.
+template <class T, int VEC, int NV>
+__device__ __forceinline__ void fwd_gates(const FwdRow<T, VEC, NV>& r,
+                                          float mean, float rstd,
+                                          const float* sc, const float* bi,
+                                          T* __restrict__ out_row, int nvec) {
+  // Columns rounded to T at once: bfloat16 in pairs.
+  constexpr int P = sizeof(T) == 2 && VEC % 2 == 0 ? 2 : 1;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int j = i * blockDim.x + threadIdx.x;
+    if (j >= nvec) continue;
+    Pack<T, VEC> o;
+#pragma unroll
+    for (int k = 0; k < VEC; k += P) {
+      float n[3][P];
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+#pragma unroll
+        for (int q = 0; q < P; ++q) {
+          const float xhat = (widen(r.x[p][i].v[k + q]) - mean) * rstd;
+          n[p][q] = xhat * sc[fwd_slot<VEC, NV>(p, i, k + q)] +
+                    bi[fwd_slot<VEC, NV>(p, i, k + q)];
+        }
+        round_all<T, P>(n[p]);
+      }
+      const Gates<T, P> g(n);
+      // Each product rounded on its own, then their sum.
+      float a[P], c[P];
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        a[q] = __fmul_rn(g.u[q], g.c[q]);
+        c[q] = __fmul_rn(g.om[q], widen(r.d[i].v[k + q]));
+      }
+      round_all<T, P>(a);
+      round_all<T, P>(c);
+#pragma unroll
+      for (int q = 0; q < P; ++q) a[q] = __fadd_rn(a[q], c[q]);
+      narrow_all<T, P>(a, &o.v[k]);
+    }
+    *reinterpret_cast<Pack<T, VEC>*>(out_row + j * VEC) = o;
+  }
+}
+
+// Floats of shared memory block_total takes at the head of a block's (a
+// multiple of 4, so that what follows is 16-byte aligned).
+constexpr int BLOCK_RED = 36;
+
+// The sum of `a` over the block's threads (up to 32 warps): the warps'
+// shuffles, then warp 0 over the warps' sums in a butterfly; every thread
+// gets the same bits. `red`: BLOCK_RED floats of shared memory. Every
+// thread of the block calls it.
+__device__ __forceinline__ float block_total(float a, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(FULL, a, o);
+  if (lane == 0) red[warp] = a;
+  __syncthreads();
+  if (warp == 0) {
+    float v = lane < (int)(blockDim.x + 31) / 32 ? red[lane] : 0.f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+    if (lane == 0) red[32] = v;
+  }
+  __syncthreads();
+  return red[32];
+}
+
+// The block forward's launch bounds: a block of at most FWD_TIGHT threads
+// that keep one 16-byte vector of each part (bfloat16 <8, 1>, float32
+// <4, 1>; ops/gru.py's `fwd_plan` gives many rows 288 to 544 threads up to
+// a deter of 4 100) takes the instantiation built for that many, whose
+// threads may keep up to 96 registers (65 536 over 640, to a multiple of
+// 8), so that two rows' vectors stay in registers; every other block the
+// one built for 1 024 threads (64), which kept more blocks an SM where
+// the 640 bound's registers cost them.
+constexpr int FWD_TIGHT = 640;
+
+template <class T, int VEC, int NV, int BOUND>
+__global__ void __launch_bounds__(BOUND)
+    gru_block_fwd_kernel(const T* __restrict__ x, const T* __restrict__ deter,
+                         const float* __restrict__ scale,
+                         const float* __restrict__ bias,
+                         T* __restrict__ out, float* __restrict__ mean_out,
+                         float* __restrict__ rstd_out, int rows, int D,
+                         int per, float eps) {
+  // block_total's floats, then the threads' scale and bias at
+  // [3][V][blockDim.x] each.
+  extern __shared__ __align__(16) float smem[];
+  const int C3 = 3 * D, nvec = D / VEC;
+  float* sc = smem + BLOCK_RED;
+  float* bi = sc + 3 * NV * VEC * blockDim.x;
+  const int first = blockIdx.x * per, last = min(rows, first + per);
+  FwdRow<T, VEC, NV> cur, next;
+  load_fwd_row(&cur, x, deter, first, last, D, nvec);
+  fwd_params<VEC, NV>(scale, bias, sc, bi, D, nvec);
+  for (int row = first; row < last; ++row) {
+    // The next row in flight before this one's sums.
+    load_fwd_row(&next, x, deter, row + 1, last, D, nvec);
+    const float mean =
+        block_total(fwd_sum(cur, false, 0.f, nvec), smem) / C3;
+    const float sq = block_total(fwd_sum(cur, true, mean, nvec), smem);
+    const float rstd = rsqrtf(sq / C3 + eps);
+    fwd_gates(cur, mean, rstd, sc, bi, out + (long)row * D, nvec);
+    if (threadIdx.x == 0) {
+      mean_out[row] = mean;
+      rstd_out[row] = rstd;
+    }
+    cur = next;
+  }
+}
+
 // The vectors a lane may keep of a part (the kernels' N).
 constexpr int NS[] = {1, 2, 4, 8};
 
@@ -1468,12 +1679,81 @@ cudaError_t run_cluster(void* const* p, const int* dims,
   return cudaErrorInvalidValue;
 }
 
+// The block forward. dims as `run` reads them: [2] blocks at most, [5]
+// threads a block, [6] the vector's values, [7] the launch bound of the
+// instantiation (FWD_TIGHT or 1 024); no more blocks than the card holds
+// at once, each with a run of rows. A launch whose shared memory or
+// threads the card refuses returns the error.
+template <class T, int VEC, int NV, int BOUND>
+cudaError_t block_fwd(void* const* p, const int* dims, float eps,
+                      cudaStream_t stream) {
+  auto kernel = gru_block_fwd_kernel<T, VEC, NV, BOUND>;
+  const int rows = dims[0], D = dims[1], threads = dims[5];
+  if (threads > BOUND || threads % 32) return cudaErrorInvalidValue;
+  const size_t bytes = (BLOCK_RED + 6 * NV * VEC * threads) * sizeof(float);
+  int device = 0, sms = 1, per_sm = 0;
+  cudaError_t err = allow(kernel, bytes, 1);
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, bytes);
+  if (err != cudaSuccess) return err;
+  if (per_sm <= 0) return cudaErrorInvalidValue;
+  int blocks = std::min(rows, std::min(dims[2], sms * per_sm));
+  // A run of `per` rows a block, every block with one.
+  const int per = (rows + blocks - 1) / blocks;
+  blocks = (rows + per - 1) / per;
+  kernel<<<blocks, threads, bytes, stream>>>(static_cast<const T*>(p[0]), static_cast<const T*>(p[1]), static_cast<const float*>(p[2]), static_cast<const float*>(p[3]), static_cast<T*>(p[4]), static_cast<float*>(p[5]), static_cast<float*>(p[6]), rows, D, per, eps);
+  return cudaGetLastError();
+}
+
+// The block forward at the vector dims[6], the vectors a thread keeps of
+// a part (the fewest of 1, 2, 4 that hold the row, at most 16 bytes of a
+// part a thread, a vector of fewer than 4 bytes counted as 4) and the
+// launch bound dims[7] (FWD_TIGHT only for one 16-byte vector a part).
+template <class T>
+cudaError_t run_block_fwd(void* const* p, const int* dims, float eps,
+                          cudaStream_t stream) {
+  const int vec = dims[6], threads = dims[5], bound = dims[7];
+  if (vec <= 0 || dims[1] % vec || vec * (int)sizeof(T) > 16 || threads <= 0
+      || (bound != FWD_TIGHT && bound != 1024))
+    return cudaErrorInvalidValue;
+  const int nvec = dims[1] / vec;
+  int nv = 1;
+  while ((long)nv * threads < nvec) nv *= 2;
+#define GRU_BLOCK_FWD(V, NN)                                            \
+  if constexpr (NN * (V * sizeof(T) < 4 ? 4 : V * sizeof(T)) <= 16)     \
+    if (vec == V && nv == NN) {                                         \
+      if constexpr (NN == 1 && V * sizeof(T) == 16)                     \
+        if (bound == FWD_TIGHT)                                         \
+          return block_fwd<T, V, NN, FWD_TIGHT>(p, dims, eps, stream);  \
+      return bound == 1024 ? block_fwd<T, V, NN, 1024>(p, dims, eps, stream) \
+                           : cudaErrorInvalidValue;                     \
+    }
+#define GRU_BLOCK_FWDS(V)                                               \
+  GRU_BLOCK_FWD(V, 1) GRU_BLOCK_FWD(V, 2) GRU_BLOCK_FWD(V, 4)
+  if constexpr (sizeof(T) == 2) {
+    GRU_BLOCK_FWDS(8)
+  }
+  GRU_BLOCK_FWDS(4)
+  GRU_BLOCK_FWDS(2)
+  GRU_BLOCK_FWDS(1)
+#undef GRU_BLOCK_FWDS
+#undef GRU_BLOCK_FWD
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// The cluster backward (gru_cell_bwd's pointers and dims). Its
-// instantiations are compiled beside this file's, by an nvcc of their own
-// (gru_cluster.cu includes this file with GRU_CLUSTER_PART defined), and
-// the two objects are linked into one library (ops/build.py, `parts`).
+// The cluster backward and the block forward (gru_cell_bwd's and
+// gru_cell_fwd's pointers and dims). Their instantiations are compiled
+// beside this file's, each by an nvcc of its own (gru_cluster.cu and
+// gru_block_fwd.cu include this file with GRU_CLUSTER_PART or
+// GRU_BLOCK_FWD_PART defined), and the objects are linked into one
+// library (ops/build.py, `parts`).
 #ifdef GRU_CLUSTER_PART
 extern "C" int gru_cluster_bwd(int bf16, void* const* ptrs, const int* dims,
                                void* stream) {
@@ -1485,13 +1765,25 @@ extern "C" int gru_cluster_bwd(int bf16, void* const* ptrs, const int* dims,
 extern "C" int gru_cluster_bwd(int bf16, void* const* ptrs, const int* dims,
                                void* stream);
 #endif
+#ifdef GRU_BLOCK_FWD_PART
+extern "C" int gru_block_fwd(int bf16, void* const* ptrs, const int* dims,
+                             float eps, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? run_block_fwd<__nv_bfloat16>(ptrs, dims, eps, st)
+              : run_block_fwd<float>(ptrs, dims, eps, st);
+}
+#else
+extern "C" int gru_block_fwd(int bf16, void* const* ptrs, const int* dims,
+                             float eps, void* stream);
+#endif
 
 namespace {
 
 // One launch (forward or backward): without a norm the elementwise kernel;
 // else at the plan's VEC and N, or where no group of lanes holds the row
-// (D past MAX_D), the backward's cluster kernel where the caller gives it a
-// cluster (dims[8] > 0), else the wide rows' kernels.
+// (D past MAX_D), the backward's cluster kernel where the caller gives it
+// a cluster (dims[8] > 0), the forward's block kernel where the caller
+// gives it a block (dims[5] > 0), else the wide rows' kernels.
 template <class T>
 cudaError_t run(bool backward, void* const* p, const int* dims, float eps,
                 cudaStream_t stream) {
@@ -1512,6 +1804,9 @@ cudaError_t run(bool backward, void* const* p, const int* dims, float eps,
   if (n == 0 && norm && backward && dims[8] > 0)
     return static_cast<cudaError_t>(
         gru_cluster_bwd(sizeof(T) == 2, p, dims, stream));
+  if (n == 0 && norm && !backward && dims[5] > 0)
+    return static_cast<cudaError_t>(
+        gru_block_fwd(sizeof(T) == 2, p, dims, eps, stream));
   if (n == 0) {
     if constexpr (sizeof(T) == 2) {
       GRU_OTHER(8)
@@ -1542,11 +1837,12 @@ cudaError_t run(bool backward, void* const* p, const int* dims, float eps,
 
 }  // namespace
 
-#ifndef GRU_CLUSTER_PART
+#if !defined(GRU_CLUSTER_PART) && !defined(GRU_BLOCK_FWD_PART)
 // ptrs: x [rows][3 D], deter [rows][D], scale [3 D], bias [3 D], out
 // [rows][D], mean [rows], rstd [rows]. dims: rows, D, max_blocks, lanes to
 // spread the rows over, norm (0: `norm: none`, scale, bias, mean and rstd
-// unused).
+// unused), and for rows past MAX_D the block kernel's threads a block
+// (0: the wide kernel) and vector.
 extern "C" int gru_cell_fwd(int bf16, void* const* ptrs, const int* dims,
                             float eps, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1570,4 +1866,4 @@ extern "C" int gru_cell_bwd(int bf16, void* const* ptrs, const int* dims,
   return bf16 ? run<__nv_bfloat16>(true, ptrs, dims, eps, st)
               : run<float>(true, ptrs, dims, eps, st);
 }
-#endif  // GRU_CLUSTER_PART
+#endif  // neither part

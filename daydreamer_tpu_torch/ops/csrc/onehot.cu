@@ -45,12 +45,12 @@
 // and sum(dstoch * p); with the mixture, raw's max and sum of exp and
 // sum(g1 * p1): at C = 32 and K = 8 twelve shuffles for a lane's eight
 // values, where a lane a class took about thirty for its one.
-// Classes that are no power of two from 2 to 32 take a general path: the
-// forward onehot_any_fwd_kernel (a group of up to a warp's lanes a group
-// of classes, walking them in passes), the backward
-// onehot_group_bwd_kernel (a lane L consecutive classes in registers, a
-// group of lanes a group, read once), or past 8 classes a lane on a warp
-// onehot_any_bwd_kernel (the passes).
+// Classes that are no power of two from 2 to 32 take a general path:
+// onehot_group_fwd_kernel and onehot_group_bwd_kernel (a lane L
+// consecutive classes in registers, a group of lanes a group, read once),
+// or past 8 classes a lane on a warp onehot_any_fwd_kernel and
+// onehot_any_bwd_kernel (a group of up to a warp's lanes a group of
+// classes, walking them in passes).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -336,9 +336,11 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// Any other count of classes (1, 3, 48, 64, ...): a group of G lanes
-// takes a group of C classes, G = C rounded up to a power of two and at
-// most a warp, a lane its classes sub, sub + G, ... in class order. Each
+// Groups past 8 classes a lane on a warp's lanes (more than 256 classes
+// at L = 8; the group kernels below take the other counts): a group of G
+// lanes takes a group of C classes, G = C rounded up to a power of two
+// and at most a warp, a lane its classes sub, sub + G, ... in class
+// order. Each
 // group quantity is a pass over the lane's classes, then over the group's
 // lanes in log2(G) shuffles, and the passes re-read the group (from L1),
 // so that any C runs; the per-value arithmetic and its rounding are the
@@ -586,6 +588,19 @@ __device__ __forceinline__ float group_sum(float v, int G) {
   for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
 }
+// The first arg max (v, k) over the G lanes, in torch.argmax's order
+// (`first`): every lane of the group gets the same class.
+__device__ __forceinline__ int group_argmax(float v, int k, int G) {
+  for (int o = G / 2; o > 0; o >>= 1) {
+    const float w = __shfl_xor_sync(FULL, v, o);
+    const int j = __shfl_xor_sync(FULL, k, o);
+    if (first(w, j, v, k)) {
+      v = w;
+      k = j;
+    }
+  }
+  return k;
+}
 
 template <class T, int L>
 __global__ void __launch_bounds__(256)
@@ -672,25 +687,151 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// The general backward at the caller's classes a lane L (1, 2, 4 or 8).
+// The general forward, redesigned in the backward's layout (above) but for L,
+// which here is 1, 2, 3, 4, 6 or 8 (the caller's: where the values fill the
+// card, the one whose group of lanes leaves the fewest places idle, 6 at 48
+// classes, where 8 left 2 of each group's 8 lanes idle; where few values leave
+// it idle, the fewest, 2 at 48 and 64, so that a lane's chain of work is
+// short): a lane holds L consecutive classes of raw and, with the sample, of u
+// in registers, read from memory once (raw in vectors of K values, the widest
+// of up to 16 bytes that L and C are multiples of, u in vectors of up to 4
+// floats: two 16-byte loads of u beside one of raw at 8 bfloat16 classes), and
+// writes its logit and stoch once, never reading them back. Each exp and log is
+// made once a value and kept: with the mixture raw's exp, the mixture's log;
+// the logit's exp for its sum, the probability exp(lp) for stoch, the noise's
+// two logs. Each group quantity (raw's max and sum of exp; the logit's max and
+// sum of exp; the first arg max of lp plus the noise, or of lp) is taken over
+// the lane's classes in class order, then over the group's lanes by log2(G) xor
+// shuffles, so that every lane of the group gets the same bits, and the same
+// class, in any launch. The per-value arithmetic and its rounding are
+// onehot_any_fwd_kernel's: rounded<T> on the logit, __fadd_rn / __fmul_rn in
+// the mixture and in (one + p) - p, logf(-logf(fmaxf(u, TINY))). A lane past
+// the group's classes, or of a group past the last, adds nothing, wins nothing
+// and writes nothing.
+template <class T, int L>
+__global__ void __launch_bounds__(256)
+    onehot_group_fwd_kernel(const T* __restrict__ x,
+                            const float* __restrict__ u,
+                            T* __restrict__ logit, T* __restrict__ stoch,
+                            Head h, int G, int K) {
+  const int C = h.C, sub = threadIdx.x % G, per = THREADS / G;
+  const long groups = h.n / C;
+  const long steps = (groups + per - 1) / per;
+  const int lo = sub * L;
+  // Every thread of the block runs the same steps: the lanes of a group
+  // shuffle together.
+  for (long st = blockIdx.x; st < steps; st += gridDim.x) {
+    const long grp = st * per + threadIdx.x / G;
+    const int count = grp < groups ? max(0, min(L, C - lo)) : 0;
+    const long at = grp * C + lo;
+    // Both loads in flight before the first sum.
+    Packed<T, L> xr;
+    Packed<float, L> ur;
+    load_classes<L>(x + at, count, K, xr);
+    if (h.sample) load_classes<L>(u + at, count, K < 4 ? K : 4, ur);
+    float l[L];
+#pragma unroll
+    for (int k = 0; k < L; ++k) l[k] = xr.at(k);
+    if (h.unimix) {
+      // softmax(x) mixed with the uniform floor, its log rounded to T.
+      float m = -INFINITY;
+#pragma unroll
+      for (int k = 0; k < L; ++k)
+        if (k < count) m = fmaxf(m, l[k]);
+      m = group_max(m, G);
+      float e[L], sum = 0.f;
+#pragma unroll
+      for (int k = 0; k < L; ++k) {
+        e[k] = expf(l[k] - m);
+        if (k < count) sum += e[k];
+      }
+      sum = group_sum(sum, G);
+#pragma unroll
+      for (int k = 0; k < L; ++k) {
+        const float p2 = __fadd_rn(__fmul_rn(e[k] / sum, h.keep), h.floor_);
+        l[k] = rounded<T>(logf(p2));
+      }
+    }
+    // log_softmax of the logits, and the first arg max of it plus the
+    // noise (the sample) or of it alone (the mode).
+    float m = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < L; ++k)
+      if (k < count) m = fmaxf(m, l[k]);
+    m = group_max(m, G);
+    float z[L], sum = 0.f;
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      z[k] = l[k] - m;
+      if (k < count) sum += expf(z[k]);
+    }
+    const float lse = logf(group_sum(sum, G));
+    float best = -INFINITY;
+    int win = 0x7fffffff;
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      z[k] = z[k] - lse;  // lp.
+      if (k < count) {
+        float val = z[k];
+        if (h.sample) val += -logf(-logf(fmaxf(ur.at(k), TINY)));
+        if (first(val, lo + k, best, win)) {
+          best = val;
+          win = lo + k;
+        }
+      }
+    }
+    win = group_argmax(best, win, G);
+    float s[L];
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      const float one = lo + k == win ? 1.f : 0.f;
+      s[k] = one;
+      if (h.sample) {
+        const float p = expf(z[k]);
+        s[k] = __fsub_rn(__fadd_rn(one, p), p);
+      }
+    }
+    if (count > 0) {
+      store_classes<L>(logit + at, count, K, l);
+      store_classes<L>(stoch + at, count, K, s);
+    }
+  }
+}
+
+// The general kernels at the caller's classes a lane L (1, 2, 3, 4, 6 or 8
+// forward, ops/onehot.py's GROUP_LANES; 1, 2, 4 or 8 backward).
 template <class T>
-cudaError_t run_group(void* const* p, const Head& h, int L, int max_blocks,
-                      cudaStream_t stream) {
+cudaError_t run_group(bool backward, void* const* p, const Head& h, int L,
+                      int max_blocks, cudaStream_t stream) {
   int G = 1;
   while (G * L < h.C) G *= 2;
-  int K = 16 / (int)sizeof(T) < L ? 16 / (int)sizeof(T) : L;
-  while (h.C % K) K /= 2;
-  if (G > 32 || (L & (L - 1)) || L > 8) return cudaErrorInvalidValue;
+  int K = 16 / (int)sizeof(T);
+  while (h.C % K || L % K) K /= 2;
+  if (G > 32 || L > 8 || (backward && (L & (L - 1))))
+    return cudaErrorInvalidValue;
   const long groups = h.n / h.C, per = THREADS / G;
   const int grid = (int)std::min<long>((groups + per - 1) / per, max_blocks);
 #define ONEHOT_GROUP(LL)                                                 \
   if (L == LL) {                                                         \
-    auto kernel = onehot_group_bwd_kernel<T, LL>;                        \
-    kernel<<<grid, THREADS, 0, stream>>>(static_cast<const T*>(p[0]), static_cast<const T*>(p[1]), static_cast<const T*>(p[2]), static_cast<const T*>(p[3]), static_cast<T*>(p[4]), h, G, K); \
+    if (backward) {                                                      \
+      auto kernel = onehot_group_bwd_kernel<T, LL>;                      \
+      kernel<<<grid, THREADS, 0, stream>>>(static_cast<const T*>(p[0]), static_cast<const T*>(p[1]), static_cast<const T*>(p[2]), static_cast<const T*>(p[3]), static_cast<T*>(p[4]), h, G, K); \
+    } else {                                                             \
+      auto kernel = onehot_group_fwd_kernel<T, LL>;                      \
+      kernel<<<grid, THREADS, 0, stream>>>(static_cast<const T*>(p[0]), static_cast<const float*>(p[1]), static_cast<T*>(p[2]), static_cast<T*>(p[3]), h, G, K); \
+    }                                                                    \
     return cudaGetLastError();                                           \
   }
   ONEHOT_GROUP(1) ONEHOT_GROUP(2) ONEHOT_GROUP(4) ONEHOT_GROUP(8)
 #undef ONEHOT_GROUP
+#define ONEHOT_GROUP_FWD(LL)                                             \
+  if (L == LL) {                                                         \
+    auto kernel = onehot_group_fwd_kernel<T, LL>;                        \
+    kernel<<<grid, THREADS, 0, stream>>>(static_cast<const T*>(p[0]), static_cast<const float*>(p[1]), static_cast<T*>(p[2]), static_cast<T*>(p[3]), h, G, K); \
+    return cudaGetLastError();                                           \
+  }
+  ONEHOT_GROUP_FWD(3) ONEHOT_GROUP_FWD(6)
+#undef ONEHOT_GROUP_FWD
   return cudaErrorInvalidValue;
 }
 
@@ -747,8 +888,8 @@ template <class T>
 cudaError_t run(bool backward, void* const* p, Head h, const int* dims,
                 cudaStream_t stream) {
   if (h.C > 32 || (h.C & (h.C - 1)) || h.C < 2) {
-    if (backward && dims[5] > 0)
-      return run_group<T>(p, h, dims[5], dims[4], stream);
+    if (dims[5] > 0)
+      return run_group<T>(backward, p, h, dims[5], dims[4], stream);
     return run_any<T>(backward, p, h, dims[4], stream);
   }
   switch (dims[5]) {
@@ -761,8 +902,8 @@ cudaError_t run(bool backward, void* const* p, Head h, const int* dims,
 
 // dims: elements, classes, unimix (0 or 1), sample (0 or 1), blocks at
 // most, classes a lane (2, 4 or 8, for classes a power of two from 2 to
-// 32; for other counts, in the backward, 1, 2, 4 or 8 for the group
-// kernel, 0 for the passes); scalars: keep, floor.
+// 32; for other counts 1, 2, 3, 4, 6 or 8 forward and 1, 2, 4 or 8
+// backward for the group kernels, 0 for the passes); scalars: keep, floor.
 cudaError_t launch(int bf16, bool backward, void* const* ptrs,
                    const int* dims, float keep, float floor_,
                    cudaStream_t stream) {

@@ -749,13 +749,13 @@ def compare_gru(dtype, D, rows, fwd_blocks=None, cluster=None, blocks=None,
   `fwd_lanes` sets the lanes it spreads the rows over; `cluster`, `blocks`
   and `lanes` set the backward's cluster, its blocks at most and the lanes
   it spreads the rows over; without `normed` the cell has no norm (scale
-  and bias None); `wide` sets the cluster backward's constants past
-  MAX_D (gru's CLUSTER_BYTES; norm's CLUSTER_RANKS, CLUSTER_THREADS and
-  CLUSTER_BLOCKS, which gru reads). The backward runs twice. Returns (the
-  largest error of
+  and bias None); `wide` sets the constants of the kernels past MAX_D
+  (gru's CLUSTER_BYTES and the forward's FWD_*; norm's CLUSTER_RANKS,
+  CLUSTER_THREADS and CLUSTER_BLOCKS, which gru reads). Each way runs
+  twice. Returns (the largest error of
   the new deter relative to max(|deter|, 1), the largest scaled error of
   dx, ddeter, dscale and dbias (the first two without a norm), whether the
-  two backward runs gave the same bits and left the counters at zero)."""
+  two runs each way gave the same bits and left the counters at zero)."""
   rng = np.random.default_rng(seed)
   t = lambda *shape: torch.as_tensor(
       rng.standard_normal(shape).astype(np.float32))
@@ -773,6 +773,7 @@ def compare_gru(dtype, D, rows, fwd_blocks=None, cluster=None, blocks=None,
   caps.update({k: v for k, v in (wide or {}).items() if k not in shared})
   with settings(gru, caps), settings(norm, shared):
     out, mean, rstd = gru.gru_cell_fwd_cuda(x, deter, scale, bias)
+    again = gru.gru_cell_fwd_cuda(x, deter, scale, bias)
     runs = [gru.gru_cell_bwd_cuda(x, deter, scale, bias, mean, rstd, dout)
             for _ in range(2)]
     zeroed = not (bool(gru._barrier(x.device)[0])
@@ -787,35 +788,46 @@ def compare_gru(dtype, D, rows, fwd_blocks=None, cluster=None, blocks=None,
                / ref.float().abs().clamp_min(1)).max())
   bwd = [_scaled(got, w) for got, w in zip(runs[0], want)]
   same = zeroed and all(a is None or torch.equal(a, b)
-                        for a, b in zip(*runs))
+                        for a, b in [*zip(*runs), *zip((out, mean, rstd),
+                                                       again)])
   return fwd, bwd, same
 
 
 def compare_onehot(dtype, rows, S, C, unimix, sample, blocks=None,
-                   lane_classes=None, bwd_lane_classes=None, seed=0):
+                   lane_classes=None, bwd_lane_classes=None, tied=False,
+                   wide=False, seed=0):
   """The emulated `onehot_head_fwd` and `onehot_head_bwd` against the plain
   version and its autograd (call inside `emulated`); `blocks` caps both
   grids, so that a block walks several steps, `lane_classes` sets the
   classes a lane holds, in the backward `bwd_lane_classes` where given;
-  the backward runs twice on the same inputs. Returns (the largest error
-  of the logit relative to max(|logit|, 1), the groups whose choice
-  differs and whether each of them is a tie, the largest error of stoch on
-  the other groups, the scaled error of raw's gradient, whether the two
-  backward runs gave the same bits)."""
+  with `tied` every group's raw logits are 0 but for its first C // 3
+  classes, at -1, so that its largest values tie from class C // 3 on, in
+  several lanes; with `wide` the general forward takes the values to fill
+  the card (GROUP_WIDE_LANES 0: many values' classes a lane); each way runs
+  twice on the same inputs. Returns (the
+  largest error of the logit relative to max(|logit|, 1), the groups
+  whose choice differs and whether each of them is a tie, the largest
+  error of stoch on the other groups, the scaled error of raw's gradient,
+  whether the two runs each way gave the same bits)."""
   rng = np.random.default_rng(seed)
   t = lambda *shape: torch.as_tensor(
       rng.standard_normal(shape).astype(np.float32))
   raw = (2 * t(rows, S, C)).to(dtype)
+  if tied:
+    raw = torch.zeros_like(raw)
+    raw[..., :C // 3] = -1
   u = torch.as_tensor(rng.uniform(size=(rows, S, C)).astype(np.float32)) if (
       sample) else None
   dlogit, dstoch = t(rows, S, C).to(dtype), t(rows, S, C).to(dtype)
-  names = ('BLOCKS', 'LANE_CLASSES', 'BWD_LANE_CLASSES')
+  names = ('BLOCKS', 'LANE_CLASSES', 'BWD_LANE_CLASSES', 'GROUP_WIDE_LANES')
   saved = [getattr(onehot, name) for name in names]
   for name, value in zip(names, (blocks or saved[0], lane_classes,
-                                 bwd_lane_classes or lane_classes)):
+                                 bwd_lane_classes or lane_classes,
+                                 0 if wide else saved[3])):
     setattr(onehot, name, value)
   try:
     logit, stoch = onehot.onehot_head_fwd_cuda(raw, u, unimix)
+    fwd_again = onehot.onehot_head_fwd_cuda(raw, u, unimix)
     draw, again = [onehot.onehot_head_bwd_cuda(raw, logit, dlogit, dstoch,
                                               unimix, sample)
                    for _ in range(2)]
@@ -832,8 +844,9 @@ def compare_onehot(dtype, rows, S, C, unimix, sample, blocks=None,
   flips, ties = _choices(stoch, ref_stoch.detach(), ref_logit.detach(), u)
   keep = (stoch.argmax(-1) == ref_stoch.detach().argmax(-1))[..., None]
   stoch_err = _error(stoch * keep, ref_stoch.detach() * keep)
-  return (logit_err, (flips, ties), stoch_err, _scaled(draw, want),
-          torch.equal(draw, again))
+  same = torch.equal(draw, again) and all(
+      torch.equal(a, b) for a, b in zip((logit, stoch), fwd_again))
+  return logit_err, (flips, ties), stoch_err, _scaled(draw, want), same
 
 
 def _choices(stoch, ref, logit, u, rel=1e-5):
@@ -920,7 +933,34 @@ def _choices(stoch, ref, logit, u, rel=1e-5):
 # cooperative grid of 3 blocks), bfloat16 on 1 row (one block, the sums
 # written directly), bfloat16 at D = 2 056 (16-byte vectors) on 3 rows,
 # float32 at D = 2 049 on 20 rows in 2 blocks (runs of 10 rows in chunks
-# of 8 and 2). Each as (dtype, D, rows,
+# of 8 and 2). Since the forward past MAX_D left the streaming kernel
+# (`gru.fwd_plan`), the cases above past it run the block forward (D =
+# 2 049 in single values, 4 a part a thread over 544 threads, the last
+# thread with one; D = 2 056 over 544 threads of 8-byte vectors; a block a
+# row), but float32's 9 rows at 4 100, which no block holds at 16 bytes of
+# a part a thread (the streaming forward). Its own cases: bfloat16 at D =
+# 2 056 on 40 rows in at most 16 blocks (runs of 3 rows that hold their
+# scale and bias, the last run 1); on 37 rows as a launch of many rows
+# (FWD_SPREAD 1: the fewest threads, 288 of 16-byte vectors, in 4 blocks:
+# runs of 10, 10, 10 and 7); float32 at D = 2 049 on 20 rows in 3 blocks
+# of 544 threads (runs of 7, 7 and 6); bfloat16 at D = 2 049 on 9 rows in
+# 2 blocks (runs of 5 and 4); bfloat16 at D = 4 100 on 5 rows with 2
+# vectors of 4 a part a thread over 544 threads (the second past the row
+# for the last 63 threads); float32 at D = 4 100 on 3 rows, which no block
+# holds (the streaming forward); the rule that keeps the streaming
+# forward, FWD_BYTES 0 (no thread may keep a part's byte), bfloat16 at D =
+# 2 049 on 7 rows with its grid capped at 2 blocks; bfloat16 at D = 2 056
+# on 40 rows as many rows in 2 blocks of 288 threads (runs of 20 rows);
+# float32 at D = 4 096 on 33 rows in 7 blocks of 1 024 threads (runs of 5
+# rows, the last 3), a1's imagined rows' layout; and the rule that sends a
+# launch of many rows whose threads would keep fewer than FWD_MANY_VALUES
+# values of a part to the streaming forward: bfloat16 at D = 2 049 on 20
+# rows with FWD_SPREAD 1; and with FWD_BOUND 0, the 288 threads of 37
+# bfloat16 rows at D = 2 056 (FWD_SPREAD 1) on the instantiation built for
+# 1 024 threads, where without it (the cases of 37 and 40 rows at 288
+# threads above) one 16-byte vector a part takes the one built for 640.
+# Each
+# as (dtype, D, rows,
 # fwd_blocks, cluster, blocks, lanes, fwd_lanes[, normed[, wide]]), `wide`
 # the settings of `compare_gru`.
 GRU_CASES = (
@@ -964,6 +1004,22 @@ GRU_CASES = (
     (torch.bfloat16, 2049, 1, None, None, None, None, None, True, STREAMED),
     (torch.bfloat16, 2056, 3, None, None, None, None, None, True, STREAMED),
     (torch.float32, 2049, 20, None, None, 2, None, None, True, STREAMED),
+    (torch.bfloat16, 2056, 40, 16, None, None, None, None),
+    (torch.bfloat16, 2056, 37, 4, None, None, None, None, True,
+     {'FWD_SPREAD': 1}),
+    (torch.float32, 2049, 20, 3, None, None, None, None),
+    (torch.bfloat16, 2049, 9, 2, None, None, None, None),
+    (torch.bfloat16, 4100, 5, None, None, None, None, None),
+    (torch.float32, 4100, 3, None, None, None, None, None),
+    (torch.bfloat16, 2049, 7, 2, None, None, None, None, True,
+     {'FWD_BYTES': 0}),
+    (torch.bfloat16, 2056, 40, 2, None, None, None, None, True,
+     {'FWD_SPREAD': 1}),
+    (torch.float32, 4096, 33, 8, None, None, None, None),
+    (torch.bfloat16, 2049, 20, None, None, None, None, None, True,
+     {'FWD_SPREAD': 1}),
+    (torch.bfloat16, 2056, 37, 4, None, None, None, None, True,
+     {'FWD_SPREAD': 1, 'FWD_BOUND': 0}),
 )
 # onehot: both kernels hold the same classes a lane unless the case names
 # the backward's. 8 classes a lane: bfloat16 with 32 classes (4 lanes a
@@ -1015,8 +1071,28 @@ GRU_CASES = (
 # 8 a lane, the last lane 7) sampled with it, on a grid capped at 1
 # block; and past 8 classes a lane on a warp, the passes: 300
 # classes, sampled with the mixture in bfloat16 and the mode in float32.
+# Since the forward's group kernel took the general path too, the cases above
+# run it each way (300 classes both ways on the passes), the forward at few
+# values' classes a lane (`onehot.fwd_lane_classes`: the fewest of
+# `onehot.GROUP_LANES` that fit a group in a warp); and more, with `wide`
+# at the classes a lane of many values (GROUP_WIDE_LANES 0: the fewest idle
+# places, 3 to 8): tied
+# logits (`compare_onehot`'s `tied`: the largest from class C // 3 on, in
+# several lanes, where the first must win) at 48 bfloat16 classes, the mode
+# with the mixture (6 a lane, 16 tied classes from lane 2 of 8) and without
+# it, 100 float32 classes sampled (4 a lane; tied logits, the noise choosing)
+# and, at few values' 4 a lane, the mode, and 255 bfloat16 the mode; float32
+# groups off 16 bytes, sampled with the mixture: 37 classes (single values, 3
+# a lane, 16 lanes) and 6 (8-byte vectors, a lane a group, groups 24 bytes
+# apart); grids capped below the groups: 48 bfloat16 classes sampled with the
+# mixture on 33 rows of 8 groups in one block (6 a lane, 9 steps of 32
+# groups), 200 float32 sampled with it on 9 rows of 4 groups in 2 blocks (8 a
+# lane, 5 steps of 8 groups); and, many values' way, 3 classes in bfloat16
+# sampled with the mixture (a lane a group), 100 bfloat16 sampled without it
+# (4 a lane in 8-byte vectors) and 3 float32 tied, the mode (the tie inside a
+# lane).
 # Each as (dtype, rows, S, C, unimix, sample, blocks,
-# lane_classes[, bwd_lane_classes]).
+# lane_classes[, bwd_lane_classes[, tied[, wide]]]).
 ONEHOT_CASES = (
     (torch.bfloat16, 5, 3, 32, 0.01, True, None, 8),
     (torch.float32, 7, 5, 8, 0.0, True, None, 8),
@@ -1061,6 +1137,18 @@ ONEHOT_CASES = (
     (torch.bfloat16, 9, 4, 255, 0.01, True, 1, None),
     (torch.bfloat16, 3, 3, 300, 0.01, True, None, None),
     (torch.float32, 3, 3, 300, 0.01, False, None, None),
+    (torch.bfloat16, 5, 3, 48, 0.01, False, None, None, None, True, True),
+    (torch.bfloat16, 5, 3, 48, 0.0, False, None, None, None, True, True),
+    (torch.float32, 5, 3, 100, 0.01, True, None, None, None, True, True),
+    (torch.float32, 5, 3, 100, 0.0, False, None, None, None, True),
+    (torch.bfloat16, 3, 3, 255, 0.01, False, None, None, None, True),
+    (torch.float32, 5, 3, 37, 0.01, True, None, None, None, False, True),
+    (torch.float32, 5, 3, 6, 0.01, True, None, None, None, False, True),
+    (torch.bfloat16, 33, 8, 48, 0.01, True, 1, None, None, False, True),
+    (torch.float32, 9, 4, 200, 0.01, True, 2, None),
+    (torch.bfloat16, 7, 5, 3, 0.01, True, None, None, None, False, True),
+    (torch.bfloat16, 5, 3, 100, 0.0, True, None, None, None, False, True),
+    (torch.float32, 7, 5, 3, 0.0, False, None, None, None, True, True),
 )
 
 
@@ -1130,13 +1218,16 @@ def run_case(name):
           f'error {fwd_err:.3g} (tolerance {limits[0]:g} of max(|y|, 1)), '
           f'scaled backward errors dx, ddeter, dscale, dbias '
           f'{", ".join(f"{e:.3g}" for e in bwd_errs)} (tolerances '
-          f'{", ".join(f"{e:g}" for e in limits[1])}), two backward runs '
-          f'equal and counters zero {same}: '
+          f'{", ".join(f"{e:g}" for e in limits[1])}), two runs '
+          f'each way equal and counters zero {same}: '
           f'{"ok" if good else "DISAGREES"}', flush=True)
     return good
   if kind == 'onehot':
     logit_err, (flips, ties), stoch_err, grad_err, same = compare_onehot(
         dtype, *case)
+    # Where the case ties the logits on purpose, the first of the tied
+    # classes must win, as torch.argmax picks it: no choice may differ.
+    ties = ties and not (len(case) > 8 and case[8] and flips)
     # float32: the same arithmetic with the card's (here the C library's)
     # exp and log. bfloat16: a logit of the mixture may round to the other
     # side (2^-8 of its size); stoch rounds 1 + p - p to 1 either way, and
@@ -1147,13 +1238,13 @@ def run_case(name):
     good = (logit_err <= limits[0] and ties and stoch_err <= limits[1]
             and grad_err <= limits[2] and same)
     print(f'{name} {dtype} rows, S, C, unimix, sample, blocks, '
-          f'lane_classes[, bwd_lane_classes] {case}: '
+          f'lane_classes[, bwd_lane_classes[, tied[, wide]]] {case}: '
           f'logit error '
           f'{logit_err:.3g} (tolerance {limits[0]:g} of max(|logit|, 1)), '
           f'{flips} groups choose another class, all ties {ties}, stoch '
           f'error elsewhere {stoch_err:.3g} (tolerance {limits[1]:g}), '
           f'scaled gradient error {grad_err:.3g} (tolerance {limits[2]:g}),'
-          f' two backward runs equal {same}: '
+          f' two runs each way equal {same}: '
           f'{"ok" if good else "DISAGREES"}', flush=True)
     return good
   if kind == 'adam':

@@ -21,8 +21,13 @@ Without a norm (scale None, `norm: none`) the gates read x itself.
   distributed shared memory, or the rows of a cooperative grid's blocks in
   block order after a barrier, `_barrier`), so that a graphed call equals
   an eager one bit for bit. Without a norm (scale and bias None) both are
-  one elementwise pass; with D past `MAX_D` the forward takes a block a
-  row and streams it, and the backward takes clusters (`cluster_plan`): a
+  one elementwise pass; with D past `MAX_D` the forward (`fwd_plan`)
+  takes a block of up to 1 024 threads a row: a grid no larger than the
+  card holds walks runs of rows, each thread the same columns of every
+  row, read once and kept in registers, its scale and bias loaded once
+  into shared memory; where no block holds a row, and for many rows where
+  a thread would keep few values of one, a block a row streams it. The
+  backward takes clusters (`cluster_plan`): a
   cluster of norm.CLUSTER_RANKS blocks takes a run of rows, each rank the
   same share of every row's columns of the three parts, of deter and dout,
   so that each row is read once and kept in registers; the rows' sums meet
@@ -75,13 +80,33 @@ BARRIER = 2
 CLUSTER_BYTES = 16
 CLUSTER_VALUES = 4
 TICKETS = norm.TICKETS
+# The forward past MAX_D (`fwd_plan`): a block of up to FWD_THREADS
+# threads a row, a thread keeping at most FWD_BYTES (up to 16) of each part
+# of a row (a vector of fewer than 4 bytes counted as 4: a register), the
+# most threads for launches of fewer than FWD_SPREAD rows, the fewest for
+# more, at most FWD_BLOCKS blocks (and no more than the card holds at
+# once). Launches of FWD_SPREAD rows and more whose threads would keep
+# fewer than FWD_MANY_VALUES values of a part take the streaming forward,
+# which measured the faster there (PERF.md, `chip_smoke.py`'s wide_paths
+# sweep), as do rows no block holds; FWD_BYTES 0 sends every such row
+# there. A block of at most FWD_BOUND threads that keep one 16-byte vector
+# of a part takes the kernel built for that launch bound (csrc/gru.cu's
+# FWD_TIGHT: up to 96 registers a thread, no spill), every other block the
+# kernel built for FWD_THREADS (64), where the sweep measured each the
+# faster; FWD_BOUND 0 sends every block to the latter.
+FWD_THREADS = 1024
+FWD_BYTES = 16
+FWD_SPREAD = 264
+FWD_MANY_VALUES = 8
+FWD_BOUND = 640
 
 GRU_CELL_FWD = build.register(build.Kernel(
     'gru_cell_fwd', 'gru.cu',
     'daydreamer_tpu/models/nets.py:271 (RSSM._gru after the gru_out '
     'product: its Norm and gates, one loop fusion of XLA)',
     {'gru_cell_fwd': build.signature(), 'gru_cell_bwd': build.signature()},
-    headers=('hopper_ptx.cuh', 'row_cluster.cuh'), parts=('gru_cluster.cu',)))
+    headers=('hopper_ptx.cuh', 'row_cluster.cuh'),
+    parts=('gru_cluster.cu', 'gru_block_fwd.cu')))
 GRU_CELL_BWD = build.register(build.Kernel(
     'gru_cell_bwd', 'gru.cu',
     'daydreamer_tpu/models/nets.py:271 (the gradient of RSSM._gru after '
@@ -131,6 +156,41 @@ def cluster_plan(rows, D, dtype):
                         norm.SPREAD_BLOCKS)
 
 
+def fwd_plan(rows, D, dtype):
+  """(threads a block, vector) of the block forward for rows of a deter of
+  D values of `dtype` past MAX_D, else None: D up to MAX_D,
+  and where the streaming forward (gru_wide_fwd_kernel) takes the rows.
+  A thread keeps the same vectors of up to 16 bytes (a power of two of
+  values that D is a multiple of), a power of two of them, at most
+  FWD_BYTES of a part (its vectors counted at 4 bytes at least, a register
+  each); threads a multiple of 32 up to FWD_THREADS, for fewer than
+  FWD_SPREAD rows the most (the widest vector among equals), else the
+  fewest, and then only where a thread keeps FWD_MANY_VALUES values of a
+  part. The block keeps its threads' scale and bias in shared memory: 24
+  bytes a column, within `build.SHARED_MEMORY_LIMIT`."""
+  item = torch.tensor([], dtype=dtype).element_size()
+  if D <= MAX_D:
+    return None
+  few = rows < FWD_SPREAD
+  plans = []
+  vec = 16 // item
+  while vec >= 1:
+    nv = 1
+    while D % vec == 0 and nv * max(vec * item, 4) <= FWD_BYTES:
+      threads = -(-D // (vec * nv * 32)) * 32
+      if (threads <= FWD_THREADS
+          and 24 * nv * vec * threads + 1024 <= build.SHARED_MEMORY_LIMIT):
+        plans.append((threads, vec, nv))
+      nv *= 2
+    vec //= 2
+  if not plans:
+    return None
+  threads, vec, nv = max(plans, key=lambda t: (t[0] if few else -t[0], t[1]))
+  if not few and nv * vec < FWD_MANY_VALUES:
+    return None
+  return threads, vec
+
+
 def gru_cell_fwd_cuda(x, deter, scale, bias):
   """out, mean, rstd from one launch of `gru_cell_fwd`; x on a card. mean
   and rstd are None without a norm."""
@@ -143,10 +203,15 @@ def gru_cell_fwd_cuda(x, deter, scale, bias):
   if scale is not None:
     mean = torch.empty(rows, dtype=torch.float32, device=x.device)
     rstd = torch.empty(rows, dtype=torch.float32, device=x.device)
+  plan = fwd_plan(rows, D, x.dtype) if scale is not None else None
+  if plan is not None:
+    threads, vec = plan
+    tight = threads <= FWD_BOUND and vec * x.element_size() == 16
+    plan = (threads, vec, FWD_BOUND if tight else FWD_THREADS)
   build.launch(GRU_CELL_FWD, 'gru_cell_fwd', x.dtype,
                [x, deter, scale, bias, out, mean, rstd],
-               [rows, D, FWD_BLOCKS, FWD_LANES, int(scale is not None)],
-               [EPS], x.device)
+               [rows, D, FWD_BLOCKS, FWD_LANES, int(scale is not None),
+                *(plan or (0, 0, 0))], [EPS], x.device)
   return out, mean, rstd
 
 

@@ -20,10 +20,10 @@ the mode, which has no gradient.
   it. For classes a power of two from 2 to 32 each holds several classes a
   lane (`lane_classes`, `bwd_lane_classes`), on a grid of at most `BLOCKS`
   blocks walking the values; any other count of classes C >= 1 takes a
-  general path: forward, a group of up to a warp's lanes a group that
-  walks its classes in passes; backward, a lane's consecutive classes in
-  registers and a group of up to a warp's lanes a group, read once
-  (`group_lane_classes`), or past GROUP_MOST classes a lane the passes.
+  general path each way: a lane's consecutive classes in registers and a
+  group of up to a warp's lanes a group, read once (`fwd_lane_classes`,
+  `group_lane_classes`), or past GROUP_MOST classes a lane a group of up
+  to a warp's lanes that walks its classes in passes.
 - On a CPU tensor it runs `onehot_head_plain`, the function in PyTorch ops
   (the RSSM's and `OneHotDist`'s code before the kernel), and
   differentiates it by autograd.
@@ -51,9 +51,16 @@ BLOCKS = 1056
 # backward's place.
 WIDE_FROM = 1 << 18
 LANE_CLASSES = BWD_LANE_CLASSES = None
-# Classes a lane of the general backward holds at most (`group_lane_classes`):
-# groups of more than a warp's lanes of GROUP_MOST classes take the passes.
+# Classes a lane of the general path holds at most (`group_lane_classes`,
+# `fwd_lane_classes`): groups of more than a warp's lanes of GROUP_MOST
+# classes take the passes.
+# The general forward (`fwd_lane_classes`) takes many values' classes a
+# lane where those give at least GROUP_WIDE_LANES lanes (128 blocks of 256,
+# about the card's SMs), else few values', each one of GROUP_LANES (the
+# counts the card's runs timed; csrc/onehot.cu builds no other).
 GROUP_MOST = 8
+GROUP_WIDE_LANES = 1 << 15
+GROUP_LANES = (1, 2, 3, 4, 6, 8)
 
 ONEHOT_HEAD_FWD = build.register(build.Kernel(
     'onehot_head_fwd', 'onehot.cu',
@@ -136,6 +143,37 @@ def group_lane_classes(C, dtype):
   return lane if lane <= GROUP_MOST else 0
 
 
+def fwd_lane_classes(C, dtype, n):
+  """Classes a lane of the general forward holds for n values in groups of
+  C classes of dtype (any count but the powers of two from 2 to 32), one
+  of GROUP_LANES up to GROUP_MOST, its group of lanes C over it rounded up
+  to a power of two, at most a warp: many values' (where those lanes of
+  all groups number at least GROUP_WIDE_LANES: the card is full), the
+  count that leaves the fewest places idle, the widest vector (of up to 16
+  bytes that it and C are multiples of) among equals, then the fewest (48
+  classes take 6 a lane on 8 lanes, where 8 a lane leave 2 of 8 lanes
+  idle; 3 take a lane a group); else few values', where they leave the
+  card idle and a lane's chain of work is the call's latency, the fewest
+  that fit a group in a warp (2 at 48 and 64); 0, the passes, where no
+  count does."""
+  best = few = None
+  for lane in [k for k in GROUP_LANES if k <= GROUP_MOST]:
+    lanes = 1 << (-(-C // lane) - 1).bit_length()
+    if lanes > 32:
+      continue
+    few = few or lane
+    vec = 16 // cost.itemsize(dtype)
+    while C % vec or lane % vec:
+      vec //= 2
+    key = (lanes * lane, -vec)
+    if best is None or key < best[0]:
+      best = key, lane, lanes
+  if best is None:
+    return 0
+  _, lane, lanes = best
+  return lane if n // C * lanes >= GROUP_WIDE_LANES else few
+
+
 def _power_of_two_classes(C):
   return 2 <= C <= 32 and C & (C - 1) == 0
 
@@ -154,10 +192,11 @@ def onehot_head_fwd_cuda(raw, u, unimix):
                        f'{tuple(raw.shape)}.')
     build.check(name, [('u', u)], raw.device, torch.float32)
   logit, stoch = torch.empty_like(raw), torch.empty_like(raw)
+  lanes = (lane_classes(raw.numel()) if _power_of_two_classes(C)
+           else fwd_lane_classes(C, raw.dtype, raw.numel()))
   build.launch(ONEHOT_HEAD_FWD, name, raw.dtype, [raw, u, logit, stoch],
                [raw.numel(), C, int(bool(unimix)), int(u is not None),
-                BLOCKS, lane_classes(raw.numel())], _scalars(C, unimix),
-               raw.device)
+                BLOCKS, lanes], _scalars(C, unimix), raw.device)
   return logit, stoch
 
 

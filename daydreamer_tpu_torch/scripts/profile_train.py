@@ -129,12 +129,15 @@ OWN = {
     'onehot_any_bwd_kernel': 'onehot_head_bwd',
     'ln_stream_fwd_kernel': 'layer_norm_act_fwd',
     'ln_stream_bwd_kernel': 'layer_norm_act_bwd',
-    # The backwards of those wide rows on clusters, their LayerNorm's
-    # forward staged in shared memory, and the head's backward at other
-    # class counts with a lane's classes in registers.
+    # The wide rows a block or a cluster a row (the GRU cell's forward and
+    # both backwards), their LayerNorm's forward staged in shared memory,
+    # and the head at other class counts with a lane's classes in
+    # registers.
+    'gru_block_fwd_kernel': 'gru_cell_fwd',
     'gru_cluster_bwd_kernel': 'gru_cell_bwd',
     'ln_cluster_bwd_kernel': 'layer_norm_act_bwd',
     'ln_staged_fwd_kernel': 'layer_norm_act_fwd',
+    'onehot_group_fwd_kernel': 'onehot_head_fwd',
     'onehot_group_bwd_kernel': 'onehot_head_bwd',
 }
 # The other categories: the first pattern that matches the lowercased name.

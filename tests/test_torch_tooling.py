@@ -159,6 +159,16 @@ def test_profile_train_sets():
      '__nv_bfloat16 const*)', 'layer_norm_act_fwd'),
     ('void (anonymous namespace)::onehot_group_bwd_kernel<float, 8>(float '
      'const*)', 'onehot_head_bwd'),
+    # The block forward of the GRU cell past D = 2 048 and the head's group
+    # forward.
+    ('void (anonymous namespace)::gru_block_fwd_kernel<__nv_bfloat16, 8, '
+     '1>(__nv_bfloat16 const*)', 'gru_cell_fwd'),
+    ('void (anonymous namespace)::gru_block_fwd_kernel<float, 1, 4>(float '
+     'const*)', 'gru_cell_fwd'),
+    ('void (anonymous namespace)::onehot_group_fwd_kernel<__nv_bfloat16, '
+     '8>(__nv_bfloat16 const*, float const*)', 'onehot_head_fwd'),
+    ('void (anonymous namespace)::onehot_group_fwd_kernel<float, 1>(float '
+     'const*)', 'onehot_head_fwd'),
 ])
 def test_categorize(name, category):
   assert profile_train.categorize(name) == category

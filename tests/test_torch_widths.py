@@ -222,3 +222,126 @@ def test_onehot_backward_path(C, dtype, lane):
     item = torch.tensor([], dtype=dtype).element_size()
     assert -(-C // lane) <= 32 and lane <= onehot.GROUP_MOST
     assert (lane * item <= 16 and C % lane == 0) or -(-C // (lane // 2)) > 32
+
+
+@pytest.mark.parametrize('rows,D,dtype,plan', [
+    (1024, 2048, torch.bfloat16, None),
+    (1024, 4096, torch.bfloat16, (512, 8)),
+    (1024, 2056, torch.bfloat16, (288, 8)),
+    (1024, 3076, torch.bfloat16, (416, 4)),
+    (16384, 6144, torch.bfloat16, (768, 8)),
+    (16384, 8192, torch.bfloat16, (1024, 8)),
+    (1024, 4096, torch.float32, None),
+    (1024, 2049, torch.bfloat16, None),
+    (1024, 6144, torch.float32, None),
+    (32, 4096, torch.bfloat16, (1024, 4)),
+    (32, 4096, torch.float32, (1024, 4)),
+    (32, 4100, torch.float32, None),
+    (1, 2049, torch.float32, (544, 1)),
+    (1, 2056, torch.bfloat16, (544, 4)),
+    (1, 4100, torch.bfloat16, (544, 4)),
+    (1, 9000, torch.bfloat16, None),
+])
+def test_gru_forward_path(rows, D, dtype, plan):
+  """The forward of deters past MAX_D (`gru.fwd_plan`): a block of up to
+  FWD_THREADS threads a row where its threads hold the row at FWD_BYTES of
+  a part a thread (a vector counted at 4 bytes at least): for fewer than
+  FWD_SPREAD rows the most threads, for more the fewest, and then only
+  where a thread keeps FWD_MANY_VALUES values of a part; else None, the
+  streaming forward, as at or under MAX_D and for rows no block holds."""
+  assert gru.fwd_plan(rows, D, dtype) == plan
+  if plan is not None:
+    threads, vec = plan
+    item = torch.tensor([], dtype=dtype).element_size()
+    nv = -(-D // (vec * threads))
+    assert D % vec == 0 and threads % 32 == 0
+    assert threads <= gru.FWD_THREADS
+    assert nv * max(vec * item, 4) <= gru.FWD_BYTES
+    assert 24 * nv * vec * threads <= build.SHARED_MEMORY_LIMIT
+    if rows >= gru.FWD_SPREAD:
+      assert nv * vec >= gru.FWD_MANY_VALUES
+
+
+@pytest.mark.parametrize('rows,D,dtype,dims', [
+    (1024, 4096, torch.bfloat16, (512, 8, 640)),
+    (1024, 2056, torch.bfloat16, (288, 8, 640)),
+    (1, 2049, torch.float32, (544, 1, 1024)),
+    (1, 2056, torch.bfloat16, (544, 4, 1024)),
+    (1024, 3076, torch.bfloat16, (416, 4, 1024)),
+    (32, 4096, torch.bfloat16, (1024, 4, 1024)),
+    (16384, 6144, torch.bfloat16, (768, 8, 1024)),
+    (1024, 2049, torch.bfloat16, (0, 0, 0)),
+])
+def test_gru_forward_bound(monkeypatch, rows, D, dtype, dims):
+  """The wrapper passes the block forward its threads, its vector and the
+  launch bound of its instantiation: FWD_BOUND for blocks of at most
+  FWD_BOUND threads that keep one 16-byte vector of a part, else
+  FWD_THREADS; FWD_BOUND 0, FWD_THREADS for every block; zeros for the
+  streaming forward."""
+  seen = []
+  monkeypatch.setattr(build, 'check', lambda *args, **kwargs: None)
+  monkeypatch.setattr(build, 'launch',
+                      lambda kernel, fn, dt, ptrs, dims, *rest:
+                      seen.append(tuple(dims[5:])))
+  x, deter = torch.zeros(rows, 3 * D, dtype=dtype), torch.zeros(
+      rows, D, dtype=dtype)
+  scale, bias = torch.ones(3 * D), torch.zeros(3 * D)
+  gru.gru_cell_fwd_cuda(x, deter, scale, bias)
+  monkeypatch.setattr(gru, 'FWD_BOUND', 0)
+  gru.gru_cell_fwd_cuda(x, deter, scale, bias)
+  loose = dims[:2] + (gru.FWD_THREADS if dims[0] else 0,)
+  assert seen == [dims, loose]
+
+
+def test_gru_forward_path_rules(monkeypatch):
+  """A card whose shared memory cannot hold a block's scale and bias, and
+  FWD_BYTES 0, send every deter to the streaming forward."""
+  assert gru.fwd_plan(32, 4096, torch.bfloat16) is not None
+  monkeypatch.setattr(build, 'SHARED_MEMORY_LIMIT', 64 * 1024)
+  assert gru.fwd_plan(32, 4096, torch.bfloat16) is None
+  assert gru.fwd_plan(32, 2049, torch.bfloat16) == (544, 1)
+  monkeypatch.setattr(gru, 'FWD_BYTES', 0)
+  assert gru.fwd_plan(1, 2049, torch.bfloat16) is None
+
+
+@pytest.mark.parametrize('C,dtype,few,many,bwd', [
+    (1, torch.bfloat16, 1, 1, 1), (3, torch.float32, 1, 3, 1),
+    (6, torch.float32, 1, 6, 2), (37, torch.float32, 2, 3, 2),
+    (48, torch.bfloat16, 2, 6, 8), (48, torch.float32, 2, 6, 4),
+    (64, torch.bfloat16, 2, 8, 8), (100, torch.bfloat16, 4, 4, 4),
+    (200, torch.bfloat16, 8, 8, 8), (255, torch.bfloat16, 8, 8, 8),
+    (256, torch.float32, 8, 8, 8), (300, torch.bfloat16, 0, 0, 0),
+    (300, torch.float32, 0, 0, 0),
+])
+def test_onehot_general_path(monkeypatch, C, dtype, few, many, bwd):
+  """The head's general kernels at classes that are no power of two from 2
+  to 32: the forward takes `fwd_lane_classes`' classes a lane (one of
+  GROUP_LANES: the fewest idle places where those give GROUP_WIDE_LANES
+  lanes or more, else the fewest that fit a group in a warp), the backward
+  `group_lane_classes`' (1, 2, 4 or 8); each 0 past GROUP_MOST on a warp
+  (the passes). The wrappers pass them to the kernel."""
+  assert onehot.fwd_lane_classes(C, dtype, 32 * 32 * C) == few
+  assert onehot.fwd_lane_classes(C, dtype, 1 << 30) == many
+  if many:
+    # The rule turns where the many values' lanes fill GROUP_WIDE_LANES.
+    lanes = 1 << (-(-C // many) - 1).bit_length()
+    groups = -(-onehot.GROUP_WIDE_LANES // lanes)
+    assert onehot.fwd_lane_classes(C, dtype, groups * C) == many
+    assert onehot.fwd_lane_classes(C, dtype, (groups - 1) * C) == few
+  assert onehot.group_lane_classes(C, dtype) == bwd
+  for lane in (few, many):
+    if lane:
+      lanes = 1 << (-(-C // lane) - 1).bit_length()
+      at = onehot.GROUP_LANES.index(lane)
+      assert lanes <= 32 and (
+          at == 0 or -(-C // onehot.GROUP_LANES[at - 1]) > 32
+          or lane == many)
+  seen = []
+  monkeypatch.setattr(build, 'check', lambda *args, **kwargs: None)
+  monkeypatch.setattr(build, 'launch',
+                      lambda kernel, fn, dt, ptrs, dims, *rest:
+                      seen.append((fn, dims[5])))
+  raw = torch.zeros(2, 3, C, dtype=dtype)
+  logit, _ = onehot.onehot_head_fwd_cuda(raw, torch.zeros(2, 3, C), 0.01)
+  onehot.onehot_head_bwd_cuda(raw, logit, logit, logit, 0.01, True)
+  assert seen == [('onehot_head_fwd', few), ('onehot_head_bwd', bwd)]
